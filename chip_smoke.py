@@ -7,18 +7,28 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
 1. build    — compile every CUDA kernel of the port (one nvcc per source,
               all started together) and print the build seconds and ptxas
               register/shared-memory report.
-2. kernels  — flash attention on the card against its plain PyTorch version
-              on the same inputs: the 7 reference cases at their tolerances,
-              block-shape invariance, ragged rejection, and the yi-9b
-              serving shape in bf16 with kernel / plain / library timings.
-3. model    — yi-9b smoke config in fp32 on the card (kernel) and on the
-              CPU (plain): prefill logits within 1e-4, equal greedy tokens.
-4. serve    — launch/serve at the full width of yi-9b (48 layers, random
-              weights from a seed, fp32 master weights on the card): batch
-              4, prompt 512, 32 generated tokens; flash launches counted
-              from 0 and required to be 48 per prefill.
+2. kernels  — each kernel on the card against its plain PyTorch version on
+              the same inputs, at the stated tolerances:
+              flash attention: the 7 reference cases, block-shape
+              invariance, ragged rejection, the yi-9b serving shape; head
+              dim 256 cases (one with window < L) and the recurrentgemma-9b
+              prefill shape;
+              ssd_scan: the 4 reference cases with the final state, chunk
+              invariance, ragged rejection, the mamba2-370m serving shape;
+              rglru_scan: the 4 reference cases, the long carry, ragged
+              rejection, the recurrentgemma-9b serving shape.
+              Each serving shape is timed: kernel / plain / library / bound.
+3. model    — the yi-9b, mamba2-370m and recurrentgemma-9b smoke configs in
+              fp32 on the card (kernels) and on the CPU (plain): prefill
+              logits within 1e-4, equal greedy tokens.
+4. serve    — launch/serve at full width (random weights from a seed, fp32
+              master weights on the card), batch 4, prompt 512, 32 generated
+              tokens, for yi-9b, mamba2-370m and recurrentgemma-9b; each
+              kernel's launches counted from 0 per arch and required to be
+              exactly what one prefill of that arch runs.
 5. workflow — the ByRedundant serve workflow at full width on the port's
-              LocalRunner: exactly one detok completion, and the committed
+              LocalRunner, for yi-9b and mamba2-370m: exactly one detok
+              completion, launches per decode replica, and the committed
               tokens equal a direct greedy_generate call.
 
 The line before the last is one JSON object with a row per kernel; the last
@@ -30,6 +40,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -44,18 +55,30 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.convert import tree_to  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
-from repro_torch.models import attention, lm  # noqa: E402
+from repro_torch.models import attention, lm, rglru, ssm  # noqa: E402
 from repro_torch.serve import workflow  # noqa: E402
 from repro_torch.serve.engine import greedy_generate  # noqa: E402
 
-# yi-9b prefill self-attention at the serving shape below (bf16 compute)
+# the serving point of every arch below (bf16 compute)
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 512, 32
 YI = configs.get("yi-9b")
 YI_SHAPE = (SERVE_BATCH, SERVE_PROMPT, YI.n_heads, YI.n_kv_heads, YI.hd)
+MAMBA = configs.get("mamba2-370m")
+RG = configs.get("recurrentgemma-9b")
+RG_SHAPE = (SERVE_BATCH, SERVE_PROMPT, RG.n_heads, RG.n_kv_heads, RG.hd)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+KERNELS = {
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:96"),
+    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:75"),
+    "rglru_scan": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
+                   "src/repro/kernels/rglru_scan.py:60"),
+}
 
 
 def _log(msg: str) -> None:
@@ -79,14 +102,52 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def _gen(seed: int) -> torch.Generator:
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
 def _qkv(b, l, h, hkv, hd, dtype, seed):
-    g = torch.Generator(device="cuda").manual_seed(seed)
+    g = _gen(seed)
     mk = lambda n: torch.randn((b, l, n, hd), generator=g, device="cuda").to(dtype)  # noqa: E731
     return mk(h), mk(hkv), mk(hkv)
 
 
 def _max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def _check(what: str, got: torch.Tensor, want: torch.Tensor, atol: float,
+           rtol: float) -> float:
+    torch.cuda.synchronize()
+    err = _max_err(got, want)
+    _log(f"[kernels] {what}: max|d|={err:.3e} (atol {atol}, rtol {rtol})")
+    if not torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol):
+        _fail(f"{what} max|d| {err}")
+    return err
+
+
+def _nbytes(*ts: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _row(name: str, err: float, kernel_ms: float, plain_ms: float, nbytes: int,
+         flops: int, dtype: torch.dtype, library_ms, shape: str) -> dict:
+    """One kernel's line: the least time for the same work is the larger of
+    its bytes (each input read once, each output written once) at the
+    memory rate and its operations at the inputs' type peak."""
+    bytes_ms = nbytes / HBM_BYTES_S * 1e3
+    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    source, replaces = KERNELS[name]
+    row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+           "launches": None, "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "library_ms": library_ms, "shape": shape}
+    lib = f"{library_ms:.4f}" if library_ms is not None else "null"
+    _log(f"[kernels] {name} at {shape}: kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+         f"library_ms={lib} bound_ms={row['bound_ms']:.4f} ({row['bound_by']}: "
+         f"{nbytes} B, {flops} FLOP)")
+    return row
 
 
 def phase_build() -> dict:
@@ -98,131 +159,254 @@ def phase_build() -> dict:
     return info
 
 
-def phase_kernels() -> dict:
-    for (b, l, h, hkv, hd, window, cap, dtype_name, tol) in ref.FLASH_CASES:
-        dtype = getattr(torch, dtype_name)
-        q, k, v = _qkv(b, l, h, hkv, hd, dtype, seed=l + h)
-        out = ops.flash_attention(q, k, v, causal=True, window=window, softcap=cap,
-                                  block_q=128, block_k=128)
-        expect = ref.flash_attention_ref(q, k, v, causal=True, window=window,
-                                         softcap=cap)
-        torch.cuda.synchronize()
-        err = _max_err(out, expect)
-        _log(f"[kernels] case b={b} l={l} h={h} hkv={hkv} hd={hd} window={window} "
-             f"cap={cap} {dtype_name}: max|d|={err:.3e} (tol {tol})")
-        if not torch.allclose(out.float(), expect.float(), atol=tol, rtol=tol):
-            _fail(f"flash case {(b, l, h, hkv, hd, window, cap, dtype)} max|d| {err}")
+# ==========================================================================
+# 2. kernels
+# ==========================================================================
 
+
+def _flash_case(b, l, h, hkv, hd, window, cap, dtype_name, tol) -> None:
+    dtype = getattr(torch, dtype_name)
+    q, k, v = _qkv(b, l, h, hkv, hd, dtype, seed=l + h)
+    out = ops.flash_attention(q, k, v, causal=True, window=window, softcap=cap,
+                              block_q=128, block_k=128)
+    expect = ref.flash_attention_ref(q, k, v, causal=True, window=window, softcap=cap)
+    _check(f"flash b={b} l={l} h={h} hkv={hkv} hd={hd} window={window} cap={cap} "
+           f"{dtype_name}", out, expect, tol, tol)
+
+
+def _flash_at(shape, dtype, seed) -> dict:
+    """flash attention at a serving prefill shape, timed against its plain
+    version and the library call; the work is the unmasked causal pairs."""
+    b, l, h, hkv, hd = shape
+    q, k, v = _qkv(b, l, h, hkv, hd, dtype, seed=seed)
+    out = ops.flash_attention(q, k, v, causal=True, block_q=attention.FLASH_BLOCK,
+                              block_k=attention.FLASH_BLOCK)
+    expect = ref.flash_attention_ref(q, k, v, causal=True)
+    err = _check(f"flash at {shape} {str(dtype)[6:]}", out, expect, 2e-2, 2e-2)
+    kernel_ms = _time_ms(lambda: ops.flash_attention(q, k, v, causal=True))
+    plain_ms = _time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    pairs = int(attention.make_causal_mask(l, l, device="cuda").sum())
+    return _row("flash_attention", err, kernel_ms, plain_ms, _nbytes(q, k, v, out),
+                4 * b * h * hd * pairs, dtype, library_ms, f"q {list(q.shape)}, "
+                f"k/v {list(k.shape)}")
+
+
+def phase_flash() -> dict:
+    for case in ref.FLASH_CASES + ref.FLASH_HD256_CASES:
+        _flash_case(*case)
     q, k, v = _qkv(1, 512, 4, 2, 64, torch.float32, seed=0)
     o1 = ops.flash_attention(q, k, v, block_q=64, block_k=128)
     o2 = ops.flash_attention(q, k, v, block_q=256, block_k=64)
     inv = _max_err(o1, o2)
-    _log(f"[kernels] block-shape invariance max|d|={inv:.3e}")
+    _log(f"[kernels] flash block-shape invariance max|d|={inv:.3e}")
     if inv > 1e-5:
         _fail("block-shape invariance")
     z = torch.zeros((1, 100, 4, 64), device="cuda")
     try:
         ops.flash_attention(z, z[:, :, :4], z[:, :, :4], block_q=64, block_k=64)
     except ValueError:
-        _log("[kernels] ragged shape rejected with ValueError")
+        _log("[kernels] flash ragged shape rejected with ValueError")
     else:
-        _fail("ragged shape was not rejected")
-
-    b, l, h, hkv, hd = YI_SHAPE
-    dtype = YI.cdtype
-    q, k, v = _qkv(b, l, h, hkv, hd, dtype, seed=1)
-    out = ops.flash_attention(q, k, v, causal=True, block_q=attention.FLASH_BLOCK,
-                              block_k=attention.FLASH_BLOCK)
-    expect = ref.flash_attention_ref(q, k, v, causal=True)
-    torch.cuda.synchronize()
-    err = _max_err(out, expect)
-    if not torch.allclose(out.float(), expect.float(), atol=2e-2, rtol=2e-2):
-        _fail(f"yi-9b shape max|d| {err}")
-
-    kernel_ms = _time_ms(lambda: ops.flash_attention(q, k, v, causal=True))
-    plain_ms = _time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True))
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    library_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
-    # least time for the same work: each input read once and the output
-    # written once, against the unmasked (q, k) pairs' products at the
-    # inputs' type peak; the larger of the two bounds it
-    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, out))
-    pairs = int(attention.make_causal_mask(l, l, device="cuda").sum())
-    flops = 4 * b * h * hd * pairs
-    bytes_ms = nbytes / HBM_BYTES_S * 1e3
-    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
-    row = {"name": "flash_attention", "route": "cuda",
-           "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-           "replaces": "src/repro/kernels/flash_attention.py:96",
-           "launches": None, "max_abs_err": err, "ms": kernel_ms,
-           "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "library_ms": library_ms}
-    _log(f"[kernels] yi-9b prefill shape {YI_SHAPE} {str(dtype)[6:]}: max|d|={err:.3e} "
-         f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-         f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}: {nbytes} B, {flops} FLOP)")
+        _fail("flash ragged shape was not rejected")
+    row = _flash_at(YI_SHAPE, YI.cdtype, seed=1)
+    rg = _flash_at(RG_SHAPE, RG.cdtype, seed=2)
+    row["at_other_shapes"] = [{k: rg[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                                                  "bound_ms", "bound_by", "library_ms")}]
     return row
 
 
-def phase_model() -> None:
-    cfg = configs.get_smoke("yi-9b").replace(compute_dtype="float32")
+def _ssd_inputs(bt, l, h, p, n, dtype, seed):
+    """The reference test's recipe: dt = softplus(N(0,1)), a = −exp(linspace)."""
+    g = _gen(seed)
+    rnd = lambda *s: torch.randn(s, generator=g, device="cuda")  # noqa: E731
+    x = rnd(bt, l, h, p).to(dtype)
+    dt = torch.nn.functional.softplus(rnd(bt, l, h))
+    a = -torch.exp(torch.linspace(0.0, 2.0, h, device="cuda"))
+    return x, dt, a, rnd(bt, l, n).to(dtype), rnd(bt, l, n).to(dtype)
+
+
+def phase_ssd() -> dict:
+    for (bt, l, h, p, n, chunk, dtype_name, tol) in ref.SSD_CASES:
+        args = _ssd_inputs(bt, l, h, p, n, getattr(torch, dtype_name), seed=l + p)
+        y, h_last = ops.ssd_scan(*args, chunk=chunk, return_state=True)
+        y_ref, h_ref = ref.ssd_chunked(*args, min(chunk, l))
+        what = f"ssd_scan bt={bt} l={l} h={h} p={p} n={n} chunk={chunk} {dtype_name}"
+        _check(what, y, y_ref, tol, tol)
+        _check(what + " final state", h_last, h_ref, 2e-4, 2e-4)
+    args = _ssd_inputs(1, 256, 2, 16, 32, torch.float32, seed=3)
+    _check("ssd_scan chunk invariance (32 vs 128)", ops.ssd_scan(*args, chunk=32),
+           ops.ssd_scan(*args, chunk=128), 5e-4, 5e-4)
+    try:
+        ops.ssd_scan(*(t[:, :100] if t.dim() > 1 else t for t in args), chunk=64)
+    except ValueError:
+        _log("[kernels] ssd_scan ragged L rejected with ValueError")
+    else:
+        _fail("ssd_scan ragged L was not rejected")
+
+    # the mamba2-370m prefill shape: 2 chunks of 256, so the carry is used;
+    # A = −linspace(1, 16) and dt = softplus(N(0,1) + dt_bias) as the model's init
+    _, nh, p, n = ssm.dims(MAMBA)
+    dtype, q = MAMBA.cdtype, MAMBA.ssm.chunk
+    x, _, _, bm, cm = _ssd_inputs(SERVE_BATCH, SERVE_PROMPT, nh, p, n, dtype, seed=4)
+    dt = torch.nn.functional.softplus(
+        torch.randn((SERVE_BATCH, SERVE_PROMPT, nh), generator=_gen(6), device="cuda")
+        + math.log(math.expm1(0.01)))
+    args = (x, dt, -torch.linspace(1.0, 16.0, nh, device="cuda"), bm, cm)
+    y, h_last = ops.ssd_scan(*args, chunk=q, return_state=True)
+    y_ref, h_ref = ref.ssd_chunked(*args, q)
+    err = _check(f"ssd_scan at the mamba2-370m shape {list(args[0].shape)} "
+                 f"{str(dtype)[6:]}", y, y_ref, 5e-2, 5e-2)
+    _check("ssd_scan final state at the mamba2-370m shape", h_last, h_ref, 2e-4, 2e-4)
+    kernel_ms = _time_ms(lambda: ops.ssd_scan(*args, chunk=q, return_state=True))
+    plain_ms = _time_ms(lambda: ref.ssd_chunked(*args, q))
+    # products the function needs: C·Bᵀ over the causal pairs of each
+    # (batch, chunk), shared by the heads; per head the masked scores times
+    # X, C·h_prevᵀ, and the state update Xᵀ(B ⊙ w)
+    nc, pairs = SERVE_PROMPT // q, q * (q + 1) // 2
+    flops = (2 * SERVE_BATCH * nc * pairs * n
+             + 2 * SERVE_BATCH * nc * nh * (pairs * p + 2 * q * p * n))
+    row = _row("ssd_scan", err, kernel_ms, plain_ms, _nbytes(*args, y, h_last), flops,
+               dtype, None, f"x {list(args[0].shape)}, B/C {list(args[3].shape)}, chunk {q}")
+    row["library_null_because"] = ("no PyTorch call computes the chunked SSD scan")
+    return row
+
+
+def _rglru_inputs(bt, l, w, dtype, seed):
+    g = _gen(seed)
+    log_a = -torch.nn.functional.softplus(torch.randn((bt, l, w), generator=g, device="cuda"))
+    b = torch.randn((bt, l, w), generator=g, device="cuda").to(dtype).float() * 0.1
+    return log_a, b
+
+
+def phase_rglru() -> dict:
+    for (bt, l, w, bl, bw, dtype_name, tol) in ref.RGLRU_CASES + [
+            (1, 1024, 32, 64, 32, "float32", 1e-5)]:
+        log_a, b = _rglru_inputs(bt, l, w, getattr(torch, dtype_name), seed=w + l)
+        h = ops.rglru_scan(log_a, b, block_l=bl, block_w=bw)
+        _check(f"rglru_scan bt={bt} l={l} w={w} bl={bl} bw={bw} {dtype_name}", h,
+               ref.rglru_scan_ref(log_a, b), tol, 1e-3)
+    try:
+        ops.rglru_scan(log_a[:, :100], b[:, :100], block_l=64, block_w=32)
+    except ValueError:
+        _log("[kernels] rglru_scan ragged L rejected with ValueError")
+    else:
+        _fail("rglru_scan ragged L was not rejected")
+
+    # the recurrentgemma-9b prefill shape: 2 sequence tiles of 256
+    log_a, b = _rglru_inputs(SERVE_BATCH, SERVE_PROMPT, rglru.width(RG), torch.float32,
+                             seed=5)
+    h = ops.rglru_scan(log_a, b)
+    err = _check(f"rglru_scan at the recurrentgemma-9b shape {list(log_a.shape)}", h,
+                 ref.rglru_scan_ref(log_a, b), 1e-5, 1e-3)
+    kernel_ms = _time_ms(lambda: ops.rglru_scan(log_a, b))
+    plain_ms = _time_ms(lambda: ref.rglru_scan_ref(log_a, b))
+    row = _row("rglru_scan", err, kernel_ms, plain_ms, _nbytes(log_a, b, h),
+               3 * log_a.numel(), torch.float32, None, f"log_a/b/h {list(log_a.shape)}")
+    row["library_null_because"] = ("no PyTorch call computes a first-order linear "
+                                   "recurrence")
+    return row
+
+
+# ==========================================================================
+# 3. model: smoke configs, card against CPU
+# ==========================================================================
+
+
+def _model(arch: str, per_prefill: dict) -> None:
+    cfg = configs.get_smoke(arch).replace(compute_dtype="float32")
     g = torch.Generator(device="cpu").manual_seed(3)
     params_cpu = lm.init(g, cfg, device="cpu")
     params_gpu = tree_to(params_cpu, "cuda")
     toks = torch.randint(0, cfg.vocab, (2, 24), generator=g)
     _, logits_cpu = lm.prefill(params_cpu, cfg, toks, max_len=40)
-    n0 = ops.launches["flash_attention"]
+    ops.reset_launches()
     _, logits_gpu = lm.prefill(params_gpu, cfg, toks.cuda(), max_len=40)
-    if ops.launches["flash_attention"] - n0 != cfg.n_layers:
-        _fail("smoke prefill on the card did not launch the flash kernel per layer")
+    launches = dict(ops.launches)
+    if launches != per_prefill:
+        _fail(f"{arch} smoke prefill on the card launched {launches}, not {per_prefill}")
     err = _max_err(logits_gpu.cpu(), logits_cpu)
-    _log(f"[model] yi-9b smoke fp32 prefill logits card vs cpu max|d|={err:.3e} (tol 1e-4)")
+    _log(f"[model] {arch} smoke fp32 prefill logits card vs cpu max|d|={err:.3e} "
+         f"(tol 1e-4); launches {launches}")
     if not err <= 1e-4:
-        _fail("card vs cpu prefill logits")
+        _fail(f"{arch} card vs cpu prefill logits")
     t_cpu = greedy_generate(params_cpu, cfg, toks, 12)
     t_gpu = greedy_generate(params_gpu, cfg, toks.cuda(), 12).cpu()
-    _log(f"[model] greedy tokens equal: {bool(torch.equal(t_cpu, t_gpu))}")
+    _log(f"[model] {arch} greedy tokens equal: {bool(torch.equal(t_cpu, t_gpu))}")
     if not torch.equal(t_cpu, t_gpu):
-        _fail("card vs cpu greedy tokens differ")
+        _fail(f"{arch} card vs cpu greedy tokens differ")
 
 
-def phase_serve() -> int:
+def _expected_launches(cfg) -> dict:
+    """Launches of one prefill: one flash per attention layer, one ssd_scan
+    per Mamba2 layer, one rglru_scan per RG-LRU layer."""
+    kinds = [cfg.pattern_of(i) for i in range(cfg.n_layers)]
+    return {"flash_attention": sum(k in ("attn", "local") for k in kinds),
+            "ssd_scan": kinds.count("ssm"), "rglru_scan": kinds.count("rglru")}
+
+
+def phase_model() -> None:
+    for arch in ("yi-9b", "mamba2-370m", "recurrentgemma-9b"):
+        _model(arch, _expected_launches(configs.get_smoke(arch)))
+
+
+# ==========================================================================
+# 4. serve and 5. workflow at full width
+# ==========================================================================
+
+
+def _free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_serve(arch: str) -> dict:
+    cfg = configs.get(arch)
+    want = _expected_launches(cfg)
     ops.reset_launches()
-    r = launch_serve.run("yi-9b", batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+    r = launch_serve.run(arch, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
                          gen=SERVE_GEN, seed=0, device="cuda")
-    launches = ops.launches["flash_attention"]
+    launches = dict(ops.launches)
     toks = r["tokens"]
-    _log(f"[serve] yi-9b full width ({YI.n_layers}L d{YI.d_model}): init {r['init_s']:.2f}s, "
-         f"prefill {r['prefill_ms']:.3f} ms, decode {r['decode_ms_per_token']:.3f} ms/token, "
-         f"{r['tok_s']:.2f} tok/s, peak mem {r['peak_mem_gb']:.2f} GB, "
-         f"flash launches {launches}")
+    _log(f"[serve] {arch} full width ({cfg.n_layers}L d{cfg.d_model}): init "
+         f"{r['init_s']:.2f}s, prefill {r['prefill_ms']:.3f} ms, decode "
+         f"{r['decode_ms_per_token']:.3f} ms/token, {r['tok_s']:.2f} tok/s, peak mem "
+         f"{r['peak_mem_gb']:.2f} GB, launches {launches}")
     if tuple(toks.shape) != (SERVE_BATCH, SERVE_GEN):
-        _fail(f"generated shape {tuple(toks.shape)}")
-    if int(toks.min()) < 0 or int(toks.max()) >= YI.padded_vocab:
-        _fail("generated ids out of range")
-    if launches <= 0 or launches != YI.n_layers * 1:
-        _fail(f"flash launches {launches} != {YI.n_layers} per prefill")
+        _fail(f"{arch} generated shape {tuple(toks.shape)}")
+    if int(toks.min()) < 0 or int(toks.max()) >= cfg.padded_vocab:
+        _fail(f"{arch} generated ids out of range")
+    if launches != want or r["launches"] != want or not any(want.values()):
+        _fail(f"{arch} launches {launches} != {want} per prefill")
+    del r, toks
+    _free()
     return launches
 
 
-def phase_workflow() -> None:
-    g = torch.Generator(device="cuda").manual_seed(1)
-    params = lm.init(g, YI, device="cuda")
+def phase_workflow(arch: str) -> None:
+    cfg = configs.get(arch)
+    per_prefill = _expected_launches(cfg)
+    params = lm.init(_gen(1), cfg, device="cuda")
     ops.reset_launches()
-    out = workflow.run(params, YI, batch=2, prompt_len=16, steps=12)
-    launches = ops.launches["flash_attention"]
-    _log(f"[workflow] {out['completions']} detok completion(s) in {out['wall_s']:.2f}s; "
-         f"decode ran {out['decode_calls']}x across replicas; flash launches {launches}")
+    out = workflow.run(params, cfg, batch=2, prompt_len=16, steps=12)
+    launches = dict(ops.launches)
+    _log(f"[workflow] {arch}: {out['completions']} detok completion(s) in "
+         f"{out['wall_s']:.2f}s; decode ran {out['decode_calls']}x across replicas; "
+         f"launches {launches}")
     if out["completions"] != 1:
-        _fail("serve workflow did not complete exactly once")
-    if launches != YI.n_layers * out["decode_calls"]:
-        _fail(f"workflow flash launches {launches} != {YI.n_layers} per decode replica")
-    prompt = torch.tensor(workflow.prompt_ids(YI, 2, 16, 7), device="cuda")
-    direct = greedy_generate(params, YI, prompt, 12).cpu().tolist()
+        _fail(f"{arch} serve workflow did not complete exactly once")
+    want = {k: n * out["decode_calls"] for k, n in per_prefill.items()}
+    if launches != want:
+        _fail(f"{arch} workflow launches {launches} != {per_prefill} per decode replica")
+    prompt = torch.tensor(workflow.prompt_ids(cfg, 2, 16, 7), device="cuda")
+    direct = greedy_generate(params, cfg, prompt, 12).cpu().tolist()
     if direct != out["ids"]:
-        _fail("workflow tokens differ from a direct greedy_generate call")
-    _log("[workflow] committed tokens equal a direct greedy_generate call")
+        _fail(f"{arch} workflow tokens differ from a direct greedy_generate call")
+    _log(f"[workflow] {arch} committed tokens equal a direct greedy_generate call")
+    del params
+    _free()
 
 
 def main() -> int:
@@ -236,18 +420,26 @@ def main() -> int:
     _log(f"[chip_smoke] torch {torch.__version__} cuda {torch.version.cuda} "
          f"device {torch.cuda.get_device_name(0)}")
     phase_build()
-    row = phase_kernels()
+    rows = {"flash_attention": phase_flash(), "ssd_scan": phase_ssd(),
+            "rglru_scan": phase_rglru()}
     phase_model()
-    row["launches"] = phase_serve()
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_workflow()
+    by_path = {}
+    by_path["yi-9b"] = phase_serve("yi-9b")
+    phase_workflow("yi-9b")
+    by_path["mamba2-370m"] = phase_serve("mamba2-370m")
+    phase_workflow("mamba2-370m")
+    by_path["recurrentgemma-9b"] = phase_serve("recurrentgemma-9b")
+    for name, row in rows.items():
+        row["launches_by_path"] = {arch: n[name] for arch, n in by_path.items() if n[name]}
+        row["launches"] = sum(row["launches_by_path"].values())
+        if row["launches"] <= 0:
+            _fail(f"{name} was not launched on any serving path")
     _log(f"[chip_smoke] all phases passed in {time.perf_counter() - t_start:.1f}s")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi)
-    kernels = {"kernels": [row]}
+    kernels = {"kernels": list(rows.values())}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_kernels.json"), "w") as f:
         json.dump({"card": smi, **kernels}, f, indent=1)

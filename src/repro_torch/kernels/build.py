@@ -30,6 +30,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 #: kernel name → source file under csrc/
 SOURCES = {
     "flash_attention": "flash_attention.cu",
+    "ssd_scan": "ssd_scan.cu",
+    "rglru_scan": "rglru_scan.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

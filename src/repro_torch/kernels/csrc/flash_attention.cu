@@ -11,6 +11,9 @@
 //     in shared memory as fp32;
 //   * kv tiles that causal/window masking empties are skipped;
 //   * GQA without KV replication: q head h reads kv head h / (H / Hkv).
+//   * head dims 8 … 256; at 256 the block has 256 threads and the padded
+//     fp32 tiles take 214.5 KB of the 227 KB of shared memory a block may
+//     opt into.
 //
 // Numerics kept from the TPU kernel: q, k, v are upcast to fp32; every
 // product is a full-precision fp32 FMA (no TF32); p stays fp32; masking uses
@@ -41,11 +44,14 @@ namespace {
 constexpr float NEG_INF = -2.3819763e38f;
 constexpr int BQ = 64;                  // q rows per block
 constexpr int BK = 64;                  // keys per kv tile
-constexpr int NTHREADS = 128;
-constexpr int TC = 8;                   // lanes that share one group of rows
-constexpr int TR = NTHREADS / TC;       // 16 row groups
+constexpr int TR = 16;                  // row groups
 constexpr int RPT = BQ / TR;            // rows per thread (4)
-constexpr int CPT = BK / TC;            // score columns per thread (8)
+
+// Threads per block: 128 (8 lanes share a group of rows) up to hd 128; 256
+// (16 lanes) at hd 256, so the per-thread accumulator stays at 16 columns
+// × 4 rows instead of 32 × 4, which would spill.
+template <int HD>
+struct Threads { static constexpr int n = HD == 256 ? 256 : 128; };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -64,11 +70,14 @@ constexpr size_t smem_bytes() {
 
 // q, o: [B, L, H, HD]; k, v: [B, S, Hkv, HD]; all contiguous.
 template <typename T, int HD>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(Threads<HD>::n)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  int L, int S, int H, int Hkv, int causal, int window,
                  float softcap, float scale) {
+    constexpr int NTHREADS = Threads<HD>::n;
+    constexpr int TC = NTHREADS / TR;    // lanes that share one group of rows
+    constexpr int CPT = BK / TC;         // score columns per thread
     constexpr int QS = HD + 1;           // padded row strides: conflict-free
     constexpr int KS = BK + 1;
     constexpr int PS = BK + 1;
@@ -227,7 +236,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int L,
         int(smem));
     if (err != cudaSuccess) return int(err);
     const dim3 grid((L + BQ - 1) / BQ, B * H);
-    flash_fwd_kernel<T, HD><<<grid, NTHREADS, smem, stream>>>(
+    flash_fwd_kernel<T, HD><<<grid, Threads<HD>::n, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(o), L, S, H, Hkv, causal,
         window, softcap, scale);
@@ -244,6 +253,7 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
         case 32: return launch<T, 32>(q, k, v, o, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
         case 64: return launch<T, 64>(q, k, v, o, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
         case 128: return launch<T, 128>(q, k, v, o, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
+        case 256: return launch<T, 256>(q, k, v, o, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
         default: return int(cudaErrorInvalidValue);
     }
 }

@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.kernels import build
 
-HEAD_DIMS = (8, 16, 32, 64, 128)
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _p = ctypes.c_void_p

@@ -12,15 +12,17 @@ show that its main path went through the kernel.
 from __future__ import annotations
 
 import threading
-from typing import Dict
+from typing import Dict, Tuple, Union
 
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import rglru_scan as _rg
+from repro_torch.kernels import ssd_scan as _ssd
 
 #: kernel name → launches since the last :func:`reset_launches`
-launches: Dict[str, int] = {"flash_attention": 0}
+launches: Dict[str, int] = {"flash_attention": 0, "ssd_scan": 0, "rglru_scan": 0}
 _count_lock = threading.Lock()      # decode replicas launch from worker threads
 
 
@@ -33,6 +35,11 @@ def reset_launches() -> None:
 def _counted(name: str) -> None:
     with _count_lock:
         launches[name] += 1
+
+
+def _check_device(name: str, t: torch.Tensor) -> None:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {t.device}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -48,9 +55,45 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        softcap=softcap)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
+    _check_device("flash_attention", q)
     out = _fa.flash_attention_fwd(q, k, v, causal=causal, window=window,
                                   softcap=softcap)
     _counted("flash_attention")
     return out
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
+             cmat: torch.Tensor, *, chunk: int = 256, return_state: bool = False
+             ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Mamba2 SSD. x:[Bt,L,H,P] dt:[Bt,L,H] a:[H] B,C:[Bt,L,N] → y.
+
+    The reference's contract: q = min(chunk, L), ``ValueError`` unless L % q
+    == 0.  With ``return_state`` it also returns the fp32 [Bt,H,P,N] state
+    after the last chunk (the reference's kernel drops it; serving seeds
+    decode with it).
+    """
+    q = _ssd.check_chunk(x.shape[1], chunk)
+    if x.device.type == "cpu":
+        y, h_last = ref.ssd_chunked(x, dt, a, bmat, cmat, q)
+        return (y, h_last) if return_state else y
+    _check_device("ssd_scan", x)
+    y, h_last = _ssd.ssd_scan_fwd(x, dt, a, bmat, cmat, q, return_state=return_state)
+    _counted("ssd_scan")
+    return (y, h_last) if return_state else y
+
+
+def rglru_scan(log_a: torch.Tensor, b: torch.Tensor, *, block_l: int = 256,
+               block_w: int = 256) -> torch.Tensor:
+    """RG-LRU recurrence over axis 1. log_a, b: [B,L,W] → h (fp32).
+
+    ``block_l``/``block_w`` keep the reference's signature and its contract
+    (L and W must tile by them, else ``ValueError``); the CUDA kernel runs one
+    thread per (batch, lane) over all of L.  Inputs are taken in fp32.
+    """
+    _rg.check_tiles(log_a.shape[1], log_a.shape[2], block_l, block_w)
+    if log_a.device.type == "cpu":
+        return ref.rglru_scan_ref(log_a, b)
+    _check_device("rglru_scan", log_a)
+    h = _rg.rglru_scan_fwd(log_a.float(), b.float())
+    _counted("rglru_scan")
+    return h

@@ -7,6 +7,8 @@ are held against.
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
 from repro_torch.models import attention as _attn
@@ -24,6 +26,31 @@ FLASH_CASES = [
     (1, 256, 16, 16, 32, 64, 0.0, "bfloat16", 2e-2),
 ]
 
+#: Head dim 256 (recurrentgemma-9b's local attention), beyond the reference's
+#: cases, at the same tolerances; one case has a window shorter than L.
+FLASH_HD256_CASES = [
+    (1, 256, 4, 1, 256, 0, 0.0, "float32", 2e-5),
+    (1, 1024, 4, 1, 256, 256, 0.0, "float32", 2e-5),
+    (2, 256, 8, 2, 256, 0, 30.0, "bfloat16", 2e-2),
+    (1, 1024, 16, 1, 256, 256, 0.0, "bfloat16", 2e-2),
+]
+
+#: tests/test_kernels.py SSD_CASES: (bt, l, h, p, n, chunk, dtype, tol)
+SSD_CASES = [
+    (2, 128, 4, 16, 32, 32, "float32", 2e-4),
+    (1, 256, 2, 64, 128, 64, "float32", 2e-4),
+    (2, 64, 8, 32, 16, 64, "float32", 2e-4),
+    (1, 128, 4, 16, 32, 32, "bfloat16", 5e-2),
+]
+
+#: tests/test_kernels.py RGLRU_CASES: (bt, l, w, bl, bw, dtype, atol); rtol 1e-3
+RGLRU_CASES = [
+    (2, 128, 64, 64, 64, "float32", 1e-5),
+    (1, 512, 128, 128, 128, "float32", 1e-5),
+    (2, 256, 64, 128, 32, "float32", 1e-5),
+    (1, 128, 128, 32, 128, "bfloat16", 2e-2),
+]
+
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
@@ -33,3 +60,81 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     mask = (_attn.make_causal_mask(l, s, window=window, device=q.device)[None]
             if causal else None)
     return _attn._sdpa(q, k, v, mask, softcap)
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                C: torch.Tensor, chunk: int, h0: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x:[Bt,L,H,P] dt:[Bt,L,H] A:[H]<0  B,C:[Bt,L,N]  → (y:[Bt,L,H,P], h_last).
+
+    The twin of ``repro.models.ssm.ssd_chunked``: all recurrence math in fp32
+    (exponentials of within-chunk cumulative sums), y in x's dtype, h_last
+    the fp32 ``[Bt,H,P,N]`` state after the last chunk.  L % chunk == 0.
+    """
+    bt, l, h, p = x.shape
+    n = B.shape[-1]
+    nc = l // chunk
+    f32 = torch.float32
+    xc = x.reshape(bt, nc, chunk, h, p).to(f32)
+    dtc = dt.reshape(bt, nc, chunk, h).to(f32)
+    Bc = B.reshape(bt, nc, chunk, n).to(f32)
+    Cc = C.reshape(bt, nc, chunk, n).to(f32)
+    dA = dtc * A.to(f32)                                       # [Bt,NC,Q,H] ≤ 0
+    cum = torch.cumsum(dA, dim=2)
+
+    # intra-chunk: M[i,j] = C_i·B_j · exp(cum_i - cum_j) · dt_j for j ≤ i
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]        # [Bt,NC,Q,Q,H]
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    decay = torch.where(causal[None, None, :, :, None], torch.exp(seg),
+                        torch.zeros((), dtype=f32, device=x.device))
+    cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
+    m = cb[..., None] * decay * dtc[:, :, None, :, :]
+    y_intra = torch.einsum("bcijh,bcjhp->bcihp", m, xc)
+
+    # chunk states S_c = Σ_j exp(cum_end - cum_j)·dt_j · B_j ⊗ x_j
+    last = cum[:, :, -1:, :]
+    w = torch.exp(last - cum) * dtc
+    S = torch.einsum("bcjh,bcjn,bcjhp->bchpn", w, Bc, xc)
+
+    # inter-chunk scan, emitting the state entering each chunk
+    gamma = torch.exp(last[:, :, 0, :])                        # [Bt,NC,H]
+    hcur = (torch.zeros((bt, h, p, n), dtype=f32, device=x.device) if h0 is None
+            else h0.to(f32))
+    h_in = []
+    for c in range(nc):
+        h_in.append(hcur)
+        hcur = hcur * gamma[:, c, :, None, None] + S[:, c]
+    h_in = torch.stack(h_in, dim=1)                            # [Bt,NC,H,P,N]
+
+    y_inter = torch.einsum("bcih,bcin,bchpn->bcihp", torch.exp(cum), Cc, h_in)
+    y = (y_intra + y_inter).reshape(bt, l, h, p)
+    return y.to(x.dtype), hcur
+
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
+                 cmat: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Chunked SSD recurrence (fp32); y only, as ``repro.kernels.ref.ssd_scan_ref``."""
+    y, _ = ssd_chunked(x, dt, a, bmat, cmat, min(chunk, x.shape[1]))
+    return y
+
+
+def rglru_scan_ref(log_a: torch.Tensor, b: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """h_t = exp(log_a_t)·h_{t-1} + b_t over axis 1, in fp32.
+
+    The twin of ``repro.models.rglru.scan_ref``: a log-depth scan over the
+    pairs (a, b) with (a₁,b₁)∘(a₂,b₂) = (a₁a₂, b₁a₂ + b₂), here the doubling
+    (Hillis–Steele) form; an ``h0`` folds into the first step.
+    """
+    a = torch.exp(log_a.float())
+    b = b.float()
+    if h0 is not None:
+        b = b.clone()
+        b[:, 0] += a[:, 0] * h0.float()
+    l = a.shape[1]
+    d = 1
+    while d < l:
+        b = torch.cat([b[:, :d], b[:, d:] + a[:, d:] * b[:, :-d]], dim=1)
+        a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
+        d *= 2
+    return b

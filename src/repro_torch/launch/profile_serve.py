@@ -1,7 +1,8 @@
 """Where serving time goes: a torch.profiler trace of one prefill and a few
 decode steps, summed by kernel.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch yi-9b \\
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+        --arch {yi-9b,mamba2-370m,recurrentgemma-9b} \\
         [--smoke] [--batch 4 --prompt-len 512 --decode-steps 4] [--device cpu]
 
 Weights are random (``--seed``).  After one untraced warm-up prefill, one
@@ -31,6 +32,8 @@ from repro_torch.models import lm
 #: kernel class by substring of the kernel's name (first match wins)
 CLASSES = [
     ("flash_attention", ("flash_fwd_kernel",)),
+    ("ssd_scan", ("ssd_scan_kernel",)),
+    ("rglru_scan", ("rglru_scan_kernel",)),
     ("matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "cublas")),
     ("elementwise/cast", ("elementwise", "copy", "cast", "fill", "where")),
     ("reduction/softmax", ("reduce", "softmax", "norm")),

@@ -6,7 +6,7 @@
 Runs on the card by default (``--device cuda``) and raises without one.
 Weights are random, drawn from ``--seed``.  Prints prefill ms, decode
 ms/token and tok/s, each timed on the host clock around work that ends in a
-device synchronise, and the flash-attention launches of the run.
+device synchronise, and each kernel's launches in the run.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ def run(arch: str, *, smoke: bool = False, batch: int = 4, prompt_len: int = 64,
         torch.cuda.reset_peak_memory_stats(dev)
     init_s = time.perf_counter() - t0
 
-    launches0 = ops.launches["flash_attention"]
+    launches0 = dict(ops.launches)
     stats: Dict[str, Any] = {}
     out = greedy_generate(params, cfg, prompt, gen, stats=stats)
     return {
@@ -48,7 +48,7 @@ def run(arch: str, *, smoke: bool = False, batch: int = 4, prompt_len: int = 64,
         "tok_s": batch * gen / (stats["prefill_s"] + stats["decode_s"]),
         "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
                         if dev.type == "cuda" else None),
-        "flash_launches": ops.launches["flash_attention"] - launches0,
+        "launches": {name: n - launches0[name] for name, n in ops.launches.items()},
     }
 
 
@@ -72,7 +72,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
           f"{args.prompt_len} → {args.gen} tokens")
     print(f"[serve] prefill {r['prefill_ms']:.3f} ms, decode "
           f"{r['decode_ms_per_token']:.3f} ms/token, {r['tok_s']:.1f} tok/s, "
-          f"flash launches {r['flash_launches']}"
+          f"kernel launches {r['launches']}"
           + (f", peak mem {r['peak_mem_gb']:.2f} GB" if r["peak_mem_gb"] else ""))
     print(f"[serve] sample continuation ids: {r['tokens'][0][:16].tolist()}")
     return 0

@@ -1,6 +1,6 @@
-"""LM assembly for the dense decoder patterns ("attn", "local").
+"""LM assembly for the decoder patterns "attn", "local", "ssm" and "rglru".
 
-The port of :mod:`repro.models.lm` for the serving slice.  The parameter
+The port of :mod:`repro.models.lm` for the serving slices.  The parameter
 tree is the JAX package's: ``cfg.layer_pattern`` is cycled across
 ``n_layers``; each pattern slot owns one tree stacked over the ``[G]`` full
 repetitions (``blocks/s{i}``), the remainder layers are unstacked
@@ -12,8 +12,11 @@ Entry points
   * :func:`prefill` — forward that also seeds a decode cache.
   * :func:`decode_step` — one token against the cache.
 
-MoE, SSM, RG-LRU, enc-dec and VLM configs raise ``NotImplementedError``
-naming the slice of the port that brings them (see ``ROADMAP.md``).
+Attention layers keep KV rings in the decode cache; "ssm" (Mamba2) and
+"rglru" (RecurrentGemma) layers keep their recurrent state dicts, stacked
+over ``[G]`` like the parameters.  MoE, enc-dec and VLM configs raise
+``NotImplementedError`` naming the slice of the port that brings them (see
+``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -24,13 +27,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
-from repro_torch.models import attention, mlp
+from repro_torch.models import attention, mlp, rglru, ssm
 from repro_torch.models.common import (ModelConfig, dense_init, embed_init,
                                        rms_norm, softcap)
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for configs outside the dense slice."""
+    """Raise ``NotImplementedError`` for configs outside the ported slices."""
     missing = None
     if cfg.moe is not None:
         missing = "MoE layers (ROADMAP: next slices, MoE/enc-dec/VLM)"
@@ -38,10 +41,6 @@ def check_supported(cfg: ModelConfig) -> None:
         missing = "the enc-dec encoder (ROADMAP: next slices, MoE/enc-dec/VLM)"
     elif cfg.n_patches:
         missing = "the VLM patch prefix (ROADMAP: next slices, MoE/enc-dec/VLM)"
-    elif "ssm" in cfg.layer_pattern:
-        missing = "Mamba2 SSM layers (ROADMAP: next slices, Mamba2)"
-    elif "rglru" in cfg.layer_pattern:
-        missing = "RG-LRU layers (ROADMAP: next slices, RecurrentGemma)"
     if missing:
         raise NotImplementedError(f"{cfg.name}: {missing} are not ported yet")
 
@@ -65,15 +64,25 @@ def _block_init(gen: torch.Generator, cfg: ModelConfig, kind: str, *, device,
     def norm():
         return torch.zeros(tuple(lead) + (d,), dtype=pd, device=device)
 
-    p: Dict[str, Any] = {"ln1": norm(),
-                         "attn": attention.init(gen, cfg, device=device, lead=lead)}
-    if cfg.d_ff:
-        p["ln2"] = norm()
-        p["mlp"] = mlp.init(gen, cfg, device=device, lead=lead)
-    if cfg.post_norms:
-        p["ln1b"] = norm()
+    p: Dict[str, Any] = {"ln1": norm()}
+    if kind in ("attn", "local"):
+        p["attn"] = attention.init(gen, cfg, device=device, lead=lead)
         if cfg.d_ff:
-            p["ln2b"] = norm()
+            p["ln2"] = norm()
+            p["mlp"] = mlp.init(gen, cfg, device=device, lead=lead)
+        if cfg.post_norms:
+            p["ln1b"] = norm()
+            if cfg.d_ff:
+                p["ln2b"] = norm()
+    elif kind == "ssm":
+        p["ssm"] = ssm.init(gen, cfg, device=device, lead=lead)
+    elif kind == "rglru":
+        p["rec"] = rglru.init(gen, cfg, device=device, lead=lead)
+        if cfg.d_ff:
+            p["ln2"] = norm()
+            p["mlp"] = mlp.init(gen, cfg, device=device, lead=lead)
+    else:
+        raise ValueError(f"unknown block kind {kind}")
     return p
 
 
@@ -115,10 +124,26 @@ def _index(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
 
 def _block_apply(cfg: ModelConfig, kind: str, p: Dict[str, Any], x: torch.Tensor,
                  positions: torch.Tensor, collect_kv: bool):
-    """Returns (x, kv or None)."""
-    window = cfg.window if kind == "local" else 0
+    """Returns (x, cache contribution or None): k/v of attention layers, the
+    state dict of recurrent ones."""
     kv = None
     h = rms_norm(x, p["ln1"], cfg.rms_eps)
+    if kind == "ssm":
+        if collect_kv:
+            y, kv = ssm.apply_with_state(p["ssm"], cfg, h)
+        else:
+            y = ssm.apply(p["ssm"], cfg, h)
+        return x + y, kv
+    if kind == "rglru":
+        if collect_kv:
+            y, kv = rglru.apply_with_state(p["rec"], cfg, h)
+        else:
+            y = rglru.apply(p["rec"], cfg, h)
+        x = x + y
+        if cfg.d_ff:
+            x = x + mlp.apply(p["mlp"], cfg, rms_norm(x, p["ln2"], cfg.rms_eps))
+        return x, kv
+    window = cfg.window if kind == "local" else 0
     if collect_kv:
         a, (k_new, v_new) = attention.apply_with_kv(p["attn"], cfg, h, positions,
                                                     window=window)
@@ -141,8 +166,9 @@ def _run_blocks(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, collect_kv: bool):
     """The stacked pattern groups in order, then the remainder layers.
 
-    Returns (x, caches): caches[f"s{i}"] holds k/v stacked over groups and
-    caches[f"r{i}"] the remainder layers' k/v, when ``collect_kv``.
+    Returns (x, caches): caches[f"s{i}"] holds each slot's cache
+    contribution (k/v or recurrent state) stacked over groups and
+    caches[f"r{i}"] the remainder layers', when ``collect_kv``.
     """
     pattern = cfg.layer_pattern
     g, _ = groups_of(cfg)
@@ -155,8 +181,7 @@ def _run_blocks(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
                 per_slot[f"s{i}"].append(kv)
     caches: Dict[str, Any] = {}
     if collect_kv:
-        caches = {name: {key: torch.stack([kv[key] for kv in kvs])
-                         for key in ("k", "v")}
+        caches = {name: {key: torch.stack([kv[key] for kv in kvs]) for key in kvs[0]}
                   for name, kvs in per_slot.items()}
     for i, (name, rp) in enumerate(sorted(params.get("rem", {}).items())):
         kind = cfg.pattern_of(g * len(pattern) + i)
@@ -230,7 +255,8 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: int):
     """Run the full prompt, seed the decode cache.
 
     Returns (cache, last_logits [B, Vp]).  ``max_len`` sizes the KV rings of
-    full-attention layers (prompt + decode budget).
+    full-attention layers (prompt + decode budget); recurrent layers pass
+    their state dicts through.
     """
     check_supported(cfg)
     x = _embed(params, cfg, tokens)
@@ -244,6 +270,9 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: int):
             kind, group = pattern[int(name[1:])], "blocks"
         else:
             kind, group = cfg.pattern_of(g * len(pattern) + int(name[1:])), "rem"
+        if kind in ("ssm", "rglru"):
+            cache[group][name] = kv
+            continue
         slots = _attn_slots(cfg, kind, max_len)
         cache[group][name] = {"k": _ring_from_prefill(kv["k"], slots),
                               "v": _ring_from_prefill(kv["v"], slots)}
@@ -263,6 +292,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     ct = cfg.cdtype
 
     def one(kind: str, lead: Tuple[int, ...]):
+        if kind == "ssm":
+            return ssm.init_state(cfg, batch, device=dev, lead=lead)
+        if kind == "rglru":
+            return rglru.init_state(cfg, batch, device=dev, lead=lead)
         shape = tuple(lead) + (batch, _attn_slots(cfg, kind, max_len),
                                cfg.n_kv_heads, cfg.hd)
         return {"k": torch.zeros(shape, dtype=ct, device=dev),
@@ -277,10 +310,29 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     return cache
 
 
+def _write_back(gc: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]) -> None:
+    """Copy a recurrent layer's new state into its cache tensors (views of
+    the stacked ``[G]`` tensors), after it was computed from the old one."""
+    for key, t in new.items():
+        gc[key].copy_(t)
+
+
 def _block_decode(cfg: ModelConfig, kind: str, p, x, gc, pos: int):
-    """One block, one token. x: [B,1,D] → x (gc's k/v rings updated in place)."""
-    window = cfg.window if kind == "local" else 0
+    """One block, one token. x: [B,1,D] → x (gc updated in place: k/v rings
+    of attention layers, the state of recurrent ones)."""
     h = rms_norm(x, p["ln1"], cfg.rms_eps)
+    if kind == "ssm":
+        y, st = ssm.decode_step(p["ssm"], cfg, h, gc)
+        _write_back(gc, st)
+        return x + y
+    if kind == "rglru":
+        y, st = rglru.decode_step(p["rec"], cfg, h, gc)
+        _write_back(gc, st)
+        x = x + y
+        if cfg.d_ff:
+            x = x + mlp.apply(p["mlp"], cfg, rms_norm(x, p["ln2"], cfg.rms_eps))
+        return x
+    window = cfg.window if kind == "local" else 0
     a, _ = attention.decode_step(p["attn"], cfg, h, gc, pos, window=window)
     if cfg.post_norms:
         a = rms_norm(a, p["ln1b"], cfg.rms_eps)
@@ -298,8 +350,8 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: Dict[str, 
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step for the whole batch.  token: [B,1] → logits [B, Vp].
 
-    The KV rings are updated in place; the returned cache shares them with
-    the one passed in and carries ``pos + 1``.
+    The KV rings and recurrent states are updated in place; the returned
+    cache shares them with the one passed in and carries ``pos + 1``.
     """
     pos = cache["pos"]
     x = _embed(params, cfg, token)

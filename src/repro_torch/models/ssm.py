@@ -1,0 +1,210 @@
+"""Mamba2 block — SSD (state-space duality) with the chunked algorithm.
+
+The port of :mod:`repro.models.ssm` (single group, scalar-per-head A):
+  projections → [z | x | B | C | dt], causal depthwise conv over (x,B,C),
+  SSD recurrence  h_t = exp(dt_t·A) h_{t-1} + dt_t · (B_t ⊗ x_t),
+  y_t = C_t · h_t + D ⊙ x_t,  out = out_proj(y ⊙ silu(z)).
+
+The projections stay separate matrices with per-stream convs, as in the
+reference's parameter tree.  Prefill runs the chunked scan through
+:func:`repro_torch.kernels.ops.ssd_scan` — the hand-written CUDA kernel on the
+card, its plain version (:func:`repro_torch.kernels.ref.ssd_chunked`) on the
+CPU — which also returns the final state that seeds decode.  Decode is plain
+PyTorch: the reference has no decode kernel.  The reference's sharding
+hooks (``_constrain``, ``_batch_model``) come with the distributed paths.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.common import ModelConfig, dense_init, softplus
+from repro_torch.models.mlp import silu
+
+
+def dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
+    s = cfg.ssm
+    if s is None:
+        raise ValueError(f"{cfg.name} has no SSM config")
+    return s.d_inner(cfg.d_model), s.n_heads(cfg.d_model), s.head_dim, s.d_state
+
+
+def init(gen: torch.Generator, cfg: ModelConfig, *, device,
+         lead: Tuple[int, ...] = ()) -> Dict[str, Any]:
+    s = cfg.ssm
+    di, nh, _, n = dims(cfg)
+    pd, d = cfg.pdtype, cfg.d_model
+    lead = tuple(lead)
+
+    def dense(d_in, d_out):
+        return dense_init(gen, d_in, d_out, pd, device=device, lead=lead)
+
+    def conv(ch):
+        w = torch.randn(lead + (s.d_conv, ch), generator=gen, dtype=torch.float32,
+                        device=device)
+        return w.mul_(0.1).to(pd)
+
+    def vec(values: torch.Tensor) -> torch.Tensor:
+        return values.to(device=device, dtype=pd).expand(lead + values.shape).clone()
+
+    def zeros(ch):
+        return torch.zeros(lead + (ch,), dtype=pd, device=device)
+
+    return {
+        "wz": dense(d, di), "wx": dense(d, di), "wb": dense(d, n), "wc": dense(d, n),
+        "wdt": dense(d, nh),
+        "conv_x_w": conv(di), "conv_x_b": zeros(di),
+        "conv_b_w": conv(n), "conv_b_b": zeros(n),
+        "conv_c_w": conv(n), "conv_c_b": zeros(n),
+        "A_log": vec(torch.log(torch.linspace(1.0, 16.0, nh))),      # A = -exp
+        "D": vec(torch.ones(nh)),
+        "dt_bias": vec(torch.full((nh,), math.log(math.expm1(0.01)))),
+        "w_out": dense(di, d),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv, x: [B,L,C], w: [K,C].
+
+    The taps are summed from 0 in tap order, as the reference's Python
+    ``sum`` does, so bf16 rounds at the same points.
+    """
+    k = w.shape[0]
+    pad = F.pad(x, (0, 0, k - 1, 0))
+    out = sum(pad[:, i:i + x.shape[1], :] * w[i] for i in range(k))
+    return out + b
+
+
+# ==========================================================================
+# Block forward (prefill)
+# ==========================================================================
+
+
+def apply(params: Dict[str, Any], cfg: ModelConfig, xin: torch.Tensor) -> torch.Tensor:
+    y, _ = _apply_impl(params, cfg, xin, collect_state=False)
+    return y
+
+
+def apply_with_state(params: Dict[str, Any], cfg: ModelConfig, xin: torch.Tensor
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Prefill variant: also returns the decode state (h_last + conv tails)."""
+    return _apply_impl(params, cfg, xin, collect_state=True)
+
+
+def _apply_impl(params: Dict[str, Any], cfg: ModelConfig, xin: torch.Tensor,
+                collect_state: bool):
+    s = cfg.ssm
+    di, nh, p, _ = dims(cfg)
+    ct = cfg.cdtype
+    bt, l, _ = xin.shape
+
+    z = xin @ params["wz"].to(ct)                                  # [B,L,di]
+    x_raw = xin @ params["wx"].to(ct)                              # [B,L,di]
+    b_raw = xin @ params["wb"].to(ct)                              # [B,L,N]
+    c_raw = xin @ params["wc"].to(ct)
+    dt_raw = xin @ params["wdt"].to(ct)                            # [B,L,H]
+
+    x = silu(_causal_conv(x_raw, params["conv_x_w"].to(ct), params["conv_x_b"].to(ct)))
+    b = silu(_causal_conv(b_raw, params["conv_b_w"].to(ct), params["conv_b_b"].to(ct)))
+    c = silu(_causal_conv(c_raw, params["conv_c_w"].to(ct), params["conv_c_b"].to(ct)))
+    dt = softplus(dt_raw.float() + params["dt_bias"].float())     # [B,L,H]
+    A = -torch.exp(params["A_log"].float())
+    xh = x.reshape(bt, l, nh, p)
+    # pad to a chunk multiple; dt=0 on padding ⇒ identity state updates, so
+    # the padded scan's final state is the true h_last
+    q = min(s.chunk, l)
+    pad = (-l) % q
+    if pad:
+        y, h_last = ops.ssd_scan(F.pad(xh, (0, 0, 0, 0, 0, pad)).to(ct),
+                                 F.pad(dt, (0, 0, 0, pad)), A,
+                                 F.pad(b, (0, 0, 0, pad)), F.pad(c, (0, 0, 0, pad)),
+                                 chunk=q, return_state=True)
+        y = y[:, :l]
+    else:
+        y, h_last = ops.ssd_scan(xh.to(ct), dt, A, b, c, chunk=q, return_state=True)
+    y = y + xh * params["D"].to(ct)[None, None, :, None]
+    y = y.reshape(bt, l, di) * silu(z)
+    out = y @ params["w_out"].to(ct)
+    if not collect_state:
+        return out, None
+
+    def tail(a):        # owns its memory: decode writes into it in place
+        t = a[:, -(s.d_conv - 1):, :]
+        return F.pad(t, (0, 0, s.d_conv - 1 - t.shape[1], 0)).clone()
+
+    return out, {"h": h_last,
+                 "conv_x": tail(x_raw).to(ct),
+                 "conv_b": tail(b_raw).to(ct),
+                 "conv_c": tail(c_raw).to(ct)}
+
+
+# ==========================================================================
+# Decode (O(1) state per token)
+# ==========================================================================
+
+
+def init_state(cfg: ModelConfig, batch: int, *, device,
+               lead: Tuple[int, ...] = ()) -> Dict[str, torch.Tensor]:
+    s = cfg.ssm
+    di, nh, p, n = dims(cfg)
+    lead = tuple(lead)
+
+    def zeros(shape, dtype):
+        return torch.zeros(lead + shape, dtype=dtype, device=device)
+
+    return {
+        "h": zeros((batch, nh, p, n), torch.float32),
+        "conv_x": zeros((batch, s.d_conv - 1, di), cfg.cdtype),
+        "conv_b": zeros((batch, s.d_conv - 1, n), cfg.cdtype),
+        "conv_c": zeros((batch, s.d_conv - 1, n), cfg.cdtype),
+    }
+
+
+def _conv_step(hist: torch.Tensor, new: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One causal-conv step. hist: [B,K-1,C], new: [B,C] → (out [B,C], hist)."""
+    h = torch.cat([hist, new[:, None, :]], dim=1)
+    out = torch.einsum("bkc,kc->bc", h, w) + b
+    return out, h[:, 1:, :]
+
+
+def decode_step(params: Dict[str, Any], cfg: ModelConfig, xin: torch.Tensor,
+                state: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """xin: [B,1,D] → ([B,1,D], new state).  The state passed in is not
+    modified; the returned tensors are new."""
+    di, nh, p, _ = dims(cfg)
+    ct = cfg.cdtype
+    f32 = torch.float32
+    bt = xin.shape[0]
+    x0 = xin[:, 0, :]
+    z = x0 @ params["wz"].to(ct)
+    x_raw = x0 @ params["wx"].to(ct)
+    b_raw = x0 @ params["wb"].to(ct)
+    c_raw = x0 @ params["wc"].to(ct)
+    dt_raw = x0 @ params["wdt"].to(ct)
+
+    x, cx = _conv_step(state["conv_x"], x_raw, params["conv_x_w"].to(ct),
+                       params["conv_x_b"].to(ct))
+    b, cb = _conv_step(state["conv_b"], b_raw, params["conv_b_w"].to(ct),
+                       params["conv_b_b"].to(ct))
+    c, cc = _conv_step(state["conv_c"], c_raw, params["conv_c_w"].to(ct),
+                       params["conv_c_b"].to(ct))
+    x, b, c = silu(x), silu(b), silu(c)
+
+    dt = softplus(dt_raw.float() + params["dt_bias"].float())     # [B,H]
+    A = -torch.exp(params["A_log"].float())
+    xh = x.reshape(bt, nh, p).to(f32)
+    dA = torch.exp(dt * A)                                         # [B,H]
+    h = state["h"] * dA[:, :, None, None] \
+        + torch.einsum("bh,bn,bhp->bhpn", dt, b.to(f32), xh)
+    y = torch.einsum("bn,bhpn->bhp", c.to(f32), h)
+    y = y + xh * params["D"].to(f32)[None, :, None]
+    y = y.reshape(bt, di).to(ct) * silu(z)
+    out = (y @ params["w_out"].to(ct))[:, None, :]
+    return out, {"h": h, "conv_x": cx, "conv_b": cb, "conv_c": cc}

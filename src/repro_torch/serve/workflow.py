@@ -8,7 +8,7 @@ run :func:`~repro_torch.serve.engine.greedy_generate` on worker threads
 against one shared parameter tree (on the card, or wherever ``params`` lie);
 the first to commit its output checkpoint wins and the straggler's result
 collapses against the conditional create, so detokenize runs exactly once.
-``chip_smoke.py`` drives it at the full width of yi-9b.
+``chip_smoke.py`` drives it at the full width of yi-9b and mamba2-370m.
 """
 
 from __future__ import annotations

@@ -29,7 +29,8 @@ def card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,l,h,hkv,hd,window,cap,dtype,tol", ref.FLASH_CASES)
+@pytest.mark.parametrize("b,l,h,hkv,hd,window,cap,dtype,tol",
+                         ref.FLASH_CASES + ref.FLASH_HD256_CASES)
 def test_flash_kernel_vs_plain(card, b, l, h, hkv, hd, window, cap, dtype, tol):
     rng = np.random.default_rng(l + h)
     q, k, v = (torch.from_numpy(rng.standard_normal((b, l, n, hd), np.float32))
@@ -55,8 +56,9 @@ def test_flash_kernel_refuses_what_it_does_not_take(card):
 
 
 @pytest.mark.cuda
-def test_smoke_model_on_card_matches_cpu(card):
-    cfg = configs.get_smoke("gemma2-27b").replace(compute_dtype="float32")
+@pytest.mark.parametrize("arch", ["gemma2-27b", "mamba2-370m", "recurrentgemma-9b"])
+def test_smoke_model_on_card_matches_cpu(card, arch):
+    cfg = configs.get_smoke(arch).replace(compute_dtype="float32")
     params = lm.init(torch.Generator().manual_seed(0), cfg, device="cpu")
     toks = torch.randint(0, cfg.vocab, (2, 23), generator=torch.Generator().manual_seed(1))
     _, want = lm.prefill(params, cfg, toks, max_len=30)
@@ -75,3 +77,63 @@ def test_flash_kernel_ragged_tiles_and_non_causal(card, l, causal, window):
     out = ops.flash_attention(q, k, v, causal=causal, window=window, block_q=l, block_k=l)
     expect = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     np.testing.assert_allclose(out.cpu().numpy(), expect.cpu().numpy(), atol=2e-5, rtol=2e-5)
+
+
+def _ssd_inputs(bt, l, h, p, n, dtype, seed, device):
+    """The reference test's input recipe (tests/test_kernels.py), from numpy."""
+    rng = np.random.default_rng(seed)
+    dt_ = getattr(torch, dtype)
+
+    def t(shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(dt_).to(device)
+    x = t((bt, l, h, p))
+    dt = torch.nn.functional.softplus(
+        torch.from_numpy(rng.standard_normal((bt, l, h), np.float32))).to(device)
+    a = -torch.exp(torch.linspace(0.0, 2.0, h)).to(device)
+    return x, dt, a, t((bt, l, n)), t((bt, l, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bt,l,h,p,n,chunk,dtype,tol", ref.SSD_CASES)
+def test_ssd_kernel_vs_plain(card, bt, l, h, p, n, chunk, dtype, tol):
+    x, dt, a, bm, cm = _ssd_inputs(bt, l, h, p, n, dtype, l + p, card)
+    n0 = ops.launches["ssd_scan"]
+    y, h_last = ops.ssd_scan(x, dt, a, bm, cm, chunk=chunk, return_state=True)
+    torch.cuda.synchronize()
+    assert ops.launches["ssd_scan"] == n0 + 1 and y.dtype == x.dtype
+    y_ref, h_ref = ref.ssd_chunked(x, dt, a, bm, cm, min(chunk, l))
+    np.testing.assert_allclose(y.float().cpu().numpy(), y_ref.float().cpu().numpy(),
+                               atol=tol, rtol=tol)
+    np.testing.assert_allclose(h_last.cpu().numpy(), h_ref.cpu().numpy(),
+                               atol=tol, rtol=tol)
+    y_only = ops.ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+    np.testing.assert_array_equal(y_only.float().cpu().numpy(), y.float().cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_chunk_invariance_and_ragged(card):
+    x, dt, a, bm, cm = _ssd_inputs(1, 256, 2, 16, 32, "float32", 3, card)
+    y32 = ops.ssd_scan(x, dt, a, bm, cm, chunk=32)
+    y128 = ops.ssd_scan(x, dt, a, bm, cm, chunk=128)
+    np.testing.assert_allclose(y32.cpu().numpy(), y128.cpu().numpy(), atol=5e-4, rtol=5e-4)
+    with pytest.raises(ValueError):
+        ops.ssd_scan(x[:, :100], dt[:, :100], a, bm[:, :100], cm[:, :100], chunk=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bt,l,w,bl,bw,dtype,tol",
+                         ref.RGLRU_CASES + [(1, 1024, 32, 64, 32, "float32", 1e-5)])
+def test_rglru_kernel_vs_plain(card, bt, l, w, bl, bw, dtype, tol):
+    rng = np.random.default_rng(w + l)
+    log_a = -torch.nn.functional.softplus(
+        torch.from_numpy(rng.standard_normal((bt, l, w), np.float32))).to(card)
+    b = (torch.from_numpy(rng.standard_normal((bt, l, w), np.float32))
+         .to(getattr(torch, dtype)).float() * 0.1).to(card)
+    n0 = ops.launches["rglru_scan"]
+    h = ops.rglru_scan(log_a, b, block_l=bl, block_w=bw)
+    torch.cuda.synchronize()
+    assert ops.launches["rglru_scan"] == n0 + 1 and h.dtype == torch.float32
+    np.testing.assert_allclose(h.cpu().numpy(), ref.rglru_scan_ref(log_a, b).cpu().numpy(),
+                               atol=tol, rtol=1e-3)
+    with pytest.raises(ValueError):
+        ops.rglru_scan(log_a[:, :l - 1], b[:, :l - 1], block_l=bl, block_w=bw)

@@ -19,7 +19,7 @@ from repro_torch.models import attention  # noqa: E402
 
 torch.set_num_threads(2)
 
-FLASH_CASES = ref.FLASH_CASES
+FLASH_CASES = ref.FLASH_CASES + ref.FLASH_HD256_CASES
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 

@@ -23,8 +23,8 @@ torch.set_num_threads(2)
 
 L, B = 24, 2
 DENSE = ["yi-9b", "gemma2-27b", "qwen1.5-110b", "mistral-large-123b"]
-NOT_PORTED = ["mamba2-370m", "deepseek-moe-16b", "dbrx-132b", "recurrentgemma-9b",
-              "phi-3-vision-4.2b", "seamless-m4t-medium"]
+RECURRENT = ["mamba2-370m", "recurrentgemma-9b"]
+NOT_PORTED = ["deepseek-moe-16b", "dbrx-132b", "phi-3-vision-4.2b", "seamless-m4t-medium"]
 # fp32 compute differs from JAX only in summation order; bf16 at the
 # reference's own prefill/decode tolerance (tests/test_models.py)
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
@@ -137,9 +137,16 @@ def test_attention_apply_with_kv_and_decode(arch, window):
         np.testing.assert_allclose(ct[n].numpy(), np.asarray(cj[n]), atol=1e-5, rtol=1e-5)
 
 
+def _flat(tree):
+    return {jax.tree_util.keystr(p): v for p, v in jax.tree_util.tree_leaves_with_path(tree)}
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + RECURRENT)
 def test_lm_forward_prefill_decode_match_jax(arch, dtype):
+    """Forward, prefill (logits and every cache leaf: KV rings and recurrent
+    states), then one decode step (logits and the updated cache).  The
+    mamba2 smoke prompt (L=23, chunk 16) pads 9 rows with dt=0."""
     cfg = configs.get_smoke(arch).replace(compute_dtype=dtype)
     jcfg = jconfigs.get_smoke(arch).replace(compute_dtype=dtype)
     p_j, p_np = _perturbed_params(jcfg, seed=2)
@@ -150,7 +157,7 @@ def test_lm_forward_prefill_decode_match_jax(arch, dtype):
     with _jax_mode(dtype):
         logits_j, _ = jlm.forward(p_j, jcfg, jnp.asarray(toks))
         cache_j, pre_j = jlm.prefill(p_j, jcfg, jnp.asarray(toks[:, :-1]), max_len=L + 4)
-        dec_j, _ = jlm.decode_step(p_j, jcfg, jnp.asarray(toks[:, -1:]), cache_j)
+        dec_j, dec_cache_j = jlm.decode_step(p_j, jcfg, jnp.asarray(toks[:, -1:]), cache_j)
     logits_t, aux = lm.forward(p_t, cfg, torch.from_numpy(toks))
     assert logits_t.shape == (B, L, cfg.padded_vocab) and float(aux) == 0.0
     np.testing.assert_allclose(logits_t.numpy(), np.asarray(logits_j, np.float32),
@@ -159,33 +166,40 @@ def test_lm_forward_prefill_decode_match_jax(arch, dtype):
     cache_t, pre_t = lm.prefill(p_t, cfg, torch.from_numpy(toks[:, :-1]), max_len=L + 4)
     np.testing.assert_allclose(pre_t.numpy(), np.asarray(pre_j, np.float32),
                                atol=tol, rtol=tol)
-    for name, c in cache_t["blocks"].items():
-        np.testing.assert_allclose(c["k"].float().numpy(),
-                                   np.asarray(cache_j["blocks"][name]["k"], np.float32),
-                                   atol=tol, rtol=tol)
+    flat_t, flat_j = _flat({k: v for k, v in cache_t.items() if k != "pos"}), \
+        _flat({k: v for k, v in cache_j.items() if k != "pos"})
+    assert flat_t.keys() == flat_j.keys()
+    for key, leaf in flat_t.items():
+        np.testing.assert_allclose(leaf.float().numpy(), np.asarray(flat_j[key], np.float32),
+                                   atol=tol, rtol=tol, err_msg=key)
     assert cache_t["pos"] == int(cache_j["pos"]) == L - 1
 
     dec_t, cache_t = lm.decode_step(p_t, cfg, torch.from_numpy(toks[:, -1:]), cache_t)
     np.testing.assert_allclose(dec_t.numpy(), np.asarray(dec_j, np.float32),
                                atol=tol, rtol=tol)
     assert cache_t["pos"] == L
+    for key, leaf in _flat({k: v for k, v in cache_t.items() if k != "pos"}).items():
+        np.testing.assert_allclose(leaf.float().numpy(), np.asarray(_flat(
+            {k: v for k, v in dec_cache_j.items() if k != "pos"})[key], np.float32),
+            atol=tol, rtol=tol, err_msg=key)
 
 
-@pytest.mark.parametrize("arch", ["yi-9b", "gemma2-27b"])
+@pytest.mark.parametrize("arch", ["yi-9b", "gemma2-27b"] + RECURRENT)
 def test_init_tree_layout_matches_jax(arch):
+    """Same keys and shapes for the parameters (``rem/r*`` included) and
+    the decode cache (KV rings, fp32 recurrent ``h`` states, conv tails in
+    the compute dtype)."""
     cfg = configs.get_smoke(arch)
     mine = lm.init(torch.Generator().manual_seed(0), cfg, device="cpu")
     theirs = jlm.init(jax.random.PRNGKey(0), jconfigs.get_smoke(arch))
-    flat_m = {jax.tree_util.keystr(p): tuple(v.shape)
-              for p, v in jax.tree_util.tree_leaves_with_path(mine)}
-    flat_t = {jax.tree_util.keystr(p): tuple(v.shape)
-              for p, v in jax.tree_util.tree_leaves_with_path(theirs)}
-    assert flat_m == flat_t
+    assert ({k: tuple(v.shape) for k, v in _flat(mine).items()}
+            == {k: tuple(v.shape) for k, v in _flat(theirs).items()})
     cache_m = lm.init_cache(cfg, 2, 40, device="cpu")
     cache_t = jlm.init_cache(jconfigs.get_smoke(arch), 2, 40)
     assert cache_m["pos"] == int(cache_t["pos"])
-    assert ({k: tuple(v["k"].shape) for k, v in cache_m["blocks"].items()}
-            == {k: tuple(v["k"].shape) for k, v in cache_t["blocks"].items()})
+    del cache_m["pos"], cache_t["pos"]
+    assert ({k: (tuple(v.shape), str(v.dtype)[6:]) for k, v in _flat(cache_m).items()}
+            == {k: (tuple(v.shape), str(v.dtype)) for k, v in _flat(cache_t).items()})
 
 
 @pytest.mark.parametrize("arch", NOT_PORTED)

@@ -44,6 +44,20 @@ def test_greedy_tokens_equal_jax(yi_fp32):
     assert stats["prefill_s"] > 0 and stats["decode_s"] > 0
 
 
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b"])
+def test_greedy_tokens_equal_jax_recurrent(arch):
+    """fp32 greedy tokens of the recurrent smoke archs equal the JAX
+    engine's (a 20-token prompt: mamba2 pads it to its 16-row chunks)."""
+    jcfg = jconfigs.get_smoke(arch).replace(compute_dtype="float32")
+    cfg = configs.get_smoke(arch).replace(compute_dtype="float32")
+    p_j = jlm.init(jax.random.PRNGKey(1), jcfg)
+    p_t = to_torch(jax.tree.map(np.asarray, p_j), device="cpu")
+    prompt = np.random.default_rng(8).integers(0, cfg.vocab, (2, 20)).astype(np.int32)
+    ref = np.asarray(jgreedy(p_j, jcfg, jnp.asarray(prompt), STEPS))
+    out = engine.greedy_generate(p_t, cfg, torch.from_numpy(prompt), STEPS)
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
 def test_step_functions_compose_to_greedy(yi_fp32):
     _, cfg, _, p_t = yi_fp32
     prompt = torch.from_numpy(
@@ -70,11 +84,15 @@ def test_serve_workflow_twin_returns_jax_tokens_exactly_once(yi_fp32):
     assert out["text"][0].startswith(f"<{ref[0, 0]}>")
 
 
-def test_launch_serve_on_cpu(capsys):
-    assert launch_serve.main(["--arch", "yi-9b", "--smoke", "--device", "cpu",
+@pytest.mark.parametrize("arch", ["yi-9b", "mamba2-370m", "recurrentgemma-9b"])
+def test_launch_serve_on_cpu(capsys, arch):
+    assert launch_serve.main(["--arch", arch, "--smoke", "--device", "cpu",
                               "--batch", "2", "--prompt-len", "16", "--gen", "4"]) == 0
     text = capsys.readouterr().out
     assert "ms/token" in text and "tok/s" in text and "on cpu" in text
+    # CPU tensors take the plain versions: no kernel launches are counted
+    r = launch_serve.run(arch, smoke=True, batch=2, prompt_len=8, gen=2, device="cpu")
+    assert r["launches"] == {"flash_attention": 0, "ssd_scan": 0, "rglru_scan": 0}
 
 
 def test_profile_serve_on_cpu_reports_host_ops_only():
@@ -84,4 +102,8 @@ def test_profile_serve_on_cpu_reports_host_ops_only():
         assert r[phase]["wall_ms"] > 0 and r[phase]["kernel_launches"] == 0
         assert "device_busy_ms" not in r[phase] and r[phase]["top_host_ops_ms"]
     assert profile_serve.kernel_class("void flash_fwd_kernel<float, 64>") == "flash_attention"
+    assert profile_serve.kernel_class(
+        "void (anonymous namespace)::ssd_scan_kernel<__nv_bfloat16, 64>") == "ssd_scan"
+    assert profile_serve.kernel_class(
+        "(anonymous namespace)::rglru_scan_kernel(float const*)") == "rglru_scan"
     assert profile_serve._union_us([(0, 4), (2, 6), (8, 9)]) == 7
