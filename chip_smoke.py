@@ -5,19 +5,26 @@
 Phases, in order; any failure exits non-zero and no phase catches its own:
 
 1. build    — compile every CUDA kernel of the port (one nvcc per source,
-              all started together) and print the build seconds and ptxas
-              register/shared-memory report.
+              all started together), print the build seconds and each
+              kernel instantiation's registers and spills from ptxas (the
+              full report goes to chiprun_out/build_ptxas.log), and fail if
+              a wgmma instantiation spills.
 2. kernels  — each kernel on the card against its plain PyTorch version on
               the same inputs, at the stated tolerances:
               flash attention: the 7 reference cases, block-shape
               invariance, ragged rejection, the yi-9b serving shape; head
               dim 256 cases (one with window < L) and the recurrentgemma-9b
-              prefill shape;
+              prefill shape; the wgmma variant's own bf16 cases (every head
+              dim 16–256, GQA groups 1–16, L = 100, 192, 576, non-causal);
+              both serving shapes must run the wgmma variant, and the FMA
+              variant is timed in fp32 at the yi-9b shape;
               ssd_scan: the 4 reference cases with the final state, chunk
               invariance, ragged rejection, the mamba2-370m serving shape;
               rglru_scan: the 4 reference cases, the long carry, ragged
               rejection, the recurrentgemma-9b serving shape.
-              Each serving shape is timed: kernel / plain / library / bound.
+              Each serving shape is timed: kernel / plain / library / bound,
+              as device time from a torch.profiler trace (the host-clock
+              time of a wrapper call is reported beside it as call_ms).
 3. model    — the yi-9b, mamba2-370m and recurrentgemma-9b smoke configs in
               fp32 on the card (kernels) and on the CPU (plain): prefill
               logits within 1e-4, equal greedy tokens.
@@ -25,7 +32,8 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
               master weights on the card), batch 4, prompt 512, 32 generated
               tokens, for yi-9b, mamba2-370m and recurrentgemma-9b; each
               kernel's launches counted from 0 per arch and required to be
-              exactly what one prefill of that arch runs.
+              exactly what one prefill of that arch runs, every flash launch
+              of the bf16 serving path by the wgmma variant.
 5. workflow — the ByRedundant serve workflow at full width on the port's
               LocalRunner, for yi-9b and mamba2-370m: exactly one detok
               completion, launches per decode replica, and the committed
@@ -47,6 +55,8 @@ import sys
 import time
 
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -54,7 +64,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch import configs  # noqa: E402
 from repro_torch.convert import tree_to  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch.profile_serve import _union_us  # noqa: E402
 from repro_torch.models import attention, lm, rglru, ssm  # noqa: E402
 from repro_torch.serve import workflow  # noqa: E402
 from repro_torch.serve.engine import greedy_generate  # noqa: E402
@@ -71,8 +83,12 @@ RG_SHAPE = (SERVE_BATCH, SERVE_PROMPT, RG.n_heads, RG.n_kv_heads, RG.hd)
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
+#: the flash-attention variant's source (the row's "source" names the variant run)
+FLASH_SOURCES = {"wgmma": "src/repro_torch/kernels/csrc/flash_attention_sm90.cuh",
+                 "fma": "src/repro_torch/kernels/csrc/flash_attention.cu"}
+
 KERNELS = {
-    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention_sm90.cuh",
                         "src/repro/kernels/flash_attention.py:96"),
     "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:75"),
@@ -100,6 +116,23 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def _device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time per call: the union of the device intervals in a
+    torch.profiler trace of ``iters`` calls, over ``iters``."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    if not spans:
+        _fail("torch.profiler recorded no device time")
+    return _union_us(spans) / 1e3 / iters
 
 
 def _gen(seed: int) -> torch.Generator:
@@ -130,32 +163,66 @@ def _nbytes(*ts: torch.Tensor) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def _row(name: str, err: float, kernel_ms: float, plain_ms: float, nbytes: int,
-         flops: int, dtype: torch.dtype, library_ms, shape: str) -> dict:
-    """One kernel's line: the least time for the same work is the larger of
-    its bytes (each input read once, each output written once) at the
-    memory rate and its operations at the inputs' type peak."""
+def _row(name: str, err: float, kernel, plain, nbytes: int, flops: int,
+         dtype: torch.dtype, library, shape: str) -> dict:
+    """One kernel's line.  ``kernel``, ``plain`` and ``library`` are
+    zero-argument calls (``library`` may be None); ms, plain_ms and library_ms
+    are their device times, call_ms the kernel wrapper's host-clock time per
+    call.  The least time for the same work is the larger of its bytes (each
+    input read once, each output written once) at the memory rate and its
+    operations at the inputs' type peak."""
     bytes_ms = nbytes / HBM_BYTES_S * 1e3
     ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
     source, replaces = KERNELS[name]
+    kernel_ms, plain_ms = _device_ms(kernel), _device_ms(plain)
+    library_ms = _device_ms(library) if library is not None else None
     row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
            "launches": None, "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "library_ms": library_ms, "shape": shape}
+           "library_ms": library_ms, "shape": shape, "call_ms": _time_ms(kernel)}
     lib = f"{library_ms:.4f}" if library_ms is not None else "null"
     _log(f"[kernels] {name} at {shape}: kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
          f"library_ms={lib} bound_ms={row['bound_ms']:.4f} ({row['bound_by']}: "
-         f"{nbytes} B, {flops} FLOP)")
+         f"{nbytes} B, {flops} FLOP); call_ms={row['call_ms']:.4f} (host clock)")
     return row
+
+
+def _ptxas_report(log: str) -> list:
+    """(function, registers, spill stores, spill loads) per kernel
+    instantiation in an ``nvcc -Xptxas -v`` log."""
+    rows, fn, spills = [], None, None
+    for line in log.splitlines():
+        if "Function properties for " in line:
+            fn = line.split("Function properties for ")[1].strip()
+        elif fn and "spill stores" in line:
+            n = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            spills = (n[1], n[2])
+        elif fn and spills and "Used " in line and " registers" in line:
+            regs = int(line.split("Used ")[1].split()[0])
+            rows.append((fn, regs, *spills))
+            fn, spills = None, None
+    return rows
 
 
 def phase_build() -> dict:
     t0 = time.perf_counter()
     info = build.build_all()
     _log(f"[build] {sorted(info)} built in {time.perf_counter() - t0:.2f}s")
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "build_ptxas.log"), "w") as f:
+        for name, i in info.items():
+            f.write(f"== {name}\n{i['log']}\n")
     for name, i in info.items():
-        _log(f"[build] {name}: nvcc {i['seconds']:.2f}s\n{i['log'].strip()}")
+        _log(f"[build] {name}: nvcc {i['seconds']:.2f}s")
+        for line in i["log"].splitlines():
+            if "Performance Loss" in line or "setmaxnreg" in line:
+                _log(f"[build]   {line.strip()}")
+        for fn, regs, stores, loads in _ptxas_report(i["log"]):
+            _log(f"[build]   {fn}: {regs} registers, {stores} bytes spill stores, "
+                 f"{loads} bytes spill loads")
+            if "wgmma" in fn and (stores or loads):
+                _fail(f"wgmma instantiation {fn} spills ({stores}/{loads} bytes)")
     return info
 
 
@@ -174,29 +241,49 @@ def _flash_case(b, l, h, hkv, hd, window, cap, dtype_name, tol) -> None:
            f"{dtype_name}", out, expect, tol, tol)
 
 
+def _flash_wgmma_case(b, l, h, hkv, hd, causal, window, cap) -> None:
+    q, k, v = _qkv(b, l, h, hkv, hd, torch.bfloat16, seed=l + h + hd)
+    n0 = dict(ops.flash_variant_launches)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window, softcap=cap,
+                              block_q=l, block_k=l)
+    if ops.flash_variant_launches != {**n0, "wgmma": n0["wgmma"] + 1}:
+        _fail(f"bf16 hd {hd} did not run the wgmma variant")
+    expect = ref.flash_attention_ref(q, k, v, causal=causal, window=window, softcap=cap)
+    _check(f"flash wgmma b={b} l={l} h={h} hkv={hkv} hd={hd} causal={causal} "
+           f"window={window} cap={cap} bfloat16", out, expect, 2e-2, 2e-2)
+
+
 def _flash_at(shape, dtype, seed) -> dict:
     """flash attention at a serving prefill shape, timed against its plain
     version and the library call; the work is the unmasked causal pairs."""
     b, l, h, hkv, hd = shape
+    want = fa.variant(hd, dtype)
     q, k, v = _qkv(b, l, h, hkv, hd, dtype, seed=seed)
+    n0 = dict(ops.flash_variant_launches)
     out = ops.flash_attention(q, k, v, causal=True, block_q=attention.FLASH_BLOCK,
                               block_k=attention.FLASH_BLOCK)
+    if ops.flash_variant_launches != {**n0, want: n0[want] + 1}:
+        _fail(f"flash at {shape} {dtype} did not run the {want} variant")
     expect = ref.flash_attention_ref(q, k, v, causal=True)
-    err = _check(f"flash at {shape} {str(dtype)[6:]}", out, expect, 2e-2, 2e-2)
-    kernel_ms = _time_ms(lambda: ops.flash_attention(q, k, v, causal=True))
-    plain_ms = _time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True))
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    err = _check(f"flash ({want}) at {shape} {str(dtype)[6:]}", out, expect, tol, tol)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    library_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
     pairs = int(attention.make_causal_mask(l, l, device="cuda").sum())
-    return _row("flash_attention", err, kernel_ms, plain_ms, _nbytes(q, k, v, out),
-                4 * b * h * hd * pairs, dtype, library_ms, f"q {list(q.shape)}, "
-                f"k/v {list(k.shape)}")
+    row = _row("flash_attention", err, lambda: ops.flash_attention(q, k, v, causal=True),
+               lambda: ref.flash_attention_ref(q, k, v, causal=True),
+               _nbytes(q, k, v, out), 4 * b * h * hd * pairs, dtype,
+               lambda: torch.nn.functional.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=True, enable_gqa=True),
+               f"q {list(q.shape)}, k/v {list(k.shape)} {str(dtype)[6:]}")
+    row["variant"], row["source"] = want, FLASH_SOURCES[want]
+    return row
 
 
 def phase_flash() -> dict:
     for case in ref.FLASH_CASES + ref.FLASH_HD256_CASES:
         _flash_case(*case)
+    for case in ref.FLASH_WGMMA_CASES:
+        _flash_wgmma_case(*case)
     q, k, v = _qkv(1, 512, 4, 2, 64, torch.float32, seed=0)
     o1 = ops.flash_attention(q, k, v, block_q=64, block_k=128)
     o2 = ops.flash_attention(q, k, v, block_q=256, block_k=64)
@@ -212,9 +299,13 @@ def phase_flash() -> dict:
     else:
         _fail("flash ragged shape was not rejected")
     row = _flash_at(YI_SHAPE, YI.cdtype, seed=1)
-    rg = _flash_at(RG_SHAPE, RG.cdtype, seed=2)
-    row["at_other_shapes"] = [{k: rg[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
-                                                  "bound_ms", "bound_by", "library_ms")}]
+    if row["variant"] != "wgmma" or fa.variant(RG.hd, RG.cdtype) != "wgmma":
+        _fail("a bf16 serving shape does not take the wgmma variant")
+    others = [_flash_at(RG_SHAPE, RG.cdtype, seed=2),
+              _flash_at(YI_SHAPE, torch.float32, seed=1)]    # the FMA variant's time
+    row["at_other_shapes"] = [{k: r[k] for k in (
+        "shape", "variant", "source", "max_abs_err", "ms", "plain_ms", "bound_ms",
+        "bound_by", "library_ms", "call_ms")} for r in others]
     return row
 
 
@@ -260,15 +351,14 @@ def phase_ssd() -> dict:
     err = _check(f"ssd_scan at the mamba2-370m shape {list(args[0].shape)} "
                  f"{str(dtype)[6:]}", y, y_ref, 5e-2, 5e-2)
     _check("ssd_scan final state at the mamba2-370m shape", h_last, h_ref, 2e-4, 2e-4)
-    kernel_ms = _time_ms(lambda: ops.ssd_scan(*args, chunk=q, return_state=True))
-    plain_ms = _time_ms(lambda: ref.ssd_chunked(*args, q))
     # products the function needs: C·Bᵀ over the causal pairs of each
     # (batch, chunk), shared by the heads; per head the masked scores times
     # X, C·h_prevᵀ, and the state update Xᵀ(B ⊙ w)
     nc, pairs = SERVE_PROMPT // q, q * (q + 1) // 2
     flops = (2 * SERVE_BATCH * nc * pairs * n
              + 2 * SERVE_BATCH * nc * nh * (pairs * p + 2 * q * p * n))
-    row = _row("ssd_scan", err, kernel_ms, plain_ms, _nbytes(*args, y, h_last), flops,
+    row = _row("ssd_scan", err, lambda: ops.ssd_scan(*args, chunk=q, return_state=True),
+               lambda: ref.ssd_chunked(*args, q), _nbytes(*args, y, h_last), flops,
                dtype, None, f"x {list(args[0].shape)}, B/C {list(args[3].shape)}, chunk {q}")
     row["library_null_because"] = ("no PyTorch call computes the chunked SSD scan")
     return row
@@ -301,9 +391,8 @@ def phase_rglru() -> dict:
     h = ops.rglru_scan(log_a, b)
     err = _check(f"rglru_scan at the recurrentgemma-9b shape {list(log_a.shape)}", h,
                  ref.rglru_scan_ref(log_a, b), 1e-5, 1e-3)
-    kernel_ms = _time_ms(lambda: ops.rglru_scan(log_a, b))
-    plain_ms = _time_ms(lambda: ref.rglru_scan_ref(log_a, b))
-    row = _row("rglru_scan", err, kernel_ms, plain_ms, _nbytes(log_a, b, h),
+    row = _row("rglru_scan", err, lambda: ops.rglru_scan(log_a, b),
+               lambda: ref.rglru_scan_ref(log_a, b), _nbytes(log_a, b, h),
                3 * log_a.numel(), torch.float32, None, f"log_a/b/h {list(log_a.shape)}")
     row["library_null_because"] = ("no PyTorch call computes a first-order linear "
                                    "recurrence")
@@ -380,9 +469,12 @@ def phase_serve(arch: str) -> dict:
         _fail(f"{arch} generated ids out of range")
     if launches != want or r["launches"] != want or not any(want.values()):
         _fail(f"{arch} launches {launches} != {want} per prefill")
+    variants = dict(ops.flash_variant_launches)
+    if variants != {**dict.fromkeys(fa.VARIANTS, 0), "wgmma": want["flash_attention"]}:
+        _fail(f"{arch} flash launches by variant {variants}: not all wgmma")
     del r, toks
     _free()
-    return launches
+    return launches, variants
 
 
 def phase_workflow(arch: str) -> None:
@@ -423,12 +515,15 @@ def main() -> int:
     rows = {"flash_attention": phase_flash(), "ssd_scan": phase_ssd(),
             "rglru_scan": phase_rglru()}
     phase_model()
-    by_path = {}
-    by_path["yi-9b"] = phase_serve("yi-9b")
+    by_path, by_variant = {}, {}
+    by_path["yi-9b"], by_variant["yi-9b"] = phase_serve("yi-9b")
     phase_workflow("yi-9b")
-    by_path["mamba2-370m"] = phase_serve("mamba2-370m")
+    by_path["mamba2-370m"], by_variant["mamba2-370m"] = phase_serve("mamba2-370m")
     phase_workflow("mamba2-370m")
-    by_path["recurrentgemma-9b"] = phase_serve("recurrentgemma-9b")
+    by_path["recurrentgemma-9b"], by_variant["recurrentgemma-9b"] = phase_serve(
+        "recurrentgemma-9b")
+    rows["flash_attention"]["launches_by_variant"] = {
+        v: sum(n[v] for n in by_variant.values()) for v in fa.VARIANTS}
     for name, row in rows.items():
         row["launches_by_path"] = {arch: n[name] for arch, n in by_path.items() if n[name]}
         row["launches"] = sum(row["launches_by_path"].values())

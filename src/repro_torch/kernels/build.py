@@ -3,9 +3,9 @@
 Each source under ``csrc/`` has a plain C interface and becomes its own
 shared library, compiled for Hopper (``sm_90a``) at first use into
 ``<repo>/build/kernels/`` (listed in ``.gitignore``), under a name keyed by a
-hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused.  A missing ``nvcc`` or a failed build raises:
-nothing falls back to another path.
+hash of the source, every header (``*.cuh``) under ``csrc/`` and the flags,
+so an edited source or header is rebuilt and an unchanged one is reused.  A
+missing ``nvcc`` or a failed build raises: nothing falls back to another path.
 
 :func:`build_all` starts one ``nvcc`` per source together and waits for all,
 so a fresh checkout builds in the time of its slowest kernel.
@@ -54,9 +54,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{h}.so"
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str) -> Optional[tuple]:

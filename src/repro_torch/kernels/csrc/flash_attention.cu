@@ -1,9 +1,12 @@
 // Causal / sliding-window / tanh-softcap GQA flash-attention forward for
-// Hopper (sm_90a), hand-written CUDA C++ with a plain C entry point.
+// Hopper (sm_90a), hand-written CUDA C++ with a plain C entry point.  Two
+// variants: "wgmma" (flash_attention_sm90.cuh; bf16 at head dims 16–256, on
+// the tensor cores) and "fma" (this file; fp32 at every head dim and bf16 at
+// head dim 8, on the CUDA cores).  The caller names the variant.
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
-// (flash_attention_fwd + _kernel).  It computes the same function, not the
-// same blocks:
+// The FMA variant replaces the Pallas TPU kernel
+// src/repro/kernels/flash_attention.py (flash_attention_fwd + _kernel).  It
+// computes the same function, not the same blocks:
 //   * one thread block per (batch·head, 64-row q tile); the TPU's sequential
 //     kv grid axis becomes a loop over 64-key tiles inside the block;
 //   * running max, denominator and the fp32 output accumulator live in
@@ -11,9 +14,9 @@
 //     in shared memory as fp32;
 //   * kv tiles that causal/window masking empties are skipped;
 //   * GQA without KV replication: q head h reads kv head h / (H / Hkv).
-//   * head dims 8 … 256; at 256 the block has 256 threads and the padded
-//     fp32 tiles take 214.5 KB of the 227 KB of shared memory a block may
-//     opt into.
+//   * head dims 8 … 256 in fp32, 8 in bf16; at 256 the block has 256
+//     threads and the padded fp32 tiles take 214.5 KB of the 227 KB of
+//     shared memory a block may opt into.
 //
 // Numerics kept from the TPU kernel: q, k, v are upcast to fp32; every
 // product is a full-precision fp32 FMA (no TF32); p stays fp32; masking uses
@@ -22,14 +25,13 @@
 // is clamped at 1e-37.  The window applies only with causal masking, as in
 // the plain version the wrapper falls back to on the CPU.
 //
-// What bounds it on the card: at the serving shape (B=4, L=512, H=32,
-// Hkv=4, hd=128, bf16) the bytes it must move (~38 MB) take ~11 us at
-// 3.35 TB/s and the causal products (~8.6 GFLOP) ~9 us at the bf16 tensor
-// core peak, so the function is bound by bytes.  This design does its
-// products on the fp32 CUDA cores (67 TFLOP/s), which makes arithmetic its
-// real limit (~130 us); the skipped tiles halve the causal work, the smem
-// tiles are padded so the inner loops are free of bank conflicts, and the
-// heaviest causal q tiles are scheduled first.  wgmma/TMA are later work.
+// What bounds it on the card: at the yi-9b prefill shape in fp32 (B=4,
+// L=512, H=32, Hkv=4, hd=128) the bytes it must move (~75 MB) take ~22 us
+// at 3.35 TB/s and the causal products (~8.6 GFLOP) ~128 us at the fp32
+// CUDA-core peak (67 TFLOP/s), so operations bound it.  The skipped tiles
+// halve the causal work, the smem tiles are padded so the inner loops are
+// free of bank conflicts, and the heaviest causal q tiles are scheduled
+// first.  fp32 stays here because its 2e-5 tolerance rules out TF32.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (src/repro_torch/kernels/build.py does this).
@@ -38,6 +40,8 @@
 #include <cuda_runtime.h>
 
 #include <stddef.h>
+
+#include "flash_attention_sm90.cuh"
 
 namespace {
 
@@ -243,17 +247,16 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int L,
     return int(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
-                int B, int L, int S, int H, int Hkv, int causal, int window,
-                float softcap, float scale, cudaStream_t stream) {
+int dispatch_hd_f32(int hd, const void* q, const void* k, const void* v, void* o,
+                    int B, int L, int S, int H, int Hkv, int causal, int window,
+                    float softcap, float scale, cudaStream_t stream) {
     switch (hd) {
-        case 8: return launch<T, 8>(q, k, v, o, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
-        case 16: return launch<T, 16>(q, k, v, o, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
-        case 32: return launch<T, 32>(q, k, v, o, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
-        case 64: return launch<T, 64>(q, k, v, o, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
-        case 128: return launch<T, 128>(q, k, v, o, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
-        case 256: return launch<T, 256>(q, k, v, o, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
+        case 8: return launch<float, 8>(q, k, v, o, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
+        case 16: return launch<float, 16>(q, k, v, o, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
+        case 32: return launch<float, 32>(q, k, v, o, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
+        case 64: return launch<float, 64>(q, k, v, o, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
+        case 128: return launch<float, 128>(q, k, v, o, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
+        case 256: return launch<float, 256>(q, k, v, o, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
         default: return int(cudaErrorInvalidValue);
     }
 }
@@ -261,16 +264,24 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 on success).  dtype: 0 = fp32,
-// 1 = bf16.  The caller validates shapes; unsupported hd or dtype returns
-// cudaErrorInvalidValue without launching.
+// 1 = bf16; variant: 0 = fma (fp32 at every head dim, bf16 at 8), 1 = wgmma
+// (bf16 at 16–256).  The caller validates shapes; a variant that does not
+// take the dtype or head dim returns cudaErrorInvalidValue without
+// launching, and no variant stands in for another.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, int B, int L, int S, int H, int Hkv,
-                                   int hd, int dtype, int causal, int window,
-                                   float softcap, float scale, void* stream) {
+                                   int hd, int dtype, int variant, int causal,
+                                   int window, float softcap, float scale,
+                                   void* stream) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (variant == 1)
+        return dtype == 1 ? sm90::dispatch_hd(hd, q, k, v, o, B, L, S, H, Hkv, causal,
+                                              window, softcap, scale, st)
+                          : int(cudaErrorInvalidValue);
+    if (variant != 0) return int(cudaErrorInvalidValue);
     if (dtype == 0)
-        return dispatch_hd<float>(hd, q, k, v, o, B, L, S, H, Hkv, causal, window, softcap, scale, st);
-    if (dtype == 1)
-        return dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, B, L, S, H, Hkv, causal, window, softcap, scale, st);
+        return dispatch_hd_f32(hd, q, k, v, o, B, L, S, H, Hkv, causal, window, softcap, scale, st);
+    if (dtype == 1 && hd == 8)
+        return launch<__nv_bfloat16, 8>(q, k, v, o, B, L, S, H, Hkv, causal, window, softcap, scale, st);
     return int(cudaErrorInvalidValue);
 }

@@ -1,10 +1,18 @@
-"""Launch of the hand-written Hopper flash-attention forward kernel.
+"""Launch of the hand-written Hopper flash-attention forward kernels.
 
-The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
-``repro/kernels/flash_attention.py::flash_attention_fwd``; its note says what
-bounds it on the card and how the design answers.  This module validates the
-tensors, allocates the output and launches on the calling thread's current
-stream; :func:`repro_torch.kernels.ops.flash_attention` is the public wrapper.
+The kernels replace the Pallas TPU kernel
+``repro/kernels/flash_attention.py::flash_attention_fwd``, in two variants
+that :func:`variant` picks by head dim and dtype:
+
+* ``"wgmma"`` (``csrc/flash_attention_sm90.cuh``): bf16 at head dims 16–256,
+  both products on the tensor cores, K/V loaded by TMA;
+* ``"fma"`` (``csrc/flash_attention.cu``): fp32 at every head dim and bf16 at
+  head dim 8, fp32 FMA products on the CUDA cores.
+
+Each source's note says what bounds it on the card and how the design
+answers.  This module validates the tensors, allocates the output and
+launches on the calling thread's current stream;
+:func:`repro_torch.kernels.ops.flash_attention` is the public wrapper.
 """
 
 from __future__ import annotations
@@ -16,12 +24,23 @@ import torch
 from repro_torch.kernels import build
 
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+WGMMA_HEAD_DIMS = (16, 32, 64, 128, 256)
+VARIANTS = ("wgmma", "fma")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_VARIANT_CODE = {"fma": 0, "wgmma": 1}
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int
-_ARGTYPES = [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i,
+_ARGTYPES = [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i,
              ctypes.c_float, ctypes.c_float, _p]
+
+
+def variant(hd: int, dtype: torch.dtype) -> str:
+    """The kernel a call of head dim ``hd`` in ``dtype`` runs: ``"wgmma"`` for
+    bf16 at 16–256, ``"fma"`` for everything else :data:`HEAD_DIMS` allows."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not supported; kernel has {HEAD_DIMS}")
+    return "wgmma" if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS else "fma"
 
 
 def _lib():
@@ -51,8 +70,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s_len, hkv = k.shape[1], k.shape[2]
     if k.shape[0] != b or k.shape[3] != hd or h % hkv:
         raise ValueError(f"incompatible q {tuple(q.shape)} and k/v {tuple(k.shape)}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not supported; kernel has {HEAD_DIMS}")
+    kind = variant(hd, q.dtype)
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v must share one of {list(_DTYPE_CODE)}; got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -61,13 +79,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"{name} must be on q's CUDA device; got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if kind == "wgmma" and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary for TMA")
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     b, l, s_len, h, hkv, hd, _DTYPE_CODE[q.dtype], int(causal),
-                     int(window) if causal else 0, float(softcap),
+                     b, l, s_len, h, hkv, hd, _DTYPE_CODE[q.dtype], _VARIANT_CODE[kind],
+                     int(causal), int(window) if causal else 0, float(softcap),
                      1.0 / (hd ** 0.5), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: cudaError {err}")
+        raise RuntimeError(f"flash_attention_fwd ({kind}) launch failed: cudaError {err}")
     return out

@@ -23,18 +23,24 @@ from repro_torch.kernels import ssd_scan as _ssd
 
 #: kernel name → launches since the last :func:`reset_launches`
 launches: Dict[str, int] = {"flash_attention": 0, "ssd_scan": 0, "rglru_scan": 0}
+#: flash-attention variant (:func:`flash_attention.variant`) → its share of
+#: ``launches["flash_attention"]``
+flash_variant_launches: Dict[str, int] = dict.fromkeys(_fa.VARIANTS, 0)
 _count_lock = threading.Lock()      # decode replicas launch from worker threads
 
 
 def reset_launches() -> None:
     with _count_lock:
-        for name in launches:
-            launches[name] = 0
+        for counts in (launches, flash_variant_launches):
+            for name in counts:
+                counts[name] = 0
 
 
-def _counted(name: str) -> None:
+def _counted(name: str, flash_variant: str = "") -> None:
     with _count_lock:
         launches[name] += 1
+        if flash_variant:
+            flash_variant_launches[flash_variant] += 1
 
 
 def _check_device(name: str, t: torch.Tensor) -> None:
@@ -58,7 +64,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check_device("flash_attention", q)
     out = _fa.flash_attention_fwd(q, k, v, causal=causal, window=window,
                                   softcap=softcap)
-    _counted("flash_attention")
+    _counted("flash_attention", _fa.variant(q.shape[3], q.dtype))
     return out
 
 

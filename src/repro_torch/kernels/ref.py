@@ -35,6 +35,23 @@ FLASH_HD256_CASES = [
     (1, 1024, 16, 1, 256, 256, 0.0, "bfloat16", 2e-2),
 ]
 
+#: bf16 cases of the wgmma variant beyond the reference's, all at tol 2e-2:
+#: (b, l, h, hkv, hd, causal, window, softcap).  Every head dim it takes, GQA
+#: groups 1–16, L a multiple of 64 but not of 128 (192, 576) or of neither
+#: (100), window, softcap and the non-causal path.
+FLASH_WGMMA_CASES = [
+    (2, 192, 8, 2, 16, True, 0, 0.0),
+    (1, 576, 8, 1, 32, True, 0, 0.0),
+    (2, 100, 8, 8, 64, True, 0, 0.0),
+    (1, 192, 16, 1, 128, True, 64, 0.0),
+    (1, 576, 32, 4, 128, True, 0, 50.0),
+    (2, 192, 8, 2, 128, False, 0, 0.0),
+    (1, 100, 8, 1, 128, False, 0, 0.0),
+    (1, 576, 4, 1, 256, True, 0, 30.0),
+    (1, 100, 4, 2, 256, True, 40, 0.0),
+    (2, 192, 16, 1, 256, True, 0, 0.0),
+]
+
 #: tests/test_kernels.py SSD_CASES: (bt, l, h, p, n, chunk, dtype, tol)
 SSD_CASES = [
     (2, 128, 4, 16, 32, 32, "float32", 2e-4),

@@ -46,6 +46,35 @@ def test_flash_kernel_vs_plain(card, b, l, h, hkv, hd, window, cap, dtype, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,l,h,hkv,hd,causal,window,cap", ref.FLASH_WGMMA_CASES)
+def test_flash_wgmma_variant_vs_plain(card, b, l, h, hkv, hd, causal, window, cap):
+    """bf16 on the tensor cores: every head dim 16–256, GQA groups 1–16, L not
+    a multiple of the 128-row tile, window, softcap and the non-causal path."""
+    rng = np.random.default_rng(l + h + hd)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, l, n, hd), np.float32))
+               .to(torch.bfloat16).to(card) for n in (h, hkv, hkv))
+    n0 = dict(ops.flash_variant_launches)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window, softcap=cap,
+                              block_q=l, block_k=l)
+    torch.cuda.synchronize()
+    assert ops.flash_variant_launches == {**n0, "wgmma": n0["wgmma"] + 1}
+    expect = ref.flash_attention_ref(q, k, v, causal=causal, window=window, softcap=cap)
+    np.testing.assert_allclose(out.float().cpu().numpy(), expect.float().cpu().numpy(),
+                               atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,dtype,want", [(64, "float32", "fma"), (8, "bfloat16", "fma"),
+                                           (128, "bfloat16", "wgmma")])
+def test_flash_variant_launch_counts(card, hd, dtype, want):
+    q = torch.randn((1, 128, 4, hd), device=card).to(getattr(torch, dtype))
+    n0 = dict(ops.flash_variant_launches)
+    ops.flash_attention(q, q[:, :, :2].contiguous(), q[:, :, :2].contiguous())
+    torch.cuda.synchronize()
+    assert ops.flash_variant_launches == {**n0, want: n0[want] + 1}
+
+
+@pytest.mark.cuda
 def test_flash_kernel_refuses_what_it_does_not_take(card):
     q = torch.zeros((1, 64, 4, 64), device=card)
     strided = torch.zeros((1, 4, 64, 64), device=card).transpose(1, 2)

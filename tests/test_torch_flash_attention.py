@@ -1,7 +1,10 @@
 """Port flash attention: the plain PyTorch version against the JAX package's
 Pallas kernel (interpret mode) and its dense oracle, on the reference's
-kernel cases, and the wrapper's contract.  The CUDA kernel itself is held
-against the plain version on a card in ``test_torch_cuda.py``."""
+kernel cases; the wrapper's contract and variant choice; the wgmma
+variant's numerics emulated on the CPU.  The CUDA kernels themselves are
+held against the plain version on a card in ``test_torch_cuda.py``."""
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -95,3 +98,79 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         build.build_all(["flash_attention"])
     assert not (tmp_path / "kernels").exists() or not any((tmp_path / "kernels").iterdir())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+def test_variant_by_head_dim_and_dtype(hd, dtype):
+    """bf16 at head dims 16–256 runs on the tensor cores; fp32 (whose 2e-5
+    tolerance rules out TF32) and head dim 8 keep the FMA kernel."""
+    want = "wgmma" if dtype == torch.bfloat16 and hd >= 16 else "fma"
+    assert fa.variant(hd, dtype) == want
+    assert want in fa.VARIANTS and want in ops.flash_variant_launches
+
+
+def _wgmma_numerics(q, k, v, *, causal, window, softcap):
+    """The wgmma kernel's arithmetic on the CPU: fp32 logits, an online
+    softmax over key tiles of 128 (64 at hd 256), the denominator summed from
+    fp32 p, p rounded to bf16 for P·V with fp32 accumulation, bf16 output."""
+    b, l, h, hd = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    bk = 64 if hd == 256 else 128
+    kf = k.float().repeat_interleave(h // hkv, dim=2)
+    vf = v.float().repeat_interleave(h // hkv, dim=2)
+    logits = torch.einsum("blhd,bshd->bhls", q.float(), kf) * (1.0 / math.sqrt(hd))
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
+    if causal:
+        mask = attention.make_causal_mask(l, s, window=window)
+        logits = torch.where(mask, logits, torch.tensor(attention.NEG_INF))
+    m = torch.full((b, h, l), attention.NEG_INF)
+    den = torch.zeros((b, h, l))
+    acc = torch.zeros((b, h, l, hd))
+    for k0 in range(0, s, bk):
+        tile = logits[..., k0:k0 + bk]
+        m_new = torch.maximum(m, tile.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(tile - m_new[..., None])
+        den = den * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhls,bshd->bhld", p.bfloat16().float(), vf[:, k0:k0 + bk])
+        m = m_new
+    out = acc / torch.clamp(den, min=1e-37)[..., None]
+    return out.permute(0, 2, 1, 3).bfloat16()
+
+
+# (b, l, h, hkv, hd, causal, window, softcap): the bf16 reference cases, the
+# two serving shapes at batch 1 (yi-9b, recurrentgemma-9b) and the wgmma cases
+_WGMMA_EMULATED = (
+    [(b, l, h, hkv, hd, True, w, cap)
+     for (b, l, h, hkv, hd, w, cap, dt, _) in FLASH_CASES if dt == "bfloat16"]
+    + [(1, 512, 32, 4, 128, True, 0, 0.0), (1, 512, 16, 1, 256, True, 0, 0.0)]
+    + ref.FLASH_WGMMA_CASES)
+
+
+@pytest.mark.parametrize("b,l,h,hkv,hd,causal,window,cap", _WGMMA_EMULATED)
+def test_wgmma_numerics_within_bf16_tolerance(b, l, h, hkv, hd, causal, window, cap):
+    """Rounding p to bf16 before P·V keeps the wgmma variant within the bf16
+    tolerance (2e-2) of the plain version, so p needs no two-term split."""
+    qn, kn, vn = _inputs(b, l, h, hkv, hd, seed=l + h + hd)
+    q, k, v = (_t(x, "bfloat16") for x in (qn, kn, vn))
+    got = _wgmma_numerics(q, k, v, causal=causal, window=window, softcap=cap)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window, softcap=cap)
+    assert got.shape == want.shape and bool(torch.isfinite(got.float()).all())
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-2, rtol=2e-2)
+
+
+def test_build_target_tracks_headers(monkeypatch, tmp_path):
+    """An edited header under csrc/ names a new library, so it is rebuilt."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "flash_attention.cu").write_text('#include "part.cuh"\n')
+    (csrc / "part.cuh").write_text("// one\n")
+    monkeypatch.setattr(build, "CSRC", csrc)
+    first = build._target("flash_attention")
+    (csrc / "part.cuh").write_text("// two\n")
+    assert build._target("flash_attention") != first
+    (csrc / "part.cuh").write_text("// one\n")
+    assert build._target("flash_attention") == first
