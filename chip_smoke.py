@@ -8,7 +8,8 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
               all started together), print the build seconds and each
               kernel instantiation's registers and spills from ptxas (the
               full report goes to chiprun_out/build_ptxas.log), and fail if
-              a wgmma instantiation spills.
+              a tensor-core instantiation (flash's wgmma, the SSD scan's
+              mma) spills.
 2. kernels  — each kernel on the card against its plain PyTorch version on
               the same inputs, at the stated tolerances:
               flash attention: the 7 reference cases, block-shape
@@ -18,13 +19,18 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
               dim 16–256, GQA groups 1–16, L = 100, 192, 576, non-causal);
               both serving shapes must run the wgmma variant, and the FMA
               variant is timed in fp32 at the yi-9b shape;
-              ssd_scan: the 4 reference cases with the final state, chunk
-              invariance, ragged rejection, the mamba2-370m serving shape;
+              ssd_scan: the 4 reference cases and the mma variant's bf16
+              cases (P 16–128, N 16–128, Q 16–256, 1–8 chunks, a stress
+              case whose cum passes −100), all with the final state at
+              2e-4, chunk invariance, ragged rejection, the mamba2-370m
+              serving shape, which must run the mma variant, and the fma
+              variant timed in fp32 at that shape;
               rglru_scan: the 4 reference cases, the long carry, ragged
               rejection, the recurrentgemma-9b serving shape.
               Each serving shape is timed: kernel / plain / library / bound,
-              as device time from a torch.profiler trace (the host-clock
-              time of a wrapper call is reported beside it as call_ms).
+              as device time from a torch.profiler trace, split by device
+              kernel in ms_by_kernel (the host-clock time of a wrapper call
+              is reported beside it as call_ms).
 3. model    — the yi-9b, mamba2-370m and recurrentgemma-9b smoke configs in
               fp32 on the card (kernels) and on the CPU (plain): prefill
               logits within 1e-4, equal greedy tokens.
@@ -33,7 +39,8 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
               tokens, for yi-9b, mamba2-370m and recurrentgemma-9b; each
               kernel's launches counted from 0 per arch and required to be
               exactly what one prefill of that arch runs, every flash launch
-              of the bf16 serving path by the wgmma variant.
+              of the bf16 serving path by the wgmma variant and every
+              ssd_scan launch by the mma variant.
 5. workflow — the ByRedundant serve workflow at full width on the port's
               LocalRunner, for yi-9b and mamba2-370m: exactly one detok
               completion, launches per decode replica, and the committed
@@ -65,6 +72,7 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.convert import tree_to  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch.profile_serve import _union_us  # noqa: E402
 from repro_torch.models import attention, lm, rglru, ssm  # noqa: E402
@@ -87,10 +95,14 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 FLASH_SOURCES = {"wgmma": "src/repro_torch/kernels/csrc/flash_attention_sm90.cuh",
                  "fma": "src/repro_torch/kernels/csrc/flash_attention.cu"}
 
+#: the SSD-scan variant's source
+SSD_SOURCES = {"mma": "src/repro_torch/kernels/csrc/ssd_scan_sm90.cuh",
+               "fma": "src/repro_torch/kernels/csrc/ssd_scan.cu"}
+
 KERNELS = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention_sm90.cuh",
                         "src/repro/kernels/flash_attention.py:96"),
-    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan_sm90.cuh",
                  "src/repro/kernels/ssd_scan.py:75"),
     "rglru_scan": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
                    "src/repro/kernels/rglru_scan.py:60"),
@@ -118,21 +130,40 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def _device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Device time per call: the union of the device intervals in a
-    torch.profiler trace of ``iters`` calls, over ``iters``."""
+def _device_profile(fn, iters: int = 20, warmup: int = 3):
+    """Device time per call, the union of the device intervals in a
+    torch.profiler trace of ``iters`` calls over ``iters``, and each device
+    kernel's time per call by name (arguments dropped).  A trace that comes
+    back without device events (seen once in a run of many traces) is taken
+    again; after three such traces the time is taken with CUDA events, host
+    gaps included, and there is no split by kernel (None)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
-    if not spans:
-        _fail("torch.profiler recorded no device time")
-    return _union_us(spans) / 1e3 / iters
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if events:
+            break
+        _log("[kernels] torch.profiler recorded no device time; tracing again")
+    else:
+        _log("[kernels] no device time in three traces: timing with CUDA events")
+        return _time_ms(fn, iters, 0), None
+    by_kernel = {}
+    for e in events:
+        name = e.name.removeprefix("void ").replace("(anonymous namespace)::", "")
+        name = name.split("(")[0]
+        by_kernel[name] = by_kernel.get(name, 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3 / iters
+    spans = [(e.time_range.start, e.time_range.end) for e in events]
+    return _union_us(spans) / 1e3 / iters, by_kernel
+
+
+def _device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    return _device_profile(fn, iters, warmup)[0]
 
 
 def _gen(seed: int) -> torch.Generator:
@@ -174,17 +205,21 @@ def _row(name: str, err: float, kernel, plain, nbytes: int, flops: int,
     bytes_ms = nbytes / HBM_BYTES_S * 1e3
     ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
     source, replaces = KERNELS[name]
-    kernel_ms, plain_ms = _device_ms(kernel), _device_ms(plain)
+    (kernel_ms, by_kernel), plain_ms = _device_profile(kernel), _device_ms(plain)
     library_ms = _device_ms(library) if library is not None else None
     row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
            "launches": None, "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "library_ms": library_ms, "shape": shape, "call_ms": _time_ms(kernel)}
+           "library_ms": library_ms, "shape": shape, "call_ms": _time_ms(kernel),
+           "ms_by_kernel": by_kernel}
     lib = f"{library_ms:.4f}" if library_ms is not None else "null"
+    split = (", ".join(f"{k} {v:.4f}" for k, v in by_kernel.items()) if by_kernel
+             else "not traced")
     _log(f"[kernels] {name} at {shape}: kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
          f"library_ms={lib} bound_ms={row['bound_ms']:.4f} ({row['bound_by']}: "
-         f"{nbytes} B, {flops} FLOP); call_ms={row['call_ms']:.4f} (host clock)")
+         f"{nbytes} B, {flops} FLOP); call_ms={row['call_ms']:.4f} (host clock); "
+         f"by device kernel: {split}")
     return row
 
 
@@ -221,8 +256,8 @@ def phase_build() -> dict:
         for fn, regs, stores, loads in _ptxas_report(i["log"]):
             _log(f"[build]   {fn}: {regs} registers, {stores} bytes spill stores, "
                  f"{loads} bytes spill loads")
-            if "wgmma" in fn and (stores or loads):
-                _fail(f"wgmma instantiation {fn} spills ({stores}/{loads} bytes)")
+            if ("wgmma" in fn or "ssd_sm90" in fn) and (stores or loads):
+                _fail(f"tensor-core instantiation {fn} spills ({stores}/{loads} bytes)")
     return info
 
 
@@ -309,24 +344,84 @@ def phase_flash() -> dict:
     return row
 
 
-def _ssd_inputs(bt, l, h, p, n, dtype, seed):
-    """The reference test's recipe: dt = softplus(N(0,1)), a = −exp(linspace)."""
+def _ssd_inputs(bt, l, h, p, n, dtype, seed, dt0=None):
+    """The reference test's recipe, dt = softplus(N(0,1)) and a =
+    −exp(linspace(0, 2)); with ``dt0`` the model's, dt = softplus(N(0,1) +
+    log(expm1(dt0))) and a = −linspace(1, 16), as ref.SSD_MMA_CASES."""
     g = _gen(seed)
     rnd = lambda *s: torch.randn(s, generator=g, device="cuda")  # noqa: E731
     x = rnd(bt, l, h, p).to(dtype)
-    dt = torch.nn.functional.softplus(rnd(bt, l, h))
-    a = -torch.exp(torch.linspace(0.0, 2.0, h, device="cuda"))
+    if dt0 is None:
+        dt = torch.nn.functional.softplus(rnd(bt, l, h))
+        a = -torch.exp(torch.linspace(0.0, 2.0, h, device="cuda"))
+    else:
+        dt = torch.nn.functional.softplus(rnd(bt, l, h) + math.log(math.expm1(dt0)))
+        a = -torch.linspace(1.0, 16.0, h, device="cuda")
     return x, dt, a, rnd(bt, l, n).to(dtype), rnd(bt, l, n).to(dtype)
+
+
+def _ssd_case(what: str, args, chunk: int, tol: float) -> str:
+    """One call with the final state against the plain version: y at
+    ``tol``, the state at 2e-4; returns the variant that ran."""
+    n0 = dict(ops.ssd_variant_launches)
+    y, h_last = ops.ssd_scan(*args, chunk=chunk, return_state=True)
+    ran = [k for k in n0 if ops.ssd_variant_launches[k] != n0[k]]
+    y_ref, h_ref = ref.ssd_chunked(*args, min(chunk, args[0].shape[1]))
+    _check(f"{what} ({'/'.join(ran)})", y, y_ref, tol, tol)
+    _check(f"{what} final state", h_last, h_ref, 2e-4, 2e-4)
+    return ran[0]
+
+
+def _ssd_at(dtype: torch.dtype) -> dict:
+    """ssd_scan at the mamba2-370m prefill shape (2 chunks of 256, so the
+    carry is used; A = −linspace(1, 16), dt = softplus(N(0,1) + dt_bias) as
+    the model's init), timed against its plain version."""
+    _, nh, p, n = ssm.dims(MAMBA)
+    q = MAMBA.ssm.chunk
+    want = ssd.variant(p, n, q, dtype)
+    args = _ssd_inputs(SERVE_BATCH, SERVE_PROMPT, nh, p, n, dtype, seed=4, dt0=0.01)
+    n0 = dict(ops.ssd_variant_launches)
+    y, h_last = ops.ssd_scan(*args, chunk=q, return_state=True)
+    if ops.ssd_variant_launches != {**n0, want: n0[want] + 1}:
+        _fail(f"ssd_scan at the mamba2-370m shape {dtype} did not run the {want} variant")
+    y_ref, h_ref = ref.ssd_chunked(*args, q)
+    tol = 5e-2 if dtype == torch.bfloat16 else 2e-4
+    err = _check(f"ssd_scan ({want}) at the mamba2-370m shape {list(args[0].shape)} "
+                 f"{str(dtype)[6:]}", y, y_ref, tol, tol)
+    _check(f"ssd_scan ({want}) final state at the mamba2-370m shape", h_last, h_ref,
+           2e-4, 2e-4)
+    # products the function needs: C·Bᵀ over the causal pairs of each
+    # (batch, chunk), shared by the heads; per head the masked scores times
+    # X, C·h_prevᵀ, and the state update Xᵀ(B ⊙ w)
+    nc, pairs = SERVE_PROMPT // q, q * (q + 1) // 2
+    flops = (2 * SERVE_BATCH * nc * pairs * n
+             + 2 * SERVE_BATCH * nc * nh * (pairs * p + 2 * q * p * n))
+    row = _row("ssd_scan", err, lambda: ops.ssd_scan(*args, chunk=q, return_state=True),
+               lambda: ref.ssd_chunked(*args, q), _nbytes(*args, y, h_last), flops,
+               dtype, None, f"x {list(args[0].shape)}, B/C {list(args[3].shape)}, chunk {q} "
+               f"{str(dtype)[6:]}")
+    row["variant"], row["source"] = want, SSD_SOURCES[want]
+    row["library_null_because"] = "no PyTorch call computes the chunked SSD scan"
+    return row
 
 
 def phase_ssd() -> dict:
     for (bt, l, h, p, n, chunk, dtype_name, tol) in ref.SSD_CASES:
         args = _ssd_inputs(bt, l, h, p, n, getattr(torch, dtype_name), seed=l + p)
-        y, h_last = ops.ssd_scan(*args, chunk=chunk, return_state=True)
-        y_ref, h_ref = ref.ssd_chunked(*args, min(chunk, l))
-        what = f"ssd_scan bt={bt} l={l} h={h} p={p} n={n} chunk={chunk} {dtype_name}"
-        _check(what, y, y_ref, tol, tol)
-        _check(what + " final state", h_last, h_ref, 2e-4, 2e-4)
+        _ssd_case(f"ssd_scan bt={bt} l={l} h={h} p={p} n={n} chunk={chunk} {dtype_name}",
+                  args, chunk, tol)
+    for case in ref.SSD_MMA_CASES:
+        bt, l, h, p, n, chunk = case
+        args = _ssd_inputs(bt, l, h, p, n, torch.bfloat16, seed=l + p, dt0=ref.ssd_dt0(case))
+        if case == ref.SSD_STRESS_CASE:
+            cum = torch.cumsum((args[1] * args[2]).reshape(bt, l // chunk, chunk, h), dim=2)
+            _log(f"[kernels] ssd_scan stress case: min cum in a chunk {float(cum.min()):.1f}")
+            if not -200.0 < float(cum.min()) < -100.0:
+                _fail("the stress case's cum does not lie between -200 and -100")
+        ran = _ssd_case(f"ssd_scan mma case bt={bt} l={l} h={h} p={p} n={n} chunk={chunk} "
+                        f"bfloat16 dt0={ref.ssd_dt0(case)}", args, chunk, 5e-2)
+        if ran != "mma":
+            _fail(f"ssd_scan case {case} ran the {ran} variant, not mma")
     args = _ssd_inputs(1, 256, 2, 16, 32, torch.float32, seed=3)
     _check("ssd_scan chunk invariance (32 vs 128)", ops.ssd_scan(*args, chunk=32),
            ops.ssd_scan(*args, chunk=128), 5e-4, 5e-4)
@@ -337,30 +432,13 @@ def phase_ssd() -> dict:
     else:
         _fail("ssd_scan ragged L was not rejected")
 
-    # the mamba2-370m prefill shape: 2 chunks of 256, so the carry is used;
-    # A = −linspace(1, 16) and dt = softplus(N(0,1) + dt_bias) as the model's init
-    _, nh, p, n = ssm.dims(MAMBA)
-    dtype, q = MAMBA.cdtype, MAMBA.ssm.chunk
-    x, _, _, bm, cm = _ssd_inputs(SERVE_BATCH, SERVE_PROMPT, nh, p, n, dtype, seed=4)
-    dt = torch.nn.functional.softplus(
-        torch.randn((SERVE_BATCH, SERVE_PROMPT, nh), generator=_gen(6), device="cuda")
-        + math.log(math.expm1(0.01)))
-    args = (x, dt, -torch.linspace(1.0, 16.0, nh, device="cuda"), bm, cm)
-    y, h_last = ops.ssd_scan(*args, chunk=q, return_state=True)
-    y_ref, h_ref = ref.ssd_chunked(*args, q)
-    err = _check(f"ssd_scan at the mamba2-370m shape {list(args[0].shape)} "
-                 f"{str(dtype)[6:]}", y, y_ref, 5e-2, 5e-2)
-    _check("ssd_scan final state at the mamba2-370m shape", h_last, h_ref, 2e-4, 2e-4)
-    # products the function needs: C·Bᵀ over the causal pairs of each
-    # (batch, chunk), shared by the heads; per head the masked scores times
-    # X, C·h_prevᵀ, and the state update Xᵀ(B ⊙ w)
-    nc, pairs = SERVE_PROMPT // q, q * (q + 1) // 2
-    flops = (2 * SERVE_BATCH * nc * pairs * n
-             + 2 * SERVE_BATCH * nc * nh * (pairs * p + 2 * q * p * n))
-    row = _row("ssd_scan", err, lambda: ops.ssd_scan(*args, chunk=q, return_state=True),
-               lambda: ref.ssd_chunked(*args, q), _nbytes(*args, y, h_last), flops,
-               dtype, None, f"x {list(args[0].shape)}, B/C {list(args[3].shape)}, chunk {q}")
-    row["library_null_because"] = ("no PyTorch call computes the chunked SSD scan")
+    row = _ssd_at(MAMBA.cdtype)
+    if row["variant"] != "mma":
+        _fail("the mamba2-370m serving shape does not take the mma variant")
+    other = _ssd_at(torch.float32)                       # the fma variant's time
+    row["at_other_shapes"] = [{k: other[k] for k in (
+        "shape", "variant", "source", "max_abs_err", "ms", "plain_ms", "bound_ms",
+        "bound_by", "library_ms", "call_ms", "ms_by_kernel")}]
     return row
 
 
@@ -469,9 +547,14 @@ def phase_serve(arch: str) -> dict:
         _fail(f"{arch} generated ids out of range")
     if launches != want or r["launches"] != want or not any(want.values()):
         _fail(f"{arch} launches {launches} != {want} per prefill")
-    variants = dict(ops.flash_variant_launches)
-    if variants != {**dict.fromkeys(fa.VARIANTS, 0), "wgmma": want["flash_attention"]}:
-        _fail(f"{arch} flash launches by variant {variants}: not all wgmma")
+    variants = {"flash_attention": dict(ops.flash_variant_launches),
+                "ssd_scan": dict(ops.ssd_variant_launches)}
+    if variants["flash_attention"] != {**dict.fromkeys(fa.VARIANTS, 0),
+                                       "wgmma": want["flash_attention"]}:
+        _fail(f"{arch} flash launches by variant {variants['flash_attention']}: not all wgmma")
+    if variants["ssd_scan"] != {**dict.fromkeys(ssd.VARIANTS, 0), "mma": want["ssd_scan"]}:
+        _fail(f"{arch} ssd_scan launches by variant {variants['ssd_scan']}: not all mma")
+    _log(f"[serve] {arch} launches by variant {variants}")
     del r, toks
     _free()
     return launches, variants
@@ -522,8 +605,10 @@ def main() -> int:
     phase_workflow("mamba2-370m")
     by_path["recurrentgemma-9b"], by_variant["recurrentgemma-9b"] = phase_serve(
         "recurrentgemma-9b")
-    rows["flash_attention"]["launches_by_variant"] = {
-        v: sum(n[v] for n in by_variant.values()) for v in fa.VARIANTS}
+    for name in ("flash_attention", "ssd_scan"):
+        rows[name]["launches_by_variant"] = {
+            v: sum(n[name][v] for n in by_variant.values())
+            for v in by_variant["yi-9b"][name]}
     for name, row in rows.items():
         row["launches_by_path"] = {arch: n[name] for arch, n in by_path.items() if n[name]}
         row["launches"] = sum(row["launches_by_path"].values())

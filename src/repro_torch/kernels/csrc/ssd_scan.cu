@@ -1,9 +1,13 @@
 // Mamba2 SSD chunked scan for Hopper (sm_90a), hand-written CUDA C++ with a
-// plain C entry point.
+// plain C entry point, in two variants that the caller names: "mma"
+// (ssd_scan_sm90.cuh; bf16 x/B/C at P in {16, 32, 64, 128}, N a multiple of
+// 16 up to 128, Q a multiple of 16 up to 256, chunks in parallel on the
+// tensor cores) and "fma" (this file; every other call, fp32 FMAs on the CUDA
+// cores).
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/ssd_scan.py (ssd_scan +
-// _kernel).  Per (batch, head), over the chunks of Q positions in order, all
-// in fp32:
+// The FMA variant replaces the Pallas TPU kernel src/repro/kernels/ssd_scan.py
+// (ssd_scan + _kernel).  Per (batch, head), over the chunks of Q positions in
+// order, all in fp32:
 //   cum = cumsum(dt·a)                                             [Q]
 //   y   = ((C Bᵀ) ⊙ tril(exp(cum_i − cum_j)) ⊙ dt_j) X              (intra)
 //       + exp(cum_i) ⊙ (C h_prevᵀ)                                  (inter)
@@ -40,6 +44,8 @@
 #include <cuda_runtime.h>
 
 #include <stddef.h>
+
+#include "ssd_scan_sm90.cuh"
 
 namespace {
 
@@ -315,21 +321,30 @@ int dispatch_p(int P, const void* x, const float* dt, const float* a,
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success).  dtype of x, B, C
-// and y: 0 = fp32, 1 = bf16; dt and a are fp32.  h_out may be null.  The
-// caller validates shapes; P outside {16, 32, 64, 128}, N outside [1, 128],
-// Q outside [1, 256] or L % Q != 0 return cudaErrorInvalidValue without
-// launching.
+// Returns the cudaError_t of the first launch that fails (0 on success).
+// dtype of x, B, C and y: 0 = fp32, 1 = bf16; dt and a are fp32.  h_out may
+// be null.  variant: 0 = fma, 1 = mma; the mma variant takes the caller's
+// scratch, states [Bt, L/Q, H, P, N] and cum [Bt, L/Q, H, Q] in fp32 and
+// h_in [Bt, L/Q, H, P, N] in bf16, which the fma variant ignores.  The caller validates shapes; a shape or dtype
+// the named variant does not take (fma: P outside {16, 32, 64, 128}, N
+// outside [1, 128], Q outside [1, 256] or L % Q != 0) returns
+// cudaErrorInvalidValue without launching, and no variant stands in for
+// another.
 extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* a,
                             const void* bm, const void* cm, void* y, void* h_out,
-                            int Bt, int L, int H, int P, int N, int Q, int dtype,
-                            void* stream) {
-    if (N < 1 || N > MAX_N || Q < 1 || Q > MAX_Q || L % Q != 0)
-        return int(cudaErrorInvalidValue);
+                            void* states, void* h_in, void* cum, int Bt, int L, int H, int P,
+                            int N, int Q, int dtype, int variant, void* stream) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const float* dtf = static_cast<const float*>(dt);
     const float* af = static_cast<const float*>(a);
     float* hf = static_cast<float*>(h_out);
+    if (variant == 1)
+        return dtype == 1 ? ssd_sm90::dispatch(P, x, dtf, af, bm, cm, y, hf,
+                                               static_cast<float*>(states), h_in,
+                                               static_cast<float*>(cum), Bt, L, H, N, Q, st)
+                          : int(cudaErrorInvalidValue);
+    if (variant != 0 || N < 1 || N > MAX_N || Q < 1 || Q > MAX_Q || L % Q != 0)
+        return int(cudaErrorInvalidValue);
     if (dtype == 0)
         return dispatch_p<float>(P, x, dtf, af, bm, cm, y, hf, Bt, L, H, N, Q, st);
     if (dtype == 1)

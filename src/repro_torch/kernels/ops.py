@@ -26,21 +26,25 @@ launches: Dict[str, int] = {"flash_attention": 0, "ssd_scan": 0, "rglru_scan": 0
 #: flash-attention variant (:func:`flash_attention.variant`) → its share of
 #: ``launches["flash_attention"]``
 flash_variant_launches: Dict[str, int] = dict.fromkeys(_fa.VARIANTS, 0)
+#: SSD-scan variant (:func:`ssd_scan.variant`) → its share of
+#: ``launches["ssd_scan"]``
+ssd_variant_launches: Dict[str, int] = dict.fromkeys(_ssd.VARIANTS, 0)
+_BY_VARIANT = {"flash_attention": flash_variant_launches, "ssd_scan": ssd_variant_launches}
 _count_lock = threading.Lock()      # decode replicas launch from worker threads
 
 
 def reset_launches() -> None:
     with _count_lock:
-        for counts in (launches, flash_variant_launches):
+        for counts in (launches, *_BY_VARIANT.values()):
             for name in counts:
                 counts[name] = 0
 
 
-def _counted(name: str, flash_variant: str = "") -> None:
+def _counted(name: str, variant: str = "") -> None:
     with _count_lock:
         launches[name] += 1
-        if flash_variant:
-            flash_variant_launches[flash_variant] += 1
+        if variant:
+            _BY_VARIANT[name][variant] += 1
 
 
 def _check_device(name: str, t: torch.Tensor) -> None:
@@ -84,7 +88,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Ten
         return (y, h_last) if return_state else y
     _check_device("ssd_scan", x)
     y, h_last = _ssd.ssd_scan_fwd(x, dt, a, bmat, cmat, q, return_state=return_state)
-    _counted("ssd_scan")
+    _counted("ssd_scan", _ssd.variant(x.shape[3], bmat.shape[-1], q, x.dtype))
     return (y, h_last) if return_state else y
 
 

@@ -60,6 +60,38 @@ SSD_CASES = [
     (1, 128, 4, 16, 32, 32, "bfloat16", 5e-2),
 ]
 
+#: bf16 cases of the SSD kernel's mma variant beyond the reference's, all at
+#: y 5e-2 and final state 2e-4: (bt, l, h, p, n, chunk).  P 16–128, N 16–128
+#: and Q 16–256 (48 and 80 not multiples of the 64-row tile); one chunk, and
+#: 2, 3 and 8 (the long carry); the mamba2-370m serving dims; the last is
+#: :data:`SSD_STRESS_CASE`.  Inputs follow the model's recipe, A =
+#: −linspace(1, 16, H) and dt = softplus(N(0,1) + log(expm1(dt0))) with dt0
+#: from :func:`ssd_dt0`: the reference test's dt ~ 0.8 and A down to −7.4
+#: would drive cum towards −1500 in a chunk of 256, where the ulp of cum
+#: alone nears the state's 2e-4 tolerance, whatever the kernel does.
+SSD_MMA_CASES = [
+    (1, 16, 2, 16, 16, 16),
+    (2, 64, 4, 32, 48, 32),
+    (1, 240, 3, 64, 80, 80),
+    (2, 96, 2, 128, 128, 48),
+    (1, 192, 4, 128, 64, 192),
+    (1, 256, 2, 64, 112, 128),
+    (1, 2048, 2, 16, 32, 256),
+    (2, 512, 8, 64, 128, 256),
+    (1, 512, 4, 32, 64, 256),
+]
+#: the stress case: a larger dt (dt0 0.02) takes the steepest head's cum to
+#: between −100 and −200 within a chunk of 256, past the −88 at which
+#: exp(−cum_j) overflows fp32 (tests assert the range)
+SSD_STRESS_CASE = SSD_MMA_CASES[-1]
+
+
+def ssd_dt0(case: tuple) -> float:
+    """dt0 of an :data:`SSD_MMA_CASES` entry: 0.01, as the port's mamba2
+    init (dt_bias = log(expm1(0.01))), and 0.02 for :data:`SSD_STRESS_CASE`."""
+    return 0.02 if tuple(case) == SSD_STRESS_CASE else 0.01
+
+
 #: tests/test_kernels.py RGLRU_CASES: (bt, l, w, bl, bw, dtype, atol); rtol 1e-3
 RGLRU_CASES = [
     (2, 128, 64, 64, 64, "float32", 1e-5),

@@ -1,9 +1,19 @@
-"""Launch of the hand-written Hopper SSD chunked-scan kernel (Mamba2).
+"""Launch of the hand-written Hopper SSD chunked-scan kernels (Mamba2).
 
-The kernel (``csrc/ssd_scan.cu``) replaces the Pallas TPU kernel
-``repro/kernels/ssd_scan.py::ssd_scan``; its note says what bounds it on the
-card and how the design answers.  This module validates the tensors,
-allocates the outputs and launches on the calling thread's current stream;
+The kernels replace the Pallas TPU kernel
+``repro/kernels/ssd_scan.py::ssd_scan``, in two variants that
+:func:`variant` picks by shape and dtype:
+
+* ``"mma"`` (``csrc/ssd_scan_sm90.cuh``): bf16 x/B/C at P in
+  :data:`HEAD_DIMS`, N a multiple of 16 up to 128 and a chunk Q a multiple of
+  16 up to 256; chunks in parallel, products on the tensor cores, in three
+  launches through fp32 and bf16 scratch that this module allocates;
+* ``"fma"`` (``csrc/ssd_scan.cu``): every other call, one block per (batch,
+  head) walking the chunks, fp32 FMAs on the CUDA cores.
+
+Each source's note says what bounds it on the card and how the design
+answers.  This module validates the tensors, allocates the outputs and the
+scratch and launches on the calling thread's current stream;
 :func:`repro_torch.kernels.ops.ssd_scan` is the public wrapper.
 """
 
@@ -19,11 +29,23 @@ from repro_torch.kernels import build
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_STATE = 128
 MAX_CHUNK = 256
+VARIANTS = ("mma", "fma")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_VARIANT_CODE = {"fma": 0, "mma": 1}
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int
-_ARGTYPES = [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _p]
+_ARGTYPES = [_p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _p]
+
+
+def variant(p: int, n: int, q: int, dtype: torch.dtype) -> str:
+    """The kernel a call of head dim ``p``, state ``n`` and chunk ``q`` in
+    ``dtype`` runs: ``"mma"`` for bf16 with P in :data:`HEAD_DIMS`, N and Q
+    multiples of 16 up to 128 and 256; ``"fma"`` for everything else."""
+    if (dtype == torch.bfloat16 and p in HEAD_DIMS and n % 16 == 0
+            and 16 <= n <= MAX_STATE and q % 16 == 0 and 16 <= q <= MAX_CHUNK):
+        return "mma"
+    return "fma"
 
 
 def _lib():
@@ -48,7 +70,9 @@ def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """x:[Bt,L,H,P] dt:[Bt,L,H] a:[H] B,C:[Bt,L,N] on the card, chunk q.
 
-    Returns (y in x's dtype, the fp32 [Bt,H,P,N] final state or None).
+    Returns (y in x's dtype, the fp32 [Bt,H,P,N] final state or None).  The
+    mma variant also needs 16-byte aligned x, B and C (its copies move 16
+    bytes at a time).
     """
     if x.dim() != 4 or dt.dim() != 3 or a.dim() != 1 or bmat.dim() != 3 \
             or bmat.shape != cmat.shape:
@@ -68,20 +92,33 @@ def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                         f"{x.dtype}, {bmat.dtype}, {cmat.dtype}")
     if dt.dtype != torch.float32 or a.dtype != torch.float32:
         raise TypeError(f"dt and a must be float32; got {dt.dtype}, {a.dtype}")
+    kind = variant(p, n, q, x.dtype)
     for name, t in (("x", x), ("dt", dt), ("a", a), ("B", bmat), ("C", cmat)):
         if t.device.type != "cuda" or t.device != x.device:
             raise ValueError(f"{name} must be on x's CUDA device; got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if kind == "mma":
+        for name, t in (("x", x), ("B", bmat), ("C", cmat)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must start on a 16-byte boundary for the "
+                                 "mma variant")
     y = torch.empty_like(x)
     h_last = (torch.empty((bt, h, p, n), dtype=torch.float32, device=x.device)
               if return_state else None)
+    scratch = [None, None, None]
+    if kind == "mma":       # chunk states S_c, bf16 h_in[c], cumsum(dt·a) per chunk
+        nc = l // q
+        scratch = [torch.empty((bt, nc, h, p, n), dtype=torch.float32, device=x.device),
+                   torch.empty((bt, nc, h, p, n), dtype=torch.bfloat16, device=x.device),
+                   torch.empty((bt, nc, h, q), dtype=torch.float32, device=x.device)]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _lib()(x.data_ptr(), dt.data_ptr(), a.data_ptr(), bmat.data_ptr(),
                      cmat.data_ptr(), y.data_ptr(),
                      h_last.data_ptr() if return_state else None,
-                     bt, l, h, p, n, q, _DTYPE_CODE[x.dtype], stream)
+                     *(t.data_ptr() if t is not None else None for t in scratch),
+                     bt, l, h, p, n, q, _DTYPE_CODE[x.dtype], _VARIANT_CODE[kind], stream)
     if err != 0:
-        raise RuntimeError(f"ssd_scan launch failed: cudaError {err}")
+        raise RuntimeError(f"ssd_scan ({kind}) launch failed: cudaError {err}")
     return y, h_last

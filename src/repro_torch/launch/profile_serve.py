@@ -32,7 +32,7 @@ from repro_torch.models import lm
 #: kernel class by substring of the kernel's name (first match wins)
 CLASSES = [
     ("flash_attention", ("flash_fwd_kernel",)),
-    ("ssd_scan", ("ssd_scan_kernel",)),
+    ("ssd_scan", ("ssd_scan_kernel", "ssd_sm90::")),      # fma; mma's three kernels
     ("rglru_scan", ("rglru_scan_kernel",)),
     ("matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "cublas")),
     ("elementwise/cast", ("elementwise", "copy", "cast", "fill", "where")),

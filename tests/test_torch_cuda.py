@@ -134,9 +134,91 @@ def test_ssd_kernel_vs_plain(card, bt, l, h, p, n, chunk, dtype, tol):
     np.testing.assert_allclose(y.float().cpu().numpy(), y_ref.float().cpu().numpy(),
                                atol=tol, rtol=tol)
     np.testing.assert_allclose(h_last.cpu().numpy(), h_ref.cpu().numpy(),
-                               atol=tol, rtol=tol)
+                               atol=2e-4, rtol=2e-4)
     y_only = ops.ssd_scan(x, dt, a, bm, cm, chunk=chunk)
     np.testing.assert_array_equal(y_only.float().cpu().numpy(), y.float().cpu().numpy())
+
+
+def _ssd_model_inputs(bt, l, h, p, n, dt0, seed, device):
+    """The model's recipe (ref.SSD_MMA_CASES), from numpy as in
+    test_torch_ssm.py: A = −linspace(1, 16, H), dt = softplus(N(0,1) +
+    log(expm1(dt0)))."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((bt, l, h, p), np.float32)
+    z = rng.standard_normal((bt, l, h), np.float32) + np.float32(np.log(np.expm1(dt0)))
+    dt = np.logaddexp(z, 0).astype(np.float32)
+    a = -np.linspace(1.0, 16.0, h).astype(np.float32)
+    bm, cm = (rng.standard_normal((bt, l, n), np.float32) for _ in range(2))
+    bf = lambda v: torch.from_numpy(v).to(torch.bfloat16).to(device)  # noqa: E731
+    return bf(x), torch.from_numpy(dt).to(device), torch.from_numpy(a).to(device), \
+        bf(bm), bf(cm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ref.SSD_MMA_CASES, ids=str)
+def test_ssd_mma_variant_vs_plain(card, case):
+    """bf16 on the tensor cores: P 16–128, N 16–128, Q 16–256, one to 8
+    chunks, the serving dims and the stress case; y at 5e-2, state at 2e-4."""
+    bt, l, h, p, n, chunk = case
+    x, dt, a, bm, cm = _ssd_model_inputs(bt, l, h, p, n, ref.ssd_dt0(case), l + p, card)
+    if case == ref.SSD_STRESS_CASE:
+        cum = torch.cumsum((dt * a).reshape(bt, l // chunk, chunk, h), dim=2)
+        assert -200.0 < float(cum.min()) < -100.0
+    n0 = dict(ops.ssd_variant_launches)
+    y, h_last = ops.ssd_scan(x, dt, a, bm, cm, chunk=chunk, return_state=True)
+    torch.cuda.synchronize()
+    assert ops.ssd_variant_launches == {**n0, "mma": n0["mma"] + 1}
+    y_ref, h_ref = ref.ssd_chunked(x, dt, a, bm, cm, chunk)
+    np.testing.assert_allclose(y.float().cpu().numpy(), y_ref.float().cpu().numpy(),
+                               atol=5e-2, rtol=5e-2)
+    np.testing.assert_allclose(h_last.cpu().numpy(), h_ref.cpu().numpy(),
+                               atol=2e-4, rtol=2e-4)
+    y_only = ops.ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+    np.testing.assert_array_equal(y_only.float().cpu().numpy(), y.float().cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_ssd_mma_where_cum_rises(card):
+    """Heads with a > 0 (cum rises within a chunk) take exp(cum_i − cum_j) in
+    every tile: the factored decay below a block's rows holds only for a ≤ 0
+    and dt ≥ 0.  cum rises by under 1 here; where it rises by several
+    units, outputs grow and cancel beyond what the bf16 scores hold
+    (test_torch_ssm.py::test_rising_cum_limits_the_mma_numerics)."""
+    x, dt, _, bm, cm = _ssd_model_inputs(1, 512, 4, 32, 64, 0.01, 9, card)
+    a = torch.tensor([-8.0, -1.0, 0.05, 0.2], device=card)
+    y, h_last = ops.ssd_scan(x, dt, a, bm, cm, chunk=256, return_state=True)
+    y_ref, h_ref = ref.ssd_chunked(x, dt, a, bm, cm, 256)
+    np.testing.assert_allclose(y.float().cpu().numpy(), y_ref.float().cpu().numpy(),
+                               atol=5e-2, rtol=5e-2)
+    np.testing.assert_allclose(h_last.cpu().numpy(), h_ref.cpu().numpy(),
+                               atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,n,chunk,dtype,want", [
+    (64, 128, 256, "bfloat16", "mma"), (16, 32, 32, "bfloat16", "mma"),
+    (64, 128, 256, "float32", "fma"), (64, 8, 64, "bfloat16", "fma"),
+    (32, 64, 40, "bfloat16", "fma")])
+def test_ssd_variant_launch_counts(card, p, n, chunk, dtype, want):
+    x, dt, a, bm, cm = _ssd_inputs(1, 2 * chunk, 2, p, n, dtype, 5, card)
+    n0, k0 = dict(ops.ssd_variant_launches), ops.launches["ssd_scan"]
+    ops.ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.ssd_variant_launches == {**n0, want: n0[want] + 1}
+    assert ops.launches["ssd_scan"] == k0 + 1
+
+
+@pytest.mark.cuda
+def test_ssd_mma_refuses_misaligned_inputs(card):
+    """The mma variant's copies move 16 bytes: a tensor that starts off a
+    16-byte boundary is refused, not sent to the other variant."""
+    x, dt, a, bm, cm = _ssd_inputs(1, 64, 2, 64, 32, "bfloat16", 6, card)
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=card)[1:].view(x.shape)
+    shifted.copy_(x)
+    n0 = dict(ops.ssd_variant_launches)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.ssd_scan(shifted, dt, a, bm, cm, chunk=64)
+    assert ops.ssd_variant_launches == n0
 
 
 @pytest.mark.cuda

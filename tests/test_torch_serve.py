@@ -95,6 +95,15 @@ def test_launch_serve_on_cpu(capsys, arch):
     assert r["launches"] == {"flash_attention": 0, "ssd_scan": 0, "rglru_scan": 0}
 
 
+@pytest.mark.parametrize("name", [
+    "void ssd_sm90::ssd_chunk_state_kernel<64>(__nv_bfloat16 const*, float const*)",
+    "ssd_sm90::ssd_state_pass_kernel(float*, float const*, float*, int, int, int, int)",
+    "void ssd_sm90::ssd_chunk_scan_kernel<128>(__nv_bfloat16 const*, float const*)"])
+def test_profile_classes_the_mma_ssd_kernels_as_ssd_scan(name):
+    """The mma variant's three device kernels count as ``ssd_scan`` time."""
+    assert profile_serve.kernel_class(name) == "ssd_scan"
+
+
 def test_profile_serve_on_cpu_reports_host_ops_only():
     r = profile_serve.run("yi-9b", smoke=True, batch=2, prompt_len=16, decode_steps=2,
                           device="cpu")
