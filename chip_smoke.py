@@ -9,7 +9,7 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
               kernel instantiation's registers and spills from ptxas (the
               full report goes to chiprun_out/build_ptxas.log), and fail if
               a tensor-core instantiation (flash's wgmma, the SSD scan's
-              mma) spills.
+              mma) or an RG-LRU scan instantiation spills.
 2. kernels  — each kernel on the card against its plain PyTorch version on
               the same inputs, at the stated tolerances:
               flash attention: the 7 reference cases, block-shape
@@ -17,6 +17,7 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
               dim 256 cases (one with window < L) and the recurrentgemma-9b
               prefill shape; the wgmma variant's own bf16 cases (every head
               dim 16–256, GQA groups 1–16, L = 100, 192, 576, non-causal);
+              a sliding window without causal masking on both variants;
               both serving shapes must run the wgmma variant, and the FMA
               variant is timed in fp32 at the yi-9b shape;
               ssd_scan: the 4 reference cases and the mma variant's bf16
@@ -25,8 +26,13 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
               2e-4, chunk invariance, ragged rejection, the mamba2-370m
               serving shape, which must run the mma variant, and the fma
               variant timed in fp32 at that shape;
-              rglru_scan: the 4 reference cases, the long carry, ragged
-              rejection, the recurrentgemma-9b serving shape.
+              rglru_scan: the 4 reference cases, the long carry, the edge
+              cases (L = 1, 100, 300; W = 6, 100) and a long one (L 4096),
+              each on the variant its width picks, ragged rejection, the
+              recurrentgemma-9b serving shape, which must run the vec4
+              variant, timed also with L2 flushed before each call
+              (ms_cold) and beside torch.add over the same bytes
+              (same_bytes_add_ms: the rate the memory gives this traffic).
               Each serving shape is timed: kernel / plain / library / bound,
               as device time from a torch.profiler trace, split by device
               kernel in ms_by_kernel (the host-clock time of a wrapper call
@@ -39,8 +45,9 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
               tokens, for yi-9b, mamba2-370m and recurrentgemma-9b; each
               kernel's launches counted from 0 per arch and required to be
               exactly what one prefill of that arch runs, every flash launch
-              of the bf16 serving path by the wgmma variant and every
-              ssd_scan launch by the mma variant.
+              of the bf16 serving path by the wgmma variant, every ssd_scan
+              launch by the mma variant and every rglru_scan launch by the
+              vec4 variant.
 5. workflow — the ByRedundant serve workflow at full width on the port's
               LocalRunner, for yi-9b and mamba2-370m: exactly one detok
               completion, launches per decode replica, and the committed
@@ -72,6 +79,7 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.convert import tree_to  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import rglru_scan as rg  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch.profile_serve import _union_us  # noqa: E402
@@ -256,8 +264,8 @@ def phase_build() -> dict:
         for fn, regs, stores, loads in _ptxas_report(i["log"]):
             _log(f"[build]   {fn}: {regs} registers, {stores} bytes spill stores, "
                  f"{loads} bytes spill loads")
-            if ("wgmma" in fn or "ssd_sm90" in fn) and (stores or loads):
-                _fail(f"tensor-core instantiation {fn} spills ({stores}/{loads} bytes)")
+            if ("wgmma" in fn or "ssd_sm90" in fn or "rglru_scan" in fn) and (stores or loads):
+                _fail(f"instantiation {fn} spills ({stores}/{loads} bytes)")
     return info
 
 
@@ -286,6 +294,21 @@ def _flash_wgmma_case(b, l, h, hkv, hd, causal, window, cap) -> None:
     expect = ref.flash_attention_ref(q, k, v, causal=causal, window=window, softcap=cap)
     _check(f"flash wgmma b={b} l={l} h={h} hkv={hkv} hd={hd} causal={causal} "
            f"window={window} cap={cap} bfloat16", out, expect, 2e-2, 2e-2)
+
+
+def _flash_window_case(b, l, h, hkv, hd, window, dtype_name, tol) -> None:
+    """A sliding window without causal masking, as the reference's kernel
+    applies it: fp32 on the fma variant, bf16 on wgmma."""
+    dtype = getattr(torch, dtype_name)
+    q, k, v = _qkv(b, l, h, hkv, hd, dtype, seed=l + hd + window)
+    want = "fma" if dtype == torch.float32 else "wgmma"
+    n0 = dict(ops.flash_variant_launches)
+    out = ops.flash_attention(q, k, v, causal=False, window=window, block_q=l, block_k=l)
+    if ops.flash_variant_launches != {**n0, want: n0[want] + 1}:
+        _fail(f"flash {dtype_name} hd {hd} did not run the {want} variant")
+    expect = ref.flash_attention_plain(q, k, v, causal=False, window=window)
+    _check(f"flash ({want}) non-causal window b={b} l={l} h={h} hkv={hkv} hd={hd} "
+           f"window={window} {dtype_name}", out, expect, tol, tol)
 
 
 def _flash_at(shape, dtype, seed) -> dict:
@@ -319,6 +342,8 @@ def phase_flash() -> dict:
         _flash_case(*case)
     for case in ref.FLASH_WGMMA_CASES:
         _flash_wgmma_case(*case)
+    for case in ref.FLASH_WINDOW_CASES:
+        _flash_window_case(*case)
     q, k, v = _qkv(1, 512, 4, 2, 64, torch.float32, seed=0)
     o1 = ops.flash_attention(q, k, v, block_q=64, block_k=128)
     o2 = ops.flash_attention(q, k, v, block_q=256, block_k=64)
@@ -449,13 +474,37 @@ def _rglru_inputs(bt, l, w, dtype, seed):
     return log_a, b
 
 
+def _rglru_case(bt, l, w, bl, bw, dtype_name, tol) -> None:
+    log_a, b = _rglru_inputs(bt, l, w, getattr(torch, dtype_name), seed=w + l)
+    want = rg.variant(w)
+    n0 = dict(ops.rglru_variant_launches)
+    h = ops.rglru_scan(log_a, b, block_l=bl, block_w=bw)
+    if ops.rglru_variant_launches != {**n0, want: n0[want] + 1}:
+        _fail(f"rglru_scan at W={w} did not run the {want} variant")
+    _check(f"rglru_scan ({want}) bt={bt} l={l} w={w} bl={bl} bw={bw} {dtype_name}", h,
+           ref.rglru_scan_ref(log_a, b), tol, 1e-3)
+
+
+def _cold_ms(fn, kernel: str) -> float:
+    """Device time per call of the device kernels named ``kernel`` with the
+    50 MB L2 flushed before each call by writing a 256 MB buffer; the
+    flush's own kernel is left out.  Without a split by kernel (see
+    _device_profile), the flush's own time is subtracted instead."""
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+
+    def call():
+        flush.fill_(1.0)
+        fn()
+    total, by_kernel = _device_profile(call)
+    if by_kernel is None:
+        return total - _time_ms(lambda: flush.fill_(1.0))
+    return sum(ms for name, ms in by_kernel.items() if kernel in name)
+
+
 def phase_rglru() -> dict:
-    for (bt, l, w, bl, bw, dtype_name, tol) in ref.RGLRU_CASES + [
-            (1, 1024, 32, 64, 32, "float32", 1e-5)]:
-        log_a, b = _rglru_inputs(bt, l, w, getattr(torch, dtype_name), seed=w + l)
-        h = ops.rglru_scan(log_a, b, block_l=bl, block_w=bw)
-        _check(f"rglru_scan bt={bt} l={l} w={w} bl={bl} bw={bw} {dtype_name}", h,
-               ref.rglru_scan_ref(log_a, b), tol, 1e-3)
+    for case in ref.RGLRU_CASES + ref.RGLRU_EDGE_CASES:
+        _rglru_case(*case)
+    log_a, b = _rglru_inputs(1, 128, 64, torch.float32, seed=0)
     try:
         ops.rglru_scan(log_a[:, :100], b[:, :100], block_l=64, block_w=32)
     except ValueError:
@@ -463,15 +512,26 @@ def phase_rglru() -> dict:
     else:
         _fail("rglru_scan ragged L was not rejected")
 
-    # the recurrentgemma-9b prefill shape: 2 sequence tiles of 256
+    # the recurrentgemma-9b prefill shape: 2 of the kernel's 256-step tiles
     log_a, b = _rglru_inputs(SERVE_BATCH, SERVE_PROMPT, rglru.width(RG), torch.float32,
                              seed=5)
+    want = rg.variant(log_a.shape[2])
+    n0 = dict(ops.rglru_variant_launches)
     h = ops.rglru_scan(log_a, b)
-    err = _check(f"rglru_scan at the recurrentgemma-9b shape {list(log_a.shape)}", h,
+    if want != "vec4" or ops.rglru_variant_launches != {**n0, "vec4": n0["vec4"] + 1}:
+        _fail("the recurrentgemma-9b serving shape does not take the vec4 variant")
+    err = _check(f"rglru_scan (vec4) at the recurrentgemma-9b shape {list(log_a.shape)}", h,
                  ref.rglru_scan_ref(log_a, b), 1e-5, 1e-3)
     row = _row("rglru_scan", err, lambda: ops.rglru_scan(log_a, b),
                lambda: ref.rglru_scan_ref(log_a, b), _nbytes(log_a, b, h),
                3 * log_a.numel(), torch.float32, None, f"log_a/b/h {list(log_a.shape)}")
+    row["variant"] = want
+    row["ms_cold"] = _cold_ms(lambda: ops.rglru_scan(log_a, b), "rglru_scan_kernel")
+    out = torch.empty_like(h)
+    row["same_bytes_add_ms"] = _device_ms(lambda: torch.add(log_a, b, out=out))
+    _log(f"[kernels] rglru_scan at {row['shape']} with L2 flushed before each call: "
+         f"ms_cold={row['ms_cold']:.4f}; torch.add over the same bytes (two reads, "
+         f"one write): {row['same_bytes_add_ms']:.4f} ms")
     row["library_null_because"] = ("no PyTorch call computes a first-order linear "
                                    "recurrence")
     return row
@@ -548,12 +608,17 @@ def phase_serve(arch: str) -> dict:
     if launches != want or r["launches"] != want or not any(want.values()):
         _fail(f"{arch} launches {launches} != {want} per prefill")
     variants = {"flash_attention": dict(ops.flash_variant_launches),
-                "ssd_scan": dict(ops.ssd_variant_launches)}
+                "ssd_scan": dict(ops.ssd_variant_launches),
+                "rglru_scan": dict(ops.rglru_variant_launches)}
     if variants["flash_attention"] != {**dict.fromkeys(fa.VARIANTS, 0),
                                        "wgmma": want["flash_attention"]}:
         _fail(f"{arch} flash launches by variant {variants['flash_attention']}: not all wgmma")
     if variants["ssd_scan"] != {**dict.fromkeys(ssd.VARIANTS, 0), "mma": want["ssd_scan"]}:
         _fail(f"{arch} ssd_scan launches by variant {variants['ssd_scan']}: not all mma")
+    if variants["rglru_scan"] != {**dict.fromkeys(rg.VARIANTS, 0),
+                                  "vec4": want["rglru_scan"]}:
+        _fail(f"{arch} rglru_scan launches by variant {variants['rglru_scan']}: "
+              "not all vec4")
     _log(f"[serve] {arch} launches by variant {variants}")
     del r, toks
     _free()
@@ -605,7 +670,7 @@ def main() -> int:
     phase_workflow("mamba2-370m")
     by_path["recurrentgemma-9b"], by_variant["recurrentgemma-9b"] = phase_serve(
         "recurrentgemma-9b")
-    for name in ("flash_attention", "ssd_scan"):
+    for name in rows:
         rows[name]["launches_by_variant"] = {
             v: sum(n[name][v] for n in by_variant.values())
             for v in by_variant["yi-9b"][name]}

@@ -22,8 +22,8 @@
 // product is a full-precision fp32 FMA (no TF32); p stays fp32; masking uses
 // the finite NEG_INF = -2.3819763e38 (with -inf, exp(m_prev - m_next) is
 // NaN on rows whose first processed tile is fully masked); the denominator
-// is clamped at 1e-37.  The window applies only with causal masking, as in
-// the plain version the wrapper falls back to on the CPU.
+// is clamped at 1e-37.  The window applies with or without causal masking,
+// as in the TPU kernel: row i sees keys j > i - window.
 //
 // What bounds it on the card: at the yi-9b prefill shape in fp32 (B=4,
 // L=512, H=32, Hkv=4, hd=128) the bytes it must move (~75 MB) take ~22 us
@@ -132,7 +132,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int ik = 0; ik < nk; ++ik) {
         const int k_lo = ik * BK;
         // uniform across the block: tiles wholly before every row's window
-        if (causal && window && k_lo + BK - 1 <= q_lo - window) continue;
+        if (window && k_lo + BK - 1 <= q_lo - window) continue;
 
         __syncthreads();                 // previous tile's kt/vs/ps reads done
         for (int idx = tid; idx < BK * HD; idx += NTHREADS) {
@@ -175,10 +175,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 float x = s[r][c] * scale;
                 if (softcap != 0.f) x = softcap * tanhf(x / softcap);
                 bool ok = kj < S;
-                if (causal) {
-                    ok = ok && kj <= qi;
-                    if (window) ok = ok && kj > qi - window;
-                }
+                if (causal) ok = ok && kj <= qi;
+                if (window) ok = ok && kj > qi - window;
                 s[r][c] = ok ? x : NEG_INF;
                 mc = fmaxf(mc, s[r][c]);
             }

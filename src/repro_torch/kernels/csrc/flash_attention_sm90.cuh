@@ -7,10 +7,10 @@
 // Replaces, for those calls, the Pallas TPU kernel
 // src/repro/kernels/flash_attention.py (flash_attention_fwd + _kernel).  It
 // computes the same function, not the same blocks: causal mask, sliding
-// window (with causal masking only), tanh softcap (precise tanhf), GQA with
-// kv head h / (H / Hkv), the finite NEG_INF = -2.3819763e38 (a row that is
-// fully masked in a processed tile gets p = 1 there, and the next tile's
-// correction exp(NEG_INF - m) = 0 wipes it, as on the TPU) and the
+// window (with or without causal masking), tanh softcap (precise tanhf),
+// GQA with kv head h / (H / Hkv), the finite NEG_INF = -2.3819763e38 (a row
+// that is fully masked in a processed tile gets p = 1 there, and the next
+// tile's correction exp(NEG_INF - m) = 0 wipes it, as on the TPU) and the
 // denominator clamped at 1e-37.
 //
 // Numerics: S = Q·Kᵀ multiplies bf16 values exactly and sums in fp32; the
@@ -368,7 +368,7 @@ __device__ __forceinline__ void score_tile(float (&sacc)[BK / 2], float (&mx)[2]
     for (int r = 0; r < 2; ++r) {
         const int qi = row0 + 8 * r;
         kmax[r] = causal ? min(qi, S - 1) : S - 1;
-        kmin[r] = causal && window ? qi - window : -1;
+        kmin[r] = window ? qi - window : -1;
     }
     mx[0] = mx[1] = NEG_INF;
 #pragma unroll
@@ -411,11 +411,12 @@ __device__ __forceinline__ Item item_at(int w, int n_bh, int nq, int L, int S, i
     x.q_lo = (nq - 1 - w / n_bh) * C::BQ;
     x.ik_begin = 0;
     x.ik_end = (S + C::BK - 1) / C::BK;
-    if (causal) {
-        x.ik_end = min(x.ik_end, (min(x.q_lo + C::BQ, L) - 1) / C::BK + 1);
-        // tiles wholly before the first row's window are empty for every row
-        if (window) x.ik_begin = max(0, (x.q_lo - window + 1) / C::BK);
-    }
+    if (causal) x.ik_end = min(x.ik_end, (min(x.q_lo + C::BQ, L) - 1) / C::BK + 1);
+    // tiles wholly before the first row's window are empty for every row.  An
+    // item keeps at least one tile: without causal masking, rows past S +
+    // window have no key (outside the contract), and an item without tiles
+    // would never release Q to the producer.
+    if (window) x.ik_begin = min(max(0, (x.q_lo - window + 1) / C::BK), x.ik_end - 1);
     return x;
 }
 
@@ -545,9 +546,8 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
             // scale, softcap, mask, online softmax, on the fragment; only
             // tiles that cross the diagonal, the window's edge or S mask
             const int wg_lo = q_lo + wg * 64;
-            const bool need_mask =
-                k_lo + BK > S ||
-                (causal && (k_lo + BK - 1 > wg_lo || (window && k_lo <= wg_lo + 63 - window)));
+            const bool need_mask = k_lo + BK > S || (causal && k_lo + BK - 1 > wg_lo) ||
+                                   (window && k_lo <= wg_lo + 63 - window);
             float mx[2];
             if (softcap != 0.f) {
                 if (need_mask) score_tile<BK, true, true>(sacc, mx, scale, softcap, inv_cap, k_lo, col0, row0, S, causal, window);

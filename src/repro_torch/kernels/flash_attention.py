@@ -86,7 +86,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                      b, l, s_len, h, hkv, hd, _DTYPE_CODE[q.dtype], _VARIANT_CODE[kind],
-                     int(causal), int(window) if causal else 0, float(softcap),
+                     int(causal), int(window), float(softcap),
                      1.0 / (hd ** 0.5), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd ({kind}) launch failed: cudaError {err}")

@@ -29,7 +29,11 @@ flash_variant_launches: Dict[str, int] = dict.fromkeys(_fa.VARIANTS, 0)
 #: SSD-scan variant (:func:`ssd_scan.variant`) → its share of
 #: ``launches["ssd_scan"]``
 ssd_variant_launches: Dict[str, int] = dict.fromkeys(_ssd.VARIANTS, 0)
-_BY_VARIANT = {"flash_attention": flash_variant_launches, "ssd_scan": ssd_variant_launches}
+#: RG-LRU-scan variant (:func:`rglru_scan.variant`) → its share of
+#: ``launches["rglru_scan"]``
+rglru_variant_launches: Dict[str, int] = dict.fromkeys(_rg.VARIANTS, 0)
+_BY_VARIANT = {"flash_attention": flash_variant_launches, "ssd_scan": ssd_variant_launches,
+               "rglru_scan": rglru_variant_launches}
 _count_lock = threading.Lock()      # decode replicas launch from worker threads
 
 
@@ -59,12 +63,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``block_q``/``block_k`` keep the reference's signature and its contract
     (L and S must tile by them, else ``ValueError``); the CUDA kernel picks
-    its own tile shape inside that contract.
+    its own tile shape inside that contract.  ``window`` applies with or
+    without ``causal``, as in the reference's kernel.
     """
     _fa.check_tiles(q.shape[1], k.shape[1], block_q, block_k)
     if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       softcap=softcap)
+        return ref.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                         softcap=softcap)
     _check_device("flash_attention", q)
     out = _fa.flash_attention_fwd(q, k, v, causal=causal, window=window,
                                   softcap=softcap)
@@ -97,13 +102,15 @@ def rglru_scan(log_a: torch.Tensor, b: torch.Tensor, *, block_l: int = 256,
     """RG-LRU recurrence over axis 1. log_a, b: [B,L,W] → h (fp32).
 
     ``block_l``/``block_w`` keep the reference's signature and its contract
-    (L and W must tile by them, else ``ValueError``); the CUDA kernel runs one
-    thread per (batch, lane) over all of L.  Inputs are taken in fp32.
+    (L and W must tile by them, else ``ValueError``); the CUDA kernel picks
+    its own tiles: a block per (batch, 32 lanes) walks L in tiles of 256
+    steps, its threads splitting each tile into segments of 8 (8 lanes with
+    the ``"scalar"`` variant).  Inputs are taken in fp32.
     """
     _rg.check_tiles(log_a.shape[1], log_a.shape[2], block_l, block_w)
     if log_a.device.type == "cpu":
         return ref.rglru_scan_ref(log_a, b)
     _check_device("rglru_scan", log_a)
     h = _rg.rglru_scan_fwd(log_a.float(), b.float())
-    _counted("rglru_scan")
+    _counted("rglru_scan", _rg.variant(log_a.shape[2]))
     return h

@@ -52,6 +52,19 @@ FLASH_WGMMA_CASES = [
     (2, 192, 16, 1, 256, True, 0, 0.0),
 ]
 
+#: A sliding window without causal masking, which the reference's kernel
+#: applies (``repro/kernels/flash_attention.py:57-58,73-74``): (b, l, h, hkv,
+#: hd, window, dtype, tol), L = S.  fp32 runs the fma variant, bf16 the wgmma
+#: one; windows shorter than a key tile, and L not a multiple of 128.
+FLASH_WINDOW_CASES = [
+    (1, 128, 4, 2, 32, 32, "float32", 2e-5),
+    (2, 256, 8, 2, 64, 64, "float32", 2e-5),
+    (1, 256, 8, 2, 64, 64, "bfloat16", 2e-2),
+    (1, 512, 8, 1, 128, 100, "bfloat16", 2e-2),
+    (2, 192, 8, 2, 128, 32, "bfloat16", 2e-2),
+    (1, 256, 4, 1, 256, 64, "bfloat16", 2e-2),
+]
+
 #: tests/test_kernels.py SSD_CASES: (bt, l, h, p, n, chunk, dtype, tol)
 SSD_CASES = [
     (2, 128, 4, 16, 32, 32, "float32", 2e-4),
@@ -100,6 +113,20 @@ RGLRU_CASES = [
     (1, 128, 128, 32, 128, "bfloat16", 2e-2),
 ]
 
+#: RG-LRU cases beyond the reference's 4, in its layout and at its fp32
+#: tolerance: its long carry (L 1024 over 16 tiles of 64), one step, part
+#: tiles of the kernel's 256 steps (L 100, 300), W = 6 (the scalar variant),
+#: W = 100 (a block with one of its 8 float4 columns in use) and a long
+#: sequence (16 of the kernel's tiles).
+RGLRU_EDGE_CASES = [
+    (1, 1024, 32, 64, 32, "float32", 1e-5),
+    (2, 1, 64, 256, 256, "float32", 1e-5),
+    (2, 100, 64, 256, 256, "float32", 1e-5),
+    (2, 128, 6, 256, 256, "float32", 1e-5),
+    (1, 300, 100, 300, 100, "float32", 1e-5),
+    (1, 4096, 256, 256, 256, "float32", 1e-5),
+]
+
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
@@ -108,6 +135,21 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     l, s = q.shape[1], k.shape[1]
     mask = (_attn.make_causal_mask(l, s, window=window, device=q.device)[None]
             if causal else None)
+    return _attn._sdpa(q, k, v, mask, softcap)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          causal: bool = True, window: int = 0,
+                          softcap: float = 0.0) -> torch.Tensor:
+    """What the flash kernels compute: :func:`flash_attention_ref`, except that
+    ``window`` also applies without ``causal`` (key j seen by query i iff
+    j > i − window), as the reference's Pallas kernel masks it
+    (``repro/kernels/flash_attention.py:57-58,73-74``).  Rows with no key in
+    their window (L ≥ S + window) are outside the contract."""
+    if causal or not window:
+        return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+    mask = _attn.make_window_mask(q.shape[1], k.shape[1], window=window,
+                                  device=q.device)[None]
     return _attn._sdpa(q, k, v, mask, softcap)
 
 

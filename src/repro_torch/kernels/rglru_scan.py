@@ -1,9 +1,16 @@
 """Launch of the hand-written Hopper RG-LRU scan kernel (RecurrentGemma).
 
 The kernel (``csrc/rglru_scan.cu``) replaces the Pallas TPU kernel
-``repro/kernels/rglru_scan.py::rglru_scan``; its note says what bounds it on
-the card and how the design answers.  This module validates the tensors,
-allocates the output and launches on the calling thread's current stream;
+``repro/kernels/rglru_scan.py::rglru_scan``, in two instantiations that
+:func:`variant` picks by width:
+
+* ``"vec4"``: 16-byte (float4) lanes, for W % 4 == 0 (recurrentgemma-9b's
+  4096); needs 16-byte-aligned log_a, b and h;
+* ``"scalar"``: the same kernel with 4-byte lanes, for every other W.
+
+The source's note says what bounds it on the card and how the design
+answers.  This module validates the tensors, allocates the output and
+launches on the calling thread's current stream;
 :func:`repro_torch.kernels.ops.rglru_scan` is the public wrapper.
 """
 
@@ -15,9 +22,18 @@ import torch
 
 from repro_torch.kernels import build
 
+VARIANTS = ("vec4", "scalar")
+_VARIANT_CODE = {"scalar": 0, "vec4": 1}
+
 _p = ctypes.c_void_p
 _i = ctypes.c_int
-_ARGTYPES = [_p, _p, _p, _i, _i, _i, _p]
+_ARGTYPES = [_p, _p, _p, _i, _i, _i, _i, _p]
+
+
+def variant(w: int) -> str:
+    """The instantiation a call of width ``w`` runs: ``"vec4"`` where W % 4
+    == 0, ``"scalar"`` otherwise."""
+    return "vec4" if w % 4 == 0 else "scalar"
 
 
 def _lib():
@@ -48,10 +64,17 @@ def rglru_scan_fwd(log_a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     bt, l, w = log_a.shape
+    kind = variant(w)
     h = torch.empty_like(log_a)
+    if kind == "vec4":
+        for name, t in (("log_a", log_a), ("b", b), ("h", h)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must start on a 16-byte boundary for the "
+                                 "vec4 variant")
     with torch.cuda.device(log_a.device):
         stream = torch.cuda.current_stream(log_a.device).cuda_stream
-        err = _lib()(log_a.data_ptr(), b.data_ptr(), h.data_ptr(), bt, l, w, stream)
+        err = _lib()(log_a.data_ptr(), b.data_ptr(), h.data_ptr(), bt, l, w,
+                     _VARIANT_CODE[kind], stream)
     if err != 0:
-        raise RuntimeError(f"rglru_scan launch failed: cudaError {err}")
+        raise RuntimeError(f"rglru_scan ({kind}) launch failed: cudaError {err}")
     return h

@@ -88,6 +88,15 @@ def make_causal_mask(l: int, s: int, *, window: int = 0, offset: int = 0,
     return m
 
 
+def make_window_mask(l: int, s: int, *, window: int, device=None) -> torch.Tensor:
+    """[l, s] boolean mask of a sliding window without causal masking: query
+    row i sees key j iff j > i − window, later keys included (the flash
+    kernels' non-causal window)."""
+    qpos = torch.arange(l, device=device)[:, None]
+    kpos = torch.arange(s, device=device)[None, :]
+    return kpos > qpos - window
+
+
 def _flash_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   window: int, cap: float) -> torch.Tensor:
     """Causal self-attention through the flash wrapper.

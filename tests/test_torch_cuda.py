@@ -14,7 +14,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.convert import tree_to  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import rglru_scan as rg  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 
 torch.set_num_threads(2)
@@ -106,6 +108,26 @@ def test_flash_kernel_ragged_tiles_and_non_causal(card, l, causal, window):
     out = ops.flash_attention(q, k, v, causal=causal, window=window, block_q=l, block_k=l)
     expect = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     np.testing.assert_allclose(out.cpu().numpy(), expect.cpu().numpy(), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,h,hkv,hd,window,dtype,tol", ref.FLASH_WINDOW_CASES)
+def test_flash_window_without_causal_vs_plain(card, b, l, h, hkv, hd, window, dtype, tol):
+    """Both variants apply the window without causal masking, as the
+    reference's kernel does: fp32 on the fma variant, bf16 at hd 64–256 on
+    wgmma; whole key tiles fall before the later rows' windows."""
+    rng = np.random.default_rng(l + hd + window)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, l, n, hd), np.float32))
+               .to(getattr(torch, dtype)).to(card) for n in (h, hkv, hkv))
+    want = "fma" if dtype == "float32" else "wgmma"
+    assert fa.variant(hd, q.dtype) == want
+    n0 = dict(ops.flash_variant_launches)
+    out = ops.flash_attention(q, k, v, causal=False, window=window, block_q=l, block_k=l)
+    torch.cuda.synchronize()
+    assert ops.flash_variant_launches == {**n0, want: n0[want] + 1}
+    expect = ref.flash_attention_plain(q, k, v, causal=False, window=window)
+    np.testing.assert_allclose(out.float().cpu().numpy(), expect.float().cpu().numpy(),
+                               atol=tol, rtol=tol)
 
 
 def _ssd_inputs(bt, l, h, p, n, dtype, seed, device):
@@ -231,20 +253,46 @@ def test_ssd_kernel_chunk_invariance_and_ragged(card):
         ops.ssd_scan(x[:, :100], dt[:, :100], a, bm[:, :100], cm[:, :100], chunk=64)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("bt,l,w,bl,bw,dtype,tol",
-                         ref.RGLRU_CASES + [(1, 1024, 32, 64, 32, "float32", 1e-5)])
-def test_rglru_kernel_vs_plain(card, bt, l, w, bl, bw, dtype, tol):
-    rng = np.random.default_rng(w + l)
+#: (bt, l, w, bl, bw, dtype, atol): the reference's 4 cases, the edge and
+#: long cases, and the recurrentgemma-9b serving shape
+_RGLRU_CARD_CASES = (ref.RGLRU_CASES + ref.RGLRU_EDGE_CASES
+                     + [(4, 512, 4096, 256, 256, "float32", 1e-5)])
+
+
+def _rglru_inputs(bt, l, w, dtype, seed, device):
+    rng = np.random.default_rng(seed)
     log_a = -torch.nn.functional.softplus(
-        torch.from_numpy(rng.standard_normal((bt, l, w), np.float32))).to(card)
+        torch.from_numpy(rng.standard_normal((bt, l, w), np.float32))).to(device)
     b = (torch.from_numpy(rng.standard_normal((bt, l, w), np.float32))
-         .to(getattr(torch, dtype)).float() * 0.1).to(card)
-    n0 = ops.launches["rglru_scan"]
+         .to(getattr(torch, dtype)).float() * 0.1).to(device)
+    return log_a, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bt,l,w,bl,bw,dtype,tol", _RGLRU_CARD_CASES)
+def test_rglru_kernel_vs_plain(card, bt, l, w, bl, bw, dtype, tol):
+    log_a, b = _rglru_inputs(bt, l, w, dtype, w + l, card)
+    want = rg.variant(w)
+    n0, v0 = ops.launches["rglru_scan"], dict(ops.rglru_variant_launches)
     h = ops.rglru_scan(log_a, b, block_l=bl, block_w=bw)
     torch.cuda.synchronize()
     assert ops.launches["rglru_scan"] == n0 + 1 and h.dtype == torch.float32
+    assert ops.rglru_variant_launches == {**v0, want: v0[want] + 1}
     np.testing.assert_allclose(h.cpu().numpy(), ref.rglru_scan_ref(log_a, b).cpu().numpy(),
                                atol=tol, rtol=1e-3)
-    with pytest.raises(ValueError):
-        ops.rglru_scan(log_a[:, :l - 1], b[:, :l - 1], block_l=bl, block_w=bw)
+    if bl < l:
+        with pytest.raises(ValueError):
+            ops.rglru_scan(log_a[:, :l - 1], b[:, :l - 1], block_l=bl, block_w=bw)
+
+
+@pytest.mark.cuda
+def test_rglru_vec4_refuses_misaligned_inputs(card):
+    """The vec4 variant loads 16 bytes at a time: an input that starts off a
+    16-byte boundary is refused, not sent to the scalar variant."""
+    log_a, b = _rglru_inputs(1, 64, 32, "float32", 7, card)
+    shifted = torch.empty(b.numel() + 1, device=card)[1:].view(b.shape)
+    shifted.copy_(b)
+    v0 = dict(ops.rglru_variant_launches)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.rglru_scan(log_a, shifted)
+    assert ops.rglru_variant_launches == v0

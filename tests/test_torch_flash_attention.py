@@ -57,6 +57,34 @@ def test_plain_vs_jax_kernel_and_oracle(b, l, h, hkv, hd, window, cap, dtype, to
     np.testing.assert_allclose(_f32(out), _f32(jax_oracle), atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("window", [32, 64])
+@pytest.mark.parametrize("causal", [False, True])
+def test_window_with_and_without_causal_vs_jax_kernel(causal, window, dtype, tol):
+    """The reference's kernel applies ``window`` whether or not the call is
+    causal; with 64-key blocks at L = S = 128 whole key tiles fall outside
+    the window.  The plain twin of the reference's oracle keeps its meaning
+    (no mask at all without causal)."""
+    qn, kn, vn = _inputs(1, 128, 4, 2, 32, seed=window + causal)
+    jq, jk, jv = (jnp.asarray(x).astype(dtype) for x in (qn, kn, vn))
+    jax_kernel = jops.flash_attention(jq, jk, jv, causal=causal, window=window,
+                                      block_q=64, block_k=64)
+    q, k, v = (_t(x, dtype) for x in (qn, kn, vn))
+    out = ops.flash_attention(q, k, v, causal=causal, window=window, block_q=64, block_k=64)
+    assert out.dtype == _TORCH[dtype] and out.shape == (1, 128, 4, 32)
+    np.testing.assert_allclose(_f32(out), _f32(jax_kernel), atol=tol, rtol=tol)
+    np.testing.assert_allclose(
+        _f32(ref.flash_attention_ref(q, k, v, causal=causal, window=window)),
+        _f32(jref.flash_attention_ref(jq, jk, jv, causal=causal, window=window)),
+        atol=tol, rtol=tol)
+
+
+def test_window_mask_without_causal():
+    m = attention.make_window_mask(5, 6, window=2)
+    assert m.tolist() == [[j > i - 2 for j in range(6)] for i in range(5)]
+    assert bool((m | ~attention.make_causal_mask(5, 6, window=2)).all())
+
+
 def test_ragged_rejected_like_reference():
     q = torch.zeros((1, 100, 4, 64))
     with pytest.raises(ValueError):
@@ -122,8 +150,9 @@ def _wgmma_numerics(q, k, v, *, causal, window, softcap):
     logits = torch.einsum("blhd,bshd->bhls", q.float(), kf) * (1.0 / math.sqrt(hd))
     if softcap:
         logits = softcap * torch.tanh(logits / softcap)
-    if causal:
-        mask = attention.make_causal_mask(l, s, window=window)
+    if causal or window:
+        mask = (attention.make_causal_mask(l, s, window=window) if causal
+                else attention.make_window_mask(l, s, window=window))
         logits = torch.where(mask, logits, torch.tensor(attention.NEG_INF))
     m = torch.full((b, h, l), attention.NEG_INF)
     den = torch.zeros((b, h, l))
@@ -142,12 +171,15 @@ def _wgmma_numerics(q, k, v, *, causal, window, softcap):
 
 
 # (b, l, h, hkv, hd, causal, window, softcap): the bf16 reference cases, the
-# two serving shapes at batch 1 (yi-9b, recurrentgemma-9b) and the wgmma cases
+# two serving shapes at batch 1 (yi-9b, recurrentgemma-9b), the wgmma cases
+# and the bf16 non-causal windows
 _WGMMA_EMULATED = (
     [(b, l, h, hkv, hd, True, w, cap)
      for (b, l, h, hkv, hd, w, cap, dt, _) in FLASH_CASES if dt == "bfloat16"]
     + [(1, 512, 32, 4, 128, True, 0, 0.0), (1, 512, 16, 1, 256, True, 0, 0.0)]
-    + ref.FLASH_WGMMA_CASES)
+    + ref.FLASH_WGMMA_CASES
+    + [(b, l, h, hkv, hd, False, w, 0.0)
+       for (b, l, h, hkv, hd, w, dt, _) in ref.FLASH_WINDOW_CASES if dt == "bfloat16"])
 
 
 @pytest.mark.parametrize("b,l,h,hkv,hd,causal,window,cap", _WGMMA_EMULATED)
@@ -157,7 +189,7 @@ def test_wgmma_numerics_within_bf16_tolerance(b, l, h, hkv, hd, causal, window, 
     qn, kn, vn = _inputs(b, l, h, hkv, hd, seed=l + h + hd)
     q, k, v = (_t(x, "bfloat16") for x in (qn, kn, vn))
     got = _wgmma_numerics(q, k, v, causal=causal, window=window, softcap=cap)
-    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window, softcap=cap)
+    want = ref.flash_attention_plain(q, k, v, causal=causal, window=window, softcap=cap)
     assert got.shape == want.shape and bool(torch.isfinite(got.float()).all())
     np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-2, rtol=2e-2)
 

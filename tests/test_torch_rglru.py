@@ -4,6 +4,10 @@ reference's kernel cases, the wrapper's contract, and the RG-LRU block
 (prefill with state, decode step) on converted weights.  The CUDA kernel is
 held against the plain version on a card in ``test_torch_cuda.py``."""
 
+import ctypes
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -84,6 +88,104 @@ def test_cuda_path_never_falls_back():
     m = z.to("meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         ops.rglru_scan(m, m)
+
+
+# the kernel's geometry (csrc/rglru_scan.cu): steps a segment, segments a
+# tile, segments a warp
+_SEG, _NSEG, _WARP_SEGS = 8, 32, 4
+
+
+def _kernel_order(log_a, b):
+    """The CUDA kernel's composition order on the CPU, in fp32: per tile of
+    _SEG·_NSEG steps (steps past L are the identity), each segment composed
+    serially into (∏a, h from 0); a shuffle-tree inclusive scan over each
+    warp's _WARP_SEGS segments (offsets of 1 and 2 segments); the warps'
+    totals folded in order from the previous tile's carry; then each segment
+    re-run from its incoming h."""
+    bt, l, w = log_a.shape
+    tile, nw = _SEG * _NSEG, _NSEG // _WARP_SEGS
+    a_all, b_all = torch.exp(log_a.float()), b.float()
+    carry = torch.zeros((bt, w))
+    out = []
+    for t0 in range(0, l, tile):
+        n = min(tile, l - t0)
+        a = torch.ones((bt, tile, w))
+        x = torch.zeros((bt, tile, w))
+        a[:, :n], x[:, :n] = a_all[:, t0:t0 + n], b_all[:, t0:t0 + n]
+        a, x = a.reshape(bt, _NSEG, _SEG, w), x.reshape(bt, _NSEG, _SEG, w)
+        A, H = a[:, :, 0].clone(), x[:, :, 0].clone()
+        for j in range(1, _SEG):
+            H, A = a[:, :, j] * H + x[:, :, j], A * a[:, :, j]
+        A, H = A.reshape(bt, nw, _WARP_SEGS, w), H.reshape(bt, nw, _WARP_SEGS, w)
+        off = 1
+        while off < _WARP_SEGS:
+            pa = torch.cat([torch.ones_like(A[:, :, :off]), A[:, :, :-off]], dim=2)
+            ph = torch.cat([torch.zeros_like(H[:, :, :off]), H[:, :, :-off]], dim=2)
+            H, A = ph * A + H, A * pa
+            off *= 2
+        ea = torch.cat([torch.ones_like(A[:, :, :1]), A[:, :, :-1]], dim=2)
+        eh = torch.cat([torch.zeros_like(H[:, :, :1]), H[:, :, :-1]], dim=2)
+        hin = []
+        for wp in range(nw):
+            hin.append(carry)
+            carry = A[:, wp, -1] * carry + H[:, wp, -1]
+        hs = (ea * torch.stack(hin, dim=1)[:, :, None] + eh).reshape(bt, _NSEG, w)
+        steps = []
+        for j in range(_SEG):
+            hs = a[:, :, j] * hs + x[:, :, j]
+            steps.append(hs)
+        out.append(torch.stack(steps, dim=2).reshape(bt, tile, w)[:, :n])
+    return torch.cat(out, dim=1)
+
+
+#: (bt, l, w, dtype, atol): the reference's 4 cases, the edge and long cases
+#: the card runs, and the serving shape scaled down to W = 256
+_ORDER_CASES = ([(bt, l, w, dtype, tol) for (bt, l, w, _, _, dtype, tol)
+                 in ref.RGLRU_CASES + ref.RGLRU_EDGE_CASES]
+                + [(2, 512, 256, "float32", 1e-5)])
+
+
+@pytest.mark.parametrize("bt,l,w,dtype,tol", _ORDER_CASES)
+def test_kernel_composition_order_vs_jax_oracle(bt, l, w, dtype, tol):
+    """Serial segments, a scan across segments and the carry across tiles
+    give the reference's recurrence at its tolerances."""
+    log_a, b = _inputs(bt, l, w, dtype, seed=w + l)
+    want = np.asarray(jrglru.scan_ref(jnp.asarray(log_a), jnp.asarray(b)))
+    got = _kernel_order(torch.from_numpy(log_a), torch.from_numpy(b))
+    assert got.shape == (bt, l, w)
+    np.testing.assert_allclose(got.numpy(), want, atol=tol, rtol=1e-3)
+
+
+@pytest.mark.parametrize("w,want", [(4096, "vec4"), (64, "vec4"), (100, "vec4"),
+                                    (4, "vec4"), (6, "scalar"), (1, "scalar"),
+                                    (30, "scalar")])
+def test_variant_by_width(w, want):
+    """float4 lanes wherever W % 4 == 0, 4-byte lanes otherwise."""
+    assert rg.variant(w) == want
+    assert want in rg.VARIANTS and want in ops.rglru_variant_launches
+
+
+def test_variant_launch_counts_reset_with_the_launches():
+    ops.rglru_variant_launches["vec4"] += 3
+    ops.rglru_variant_launches["scalar"] += 1
+    ops.launches["rglru_scan"] += 4
+    ops.reset_launches()
+    assert ops.rglru_variant_launches == dict.fromkeys(rg.VARIANTS, 0)
+    assert ops.launches["rglru_scan"] == 0
+    z = torch.zeros((1, 64, 32))
+    ops.rglru_scan(z, z)                        # the plain version: no launch
+    assert ops.rglru_variant_launches == dict.fromkeys(rg.VARIANTS, 0)
+    assert ops.launches["rglru_scan"] == 0
+
+
+def test_launcher_argtypes_match_the_entry_point():
+    """ctypes passes each argument as its declared type: one c_void_p per
+    pointer of the C entry point, one c_int per int (the variant included)."""
+    src = (Path(rg.__file__).parent / "csrc" / "rglru_scan.cu").read_text()
+    params = re.search(r'extern "C" int rglru_scan_fwd\((.*?)\)', src, re.S).group(1)
+    kinds = [ctypes.c_void_p if "*" in prm else ctypes.c_int for prm in params.split(",")]
+    assert kinds == rg._ARGTYPES
+    assert "int variant" in params
 
 
 @pytest.mark.parametrize("l", [300, 512])

@@ -104,6 +104,14 @@ def test_profile_classes_the_mma_ssd_kernels_as_ssd_scan(name):
     assert profile_serve.kernel_class(name) == "ssd_scan"
 
 
+@pytest.mark.parametrize("vec", [4, 1])
+def test_profile_classes_both_rglru_instantiations_as_rglru_scan(vec):
+    """The vec4 and scalar instantiations count as ``rglru_scan`` time."""
+    name = (f"void (anonymous namespace)::rglru_scan_kernel<{vec}>(float const*, "
+            "float const*, float*, int, int)")
+    assert profile_serve.kernel_class(name) == "rglru_scan"
+
+
 def test_profile_serve_on_cpu_reports_host_ops_only():
     r = profile_serve.run("yi-9b", smoke=True, batch=2, prompt_len=16, decode_steps=2,
                           device="cpu")
