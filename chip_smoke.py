@@ -52,6 +52,33 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
               LocalRunner, for yi-9b and mamba2-370m: exactly one detok
               completion, launches per decode replica, and the committed
               tokens equal a direct greedy_generate call.
+6. train    — yi-9b at full width, depth cut to 4 layers (bf16 compute, fp32
+              master weights, remat "dots"), batch 2 × 2048 tokens of
+              synthetic data: 3 steps of make_train_step from a seeded
+              state; each step's loss, grad norm, ms (host clock, ended by
+              a synchronise), tokens/s, peak memory and flash launches, all
+              of them wgmma and as many as the remat policy implies; every
+              attention weight of every layer must get a nonzero gradient;
+              one more step traced by torch.profiler (device time by class);
+              then the same 3 steps with attention differentiated through
+              the dense plain version, the step-1 loss and grad norm held
+              to the flash path's.
+7. grads    — the flash Function (kernel forward, FA2 backward) against
+              autograd through the dense plain version on the card: fp32
+              on the fma variant, bf16 on wgmma at hd 128.
+8. commit   — the committed trainer at examples/train_pipeline.py's "20m"
+              preset, 12 steps in chunks of 4, uninterrupted and with the
+              primary controller killed after chunk 2: the same final step,
+              losses within 1e-4, one commit per chunk.
+9. refuse   — a backward through the mamba2-370m and recurrentgemma-9b
+              smoke configs on the card raises NotImplementedError (the
+              scan kernels have no backward yet) instead of dropping the
+              gradient, and so does the flash wrapper called outside the
+              flash Function on inputs that need a gradient.
+
+Phase 2 also holds the flash kernels' log-sum-exp (the backward's input)
+against the plain version on both variants and times the forward with it
+at the training shape.
 
 The line before the last is one JSON object with a row per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a card it exits 1 and
@@ -66,7 +93,9 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
+from unittest import mock
 
 import torch
 from torch.autograd import DeviceType
@@ -77,15 +106,19 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.convert import tree_to  # noqa: E402
+from repro_torch.data.synthetic import make_batch  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import rglru_scan as rg  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
-from repro_torch.launch.profile_serve import _union_us  # noqa: E402
-from repro_torch.models import attention, lm, rglru, ssm  # noqa: E402
+from repro_torch.launch.profile_serve import _union_us, kernel_class  # noqa: E402
+from repro_torch.models import attention, flash, lm, rglru, ssm  # noqa: E402
 from repro_torch.serve import workflow  # noqa: E402
 from repro_torch.serve.engine import greedy_generate  # noqa: E402
+from repro_torch.train import checkpoint as ckpt  # noqa: E402
+from repro_torch.train.commit import CommittedTrainer, batch_to  # noqa: E402
+from repro_torch.train.step import make_train_step, train_state_init  # noqa: E402
 
 # the serving point of every arch below (bf16 compute)
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 512, 32
@@ -94,6 +127,11 @@ YI_SHAPE = (SERVE_BATCH, SERVE_PROMPT, YI.n_heads, YI.n_kv_heads, YI.hd)
 MAMBA = configs.get("mamba2-370m")
 RG = configs.get("recurrentgemma-9b")
 RG_SHAPE = (SERVE_BATCH, SERVE_PROMPT, RG.n_heads, RG.n_kv_heads, RG.hd)
+# the training point: yi-9b's width at 4 layers (the full 48 would need ~140
+# GB of parameters, gradients and moments), batch 2 × 2048 tokens
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 3
+YI_TRAIN = YI.replace(n_layers=4, remat="dots")
+TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, YI.n_heads, YI.n_kv_heads, YI.hd)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s
 HBM_BYTES_S = 3.35e12
@@ -337,6 +375,64 @@ def _flash_at(shape, dtype, seed) -> dict:
     return row
 
 
+def _flash_lse_case(b, l, h, hkv, hd, window, cap, dtype, tol) -> float:
+    """The kernel's lse against the plain version's; the output is the same
+    as without lse, bit for bit."""
+    q, k, v = _qkv(b, l, h, hkv, hd, dtype, seed=l + hd + 3)
+    want = fa.variant(hd, dtype)
+    kw = dict(causal=True, window=window, softcap=cap, block_q=l, block_k=l)
+    n0 = dict(ops.flash_variant_launches)
+    out, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    if ops.flash_variant_launches != {**n0, want: n0[want] + 1}:
+        _fail(f"flash with lse at hd {hd} {dtype} did not run the {want} variant")
+    if not torch.equal(out, ops.flash_attention(q, k, v, **kw)):
+        _fail(f"flash ({want}) output changes when lse is stored")
+    _, lse_ref = ref.flash_attention_plain_lse(q, k, v, causal=True, window=window,
+                                               softcap=cap)
+    return _check(f"flash ({want}) lse b={b} l={l} h={h} hkv={hkv} hd={hd} window={window} "
+                  f"cap={cap} {str(dtype)[6:]}", lse, lse_ref, tol, tol)
+
+
+def _flash_train_shape() -> dict:
+    """The forward with lse at the training shape, as the training step
+    launches it (wgmma, bf16), timed against its plain version and the
+    library call; lse [B,H,L] fp32 is one more output."""
+    b, l, h, hkv, hd = TRAIN_SHAPE
+    q, k, v = _qkv(b, l, h, hkv, hd, torch.bfloat16, seed=7)
+    n0 = dict(ops.flash_variant_launches)
+    out, lse = ops.flash_attention(q, k, v, causal=True, return_lse=True)
+    if ops.flash_variant_launches != {**n0, "wgmma": n0["wgmma"] + 1}:
+        _fail("flash at the training shape did not run the wgmma variant")
+    out_ref, lse_ref = ref.flash_attention_plain_lse(q, k, v, causal=True)
+    err = _check(f"flash (wgmma) at the training shape {list(q.shape)} bfloat16", out, out_ref,
+                 2e-2, 2e-2)
+    lse_err = _check("flash (wgmma) lse at the training shape", lse, lse_ref, 1e-4, 1e-4)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    pairs = l * (l + 1) // 2
+    row = _row("flash_attention", err,
+               lambda: ops.flash_attention(q, k, v, causal=True, return_lse=True),
+               lambda: ref.flash_attention_plain_lse(q, k, v, causal=True),
+               _nbytes(q, k, v, out, lse), 4 * b * h * hd * pairs, torch.bfloat16,
+               lambda: torch.nn.functional.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=True, enable_gqa=True),
+               f"q {list(q.shape)}, k/v {list(k.shape)} bfloat16, with lse [{b},{h},{l}] fp32")
+    row["lse_max_abs_err"] = lse_err
+    return row
+
+
+def phase_flash_lse() -> tuple:
+    """lse on both variants: fma on the reference's fp32 cases (1e-5), wgmma
+    at hd 64, 128 and 256 (1e-4: its exponentials are ex2.approx), and the
+    training shape; returns (largest lse error, the training shape's row)."""
+    errs = [_flash_lse_case(b, l, h, hkv, hd, window, cap, torch.float32, 1e-5)
+            for (b, l, h, hkv, hd, window, cap, dt, _) in ref.FLASH_CASES if dt == "float32"]
+    for case in ((2, 256, 8, 4, 64, 0, 0.0), (1, 576, 32, 4, 128, 0, 50.0),
+                 (1, 256, 4, 1, 256, 64, 0.0)):
+        errs.append(_flash_lse_case(*case, torch.bfloat16, 1e-4))
+    row = _flash_train_shape()
+    return max(errs + [row["lse_max_abs_err"]]), row
+
+
 def phase_flash() -> dict:
     for case in ref.FLASH_CASES + ref.FLASH_HD256_CASES:
         _flash_case(*case)
@@ -366,6 +462,10 @@ def phase_flash() -> dict:
     row["at_other_shapes"] = [{k: r[k] for k in (
         "shape", "variant", "source", "max_abs_err", "ms", "plain_ms", "bound_ms",
         "bound_by", "library_ms", "call_ms")} for r in others]
+    row["lse_max_err"], train_row = phase_flash_lse()
+    row["at_train_shape"] = {k: train_row[k] for k in (
+        "shape", "max_abs_err", "lse_max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms", "call_ms", "ms_by_kernel")}
     return row
 
 
@@ -649,6 +749,189 @@ def phase_workflow(arch: str) -> None:
     _free()
 
 
+# ==========================================================================
+# 6. train, 7. grads, 8. commit, 9. refuse
+# ==========================================================================
+
+
+def _attn_moments_nonzero(state, cfg) -> bool:
+    """Every attention weight of every layer had a nonzero gradient: its
+    first moment after a step from zero is (1 − b1)·g, nonzero iff g is
+    (weight decay moves the weight itself even without a gradient)."""
+    m = state["opt"]["m"]["blocks"]
+    return all(bool(m[f"s{i}"]["attn"][w][g].abs().max() > 0)
+               for i in range(len(cfg.layer_pattern)) for w in ("wq", "wk", "wv", "wo")
+               for g in range(lm.groups_of(cfg)[0]))
+
+
+def phase_train() -> dict:
+    """TRAIN_STEPS steps of make_train_step at yi-9b's width, then one step
+    traced; returns the measurements and the flash launches of the steps."""
+    cfg = YI_TRAIN
+    per_step = 2 * cfg.n_layers            # remat "dots": each forward runs again
+    t0 = time.perf_counter()
+    state = train_state_init(_gen(0), cfg, device="cuda")
+    step_fn = make_train_step(cfg, lr=3e-4)
+    batches = [batch_to(make_batch(cfg, TRAIN_SEQ, TRAIN_BATCH, step=s), "cuda")
+               for s in range(TRAIN_STEPS + 1)]
+    torch.cuda.synchronize()
+    _log(f"[train] yi-9b width, {cfg.n_layers} layers: {cfg.param_count() / 1e9:.3f} B params, "
+         f"state and batches ready in {time.perf_counter() - t0:.2f}s")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    steps = []
+    for s in range(TRAIN_STEPS):
+        n0, v0 = ops.launches["flash_attention"], dict(ops.flash_variant_launches)
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batches[s])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        launched = ops.launches["flash_attention"] - n0
+        wgmma = ops.flash_variant_launches["wgmma"] - v0["wgmma"]
+        steps.append({"loss": loss, "grad_norm": gnorm, "step_ms": ms,
+                      "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
+                      "flash_launches": launched})
+        _log(f"[train] step {s + 1}: loss {loss:.6f}, grad norm {gnorm:.6f}, {ms:.3f} ms, "
+             f"{steps[-1]['tokens_per_s']:.1f} tokens/s, flash launches {launched} "
+             f"({wgmma} wgmma)")
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            _fail(f"train step {s + 1}: loss {loss}, grad norm {gnorm}")
+        if launched != per_step or wgmma != per_step:
+            _fail(f"train step {s + 1}: {launched} flash launches ({wgmma} wgmma), "
+                  f"not {per_step} wgmma under remat dots")
+        if s == 0 and not _attn_moments_nonzero(state, cfg):
+            _fail("an attention weight got a zero gradient")
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    _log(f"[train] peak memory {peak:.2f} GB over {TRAIN_STEPS} steps; launches {launches}")
+    traced_ms, by_kernel = _device_profile(lambda: step_fn(state, batches[-1]), iters=1,
+                                           warmup=0)
+    classes = {}
+    for name, ms in (by_kernel or {}).items():
+        classes[kernel_class(name)] = classes.get(kernel_class(name), 0.0) + ms
+    top = dict(sorted(classes.items(), key=lambda kv: -kv[1])[:5])
+    kernels = dict(sorted((by_kernel or {}).items(), key=lambda kv: -kv[1])[:8])
+    _log(f"[train] traced step: device busy {traced_ms:.3f} ms; largest classes (device ms) "
+         + ", ".join(f"{k} {v:.3f}" for k, v in top.items()) + "; largest kernels "
+         + ", ".join(f"{k[:60]} {v:.3f}" for k, v in kernels.items()))
+    del state
+    _free()
+    dense = _train_dense(cfg, batches[:TRAIN_STEPS], steps)
+    del batches
+    _free()
+    return {"steps": steps, "peak_mem_gb": peak, "launches": launches,
+            "traced_device_ms": traced_ms, "top_classes_ms": top, "top_kernels_ms": kernels,
+            "dense_steps": dense}
+
+
+def _dense_causal(q, k, v, *, window, cap):
+    return ref.flash_attention_ref(q, k, v, causal=True, window=window, softcap=cap)
+
+
+def _train_dense(cfg, batches, steps) -> list:
+    """The same steps from the same seed with attention differentiated by
+    autograd through the dense plain version (no flash kernel, no FA2): the
+    step-1 loss within 5e-2 and gradient norm within 5e-2 relative of the
+    port's path (the dense path rounds p to bf16 before P·V in the backward
+    too, FA2 keeps it fp32); the later steps are reported beside the port's."""
+    state = train_state_init(_gen(0), cfg, device="cuda")
+    step_fn = make_train_step(cfg, lr=3e-4)
+    out = []
+    with mock.patch.object(attention, "_flash_causal", _dense_causal):
+        for batch in batches:
+            state, m = step_fn(state, batch)
+            out.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])})
+    _log("[train] dense attention autograd, same seed and data: " + "; ".join(
+        f"step {i + 1} loss {d['loss']:.6f} grad norm {d['grad_norm']:.6f} (flash path "
+        f"{s['loss']:.6f}, {s['grad_norm']:.6f})" for i, (d, s) in enumerate(zip(out, steps))))
+    if (abs(out[0]["loss"] - steps[0]["loss"]) > 5e-2
+            or abs(out[0]["grad_norm"] - steps[0]["grad_norm"]) > 5e-2 * out[0]["grad_norm"]):
+        _fail("the full-width step-1 loss or gradient norm differs from dense attention's")
+    del state
+    return out
+
+
+def phase_train_grads() -> dict:
+    """The flash Function's gradients against autograd through the dense
+    plain version on the same card, yi-family heads (GQA 8/2, hd 128), L
+    256: fp32 (fma) at 1e-4, bf16 (wgmma) at 3e-2, the reference's bf16
+    model tolerance, against fp32 autograd on the same bf16 inputs."""
+    errs = {}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+        want = fa.variant(128, dtype)
+        base = list(_qkv(2, 256, 8, 2, 128, dtype, seed=11)) + [
+            torch.randn((2, 256, 8, 128), generator=_gen(12), device="cuda").to(dtype)]
+        q, k, v = (t.clone().requires_grad_() for t in base[:3])
+        n0 = dict(ops.flash_variant_launches)
+        flash.flash_attention(q, k, v, window=100, softcap=30.0).backward(base[3])
+        if ops.flash_variant_launches != {**n0, want: n0[want] + 1}:
+            _fail(f"the flash Function in {dtype} did not run the {want} variant")
+        q2, k2, v2 = (t.float().requires_grad_() for t in base[:3])
+        ref.flash_attention_plain(q2, k2, v2, window=100, softcap=30.0).backward(
+            base[3].float())
+        errs[want] = max(_check(f"flash Function ({want}) d{n}", a.grad, b.grad, tol, tol)
+                         for n, a, b in (("q", q, q2), ("k", k, k2), ("v", v, v2)))
+    return errs
+
+
+def phase_commit() -> dict:
+    """The committed trainer at the "20m" preset of examples/train_pipeline.py
+    (yi-family, d 384, 6 layers, hd 64: wgmma; seq 128, batch 4), 12 steps
+    in chunks of 4, once uninterrupted and once with the primary controller
+    killed after chunk 2."""
+    cfg = configs.get_smoke("yi-9b").replace(
+        d_model=384, n_layers=6, n_heads=6, n_kv_heads=3, head_dim=64, d_ff=1152,
+        vocab=8192, remat="none")
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, fail_at in (("uninterrupted", None), ("failover", 2)):
+            d = os.path.join(tmp, name)
+            tr = CommittedTrainer(cfg, seq_len=128, global_batch=4, ckpt_dir=d,
+                                  steps_per_chunk=4, lr=1e-3, device="cuda")
+            ops.reset_launches()
+            r = tr.train(12, fail_primary_at_chunk=fail_at)
+            chunks = [m["step"] for m in tr.metrics]
+            runs[name] = {"step": r.step, "loss": r.loss, "wall_s": r.wall_s,
+                          "chunks": chunks, "commits": ckpt.all_steps(d),
+                          "flash_launches": ops.launches["flash_attention"]}
+            _log(f"[commit] {name}: step {r.step}, final chunk loss {r.loss:.6f}, "
+                 f"{r.wall_s:.2f}s, chunks {chunks}, commits {runs[name]['commits']}, "
+                 f"flash launches {runs[name]['flash_launches']}")
+            if chunks != [4, 8, 12] or runs[name]["commits"] != [4, 8, 12]:
+                _fail(f"committed trainer ({name}) did not commit each chunk exactly once")
+    a, b = runs["uninterrupted"], runs["failover"]
+    if a["step"] != b["step"] or abs(a["loss"] - b["loss"]) > 1e-4:
+        _fail(f"failover run ended at step {b['step']}, loss {b['loss']}; uninterrupted "
+              f"{a['step']}, {a['loss']}")
+    _log(f"[commit] failover matches: |d loss| = {abs(a['loss'] - b['loss']):.3e} (tol 1e-4)")
+    _free()
+    return runs
+
+
+def phase_refuse() -> None:
+    q = torch.zeros((1, 64, 4, 64), device="cuda", requires_grad=True)
+    try:
+        ops.flash_attention(q, q[:, :, :2], q[:, :, :2])
+    except NotImplementedError:
+        _log("[refuse] ops.flash_attention on inputs that need a gradient raises "
+             "NotImplementedError (training goes through models/flash)")
+    else:
+        _fail("ops.flash_attention on the card took inputs that need a gradient")
+    for arch in ("mamba2-370m", "recurrentgemma-9b"):
+        cfg = configs.get_smoke(arch)
+        params = lm.init(_gen(2), cfg, device="cuda")
+        params["embed"].requires_grad_()
+        batch = batch_to(make_batch(cfg, 64, 2), "cuda")
+        try:
+            lm.loss_fn(params, cfg, batch)[0].backward()
+        except NotImplementedError as e:
+            _log(f"[refuse] {arch}: a backward through its scan kernel raises "
+                 f"NotImplementedError ({str(e)[:60]}...)")
+        else:
+            _fail(f"{arch}: a backward on the card ran without raising")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("[chip_smoke] no CUDA device (torch.cuda.is_available() is false)",
@@ -674,11 +957,18 @@ def main() -> int:
         rows[name]["launches_by_variant"] = {
             v: sum(n[name][v] for n in by_variant.values())
             for v in by_variant["yi-9b"][name]}
+    train = phase_train()
+    by_path[f"yi-9b train ({YI_TRAIN.n_layers} layers, {TRAIN_STEPS} steps)"] = train["launches"]
     for name, row in rows.items():
         row["launches_by_path"] = {arch: n[name] for arch, n in by_path.items() if n[name]}
         row["launches"] = sum(row["launches_by_path"].values())
         if row["launches"] <= 0:
             _fail(f"{name} was not launched on any serving path")
+    rows["flash_attention"]["launches_by_variant"]["wgmma"] += train["launches"][
+        "flash_attention"]
+    grads = phase_train_grads()
+    commit = phase_commit()
+    phase_refuse()
     _log(f"[chip_smoke] all phases passed in {time.perf_counter() - t_start:.1f}s")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -687,7 +977,8 @@ def main() -> int:
     kernels = {"kernels": list(rows.values())}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_kernels.json"), "w") as f:
-        json.dump({"card": smi, **kernels}, f, indent=1)
+        json.dump({"card": smi, **kernels, "train": train, "train_grads_max_err": grads,
+                   "commit": commit}, f, indent=1)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -77,8 +77,8 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(Threads<HD>::n)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 int L, int S, int H, int Hkv, int causal, int window,
-                 float softcap, float scale) {
+                 float* __restrict__ lse, int L, int S, int H, int Hkv, int causal,
+                 int window, float softcap, float scale) {
     constexpr int NTHREADS = Threads<HD>::n;
     constexpr int TC = NTHREADS / TR;    // lanes that share one group of rows
     constexpr int CPT = BK / TC;         // score columns per thread
@@ -222,6 +222,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int qi = q_lo + tr + r * TR;
         if (qi >= L) continue;
         const float lf = fmaxf(l[r], 1e-37f);
+        // the row's log-sum-exp of the scaled, capped, masked logits; m and
+        // l are the same in every lane of the row group
+        if (lse != nullptr && tc == 0) lse[size_t(bh) * L + qi] = m[r] + logf(lf);
 #pragma unroll
         for (int c = 0; c < OPT; ++c)
             ob[size_t(qi) * q_row + tc + c * TC] = from_f32<T>(acc[r][c] / lf);
@@ -229,7 +232,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int L,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int L,
            int S, int H, int Hkv, int causal, int window, float softcap,
            float scale, cudaStream_t stream) {
     const size_t smem = smem_bytes<HD>();
@@ -240,46 +243,49 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int L,
     const dim3 grid((L + BQ - 1) / BQ, B * H);
     flash_fwd_kernel<T, HD><<<grid, Threads<HD>::n, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), L, S, H, Hkv, causal,
+        static_cast<const T*>(v), static_cast<T*>(o), lse, L, S, H, Hkv, causal,
         window, softcap, scale);
     return int(cudaGetLastError());
 }
 
-int dispatch_hd_f32(int hd, const void* q, const void* k, const void* v, void* o,
+int dispatch_hd_f32(int hd, const void* q, const void* k, const void* v, void* o, float* lse,
                     int B, int L, int S, int H, int Hkv, int causal, int window,
                     float softcap, float scale, cudaStream_t stream) {
     switch (hd) {
-        case 8: return launch<float, 8>(q, k, v, o, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
-        case 16: return launch<float, 16>(q, k, v, o, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
-        case 32: return launch<float, 32>(q, k, v, o, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
-        case 64: return launch<float, 64>(q, k, v, o, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
-        case 128: return launch<float, 128>(q, k, v, o, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
-        case 256: return launch<float, 256>(q, k, v, o, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
+        case 8: return launch<float, 8>(q, k, v, o, lse, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
+        case 16: return launch<float, 16>(q, k, v, o, lse, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
+        case 32: return launch<float, 32>(q, k, v, o, lse, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
+        case 64: return launch<float, 64>(q, k, v, o, lse, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
+        case 128: return launch<float, 128>(q, k, v, o, lse, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
+        case 256: return launch<float, 256>(q, k, v, o, lse, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
         default: return int(cudaErrorInvalidValue);
     }
 }
 
 }  // namespace
 
+// lse, when not null: fp32 [B, H, L], each row's log-sum-exp m + log(max(l,
+// 1e-37)) of its scaled, capped, masked logits, for the backward pass; a
+// null pointer skips the store.
 // Returns the cudaError_t of the launch (0 on success).  dtype: 0 = fp32,
 // 1 = bf16; variant: 0 = fma (fp32 at every head dim, bf16 at 8), 1 = wgmma
 // (bf16 at 16–256).  The caller validates shapes; a variant that does not
 // take the dtype or head dim returns cudaErrorInvalidValue without
 // launching, and no variant stands in for another.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, int B, int L, int S, int H, int Hkv,
+                                   void* o, float* lse, int B, int L, int S, int H, int Hkv,
                                    int hd, int dtype, int variant, int causal,
                                    int window, float softcap, float scale,
                                    void* stream) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (variant == 1)
-        return dtype == 1 ? sm90::dispatch_hd(hd, q, k, v, o, B, L, S, H, Hkv, causal,
+        return dtype == 1 ? sm90::dispatch_hd(hd, q, k, v, o, lse, B, L, S, H, Hkv, causal,
                                               window, softcap, scale, st)
                           : int(cudaErrorInvalidValue);
     if (variant != 0) return int(cudaErrorInvalidValue);
     if (dtype == 0)
-        return dispatch_hd_f32(hd, q, k, v, o, B, L, S, H, Hkv, causal, window, softcap, scale, st);
+        return dispatch_hd_f32(hd, q, k, v, o, lse, B, L, S, H, Hkv, causal, window, softcap, scale, st);
     if (dtype == 1 && hd == 8)
-        return launch<__nv_bfloat16, 8>(q, k, v, o, B, L, S, H, Hkv, causal, window, softcap, scale, st);
+        return launch<__nv_bfloat16, 8>(q, k, v, o, lse, B, L, S, H, Hkv, causal, window, softcap, scale, st);
     return int(cudaErrorInvalidValue);
 }

@@ -17,7 +17,10 @@
 // scale, softcap, mask and online softmax run in fp32 on the accumulator
 // fragment; the denominator sums fp32 p; p is rounded to bf16 for
 // O += P·V (fp32 accumulation), the one rounding the FMA variant does not
-// make (ROADMAP Queue 3 b); O / max(l, 1e-37) is rounded to bf16.
+// make (ROADMAP Queue 3 b); O / max(l, 1e-37) is rounded to bf16.  Given an
+// lse pointer, the epilogue also stores each row's fp32 log-sum-exp
+// m + log(max(l, 1e-37)) for the training backward; without one it stores
+// nothing more.
 //
 // Design:
 //   * a work item is 128 query rows of one (batch, head), 64 at hd 256; the
@@ -429,8 +432,9 @@ __global__ void __launch_bounds__(Cfg<HD>::NTHREADS, 1)
 flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
-                       __nv_bfloat16* __restrict__ o, int B, int L, int S, int H,
-                       int Hkv, int causal, int window, float softcap, float scale) {
+                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int B,
+                       int L, int S, int H, int Hkv, int causal, int window, float softcap,
+                       float scale) {
     using C = Cfg<HD>;
     constexpr int BQ = C::BQ, BK = C::BK, STAGES = C::STAGES, AW = C::AW,
                   ROWB = C::ROWB, NCH = C::NCH, NCONS = 128 * C::NWG;
@@ -600,14 +604,20 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
             mbar_arrive(empty(s));
         }
 
-        // O / max(l, 1e-37) → bf16, rows below L only
+        // O / max(l, 1e-37) → bf16, rows below L only; with lse, each row's
+        // log-sum-exp m + log(max(l, 1e-37)) (m in natural units of the
+        // scaled logits) from the quad's first lane, before l is inverted
+        const int bh = w % n_bh;
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
             l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
             l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-            l[r] = __fdividef(1.f, fmaxf(l[r], 1e-37f));
+            l[r] = fmaxf(l[r], 1e-37f);
+            const int qi = row0 + 8 * r;
+            if (lse != nullptr && lane % 4 == 0 && qi < L)
+                lse[size_t(bh) * L + qi] = m[r] + __logf(l[r]);
+            l[r] = __fdividef(1.f, l[r]);
         }
-        const int bh = w % n_bh;
         const size_t q_row = size_t(H) * HD;
         __nv_bfloat16* ob = o + size_t(bh / H) * L * q_row + size_t(bh % H) * HD;
 #pragma unroll
@@ -673,7 +683,7 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int hd, int heads, int l
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int L, int S,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int L, int S,
            int H, int Hkv, int causal, int window, float softcap, float scale,
            cudaStream_t stream) {
     using C = Cfg<HD>;
@@ -691,20 +701,20 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int L, i
         return int(cudaGetLastError());
     const int n_items = (L + C::BQ - 1) / C::BQ * B * H;
     flash_fwd_kernel_wgmma<HD><<<n_items < sms ? n_items : sms, C::NTHREADS, C::SMEM, stream>>>(
-        tq, tk, tv, static_cast<__nv_bfloat16*>(o), B, L, S, H, Hkv, causal, window,
+        tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, B, L, S, H, Hkv, causal, window,
         softcap, scale);
     return int(cudaGetLastError());
 }
 
-inline int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
+inline int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o, float* lse,
                        int B, int L, int S, int H, int Hkv, int causal, int window,
                        float softcap, float scale, cudaStream_t stream) {
     switch (hd) {
-        case 16: return launch<16>(q, k, v, o, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
-        case 32: return launch<32>(q, k, v, o, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
-        case 64: return launch<64>(q, k, v, o, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
-        case 128: return launch<128>(q, k, v, o, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
-        case 256: return launch<256>(q, k, v, o, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
+        case 16: return launch<16>(q, k, v, o, lse, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
+        case 32: return launch<32>(q, k, v, o, lse, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
+        case 64: return launch<64>(q, k, v, o, lse, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
+        case 128: return launch<128>(q, k, v, o, lse, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
+        case 256: return launch<256>(q, k, v, o, lse, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
         default: return int(cudaErrorInvalidValue);
     }
 }

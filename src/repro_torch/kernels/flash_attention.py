@@ -10,14 +10,16 @@ that :func:`variant` picks by head dim and dtype:
   head dim 8, fp32 FMA products on the CUDA cores.
 
 Each source's note says what bounds it on the card and how the design
-answers.  This module validates the tensors, allocates the output and
-launches on the calling thread's current stream;
-:func:`repro_torch.kernels.ops.flash_attention` is the public wrapper.
+answers.  This module validates the tensors, allocates the output (and,
+for training, each row's log-sum-exp) and launches on the calling thread's
+current stream; :func:`repro_torch.kernels.ops.flash_attention` is the
+public wrapper.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple, Union
 
 import torch
 
@@ -31,7 +33,7 @@ _VARIANT_CODE = {"fma": 0, "wgmma": 1}
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int
-_ARGTYPES = [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i,
+_ARGTYPES = [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i,
              ctypes.c_float, ctypes.c_float, _p]
 
 
@@ -60,9 +62,15 @@ def check_tiles(l: int, s_len: int, block_q: int, block_k: int) -> None:
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True, window: int = 0,
-                        softcap: float = 0.0) -> torch.Tensor:
-    """q: [B,L,H,hd]; k,v: [B,S,Hkv,hd] on the card → [B,L,H,hd] in q's dtype."""
+                        causal: bool = True, window: int = 0, softcap: float = 0.0,
+                        return_lse: bool = False
+                        ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """q: [B,L,H,hd]; k,v: [B,S,Hkv,hd] on the card → [B,L,H,hd] in q's dtype.
+
+    With ``return_lse`` also each row's fp32 log-sum-exp, [B,H,L], of its
+    scaled, capped, masked logits (the backward's input); without it the
+    kernel is passed a null pointer and stores nothing more.
+    """
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"expected q [B,L,H,hd], k=v [B,S,Hkv,hd]; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -82,12 +90,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if kind == "wgmma" and t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary for TMA")
     out = torch.empty_like(q)
+    lse = torch.empty((b, h, l), dtype=torch.float32, device=q.device) if return_lse else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     b, l, s_len, h, hkv, hd, _DTYPE_CODE[q.dtype], _VARIANT_CODE[kind],
-                     int(causal), int(window), float(softcap),
-                     1.0 / (hd ** 0.5), stream)
+                     lse.data_ptr() if return_lse else None, b, l, s_len, h, hkv, hd,
+                     _DTYPE_CODE[q.dtype], _VARIANT_CODE[kind], int(causal), int(window),
+                     float(softcap), 1.0 / (hd ** 0.5), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd ({kind}) launch failed: cudaError {err}")
-    return out
+    return (out, lse) if return_lse else out

@@ -58,23 +58,46 @@ def _check_device(name: str, t: torch.Tensor) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, softcap: float = 0.0,
-                    block_q: int = 512, block_k: int = 512) -> torch.Tensor:
+                    block_q: int = 512, block_k: int = 512, return_lse: bool = False
+                    ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Flash-attention forward. q: [B,L,H,hd]; k,v: [B,S,Hkv,hd].
 
     ``block_q``/``block_k`` keep the reference's signature and its contract
     (L and S must tile by them, else ``ValueError``); the CUDA kernel picks
     its own tile shape inside that contract.  ``window`` applies with or
-    without ``causal``, as in the reference's kernel.
+    without ``causal``, as in the reference's kernel.  With ``return_lse``
+    it returns ``(out, lse)``, lse fp32 [B,H,L] (the backward's input).
+
+    The kernel's output carries no autograd history, so on the card an
+    input that needs a gradient is refused (:func:`refuse_grad`): training
+    goes through :func:`repro_torch.models.flash.flash_attention`, whose
+    backward is the reference's FA2.
     """
     _fa.check_tiles(q.shape[1], k.shape[1], block_q, block_k)
     if q.device.type == "cpu":
-        return ref.flash_attention_plain(q, k, v, causal=causal, window=window,
-                                         softcap=softcap)
+        plain = ref.flash_attention_plain_lse if return_lse else ref.flash_attention_plain
+        return plain(q, k, v, causal=causal, window=window, softcap=softcap)
     _check_device("flash_attention", q)
+    refuse_grad("flash_attention", q, k, v,
+                instead="differentiate through repro_torch.models.flash.flash_attention")
     out = _fa.flash_attention_fwd(q, k, v, causal=causal, window=window,
-                                  softcap=softcap)
+                                  softcap=softcap, return_lse=return_lse)
     _counted("flash_attention", _fa.variant(q.shape[3], q.dtype))
     return out
+
+
+_SCAN_BACKWARD = ("it has no backward yet (ROADMAP Queue 1 item 5: recurrent training on "
+                  "the card); train recurrent archs on the CPU, or call it under "
+                  "torch.no_grad()")
+
+
+def refuse_grad(name: str, *inputs: torch.Tensor, instead: str = _SCAN_BACKWARD) -> None:
+    """Raise ``NotImplementedError`` where a kernel would be handed an input
+    that needs a gradient outside an ``autograd.Function``: its ``ctypes``
+    launch returns a tensor with no autograd history, and the gradient would
+    be lost without a word.  ``instead`` says what to do."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        raise NotImplementedError(f"{name} on the card returns no autograd history: {instead}")
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
@@ -92,6 +115,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Ten
         y, h_last = ref.ssd_chunked(x, dt, a, bmat, cmat, q)
         return (y, h_last) if return_state else y
     _check_device("ssd_scan", x)
+    refuse_grad("ssd_scan", x, dt, a, bmat, cmat)
     y, h_last = _ssd.ssd_scan_fwd(x, dt, a, bmat, cmat, q, return_state=return_state)
     _counted("ssd_scan", _ssd.variant(x.shape[3], bmat.shape[-1], q, x.dtype))
     return (y, h_last) if return_state else y
@@ -111,6 +135,7 @@ def rglru_scan(log_a: torch.Tensor, b: torch.Tensor, *, block_l: int = 256,
     if log_a.device.type == "cpu":
         return ref.rglru_scan_ref(log_a, b)
     _check_device("rglru_scan", log_a)
+    refuse_grad("rglru_scan", log_a, b)
     h = _rg.rglru_scan_fwd(log_a.float(), b.float())
     _counted("rglru_scan", _rg.variant(log_a.shape[2]))
     return h

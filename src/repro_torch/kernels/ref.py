@@ -7,6 +7,7 @@ are held against.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -148,9 +149,39 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     their window (L ≥ S + window) are outside the contract."""
     if causal or not window:
         return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
-    mask = _attn.make_window_mask(q.shape[1], k.shape[1], window=window,
-                                  device=q.device)[None]
-    return _attn._sdpa(q, k, v, mask, softcap)
+    return _attn._sdpa(q, k, v, _plain_mask(q.shape[1], k.shape[1], causal, window, q.device),
+                       softcap)
+
+
+def _plain_mask(l: int, s: int, causal: bool, window: int, device) -> Optional[torch.Tensor]:
+    """The [1, L, S] mask :func:`flash_attention_plain` applies, or None."""
+    if causal:
+        return _attn.make_causal_mask(l, s, window=window, device=device)[None]
+    if window:
+        return _attn.make_window_mask(l, s, window=window, device=device)[None]
+    return None
+
+
+def flash_attention_plain_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                              causal: bool = True, window: int = 0, softcap: float = 0.0
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_plain` (the same ``out``, bit for bit) and each
+    row's log-sum-exp, fp32 [B,H,L] = m + log(max(l, 1e-37)) over the
+    scaled, capped, masked fp32 logits, head ``h = kv·G + g`` (the
+    reference's [B,Hkv,G,L] lse, ``repro/models/flash.py:107-113``)."""
+    out = flash_attention_plain(q, k, v, causal=causal, window=window, softcap=softcap)
+    b, l, h, hd = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    logits = torch.einsum("blkgd,bskd->bkgls", q.reshape(b, l, hkv, h // hkv, hd).float(),
+                          k.float())
+    logits = _attn.softcap(logits / torch.tensor(math.sqrt(hd), dtype=torch.float32), softcap)
+    mask = _plain_mask(l, s, causal, window, q.device)
+    if mask is not None:
+        logits = torch.where(mask[:, None, None], logits,
+                             torch.tensor(_attn.NEG_INF, dtype=torch.float32, device=q.device))
+    m = logits.amax(dim=-1)
+    lsum = torch.exp(logits - m[..., None]).sum(dim=-1)
+    return out, (m + torch.log(torch.clamp(lsum, min=1e-37))).reshape(b, h, l)
 
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,

@@ -5,7 +5,9 @@ The port of :mod:`repro.models.attention`:
   * optional QKV bias, logit softcap and sliding window;
   * causal self-attention (prefill/forward) goes through the flash-attention
     wrapper :func:`repro_torch.kernels.ops.flash_attention` — the hand-written
-    CUDA kernel on the card, its plain version on the CPU;
+    CUDA kernel on the card, its plain version on the CPU — and, when a
+    gradient is needed, through :func:`repro_torch.models.flash.flash_attention`,
+    the same forward with the reference's FA2 backward;
   * decode of one token against a ring-buffer KV cache keeps the masked
     dense ``_sdpa`` (the JAX package has no kernel for decode).
 """
@@ -19,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.models import flash
 from repro_torch.models.common import (ModelConfig, apply_rope, dense_init,
                                        rope_angles, softcap)
 
@@ -103,14 +106,24 @@ def _flash_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     L is padded up to a multiple of :data:`FLASH_BLOCK` and the padding is
     sliced off.  Padding is exact under causal masking: every padded key
-    comes after every real query, so no real row attends to one.
+    comes after every real query, so no real row attends to one, and the
+    padded rows get no gradient.  When a gradient is needed the call goes
+    through :func:`repro_torch.models.flash.flash_attention` (the same
+    forward, with the FA2 backward), on the reference's 512-row tiles where
+    they tile the padded L and on :data:`FLASH_BLOCK` rows otherwise.
     """
     l = q.shape[1]
     pad = -l % FLASH_BLOCK
     if pad:
         q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
-    out = ops.flash_attention(q, k, v, causal=True, window=window, softcap=cap,
-                              block_q=FLASH_BLOCK, block_k=FLASH_BLOCK)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        lp = l + pad
+        block = 512 if lp % min(512, lp) == 0 else FLASH_BLOCK
+        out = flash.flash_attention(q, k, v, causal=True, window=window, softcap=cap,
+                                    block_q=block, block_k=block)
+    else:
+        out = ops.flash_attention(q, k, v, causal=True, window=window, softcap=cap,
+                                  block_q=FLASH_BLOCK, block_k=FLASH_BLOCK)
     return out[:, :l] if pad else out
 
 

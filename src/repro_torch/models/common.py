@@ -240,3 +240,22 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype: torch.dtype, *,
     w = torch.randn((vocab, d), generator=gen, dtype=torch.float32, device=device)
     return w.mul_(0.02).to(dtype)
 
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts that share their keys (the
+    parameter and train-state trees)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def cast_tree(tree, dtype: torch.dtype):
+    """Cast every floating-point leaf to ``dtype``; other leaves (integer
+    counters) pass through."""
+    return tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t, tree)

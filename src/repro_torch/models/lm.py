@@ -1,7 +1,7 @@
 """LM assembly for the decoder patterns "attn", "local", "ssm" and "rglru".
 
-The port of :mod:`repro.models.lm` for the serving slices.  The parameter
-tree is the JAX package's: ``cfg.layer_pattern`` is cycled across
+The port of :mod:`repro.models.lm` for the serving and training slices.
+The parameter tree is the JAX package's: ``cfg.layer_pattern`` is cycled across
 ``n_layers``; each pattern slot owns one tree stacked over the ``[G]`` full
 repetitions (``blocks/s{i}``), the remainder layers are unstacked
 (``rem/r{i}``).  The JAX ``lax.scan`` over groups is a Python loop here.
@@ -9,6 +9,7 @@ repetitions (``blocks/s{i}``), the remainder layers are unstacked
 Entry points
   * :func:`init` — parameters on ``device`` from a ``torch.Generator``.
   * :func:`forward` — tokens → logits.
+  * :func:`loss_fn` — next-token cross-entropy, the training objective.
   * :func:`prefill` — forward that also seeds a decode cache.
   * :func:`decode_step` — one token against the cache.
 
@@ -21,15 +22,18 @@ over ``[G]`` like the parameters.  MoE, enc-dec and VLM configs raise
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
 from repro_torch.models import attention, mlp, rglru, ssm
 from repro_torch.models.common import (ModelConfig, dense_init, embed_init,
-                                       rms_norm, softcap)
+                                       rms_norm, softcap, tree_leaves)
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -162,23 +166,64 @@ def _block_apply(cfg: ModelConfig, kind: str, p: Dict[str, Any], x: torch.Tensor
     return x, kv
 
 
+#: ``remat="dots"``: the matrix products without batch dims are saved and
+#: everything else is recomputed, the counterpart of JAX's
+#: ``checkpoint_dots_with_no_batch_dims``
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` under the config's activation checkpointing, as the reference's
+    ``_maybe_remat``: ``none`` saves every activation, ``full`` recomputes
+    the group in the backward, ``dots`` saves only the matrix products.
+    The recompute runs the group's kernels again (the flash launches of a
+    training step are doubled)."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"unknown remat {cfg.remat!r}; known: none, dots, full")
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _dots_policy)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
 def _run_blocks(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, collect_kv: bool):
     """The stacked pattern groups in order, then the remainder layers.
 
     Returns (x, caches): caches[f"s{i}"] holds each slot's cache
     contribution (k/v or recurrent state) stacked over groups and
-    caches[f"r{i}"] the remainder layers', when ``collect_kv``.
+    caches[f"r{i}"] the remainder layers', when ``collect_kv``.  Each group
+    runs under :func:`_remat` unless ``collect_kv``; the remainder layers,
+    as in the reference, never do.
     """
     pattern = cfg.layer_pattern
     g, _ = groups_of(cfg)
     per_slot: Dict[str, list] = {f"s{i}": [] for i in range(len(pattern))}
+
+    def group(x, gp):
+        for i, kind in enumerate(pattern):
+            x, _ = _block_apply(cfg, kind, gp[f"s{i}"], x, positions, False)
+        return x
+
+    # checkpointing only where autograd records: serving runs the plain group
+    needs_grad = torch.is_grad_enabled() and (x.requires_grad or any(
+        t.requires_grad for t in tree_leaves(params["blocks"])))
+    body = _remat(cfg, group) if needs_grad else group
     for gi in range(g):
         gp = _index(params["blocks"], gi)
+        if not collect_kv:
+            x = body(x, gp)
+            continue
         for i, kind in enumerate(pattern):
             x, kv = _block_apply(cfg, kind, gp[f"s{i}"], x, positions, collect_kv)
-            if collect_kv:
-                per_slot[f"s{i}"].append(kv)
+            per_slot[f"s{i}"].append(kv)
     caches: Dict[str, Any] = {}
     if collect_kv:
         caches = {name: {key: torch.stack([kv[key] for kv in kvs]) for key in kvs[0]}
@@ -225,6 +270,31 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor
     b, l, _ = x.shape
     x, _ = _run_blocks(params, cfg, x, _positions(b, l, x.device), collect_kv=False)
     return _logits(params, cfg, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy over ``batch["tokens"]/["labels"]/["mask"]``.
+
+    The twin of ``repro.models.lm.loss_fn``: fp32 logits, a stable
+    logsumexp, CE masked by ``mask`` over ``max(Σ mask, 1)`` tokens, and the
+    metrics ``ce``, ``aux``, ``tokens``.  The reference picks the label's
+    logit by a one-hot contraction over the vocab, which selects exactly one
+    fp32 value; ``torch.gather`` picks the same value bit for bit without
+    the [B, L, V] one-hot temporaries.
+    """
+    logits, aux = forward(params, cfg, batch["tokens"])
+    m = logits.amax(dim=-1, keepdim=True)
+    lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(dim=-1))
+    label_logit = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0]
+    ll = label_logit - lse
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones_like(ll)
+    denom = torch.clamp(mask.sum(), min=1.0)
+    ce = -(ll * mask).sum() / denom
+    loss = ce + cfg.aux_loss_weight * aux
+    return loss, {"ce": ce, "aux": aux, "tokens": denom.float()}
 
 
 # ==========================================================================

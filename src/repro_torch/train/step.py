@@ -1,0 +1,101 @@
+"""The train step: loss and gradients of :func:`repro_torch.models.lm.loss_fn`,
+global-norm clip, AdamW, with microbatching and the ``gather_dtype`` cast.
+
+The port of :mod:`repro.train.step`.  The state is a plain dict of the
+reference's layout, ``{"params", "opt": {"m", "v"}, "step"}``, so a
+checkpoint of either side restores on the other.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models import lm
+from repro_torch.models.common import (ModelConfig, cast_tree, torch_dtype, tree_leaves,
+                                       tree_map)
+from repro_torch.train import optim
+
+TrainState = Dict[str, Any]     # {"params", "opt": {"m","v"}, "step"}
+
+
+def train_state_init(gen: torch.Generator, cfg: ModelConfig, *, device="cuda") -> TrainState:
+    """Fresh state: parameters from ``gen`` (which lives on ``device``), zero
+    moments, step 0 (a 0-d int32)."""
+    dev = resolve_device(device)
+    params = lm.init(gen, cfg, device=dev)
+    return {"params": params, "opt": optim.adamw_init(params),
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def train_state_shapes(cfg: ModelConfig) -> TrainState:
+    """The state's shapes and dtypes on the ``meta`` device (no memory, no
+    numbers): the template a checkpoint restores into."""
+    return train_state_init(torch.Generator(), cfg, device="meta")
+
+
+def _microbatches(batch: Dict[str, torch.Tensor], n: int):
+    b = next(iter(batch.values())).shape[0]
+    if b % n:
+        raise ValueError(f"batch {b} not divisible by microbatches {n}")
+    return [{k: x[i * (b // n):(i + 1) * (b // n)] for k, x in batch.items()}
+            for i in range(n)]
+
+
+def make_train_step(cfg: ModelConfig, *, lr: float = 3e-4, max_grad_norm: float = 1.0,
+                    microbatches: int = 1, weight_decay: float = 0.1, lr_schedule=None):
+    """Build the train step: (state, batch) -> (new state, metrics).
+
+    ``batch`` holds tensors on the state's device.  With ``cfg.gather_dtype``
+    the master tree is cast before the gradient and AdamW updates the cast
+    tree, as the reference does (``repro/train/step.py:55-59,81``): after one
+    step the parameters are in ``gather_dtype`` and m, v stay fp32.
+    Microbatch gradients are summed in fp32 and divided by their count.
+    """
+
+    def grads_of(params, mb):
+        leaves = tree_leaves(params)
+        with torch.enable_grad():
+            loss, metrics = lm.loss_fn(params, cfg, mb)
+            grads = torch.autograd.grad(loss, leaves)
+        it = iter(grads)
+        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+                tree_map(lambda _: next(it), params))
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        params = state["params"]
+        if cfg.gather_dtype:
+            params = cast_tree(params, torch_dtype(cfg.gather_dtype))
+        params = tree_map(lambda p: p.detach().requires_grad_(), params)
+
+        if microbatches == 1:
+            loss, metrics, grads = grads_of(params, batch)
+        else:
+            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                         device=p.device), params)
+            loss, mets = 0.0, []
+            for mb in _microbatches(batch, microbatches):
+                l_mb, met, g = grads_of(params, mb)
+                grads = tree_map(lambda a, b: a + b.to(a.dtype), grads, g)
+                loss = loss + l_mb
+                mets.append(met)
+            grads = tree_map(lambda g: g / microbatches, grads)
+            loss = loss / microbatches
+            metrics = {k: torch.stack([m[k] for m in mets]).mean(dim=0) for k in mets[0]}
+
+        grads, gnorm = optim.clip_by_global_norm(grads, max_grad_norm)
+        step_lr = lr_schedule(state["step"]) if lr_schedule is not None else lr
+        params = tree_map(lambda p: p.detach(), params)
+        new_params, new_opt = optim.adamw_update(
+            params, grads, state["opt"], state["step"], lr=step_lr,
+            weight_decay=weight_decay)
+        new_state = {"params": new_params, "opt": new_opt, "step": state["step"] + 1}
+        metrics = dict(metrics)
+        metrics.update(loss=loss, grad_norm=gnorm,
+                       lr=torch.as_tensor(step_lr, dtype=torch.float32))
+        return new_state, metrics
+
+    return train_step

@@ -17,7 +17,11 @@ from repro_torch.convert import tree_to  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import rglru_scan as rg  # noqa: E402
-from repro_torch.models import lm  # noqa: E402
+from repro_torch.data.synthetic import make_batch  # noqa: E402
+from repro_torch.models import flash, lm  # noqa: E402
+from repro_torch.models.common import tree_leaves  # noqa: E402
+from repro_torch.train.commit import batch_to  # noqa: E402
+from repro_torch.train.step import make_train_step, train_state_init  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -296,3 +300,95 @@ def test_rglru_vec4_refuses_misaligned_inputs(card):
     with pytest.raises(ValueError, match="16-byte"):
         ops.rglru_scan(log_a, shifted)
     assert ops.rglru_variant_launches == v0
+
+
+# ---- the training path: lse, the Function's gradients, refusals, a step ------
+
+#: (b, l, h, hkv, hd, window, cap, dtype, tol): the fp32 reference cases on
+#: the fma variant, and bf16 at hd 64, 128 and 256 on wgmma; lse at 1e-5
+#: (fma) and 1e-4 (wgmma, whose exponentials are ex2.approx)
+_LSE_CASES = ([c for c in ref.FLASH_CASES if c[7] == "float32"]
+              + [(2, 256, 8, 4, 64, 0, 0.0, "bfloat16", 1e-4),
+                 (1, 576, 32, 4, 128, 0, 50.0, "bfloat16", 1e-4),
+                 (1, 256, 4, 1, 256, 64, 0.0, "bfloat16", 1e-4)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,h,hkv,hd,window,cap,dtype,tol", _LSE_CASES)
+def test_flash_lse_vs_plain(card, b, l, h, hkv, hd, window, cap, dtype, tol):
+    """Both variants store each row's log-sum-exp when asked; the output is
+    the same as without it, bit for bit."""
+    rng = np.random.default_rng(l + hd)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, l, n, hd), np.float32))
+               .to(getattr(torch, dtype)).to(card) for n in (h, hkv, hkv))
+    kw = dict(causal=True, window=window, softcap=cap, block_q=l, block_k=l)
+    out, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ops.flash_attention(q, k, v, **kw))
+    _, want = ref.flash_attention_plain_lse(q, k, v, causal=True, window=window, softcap=cap)
+    assert lse.shape == (b, h, l) and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.cpu().numpy(), want.cpu().numpy(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 3e-2)])
+def test_flash_function_grads_vs_plain_autograd(card, dtype, tol):
+    """The Function (kernel forward, FA2 backward) against autograd through
+    the dense plain version in fp32 on the same bf16-exact inputs: fp32 on
+    the fma variant at 1e-4; bf16 on wgmma (hd 128) at 3e-2, the
+    reference's bf16 model tolerance, as the gradients are rounded to
+    bf16."""
+    rng = np.random.default_rng(11)
+    base = [torch.from_numpy(rng.standard_normal((2, 256, n, 128), np.float32))
+            .to(getattr(torch, dtype)).to(card) for n in (8, 2, 2, 8)]
+    q, k, v = (t.clone().requires_grad_() for t in base[:3])
+    n0 = dict(ops.flash_variant_launches)
+    flash.flash_attention(q, k, v, window=100, softcap=30.0).backward(base[3])
+    want = fa.variant(128, q.dtype)
+    assert ops.flash_variant_launches == {**n0, want: n0[want] + 1}
+    q2, k2, v2 = (t.float().requires_grad_() for t in base[:3])
+    ref.flash_attention_plain(q2, k2, v2, window=100, softcap=30.0).backward(base[3].float())
+    for a, b in ((q, q2), (k, k2), (v, v2)):
+        np.testing.assert_allclose(a.grad.float().cpu().numpy(), b.grad.cpu().numpy(),
+                                   atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_a_gradient_they_would_drop(card):
+    x, dt, a, bm, cm = _ssd_inputs(1, 64, 2, 16, 16, "float32", 3, card)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.ssd_scan(x.requires_grad_(), dt, a, bm, cm, chunk=32)
+    with torch.no_grad():
+        ops.ssd_scan(x, dt, a, bm, cm, chunk=32)
+    log_a, b = _rglru_inputs(1, 64, 32, "float32", 7, card)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.rglru_scan(log_a, b.requires_grad_())
+    q = torch.zeros((1, 64, 4, 64), device=card, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="models.flash"):
+        ops.flash_attention(q, q[:, :, :2], q[:, :, :2])
+    cfg = configs.get_smoke("mamba2-370m")
+    params = lm.init(torch.Generator(device=card).manual_seed(0), cfg, device=card)
+    params["embed"].requires_grad_()
+    with pytest.raises(NotImplementedError):
+        lm.loss_fn(params, cfg, batch_to(make_batch(cfg, 32, 2), card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat,per_layer", [("none", 1), ("dots", 2), ("full", 2)])
+def test_train_step_on_card_matches_cpu(card, remat, per_layer):
+    """One fp32 step of the yi-9b smoke config on the card against the CPU
+    from the same state: loss, gradient norm and parameters at 1e-4 (the
+    embedding's backward accumulates in no fixed order on the card); the
+    flash launches are one per layer, two under remat."""
+    cfg = configs.get_smoke("yi-9b").replace(compute_dtype="float32", remat=remat)
+    state = train_state_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    batch = make_batch(cfg, 64, 2)
+    want_state, want = make_train_step(cfg, lr=1e-3)(state, batch_to(batch, "cpu"))
+    ops.reset_launches()
+    got_state, got = make_train_step(cfg, lr=1e-3)(tree_to(state, card), batch_to(batch, card))
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention"] == per_layer * cfg.n_layers
+    for key in ("loss", "grad_norm"):
+        assert float(got[key]) == pytest.approx(float(want[key]), rel=1e-4, abs=1e-4)
+    for a, b in zip(tree_leaves(got_state["params"]), tree_leaves(want_state["params"])):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4, rtol=1e-4)

@@ -206,3 +206,123 @@ def test_build_target_tracks_headers(monkeypatch, tmp_path):
     assert build._target("flash_attention") != first
     (csrc / "part.cuh").write_text("// one\n")
     assert build._target("flash_attention") == first
+
+
+# ---- the training path: lse, and the FA2 backward of models/flash ----------
+
+from repro.models import flash as jflash  # noqa: E402
+from repro_torch.models import flash  # noqa: E402
+
+# (l, causal, window, softcap): causal, windowed, softcapped and non-causal
+_GRAD_CASES = [(l, causal, window, cap) for l in (256, 2048)
+               for (causal, window, cap) in ((True, 0, 0.0), (True, 96, 0.0),
+                                             (True, 0, 30.0), (False, 0, 0.0))]
+
+
+def _grad_inputs(l, seed, b=1, h=4, hkv=2, hd=16):
+    qn, kn, vn = _inputs(b, l, h, hkv, hd, seed=seed)
+    don = np.random.default_rng(seed + 1).standard_normal((b, l, h, hd)).astype(np.float32)
+    return qn, kn, vn, don
+
+
+@pytest.mark.parametrize("l,causal,window,cap", _GRAD_CASES)
+def test_flash_function_forward_and_grads_vs_jax(l, causal, window, cap):
+    """The Function's output and its gradients against ``jax.vjp`` of the
+    reference's ``custom_vjp`` (blockwise forward, FA2 backward), fp32 at
+    1e-4, on the reference's 512-row tiles."""
+    qn, kn, vn, don = _grad_inputs(l, seed=l + window + int(cap))
+    kw = dict(causal=causal, window=window, softcap=cap)
+    out_j, vjp = jax.vjp(lambda q, k, v: jflash.flash_attention(q, k, v, **kw),
+                         *(jnp.asarray(x) for x in (qn, kn, vn)))
+    grads_j = vjp(jnp.asarray(don))
+    q, k, v = (torch.from_numpy(x).requires_grad_() for x in (qn, kn, vn))
+    out = flash.flash_attention(q, k, v, **kw)
+    out.backward(torch.from_numpy(don))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_j), atol=1e-4, rtol=1e-4)
+    for name, t, gj in zip("qkv", (q, k, v), grads_j):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(gj), atol=1e-4, rtol=1e-4,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("l,causal,window,cap", _GRAD_CASES)
+def test_lse_vs_jax_flash_fwd_impl(l, causal, window, cap):
+    """The wrapper's lse (the plain version's on the CPU) and the port's
+    blockwise forward against the reference's ``_flash_fwd_impl``, 1e-5;
+    head h = kv·G + g."""
+    qn, kn, vn, _ = _grad_inputs(l, seed=l + 7)
+    b, _, h, hd = qn.shape
+    hkv = kn.shape[2]
+    kw = dict(causal=causal, window=window, softcap=cap, bq=min(512, l), bk=min(512, l))
+    group = lambda x: np.moveaxis(x.reshape(b, l, hkv, h // hkv, hd), 1, 3)  # noqa: E731
+    out_j, lse_j = jflash._flash_fwd_impl(jnp.asarray(group(qn)), jnp.asarray(
+        np.moveaxis(kn, 1, 2)), jnp.asarray(np.moveaxis(vn, 1, 2)), **kw)
+    lse_j = np.asarray(lse_j).reshape(b, h, l)
+    out, lse = ops.flash_attention(*(torch.from_numpy(x) for x in (qn, kn, vn)),
+                                   causal=causal, window=window, softcap=cap,
+                                   return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, l)
+    np.testing.assert_allclose(lse.numpy(), lse_j, atol=1e-5, rtol=1e-5)
+    plain = ref.flash_attention_plain(*(torch.from_numpy(x) for x in (qn, kn, vn)),
+                                      causal=causal, window=window, softcap=cap)
+    assert torch.equal(out, plain)
+    out_b, lse_b = flash._flash_fwd_impl(
+        flash._grouped_q(torch.from_numpy(qn), hkv), torch.from_numpy(kn).transpose(1, 2),
+        torch.from_numpy(vn).transpose(1, 2), **kw)
+    np.testing.assert_allclose(lse_b.numpy(), np.asarray(
+        jflash._flash_fwd_impl(jnp.asarray(group(qn)), jnp.asarray(np.moveaxis(kn, 1, 2)),
+                               jnp.asarray(np.moveaxis(vn, 1, 2)), **kw)[1]),
+        atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(flash._ungrouped_q(out_b).numpy(), np.asarray(
+        jflash.flash_attention(*(jnp.asarray(x) for x in (qn, kn, vn)), causal=causal,
+                               window=window, softcap=cap)), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("l,window,cap", [(100, 0, 0.0), (23, 16, 50.0), (600, 0, 0.0)])
+def test_padded_rows_get_no_gradient(l, window, cap):
+    """``_flash_causal`` pads L to a multiple of 64 and slices; through the
+    Function the real rows' gradients equal dense autograd's, and the
+    backward hands the padded rows zero (L = 600 pads to 640, which 512
+    does not tile, so the tiles are 64 rows)."""
+    qn, kn, vn, don = _grad_inputs(l, seed=l, b=2)
+    q, k, v = (torch.from_numpy(x).requires_grad_() for x in (qn, kn, vn))
+    attention._flash_causal(q, k, v, window=window, cap=cap).backward(torch.from_numpy(don))
+    q2, k2, v2 = (torch.from_numpy(x).requires_grad_() for x in (qn, kn, vn))
+    ref.flash_attention_ref(q2, k2, v2, causal=True, window=window, softcap=cap).backward(
+        torch.from_numpy(don))
+    for a, b_ in ((q, q2), (k, k2), (v, v2)):
+        np.testing.assert_allclose(a.grad.numpy(), b_.grad.numpy(), atol=1e-5, rtol=1e-5)
+
+    pad = -l % attention.FLASH_BLOCK
+    qp, kp, vp = (torch.nn.functional.pad(torch.from_numpy(x), (0, 0, 0, 0, 0, pad))
+                  .requires_grad_() for x in (qn, kn, vn))
+    dop = torch.nn.functional.pad(torch.from_numpy(don), (0, 0, 0, 0, 0, pad))
+    block = 512 if (l + pad) % min(512, l + pad) == 0 else attention.FLASH_BLOCK
+    flash.flash_attention(qp, kp, vp, window=window, softcap=cap, block_q=block,
+                          block_k=block).backward(dop)
+    for t in (qp, kp, vp):
+        assert not t.grad[:, l:].any()
+        assert t.grad[:, :l].abs().sum() > 0
+
+
+def test_flash_function_ragged_rejected_like_reference():
+    q = torch.zeros((1, 600, 4, 16), requires_grad=True)
+    with pytest.raises(ValueError):
+        flash.flash_attention(q, q[:, :, :2], q[:, :, :2])
+    with pytest.raises(ValueError):
+        jflash.flash_attention(jnp.zeros((1, 600, 4, 16)), jnp.zeros((1, 600, 2, 16)),
+                               jnp.zeros((1, 600, 2, 16)))
+
+
+def test_launcher_argtypes_match_the_entry_point():
+    """ctypes passes each argument as its declared type (a pointer cut to
+    32 bits would crash on the card): one c_void_p per pointer of the C
+    entry point (lse among them), c_float per float, c_int per int."""
+    import ctypes
+    import pathlib
+    import re
+    src = (pathlib.Path(fa.__file__).parent / "csrc" / "flash_attention.cu").read_text()
+    params = re.search(r'extern "C" int flash_attention_fwd\((.*?)\)', src, re.S).group(1)
+    kinds = [ctypes.c_void_p if "*" in prm else ctypes.c_float if "float" in prm
+             else ctypes.c_int for prm in params.split(",")]
+    assert kinds == fa._ARGTYPES
+    assert "float* lse" in params

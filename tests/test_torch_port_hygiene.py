@@ -29,6 +29,7 @@ COPIES = (
        ("shapes", "yi_9b", "gemma2_27b", "mamba2_370m", "deepseek_moe_16b", "dbrx_132b",
         "mistral_large_123b", "qwen15_110b", "recurrentgemma_9b", "phi3_vision_42b",
         "seamless_m4t_medium")]
+    + [f"data/{m}.py" for m in ("__init__", "synthetic")]
 )
 
 _IMPORTS_JAX_OR_REPRO = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
