@@ -9,7 +9,8 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
               kernel instantiation's registers and spills from ptxas (the
               full report goes to chiprun_out/build_ptxas.log), and fail if
               a tensor-core instantiation (flash's wgmma, the SSD scan's
-              mma) or an RG-LRU scan instantiation spills.
+              mma), an RG-LRU scan instantiation (forward or backward) or
+              an SSD backward instantiation spills.
 2. kernels  — each kernel on the card against its plain PyTorch version on
               the same inputs, at the stated tolerances:
               flash attention: the 7 reference cases, block-shape
@@ -33,6 +34,15 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
               variant, timed also with L2 flushed before each call
               (ms_cold) and beside torch.add over the same bytes
               (same_bytes_add_ms: the rate the memory gives this traffic).
+              The backward kernels (rglru_scan_bwd, ssd_scan_bwd) through
+              the ops Functions against autograd of the plain versions:
+              the RG-LRU cases and a padded L (300 → 512); the SSD
+              reference cases in fp32 and bf16 with and without a
+              final-state gradient, the mma cases (stress case included)
+              in fp32 and bf16, and a padded L (200 → 256); fp32 at
+              atol = rtol = 1e-4, bf16 dx/dB/dC at rtol 1e-2 (atol 1e-3
+              of their scale), ddt and da at 1e-4 of their scale; each
+              timed at its training shape.
               Each serving shape is timed: kernel / plain / library / bound,
               as device time from a torch.profiler trace, split by device
               kernel in ms_by_kernel (the host-clock time of a wrapper call
@@ -63,6 +73,15 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
               then the same 3 steps with attention differentiated through
               the dense plain version, the step-1 loss and grad norm held
               to the flash path's.
+6b. recurrent train — mamba2-370m at full width and depth (48 layers,
+              batch 2 × 2048) and recurrentgemma-9b at full width with one
+              (rglru, rglru, local) group of 3 layers (batch 1 × 4096),
+              remat "dots", 3 steps each: loss, grad norm, ms, tokens/s,
+              peak memory, launches per step exactly the forwards twice and
+              each backward kernel once a scan layer, nonzero first
+              moments for every scan-layer weight, one traced step; then
+              the same steps with both scans differentiated by autograd
+              through their plain versions, step 1 held to within 5e-2.
 7. grads    — the flash Function (kernel forward, FA2 backward) against
               autograd through the dense plain version on the card: fp32
               on the fma variant, bf16 on wgmma at hd 128.
@@ -70,17 +89,18 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
               preset, 12 steps in chunks of 4, uninterrupted and with the
               primary controller killed after chunk 2: the same final step,
               losses within 1e-4, one commit per chunk.
-9. refuse   — a backward through the mamba2-370m and recurrentgemma-9b
-              smoke configs on the card raises NotImplementedError (the
-              scan kernels have no backward yet) instead of dropping the
-              gradient, and so does the flash wrapper called outside the
-              flash Function on inputs that need a gradient.
+9. refuse   — the flash wrapper called outside the flash Function on
+              inputs that need a gradient raises NotImplementedError
+              instead of dropping the gradient; a backward through the
+              mamba2-370m and recurrentgemma-9b smoke configs on the card
+              runs through each scan's backward kernel.
 
 Phase 2 also holds the flash kernels' log-sum-exp (the backward's input)
 against the plain version on both variants and times the forward with it
 at the training shape.
 
-The line before the last is one JSON object with a row per kernel; the last
+The line before the last is one JSON object with a row per kernel
+(flash_attention, ssd_scan, rglru_scan, ssd_scan_bwd, rglru_scan_bwd); the last
 line is ``{"ok": true, "device": {...}}``.  Without a card it exits 1 and
 prints no result.
 """
@@ -145,6 +165,15 @@ FLASH_SOURCES = {"wgmma": "src/repro_torch/kernels/csrc/flash_attention_sm90.cuh
 SSD_SOURCES = {"mma": "src/repro_torch/kernels/csrc/ssd_scan_sm90.cuh",
                "fma": "src/repro_torch/kernels/csrc/ssd_scan.cu"}
 
+# recurrent training: mamba2-370m at full width and depth, batch 2 × 2048;
+# recurrentgemma-9b at full width, depth cut from 38 layers to one (rglru,
+# rglru, local) group (its 9 B parameters, gradients and two moments need
+# ~140 GB), batch 1 × 4096 so that the 2048 window binds
+MAMBA_TRAIN_BATCH = 2
+MAMBA_TRAIN = MAMBA.replace(remat="dots")
+RG_TRAIN_BATCH, RG_TRAIN_SEQ = 1, 4096
+RG_TRAIN = RG.replace(n_layers=3, remat="dots")
+
 KERNELS = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention_sm90.cuh",
                         "src/repro/kernels/flash_attention.py:96"),
@@ -152,6 +181,11 @@ KERNELS = {
                  "src/repro/kernels/ssd_scan.py:75"),
     "rglru_scan": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
                    "src/repro/kernels/rglru_scan.py:60"),
+    "ssd_scan_bwd": ("src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+                     "no TPU kernel: counterpart of JAX autodiff of src/repro/models/ssm.py:99"),
+    "rglru_scan_bwd": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
+                       "no TPU kernel: counterpart of JAX autodiff of "
+                       "src/repro/models/rglru.py:62"),
 }
 
 
@@ -180,9 +214,11 @@ def _device_profile(fn, iters: int = 20, warmup: int = 3):
     """Device time per call, the union of the device intervals in a
     torch.profiler trace of ``iters`` calls over ``iters``, and each device
     kernel's time per call by name (arguments dropped).  A trace that comes
-    back without device events (seen once in a run of many traces) is taken
-    again; after three such traces the time is taken with CUDA events, host
-    gaps included, and there is no split by kernel (None)."""
+    back without device events (seen once in a run of many traces), or with
+    a kernel recorded a number of times that is not a multiple of ``iters``
+    (seen once: 7 of 20 launches of one kernel kept), is taken again; after
+    three such traces the time is taken with CUDA events, host gaps
+    included, and there is no split by kernel (None)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -192,9 +228,13 @@ def _device_profile(fn, iters: int = 20, warmup: int = 3):
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if events:
+        counts = {}
+        for e in events:
+            counts[e.name] = counts.get(e.name, 0) + 1
+        if events and all(n % iters == 0 for n in counts.values()):
             break
-        _log("[kernels] torch.profiler recorded no device time; tracing again")
+        _log("[kernels] torch.profiler recorded no device time or not every launch; "
+             "tracing again")
     else:
         _log("[kernels] no device time in three traces: timing with CUDA events")
         return _time_ms(fn, iters, 0), None
@@ -302,7 +342,8 @@ def phase_build() -> dict:
         for fn, regs, stores, loads in _ptxas_report(i["log"]):
             _log(f"[build]   {fn}: {regs} registers, {stores} bytes spill stores, "
                  f"{loads} bytes spill loads")
-            if ("wgmma" in fn or "ssd_sm90" in fn or "rglru_scan" in fn) and (stores or loads):
+            if ("wgmma" in fn or "ssd_sm90" in fn or "rglru_scan" in fn
+                    or name == "ssd_scan_bwd") and (stores or loads):
                 _fail(f"instantiation {fn} spills ({stores}/{loads} bytes)")
     return info
 
@@ -638,6 +679,161 @@ def phase_rglru() -> dict:
 
 
 # ==========================================================================
+# 2b. the scans' backward kernels against autograd of their plain versions
+# ==========================================================================
+
+
+def _rglru_bwd_case(bt, l, w, dtype_name, pad_to=0) -> float:
+    """The RG-LRU Function (kernel forward, kernel backward) against autograd
+    through the plain version: dlog_a and db at atol = rtol = 1e-4.  With
+    ``pad_to`` the call goes through models/rglru._scan, which pads L to a
+    multiple of 256 with log_a = 0 (a = 1) and slices the padding off."""
+    log_a, b = _rglru_inputs(bt, l, w, getattr(torch, dtype_name), seed=w + l + 1)
+    dh = torch.randn((bt, l, w), generator=_gen(w + l + 2), device="cuda")
+    want = rg.variant(w)
+    la, bb = log_a.clone().requires_grad_(), b.clone().requires_grad_()
+    n0, v0 = ops.launches["rglru_scan_bwd"], dict(ops.rglru_bwd_variant_launches)
+    h = rglru._scan(la, bb) if pad_to else ops.rglru_scan(la, bb, block_l=l, block_w=w)
+    h.backward(dh)
+    if (ops.launches["rglru_scan_bwd"] != n0 + 1
+            or ops.rglru_bwd_variant_launches != {**v0, want: v0[want] + 1}):
+        _fail(f"rglru_scan backward at W={w} did not launch the {want} backward kernel once")
+    d_la, d_b = ref.rglru_scan_bwd_plain(log_a, b, dh)
+    what = f"rglru_scan_bwd ({want}) bt={bt} l={l}{f' padded to {pad_to}' if pad_to else ''} w={w}"
+    return max(_check(f"{what} dlog_a", la.grad, d_la, 1e-4, 1e-4),
+               _check(f"{what} db", bb.grad, d_b, 1e-4, 1e-4))
+
+
+def _check_grad(what: str, name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """An SSD gradient against the plain version's.  ddt and da are fp32
+    sums of many terms: 1e-4 relative, with atol 1e-4 of the tensor's
+    largest value (an entry near zero carries the summation order's error at
+    the scale of the largest term).  dx, dB, dC: fp32 at atol = rtol = 1e-4;
+    bf16 at rtol 1e-2 (one bf16 rounding of the result) and atol 1e-3 of the
+    largest value."""
+    scale = float(want.float().abs().max())
+    if name in ("ddt", "da"):
+        return _check(what, got, want, 1e-4 * scale, 1e-4)
+    if want.dtype == torch.bfloat16:
+        return _check(what, got, want, 1e-3 * scale, 1e-2)
+    return _check(what, got, want, 1e-4, 1e-4)
+
+
+def _ssd_bwd_case(what: str, args, chunk: int, with_state: bool, pad: int = 0) -> float:
+    """The SSD Function (kernel forward, kernel backward) against autograd
+    through the plain version, with or without a gradient of the final
+    state; with ``pad`` rows of zeros appended as models/ssm pads (dt = 0).
+    Tolerances as :func:`_check_grad`."""
+    x = args[0]
+    g = _gen(x.shape[1] + x.shape[3] + 7)
+    dy = torch.randn(x.shape, generator=g, device="cuda").to(x.dtype)
+    dh = (torch.randn((x.shape[0], x.shape[2], x.shape[3], args[3].shape[-1]), generator=g,
+                      device="cuda") if with_state else None)
+    leaves = [t.clone().requires_grad_() for t in args]
+
+    def padded(ts):
+        if not pad:
+            return ts
+        return [torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) if t.dim() > 1
+                else t for t in ts]
+
+    n0 = ops.launches["ssd_scan_bwd"]
+    y, h_last = ops.ssd_scan(*padded(leaves), chunk=chunk, return_state=True)
+    outs, cots = [y[:, :x.shape[1]]], [dy]
+    if with_state:
+        outs.append(h_last)
+        cots.append(dh)
+    torch.autograd.backward(outs, cots)
+    if ops.launches["ssd_scan_bwd"] != n0 + 1:
+        _fail(f"{what}: the backward did not launch ssd_scan_bwd once")
+    plain = [t.clone().requires_grad_() for t in args]
+    y2, h2 = ref.ssd_chunked(*padded(plain), chunk)
+    outs2, cots2 = [y2[:, :x.shape[1]]], [dy]
+    if with_state:
+        outs2.append(h2)
+        cots2.append(dh)
+    torch.autograd.backward(outs2, cots2)
+    return max(_check_grad(f"{what} {name}", name, a.grad, b.grad)
+               for name, a, b in zip(("dx", "ddt", "da", "dB", "dC"), leaves, plain))
+
+
+def _ssd_bwd_flops(bt, l, h, p, n, q) -> int:
+    """Products the SSD backward needs: per (batch, chunk) C·Bᵀ over the
+    causal pairs (shared by the heads); per head r = dy·xᵀ over the pairs,
+    the three pair products into dx, dB, dC, and six [Q,P]×[P,N]-sized
+    state products (S_c, U_c, dS·B, dSᵀ·x, h_in·C, h_inᵀ·dy)."""
+    nc, pairs = l // q, q * (q + 1) // 2
+    return (2 * bt * nc * pairs * n
+            + 2 * bt * nc * h * (pairs * (2 * p + 2 * n) + 6 * q * p * n))
+
+
+def phase_scan_bwd() -> dict:
+    """Both backward kernels on the phase-2 cases, then each timed at its
+    training shape; returns their rows."""
+    errs = []
+    for (bt, l, w, _, _, dtype_name, _) in ref.RGLRU_CASES + ref.RGLRU_EDGE_CASES:
+        errs.append(_rglru_bwd_case(bt, l, w, dtype_name))
+    errs.append(_rglru_bwd_case(2, 300, 64, "float32", pad_to=512))
+    rg_err = max(errs)
+
+    errs = []
+    for (bt, l, h, p, n, chunk, dtype_name, _) in ref.SSD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _ssd_inputs(bt, l, h, p, n, dtype, seed=l + p)
+            for st in (False, True):
+                errs.append(_ssd_bwd_case(
+                    f"ssd_scan_bwd bt={bt} l={l} h={h} p={p} n={n} chunk={chunk} "
+                    f"{str(dtype)[6:]} state grad {st}", args, chunk, st))
+    for case in ref.SSD_MMA_CASES:
+        bt, l, h, p, n, chunk = case
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _ssd_inputs(bt, l, h, p, n, dtype, seed=l + p, dt0=ref.ssd_dt0(case))
+            errs.append(_ssd_bwd_case(
+                f"ssd_scan_bwd case {case} {str(dtype)[6:]} dt0={ref.ssd_dt0(case)}", args,
+                chunk, True))
+    args = _ssd_inputs(2, 200, 4, 32, 64, torch.bfloat16, seed=9, dt0=0.01)
+    errs.append(_ssd_bwd_case("ssd_scan_bwd L 200 padded to 256 bfloat16", args, 128, True,
+                              pad=56))
+    ssd_err = max(errs)
+
+    # the training shapes, each timed alone
+    log_a, b = _rglru_inputs(1, RG_TRAIN_SEQ, rglru.width(RG), torch.float32, seed=21)
+    h = ops.rglru_scan(log_a, b)
+    dh = torch.randn(h.shape, generator=_gen(22), device="cuda")
+    got = ops.rglru_scan_bwd(log_a, h, dh)
+    want = ref.rglru_scan_bwd_plain(log_a, b, dh)
+    err = max(_check(f"rglru_scan_bwd at the training shape {list(h.shape)} {n}", g_, w_,
+                     1e-4, 1e-4) for n, g_, w_ in zip(("dlog_a", "db"), got, want))
+    rg_row = _row("rglru_scan_bwd", max(err, rg_err), lambda: ops.rglru_scan_bwd(log_a, h, dh),
+                  lambda: ref.rglru_scan_bwd_plain(log_a, b, dh), 5 * _nbytes(h),
+                  5 * h.numel(), torch.float32, None, f"log_a/h/dh/dlog_a/db {list(h.shape)}")
+    rg_row["variant"] = rg.variant(h.shape[2])
+    rg_row["library_null_because"] = "no PyTorch call computes the recurrence's backward"
+    del log_a, b, h, dh, got, want
+
+    _, nh, p, n = ssm.dims(MAMBA)
+    q = MAMBA.ssm.chunk
+    x, dt, a, bm, cm = _ssd_inputs(MAMBA_TRAIN_BATCH, TRAIN_SEQ, nh, p, n, MAMBA.cdtype,
+                                   seed=23, dt0=0.01)
+    dy = torch.randn(x.shape, generator=_gen(24), device="cuda").to(x.dtype)
+    got = ops.ssd_scan_bwd(x, dt, a, bm, cm, q, dy, None)
+    want = ref.ssd_scan_bwd_plain(x, dt, a, bm, cm, q, dy)
+    err = max(_check_grad(f"ssd_scan_bwd at the training shape {list(x.shape)} {nm}", nm,
+                          g_, w_) for nm, g_, w_ in zip(("dx", "ddt", "da", "dB", "dC"), got, want))
+    del got, want
+    ssd_row = _row("ssd_scan_bwd", max(err, ssd_err),
+                   lambda: ops.ssd_scan_bwd(x, dt, a, bm, cm, q, dy, None),
+                   lambda: ref.ssd_scan_bwd_plain(x, dt, a, bm, cm, q, dy),
+                   2 * _nbytes(x, dt, a, bm, cm) + _nbytes(dy),
+                   _ssd_bwd_flops(MAMBA_TRAIN_BATCH, TRAIN_SEQ, nh, p, n, q), x.dtype, None,
+                   f"x/dy {list(x.shape)} {str(x.dtype)[6:]}, B/C {list(bm.shape)}, chunk {q}")
+    ssd_row["library_null_because"] = "no PyTorch call computes the chunked SSD backward"
+    del x, dt, a, bm, cm, dy
+    _free()
+    return {"ssd_scan_bwd": ssd_row, "rglru_scan_bwd": rg_row}
+
+
+# ==========================================================================
 # 3. model: smoke configs, card against CPU
 # ==========================================================================
 
@@ -671,7 +867,18 @@ def _expected_launches(cfg) -> dict:
     per Mamba2 layer, one rglru_scan per RG-LRU layer."""
     kinds = [cfg.pattern_of(i) for i in range(cfg.n_layers)]
     return {"flash_attention": sum(k in ("attn", "local") for k in kinds),
-            "ssd_scan": kinds.count("ssm"), "rglru_scan": kinds.count("rglru")}
+            "ssd_scan": kinds.count("ssm"), "rglru_scan": kinds.count("rglru"),
+            "ssd_scan_bwd": 0, "rglru_scan_bwd": 0}
+
+
+def _train_launches(cfg) -> dict:
+    """Launches of one training step under remat "dots": every forward
+    twice (the recompute runs it again), each scan's backward kernel once
+    a layer (attention's backward is plain torch)."""
+    once = _expected_launches(cfg)
+    return {"flash_attention": 2 * once["flash_attention"], "ssd_scan": 2 * once["ssd_scan"],
+            "rglru_scan": 2 * once["rglru_scan"], "ssd_scan_bwd": once["ssd_scan"],
+            "rglru_scan_bwd": once["rglru_scan"]}
 
 
 def phase_model() -> None:
@@ -875,6 +1082,123 @@ def phase_train_grads() -> dict:
     return errs
 
 
+def _scan_moments_nonzero(state, cfg) -> list:
+    """The scan-layer weights whose first moment is zero after a step from
+    zero moments, i.e. that got a zero gradient (empty when all got one)."""
+    m = state["opt"]["m"]["blocks"]
+    return [f"s{i}.{key}.{w}" for i, kind in enumerate(cfg.layer_pattern)
+            for key in ({"ssm": "ssm", "rglru": "rec"}.get(kind),) if key
+            for w, t in m[f"s{i}"][key].items() if not bool(t.abs().amax() > 0)]
+
+
+def _plain_ssd(x, dt, a, bmat, cmat, *, chunk=256, return_state=False):
+    y, h_last = ref.ssd_chunked(x, dt, a, bmat, cmat, min(chunk, x.shape[1]))
+    return (y, h_last) if return_state else y
+
+
+def _plain_rglru(log_a, b, *, block_l=256, block_w=256):
+    return ref.rglru_scan_ref(log_a, b)
+
+
+def phase_train_recurrent(name: str, cfg, batch: int, seq: int, per_step: dict) -> dict:
+    """TRAIN_STEPS steps of make_train_step on a recurrent arch at full
+    width: each step's loss, grad norm, ms, tokens/s and launches (exactly
+    ``per_step``: the scan forwards twice a layer under remat "dots", each
+    backward kernel once, every forward on the serving variant), nonzero
+    first moments for every scan-layer weight after step 1, peak memory;
+    one more step traced (device time by class); then the same steps with
+    both scans differentiated by autograd through their plain versions on
+    the card, the step-1 loss within 5e-2 and grad norm within 5e-2
+    relative."""
+    t0 = time.perf_counter()
+    state = train_state_init(_gen(0), cfg, device="cuda")
+    step_fn = make_train_step(cfg, lr=3e-4)
+    batches = [batch_to(make_batch(cfg, seq, batch, step=s), "cuda")
+               for s in range(TRAIN_STEPS + 1)]
+    torch.cuda.synchronize()
+    _log(f"[train] {name}: {cfg.n_layers} layers d{cfg.d_model}, "
+         f"{cfg.param_count() / 1e9:.3f} B params, batch {batch} x {seq}; state and batches "
+         f"ready in {time.perf_counter() - t0:.2f}s")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    steps = []
+    for s in range(TRAIN_STEPS):
+        n0 = dict(ops.launches)
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batches[s])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        launched = {k: ops.launches[k] - n0[k] for k in n0}
+        steps.append({"loss": loss, "grad_norm": gnorm, "step_ms": ms,
+                      "tokens_per_s": batch * seq / ms * 1e3, "launches": launched})
+        _log(f"[train] {name} step {s + 1}: loss {loss:.6f}, grad norm {gnorm:.6f}, "
+             f"{ms:.3f} ms, {steps[-1]['tokens_per_s']:.1f} tokens/s, launches {launched}")
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            _fail(f"{name} train step {s + 1}: loss {loss}, grad norm {gnorm}")
+        if launched != per_step:
+            _fail(f"{name} train step {s + 1}: launches {launched}, not {per_step}")
+        if s == 0:
+            zero = _scan_moments_nonzero(state, cfg)
+            if zero:
+                _fail(f"{name}: scan-layer weights with a zero gradient: {zero}")
+    launches = dict(ops.launches)
+    want_variants = {"ssd_scan": {**dict.fromkeys(ssd.VARIANTS, 0),
+                                  "mma": launches["ssd_scan"]},
+                     "rglru_scan": {**dict.fromkeys(rg.VARIANTS, 0),
+                                    "vec4": launches["rglru_scan"]},
+                     "rglru_scan_bwd": {**dict.fromkeys(rg.VARIANTS, 0),
+                                        "vec4": launches["rglru_scan_bwd"]},
+                     "flash_attention": {**dict.fromkeys(fa.VARIANTS, 0),
+                                         "wgmma": launches["flash_attention"]}}
+    variants = {"ssd_scan": dict(ops.ssd_variant_launches),
+                "rglru_scan": dict(ops.rglru_variant_launches),
+                "rglru_scan_bwd": dict(ops.rglru_bwd_variant_launches),
+                "flash_attention": dict(ops.flash_variant_launches)}
+    if variants != want_variants:
+        _fail(f"{name} training launches by variant {variants}, not {want_variants}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    _log(f"[train] {name}: peak memory {peak:.2f} GB over {TRAIN_STEPS} steps; launches "
+         f"{launches}; by variant {variants}")
+    traced_ms, by_kernel = _device_profile(lambda: step_fn(state, batches[-1]), iters=1,
+                                           warmup=0)
+    classes = {}
+    for k, ms in (by_kernel or {}).items():
+        classes[kernel_class(k)] = classes.get(kernel_class(k), 0.0) + ms
+    top = dict(sorted(classes.items(), key=lambda kv: -kv[1]))
+    kernels = dict(sorted((by_kernel or {}).items(), key=lambda kv: -kv[1])[:8])
+    _log(f"[train] {name} traced step: device busy {traced_ms:.3f} ms; classes (device ms) "
+         + ", ".join(f"{k} {v:.3f}" for k, v in top.items()) + "; largest kernels "
+         + ", ".join(f"{k[:60]} {v:.3f}" for k, v in kernels.items()))
+    del state
+    _free()
+
+    state = train_state_init(_gen(0), cfg, device="cuda")
+    plain = []
+    with mock.patch.object(ops, "ssd_scan", _plain_ssd), \
+            mock.patch.object(ops, "rglru_scan", _plain_rglru):
+        ops.reset_launches()
+        for b in batches[:TRAIN_STEPS]:
+            state, m = step_fn(state, b)
+            plain.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])})
+    scan_launches = {k: v for k, v in ops.launches.items() if "scan" in k and v}
+    _log(f"[train] {name} with the scans differentiated through their plain versions: "
+         + "; ".join(f"step {i + 1} loss {d['loss']:.6f} grad norm {d['grad_norm']:.6f} "
+                     f"(kernels {k['loss']:.6f}, {k['grad_norm']:.6f})"
+                     for i, (d, k) in enumerate(zip(plain, steps))))
+    if scan_launches:
+        _fail(f"{name}: the plain run launched scan kernels {scan_launches}")
+    if (abs(plain[0]["loss"] - steps[0]["loss"]) > 5e-2
+            or abs(plain[0]["grad_norm"] - steps[0]["grad_norm"]) > 5e-2 * plain[0]["grad_norm"]):
+        _fail(f"{name}: the step-1 loss or gradient norm differs from the plain scans'")
+    del state, batches
+    _free()
+    return {"steps": steps, "peak_mem_gb": peak, "launches": launches, "variants": variants,
+            "traced_device_ms": traced_ms, "classes_ms": top, "top_kernels_ms": kernels,
+            "plain_steps": plain, "params": cfg.param_count(), "batch": batch, "seq": seq,
+            "layers": cfg.n_layers}
+
+
 def phase_commit() -> dict:
     """The committed trainer at the "20m" preset of examples/train_pipeline.py
     (yi-family, d 384, 6 layers, hd 64: wgmma; seq 128, batch 4), 12 steps
@@ -910,6 +1234,10 @@ def phase_commit() -> dict:
 
 
 def phase_refuse() -> None:
+    """The flash wrapper outside the flash Function refuses inputs that need
+    a gradient; a backward through the mamba2-370m and recurrentgemma-9b
+    smoke configs on the card runs, finite, through each scan's backward
+    kernel."""
     q = torch.zeros((1, 64, 4, 64), device="cuda", requires_grad=True)
     try:
         ops.flash_attention(q, q[:, :, :2], q[:, :, :2])
@@ -918,18 +1246,20 @@ def phase_refuse() -> None:
              "NotImplementedError (training goes through models/flash)")
     else:
         _fail("ops.flash_attention on the card took inputs that need a gradient")
-    for arch in ("mamba2-370m", "recurrentgemma-9b"):
+    for arch, kernel in (("mamba2-370m", "ssd_scan_bwd"), ("recurrentgemma-9b", "rglru_scan_bwd")):
         cfg = configs.get_smoke(arch)
         params = lm.init(_gen(2), cfg, device="cuda")
         params["embed"].requires_grad_()
         batch = batch_to(make_batch(cfg, 64, 2), "cuda")
-        try:
-            lm.loss_fn(params, cfg, batch)[0].backward()
-        except NotImplementedError as e:
-            _log(f"[refuse] {arch}: a backward through its scan kernel raises "
-                 f"NotImplementedError ({str(e)[:60]}...)")
-        else:
-            _fail(f"{arch}: a backward on the card ran without raising")
+        ops.reset_launches()
+        lm.loss_fn(params, cfg, batch)[0].backward()
+        torch.cuda.synchronize()
+        n = ops.launches[kernel]
+        finite = bool(torch.isfinite(params["embed"].grad).all())
+        _log(f"[refuse] {arch}: a backward on the card runs ({kernel} launched {n}x, "
+             f"finite gradient {finite})")
+        if n < 1 or not finite:
+            _fail(f"{arch}: a backward on the card did not run through {kernel}")
 
 
 def main() -> int:
@@ -942,9 +1272,10 @@ def main() -> int:
     t_start = time.perf_counter()
     _log(f"[chip_smoke] torch {torch.__version__} cuda {torch.version.cuda} "
          f"device {torch.cuda.get_device_name(0)}")
-    phase_build()
+    built = phase_build()
     rows = {"flash_attention": phase_flash(), "ssd_scan": phase_ssd(),
             "rglru_scan": phase_rglru()}
+    bwd_rows = phase_scan_bwd()
     phase_model()
     by_path, by_variant = {}, {}
     by_path["yi-9b"], by_variant["yi-9b"] = phase_serve("yi-9b")
@@ -959,11 +1290,29 @@ def main() -> int:
             for v in by_variant["yi-9b"][name]}
     train = phase_train()
     by_path[f"yi-9b train ({YI_TRAIN.n_layers} layers, {TRAIN_STEPS} steps)"] = train["launches"]
+    recurrent = {}
+    for name, cfg, batch, seq in (("mamba2-370m", MAMBA_TRAIN, MAMBA_TRAIN_BATCH, TRAIN_SEQ),
+                                  ("recurrentgemma-9b", RG_TRAIN, RG_TRAIN_BATCH, RG_TRAIN_SEQ)):
+        r = phase_train_recurrent(name, cfg, batch, seq, _train_launches(cfg))
+        recurrent[name] = r
+        by_path[f"{name} train ({cfg.n_layers} layers, {TRAIN_STEPS} steps)"] = r["launches"]
+        for k, row in rows.items():
+            for v, n in r["variants"][k].items():
+                row["launches_by_variant"][v] += n
+    rows.update(bwd_rows)
+    for name, lib, key in (("rglru_scan_bwd", "rglru_scan", "rglru_scan_bwd"),
+                           ("ssd_scan_bwd", "ssd_scan_bwd", "ssd_bwd_")):
+        rows[name]["ptxas"] = {fn: {"registers": regs, "spill_stores": st, "spill_loads": ld}
+                               for fn, regs, st, ld in _ptxas_report(built[lib]["log"])
+                               if key in fn}
+    rows["rglru_scan_bwd"]["launches_by_variant"] = {
+        v: sum(r["variants"]["rglru_scan_bwd"][v] for r in recurrent.values())
+        for v in rg.VARIANTS}
     for name, row in rows.items():
         row["launches_by_path"] = {arch: n[name] for arch, n in by_path.items() if n[name]}
         row["launches"] = sum(row["launches_by_path"].values())
         if row["launches"] <= 0:
-            _fail(f"{name} was not launched on any serving path")
+            _fail(f"{name} was not launched on any main path")
     rows["flash_attention"]["launches_by_variant"]["wgmma"] += train["launches"][
         "flash_attention"]
     grads = phase_train_grads()
@@ -977,8 +1326,8 @@ def main() -> int:
     kernels = {"kernels": list(rows.values())}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_kernels.json"), "w") as f:
-        json.dump({"card": smi, **kernels, "train": train, "train_grads_max_err": grads,
-                   "commit": commit}, f, indent=1)
+        json.dump({"card": smi, **kernels, "train": train, "train_recurrent": recurrent,
+                   "train_grads_max_err": grads, "commit": commit}, f, indent=1)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

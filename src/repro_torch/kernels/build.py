@@ -32,6 +32,7 @@ SOURCES = {
     "flash_attention": "flash_attention.cu",
     "ssd_scan": "ssd_scan.cu",
     "rglru_scan": "rglru_scan.cu",
+    "ssd_scan_bwd": "ssd_scan_bwd.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -14,6 +14,12 @@ import torch
 
 from repro_torch.models import attention as _attn
 
+
+def _wide(dtype: torch.dtype) -> torch.dtype:
+    """The scans' working type: fp32, or fp64 for fp64 inputs (the tests'
+    gradient checks)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
 #: The JAX package's kernel cases (tests/test_kernels.py FLASH_CASES), the
 #: shapes and tolerances the flash kernel is held to on the card and its
 #: plain version on the CPU: (b, l, h, hkv, hd, window, softcap, dtype, tol).
@@ -196,7 +202,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Ten
     bt, l, h, p = x.shape
     n = B.shape[-1]
     nc = l // chunk
-    f32 = torch.float32
+    f32 = _wide(x.dtype)
     xc = x.reshape(bt, nc, chunk, h, p).to(f32)
     dtc = dt.reshape(bt, nc, chunk, h).to(f32)
     Bc = B.reshape(bt, nc, chunk, n).to(f32)
@@ -204,11 +210,16 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Ten
     dA = dtc * A.to(f32)                                       # [Bt,NC,Q,H] ≤ 0
     cum = torch.cumsum(dA, dim=2)
 
-    # intra-chunk: M[i,j] = C_i·B_j · exp(cum_i - cum_j) · dt_j for j ≤ i
+    # intra-chunk: M[i,j] = C_i·B_j · exp(cum_i - cum_j) · dt_j for j ≤ i.
+    # The mask goes inside the exp: above the diagonal exp(cum_i − cum_j)
+    # overflows once cum falls 88 in a chunk, and autograd through
+    # where(mask, exp(seg), 0) then meets 0·inf (the reference's ddt and dA
+    # are NaN there); exp(−inf) = 0 has a zero derivative.  Values are the
+    # same bit for bit.
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]        # [Bt,NC,Q,Q,H]
     causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
-    decay = torch.where(causal[None, None, :, :, None], torch.exp(seg),
-                        torch.zeros((), dtype=f32, device=x.device))
+    decay = torch.exp(torch.where(causal[None, None, :, :, None], seg,
+                                  torch.tensor(-math.inf, dtype=f32, device=x.device)))
     cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
     m = cb[..., None] * decay * dtc[:, :, None, :, :]
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", m, xc)
@@ -248,11 +259,12 @@ def rglru_scan_ref(log_a: torch.Tensor, b: torch.Tensor,
     pairs (a, b) with (a₁,b₁)∘(a₂,b₂) = (a₁a₂, b₁a₂ + b₂), here the doubling
     (Hillis–Steele) form; an ``h0`` folds into the first step.
     """
-    a = torch.exp(log_a.float())
-    b = b.float()
+    f32 = _wide(log_a.dtype)
+    a = torch.exp(log_a.to(f32))
+    b = b.to(f32)
     if h0 is not None:
         b = b.clone()
-        b[:, 0] += a[:, 0] * h0.float()
+        b[:, 0] += a[:, 0] * h0.to(f32)
     l = a.shape[1]
     d = 1
     while d < l:
@@ -260,3 +272,148 @@ def rglru_scan_ref(log_a: torch.Tensor, b: torch.Tensor,
         a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
         d *= 2
     return b
+
+
+# ==========================================================================
+# Backwards: the JAX package differentiates ssd_chunked and scan_ref by
+# autodiff; its Pallas kernels have no backward.  The *_plain functions are
+# that autodiff in torch (the yardstick of the backward kernels); the
+# explicit formulas below are what the kernels compute.
+# ==========================================================================
+
+
+def rglru_scan_bwd_plain(log_a: torch.Tensor, b: torch.Tensor, dh: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dlog_a, db) of :func:`rglru_scan_ref` for the cotangent ``dh`` of h,
+    by autograd, fp32."""
+    with torch.enable_grad():
+        la, bb = (t.detach().float().requires_grad_() for t in (log_a, b))
+        grads = torch.autograd.grad(rglru_scan_ref(la, bb), (la, bb), dh.float(),
+                                    allow_unused=True)     # L = 1 never reads log_a
+    return tuple(torch.zeros_like(t) if g is None else g for g, t in zip(grads, (la, bb)))
+
+
+def rglru_scan_bwd_ref(log_a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The explicit backward of h_t = a_t·h_{t−1} + b_t (a_t = exp(log_a_t),
+    h_{−1} = 0), from the forward's h: g_{L−1} = dh_{L−1}, g_t = dh_t +
+    a_{t+1}·g_{t+1} (the same recurrence from the end, a shifted by one
+    step); db = g; dlog_a_t = g_t·a_t·h_{t−1}.  Returns (dlog_a, db) in fp32
+    (fp64 for fp64 log_a)."""
+    f32 = _wide(log_a.dtype)
+    la = log_a.to(f32)
+    la_next = torch.cat([la[:, 1:], torch.zeros_like(la[:, :1])], dim=1)
+    g = rglru_scan_ref(la_next.flip(1), dh.to(f32).flip(1)).flip(1)
+    h_prev = torch.cat([torch.zeros_like(la[:, :1]), h[:, :-1].to(f32)], dim=1)
+    return g * torch.exp(la) * h_prev, g
+
+
+def ssd_scan_bwd_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                       C: torch.Tensor, chunk: int, dy: torch.Tensor,
+                       dh_last: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
+    """(dx, ddt, dA, dB, dC) of :func:`ssd_chunked` for the cotangents ``dy``
+    of y and ``dh_last`` of the final state (None: zero), by autograd; each
+    gradient in its input's dtype."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (x, dt, A, B, C)]
+        y, h_last = ssd_chunked(*leaves, chunk)
+        outs, cots = [y], [dy.to(y.dtype)]
+        if dh_last is not None:
+            outs.append(h_last)
+            cots.append(dh_last.float())
+        return torch.autograd.grad(outs, leaves, cots)
+
+
+def ssd_chunked_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                    C: torch.Tensor, chunk: int, dy: torch.Tensor,
+                    dh_last: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
+    """The explicit backward of :func:`ssd_chunked` (h0 = 0), in fp32 from x,
+    B, C in either dtype (fp64 for fp64 x), in the chunked form the kernel
+    computes.  Per
+    (batch, chunk c, head), with cum the within-chunk cumsum of dt·A, L_ij =
+    exp(cum_i − cum_j) for j ≤ i, cb_ij = C_i·B_j, w_j = exp(last −
+    cum_j)·dt_j, γ_c = exp(last_c) and h_in[c] the state entering chunk c:
+
+    * reverse state pass: G_NC = dh_last, G_c = γ_c·G_{c+1} + Σ_i
+      exp(cum_i)·dy_i ⊗ C_i; dS_c = G_{c+1}, dγ_c = ⟨G_{c+1}, h_in[c]⟩;
+    * with r_ij = dy_i·x_j and t_ij = r_ij·cb_ij·L_ij·dt_j (j ≤ i):
+      dx_j = Σ_i cb_ij·L_ij·dt_j·dy_i + w_j·(dS_c B_j);
+      dC_i = Σ_j r_ij·L_ij·dt_j·B_j + exp(cum_i)·h_in[c]ᵀdy_i (summed over heads);
+      dB_j = Σ_i r_ij·L_ij·dt_j·C_i + w_j·dS_cᵀx_j (summed over heads);
+      ddt_j = Σ_i r_ij·cb_ij·L_ij + (x_j·dS_c B_j)·exp(last − cum_j);
+      dcum_i = Σ_j t_ij − Σ_k t_ki + exp(cum_i)·dy_i·(h_in[c] C_i)
+               − (x_i·dS_c B_i)·w_i, plus d(last) = Σ_j (x_j·dS_c B_j)·w_j
+               + dγ_c·γ_c at i = Q − 1;
+    * d(dt·A)_k = Σ_{i≥k} dcum_i; ddt_k += d(dt·A)_k·A; dA = Σ d(dt·A)_k·dt_k.
+
+    Returns (dx, ddt, dA, dB, dC): dx, dB, dC in x's, B's, C's dtypes, ddt
+    and dA fp32.
+    """
+    bt, l, h, p = x.shape
+    n = B.shape[-1]
+    nc, q = l // chunk, chunk
+    f32 = _wide(x.dtype)
+    xc = x.reshape(bt, nc, q, h, p).to(f32)
+    dyc = dy.reshape(bt, nc, q, h, p).to(f32)
+    dtc = dt.reshape(bt, nc, q, h).to(f32)
+    Bc = B.reshape(bt, nc, q, n).to(f32)
+    Cc = C.reshape(bt, nc, q, n).to(f32)
+    a = A.to(f32)
+    cum = torch.cumsum(dtc * a, dim=2)                          # [Bt,NC,Q,H]
+    last = cum[:, :, -1]                                        # [Bt,NC,H]
+    gamma = torch.exp(last)
+    ecum = torch.exp(cum)
+    w = torch.exp(last[:, :, None] - cum) * dtc
+
+    # state pass forward (h_in) and in reverse (dS_c = G_{c+1})
+    S = torch.einsum("bcjh,bcjn,bcjhp->bchpn", w, Bc, xc)
+    U = torch.einsum("bcih,bcin,bcihp->bchpn", ecum, Cc, dyc)
+    hcur = torch.zeros((bt, h, p, n), dtype=f32, device=x.device)
+    h_in = []
+    for c in range(nc):
+        h_in.append(hcur)
+        hcur = hcur * gamma[:, c, :, None, None] + S[:, c]
+    h_in = torch.stack(h_in, dim=1)                             # [Bt,NC,H,P,N]
+    g = (torch.zeros((bt, h, p, n), dtype=f32, device=x.device) if dh_last is None
+         else dh_last.to(f32))
+    dS = [None] * nc
+    for c in reversed(range(nc)):
+        dS[c] = g
+        g = g * gamma[:, c, :, None, None] + U[:, c]
+    dS = torch.stack(dS, dim=1)
+    dgamma = (dS * h_in).sum(dim=(-1, -2))                      # [Bt,NC,H]
+
+    # within the chunk
+    causal = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]         # [Bt,NC,i,j,H]
+    decay = torch.where(causal[None, None, :, :, None], torch.exp(seg),
+                        torch.zeros((), dtype=f32, device=x.device))
+    cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)[..., None]
+    r = torch.einsum("bcihp,bcjhp->bcijh", dyc, xc)
+    m = decay * dtc[:, :, None, :, :]                            # L_ij·dt_j
+    dx = torch.einsum("bcijh,bcihp->bcjhp", cb * m, dyc)
+    dC = torch.einsum("bcijh,bcjn->bcin", r * m, Bc)
+    dB = torch.einsum("bcijh,bcin->bcjn", r * m, Cc)
+    v = r * cb * decay
+    ddt = v.sum(dim=2)
+    t = v * dtc[:, :, None, :, :]
+    dcum = t.sum(dim=3) - t.sum(dim=2)
+
+    # through the states
+    dsb = torch.einsum("bchpn,bcjn->bcjhp", dS, Bc)              # dS_c B_j
+    dx = dx + w[..., None] * dsb
+    u = (xc * dsb).sum(dim=-1)                                   # x_j·dS_c B_j
+    ddt = ddt + u * torch.exp(last[:, :, None] - cum)
+    dcum = dcum - u * w
+    dB = dB + torch.einsum("bcjh,bchpn,bcjhp->bcjn", w, dS, xc)
+    hc = torch.einsum("bchpn,bcin->bcihp", h_in, Cc)             # h_in[c] C_i
+    dcum = dcum + ecum * (dyc * hc).sum(dim=-1)
+    dC = dC + torch.einsum("bcih,bchpn,bcihp->bcin", ecum, h_in, dyc)
+    dlast = (u * w).sum(dim=2) + dgamma * gamma
+    dcum = torch.cat([dcum[:, :, :-1], dcum[:, :, -1:] + dlast[:, :, None]], dim=2)
+
+    dda = torch.flip(torch.cumsum(torch.flip(dcum, [2]), dim=2), [2])
+    ddt = ddt + dda * a
+    dA = (dda * dtc).sum(dim=(0, 1, 2))
+    return (dx.reshape(x.shape).to(x.dtype), ddt.reshape(dt.shape), dA,
+            dB.reshape(B.shape).to(B.dtype), dC.reshape(C.shape).to(C.dtype))

@@ -8,15 +8,19 @@ The kernel (``csrc/rglru_scan.cu``) replaces the Pallas TPU kernel
   4096); needs 16-byte-aligned log_a, b and h;
 * ``"scalar"``: the same kernel with 4-byte lanes, for every other W.
 
-The source's note says what bounds it on the card and how the design
-answers.  This module validates the tensors, allocates the output and
-launches on the calling thread's current stream;
-:func:`repro_torch.kernels.ops.rglru_scan` is the public wrapper.
+The same source holds the backward (``rglru_scan_bwd``), which has no TPU
+kernel to replace (the JAX package takes autodiff of
+``repro/models/rglru.py:62`` ``scan_ref``), in the same two variants.  The
+source's note says what bounds each on the card and how the design answers.
+This module validates the tensors, allocates the outputs and launches on the
+calling thread's current stream; :func:`repro_torch.kernels.ops.rglru_scan`
+is the public wrapper.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -28,6 +32,7 @@ _VARIANT_CODE = {"scalar": 0, "vec4": 1}
 _p = ctypes.c_void_p
 _i = ctypes.c_int
 _ARGTYPES = [_p, _p, _p, _i, _i, _i, _i, _p]
+_BWD_ARGTYPES = [_p, _p, _p, _p, _p, _i, _i, _i, _i, _p]
 
 
 def variant(w: int) -> str:
@@ -36,10 +41,10 @@ def variant(w: int) -> str:
     return "vec4" if w % 4 == 0 else "scalar"
 
 
-def _lib():
-    fn = build.load("rglru_scan").rglru_scan_fwd
+def _lib(entry: str = "rglru_scan_fwd", argtypes=_ARGTYPES):
+    fn = getattr(build.load("rglru_scan"), entry)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
@@ -51,26 +56,34 @@ def check_tiles(l: int, w: int, block_l: int, block_w: int) -> None:
         raise ValueError(f"L={l}, W={w} must tile by ({bl},{bw})")
 
 
-def rglru_scan_fwd(log_a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """log_a, b: [B,L,W] fp32 on the card → h [B,L,W] fp32."""
-    if log_a.dim() != 3 or log_a.shape != b.shape:
-        raise ValueError(f"expected log_a = b [B,L,W]; got {tuple(log_a.shape)}, "
-                         f"{tuple(b.shape)}")
-    if log_a.dtype != torch.float32 or b.dtype != torch.float32:
-        raise TypeError(f"log_a and b must be float32; got {log_a.dtype}, {b.dtype}")
-    for name, t in (("log_a", log_a), ("b", b)):
-        if t.device.type != "cuda" or t.device != log_a.device:
-            raise ValueError(f"{name} must be on log_a's CUDA device; got {t.device}")
+def _check(**tensors: torch.Tensor) -> str:
+    """Same [B,L,W] shape, fp32, contiguous, one CUDA device; 16-byte
+    aligned where the width takes the vec4 variant, which it returns.
+    Outputs come from torch.empty_like, whose blocks are aligned."""
+    first = next(iter(tensors.values()))
+    if first.dim() != 3 or any(t.shape != first.shape for t in tensors.values()):
+        raise ValueError("expected " + " = ".join(tensors) + " [B,L,W]; got "
+                         + ", ".join(str(tuple(t.shape)) for t in tensors.values()))
+    kind = variant(first.shape[2])
+    for name, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32; got {t.dtype}")
+        if t.device.type != "cuda" or t.device != first.device:
+            raise ValueError(f"{name} must be on {next(iter(tensors))}'s CUDA device; "
+                             f"got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if kind == "vec4" and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary for the "
+                             "vec4 variant")
+    return kind
+
+
+def rglru_scan_fwd(log_a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """log_a, b: [B,L,W] fp32 on the card → h [B,L,W] fp32."""
+    kind = _check(log_a=log_a, b=b)
     bt, l, w = log_a.shape
-    kind = variant(w)
     h = torch.empty_like(log_a)
-    if kind == "vec4":
-        for name, t in (("log_a", log_a), ("b", b), ("h", h)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"{name} must start on a 16-byte boundary for the "
-                                 "vec4 variant")
     with torch.cuda.device(log_a.device):
         stream = torch.cuda.current_stream(log_a.device).cuda_stream
         err = _lib()(log_a.data_ptr(), b.data_ptr(), h.data_ptr(), bt, l, w,
@@ -78,3 +91,20 @@ def rglru_scan_fwd(log_a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"rglru_scan ({kind}) launch failed: cudaError {err}")
     return h
+
+
+def rglru_scan_bwd(log_a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward: log_a, the forward's h and the cotangent dh, [B,L,W] fp32
+    on the card → (dlog_a, db) [B,L,W] fp32."""
+    kind = _check(log_a=log_a, h=h, dh=dh)
+    bt, l, w = log_a.shape
+    dlog_a, db = torch.empty_like(log_a), torch.empty_like(log_a)
+    with torch.cuda.device(log_a.device):
+        stream = torch.cuda.current_stream(log_a.device).cuda_stream
+        err = _lib("rglru_scan_bwd", _BWD_ARGTYPES)(
+            log_a.data_ptr(), h.data_ptr(), dh.data_ptr(), dlog_a.data_ptr(), db.data_ptr(),
+            bt, l, w, _VARIANT_CODE[kind], stream)
+    if err != 0:
+        raise RuntimeError(f"rglru_scan_bwd ({kind}) launch failed: cudaError {err}")
+    return dlog_a, db

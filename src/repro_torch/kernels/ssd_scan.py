@@ -11,6 +11,11 @@ The kernels replace the Pallas TPU kernel
 * ``"fma"`` (``csrc/ssd_scan.cu``): every other call, one block per (batch,
   head) walking the chunks, fp32 FMAs on the CUDA cores.
 
+Its backward, :func:`ssd_scan_bwd` (``csrc/ssd_scan_bwd.cu``), has no TPU
+kernel to replace: the JAX package takes autodiff of
+``repro/models/ssm.py:99`` ``ssd_chunked``.  One variant for every shape
+the forward takes, fp32 FMAs on the CUDA cores.
+
 Each source's note says what bounds it on the card and how the design
 answers.  This module validates the tensors, allocates the outputs and the
 scratch and launches on the calling thread's current stream;
@@ -36,6 +41,7 @@ _VARIANT_CODE = {"fma": 0, "mma": 1}
 _p = ctypes.c_void_p
 _i = ctypes.c_int
 _ARGTYPES = [_p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _p]
+_BWD_ARGTYPES = [_p] * 22 + [_i] * 7 + [_p]
 
 
 def variant(p: int, n: int, q: int, dtype: torch.dtype) -> str:
@@ -48,10 +54,10 @@ def variant(p: int, n: int, q: int, dtype: torch.dtype) -> str:
     return "fma"
 
 
-def _lib():
-    fn = build.load("ssd_scan").ssd_scan_fwd
+def _lib(name: str = "ssd_scan", entry: str = "ssd_scan_fwd", argtypes=_ARGTYPES):
+    fn = getattr(build.load(name), entry)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
@@ -74,6 +80,71 @@ def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     mma variant also needs 16-byte aligned x, B and C (its copies move 16
     bytes at a time).
     """
+    kind = _check(x, dt, a, bmat, cmat, q)
+    bt, l, h, p = x.shape
+    n = bmat.shape[-1]
+    y = torch.empty_like(x)
+    h_last = (torch.empty((bt, h, p, n), dtype=torch.float32, device=x.device)
+              if return_state else None)
+    scratch = [None, None, None]
+    if kind == "mma":       # chunk states S_c, bf16 h_in[c], cumsum(dt·a) per chunk
+        nc = l // q
+        scratch = [torch.empty((bt, nc, h, p, n), dtype=torch.float32, device=x.device),
+                   torch.empty((bt, nc, h, p, n), dtype=torch.bfloat16, device=x.device),
+                   torch.empty((bt, nc, h, q), dtype=torch.float32, device=x.device)]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _lib()(x.data_ptr(), dt.data_ptr(), a.data_ptr(), bmat.data_ptr(),
+                     cmat.data_ptr(), y.data_ptr(),
+                     h_last.data_ptr() if return_state else None,
+                     *(t.data_ptr() if t is not None else None for t in scratch),
+                     bt, l, h, p, n, q, _DTYPE_CODE[x.dtype], _VARIANT_CODE[kind], stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan ({kind}) launch failed: cudaError {err}")
+    return y, h_last
+
+
+def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
+                 cmat: torch.Tensor, q: int, dy: torch.Tensor,
+                 dh_last: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
+    """The backward of :func:`ssd_scan_fwd` at the same inputs, for the
+    cotangents dy (x's shape and dtype) and dh_last (fp32 [Bt,H,P,N], or
+    None for zero).  Returns (dx, ddt, da, dB, dC): dx, dB, dC in x's dtype,
+    ddt and da fp32.  The kernel's fp32 scratch (states, per-head dB/dC
+    partials) is allocated here."""
+    _check(x, dt, a, bmat, cmat, q)
+    bt, l, h, p = x.shape
+    n, nc = bmat.shape[-1], l // q
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device \
+            or not dy.is_contiguous():
+        raise ValueError(f"dy must be a contiguous {x.dtype} {tuple(x.shape)} on {x.device}")
+    if dh_last is not None and (tuple(dh_last.shape) != (bt, h, p, n)
+                                or dh_last.dtype != torch.float32
+                                or dh_last.device != x.device or not dh_last.is_contiguous()):
+        raise ValueError(f"dh_last must be a contiguous float32 {(bt, h, p, n)} on {x.device}")
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx, dbm, dcm = torch.empty_like(x), torch.empty_like(bmat), torch.empty_like(cmat)
+    ddt, da = torch.empty_like(dt), torch.empty_like(a)
+    scratch = [torch.empty((bt, nc, h, q), **f32),                  # cum
+               *(torch.empty((bt, nc, h, p, n), **f32) for _ in range(3)),  # S→dS, U, h_in
+               *(torch.empty((bt, l, h, n), **f32) for _ in range(2)),      # dB, dC per head
+               *(torch.empty((bt, l, h), **f32) for _ in range(3)),         # drow, dcol, uw
+               torch.empty((bt, nc, h), **f32)]                             # da per chunk
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _lib("ssd_scan_bwd", "ssd_scan_bwd", _BWD_ARGTYPES)(
+            x.data_ptr(), dt.data_ptr(), a.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
+            dy.data_ptr(), dh_last.data_ptr() if dh_last is not None else None,
+            dx.data_ptr(), ddt.data_ptr(), da.data_ptr(), dbm.data_ptr(), dcm.data_ptr(),
+            *(t.data_ptr() for t in scratch), bt, l, h, p, n, q, _DTYPE_CODE[x.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan_bwd launch failed: cudaError {err}")
+    return dx, ddt, da, dbm, dcm
+
+
+def _check(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
+           cmat: torch.Tensor, q: int) -> str:
+    """Validate the forward's inputs; returns the variant they take."""
     if x.dim() != 4 or dt.dim() != 3 or a.dim() != 1 or bmat.dim() != 3 \
             or bmat.shape != cmat.shape:
         raise ValueError(f"expected x [Bt,L,H,P], dt [Bt,L,H], a [H], B=C [Bt,L,N]; got "
@@ -103,22 +174,4 @@ def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             if t.data_ptr() % 16:
                 raise ValueError(f"{name} must start on a 16-byte boundary for the "
                                  "mma variant")
-    y = torch.empty_like(x)
-    h_last = (torch.empty((bt, h, p, n), dtype=torch.float32, device=x.device)
-              if return_state else None)
-    scratch = [None, None, None]
-    if kind == "mma":       # chunk states S_c, bf16 h_in[c], cumsum(dt·a) per chunk
-        nc = l // q
-        scratch = [torch.empty((bt, nc, h, p, n), dtype=torch.float32, device=x.device),
-                   torch.empty((bt, nc, h, p, n), dtype=torch.bfloat16, device=x.device),
-                   torch.empty((bt, nc, h, q), dtype=torch.float32, device=x.device)]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib()(x.data_ptr(), dt.data_ptr(), a.data_ptr(), bmat.data_ptr(),
-                     cmat.data_ptr(), y.data_ptr(),
-                     h_last.data_ptr() if return_state else None,
-                     *(t.data_ptr() if t is not None else None for t in scratch),
-                     bt, l, h, p, n, q, _DTYPE_CODE[x.dtype], _VARIANT_CODE[kind], stream)
-    if err != 0:
-        raise RuntimeError(f"ssd_scan ({kind}) launch failed: cudaError {err}")
-    return y, h_last
+    return kind

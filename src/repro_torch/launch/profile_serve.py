@@ -31,6 +31,8 @@ from repro_torch.models import lm
 
 #: kernel class by substring of the kernel's name (first match wins)
 CLASSES = [
+    ("ssd_scan_bwd", ("ssd_bwd_",)),                       # the SSD backward's 7 kernels
+    ("rglru_scan_bwd", ("rglru_scan_bwd_kernel",)),
     ("flash_attention", ("flash_fwd_kernel",)),
     ("ssd_scan", ("ssd_scan_kernel", "ssd_sm90::")),      # fma; mma's three kernels
     ("rglru_scan", ("rglru_scan_kernel",)),

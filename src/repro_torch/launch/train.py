@@ -6,8 +6,10 @@
 The twin of ``repro.launch.train``.  Runs on the card by default
 (``--device cuda``) and raises without one.  Weights are random, drawn from
 ``--seed``; data comes from the synthetic pipeline.  Recurrent archs train
-on the CPU only: their scan kernels have no backward on the card yet, and
-the wrapper raises there.
+on the card too: each scan's gradient comes from its backward kernel.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m --smoke \\
+        --device cpu
 """
 
 from __future__ import annotations

@@ -355,22 +355,159 @@ def test_flash_function_grads_vs_plain_autograd(card, dtype, tol):
 
 @pytest.mark.cuda
 def test_kernels_refuse_a_gradient_they_would_drop(card):
+    """The flash wrapper outside the flash Function still refuses inputs
+    that need a gradient; the scans now carry one, through their backward
+    kernels, down to a smoke mamba2's embedding."""
     x, dt, a, bm, cm = _ssd_inputs(1, 64, 2, 16, 16, "float32", 3, card)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.ssd_scan(x.requires_grad_(), dt, a, bm, cm, chunk=32)
+    n0 = ops.launches["ssd_scan_bwd"]
+    ops.ssd_scan(x.requires_grad_(), dt, a, bm, cm, chunk=32).sum().backward()
+    assert ops.launches["ssd_scan_bwd"] == n0 + 1 and bool(x.grad.abs().sum() > 0)
     with torch.no_grad():
         ops.ssd_scan(x, dt, a, bm, cm, chunk=32)
+    assert ops.launches["ssd_scan_bwd"] == n0 + 1
     log_a, b = _rglru_inputs(1, 64, 32, "float32", 7, card)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.rglru_scan(log_a, b.requires_grad_())
+    n0 = ops.launches["rglru_scan_bwd"]
+    ops.rglru_scan(log_a, b.requires_grad_()).sum().backward()
+    assert ops.launches["rglru_scan_bwd"] == n0 + 1 and bool(b.grad.abs().sum() > 0)
     q = torch.zeros((1, 64, 4, 64), device=card, requires_grad=True)
     with pytest.raises(NotImplementedError, match="models.flash"):
         ops.flash_attention(q, q[:, :, :2], q[:, :, :2])
     cfg = configs.get_smoke("mamba2-370m")
     params = lm.init(torch.Generator(device=card).manual_seed(0), cfg, device=card)
     params["embed"].requires_grad_()
-    with pytest.raises(NotImplementedError):
-        lm.loss_fn(params, cfg, batch_to(make_batch(cfg, 32, 2), card))
+    lm.loss_fn(params, cfg, batch_to(make_batch(cfg, 32, 2), card))[0].backward()
+    assert bool(torch.isfinite(params["embed"].grad).all())
+
+
+def _rglru_bwd_check(log_a, b, dh, la, bb):
+    d_la, d_b = ref.rglru_scan_bwd_plain(log_a, b, dh)
+    for got, want in ((la.grad, d_la), (bb.grad, d_b)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bt,l,w,bl,bw,dtype,tol", ref.RGLRU_CASES + ref.RGLRU_EDGE_CASES)
+def test_rglru_bwd_kernel_vs_plain(card, bt, l, w, bl, bw, dtype, tol):
+    """The RG-LRU Function (kernel forward and backward) against autograd
+    of the plain version at atol = rtol = 1e-4; the backward runs the
+    variant its width picks, once."""
+    log_a, b = _rglru_inputs(bt, l, w, dtype, w + l + 1, card)
+    dh = torch.from_numpy(np.random.default_rng(w).standard_normal((bt, l, w))
+                          .astype(np.float32)).to(card)
+    la, bb = log_a.clone().requires_grad_(), b.clone().requires_grad_()
+    want = rg.variant(w)
+    v0 = dict(ops.rglru_bwd_variant_launches)
+    ops.rglru_scan(la, bb, block_l=l, block_w=w).backward(dh)
+    torch.cuda.synchronize()
+    assert ops.rglru_bwd_variant_launches == {**v0, want: v0[want] + 1}
+    _rglru_bwd_check(log_a, b, dh, la, bb)
+
+
+@pytest.mark.cuda
+def test_rglru_bwd_through_a_padded_length(card):
+    """models/rglru._scan pads L = 300 to 512 (log_a = 0, b = 0): the
+    padding's gradient stays out of the real rows."""
+    from repro_torch.models import rglru
+    log_a, b = _rglru_inputs(2, 300, 64, "float32", 5, card)
+    dh = torch.randn((2, 300, 64), device=card)
+    la, bb = log_a.clone().requires_grad_(), b.clone().requires_grad_()
+    rglru._scan(la, bb).backward(dh)
+    _rglru_bwd_check(log_a, b, dh, la, bb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,want", [(4096, "vec4"), (64, "vec4"), (100, "vec4"),
+                                    (6, "scalar"), (30, "scalar")])
+def test_rglru_bwd_variant_launch_counts(card, w, want):
+    log_a, b = _rglru_inputs(1, 64, w, "float32", 3, card)
+    h = ops.rglru_scan(log_a, b)
+    n0, v0 = ops.launches["rglru_scan_bwd"], dict(ops.rglru_bwd_variant_launches)
+    ops.rglru_scan_bwd(log_a, h, torch.ones_like(h))
+    torch.cuda.synchronize()
+    assert ops.launches["rglru_scan_bwd"] == n0 + 1
+    assert ops.rglru_bwd_variant_launches == {**v0, want: v0[want] + 1}
+
+
+def _ssd_bwd_check(args, chunk, with_state, card):
+    """The SSD Function against autograd of the plain version: fp32 dx, dB,
+    dC at atol = rtol = 1e-4; bf16 ones at rtol 1e-2 (one bf16 rounding)
+    and atol 1e-3 of their largest value; ddt and da at 1e-4 relative, atol
+    1e-4 of their largest value (sums of many terms)."""
+    x = args[0]
+    rng = np.random.default_rng(x.shape[1])
+    dy = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32)).to(x.dtype).to(card)
+    dh = (torch.from_numpy(rng.standard_normal((x.shape[0], x.shape[2], x.shape[3],
+                                                args[3].shape[-1])).astype(np.float32))
+          .to(card) if with_state else None)
+    leaves = [t.clone().requires_grad_() for t in args]
+    n0 = ops.launches["ssd_scan_bwd"]
+    y, h_last = ops.ssd_scan(*leaves, chunk=chunk, return_state=True)
+    torch.autograd.backward([y, h_last] if with_state else [y],
+                            [dy, dh] if with_state else [dy])
+    torch.cuda.synchronize()
+    assert ops.launches["ssd_scan_bwd"] == n0 + 1
+    want = ref.ssd_scan_bwd_plain(*args, min(chunk, x.shape[1]), dy, dh)
+    for name, leaf, w in zip(("dx", "ddt", "da", "dB", "dC"), leaves, want):
+        got, w = leaf.grad.float().cpu().numpy(), w.float().cpu().numpy()
+        assert leaf.grad.dtype == leaf.dtype
+        scale = float(np.abs(w).max())
+        if name in ("ddt", "da"):
+            np.testing.assert_allclose(got, w, atol=1e-4 * scale, rtol=1e-4, err_msg=name)
+        elif x.dtype == torch.bfloat16:
+            np.testing.assert_allclose(got, w, atol=1e-3 * scale, rtol=1e-2, err_msg=name)
+        else:
+            np.testing.assert_allclose(got, w, atol=1e-4, rtol=1e-4, err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bt,l,h,p,n,chunk,_dtype,tol", ref.SSD_CASES)
+def test_ssd_bwd_kernel_vs_plain(card, bt, l, h, p, n, chunk, _dtype, tol, dtype, with_state):
+    _ssd_bwd_check(_ssd_inputs(bt, l, h, p, n, dtype, l + p, card), chunk, with_state, card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ref.SSD_MMA_CASES, ids=str)
+def test_ssd_bwd_kernel_vs_plain_on_mma_cases(card, case, dtype):
+    """P 16–128, N 16–128, Q 16–256, 1–8 chunks and the stress case, whose
+    cum passes −100: the decay is taken only where j ≤ i."""
+    bt, l, h, p, n, chunk = case
+    args = list(_ssd_model_inputs(bt, l, h, p, n, ref.ssd_dt0(case), l + p, card))
+    for i in (0, 3, 4):
+        args[i] = args[i].to(getattr(torch, dtype))
+    _ssd_bwd_check(args, chunk, True, card)
+
+
+@pytest.mark.cuda
+def test_bwd_entry_points_bind_with_their_argtypes(card):
+    """Both backward entry points load from the built libraries with the
+    argtypes the launchers declare."""
+    from repro_torch.kernels import ssd_scan as ssd
+    assert rg._lib("rglru_scan_bwd", rg._BWD_ARGTYPES).argtypes == rg._BWD_ARGTYPES
+    assert ssd._lib("ssd_scan_bwd", "ssd_scan_bwd", ssd._BWD_ARGTYPES).argtypes == \
+        ssd._BWD_ARGTYPES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b"])
+def test_recurrent_train_step_on_card_matches_cpu(card, arch):
+    """One fp32 step of a smoke recurrent arch on the card (the scans'
+    kernels, forward and backward) against the CPU (their plain versions)
+    from the same state: loss, gradient norm and parameters at 1e-4."""
+    cfg = configs.get_smoke(arch).replace(compute_dtype="float32", remat="dots")
+    state = train_state_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    batch = make_batch(cfg, 64, 2)
+    want_state, want = make_train_step(cfg, lr=1e-3)(state, batch_to(batch, "cpu"))
+    ops.reset_launches()
+    got_state, got = make_train_step(cfg, lr=1e-3)(tree_to(state, card), batch_to(batch, card))
+    torch.cuda.synchronize()
+    assert ops.launches["ssd_scan_bwd"] + ops.launches["rglru_scan_bwd"] > 0
+    for key in ("loss", "grad_norm"):
+        assert float(got[key]) == pytest.approx(float(want[key]), rel=1e-4, abs=1e-4)
+    for a, b in zip(tree_leaves(got_state["params"]), tree_leaves(want_state["params"])):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda

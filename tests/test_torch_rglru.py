@@ -1,8 +1,11 @@
 """Port RecurrentGemma: the plain RG-LRU scan against the JAX package's
 Pallas kernel (interpret mode) and its associative-scan oracle on the
-reference's kernel cases, the wrapper's contract, and the RG-LRU block
-(prefill with state, decode step) on converted weights.  The CUDA kernel is
-held against the plain version on a card in ``test_torch_cuda.py``."""
+reference's kernel cases, the wrapper's contract, the RG-LRU block
+(prefill with state, decode step) on converted weights, and the backward:
+its explicit formulas against ``jax.vjp`` and autograd, the backward
+kernel's order emulated on the CPU, the ``autograd.Function``'s plumbing.
+The CUDA kernels are held against the plain versions on a card in
+``test_torch_cuda.py``."""
 
 import ctypes
 import re
@@ -278,3 +281,172 @@ def test_init_state_and_param_tree_match_jax():
     st_j = jrglru.init_state(jcfg, 3)
     assert {k: (tuple(v.shape), str(v.dtype)[6:]) for k, v in st.items()} == \
         {k: (tuple(v.shape), str(v.dtype)) for k, v in st_j.items()}
+
+
+# ==========================================================================
+# The backward: explicit formulas, the Function, the kernel's launcher
+# ==========================================================================
+
+
+def _cotangent(bt, l, w, seed):
+    return np.random.default_rng(seed).standard_normal((bt, l, w)).astype(np.float32)
+
+
+#: (bt, l, w, dtype, atol): the reference's cases, its long carry, and a
+#: length that models/rglru._scan pads (300 → 512)
+_BWD_CASES = ([(bt, l, w, dtype, tol) for (bt, l, w, _, _, dtype, tol) in ref.RGLRU_CASES]
+              + [(1, 1024, 32, "float32", 1e-5), (2, 300, 64, "float32", 1e-5)])
+
+
+@pytest.mark.parametrize("bt,l,w,dtype,tol", _BWD_CASES)
+def test_bwd_formulas_match_jax_vjp(bt, l, w, dtype, tol):
+    """rglru_scan_bwd_ref against jax.vjp of the reference's scan_ref at its
+    tolerances (atol per case, rtol 1e-3); at L = 300 the formulas run on
+    the padded tensors as the kernel does (log_a = 0, b = 0, dh = 0 past L)
+    and the padding is sliced off."""
+    log_a, b = _inputs(bt, l, w, dtype, seed=w + l + 5)
+    dh = _cotangent(bt, l, w, seed=l)
+    want = jax.jit(lambda la, b_, g: jax.vjp(jrglru.scan_ref, la, b_)[1](g))(
+        jnp.asarray(log_a), jnp.asarray(b), jnp.asarray(dh))
+    la, bb, g = (torch.from_numpy(v) for v in (log_a, b, dh))
+    pad = (-l) % rglru.SCAN_BLOCK if l > rglru.SCAN_BLOCK else 0
+    if pad:
+        la, bb, g = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (la, bb, g))
+    got = ref.rglru_scan_bwd_ref(la, ref.rglru_scan_ref(la, bb), g)
+    for mine, theirs in zip(got, want):
+        np.testing.assert_allclose(mine[:, :l].numpy(), np.asarray(theirs), atol=tol, rtol=1e-3)
+
+
+@pytest.mark.parametrize("bt,l,w,bl,bw,dtype,tol", ref.RGLRU_CASES + ref.RGLRU_EDGE_CASES)
+def test_bwd_formulas_match_torch_autograd(bt, l, w, bl, bw, dtype, tol):
+    """The explicit formulas against autograd of the plain version, the
+    kernel's yardstick on the card, on every case the card runs (L = 1
+    included, where log_a has no effect)."""
+    log_a, b = (torch.from_numpy(v) for v in _inputs(bt, l, w, dtype, seed=w + l + 1))
+    dh = torch.from_numpy(_cotangent(bt, l, w, seed=w))
+    got = ref.rglru_scan_bwd_ref(log_a, ref.rglru_scan_ref(log_a, b), dh)
+    want = ref.rglru_scan_bwd_plain(log_a, b, dh)
+    for mine, theirs in zip(got, want):
+        assert mine.dtype == theirs.dtype == torch.float32
+        np.testing.assert_allclose(mine.numpy(), theirs.numpy(), atol=tol, rtol=1e-3)
+
+
+def _plain_function():
+    """The Function built from the plain versions, as a test only: the
+    production one (ops.RGLRUScan) launches the kernels."""
+    return ops.rglru_function(ref.rglru_scan_ref, ref.rglru_scan_bwd_ref)
+
+
+def test_function_plumbing_gradcheck_fp64():
+    rng = np.random.default_rng(3)
+    la = torch.from_numpy(-rng.random((2, 11, 3))).requires_grad_()
+    b = torch.from_numpy(rng.standard_normal((2, 11, 3))).requires_grad_()
+    assert torch.autograd.gradcheck(_plain_function().apply, (la, b))
+
+
+def test_function_saves_log_a_and_h_and_returns_input_dtypes():
+    log_a, b = (torch.from_numpy(v) for v in _inputs(1, 16, 4, "float32", seed=2))
+    la, bb = log_a.clone().requires_grad_(), b.to(torch.bfloat16).requires_grad_()
+    h = _plain_function().apply(la, bb)
+    saved = h.grad_fn.saved_tensors
+    assert len(saved) == 2 and saved[0] is la and torch.equal(saved[1], h)
+    h.backward(torch.ones_like(h))
+    assert la.grad.dtype == torch.float32 and bb.grad.dtype == torch.bfloat16
+    assert ops.RGLRUScan is not None and ops.RGLRUScan.__name__ == "_RGLRUScan"
+
+
+def test_bwd_launcher_argtypes_match_the_entry_point():
+    src = (Path(rg.__file__).parent / "csrc" / "rglru_scan.cu").read_text()
+    params = re.search(r'extern "C" int rglru_scan_bwd\((.*?)\)', src, re.S).group(1)
+    kinds = [ctypes.c_void_p if "*" in prm else ctypes.c_int for prm in params.split(",")]
+    assert kinds == rg._BWD_ARGTYPES
+    assert "int variant" in params
+
+
+def test_bwd_launcher_never_falls_back():
+    z = torch.zeros((1, 64, 32))
+    with pytest.raises(ValueError, match="CUDA"):
+        rg.rglru_scan_bwd(z, z, z)
+    with pytest.raises(TypeError, match="float32"):
+        rg.rglru_scan_bwd(z.double(), z.double(), z.double())
+    with pytest.raises(ValueError, match=r"\[B,L,W\]"):
+        rg.rglru_scan_bwd(z, z, z[:, :10])
+
+
+def test_bwd_variant_counts_reset_with_the_launches():
+    ops.rglru_bwd_variant_launches["vec4"] += 2
+    ops.launches["rglru_scan_bwd"] += 2
+    ops.reset_launches()
+    assert ops.rglru_bwd_variant_launches == dict.fromkeys(rg.VARIANTS, 0)
+    assert ops.launches["rglru_scan_bwd"] == 0
+    la = torch.zeros((1, 64, 32), requires_grad=True)
+    ops.rglru_scan(la, torch.ones((1, 64, 32))).sum().backward()   # plain: no launch
+    assert ops.launches["rglru_scan_bwd"] == 0 and la.grad is not None
+
+
+def _kernel_order_bwd(log_a, h, dh):
+    """The backward kernel's composition order on the CPU, in fp32: tiles
+    from the last; per segment the coefficients a at steps s0+1 … s0+SEG
+    and h at s0−1 … s0+SEG−2 as loaded (1 and 0 outside the sequence); each
+    segment composed from its last step into (∏a, g from 0); a shuffle-tree
+    scan towards earlier segments in each warp; the warps' totals folded
+    from the last warp and the later tile's carry; each segment re-run from
+    its end storing db = g and dlog_a = g·a_t·h_{t−1}."""
+    bt, l, w = log_a.shape
+    tile, nw = _SEG * _NSEG, _NSEG // _WARP_SEGS
+    a_all, dh = torch.exp(log_a.float()), dh.float()
+    carry = torch.zeros((bt, w))
+    dla, db = torch.zeros((bt, l, w)), torch.zeros((bt, l, w))
+    for t0 in reversed(range(0, l, tile)):
+        n = min(tile, l - t0)
+        a = torch.ones((bt, tile + 1, w))
+        m = min(tile + 1, l - t0)
+        a[:, :m] = a_all[:, t0:t0 + m]
+        d, hp = torch.zeros((bt, tile, w)), torch.zeros((bt, tile, w))
+        d[:, :n] = dh[:, t0:t0 + n]
+        lo = 1 if t0 == 0 else 0
+        hp[:, lo:n] = h[:, t0 + lo - 1:t0 + n - 1]
+        coef = a[:, 1:].reshape(bt, _NSEG, _SEG, w)
+        d = d.reshape(bt, _NSEG, _SEG, w)
+        A, G = coef[:, :, -1].clone(), d[:, :, -1].clone()
+        for j in range(_SEG - 2, -1, -1):
+            G, A = coef[:, :, j] * G + d[:, :, j], A * coef[:, :, j]
+        A, G = A.reshape(bt, nw, _WARP_SEGS, w), G.reshape(bt, nw, _WARP_SEGS, w)
+        off = 1
+        while off < _WARP_SEGS:
+            pa = torch.cat([A[:, :, off:], torch.ones_like(A[:, :, :off])], dim=2)
+            pg = torch.cat([G[:, :, off:], torch.zeros_like(G[:, :, :off])], dim=2)
+            G, A = pg * A + G, A * pa
+            off *= 2
+        ea = torch.cat([A[:, :, 1:], torch.ones_like(A[:, :, :1])], dim=2)
+        eg = torch.cat([G[:, :, 1:], torch.zeros_like(G[:, :, :1])], dim=2)
+        gin = [None] * nw
+        for wp in reversed(range(nw)):
+            gin[wp] = carry
+            carry = A[:, wp, 0] * carry + G[:, wp, 0]
+        g = (ea * torch.stack(gin, dim=1)[:, :, None] + eg).reshape(bt, _NSEG, w)
+        a_t = a[:, :tile].reshape(bt, _NSEG, _SEG, w)
+        hp = hp.reshape(bt, _NSEG, _SEG, w)
+        gs, ls = [None] * _SEG, [None] * _SEG
+        for j in range(_SEG - 1, -1, -1):
+            g = coef[:, :, j] * g + d[:, :, j]
+            gs[j], ls[j] = g, g * a_t[:, :, j] * hp[:, :, j]
+        db[:, t0:t0 + n] = torch.stack(gs, dim=2).reshape(bt, tile, w)[:, :n]
+        dla[:, t0:t0 + n] = torch.stack(ls, dim=2).reshape(bt, tile, w)[:, :n]
+    return dla, db
+
+
+@pytest.mark.parametrize("bt,l,w,dtype,tol", _ORDER_CASES)
+def test_bwd_kernel_composition_order_vs_jax_vjp(bt, l, w, dtype, tol):
+    """The backward kernel's order (tiles and segments from the end, the
+    shifted loads, the scan towards earlier steps) gives jax.vjp of the
+    reference's scan_ref at its tolerances."""
+    log_a, b = _inputs(bt, l, w, dtype, seed=w + l + 3)
+    dh = _cotangent(bt, l, w, seed=w + 1)
+    want = jax.jit(lambda la, b_, g: jax.vjp(jrglru.scan_ref, la, b_)[1](g))(
+        jnp.asarray(log_a), jnp.asarray(b), jnp.asarray(dh))
+    la = torch.from_numpy(log_a)
+    got = _kernel_order_bwd(la, ref.rglru_scan_ref(la, torch.from_numpy(b)),
+                            torch.from_numpy(dh))
+    for mine, theirs in zip(got, want):
+        np.testing.assert_allclose(mine.numpy(), np.asarray(theirs), atol=tol, rtol=1e-3)

@@ -1,9 +1,11 @@
 """Port Mamba2: the plain SSD scan against the JAX package's Pallas kernel
 (interpret mode) and its chunked oracle on the reference's kernel cases, the
 wrapper's contract, the choice between the kernel's two variants and the mma
-variant's numerics emulated on the CPU, and the SSM block (prefill with
-state, decode step) on converted weights.  The CUDA kernels are held against
-the plain version on a card in ``test_torch_cuda.py``."""
+variant's numerics emulated on the CPU, the SSM block (prefill with state,
+decode step) on converted weights, and the backward: its explicit formulas
+against ``jax.vjp`` and autograd, the ``autograd.Function``'s plumbing.  The
+CUDA kernels are held against the plain versions on a card in
+``test_torch_cuda.py``."""
 
 import ctypes
 import re
@@ -402,3 +404,184 @@ def test_init_state_and_param_tree_match_jax():
     st_j = jssm.init_state(jcfg, 2)
     assert {k: (tuple(v.shape), str(v.dtype)[6:]) for k, v in st.items()} == \
         {k: (tuple(v.shape), str(v.dtype)) for k, v in st_j.items()}
+
+
+# ==========================================================================
+# The backward: explicit formulas, the Function, the kernel's launcher
+# ==========================================================================
+
+
+def _jax_vjp(arrays, chunk, dy, dh_last):
+    """jax.vjp of the reference's ssd_chunked for the cotangents of (y,
+    h_last); dh_last None is a zero cotangent."""
+    def f(*v):
+        return jssm.ssd_chunked(*v, chunk)
+    dh = np.zeros((dy.shape[0], dy.shape[2], dy.shape[3], arrays[3].shape[-1]), np.float32) \
+        if dh_last is None else dh_last
+    return jax.jit(lambda *v: jax.vjp(f, *v[:5])[1]((v[5], v[6])))(
+        *(jnp.asarray(a) for a in arrays), jnp.asarray(dy), jnp.asarray(dh))
+
+
+def _close_scaled(mine, theirs, tol):
+    """allclose with atol = tol·max|theirs|: ddt and da are sums of many
+    terms, so an entry near zero carries the summation order's error at the
+    scale of the largest term."""
+    theirs = np.asarray(theirs)
+    np.testing.assert_allclose(_f32(mine), theirs, rtol=tol,
+                               atol=tol * float(np.abs(theirs).max()))
+
+
+def _bwd_arrays(case, seed, dt0=0.01):
+    bt, l, h, p, n = case[:5]
+    rng = np.random.default_rng(seed + 1)
+    arrays = _model_inputs(bt, l, h, p, n, dt0, seed)
+    return (arrays, rng.standard_normal((bt, l, h, p)).astype(np.float32),
+            rng.standard_normal((bt, h, p, n)).astype(np.float32))
+
+
+#: (bt, l, h, p, n, chunk, dtype, final-state cotangent): the reference's
+#: cases with and without a gradient of the final state, and L = 200 padded
+#: to 256 as models/ssm pads (dt = 0 on the padding)
+_SSD_BWD_CASES = ([c[:7] + (st,) for c in ref.SSD_CASES for st in (True, False)]
+                  + [(2, 200, 4, 32, 64, 128, "float32", True)])
+
+
+@pytest.mark.parametrize("bt,l,h,p,n,chunk,dtype,state", _SSD_BWD_CASES)
+def test_bwd_formulas_match_jax_vjp(bt, l, h, p, n, chunk, dtype, state):
+    """ssd_chunked_bwd against jax.vjp of the reference's ssd_chunked, fp32
+    math from inputs rounded to the case's dtype, at the reference's 2e-4
+    (relative to its scale for the summed dt and A gradients), with the
+    model's recipe (dt0 0.01, A = −linspace(1, 16))."""
+    arrays, dy, dh = _bwd_arrays((bt, l, h, p, n), seed=l + p)
+    arrays = [_f32(torch.from_numpy(v).to(_TORCH[dtype])) if i in (0, 3, 4) else v
+              for i, v in enumerate(arrays)]
+    dh = dh if state else None
+    pad = (-l) % chunk
+    t = [torch.from_numpy(v) for v in arrays]
+    g = torch.from_numpy(dy)
+    if pad:      # the padded tensors the model hands the scan, sliced after
+        t = [torch.nn.functional.pad(v, (0, 0) * (v.dim() - 2) + (0, pad)) if v.dim() > 1
+             else v for v in t]
+        g = torch.nn.functional.pad(g, (0, 0, 0, 0, 0, pad))
+        want = _jax_vjp(arrays, l, dy, dh)          # the unpadded sequence in one chunk
+    else:
+        want = _jax_vjp(arrays, chunk, dy, dh)
+    got = ref.ssd_chunked_bwd(*t, chunk, g, None if dh is None else torch.from_numpy(dh))
+    for name, mine, theirs in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        if name != "dA":
+            mine = mine[:, :l]
+        if name in ("ddt", "dA"):
+            _close_scaled(mine, theirs, 2e-4)
+        else:
+            np.testing.assert_allclose(_f32(mine), np.asarray(theirs), atol=2e-4, rtol=2e-4,
+                                       err_msg=name)
+
+
+@pytest.mark.parametrize("bt,l,h,p,n,chunk,dtype,tol", ref.SSD_CASES)
+def test_reference_autodiff_of_dt_is_nan_where_the_decay_overflows(bt, l, h, p, n, chunk,
+                                                                   dtype, tol):
+    """With the reference test's recipe (dt ~ 0.8, A down to −7.4) cum falls
+    past −88 within a chunk, exp(cum_i − cum_j) above the diagonal is inf,
+    and the reference's autodiff through where(mask, exp(seg), 0) returns
+    NaN for dt and A (0·inf).  The explicit formulas take the decay only
+    where j ≤ i and stay finite; dx, dB, dC agree at 2e-4."""
+    arrays = _inputs(bt, l, h, p, n, seed=l + p)
+    rng = np.random.default_rng(l)
+    dy = rng.standard_normal(arrays[0].shape).astype(np.float32)
+    dh = rng.standard_normal((bt, h, p, n)).astype(np.float32)
+    want = _jax_vjp(arrays, chunk, dy, dh)
+    got = ref.ssd_chunked_bwd(*(torch.from_numpy(v) for v in arrays), chunk,
+                              torch.from_numpy(dy), torch.from_numpy(dh))
+    assert np.isnan(np.asarray(want[1])).any() and np.isnan(np.asarray(want[2])).any()
+    assert all(bool(torch.isfinite(g_).all()) for g_ in got)
+    for i in (0, 3, 4):
+        np.testing.assert_allclose(got[i].numpy(), np.asarray(want[i]), atol=2e-4, rtol=2e-4)
+    plain = ref.ssd_scan_bwd_plain(*(torch.from_numpy(v) for v in arrays), chunk,
+                                   torch.from_numpy(dy), torch.from_numpy(dh))
+    assert all(bool(torch.isfinite(g_).all()) for g_ in plain)   # mask inside the exp
+
+
+_PLAIN_BWD_CASES = ([(c[:6], None) for c in ref.SSD_CASES]
+                    + [(c, ref.ssd_dt0(c)) for c in ref.SSD_MMA_CASES])
+
+
+@pytest.mark.parametrize("case,dt0", _PLAIN_BWD_CASES, ids=str)
+def test_bwd_formulas_match_torch_autograd(case, dt0):
+    """The explicit formulas against autograd of the plain version (the
+    kernel's yardstick on the card) on every fp32 case the card runs:
+    dx, dB, dC at atol = rtol = 2e-4, ddt and dA at 2e-4 of their scale."""
+    bt, l, h, p, n, chunk = case
+    arrays = (_inputs(bt, l, h, p, n, seed=l + p) if dt0 is None
+              else _model_inputs(bt, l, h, p, n, dt0, seed=l + p))
+    rng = np.random.default_rng(p)
+    t = [torch.from_numpy(v) for v in arrays]
+    dy = torch.from_numpy(rng.standard_normal(arrays[0].shape).astype(np.float32))
+    dh = torch.from_numpy(rng.standard_normal((bt, h, p, n)).astype(np.float32))
+    got = ref.ssd_chunked_bwd(*t, chunk, dy, dh)
+    want = ref.ssd_scan_bwd_plain(*t, chunk, dy, dh)
+    for name, mine, theirs in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        if name in ("ddt", "dA"):
+            _close_scaled(mine, theirs.numpy(), 2e-4)
+        else:
+            np.testing.assert_allclose(mine.numpy(), theirs.numpy(), atol=2e-4, rtol=2e-4,
+                                       err_msg=name)
+
+
+def _plain_function():
+    """The Function built from the plain versions, as a test only: the
+    production one (ops.SSDScan) launches the kernels."""
+    return ops.ssd_function(
+        lambda x, dt, a, bm, cm, q, rs: ref.ssd_chunked(x, dt, a, bm, cm, q),
+        ref.ssd_chunked_bwd)
+
+
+@pytest.mark.parametrize("return_state,use_state", [(True, True), (True, False),
+                                                    (False, False)])
+def test_function_plumbing_gradcheck_fp64(return_state, use_state):
+    """The Function's wiring in fp64: with the final state's gradient, with
+    the state returned but dropped (its gradient comes as None), and with y
+    alone."""
+    rng = np.random.default_rng(4)
+    leaves = [torch.from_numpy(v).requires_grad_() for v in (
+        rng.standard_normal((1, 8, 2, 3)), 0.5 * rng.random((1, 8, 2)),
+        -0.5 - rng.random(2), rng.standard_normal((1, 8, 4)), rng.standard_normal((1, 8, 4)))]
+    fn = _plain_function()
+
+    def f(*args):
+        out = fn.apply(*args, 4, return_state)
+        if not return_state:
+            return out
+        return out if use_state else out[0]
+    assert torch.autograd.gradcheck(f, leaves)
+
+
+def test_function_saves_inputs_and_returns_input_dtypes():
+    arrays, dy, _ = _bwd_arrays((1, 32, 2, 16, 16), seed=5)
+    t = [torch.from_numpy(v) for v in arrays]
+    leaves = [v.to(torch.bfloat16) if i in (0, 3, 4) else v for i, v in enumerate(t)]
+    leaves = [v.clone().requires_grad_() for v in leaves]
+    y, h_last = _plain_function().apply(*leaves, 16, True)
+    assert len(y.grad_fn.saved_tensors) == 5
+    assert all(a is b for a, b in zip(y.grad_fn.saved_tensors, leaves))
+    y.backward(torch.from_numpy(dy).to(torch.bfloat16))
+    assert [v.grad.dtype for v in leaves] == [torch.bfloat16, torch.float32, torch.float32,
+                                              torch.bfloat16, torch.bfloat16]
+    assert ops.SSDScan.__name__ == "_SSDScan"
+
+
+def test_bwd_launcher_argtypes_match_the_entry_point():
+    src = (Path(ssd.__file__).parent / "csrc" / "ssd_scan_bwd.cu").read_text()
+    params = re.search(r'extern "C" int ssd_scan_bwd\((.*?)\)', src, re.S).group(1)
+    kinds = [ctypes.c_void_p if "*" in prm else ctypes.c_int for prm in params.split(",")]
+    assert kinds == ssd._BWD_ARGTYPES
+    from repro_torch.kernels import build
+    assert build.SOURCES["ssd_scan_bwd"] == "ssd_scan_bwd.cu"
+
+
+def test_bwd_launcher_never_falls_back():
+    _, t = _both(_inputs(1, 64, 2, 16, 8, seed=6), "float32")
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd.ssd_scan_bwd(*t, 64, torch.zeros_like(t[0]))
+    _, t48 = _both(_inputs(1, 64, 2, 48, 8, seed=6), "float32")
+    with pytest.raises(ValueError, match="kernel takes"):
+        ssd.ssd_scan_bwd(*t48, 64, torch.zeros_like(t48[0]))

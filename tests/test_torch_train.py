@@ -199,10 +199,12 @@ def _states(cfg, jcfg, seed=0):
     return jstate, _t(_np(jstate))
 
 
-@pytest.mark.parametrize("arch", ["yi-9b", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["yi-9b", "mamba2-370m", "recurrentgemma-9b"])
 def test_three_train_steps_match_jax(arch):
     """fp32: losses at rtol 1e-4, every parameter and moment at atol 1e-4
-    after each of 3 steps, on make_batch data."""
+    after each of 3 steps, on make_batch data: the dense path and both
+    recurrent paths that the card now trains through the scans' backward
+    kernels (here their plain versions)."""
     cfg, jcfg = _cfgs(arch, compute_dtype="float32", remat="dots")
     jstate, state = _states(cfg, jcfg)
     jfn = jax.jit(jstep.make_train_step(jcfg, lr=1e-3))
@@ -363,18 +365,28 @@ def test_launch_train_refuses_a_missing_card(monkeypatch, tmp_path, capsys):
     assert "done: step 4" in out and ckpt.all_steps(str(tmp_path)) == [2, 4]
 
 
-# ---- the card's scans refuse a gradient they would drop -----------------------------
+def test_launch_train_runs_a_recurrent_arch_on_cpu(tmp_path, capsys):
+    assert launch_train.main(["--arch", "mamba2-370m", "--smoke", "--device", "cpu",
+                              "--steps", "2", "--chunk", "2", "--seq-len", "32", "--batch", "2",
+                              "--ckpt-dir", str(tmp_path)]) == 0
+    assert "done: step 2" in capsys.readouterr().out and ckpt.all_steps(str(tmp_path)) == [2]
+
+
+# ---- a raw kernel launch refuses a gradient it would drop ---------------------------
 
 
 def test_refuse_grad_raises_only_when_a_gradient_is_needed():
+    """Only flash's raw wrapper refuses now (its gradient goes through
+    models.flash); the message says what to do instead, and nothing is
+    refused without a gradient to lose."""
     x = torch.ones(3, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        ops.refuse_grad("ssd_scan", torch.ones(3), x)
-    with pytest.raises(NotImplementedError, match="models.flash"):
-        ops.refuse_grad("flash_attention", x, instead="use models.flash")
-    ops.refuse_grad("ssd_scan", torch.ones(3))
+    with pytest.raises(NotImplementedError, match="no autograd history: use models.flash"):
+        ops.refuse_grad("flash_attention", torch.ones(3), x, instead="use models.flash")
+    ops.refuse_grad("flash_attention", torch.ones(3), instead="use models.flash")
     with torch.no_grad():
-        ops.refuse_grad("rglru_scan", x)
+        ops.refuse_grad("flash_attention", x, instead="use models.flash")
+    with pytest.raises(TypeError):
+        ops.refuse_grad("flash_attention", x)       # the advice is required
 
 
 def test_cpu_scans_stay_differentiable():
@@ -399,3 +411,16 @@ def test_profile_train_on_cpu_reports_the_split_and_host_ops():
     for key in ("forward_ms", "forward_backward_ms", "step_ms", "flash_bwd_ms", "optimizer_ms"):
         assert r[key] > 0, key
     assert r["traced_step"]["kernel_launches"] == 0 and r["traced_step"]["top_host_ops_ms"]
+
+
+@pytest.mark.parametrize("arch,layers,backwards", [
+    ("mamba2-370m", 0, ("ssd_scan_bwd_ms",)),
+    ("recurrentgemma-9b", 3, ("flash_bwd_ms", "rglru_scan_bwd_ms"))])
+def test_profile_train_on_cpu_times_each_recurrent_backward(arch, layers, backwards):
+    """A recurrent arch gets its scan's backward timed alone (its explicit
+    plain formulas on the CPU), and no FA2 timing without attention."""
+    from repro_torch.launch import profile_train
+    r = profile_train.run(arch, smoke=True, layers=layers, batch=1, seq_len=32, device="cpu")
+    for key in ("forward_ms", "forward_backward_ms", "step_ms", "optimizer_ms") + backwards:
+        assert r[key] > 0, key
+    assert {k for k in r if k.endswith("_bwd_ms")} == set(backwards)
