@@ -33,6 +33,7 @@ SOURCES = {
     "ssd_scan": "ssd_scan.cu",
     "rglru_scan": "rglru_scan.cu",
     "ssd_scan_bwd": "ssd_scan_bwd.cu",
+    "ssd_scan_bwd_mma": "ssd_scan_bwd_sm90.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -22,9 +22,10 @@
 //   d(dt·a)_k = Σ_{i≥k} dcum_i; ddt_k += d(dt·a)_k·a; da = Σ d(dt·a)_k·dt_k.
 // kernels/ref.py (ssd_chunked_bwd) writes the same formulas in plain torch.
 //
-// Design: one variant, every product in fp32 FMAs on the CUDA cores from x,
-// B, C, dy in bf16 or fp32; seven launches on the caller's stream, through
-// scratch the caller allocates:
+// Design (the "fma" variant: fp32 calls and shapes the mma variant in
+// ssd_scan_bwd_sm90.cu does not take): every product in fp32 FMAs on the
+// CUDA cores from x, B, C, dy in bf16 or fp32; seven launches on the
+// caller's stream, through scratch the caller allocates:
 //   1. ssd_bwd_states, a block per (b, c, h): cum (serial, as the fma
 //      forward), S_c = Σ_j w_j·x_j ⊗ B_j and U_c = Σ_i exp(cum_i)·dy_i ⊗ C_i;
 //   2. ssd_bwd_state_pass, a thread per (b, h, p, n): h_in[c] in fp32 (the mma
@@ -41,6 +42,7 @@
 //      ddt and the chunk's share of da;
 //   6. ssd_bwd_reduce_heads: dB and dC summed over heads in head order;
 //   7. ssd_bwd_reduce_da: da summed over batches and chunks in order.
+// Passes 6 and 7 live in ssd_bwd_common.cuh, shared with the mma variant.
 // No atomics: every sum runs in a fixed order, so the gradient is the same
 // from run to run.  A chunk of 256 rows of fp32 x, dy, B and C does not fit
 // in shared memory, so passes 3 and 4 tile rows and columns by 64, skip the
@@ -54,11 +56,12 @@
 // products (~26 us at the bf16 tensor-core peak), so operations bound it.
 // This design does those products in fp32 on the CUDA cores (67 TFLOP/s),
 // recomputes cb and r in both passes 3 and 4 and sends the per-head dB/dC
-// partials and fp32 states through memory: simple and right first, the
-// tensor cores are later work.  The multiplying passes hold a block an SM
-// (their shared memory allows one or two), so they are built for one block
-// an SM and may take up to 255 registers.  Shared-memory rows are padded to an odd
-// stride, so the inner loops are free of bank conflicts.
+// partials and fp32 states through memory: simple and right first; the mma
+// variant takes the bf16 calls onto the tensor cores.  The multiplying
+// passes hold a block an SM (their shared memory allows one or two), so they
+// are built for one block an SM and may take up to 255 registers.
+// Shared-memory rows are padded to an odd stride, so the inner loops are
+// free of bank conflicts.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (src/repro_torch/kernels/build.py does this).
@@ -68,13 +71,15 @@
 
 #include <stddef.h>
 
+#include "ssd_bwd_common.cuh"
+
 namespace {
 
-constexpr int NTHREADS = 256;
+using ssd_bwd::MAX_Q;
+using ssd_bwd::NTHREADS;
 constexpr int TQ = 64;                 // rows i and columns j per tile
 constexpr int TG = 16;                 // 16 x 16 thread grid over a tile
 constexpr int RPT = TQ / TG;           // rows (and columns) per thread
-constexpr int MAX_Q = 256;
 constexpr int MAX_N = 128;
 constexpr int NCOL = MAX_N / TG;       // n columns per thread (n < N)
 constexpr int SS = TQ + 1;             // padded score row stride
@@ -82,18 +87,9 @@ constexpr int SS = TQ + 1;             // padded score row stride
 // [TG][TQ] and u_j [TQ]
 constexpr int HEAD = 2 * MAX_Q + TG * TQ + TQ;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-    return __float2bfloat16(x);
-}
-
-struct Dims {
-    int Bt, L, H, N, Q, NC;
-};
+using ssd_bwd::Dims;
+using ssd_bwd::from_f32;
+using ssd_bwd::to_f32;
 
 // the 16 lanes of a half warp (one tr row of the thread grid) summed in a
 // fixed tree order; every lane gets the sum
@@ -622,33 +618,6 @@ ssd_bwd_dcum(const float* __restrict__ dt, const float* __restrict__ a,
     }
 }
 
-// ---- 6. ssd_bwd_reduce_heads and 7. ssd_bwd_reduce_da ---------------------
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS)
-ssd_bwd_reduce_heads(const float* __restrict__ db_part, const float* __restrict__ dc_part,
-                     T* __restrict__ dbm, T* __restrict__ dcm, Dims d) {
-    const size_t idx = size_t(blockIdx.x) * NTHREADS + threadIdx.x;
-    if (idx >= size_t(d.Bt) * d.L * d.N) return;
-    const size_t pos = idx / d.N, n = idx % d.N;
-    float sb = 0.f, sc = 0.f;
-    for (int hh = 0; hh < d.H; ++hh) {
-        const size_t o = (pos * d.H + hh) * d.N + n;
-        sb += db_part[o];
-        sc += dc_part[o];
-    }
-    dbm[idx] = from_f32<T>(sb);
-    dcm[idx] = from_f32<T>(sc);
-}
-
-__global__ void __launch_bounds__(NTHREADS)
-ssd_bwd_reduce_da(const float* __restrict__ da_part, float* __restrict__ da, Dims d) {
-    for (int hh = threadIdx.x; hh < d.H; hh += NTHREADS) {
-        float s = 0.f;
-        for (int bc = 0; bc < d.Bt * d.NC; ++bc) s += da_part[size_t(bc) * d.H + hh];
-        da[hh] = s;
-    }
-}
-
 struct Args {
     const void *x, *dt, *a, *bm, *cm, *dy, *dh_last;
     void *dx, *ddt, *da, *dbm, *dcm;
@@ -707,11 +676,11 @@ int launch(const Args& g, Dims d, cudaStream_t st) {
     SSD_BWD_CHECK(cudaGetLastError());
 
     const size_t nbn = size_t(d.Bt) * d.L * d.N;
-    ssd_bwd_reduce_heads<T><<<unsigned((nbn + NTHREADS - 1) / NTHREADS), NTHREADS, 0, st>>>(
-        g.db_part, g.dc_part, static_cast<T*>(g.dbm), static_cast<T*>(g.dcm), d);
+    ssd_bwd::ssd_bwd_reduce_heads<T><<<unsigned((nbn + NTHREADS - 1) / NTHREADS), NTHREADS, 0, st>>>(
+        g.db_part, g.dc_part, static_cast<T*>(g.dbm), static_cast<T*>(g.dcm), d.H, d);
     SSD_BWD_CHECK(cudaGetLastError());
 
-    ssd_bwd_reduce_da<<<1, NTHREADS, 0, st>>>(g.da_part, static_cast<float*>(g.da), d);
+    ssd_bwd::ssd_bwd_reduce_da<<<1, NTHREADS, 0, st>>>(g.da_part, static_cast<float*>(g.da), d);
     return int(cudaGetLastError());
 }
 

@@ -33,6 +33,9 @@ flash_variant_launches: Dict[str, int] = dict.fromkeys(_fa.VARIANTS, 0)
 #: SSD-scan variant (:func:`ssd_scan.variant`) → its share of
 #: ``launches["ssd_scan"]``
 ssd_variant_launches: Dict[str, int] = dict.fromkeys(_ssd.VARIANTS, 0)
+#: SSD backward variant (:func:`ssd_scan.bwd_variant`) → its share of
+#: ``launches["ssd_scan_bwd"]``
+ssd_bwd_variant_launches: Dict[str, int] = dict.fromkeys(_ssd.VARIANTS, 0)
 #: RG-LRU-scan variant (:func:`rglru_scan.variant`) → its share of
 #: ``launches["rglru_scan"]``
 rglru_variant_launches: Dict[str, int] = dict.fromkeys(_rg.VARIANTS, 0)
@@ -41,6 +44,7 @@ rglru_variant_launches: Dict[str, int] = dict.fromkeys(_rg.VARIANTS, 0)
 rglru_bwd_variant_launches: Dict[str, int] = dict.fromkeys(_rg.VARIANTS, 0)
 _BY_VARIANT = {"flash_attention": flash_variant_launches, "ssd_scan": ssd_variant_launches,
                "rglru_scan": rglru_variant_launches,
+               "ssd_scan_bwd": ssd_bwd_variant_launches,
                "rglru_scan_bwd": rglru_bwd_variant_launches}
 _count_lock = threading.Lock()      # decode replicas launch from worker threads
 
@@ -191,12 +195,13 @@ def _ssd_fwd(x, dt, a, bmat, cmat, q, return_state):
 def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
                  cmat: torch.Tensor, q: int, dy: torch.Tensor,
                  dh_last: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
-    """The SSD backward kernel's launch, counted: (dx, ddt, da, dB, dC) at
-    chunk q for the cotangents dy and dh_last (None: zero), on the card.
-    What :data:`SSDScan`'s backward runs; callable alone to time it."""
+    """The SSD backward kernel's launch, counted by variant: (dx, ddt, da,
+    dB, dC) at chunk q for the cotangents dy and dh_last (None: zero), on
+    the card.  What :data:`SSDScan`'s backward runs; callable alone to time
+    it."""
     out = _ssd.ssd_scan_bwd(x, dt, a, bmat, cmat, q, dy,
                             None if dh_last is None else dh_last.float())
-    _counted("ssd_scan_bwd")
+    _counted("ssd_scan_bwd", _ssd.bwd_variant(x.shape[3], bmat.shape[-1], q, x.dtype))
     return out
 
 

@@ -417,3 +417,144 @@ def ssd_chunked_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch
     dA = (dda * dtc).sum(dim=(0, 1, 2))
     return (dx.reshape(x.shape).to(x.dtype), ddt.reshape(dt.shape), dA,
             dB.reshape(B.shape).to(B.dtype), dC.reshape(C.shape).to(C.dtype))
+
+
+def block_scan(v: torch.Tensor) -> torch.Tensor:
+    """Inclusive sum over the last axis (≤ 256) in the order of the mma
+    kernels' block scan: a Kogge-Stone scan in each warp of 32 lanes, the
+    same over the warp totals, each lane then adding the totals of the warps
+    before it."""
+    q = v.shape[-1]
+    nw = -(-q // 32)
+    w = torch.nn.functional.pad(v, (0, nw * 32 - q)).reshape(*v.shape[:-1], nw, 32)
+
+    def ks(t):
+        d = 1
+        while d < t.shape[-1]:
+            t = torch.cat([t[..., :d], t[..., d:] + t[..., :-d]], -1)
+            d *= 2
+        return t
+
+    w = ks(w)
+    tot = ks(w[..., -1])
+    w = torch.cat([w[..., :1, :], w[..., 1:, :] + tot[..., :-1, None]], -2)
+    return w.reshape(*v.shape[:-1], nw * 32)[..., :q]
+
+
+#: the fp32 operands of the mma backward's products, each split into bf16
+#: hi + lo: X ⊙ w (S_c), dy ⊙ exp(cum) (U_c), dS_c and h_in[c] feed ddt and
+#: da; the masked scores cb·L·dt (into dx) and r·L·dt (into dB and dC) feed
+#: bf16 outputs that one rounding of them would put outside rtol 1e-2
+SSD_BWD_SPLIT = frozenset({"xw", "dy_e", "ds", "h_in", "m1", "m2"})
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.bfloat16().float()
+
+
+def ssd_chunked_bwd_mma(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                        C: torch.Tensor, chunk: int, dy: torch.Tensor,
+                        dh_last: Optional[torch.Tensor] = None,
+                        split=SSD_BWD_SPLIT) -> Tuple[torch.Tensor, ...]:
+    """:func:`ssd_chunked_bwd` computed as the ``"mma"`` variant of the
+    backward kernel (``csrc/ssd_scan_bwd_sm90.cu``) computes it, for bf16 x,
+    B, C, dy.  Every product multiplies bf16 values into fp32 sums, so
+
+    * C·Bᵀ and dy·xᵀ are exact up to summation order, and ddt and dcum take
+      t_ij = r_ij·cb_ij·L_ij·dt_j from them in fp32;
+    * an fp32 operand named in ``split`` (:data:`SSD_BWD_SPLIT`) is split
+      into bf16 hi = bf16(v) and lo = bf16(v − hi); hi + lo is exact in fp32
+      and its products with a bf16 value are too, so one product here
+      equals the kernel's two; an operand left out is rounded once to bf16;
+    * the state terms of dB and dC multiply bf16 x or dy by the split dS_c
+      or h_in[c] and scale each row by w_j or exp(cum_i) afterwards;
+      dγ_c = ⟨dS_c, h_in[c]⟩ takes h_in[c] as its split too;
+    * cum comes from :func:`block_scan`; where cum never rises (A ≤ 0, dt ≥
+      0) the decay of j before the 64-row tile of i is the product of
+      exp(cum_i − cum_i0) and exp(cum_i0 − cum_j), i0 the tile's first row,
+      both at most 1; the state pass and the rest of the chain run in fp32
+      as :func:`ssd_chunked_bwd`.
+
+    Returns (dx, ddt, dA, dB, dC) as :func:`ssd_chunked_bwd`."""
+    bt, l, h, p = x.shape
+    n = B.shape[-1]
+    nc, q = l // chunk, chunk
+
+    def hl(t, name):
+        hi = _bf16(t)
+        return hi + _bf16(t - hi) if name in split else hi
+
+    def heads(t):                                                # b c h q ...
+        return t.float().reshape(bt, nc, q, h, -1).permute(0, 1, 3, 2, 4)
+
+    xc, dyc = heads(x), heads(dy)
+    dtc = heads(dt)[..., 0]
+    bc = B.float().reshape(bt, nc, 1, q, n)
+    cc = C.float().reshape(bt, nc, 1, q, n)
+    a = A.float()
+    cum = block_scan(dtc * a[None, None, :, None])               # b c h q
+    last = cum[..., -1:]
+    el = torch.exp(last - cum)
+    w = el * dtc
+    ecum = torch.exp(cum)
+
+    s_c = hl(xc * w[..., None], "xw").transpose(-1, -2) @ bc    # b c h p n
+    u_c = hl(dyc * ecum[..., None], "dy_e").transpose(-1, -2) @ cc
+    gamma = torch.exp(last[..., 0])                              # b c h
+    hcur = torch.zeros((bt, h, p, n))
+    h_in = []
+    for c in range(nc):
+        h_in.append(hcur)
+        hcur = hcur * gamma[:, c, :, None, None] + s_c[:, c]
+    h_in = torch.stack(h_in, dim=1)
+    g = torch.zeros((bt, h, p, n)) if dh_last is None else dh_last.float()
+    ds = [None] * nc
+    for c in reversed(range(nc)):
+        ds[c] = g
+        g = g * gamma[:, c, :, None, None] + u_c[:, c]
+    ds = torch.stack(ds, dim=1)
+    dgamma = (ds * hl(h_in, "h_in")).sum(dim=(-1, -2))       # h_in[c] as passes 3–4 read it
+
+    causal = torch.tril(torch.ones((q, q), dtype=torch.bool))
+    decay = torch.exp(torch.where(causal, cum[..., :, None] - cum[..., None, :],
+                                  torch.tensor(-math.inf)))      # b c h i j
+    if bool((a <= 0).all()) and bool((dt >= 0).all()):
+        # where cum never rises, j before the 64-row tile of i takes the
+        # factors exp(cum_i − cum_i0)·exp(cum_i0 − cum_j), i0 the tile's start
+        i0 = torch.arange(q) // 64 * 64
+        cref = cum[..., i0]
+        factored = (torch.exp(cum - cref)[..., :, None]
+                    * torch.exp(cref[..., :, None] - cum[..., None, :]))
+        decay = torch.where(torch.arange(q)[None, :] < i0[:, None], factored, decay)
+    cb = cc @ bc.transpose(-1, -2)                               # b c 1 i j
+    r = dyc @ xc.transpose(-1, -2)                               # b c h i j
+    v = r * cb * decay
+    ddt = v.sum(dim=-2)                                          # column sums: b c h j
+    t = v * dtc[..., None, :]
+    dcum = t.sum(dim=-1) - t.sum(dim=-2)
+    dx = hl(cb * decay * dtc[..., None, :], "m1").transpose(-1, -2) @ dyc
+    m2 = hl(r * decay * dtc[..., None, :], "m2")
+    db = m2.transpose(-1, -2) @ cc                               # b c h j n
+    dc = m2 @ bc                                                 # b c h i n
+
+    dsb = bc @ hl(ds, "ds").transpose(-1, -2)                    # dS_c B_j: b c h j p
+    dx = dx + w[..., None] * dsb
+    u = (xc * dsb).sum(dim=-1)
+    ddt = ddt + u * el
+    dcum = dcum - u * w
+    db = db + w[..., None] * (xc @ hl(ds, "ds"))
+    hc = cc @ hl(h_in, "h_in").transpose(-1, -2)                 # h_in[c] C_i: b c h i p
+    dcum = dcum + ecum * (dyc * hc).sum(dim=-1)
+    dc = dc + ecum[..., None] * (dyc @ hl(h_in, "h_in"))
+    dlast = (u * w).sum(dim=-1) + dgamma * gamma
+    dcum = torch.cat([dcum[..., :-1], dcum[..., -1:] + dlast[..., None]], dim=-1)
+
+    dda = torch.flip(torch.cumsum(torch.flip(dcum, [-1]), dim=-1), [-1])
+    ddt = ddt + dda * a[None, None, :, None]
+    dA = (dda * dtc).sum(dim=(0, 1, 3))
+
+    def back(t):                                                 # b c h q k → b l h k
+        return t.permute(0, 1, 3, 2, 4).reshape(bt, l, h, -1)
+
+    return (back(dx).to(x.dtype), back(ddt[..., None])[..., 0], dA,
+            db.sum(dim=2).reshape(B.shape).to(B.dtype), dc.sum(dim=2).reshape(C.shape).to(C.dtype))

@@ -11,10 +11,16 @@ The kernels replace the Pallas TPU kernel
 * ``"fma"`` (``csrc/ssd_scan.cu``): every other call, one block per (batch,
   head) walking the chunks, fp32 FMAs on the CUDA cores.
 
-Its backward, :func:`ssd_scan_bwd` (``csrc/ssd_scan_bwd.cu``), has no TPU
-kernel to replace: the JAX package takes autodiff of
-``repro/models/ssm.py:99`` ``ssd_chunked``.  One variant for every shape
-the forward takes, fp32 FMAs on the CUDA cores.
+Its backward, :func:`ssd_scan_bwd`, has no TPU kernel to replace: the JAX
+package takes autodiff of ``repro/models/ssm.py:99`` ``ssd_chunked``.  It
+has the same two variants, picked by :func:`bwd_variant`:
+
+* ``"mma"`` (``csrc/ssd_scan_bwd_sm90.cu``): the forward's mma domain; every
+  product on the tensor cores, C·Bᵀ computed once per block for a group of
+  :func:`bwd_heads_per_block` heads, dB and dC summed over the group inside
+  the block;
+* ``"fma"`` (``csrc/ssd_scan_bwd.cu``): every other call, fp32 FMAs on the
+  CUDA cores.
 
 Each source's note says what bounds it on the card and how the design
 answers.  This module validates the tensors, allocates the outputs and the
@@ -42,6 +48,12 @@ _p = ctypes.c_void_p
 _i = ctypes.c_int
 _ARGTYPES = [_p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _p]
 _BWD_ARGTYPES = [_p] * 22 + [_i] * 7 + [_p]
+#: the mma entry point: two more pointers (the split states) and, as its
+#: last int, the heads per block instead of the dtype
+_BWD_MMA_ARGTYPES = [_p] * 24 + [_i] * 7 + [_p]
+#: heads a block of the mma backward's pair passes takes at most (chosen on
+#: the card by ``launch/ssd_bwd_experiments.py heads``: PERF.md §6)
+BWD_HEADS_PER_BLOCK = 8
 
 
 def variant(p: int, n: int, q: int, dtype: torch.dtype) -> str:
@@ -52,6 +64,17 @@ def variant(p: int, n: int, q: int, dtype: torch.dtype) -> str:
             and 16 <= n <= MAX_STATE and q % 16 == 0 and 16 <= q <= MAX_CHUNK):
         return "mma"
     return "fma"
+
+
+#: the backward kernel a call takes: the backward's two variants have the
+#: forward's domains
+bwd_variant = variant
+
+
+def bwd_heads_per_block(h: int) -> int:
+    """Heads that share a block of the mma backward's pair passes: the
+    largest divisor of ``h`` that is at most :data:`BWD_HEADS_PER_BLOCK`."""
+    return max(g for g in range(1, min(h, BWD_HEADS_PER_BLOCK) + 1) if h % g == 0)
 
 
 def _lib(name: str = "ssd_scan", entry: str = "ssd_scan_fwd", argtypes=_ARGTYPES):
@@ -109,10 +132,12 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch
                  dh_last: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
     """The backward of :func:`ssd_scan_fwd` at the same inputs, for the
     cotangents dy (x's shape and dtype) and dh_last (fp32 [Bt,H,P,N], or
-    None for zero).  Returns (dx, ddt, da, dB, dC): dx, dB, dC in x's dtype,
-    ddt and da fp32.  The kernel's fp32 scratch (states, per-head dB/dC
-    partials) is allocated here."""
-    _check(x, dt, a, bmat, cmat, q)
+    None for zero), on the variant :func:`bwd_variant` picks.  Returns (dx,
+    ddt, da, dB, dC): dx, dB, dC in x's dtype, ddt and da fp32.  The
+    kernel's fp32 scratch (states, dB/dC partials: one per head for fma,
+    one per group of :func:`bwd_heads_per_block` heads for mma) is
+    allocated here."""
+    kind = _check(x, dt, a, bmat, cmat, q)
     bt, l, h, p = x.shape
     n, nc = bmat.shape[-1], l // q
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device \
@@ -122,23 +147,39 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch
                                 or dh_last.dtype != torch.float32
                                 or dh_last.device != x.device or not dh_last.is_contiguous()):
         raise ValueError(f"dh_last must be a contiguous float32 {(bt, h, p, n)} on {x.device}")
+    if kind == "mma":       # its copies and its state pass move 16 bytes at a time
+        for name, t in (("dy", dy), ("dh_last", dh_last)):
+            if t is not None and t.data_ptr() % 16:
+                raise ValueError(f"{name} must start on a 16-byte boundary for the mma variant")
+    group = bwd_heads_per_block(h)
+    parts = h // group if kind == "mma" else h
     f32 = dict(dtype=torch.float32, device=x.device)
     dx, dbm, dcm = torch.empty_like(x), torch.empty_like(bmat), torch.empty_like(cmat)
     ddt, da = torch.empty_like(dt), torch.empty_like(a)
     scratch = [torch.empty((bt, nc, h, q), **f32),                  # cum
-               *(torch.empty((bt, nc, h, p, n), **f32) for _ in range(3)),  # S→dS, U, h_in
-               *(torch.empty((bt, l, h, n), **f32) for _ in range(2)),      # dB, dC per head
+               *(torch.empty((bt, nc, h, p, n), **f32) for _ in range(2)),  # S (→ dS), U
+               torch.empty((bt, nc, h, p * n // 128) if kind == "mma"      # dγ by warp
+                           else (bt, nc, h, p, n), **f32),                  # h_in
+               *(torch.empty((bt, l, parts, n), **f32) for _ in range(2)),  # dB, dC partials
                *(torch.empty((bt, l, h), **f32) for _ in range(3)),         # drow, dcol, uw
                torch.empty((bt, nc, h), **f32)]                             # da per chunk
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib("ssd_scan_bwd", "ssd_scan_bwd", _BWD_ARGTYPES)(
-            x.data_ptr(), dt.data_ptr(), a.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
+    if kind == "mma":       # h_in[c] and dS_c split into bf16 hi and lo
+        scratch += [torch.empty((2, bt, nc, h, p, n), dtype=torch.bfloat16, device=x.device)
+                    for _ in range(2)]
+    args = [x.data_ptr(), dt.data_ptr(), a.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
             dy.data_ptr(), dh_last.data_ptr() if dh_last is not None else None,
             dx.data_ptr(), ddt.data_ptr(), da.data_ptr(), dbm.data_ptr(), dcm.data_ptr(),
-            *(t.data_ptr() for t in scratch), bt, l, h, p, n, q, _DTYPE_CODE[x.dtype], stream)
+            *(t.data_ptr() for t in scratch), bt, l, h, p, n, q]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if kind == "mma":
+            err = _lib("ssd_scan_bwd_mma", "ssd_scan_bwd_mma", _BWD_MMA_ARGTYPES)(
+                *args, group, stream)
+        else:
+            err = _lib("ssd_scan_bwd", "ssd_scan_bwd", _BWD_ARGTYPES)(
+                *args, _DTYPE_CODE[x.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"ssd_scan_bwd launch failed: cudaError {err}")
+        raise RuntimeError(f"ssd_scan_bwd ({kind}) launch failed: cudaError {err}")
     return dx, ddt, da, dbm, dcm
 
 

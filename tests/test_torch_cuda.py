@@ -17,6 +17,7 @@ from repro_torch.convert import tree_to  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import rglru_scan as rg  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.data.synthetic import make_batch  # noqa: E402
 from repro_torch.models import flash, lm  # noqa: E402
 from repro_torch.models.common import tree_leaves  # noqa: E402
@@ -432,7 +433,8 @@ def _ssd_bwd_check(args, chunk, with_state, card):
     """The SSD Function against autograd of the plain version: fp32 dx, dB,
     dC at atol = rtol = 1e-4; bf16 ones at rtol 1e-2 (one bf16 rounding)
     and atol 1e-3 of their largest value; ddt and da at 1e-4 relative, atol
-    1e-4 of their largest value (sums of many terms)."""
+    1e-4 of their largest value (sums of many terms).  bf16 runs the mma
+    backward, fp32 the fma one."""
     x = args[0]
     rng = np.random.default_rng(x.shape[1])
     dy = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32)).to(x.dtype).to(card)
@@ -440,12 +442,15 @@ def _ssd_bwd_check(args, chunk, with_state, card):
                                                 args[3].shape[-1])).astype(np.float32))
           .to(card) if with_state else None)
     leaves = [t.clone().requires_grad_() for t in args]
-    n0 = ops.launches["ssd_scan_bwd"]
+    n0, v0 = ops.launches["ssd_scan_bwd"], dict(ops.ssd_bwd_variant_launches)
     y, h_last = ops.ssd_scan(*leaves, chunk=chunk, return_state=True)
     torch.autograd.backward([y, h_last] if with_state else [y],
                             [dy, dh] if with_state else [dy])
     torch.cuda.synchronize()
     assert ops.launches["ssd_scan_bwd"] == n0 + 1
+    kind = "mma" if x.dtype == torch.bfloat16 else "fma"    # every case is in the mma domain
+    assert ssd.bwd_variant(x.shape[3], args[3].shape[-1], min(chunk, x.shape[1]), x.dtype) == kind
+    assert ops.ssd_bwd_variant_launches == {**v0, kind: v0[kind] + 1}
     want = ref.ssd_scan_bwd_plain(*args, min(chunk, x.shape[1]), dy, dh)
     for name, leaf, w in zip(("dx", "ddt", "da", "dB", "dC"), leaves, want):
         got, w = leaf.grad.float().cpu().numpy(), w.float().cpu().numpy()
@@ -484,10 +489,92 @@ def test_ssd_bwd_kernel_vs_plain_on_mma_cases(card, case, dtype):
 def test_bwd_entry_points_bind_with_their_argtypes(card):
     """Both backward entry points load from the built libraries with the
     argtypes the launchers declare."""
-    from repro_torch.kernels import ssd_scan as ssd
     assert rg._lib("rglru_scan_bwd", rg._BWD_ARGTYPES).argtypes == rg._BWD_ARGTYPES
     assert ssd._lib("ssd_scan_bwd", "ssd_scan_bwd", ssd._BWD_ARGTYPES).argtypes == \
         ssd._BWD_ARGTYPES
+    assert ssd._lib("ssd_scan_bwd_mma", "ssd_scan_bwd_mma", ssd._BWD_MMA_ARGTYPES).argtypes == \
+        ssd._BWD_MMA_ARGTYPES
+
+
+def _ssd_bwd_args(card, bt=1, l=512, h=8, p=64, n=128, dtype="bfloat16", seed=31):
+    x, dt, a, bm, cm = _ssd_model_inputs(bt, l, h, p, n, 0.01, seed, card)
+    x, bm, cm = (t.to(getattr(torch, dtype)) for t in (x, bm, cm))
+    rng = np.random.default_rng(seed)
+    dy = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32)).to(x.dtype).to(card)
+    dh = torch.from_numpy(rng.standard_normal((bt, h, p, n)).astype(np.float32)).to(card)
+    return x, dt, a, bm, cm, dy, dh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("most", [None, 1, 2, 8])
+def test_ssd_bwd_mma_launches_are_bit_identical(card, most, monkeypatch):
+    """No atomics: two launches of the mma backward on the same inputs give
+    the same bits, whatever the heads per block (H = 8 heads, at most
+    ``most`` a block; None: the default)."""
+    if most is not None:
+        monkeypatch.setattr(ssd, "BWD_HEADS_PER_BLOCK", most)
+    x, dt, a, bm, cm, dy, dh = _ssd_bwd_args(card)
+    first = ops.ssd_scan_bwd(x, dt, a, bm, cm, 256, dy, dh)
+    second = ops.ssd_scan_bwd(x, dt, a, bm, cm, 256, dy, dh)
+    torch.cuda.synchronize()
+    for name, u, v in zip(("dx", "ddt", "da", "dB", "dC"), first, second):
+        assert torch.equal(u, v), name
+
+
+@pytest.mark.cuda
+def test_ssd_bwd_mma_heads_per_block_only_regroups_sums(card, monkeypatch):
+    """The head groups change the order dB and dC are summed in, nothing
+    else: each grouping of H = 8 heads (1, 4, 8, and 2 where at most 3 are
+    allowed) holds the plain version's tolerances, and dx, ddt and da are
+    the same bits."""
+    x, dt, a, bm, cm, dy, dh = _ssd_bwd_args(card)
+    want = ref.ssd_scan_bwd_plain(x, dt, a, bm, cm, 256, dy, dh)
+    outs = []
+    for most, group in ((1, 1), (4, 4), (8, 8), (3, 2)):
+        monkeypatch.setattr(ssd, "BWD_HEADS_PER_BLOCK", most)
+        assert ssd.bwd_heads_per_block(x.shape[2]) == group
+        outs.append(ops.ssd_scan_bwd(x, dt, a, bm, cm, 256, dy, dh))
+    for got in outs:
+        for name, u, w in zip(("dx", "ddt", "da", "dB", "dC"), got, want):
+            u, w = u.float().cpu().numpy(), w.float().cpu().numpy()
+            scale = float(np.abs(w).max())
+            tol = (1e-4, 1e-4) if name in ("ddt", "da") else (1e-3, 1e-2)
+            np.testing.assert_allclose(u, w, atol=tol[0] * scale, rtol=tol[1], err_msg=name)
+        for u, v in zip(got[:3], outs[0][:3]):
+            assert torch.equal(u, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,n,chunk,dtype,want", [
+    (64, 128, 256, "bfloat16", "mma"), (16, 32, 32, "bfloat16", "mma"),
+    (64, 128, 256, "float32", "fma"), (64, 8, 64, "bfloat16", "fma"),
+    (32, 64, 40, "bfloat16", "fma")])
+def test_ssd_bwd_variant_launch_counts(card, p, n, chunk, dtype, want):
+    """bf16 at mamba2's dims runs the mma backward, fp32 and shapes outside
+    its domain the fma one: one launch, counted under its variant."""
+    x, dt, a, bm, cm = _ssd_inputs(1, 2 * chunk, 2, p, n, dtype, 5, card)
+    dy = torch.ones_like(x)
+    n0, v0 = ops.launches["ssd_scan_bwd"], dict(ops.ssd_bwd_variant_launches)
+    ops.ssd_scan_bwd(x, dt, a, bm, cm, chunk, dy)
+    torch.cuda.synchronize()
+    assert ops.launches["ssd_scan_bwd"] == n0 + 1
+    assert ops.ssd_bwd_variant_launches == {**v0, want: v0[want] + 1}
+
+
+@pytest.mark.cuda
+def test_ssd_bwd_mma_refuses_misaligned_dy(card):
+    """The mma backward moves dy and dh_last 16 bytes at a time: a tensor
+    off a 16-byte boundary is refused, not sent to the other variant."""
+    x, dt, a, bm, cm, dy, dh = _ssd_bwd_args(card, l=256, h=2)
+
+    def shifted(t):
+        out = torch.empty(t.numel() + 1, dtype=t.dtype, device=card)[1:].view(t.shape)
+        return out.copy_(t)
+    v0 = dict(ops.ssd_bwd_variant_launches)
+    for args in ((shifted(dy), None), (dy, shifted(dh))):
+        with pytest.raises(ValueError, match="16-byte"):
+            ops.ssd_scan_bwd(x, dt, a, bm, cm, 256, *args)
+    assert ops.ssd_bwd_variant_launches == v0
 
 
 @pytest.mark.cuda

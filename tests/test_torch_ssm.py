@@ -146,27 +146,6 @@ def _model_inputs(bt, l, h, p, n, dt0, seed):
             rng.standard_normal((bt, l, n), np.float32))
 
 
-def _block_scan(v):
-    """Inclusive sum over the last axis (≤ 256) in the kernel's order: a
-    Kogge-Stone scan in each warp of 32 lanes, the same over the warp
-    totals, each lane then adding the totals of the warps before it."""
-    q = v.shape[-1]
-    nw = -(-q // 32)
-    w = torch.nn.functional.pad(v, (0, nw * 32 - q)).reshape(*v.shape[:-1], nw, 32)
-
-    def ks(t):
-        d = 1
-        while d < t.shape[-1]:
-            t = torch.cat([t[..., :d], t[..., d:] + t[..., :-d]], -1)
-            d *= 2
-        return t
-
-    w = ks(w)
-    tot = ks(w[..., -1])
-    w = torch.cat([w[..., :1, :], w[..., 1:, :] + tot[..., :-1, None]], -2)
-    return w.reshape(*v.shape[:-1], nw * 32)[..., :q]
-
-
 def _bf16(t):
     return t.bfloat16().float()
 
@@ -186,7 +165,7 @@ def _mma_numerics(x, dt, a, bm, cm, q, *, split=True):
     dtc = dt.float().reshape(bt, nc, q, h).permute(0, 1, 3, 2)         # b c h q
     bc = bm.float().reshape(bt, nc, 1, q, n)
     cc = cm.float().reshape(bt, nc, 1, q, n)
-    cum = _block_scan(dtc * a.float()[None, None, :, None])
+    cum = ref.block_scan(dtc * a.float()[None, None, :, None])
     last = cum[..., -1:]
     xw = xc * (torch.exp(last - cum) * dtc)[..., None]
     hi = _bf16(xw)
@@ -585,3 +564,175 @@ def test_bwd_launcher_never_falls_back():
     _, t48 = _both(_inputs(1, 64, 2, 48, 8, seed=6), "float32")
     with pytest.raises(ValueError, match="kernel takes"):
         ssd.ssd_scan_bwd(*t48, 64, torch.zeros_like(t48[0]))
+
+
+# ==========================================================================
+# The backward's mma variant: its choice, its launcher and its numerics
+# ==========================================================================
+
+
+@pytest.mark.parametrize("p,n,q,dtype,want", [
+    (64, 128, 256, "bfloat16", "mma"),      # mamba2-370m training
+    (16, 32, 32, "bfloat16", "mma"),
+    (128, 16, 16, "bfloat16", "mma"),
+    (32, 48, 80, "bfloat16", "mma"),
+    (64, 128, 256, "float32", "fma"),
+    (48, 128, 256, "bfloat16", "fma"),
+    (64, 8, 64, "bfloat16", "fma"),
+    (64, 144, 256, "bfloat16", "fma"),
+    (32, 64, 40, "bfloat16", "fma"),
+])
+def test_bwd_variant_by_shape_and_dtype(p, n, q, dtype, want):
+    """The backward takes the forward's domains: bf16 with P in {16, 32, 64,
+    128} and N, Q multiples of 16 up to 128 and 256 on the tensor cores."""
+    assert ssd.bwd_variant(p, n, q, _TORCH[dtype]) == want == ssd.variant(p, n, q, _TORCH[dtype])
+    assert want in ops.ssd_bwd_variant_launches
+
+
+@pytest.mark.parametrize("h,most,want", [(32, 4, 4), (2, 4, 2), (3, 4, 3), (6, 4, 3),
+                                          (1, 4, 1), (24, 8, 8), (32, 32, 32), (7, 4, 1),
+                                          (32, None, 8), (12, None, 6)])
+def test_bwd_heads_per_block_divides_h(h, most, want, monkeypatch):
+    """The largest divisor of H up to BWD_HEADS_PER_BLOCK (8, mamba2-370m's
+    fastest on the card; ``most`` where set)."""
+    assert ssd.BWD_HEADS_PER_BLOCK == 8
+    if most is not None:
+        monkeypatch.setattr(ssd, "BWD_HEADS_PER_BLOCK", most)
+    got = ssd.bwd_heads_per_block(h)
+    assert got == want and h % want == 0
+
+
+@pytest.mark.parametrize("name", sorted(__import__(
+    "repro_torch.launch.ssd_bwd_experiments", fromlist=["ABLATIONS"]).ABLATIONS))
+def test_experiment_edits_apply_to_the_committed_sources(name):
+    """Each experiment variant of launch/ssd_bwd_experiments.py changes the
+    committed source where it says, as often as it says, and nothing else;
+    its copy names it, so `build` keys its library apart from the committed one."""
+    from repro_torch.launch import ssd_bwd_experiments as exp
+    files = exp.ablated_sources(name)
+    target = exp.ABLATIONS[name][0]
+    committed = (Path(ssd.__file__).parent / "csrc" / target).read_text()
+    edited = files[target].split("\n", 1)[1] if target.endswith(".cu") else files[target]
+    assert edited != committed
+    for old, new, count in exp.ABLATIONS[name][1]:
+        assert committed.count(old) == count and edited.count(old) == 0
+        committed = committed.replace(old, new)
+    assert edited == committed
+    main = exp.FWD_SOURCE if target.endswith(".cuh") else target
+    assert files[main].startswith(f"// experiment: {name}\n")
+
+
+def test_bwd_variant_counts_reset_with_the_launches():
+    ops.ssd_bwd_variant_launches["mma"] += 3
+    ops.launches["ssd_scan_bwd"] += 3
+    ops.reset_launches()
+    assert ops.ssd_bwd_variant_launches == dict.fromkeys(ssd.VARIANTS, 0)
+    _, t = _both(_inputs(1, 32, 2, 16, 16, seed=7), "bfloat16")
+    leaves = [v.clone().requires_grad_() for v in t]
+    ops.ssd_scan(*leaves, chunk=16).float().sum().backward()   # plain autograd: no launch
+    assert ops.ssd_bwd_variant_launches == dict.fromkeys(ssd.VARIANTS, 0)
+    assert ops.launches["ssd_scan_bwd"] == 0
+
+
+def test_bwd_mma_launcher_argtypes_match_the_entry_point():
+    """The mma entry point takes the fma one's arguments and two more
+    pointers (the split states), its last int the heads per block instead of
+    the dtype, and is built from its own source."""
+    src = (Path(ssd.__file__).parent / "csrc" / "ssd_scan_bwd_sm90.cu").read_text()
+    params = re.search(r'extern "C" int ssd_scan_bwd_mma\((.*?)\)', src, re.S).group(1)
+    kinds = [ctypes.c_void_p if "*" in prm else ctypes.c_int for prm in params.split(",")]
+    assert kinds == ssd._BWD_MMA_ARGTYPES
+    assert params.split(",")[-2].split()[-1] == "heads_per_block"
+    from repro_torch.kernels import build
+    assert build.SOURCES["ssd_scan_bwd_mma"] == "ssd_scan_bwd_sm90.cu"
+
+
+def test_bwd_mma_call_on_cpu_tensors_is_refused_before_any_build():
+    arrays, dy, dh = _bwd_arrays((1, 64, 2, 64, 128), seed=8)
+    _, t = _both(arrays, "bfloat16")
+    assert ssd.bwd_variant(64, 128, 64, torch.bfloat16) == "mma"
+    ops.reset_launches()
+    for call in (ssd.ssd_scan_bwd, ops.ssd_scan_bwd):
+        with pytest.raises(ValueError, match="CUDA"):
+            call(*t, 64, torch.from_numpy(dy).bfloat16(), torch.from_numpy(dh))
+    assert ops.ssd_bwd_variant_launches == dict.fromkeys(ssd.VARIANTS, 0)
+
+
+#: the cases the card runs the mma backward on: the reference's in bf16 (its
+#: recipe, dt0 None) and the mma cases in the model's recipe
+_MMA_BWD_EMULATED = ([(c[:6], None) for c in ref.SSD_CASES]
+                     + [(c, ref.ssd_dt0(c)) for c in ref.SSD_MMA_CASES])
+
+
+def _bf16_bwd_case(case, dt0):
+    """numpy inputs of a case, x, B, C and dy rounded to bf16, and dh_last."""
+    bt, l, h, p, n, chunk = case
+    arrays = (_inputs(bt, l, h, p, n, seed=l + p) if dt0 is None
+              else _model_inputs(bt, l, h, p, n, dt0, seed=l + p))
+    arrays = [_f32(torch.from_numpy(v).bfloat16()) if i in (0, 3, 4) else v
+              for i, v in enumerate(arrays)]
+    rng = np.random.default_rng(l)
+    dy = _f32(torch.from_numpy(rng.standard_normal((bt, l, h, p)).astype(np.float32)).bfloat16())
+    dh = rng.standard_normal((bt, h, p, n)).astype(np.float32)
+    return arrays, dy, dh
+
+
+def _hold_bwd(got, want, names=("dx", "ddt", "dA", "dB", "dC")):
+    """The card's tolerances: ddt and dA at 1e-4 relative with atol 1e-4 of
+    their largest value; bf16 dx, dB, dC at rtol 1e-2, atol 1e-3 of theirs."""
+    for name, mine, theirs in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        if name not in names:
+            continue
+        theirs = _f32(theirs) if isinstance(theirs, torch.Tensor) else np.asarray(theirs)
+        tol = (1e-4, 1e-4) if name in ("ddt", "dA") else (1e-3, 1e-2)
+        np.testing.assert_allclose(_f32(mine), theirs, rtol=tol[1],
+                                   atol=tol[0] * float(np.abs(theirs).max()), err_msg=name)
+
+
+@pytest.mark.parametrize("case,dt0", _MMA_BWD_EMULATED, ids=str)
+def test_mma_bwd_numerics_match_jax_vjp(case, dt0):
+    """The mma backward's roundings (ref.ssd_chunked_bwd_mma) against
+    jax.vjp of the reference's ssd_chunked on bf16 x, B, C, dy, and against
+    the explicit formulas, at the card's tolerances.  Where the reference's
+    cum falls past −88 (its own recipe and the stress case) its dt and A
+    gradients are NaN (test_reference_autodiff_of_dt_is_nan_where_the_decay_
+    overflows); there ddt and dA are held to the explicit formulas alone."""
+    bt, l, h, p, n, chunk = case
+    q = min(chunk, l)
+    assert ssd.bwd_variant(p, n, q, torch.bfloat16) == "mma"
+    arrays, dy, dh = _bf16_bwd_case(case, dt0)
+    t = [torch.from_numpy(v) for v in arrays]
+    t = [v.bfloat16() if i in (0, 3, 4) else v for i, v in enumerate(t)]
+    got = ref.ssd_chunked_bwd_mma(*t, q, torch.from_numpy(dy).bfloat16(), torch.from_numpy(dh))
+    assert all(bool(torch.isfinite(g.float()).all()) for g in got)
+    want = _jax_vjp(arrays, q, dy, dh)
+    finite = [name for name, w in zip(("dx", "ddt", "dA", "dB", "dC"), want)
+              if np.isfinite(np.asarray(w)).all()]
+    assert {"dx", "dB", "dC"} <= set(finite)
+    _hold_bwd(got, want, finite)
+    explicit = ref.ssd_chunked_bwd(*t, q, torch.from_numpy(dy).bfloat16(), torch.from_numpy(dh))
+    _hold_bwd(got, explicit)
+
+
+#: for each split operand, a case where one bf16 rounding of it instead
+#: breaks a tolerance: X ⊙ w, dy ⊙ exp(cum), dS_c and h_in[c] put ddt or dA
+#: outside 1e-4 of their scale, the two masked scores dx or dB outside rtol 1e-2
+_SPLIT_NEEDED = [("xw", (1, 240, 3, 64, 80, 80)), ("dy_e", (2, 512, 8, 64, 128, 256)),
+                 ("ds", (2, 512, 8, 64, 128, 256)), ("h_in", (2, 96, 2, 128, 128, 48)),
+                 ("m1", (2, 64, 4, 32, 48, 32)), ("m2", (2, 64, 4, 32, 48, 32))]
+
+
+@pytest.mark.parametrize("name,case", _SPLIT_NEEDED, ids=[s[0] for s in _SPLIT_NEEDED])
+def test_bwd_needs_each_hi_lo_split(name, case):
+    """Why the mma backward splits every fp32 operand: against autograd of
+    the plain version (the card's yardstick), rounding this one operand once
+    fails a tolerance that the full split holds."""
+    assert set(ref.SSD_BWD_SPLIT) == {s[0] for s in _SPLIT_NEEDED}
+    arrays, dy, dh = _bf16_bwd_case(case, ref.ssd_dt0(case))
+    t = [torch.from_numpy(v) for v in arrays]
+    t = [v.bfloat16() if i in (0, 3, 4) else v for i, v in enumerate(t)]
+    args = (*t, case[5], torch.from_numpy(dy).bfloat16(), torch.from_numpy(dh))
+    want = ref.ssd_scan_bwd_plain(*args)
+    _hold_bwd(ref.ssd_chunked_bwd_mma(*args), want)
+    with pytest.raises(AssertionError):
+        _hold_bwd(ref.ssd_chunked_bwd_mma(*args, split=ref.SSD_BWD_SPLIT - {name}), want)
