@@ -19,8 +19,9 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
               prefill shape; the wgmma variant's own bf16 cases (every head
               dim 16–256, GQA groups 1–16, L = 100, 192, 576, non-causal);
               a sliding window without causal masking on both variants;
-              both serving shapes must run the wgmma variant, and the FMA
-              variant is timed in fp32 at the yi-9b shape;
+              the deepseek-moe-16b prefill shape (MHA, G = 1, hd 128);
+              all three serving shapes must run the wgmma variant, and the
+              FMA variant is timed in fp32 at the yi-9b shape;
               ssd_scan: the 4 reference cases and the mma variant's bf16
               cases (P 16–128, N 16–128, Q 16–256, 1–8 chunks, a stress
               case whose cum passes −100), all with the final state at
@@ -49,12 +50,16 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
               as device time from a torch.profiler trace, split by device
               kernel in ms_by_kernel (the host-clock time of a wrapper call
               is reported beside it as call_ms).
-3. model    — the yi-9b, mamba2-370m and recurrentgemma-9b smoke configs in
-              fp32 on the card (kernels) and on the CPU (plain): prefill
-              logits within 1e-4, equal greedy tokens.
+3. model    — the yi-9b, mamba2-370m, recurrentgemma-9b, deepseek-moe-16b
+              and dbrx-132b smoke configs in fp32 on the card (kernels) and
+              on the CPU (plain): prefill logits within 1e-4, equal greedy
+              tokens, flash launches per prefill as the layers imply.
 4. serve    — launch/serve at full width (random weights from a seed, fp32
               master weights on the card), batch 4, prompt 512, 32 generated
-              tokens, for yi-9b, mamba2-370m and recurrentgemma-9b; each
+              tokens, for yi-9b, mamba2-370m, recurrentgemma-9b and
+              deepseek-moe-16b (full depth, 28 layers; its MoE dispatch
+              and expert products are plain PyTorch, as the reference's are
+              jnp, and its attention runs the flash kernel); each
               kernel's launches counted from 0 per arch and required to be
               exactly what one prefill of that arch runs, every flash launch
               of the bf16 serving path by the wgmma variant, every ssd_scan
@@ -151,6 +156,11 @@ YI_SHAPE = (SERVE_BATCH, SERVE_PROMPT, YI.n_heads, YI.n_kv_heads, YI.hd)
 MAMBA = configs.get("mamba2-370m")
 RG = configs.get("recurrentgemma-9b")
 RG_SHAPE = (SERVE_BATCH, SERVE_PROMPT, RG.n_heads, RG.n_kv_heads, RG.hd)
+# deepseek-moe-16b at full width and depth: 28 layers of MHA (G = 1, hd 128)
+# and 2 shared + 64 routed experts; its 16.9 B fp32 master weights take 67.5
+# of the card's 80 GB
+DS = configs.get("deepseek-moe-16b")
+DS_SHAPE = (SERVE_BATCH, SERVE_PROMPT, DS.n_heads, DS.n_kv_heads, DS.hd)
 # the training point: yi-9b's width at 4 layers (the full 48 would need ~140
 # GB of parameters, gradients and moments), batch 2 × 2048 tokens
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 3
@@ -506,10 +516,10 @@ def phase_flash() -> dict:
     else:
         _fail("flash ragged shape was not rejected")
     row = _flash_at(YI_SHAPE, YI.cdtype, seed=1)
-    if row["variant"] != "wgmma" or fa.variant(RG.hd, RG.cdtype) != "wgmma":
-        _fail("a bf16 serving shape does not take the wgmma variant")
-    others = [_flash_at(RG_SHAPE, RG.cdtype, seed=2),
+    others = [_flash_at(RG_SHAPE, RG.cdtype, seed=2), _flash_at(DS_SHAPE, DS.cdtype, seed=3),
               _flash_at(YI_SHAPE, torch.float32, seed=1)]    # the FMA variant's time
+    if row["variant"] != "wgmma" or any(r["variant"] != "wgmma" for r in others[:2]):
+        _fail("a bf16 serving shape does not take the wgmma variant")
     row["at_other_shapes"] = [{k: r[k] for k in (
         "shape", "variant", "source", "max_abs_err", "ms", "plain_ms", "bound_ms",
         "bound_by", "library_ms", "call_ms")} for r in others]
@@ -912,7 +922,7 @@ def _train_launches(cfg) -> dict:
 
 
 def phase_model() -> None:
-    for arch in ("yi-9b", "mamba2-370m", "recurrentgemma-9b"):
+    for arch in ("yi-9b", "mamba2-370m", "recurrentgemma-9b", "deepseek-moe-16b", "dbrx-132b"):
         _model(arch, _expected_launches(configs.get_smoke(arch)))
 
 
@@ -1319,6 +1329,8 @@ def main() -> int:
     phase_workflow("mamba2-370m")
     by_path["recurrentgemma-9b"], by_variant["recurrentgemma-9b"] = phase_serve(
         "recurrentgemma-9b")
+    by_path["deepseek-moe-16b"], by_variant["deepseek-moe-16b"] = phase_serve(
+        "deepseek-moe-16b")
     for name in rows:
         rows[name]["launches_by_variant"] = {
             v: sum(n[name][v] for n in by_variant.values())

@@ -2,20 +2,26 @@
 decode steps, summed by kernel.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
-        --arch {yi-9b,mamba2-370m,recurrentgemma-9b} \\
+        --arch {yi-9b,mamba2-370m,recurrentgemma-9b,deepseek-moe-16b} \\
         [--smoke] [--batch 4 --prompt-len 512 --decode-steps 4] [--device cpu]
 
 Weights are random (``--seed``).  After one untraced warm-up prefill, one
 prefill and then ``--decode-steps`` decode steps are traced separately.  For
 each phase it prints the host-clock time (ended by a device synchronise),
 the device busy time (union of kernel intervals), the idle share, and the
-device time by kernel class and by kernel name.  On the CPU only host-side
-operator times exist and the device columns are absent.
+device time by kernel class and by kernel name.  A kernel launched inside
+one of the MoE layer's profiler ranges (``models/moe.SCOPES``) is classed by
+its range: the router (``moe_route``), the sort-based dispatch and combine
+(``moe_dispatch``), and the experts' batched products (``moe_experts_bmm``)
+apart from their weight casts and SiLU (``moe_experts_elementwise``).  On
+the CPU only host-side operator times exist and the device columns are
+absent.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import sys
 import time
@@ -27,7 +33,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import configs, resolve_device
-from repro_torch.models import lm
+from repro_torch.models import lm, moe
 
 #: kernel class by substring of the kernel's name (first match wins)
 CLASSES = [
@@ -39,16 +45,37 @@ CLASSES = [
     ("matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "cublas")),
     ("elementwise/cast", ("elementwise", "copy", "cast", "fill", "where")),
     ("reduction/softmax", ("reduce", "softmax", "norm")),
-    ("index/cat", ("index", "cat", "gather", "scatter", "roll", "pad")),
+    ("index/sort/cat", ("index", "cat", "gather", "scatter", "roll", "pad", "sort", "radix",
+                        "topk", "searchsorted")),
 ]
+#: the port's own kernels, classed by name wherever they launch
+OWN = {"ssd_scan_bwd", "rglru_scan_bwd", "flash_attention", "ssd_scan", "rglru_scan"}
 
 
-def kernel_class(name: str) -> str:
+def kernel_class(name: str, scope: Optional[str] = None) -> str:
+    """The class of a device kernel by its name and by the ``moe.*`` range
+    (``scope``) its launching operator ran in, if any."""
     low = name.lower()
-    for cls, keys in CLASSES:
-        if any(k in low for k in keys):
-            return cls
-    return "other"
+    cls = next((c for c, keys in CLASSES if any(k in low for k in keys)), "other")
+    if scope is None or cls in OWN:
+        return cls
+    if scope == "moe.experts":
+        return "moe_experts_bmm" if cls == "matmul" else "moe_experts_elementwise"
+    return "moe_route" if scope == "moe.route" else "moe_dispatch"
+
+
+def kernel_scopes(kernels, ranges) -> List[Optional[str]]:
+    """For each device kernel of a trace, the ``moe.*`` range that holds it,
+    or None.  On the device timeline a range is one span from the first to
+    the last kernel launched inside it; kernels run in order on one stream,
+    so the spans do not overlap."""
+    spans = sorted((r.time_range.start, r.time_range.end, r.name) for r in ranges)
+    starts = [sp[0] for sp in spans]
+    out: List[Optional[str]] = []
+    for e in kernels:
+        j = bisect.bisect_right(starts, e.time_range.start) - 1
+        out.append(spans[j][2] if j >= 0 and e.time_range.end <= spans[j][1] else None)
+    return out
 
 
 def _union_us(intervals: List[tuple]) -> float:
@@ -63,13 +90,15 @@ def _union_us(intervals: List[tuple]) -> float:
 
 def summarize(prof, wall_s: float) -> Dict[str, Any]:
     """Device busy/idle and device time by class and kernel from a trace."""
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ranges = [e for e in device if e.name in moe.SCOPES]     # spans, not kernels
+    kernels = [e for e in device if e.name not in moe.SCOPES]
     by_name: Dict[str, float] = defaultdict(float)
     by_class: Dict[str, float] = defaultdict(float)
-    for e in kernels:
+    for e, scope in zip(kernels, kernel_scopes(kernels, ranges)):
         dur = e.time_range.end - e.time_range.start
         by_name[e.name] += dur
-        by_class[kernel_class(e.name)] += dur
+        by_class[kernel_class(e.name, scope)] += dur
     busy_us = _union_us([(e.time_range.start, e.time_range.end) for e in kernels])
     out: Dict[str, Any] = {"wall_ms": wall_s * 1e3, "kernel_launches": len(kernels)}
     if kernels:

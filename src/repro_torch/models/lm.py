@@ -1,4 +1,5 @@
-"""LM assembly for the decoder patterns "attn", "local", "ssm" and "rglru".
+"""LM assembly for the decoder patterns "attn", "local", "ssm" and "rglru",
+dense or Mixture-of-Experts.
 
 The port of :mod:`repro.models.lm` for the serving and training slices.
 The parameter tree is the JAX package's: ``cfg.layer_pattern`` is cycled across
@@ -8,16 +9,19 @@ repetitions (``blocks/s{i}``), the remainder layers are unstacked
 
 Entry points
   * :func:`init` — parameters on ``device`` from a ``torch.Generator``.
-  * :func:`forward` — tokens → logits.
-  * :func:`loss_fn` — next-token cross-entropy, the training objective.
+  * :func:`forward` — tokens → (logits, MoE aux loss).
+  * :func:`loss_fn` — next-token cross-entropy (+ MoE aux), the training
+    objective.
   * :func:`prefill` — forward that also seeds a decode cache.
   * :func:`decode_step` — one token against the cache.
 
 Attention layers keep KV rings in the decode cache; "ssm" (Mamba2) and
 "rglru" (RecurrentGemma) layers keep their recurrent state dicts, stacked
-over ``[G]`` like the parameters.  MoE, enc-dec and VLM configs raise
-``NotImplementedError`` naming the slice of the port that brings them (see
-``ROADMAP.md``).
+over ``[G]`` like the parameters.  In MoE configs (``cfg.moe``) the
+attention layers' FFN is :mod:`repro_torch.models.moe` (``p["moe"]`` in
+place of ``p["mlp"]``), whose load-balance loss every block returns as its
+aux.  Enc-dec and VLM configs raise ``NotImplementedError`` naming the
+slice of the port that brings them (see ``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
-from repro_torch.models import attention, mlp, rglru, ssm
+from repro_torch.models import attention, mlp, moe, rglru, ssm
 from repro_torch.models.common import (ModelConfig, dense_init, embed_init,
                                        rms_norm, softcap, tree_leaves)
 
@@ -39,12 +43,10 @@ from repro_torch.models.common import (ModelConfig, dense_init, embed_init,
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for configs outside the ported slices."""
     missing = None
-    if cfg.moe is not None:
-        missing = "MoE layers (ROADMAP: next slices, MoE/enc-dec/VLM)"
-    elif cfg.enc_dec or cfg.frame_input:
-        missing = "the enc-dec encoder (ROADMAP: next slices, MoE/enc-dec/VLM)"
+    if cfg.enc_dec or cfg.frame_input:
+        missing = "the enc-dec encoder (ROADMAP: next slices, enc-dec/VLM)"
     elif cfg.n_patches:
-        missing = "the VLM patch prefix (ROADMAP: next slices, MoE/enc-dec/VLM)"
+        missing = "the VLM patch prefix (ROADMAP: next slices, enc-dec/VLM)"
     if missing:
         raise NotImplementedError(f"{cfg.name}: {missing} are not ported yet")
 
@@ -73,7 +75,10 @@ def _block_init(gen: torch.Generator, cfg: ModelConfig, kind: str, *, device,
         p["attn"] = attention.init(gen, cfg, device=device, lead=lead)
         if cfg.d_ff:
             p["ln2"] = norm()
-            p["mlp"] = mlp.init(gen, cfg, device=device, lead=lead)
+            if cfg.moe is not None:
+                p["moe"] = moe.init(gen, cfg, device=device, lead=lead)
+            else:
+                p["mlp"] = mlp.init(gen, cfg, device=device, lead=lead)
         if cfg.post_norms:
             p["ln1b"] = norm()
             if cfg.d_ff:
@@ -128,16 +133,19 @@ def _index(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
 
 def _block_apply(cfg: ModelConfig, kind: str, p: Dict[str, Any], x: torch.Tensor,
                  positions: torch.Tensor, collect_kv: bool):
-    """Returns (x, cache contribution or None): k/v of attention layers, the
-    state dict of recurrent ones."""
+    """Returns (x, aux, cache contribution or None): aux is the MoE
+    load-balance loss of the block (the float 0.0 without MoE, so that a
+    dense block launches nothing for it), the cache contribution k/v of
+    attention layers, the state dict of recurrent ones."""
     kv = None
+    aux = 0.0
     h = rms_norm(x, p["ln1"], cfg.rms_eps)
     if kind == "ssm":
         if collect_kv:
             y, kv = ssm.apply_with_state(p["ssm"], cfg, h)
         else:
             y = ssm.apply(p["ssm"], cfg, h)
-        return x + y, kv
+        return x + y, aux, kv
     if kind == "rglru":
         if collect_kv:
             y, kv = rglru.apply_with_state(p["rec"], cfg, h)
@@ -146,7 +154,7 @@ def _block_apply(cfg: ModelConfig, kind: str, p: Dict[str, Any], x: torch.Tensor
         x = x + y
         if cfg.d_ff:
             x = x + mlp.apply(p["mlp"], cfg, rms_norm(x, p["ln2"], cfg.rms_eps))
-        return x, kv
+        return x, aux, kv
     window = cfg.window if kind == "local" else 0
     if collect_kv:
         a, (k_new, v_new) = attention.apply_with_kv(p["attn"], cfg, h, positions,
@@ -159,16 +167,21 @@ def _block_apply(cfg: ModelConfig, kind: str, p: Dict[str, Any], x: torch.Tensor
     x = x + a
     if cfg.d_ff:
         h = rms_norm(x, p["ln2"], cfg.rms_eps)
-        f = mlp.apply(p["mlp"], cfg, h)
+        if cfg.moe is not None:
+            f = moe.apply(p["moe"], cfg, h)
+            aux = moe.aux_loss(p["moe"], cfg, h)
+        else:
+            f = mlp.apply(p["mlp"], cfg, h)
         if cfg.post_norms:
             f = rms_norm(f, p["ln2b"], cfg.rms_eps)
         x = x + f
-    return x, kv
+    return x, aux, kv
 
 
 #: ``remat="dots"``: the matrix products without batch dims are saved and
 #: everything else is recomputed, the counterpart of JAX's
-#: ``checkpoint_dots_with_no_batch_dims``
+#: ``checkpoint_dots_with_no_batch_dims``.  ``bmm`` (the MoE experts'
+#: batched products) has a batch dim and stays out, as in JAX.
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
@@ -197,7 +210,8 @@ def _run_blocks(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, collect_kv: bool):
     """The stacked pattern groups in order, then the remainder layers.
 
-    Returns (x, caches): caches[f"s{i}"] holds each slot's cache
+    Returns (x, aux, caches): aux is the MoE load-balance loss summed over
+    every layer (0.0 without MoE); caches[f"s{i}"] holds each slot's cache
     contribution (k/v or recurrent state) stacked over groups and
     caches[f"r{i}"] the remainder layers', when ``collect_kv``.  Each group
     runs under :func:`_remat` unless ``collect_kv``; the remainder layers,
@@ -206,11 +220,14 @@ def _run_blocks(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
     pattern = cfg.layer_pattern
     g, _ = groups_of(cfg)
     per_slot: Dict[str, list] = {f"s{i}": [] for i in range(len(pattern))}
+    aux = 0.0
 
     def group(x, gp):
+        aux = 0.0
         for i, kind in enumerate(pattern):
-            x, _ = _block_apply(cfg, kind, gp[f"s{i}"], x, positions, False)
-        return x
+            x, a, _ = _block_apply(cfg, kind, gp[f"s{i}"], x, positions, False)
+            aux = aux + a
+        return x, aux
 
     # checkpointing only where autograd records: serving runs the plain group
     needs_grad = torch.is_grad_enabled() and (x.requires_grad or any(
@@ -219,10 +236,12 @@ def _run_blocks(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
     for gi in range(g):
         gp = _index(params["blocks"], gi)
         if not collect_kv:
-            x = body(x, gp)
+            x, a = body(x, gp)
+            aux = aux + a
             continue
         for i, kind in enumerate(pattern):
-            x, kv = _block_apply(cfg, kind, gp[f"s{i}"], x, positions, collect_kv)
+            x, a, kv = _block_apply(cfg, kind, gp[f"s{i}"], x, positions, collect_kv)
+            aux = aux + a
             per_slot[f"s{i}"].append(kv)
     caches: Dict[str, Any] = {}
     if collect_kv:
@@ -230,10 +249,11 @@ def _run_blocks(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
                   for name, kvs in per_slot.items()}
     for i, (name, rp) in enumerate(sorted(params.get("rem", {}).items())):
         kind = cfg.pattern_of(g * len(pattern) + i)
-        x, kv = _block_apply(cfg, kind, rp, x, positions, collect_kv)
+        x, a, kv = _block_apply(cfg, kind, rp, x, positions, collect_kv)
+        aux = aux + a
         if collect_kv:
             caches[name] = kv
-    return x, caches
+    return x, aux, caches
 
 
 # ==========================================================================
@@ -263,13 +283,13 @@ def _positions(b: int, l: int, device) -> torch.Tensor:
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B, L] → (logits [B, L, Vp] fp32, aux).  aux is 0 for dense
-    configs (it carries the MoE load-balance loss in the JAX package)."""
+    """tokens [B, L] → (logits [B, L, Vp] fp32, aux): aux is the MoE
+    load-balance loss summed over the layers, 0 for dense configs."""
     check_supported(cfg)
     x = _embed(params, cfg, tokens)
     b, l, _ = x.shape
-    x, _ = _run_blocks(params, cfg, x, _positions(b, l, x.device), collect_kv=False)
-    return _logits(params, cfg, x), torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux, _ = _run_blocks(params, cfg, x, _positions(b, l, x.device), collect_kv=False)
+    return _logits(params, cfg, x), torch.as_tensor(aux, dtype=torch.float32, device=x.device)
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
@@ -331,7 +351,7 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: int):
     check_supported(cfg)
     x = _embed(params, cfg, tokens)
     b, l, _ = x.shape
-    x, raw = _run_blocks(params, cfg, x, _positions(b, l, x.device), collect_kv=True)
+    x, _, raw = _run_blocks(params, cfg, x, _positions(b, l, x.device), collect_kv=True)
     pattern = cfg.layer_pattern
     g, _ = groups_of(cfg)
     cache: Dict[str, Any] = {"blocks": {}, "rem": {}}
@@ -409,7 +429,7 @@ def _block_decode(cfg: ModelConfig, kind: str, p, x, gc, pos: int):
     x = x + a
     if cfg.d_ff:
         h = rms_norm(x, p["ln2"], cfg.rms_eps)
-        f = mlp.apply(p["mlp"], cfg, h)
+        f = moe.apply(p["moe"], cfg, h) if cfg.moe is not None else mlp.apply(p["mlp"], cfg, h)
         if cfg.post_norms:
             f = rms_norm(f, p["ln2b"], cfg.rms_eps)
         x = x + f

@@ -1,0 +1,185 @@
+"""Mixture-of-Experts layer (DeepSeek-MoE fine-grained + DBRX-style).
+
+The port of :mod:`repro.models.moe`, same design:
+  * Router: fp32 logits → top-k expert ids + renormalised weights.
+  * Dispatch: sort-based with static capacity.  Assignments are sorted by
+    expert id and scattered into an ``[E, C, D]`` buffer; an assignment past
+    an expert's capacity is dropped.  Every shape is static, and nothing on
+    the path reads a value back to the host (no ``.item()``, ``.nonzero()``
+    or boolean-mask indexing), so the host never waits on the card.
+  * Experts: one batched product per projection, ``[E,C,D]×[E,D,F]``.
+  * Combine: gather back per assignment, weighted sum over k.
+  * Shared experts (DeepSeek): a dense gated MLP applied to every token.
+
+``jax.numpy``'s ``.at[...].set(mode="drop")`` drops out-of-range updates;
+``index_put`` raises on them instead.  So the buffer has one more expert
+row, ``[E+1, C, D]``, that takes the dropped assignments and is sliced off
+before the products, as the reference's ``apply_ep`` does.
+
+When ``torch.profiler`` records, the route, dispatch, expert and combine
+steps are marked with :func:`torch.profiler.record_function` ranges named
+``moe.*`` (:data:`SCOPES`), which ``launch/profile_serve`` uses to class
+their kernels.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+from torch.profiler import record_function
+
+from repro_torch.models import mlp
+from repro_torch.models.common import ModelConfig, dense_init
+
+#: the ``record_function`` ranges of one MoE layer
+SCOPES = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine")
+
+
+def _scope(name: str):
+    """A profiler range while the profiler records, else nothing (a range
+    costs host time on every call)."""
+    return record_function(name) if torch.autograd._profiler_enabled() \
+        else contextlib.nullcontext()
+
+
+def capacity(n_tokens: int, cfg: ModelConfig) -> int:
+    """Rows per expert: ⌈T·k·cf/E⌉, at least 8, rounded up to a multiple
+    of 128 (the reference's MXU-aligned rows; 128 at decode)."""
+    m = cfg.moe
+    assert m is not None
+    cap = int(math.ceil(n_tokens * m.top_k * m.capacity_factor / m.num_experts))
+    return max(8, ((cap + 127) // 128) * 128)
+
+
+def init(gen: torch.Generator, cfg: ModelConfig, *, device,
+         lead: Tuple[int, ...] = ()) -> Dict[str, Any]:
+    """``router [D,E]``, ``w_gate``/``w_up [E,D,F]``, ``w_down [E,F,D]`` and
+    the shared experts' MLP (width F·num_shared), each behind ``lead``.
+
+    ``w_down`` is drawn as ``[E,F,D]`` with the reference's scale 1/√D (it
+    draws ``[E,D,F]`` and swaps the last two axes), so no transposed copy of
+    the largest tensor is ever made.
+    """
+    m = cfg.moe
+    assert m is not None
+    d, f, e, pd = cfg.d_model, m.d_expert, m.num_experts, cfg.pdtype
+    lead = tuple(lead)
+    p: Dict[str, Any] = {
+        "router": dense_init(gen, d, e, pd, device=device, lead=lead),
+        "w_gate": dense_init(gen, d, f, pd, device=device, lead=lead + (e,)),
+        "w_up": dense_init(gen, d, f, pd, device=device, lead=lead + (e,)),
+        "w_down": torch.randn(lead + (e, f, d), generator=gen, dtype=torch.float32,
+                              device=device).mul_(1.0 / math.sqrt(d)).to(pd),
+    }
+    if m.num_shared:
+        p["shared"] = mlp.init(gen, cfg, d_ff=f * m.num_shared, device=device, lead=lead)
+    return p
+
+
+def _top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` over the last axis: (values, indices), largest
+    first, equal values in index order.  ``torch.topk`` promises no order
+    among ties; a stable descending sort does."""
+    values, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return values[..., :k], ids[..., :k]
+
+
+def _router_probs(params: Dict[str, Any], x2d: torch.Tensor) -> torch.Tensor:
+    logits = x2d.float() @ params["router"].float()
+    return torch.softmax(logits, dim=-1)
+
+
+def route(params: Dict[str, Any], cfg: ModelConfig, x2d: torch.Tensor
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x2d: [T, D] → (expert_ids [T,k] int64, weights [T,k] fp32); router
+    math in fp32."""
+    weights, ids = _top_k(_router_probs(params, x2d), cfg.moe.top_k)
+    return ids, weights / weights.sum(dim=-1, keepdim=True)
+
+
+def dispatch(ids: torch.Tensor, num_experts: int, cap: int
+             ) -> Dict[str, torch.Tensor]:
+    """Where each assignment goes, in expert order.
+
+    ids: [T, k] expert ids.  Returns, each over the T·k assignments sorted
+    stably by expert: ``order`` (the sort permutation of the flat ids),
+    ``expert`` (the sorted ids), ``pos`` (the rank within the expert's
+    block), ``kept`` (``pos < cap``) and ``row`` (the buffer row: the
+    expert, or ``num_experts``, the trash row, for a dropped assignment).
+    """
+    flat = ids.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    expert = flat[order]
+    start = torch.searchsorted(expert, torch.arange(num_experts, device=ids.device,
+                                                    dtype=expert.dtype), right=False)
+    pos = torch.arange(flat.numel(), device=ids.device) - start[expert]
+    kept = pos < cap
+    row = torch.where(kept, expert, num_experts)
+    return {"order": order, "expert": expert, "pos": pos, "kept": kept, "row": row}
+
+
+def apply(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """x: [B, L, D] → [B, L, D].
+
+    The reference dispatches to its expert-parallel ``apply_ep`` when traced
+    under a mesh context; the port has no mesh context yet, so this is
+    always the single-device :func:`apply_ref`.  ``apply_ep`` comes with
+    the slice that ports ``parallel/`` (ROADMAP Queue 1 item 8).
+    """
+    return apply_ref(params, cfg, x)
+
+
+def apply_ref(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Single-device reference: global sort-based dispatch."""
+    m = cfg.moe
+    assert m is not None
+    b, l, d = x.shape
+    t, k, e = b * l, m.top_k, m.num_experts
+    ct = cfg.cdtype
+    x2d = x.reshape(t, d)
+    cap = capacity(t, cfg)
+
+    with _scope("moe.route"):
+        ids, weights = route(params, cfg, x2d)                   # [T,k]
+    with _scope("moe.dispatch"):
+        s = dispatch(ids, e, cap)
+        src = x2d[s["order"] // k].to(ct)                        # [A, D]
+        slot = torch.where(s["kept"], s["pos"], 0)
+        buf = torch.zeros((e + 1, cap, d), dtype=ct, device=x.device)
+        buf = buf.index_put((s["row"], slot), src)[:e]           # row e: dropped
+
+    # batched products have a batch dim: remat "dots" recomputes them, as the
+    # reference's checkpoint_dots_with_no_batch_dims does
+    with _scope("moe.experts"):
+        g = mlp.silu(torch.bmm(buf, params["w_gate"].to(ct)))
+        u = torch.bmm(buf, params["w_up"].to(ct))
+        out_buf = torch.bmm(g * u, params["w_down"].to(ct))     # [E, C, D]
+
+    with _scope("moe.combine"):
+        gathered = out_buf[s["expert"], torch.clamp(s["pos"], max=cap - 1)]
+        gathered = gathered.masked_fill(~s["kept"][:, None], 0.0)      # dropped: 0
+        unsort = torch.argsort(s["order"])                       # inverse permutation
+        per_assign = gathered[unsort].reshape(t, k, d)
+        # one contraction over k with one rounding, as the reference's einsum
+        y = torch.bmm(weights.to(ct)[:, None, :], per_assign)[:, 0, :]
+
+    if m.num_shared:
+        y = y + mlp.apply(params["shared"], cfg, x2d)
+    return y.reshape(b, l, d)
+
+
+def aux_loss(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Load-balancing auxiliary loss (Switch-style): E · Σ_e f_e · p_e, with
+    f_e the share of top-k assignments to expert e and p_e its mean router
+    probability."""
+    m = cfg.moe
+    with _scope("moe.route"):
+        probs = _router_probs(params, x.reshape(-1, x.shape[-1]))      # [T, E]
+        _, ids = _top_k(probs, m.top_k)
+        experts = torch.arange(m.num_experts, device=x.device)
+        counts = (ids[..., None] == experts).float().sum(dim=(0, 1))
+        frac = counts / counts.sum()
+        return m.num_experts * (frac * probs.mean(dim=0)).sum()

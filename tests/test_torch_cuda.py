@@ -19,7 +19,7 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import rglru_scan as rg  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.data.synthetic import make_batch  # noqa: E402
-from repro_torch.models import flash, lm  # noqa: E402
+from repro_torch.models import flash, lm, moe  # noqa: E402
 from repro_torch.models.common import tree_leaves  # noqa: E402
 from repro_torch.train.commit import batch_to  # noqa: E402
 from repro_torch.train.step import make_train_step, train_state_init  # noqa: E402
@@ -92,7 +92,8 @@ def test_flash_kernel_refuses_what_it_does_not_take(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["gemma2-27b", "mamba2-370m", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["gemma2-27b", "mamba2-370m", "recurrentgemma-9b",
+                                  "deepseek-moe-16b", "dbrx-132b"])
 def test_smoke_model_on_card_matches_cpu(card, arch):
     cfg = configs.get_smoke(arch).replace(compute_dtype="float32")
     params = lm.init(torch.Generator().manual_seed(0), cfg, device="cpu")
@@ -616,3 +617,64 @@ def test_train_step_on_card_matches_cpu(card, remat, per_layer):
         assert float(got[key]) == pytest.approx(float(want[key]), rel=1e-4, abs=1e-4)
     for a, b in zip(tree_leaves(got_state["params"]), tree_leaves(want_state["params"])):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "dbrx-132b"])
+def test_moe_forward_on_card_matches_cpu(card, arch):
+    """The MoE smoke configs' forward in fp32 on the card (flash kernel,
+    plain dispatch and expert products) against the CPU: logits and the
+    aux loss at 1e-4, one flash launch a layer."""
+    cfg = configs.get_smoke(arch).replace(compute_dtype="float32")
+    params = lm.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 24), generator=torch.Generator().manual_seed(1))
+    want, want_aux = lm.forward(params, cfg, toks)
+    n0 = ops.launches["flash_attention"]
+    got, got_aux = lm.forward(tree_to(params, card), cfg, toks.to(card))
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention"] == n0 + cfg.n_layers
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4, rtol=1e-4)
+    assert float(got_aux) == pytest.approx(float(want_aux), rel=1e-4, abs=1e-4)
+
+
+@pytest.mark.cuda
+def test_moe_dispatch_on_card_matches_cpu_with_drops(card):
+    """deepseek-moe-16b's 64 experts and top-6 over 2048 tokens whose router
+    sends every token to experts 0–5 first: the card's sort, ranks, drop
+    flags and buffer rows equal the CPU's bit for bit, and the layer's
+    output agrees in fp32."""
+    cfg = configs.get_smoke("deepseek-moe-16b").replace(
+        compute_dtype="float32", moe=configs.get("deepseek-moe-16b").moe)
+    p = moe.init(torch.Generator().manual_seed(2), cfg, device="cpu")
+    x = torch.randn((4, 512, cfg.d_model), generator=torch.Generator().manual_seed(3))
+    x[..., 0] += 4.0
+    p["router"][0, :6] += torch.arange(12.0, 6.0, -1.0)
+    cap = moe.capacity(2048, cfg)
+    ids, _ = moe.route(p, cfg, x.reshape(-1, cfg.d_model))
+    want = moe.dispatch(ids, cfg.moe.num_experts, cap)
+    assert not want["kept"].all()
+    ids_card, _ = moe.route(tree_to(p, card), cfg, x.to(card).reshape(-1, cfg.d_model))
+    got = moe.dispatch(ids_card, cfg.moe.num_experts, cap)
+    assert torch.equal(ids_card.cpu(), ids)
+    for key in ("order", "expert", "pos", "kept", "row"):
+        assert torch.equal(got[key].cpu(), want[key]), key
+    np.testing.assert_allclose(moe.apply_ref(tree_to(p, card), cfg, x.to(card)).cpu().numpy(),
+                               moe.apply_ref(p, cfg, x).numpy(), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_flash_at_the_deepseek_serving_shape_runs_wgmma(card):
+    """MHA (G = 1) at hd 128, q/k/v [4, 512, 16, 128] bf16, causal: the
+    wgmma variant, within 2e-2 of the plain version."""
+    cfg = configs.get("deepseek-moe-16b")
+    rng = np.random.default_rng(16)
+    q, k, v = (torch.from_numpy(rng.standard_normal((4, 512, n, cfg.hd), np.float32))
+               .to(torch.bfloat16).to(card) for n in (cfg.n_heads, cfg.n_kv_heads,
+                                                      cfg.n_kv_heads))
+    n0 = dict(ops.flash_variant_launches)
+    out = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert ops.flash_variant_launches == {**n0, "wgmma": n0["wgmma"] + 1}
+    expect = ref.flash_attention_ref(q, k, v, causal=True)
+    np.testing.assert_allclose(out.float().cpu().numpy(), expect.float().cpu().numpy(),
+                               atol=2e-2, rtol=2e-2)

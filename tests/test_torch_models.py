@@ -24,7 +24,7 @@ torch.set_num_threads(2)
 L, B = 24, 2
 DENSE = ["yi-9b", "gemma2-27b", "qwen1.5-110b", "mistral-large-123b"]
 RECURRENT = ["mamba2-370m", "recurrentgemma-9b"]
-NOT_PORTED = ["deepseek-moe-16b", "dbrx-132b", "phi-3-vision-4.2b", "seamless-m4t-medium"]
+NOT_PORTED = ["phi-3-vision-4.2b", "seamless-m4t-medium"]
 # fp32 compute differs from JAX only in summation order; bf16 at the
 # reference's own prefill/decode tolerance (tests/test_models.py)
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}

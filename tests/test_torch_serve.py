@@ -84,7 +84,8 @@ def test_serve_workflow_twin_returns_jax_tokens_exactly_once(yi_fp32):
     assert out["text"][0].startswith(f"<{ref[0, 0]}>")
 
 
-@pytest.mark.parametrize("arch", ["yi-9b", "mamba2-370m", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["yi-9b", "mamba2-370m", "recurrentgemma-9b",
+                                  "deepseek-moe-16b"])
 def test_launch_serve_on_cpu(capsys, arch):
     assert launch_serve.main(["--arch", arch, "--smoke", "--device", "cpu",
                               "--batch", "2", "--prompt-len", "16", "--gen", "4"]) == 0
