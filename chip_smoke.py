@@ -10,18 +10,22 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
               full report goes to chiprun_out/build_ptxas.log), and fail if
               a tensor-core instantiation (flash's wgmma, the SSD scan's
               mma), an RG-LRU scan instantiation (forward or backward) or
-              an SSD backward instantiation (either variant) spills.
+              an SSD backward instantiation (either variant) spills, or if
+              flash has no wgmma instantiation at head dim 96.
 2. kernels  — each kernel on the card against its plain PyTorch version on
               the same inputs, at the stated tolerances:
               flash attention: the 7 reference cases, block-shape
               invariance, ragged rejection, the yi-9b serving shape; head
               dim 256 cases (one with window < L) and the recurrentgemma-9b
-              prefill shape; the wgmma variant's own bf16 cases (every head
-              dim 16–256, GQA groups 1–16, L = 100, 192, 576, non-causal);
+              prefill shape; head dim 96 cases in fp32 (fma) and bf16; the
+              wgmma variant's own bf16 cases (every head dim 16–256, 96
+              included, GQA groups 1–16, L = 100, 192, 576, non-causal);
               a sliding window without causal masking on both variants;
               the deepseek-moe-16b prefill shape (MHA, G = 1, hd 128);
-              all three serving shapes must run the wgmma variant, and the
-              FMA variant is timed in fp32 at the yi-9b shape;
+              phi-3-vision-4.2b's two prefill shapes (MHA, hd 96, L 512
+              and 1088); all five serving shapes must run the wgmma
+              variant, and the FMA variant is timed in fp32 at the yi-9b
+              shape;
               ssd_scan: the 4 reference cases and the mma variant's bf16
               cases (P 16–128, N 16–128, Q 16–256, 1–8 chunks, a stress
               case whose cum passes −100), all with the final state at
@@ -50,21 +54,37 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
               as device time from a torch.profiler trace, split by device
               kernel in ms_by_kernel (the host-clock time of a wrapper call
               is reported beside it as call_ms).
-3. model    — the yi-9b, mamba2-370m, recurrentgemma-9b, deepseek-moe-16b
-              and dbrx-132b smoke configs in fp32 on the card (kernels) and
-              on the CPU (plain): prefill logits within 1e-4, equal greedy
-              tokens, flash launches per prefill as the layers imply.
+3. model    — the yi-9b, mamba2-370m, recurrentgemma-9b, deepseek-moe-16b,
+              dbrx-132b, phi-3-vision-4.2b (with its patch prefix) and
+              seamless-m4t-medium (with frames; once with a 200-token
+              prompt, so 25 frames, not a multiple of a 64-row tile) smoke
+              configs in fp32 on the card (kernels) and on the CPU (plain):
+              prefill logits within 1e-4, equal greedy tokens, flash
+              launches per prefill as the decoder's causal self-attention
+              layers imply.
 4. serve    — launch/serve at full width (random weights from a seed, fp32
               master weights on the card), batch 4, prompt 512, 32 generated
-              tokens, for yi-9b, mamba2-370m, recurrentgemma-9b and
+              tokens, for yi-9b, mamba2-370m, recurrentgemma-9b,
               deepseek-moe-16b (full depth, 28 layers; its MoE dispatch
               and expert products are plain PyTorch, as the reference's are
-              jnp, and its attention runs the flash kernel); each
+              jnp, and its attention runs the flash kernel),
+              phi-3-vision-4.2b (32 layers, MHA at hd 96; text only, as the
+              reference's launcher serves it) and seamless-m4t-medium (12
+              encoder + 12 decoder layers, frames [4, 64, 1024]; the encoder
+              and the cross-attention run the dense plain attention, as the
+              reference's do, and launch nothing); each
               kernel's launches counted from 0 per arch and required to be
               exactly what one prefill of that arch runs, every flash launch
               of the bf16 serving path by the wgmma variant, every ssd_scan
               launch by the mma variant and every rglru_scan launch by the
               vec4 variant.
+4b. prefix  — phi-3-vision-4.2b through serve/engine.make_prefill_step with
+              its 576-patch prefix ([4, 576, 1024] bf16 from a seeded
+              generator) before a 512-token prompt, so L = 1088 = 17 × 64
+              with no padding, then 31 make_decode_step steps: exactly 32
+              flash launches, all wgmma, the cache's pos 1088 after the
+              prefill, finite logits; prefill ms, decode ms/token, peak
+              memory.
 5. workflow — the ByRedundant serve workflow at full width on the port's
               LocalRunner, for yi-9b and mamba2-370m: exactly one detok
               completion, launches per decode replica, and the committed
@@ -144,7 +164,8 @@ from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch.profile_serve import _union_us, kernel_class  # noqa: E402
 from repro_torch.models import attention, flash, lm, rglru, ssm  # noqa: E402
 from repro_torch.serve import workflow  # noqa: E402
-from repro_torch.serve.engine import greedy_generate  # noqa: E402
+from repro_torch.serve.engine import (greedy_generate, make_decode_step,  # noqa: E402
+                                      make_prefill_step)
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
 from repro_torch.train.commit import CommittedTrainer, batch_to  # noqa: E402
 from repro_torch.train.step import make_train_step, train_state_init  # noqa: E402
@@ -161,6 +182,13 @@ RG_SHAPE = (SERVE_BATCH, SERVE_PROMPT, RG.n_heads, RG.n_kv_heads, RG.hd)
 # of the card's 80 GB
 DS = configs.get("deepseek-moe-16b")
 DS_SHAPE = (SERVE_BATCH, SERVE_PROMPT, DS.n_heads, DS.n_kv_heads, DS.hd)
+# phi-3-vision-4.2b at full width and depth: 32 layers of MHA at hd 96 (3.82
+# B parameters, 15.3 GB in fp32); its prefill runs L 512 (text only) and
+# 1088 (the 576-patch prefix before 512 tokens)
+PHI = configs.get("phi-3-vision-4.2b")
+PHI_SHAPE = (SERVE_BATCH, SERVE_PROMPT, PHI.n_heads, PHI.n_kv_heads, PHI.hd)
+PHI_PREFIX_SHAPE = (SERVE_BATCH, PHI.n_patches + SERVE_PROMPT, PHI.n_heads, PHI.n_kv_heads,
+                    PHI.hd)
 # the training point: yi-9b's width at 4 layers (the full 48 would need ~140
 # GB of parameters, gradients and moments), batch 2 × 2048 tokens
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 3
@@ -365,6 +393,9 @@ def phase_build() -> dict:
             if ("wgmma" in fn or "ssd_sm90" in fn or "rglru_scan" in fn
                     or name.startswith("ssd_scan_bwd")) and (stores or loads):
                 _fail(f"instantiation {fn} spills ({stores}/{loads} bytes)")
+    if not any("flash_fwd_kernel_wgmmaILi96E" in fn
+               for fn, *_ in _ptxas_report(info["flash_attention"]["log"])):
+        _fail("flash has no wgmma instantiation at head dim 96")
     return info
 
 
@@ -426,7 +457,9 @@ def _flash_at(shape, dtype, seed) -> dict:
     err = _check(f"flash ({want}) at {shape} {str(dtype)[6:]}", out, expect, tol, tol)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     pairs = int(attention.make_causal_mask(l, l, device="cuda").sum())
-    row = _row("flash_attention", err, lambda: ops.flash_attention(q, k, v, causal=True),
+    row = _row("flash_attention", err,
+               lambda: ops.flash_attention(q, k, v, causal=True, block_q=attention.FLASH_BLOCK,
+                                           block_k=attention.FLASH_BLOCK),
                lambda: ref.flash_attention_ref(q, k, v, causal=True),
                _nbytes(q, k, v, out), 4 * b * h * hd * pairs, dtype,
                lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -482,20 +515,22 @@ def _flash_train_shape() -> dict:
 
 
 def phase_flash_lse() -> tuple:
-    """lse on both variants: fma on the reference's fp32 cases (1e-5), wgmma
-    at hd 64, 128 and 256 (1e-4: its exponentials are ex2.approx), and the
-    training shape; returns (largest lse error, the training shape's row)."""
+    """lse on both variants: fma on the reference's fp32 cases and at hd 96
+    (1e-5), wgmma at hd 64, 96, 128 and 256 (1e-4: its exponentials are
+    ex2.approx), and the training shape; returns (largest lse error, the
+    training shape's row)."""
     errs = [_flash_lse_case(b, l, h, hkv, hd, window, cap, torch.float32, 1e-5)
-            for (b, l, h, hkv, hd, window, cap, dt, _) in ref.FLASH_CASES if dt == "float32"]
-    for case in ((2, 256, 8, 4, 64, 0, 0.0), (1, 576, 32, 4, 128, 0, 50.0),
-                 (1, 256, 4, 1, 256, 64, 0.0)):
+            for (b, l, h, hkv, hd, window, cap, dt, _) in ref.FLASH_CASES + ref.FLASH_HD96_CASES
+            if dt == "float32"]
+    for case in ((2, 256, 8, 4, 64, 0, 0.0), (1, 576, 32, 8, 96, 0, 50.0),
+                 (1, 576, 32, 4, 128, 0, 50.0), (1, 256, 4, 1, 256, 64, 0.0)):
         errs.append(_flash_lse_case(*case, torch.bfloat16, 1e-4))
     row = _flash_train_shape()
     return max(errs + [row["lse_max_abs_err"]]), row
 
 
 def phase_flash() -> dict:
-    for case in ref.FLASH_CASES + ref.FLASH_HD256_CASES:
+    for case in ref.FLASH_CASES + ref.FLASH_HD256_CASES + ref.FLASH_HD96_CASES:
         _flash_case(*case)
     for case in ref.FLASH_WGMMA_CASES:
         _flash_wgmma_case(*case)
@@ -517,8 +552,10 @@ def phase_flash() -> dict:
         _fail("flash ragged shape was not rejected")
     row = _flash_at(YI_SHAPE, YI.cdtype, seed=1)
     others = [_flash_at(RG_SHAPE, RG.cdtype, seed=2), _flash_at(DS_SHAPE, DS.cdtype, seed=3),
+              _flash_at(PHI_SHAPE, PHI.cdtype, seed=4),
+              _flash_at(PHI_PREFIX_SHAPE, PHI.cdtype, seed=5),
               _flash_at(YI_SHAPE, torch.float32, seed=1)]    # the FMA variant's time
-    if row["variant"] != "wgmma" or any(r["variant"] != "wgmma" for r in others[:2]):
+    if row["variant"] != "wgmma" or any(r["variant"] != "wgmma" for r in others[:4]):
         _fail("a bf16 serving shape does not take the wgmma variant")
     row["at_other_shapes"] = [{k: r[k] for k in (
         "shape", "variant", "source", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -878,33 +915,47 @@ def phase_scan_bwd() -> dict:
 # ==========================================================================
 
 
-def _model(arch: str, per_prefill: dict) -> None:
+def _model(arch: str, per_prefill: dict, prompt: int = 24) -> None:
+    """A smoke config in fp32, card against CPU: prefill logits within 1e-4
+    and equal greedy tokens; a VLM with its patch prefix, an enc-dec config
+    with prompt // 8 frames."""
     cfg = configs.get_smoke(arch).replace(compute_dtype="float32")
     g = torch.Generator(device="cpu").manual_seed(3)
     params_cpu = lm.init(g, cfg, device="cpu")
     params_gpu = tree_to(params_cpu, "cuda")
-    toks = torch.randint(0, cfg.vocab, (2, 24), generator=g)
-    _, logits_cpu = lm.prefill(params_cpu, cfg, toks, max_len=40)
+    toks = torch.randint(0, cfg.vocab, (2, prompt), generator=g)
+    modal = {}
+    if cfg.n_patches:
+        modal["patches"] = torch.randn((2, cfg.n_patches, 1024), generator=g)
+    if cfg.frame_input:
+        modal["frames"] = torch.randn((2, prompt // 8, 1024), generator=g)
+    modal_gpu = tree_to(modal, "cuda")
+    max_len = cfg.n_patches + prompt + 16
+    _, logits_cpu = lm.prefill(params_cpu, cfg, toks, max_len=max_len, **modal)
     ops.reset_launches()
-    _, logits_gpu = lm.prefill(params_gpu, cfg, toks.cuda(), max_len=40)
+    _, logits_gpu = lm.prefill(params_gpu, cfg, toks.cuda(), max_len=max_len, **modal_gpu)
     launches = dict(ops.launches)
     if launches != per_prefill:
         _fail(f"{arch} smoke prefill on the card launched {launches}, not {per_prefill}")
     err = _max_err(logits_gpu.cpu(), logits_cpu)
-    _log(f"[model] {arch} smoke fp32 prefill logits card vs cpu max|d|={err:.3e} "
+    what = f"{arch} smoke (prompt {prompt}" + "".join(
+        f", {k} {list(v.shape)}" for k, v in modal.items()) + ")"
+    _log(f"[model] {what} fp32 prefill logits card vs cpu max|d|={err:.3e} "
          f"(tol 1e-4); launches {launches}")
     if not err <= 1e-4:
-        _fail(f"{arch} card vs cpu prefill logits")
-    t_cpu = greedy_generate(params_cpu, cfg, toks, 12)
-    t_gpu = greedy_generate(params_gpu, cfg, toks.cuda(), 12).cpu()
-    _log(f"[model] {arch} greedy tokens equal: {bool(torch.equal(t_cpu, t_gpu))}")
+        _fail(f"{what} card vs cpu prefill logits")
+    t_cpu = greedy_generate(params_cpu, cfg, toks, 12, **modal)
+    t_gpu = greedy_generate(params_gpu, cfg, toks.cuda(), 12, **modal_gpu).cpu()
+    _log(f"[model] {what} greedy tokens equal: {bool(torch.equal(t_cpu, t_gpu))}")
     if not torch.equal(t_cpu, t_gpu):
-        _fail(f"{arch} card vs cpu greedy tokens differ")
+        _fail(f"{what} card vs cpu greedy tokens differ")
 
 
 def _expected_launches(cfg) -> dict:
-    """Launches of one prefill: one flash per attention layer, one ssd_scan
-    per Mamba2 layer, one rglru_scan per RG-LRU layer."""
+    """Launches of one prefill: one flash per causal self-attention layer of
+    the decoder (an enc-dec encoder and the cross-attentions run the dense
+    plain attention and launch nothing), one ssd_scan per Mamba2 layer, one
+    rglru_scan per RG-LRU layer."""
     kinds = [cfg.pattern_of(i) for i in range(cfg.n_layers)]
     return {"flash_attention": sum(k in ("attn", "local") for k in kinds),
             "ssd_scan": kinds.count("ssm"), "rglru_scan": kinds.count("rglru"),
@@ -922,8 +973,12 @@ def _train_launches(cfg) -> dict:
 
 
 def phase_model() -> None:
-    for arch in ("yi-9b", "mamba2-370m", "recurrentgemma-9b", "deepseek-moe-16b", "dbrx-132b"):
+    for arch in ("yi-9b", "mamba2-370m", "recurrentgemma-9b", "deepseek-moe-16b", "dbrx-132b",
+                 "phi-3-vision-4.2b", "seamless-m4t-medium"):
         _model(arch, _expected_launches(configs.get_smoke(arch)))
+    # 25 frames: the cross-attention's keys are not a multiple of a 64-row tile
+    _model("seamless-m4t-medium", _expected_launches(configs.get_smoke("seamless-m4t-medium")),
+           prompt=200)
 
 
 # ==========================================================================
@@ -970,6 +1025,65 @@ def phase_serve(arch: str) -> dict:
     del r, toks
     _free()
     return launches, variants
+
+
+def phase_vlm_prefix() -> tuple:
+    """phi-3-vision-4.2b at full width and depth through the engine's step
+    functions with its 576-patch prefix: one prefill of [4, 512] tokens and
+    [4, 576, 1024] bf16 patches (L = 1088, no padding), then 31 decode steps.
+    Returns (launches, flash launches by variant, measurements)."""
+    cfg = PHI
+    gen = _gen(0)
+    params = lm.init(gen, cfg, device="cuda")
+    tokens = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT), generator=gen,
+                           device="cuda")
+    patches = torch.randn((SERVE_BATCH, cfg.n_patches, 1024), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+    l = cfg.n_patches + SERVE_PROMPT
+    prefill = make_prefill_step(cfg, max_len=l + SERVE_GEN)
+    decode = make_decode_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        cache, logits = prefill(params, {"tokens": tokens, "patches": patches})
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pos = cache["pos"]
+        launches = dict(ops.launches)
+        variants = dict(ops.flash_variant_launches)
+        toks = [logits.argmax(-1)[:, None]]
+        finite = bool(torch.isfinite(logits).all())
+        for _ in range(SERVE_GEN - 1):
+            logits, cache = decode(params, toks[-1], cache)
+            toks.append(logits.argmax(-1)[:, None])
+        finite = finite and bool(torch.isfinite(logits).all())
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    out = torch.cat(toks, dim=1)
+    r = {"prefill_ms": (t1 - t0) * 1e3, "decode_ms_per_token": (t2 - t1) * 1e3 / (SERVE_GEN - 1),
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "pos_after_prefill": pos,
+         "L": l}
+    _log(f"[prefix] phi-3-vision-4.2b full width ({cfg.n_layers}L d{cfg.d_model}), patches "
+         f"{list(patches.shape)} bf16 + tokens {list(tokens.shape)}: prefill "
+         f"{r['prefill_ms']:.3f} ms (L {l}), decode {r['decode_ms_per_token']:.3f} ms/token, "
+         f"peak mem {r['peak_mem_gb']:.2f} GB, cache pos {pos}, prefill launches {launches}, "
+         f"flash by variant {variants}")
+    want = _expected_launches(cfg)
+    if launches != want or variants != {**dict.fromkeys(fa.VARIANTS, 0),
+                                        "wgmma": want["flash_attention"]}:
+        _fail(f"phi-3-vision-4.2b prefix prefill launched {launches} ({variants}), not {want} "
+              "all wgmma")
+    if pos != l:
+        _fail(f"phi-3-vision-4.2b cache pos {pos} after the prefill, not {l}")
+    if not finite or tuple(out.shape) != (SERVE_BATCH, SERVE_GEN) or int(out.max()) >= \
+            cfg.padded_vocab or int(out.min()) < 0:
+        _fail("phi-3-vision-4.2b prefix run gave non-finite logits or ids out of range")
+    del params, cache, logits, patches
+    _free()
+    return launches, {"flash_attention": variants, "ssd_scan": dict.fromkeys(ssd.VARIANTS, 0),
+                      "rglru_scan": dict.fromkeys(rg.VARIANTS, 0)}, r
 
 
 def phase_workflow(arch: str) -> None:
@@ -1331,6 +1445,10 @@ def main() -> int:
         "recurrentgemma-9b")
     by_path["deepseek-moe-16b"], by_variant["deepseek-moe-16b"] = phase_serve(
         "deepseek-moe-16b")
+    for arch in ("phi-3-vision-4.2b", "seamless-m4t-medium"):
+        by_path[arch], by_variant[arch] = phase_serve(arch)
+    prefix_path = "phi-3-vision-4.2b with the 576-patch prefix"
+    by_path[prefix_path], by_variant[prefix_path], prefix = phase_vlm_prefix()
     for name in rows:
         rows[name]["launches_by_variant"] = {
             v: sum(n[name][v] for n in by_variant.values())
@@ -1375,7 +1493,8 @@ def main() -> int:
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_kernels.json"), "w") as f:
         json.dump({"card": smi, **kernels, "train": train, "train_recurrent": recurrent,
-                   "train_grads_max_err": grads, "commit": commit}, f, indent=1)
+                   "train_grads_max_err": grads, "commit": commit, "vlm_prefix": prefix},
+                  f, indent=1)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

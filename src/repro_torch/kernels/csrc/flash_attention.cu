@@ -1,7 +1,7 @@
 // Causal / sliding-window / tanh-softcap GQA flash-attention forward for
 // Hopper (sm_90a), hand-written CUDA C++ with a plain C entry point.  Two
-// variants: "wgmma" (flash_attention_sm90.cuh; bf16 at head dims 16–256, on
-// the tensor cores) and "fma" (this file; fp32 at every head dim and bf16 at
+// variants: "wgmma" (flash_attention_sm90.cuh; bf16 at head dims 16, 32, 64,
+// 96, 128 and 256, on the tensor cores) and "fma" (this file; fp32 at every head dim and bf16 at
 // head dim 8, on the CUDA cores).  The caller names the variant.
 //
 // The FMA variant replaces the Pallas TPU kernel
@@ -14,7 +14,7 @@
 //     in shared memory as fp32;
 //   * kv tiles that causal/window masking empties are skipped;
 //   * GQA without KV replication: q head h reads kv head h / (H / Hkv).
-//   * head dims 8 … 256 in fp32, 8 in bf16; at 256 the block has 256
+//   * head dims 8, 16, 32, 64, 96, 128 and 256 in fp32, 8 in bf16; at 256 the block has 256
 //     threads and the padded fp32 tiles take 214.5 KB of the 227 KB of
 //     shared memory a block may opt into.
 //
@@ -86,6 +86,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     constexpr int KS = BK + 1;
     constexpr int PS = BK + 1;
     constexpr int OPT = HD / TC;         // output columns per thread
+    static_assert(HD % TC == 0, "each lane of a row group takes whole output columns");
 
     extern __shared__ float smem[];
     float* qs = smem;                    // [BQ][QS]
@@ -256,6 +257,7 @@ int dispatch_hd_f32(int hd, const void* q, const void* k, const void* v, void* o
         case 16: return launch<float, 16>(q, k, v, o, lse, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
         case 32: return launch<float, 32>(q, k, v, o, lse, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
         case 64: return launch<float, 64>(q, k, v, o, lse, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
+        case 96: return launch<float, 96>(q, k, v, o, lse, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
         case 128: return launch<float, 128>(q, k, v, o, lse, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
         case 256: return launch<float, 256>(q, k, v, o, lse, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
         default: return int(cudaErrorInvalidValue);
@@ -269,7 +271,7 @@ int dispatch_hd_f32(int hd, const void* q, const void* k, const void* v, void* o
 // null pointer skips the store.
 // Returns the cudaError_t of the launch (0 on success).  dtype: 0 = fp32,
 // 1 = bf16; variant: 0 = fma (fp32 at every head dim, bf16 at 8), 1 = wgmma
-// (bf16 at 16–256).  The caller validates shapes; a variant that does not
+// (bf16 at 16, 32, 64, 96, 128 and 256).  The caller validates shapes; a variant that does not
 // take the dtype or head dim returns cudaErrorInvalidValue without
 // launching, and no variant stands in for another.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,

@@ -1,8 +1,8 @@
 // Flash-attention forward for bf16 on Hopper's tensor cores (sm_90a): wgmma
 // for both products, TMA loads into an mbarrier ring, one producer thread and
 // one or two consumer warpgroups.  Included by flash_attention.cu, whose entry point
-// launches it for bf16 at head dims 16–256 (the "wgmma" variant); fp32 and
-// head dim 8 keep the FMA kernel there.
+// launches it for bf16 at head dims 16, 32, 64, 96, 128 and 256 (the "wgmma"
+// variant); fp32 and head dim 8 keep the FMA kernel there.
 //
 // Replaces, for those calls, the Pallas TPU kernel
 // src/repro/kernels/flash_attention.py (flash_attention_fwd + _kernel).  It
@@ -33,9 +33,11 @@
 //     tiles into a ring of STAGES slots with full/empty mbarriers) and the
 //     other threads exit;
 //   * kv tiles of 128 keys (64 at hd 128 and 256, to fit the registers);
-//   * shared-memory tiles are TMA boxes 64 bf16 wide (hd at hd 16 and 32)
-//     with the 128-byte swizzle (32 and 64 bytes at hd 16 and 32), one box
-//     per 64 columns: the layout the wgmma descriptors name.  Q and K are
+//   * shared-memory tiles are TMA boxes 64 bf16 wide with the 128-byte
+//     swizzle, one box per 64 columns; where hd is not a multiple of 64 the
+//     boxes are 32 wide with the 64-byte swizzle (three of them at hd 96) or,
+//     at hd 16, one box of 16 with the 32-byte swizzle: the layout the wgmma
+//     descriptors name.  Q and K are
 //     K-major for S = Q·Kᵀ; V is MN-major for O += P·V, read with the
 //     transpose flag; P goes from the S fragment straight into wgmma's
 //     A-register fragment;
@@ -75,7 +77,9 @@ constexpr float LOG2E = 1.4426950408889634f;
 // to a multiple of 8; setmaxnreg does not raise what it allocates): 168 with
 // two consumer warpgroups, which holds the hd-128 fragments with kv tiles of
 // 64 keys (with 128 keys they spill); at hd 256 the O fragment alone is 128
-// registers, so one consumer warpgroup takes up to 255.
+// registers, so one consumer warpgroup takes up to 255.  A row of a tile is
+// NCH boxes of AW bf16: 64 where hd is a multiple of 64, else 32 (hd 96: three
+// boxes, so that NCH is whole) or hd itself (16).
 template <int HD>
 struct Cfg {
     static constexpr int NWG = HD == 256 ? 1 : 2;
@@ -83,7 +87,7 @@ struct Cfg {
     static constexpr int BQ = 64 * NWG;                 // q rows per work item
     static constexpr int BK = HD >= 128 ? 64 : 128;     // keys per kv tile
     static constexpr int STAGES = 2;
-    static constexpr int AW = HD < 64 ? HD : 64;        // bf16 per swizzled row
+    static constexpr int AW = HD % 64 == 0 ? 64 : HD % 32 == 0 ? 32 : HD;  // bf16 per box row
     static constexpr int ROWB = AW * 2;                 // 32, 64 or 128 bytes
     static constexpr int NCH = HD / AW;                 // boxes per tile row
     static constexpr uint64_t LAYOUT = ROWB == 128 ? 1 : ROWB == 64 ? 2 : 3;
@@ -284,6 +288,26 @@ __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<96>(float (&d)[48], const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+        "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
@@ -500,7 +524,7 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
     // with 64–128 live accumulator registers spills them
     const float inv_cap = softcap != 0.f ? __fdividef(1.f, softcap) : 0.f;
     // K-major (Q, K): SBO = one 8-row group; LBO unused with a swizzle.
-    // MN-major (V): LBO = next box of 64 columns, SBO = next 8 keys.
+    // MN-major (V): LBO = next box of AW columns, SBO = next 8 keys.
     const uint32_t q_wg = q_s + wg * 64 * ROWB;
     float oacc[HD / 2];
     float sacc[BK / 2];
@@ -713,6 +737,7 @@ inline int dispatch_hd(int hd, const void* q, const void* k, const void* v, void
         case 16: return launch<16>(q, k, v, o, lse, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
         case 32: return launch<32>(q, k, v, o, lse, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
         case 64: return launch<64>(q, k, v, o, lse, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
+        case 96: return launch<96>(q, k, v, o, lse, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
         case 128: return launch<128>(q, k, v, o, lse, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
         case 256: return launch<256>(q, k, v, o, lse, B, L, S, H, Hkv, causal, window, softcap, scale, stream);
         default: return int(cudaErrorInvalidValue);

@@ -42,6 +42,16 @@ FLASH_HD256_CASES = [
     (1, 1024, 16, 1, 256, 256, 0.0, "bfloat16", 2e-2),
 ]
 
+#: Head dim 96 (phi-3-vision-4.2b: d 3072 over 32 heads), beyond the
+#: reference's cases, at the same tolerances: GQA groups 4 and 1 (MHA, as
+#: phi-3-vision), a window and a softcap, in fp32 (fma) and bf16 (wgmma).
+FLASH_HD96_CASES = [
+    (1, 256, 4, 1, 96, 0, 0.0, "float32", 2e-5),
+    (1, 256, 4, 4, 96, 64, 30.0, "float32", 2e-5),
+    (2, 128, 8, 2, 96, 0, 0.0, "bfloat16", 2e-2),
+    (1, 256, 8, 8, 96, 64, 50.0, "bfloat16", 2e-2),
+]
+
 #: bf16 cases of the wgmma variant beyond the reference's, all at tol 2e-2:
 #: (b, l, h, hkv, hd, causal, window, softcap).  Every head dim it takes, GQA
 #: groups 1–16, L a multiple of 64 but not of 128 (192, 576) or of neither
@@ -57,6 +67,12 @@ FLASH_WGMMA_CASES = [
     (1, 576, 4, 1, 256, True, 0, 30.0),
     (1, 100, 4, 2, 256, True, 40, 0.0),
     (2, 192, 16, 1, 256, True, 0, 0.0),
+    (2, 192, 8, 2, 96, True, 0, 0.0),
+    (1, 576, 32, 8, 96, True, 0, 50.0),
+    (2, 100, 8, 8, 96, True, 0, 0.0),
+    (1, 192, 16, 4, 96, True, 64, 0.0),
+    (2, 192, 8, 8, 96, False, 0, 0.0),
+    (1, 100, 8, 2, 96, False, 0, 0.0),
 ]
 
 #: A sliding window without causal masking, which the reference's kernel
@@ -70,6 +86,8 @@ FLASH_WINDOW_CASES = [
     (1, 512, 8, 1, 128, 100, "bfloat16", 2e-2),
     (2, 192, 8, 2, 128, 32, "bfloat16", 2e-2),
     (1, 256, 4, 1, 256, 64, "bfloat16", 2e-2),
+    (1, 256, 8, 2, 96, 64, "float32", 2e-5),
+    (1, 192, 8, 8, 96, 48, "bfloat16", 2e-2),
 ]
 
 #: tests/test_kernels.py SSD_CASES: (bt, l, h, p, n, chunk, dtype, tol)

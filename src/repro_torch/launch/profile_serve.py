@@ -2,10 +2,12 @@
 decode steps, summed by kernel.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
-        --arch {yi-9b,mamba2-370m,recurrentgemma-9b,deepseek-moe-16b} \\
+        --arch {yi-9b,mamba2-370m,recurrentgemma-9b,deepseek-moe-16b,...} \\
         [--smoke] [--batch 4 --prompt-len 512 --decode-steps 4] [--device cpu]
 
-Weights are random (``--seed``).  After one untraced warm-up prefill, one
+Weights are random (``--seed``); an enc-dec config's encoder reads random
+frames ``[batch, prompt_len // 8, 1024]`` and a VLM config serves text
+only, as ``launch/serve.py`` does.  After one untraced warm-up prefill, one
 prefill and then ``--decode-steps`` decode steps are traced separately.  For
 each phase it prints the host-clock time (ended by a device synchronise),
 the device busy time (union of kernel intervals), the idle share, and the
@@ -141,10 +143,12 @@ def run(arch: str, *, smoke: bool = False, batch: int = 4, prompt_len: int = 512
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = lm.init(gen, cfg, device=dev)
     prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen, device=dev)
+    frames = (torch.randn((batch, prompt_len // 8, 1024), generator=gen, device=dev)
+              if cfg.enc_dec else None)
     max_len = prompt_len + decode_steps + 1
-    lm.prefill(params, cfg, prompt, max_len=max_len)          # warm-up, untraced
+    lm.prefill(params, cfg, prompt, max_len=max_len, frames=frames)   # warm-up, untraced
     (cache, logits), prefill = _traced(
-        dev, lambda: lm.prefill(params, cfg, prompt, max_len=max_len))
+        dev, lambda: lm.prefill(params, cfg, prompt, max_len=max_len, frames=frames))
     tok = logits.argmax(-1)[:, None]
 
     def decode():

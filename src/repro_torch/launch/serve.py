@@ -4,7 +4,11 @@
         --batch 4 --prompt-len 64 --gen 32 [--device cpu]
 
 Runs on the card by default (``--device cuda``) and raises without one.
-Weights are random, drawn from ``--seed``.  Prints prefill ms, decode
+Weights are random, drawn from ``--seed``.  VLM and enc-dec configs serve
+their text decoder against stub frontends, as the reference's launcher
+does: an enc-dec config gets random frames ``[B, prompt_len // 8, 1024]``
+for its encoder; a VLM config serves text only (the patch prefix goes
+through ``serve/engine.make_prefill_step``).  Prints prefill ms, decode
 ms/token and tok/s, each timed on the host clock around work that ends in a
 device synchronise, and each kernel's launches in the run.
 """
@@ -29,10 +33,15 @@ def run(arch: str, *, smoke: bool = False, batch: int = 4, prompt_len: int = 64,
     """Init, then serve one batch; returns the tokens and the measurements."""
     dev = resolve_device(device)
     cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
+    if cfg.enc_dec or cfg.n_patches:
+        print(f"[serve] note: {cfg.name} needs modality inputs; serving the "
+              f"text decoder against stub frontends")
     gen_ = torch.Generator(device=dev).manual_seed(seed)
     t0 = time.perf_counter()
     params = lm.init(gen_, cfg, device=dev)
     prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen_, device=dev)
+    frames = (torch.randn((batch, prompt_len // 8, 1024), generator=gen_, device=dev)
+              if cfg.enc_dec else None)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -40,7 +49,7 @@ def run(arch: str, *, smoke: bool = False, batch: int = 4, prompt_len: int = 64,
 
     launches0 = dict(ops.launches)
     stats: Dict[str, Any] = {}
-    out = greedy_generate(params, cfg, prompt, gen, stats=stats)
+    out = greedy_generate(params, cfg, prompt, gen, stats=stats, frames=frames)
     return {
         "cfg": cfg, "tokens": out, "device": dev, "init_s": init_s,
         "prefill_ms": stats["prefill_s"] * 1e3,

@@ -8,6 +8,11 @@ The port of :mod:`repro.models.attention`:
     CUDA kernel on the card, its plain version on the CPU — and, when a
     gradient is needed, through :func:`repro_torch.models.flash.flash_attention`,
     the same forward with the reference's FA2 backward;
+  * non-causal self-attention (the enc-dec encoder) and cross-attention
+    against projected encoder memory (:func:`project_kv`, ``kv_override``)
+    run the dense ``_sdpa`` with no mask, as the reference's do at every
+    length: the flash path pads L to a multiple of 64, which is exact only
+    under the causal mask;
   * decode of one token against a ring-buffer KV cache keeps the masked
     dense ``_sdpa`` (the JAX package has no kernel for decode).
 """
@@ -127,19 +132,21 @@ def _flash_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out[:, :l] if pad else out
 
 
-def _project_qkv(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor):
+def _project(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor, name: str,
+             heads: int) -> torch.Tensor:
+    """x @ w{name} (+ b{name}) → [B, L, heads, hd]."""
     b, l, _ = x.shape
     ct = cfg.cdtype
-    q = x @ params["wq"].to(ct)
-    k = x @ params["wk"].to(ct)
-    v = x @ params["wv"].to(ct)
-    if "bq" in params:
-        q = q + params["bq"].to(ct)
-        k = k + params["bk"].to(ct)
-        v = v + params["bv"].to(ct)
-    return (q.reshape(b, l, cfg.n_heads, cfg.hd),
-            k.reshape(b, l, cfg.n_kv_heads, cfg.hd),
-            v.reshape(b, l, cfg.n_kv_heads, cfg.hd))
+    y = x @ params["w" + name].to(ct)
+    if "b" + name in params:
+        y = y + params["b" + name].to(ct)
+    return y.reshape(b, l, heads, cfg.hd)
+
+
+def _project_qkv(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor):
+    return (_project(params, cfg, x, "q", cfg.n_heads),
+            _project(params, cfg, x, "k", cfg.n_kv_heads),
+            _project(params, cfg, x, "v", cfg.n_kv_heads))
 
 
 # ==========================================================================
@@ -148,10 +155,31 @@ def _project_qkv(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor):
 
 
 def apply(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
-          positions: torch.Tensor, *, window: int = 0) -> torch.Tensor:
-    """Causal self-attention, x: [B,L,D] -> [B,L,D].  Non-causal and
-    cross-attention (the JAX ``causal``/``kv_override``) come with enc-dec."""
-    return apply_with_kv(params, cfg, x, positions, window=window)[0]
+          positions: Optional[torch.Tensor], *, window: int = 0,
+          kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+          causal: bool = True) -> torch.Tensor:
+    """x: [B,L,D] -> [B,L,D].  ``kv_override`` supplies cross-attention
+    memory, (k, v) [B,S,Hkv,hd] already projected (:func:`project_kv`).
+
+    Causal self-attention goes through the flash path.  Without ``causal``,
+    and always under ``kv_override``, the dense ``_sdpa`` runs with no mask,
+    as in the reference: under ``kv_override`` q gets no RoPE and
+    ``causal`` is not read (``positions`` may be None).
+    """
+    if kv_override is None and causal:
+        return apply_with_kv(params, cfg, x, positions, window=window)[0]
+    b, l, _ = x.shape
+    hd, ct = cfg.hd, cfg.cdtype
+    if kv_override is None:
+        q, k, v = _project_qkv(params, cfg, x)
+        cos, sin = rope_angles(positions, hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    else:
+        q = _project(params, cfg, x, "q", cfg.n_heads)
+        k, v = kv_override
+    out = _sdpa(q, k, v, None, cfg.attn_softcap)
+    return out.reshape(b, l, cfg.n_heads * hd) @ params["wo"].to(ct)
 
 
 def apply_with_kv(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
@@ -168,6 +196,18 @@ def apply_with_kv(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
     out = _flash_causal(q, k, v, window=window, cap=cfg.attn_softcap)
     out = out.reshape(b, l, cfg.n_heads * hd) @ params["wo"].to(ct)
     return out, (k, v)
+
+
+def project_kv(params: Dict[str, Any], cfg: ModelConfig, mem: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Encoder memory [B,S,D] → cross-attention (k, v) [B,S,Hkv,hd], projected
+    once and reused by every decode step.  No ``bk``/``bv`` bias and no
+    RoPE, as in the reference."""
+    b, s, _ = mem.shape
+    ct = cfg.cdtype
+    k = (mem @ params["wk"].to(ct)).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    v = (mem @ params["wv"].to(ct)).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    return k, v
 
 
 # ==========================================================================

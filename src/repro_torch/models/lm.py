@@ -1,7 +1,8 @@
-"""LM assembly for the decoder patterns "attn", "local", "ssm" and "rglru",
-dense or Mixture-of-Experts.
+"""LM assembly: one module serving all 10 architectures of the JAX package —
+the decoder patterns "attn", "local", "ssm" and "rglru", dense or
+Mixture-of-Experts, the VLM patch prefix and the enc-dec encoder.
 
-The port of :mod:`repro.models.lm` for the serving and training slices.
+The port of :mod:`repro.models.lm`.
 The parameter tree is the JAX package's: ``cfg.layer_pattern`` is cycled across
 ``n_layers``; each pattern slot owns one tree stacked over the ``[G]`` full
 repetitions (``blocks/s{i}``), the remainder layers are unstacked
@@ -9,25 +10,30 @@ repetitions (``blocks/s{i}``), the remainder layers are unstacked
 
 Entry points
   * :func:`init` — parameters on ``device`` from a ``torch.Generator``.
-  * :func:`forward` — tokens → (logits, MoE aux loss).
+  * :func:`forward` — tokens (+ modality stubs) → (logits, MoE aux loss).
   * :func:`loss_fn` — next-token cross-entropy (+ MoE aux), the training
     objective.
   * :func:`prefill` — forward that also seeds a decode cache.
   * :func:`decode_step` — one token against the cache.
+  * enc-dec (seamless-m4t): :func:`encode` feeds cross-attention.
 
 Attention layers keep KV rings in the decode cache; "ssm" (Mamba2) and
 "rglru" (RecurrentGemma) layers keep their recurrent state dicts, stacked
 over ``[G]`` like the parameters.  In MoE configs (``cfg.moe``) the
 attention layers' FFN is :mod:`repro_torch.models.moe` (``p["moe"]`` in
 place of ``p["mlp"]``), whose load-balance loss every block returns as its
-aux.  Enc-dec and VLM configs raise ``NotImplementedError`` naming the
-slice of the port that brings them (see ``ROADMAP.md``).
+aux.  A VLM config (``cfg.n_patches``) projects stub patch embeddings
+``[B, n_patches, 1024]`` by ``w_patch`` and puts them before the tokens; an
+enc-dec config (``cfg.enc_dec``) encodes stub frame embeddings ``[B, S,
+1024]`` (``w_frame``, then non-causal self-attention blocks) into the
+memory that a cross-attention in every decoder block reads, and the decode
+cache keeps its projected ``mk``/``mv``.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,17 +44,6 @@ from repro_torch import resolve_device
 from repro_torch.models import attention, mlp, moe, rglru, ssm
 from repro_torch.models.common import (ModelConfig, dense_init, embed_init,
                                        rms_norm, softcap, tree_leaves)
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for configs outside the ported slices."""
-    missing = None
-    if cfg.enc_dec or cfg.frame_input:
-        missing = "the enc-dec encoder (ROADMAP: next slices, enc-dec/VLM)"
-    elif cfg.n_patches:
-        missing = "the VLM patch prefix (ROADMAP: next slices, enc-dec/VLM)"
-    if missing:
-        raise NotImplementedError(f"{cfg.name}: {missing} are not ported yet")
 
 
 # ==========================================================================
@@ -64,7 +59,7 @@ def groups_of(cfg: ModelConfig, n_layers: int | None = None) -> Tuple[int, int]:
 
 
 def _block_init(gen: torch.Generator, cfg: ModelConfig, kind: str, *, device,
-                lead: Tuple[int, ...] = ()) -> Dict[str, Any]:
+                lead: Tuple[int, ...] = (), cross: bool = False) -> Dict[str, Any]:
     d, pd = cfg.d_model, cfg.pdtype
 
     def norm():
@@ -83,6 +78,9 @@ def _block_init(gen: torch.Generator, cfg: ModelConfig, kind: str, *, device,
             p["ln1b"] = norm()
             if cfg.d_ff:
                 p["ln2b"] = norm()
+        if cross:
+            p["lnx"] = norm()
+            p["xattn"] = attention.init(gen, cfg, device=device, lead=lead)
     elif kind == "ssm":
         p["ssm"] = ssm.init(gen, cfg, device=device, lead=lead)
     elif kind == "rglru":
@@ -102,23 +100,32 @@ def init(gen: torch.Generator, cfg: ModelConfig, *, device="cuda") -> Dict[str, 
     numbers differ from ``repro.models.lm.init``'s; parity goes through
     converted weights (:mod:`repro_torch.convert`).
     """
-    check_supported(cfg)
     dev = resolve_device(device)
     g, rem = groups_of(cfg)
+    cross = cfg.enc_dec
     params: Dict[str, Any] = {
         "embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, cfg.pdtype, device=dev),
         "final_norm": torch.zeros((cfg.d_model,), dtype=cfg.pdtype, device=dev),
-        "blocks": {f"s{i}": _block_init(gen, cfg, kind, device=dev, lead=(g,))
+        "blocks": {f"s{i}": _block_init(gen, cfg, kind, device=dev, lead=(g,), cross=cross)
                    for i, kind in enumerate(cfg.layer_pattern)},
     }
     if rem:
         params["rem"] = {
             f"r{i}": _block_init(gen, cfg, cfg.pattern_of(g * len(cfg.layer_pattern) + i),
-                                 device=dev)
+                                 device=dev, cross=cross)
             for i in range(rem)}
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.padded_vocab,
                                        cfg.pdtype, device=dev)
+    if cfg.enc_dec:
+        params["encoder"] = {
+            "blocks": _block_init(gen, cfg, "attn", device=dev, lead=(cfg.n_enc_layers,)),
+            "norm": torch.zeros((cfg.d_model,), dtype=cfg.pdtype, device=dev),
+        }
+    if cfg.n_patches:          # vlm: patch-embedding projection (frontend stub)
+        params["w_patch"] = dense_init(gen, 1024, cfg.d_model, cfg.pdtype, device=dev)
+    if cfg.frame_input:        # audio: frame-embedding projection (frontend stub)
+        params["w_frame"] = dense_init(gen, 1024, cfg.d_model, cfg.pdtype, device=dev)
     return params
 
 
@@ -132,11 +139,12 @@ def _index(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
 
 
 def _block_apply(cfg: ModelConfig, kind: str, p: Dict[str, Any], x: torch.Tensor,
-                 positions: torch.Tensor, collect_kv: bool):
+                 positions: torch.Tensor, memory: Optional[torch.Tensor], collect_kv: bool):
     """Returns (x, aux, cache contribution or None): aux is the MoE
     load-balance loss of the block (the float 0.0 without MoE, so that a
     dense block launches nothing for it), the cache contribution k/v of
-    attention layers, the state dict of recurrent ones."""
+    attention layers (with the cross-attention's projected memory ``mk``,
+    ``mv`` in enc-dec blocks), the state dict of recurrent ones."""
     kv = None
     aux = 0.0
     h = rms_norm(x, p["ln1"], cfg.rms_eps)
@@ -165,6 +173,12 @@ def _block_apply(cfg: ModelConfig, kind: str, p: Dict[str, Any], x: torch.Tensor
     if cfg.post_norms:
         a = rms_norm(a, p["ln1b"], cfg.rms_eps)
     x = x + a
+    if "xattn" in p:
+        h = rms_norm(x, p["lnx"], cfg.rms_eps)
+        mk, mv = attention.project_kv(p["xattn"], cfg, memory)
+        x = x + attention.apply(p["xattn"], cfg, h, positions, kv_override=(mk, mv))
+        if collect_kv:
+            kv["mk"], kv["mv"] = mk, mv
     if cfg.d_ff:
         h = rms_norm(x, p["ln2"], cfg.rms_eps)
         if cfg.moe is not None:
@@ -206,8 +220,15 @@ def _remat(cfg: ModelConfig, fn):
     return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
+def _needs_grad(x: torch.Tensor, tree: Dict[str, Any]) -> bool:
+    """Whether autograd records through ``x`` or a tensor of ``tree``:
+    checkpointing runs only then, serving runs the plain blocks."""
+    return torch.is_grad_enabled() and (x.requires_grad or any(
+        t.requires_grad for t in tree_leaves(tree)))
+
+
 def _run_blocks(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
-                positions: torch.Tensor, collect_kv: bool):
+                positions: torch.Tensor, memory: Optional[torch.Tensor], collect_kv: bool):
     """The stacked pattern groups in order, then the remainder layers.
 
     Returns (x, aux, caches): aux is the MoE load-balance loss summed over
@@ -222,25 +243,23 @@ def _run_blocks(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
     per_slot: Dict[str, list] = {f"s{i}": [] for i in range(len(pattern))}
     aux = 0.0
 
-    def group(x, gp):
+    def group(x, gp, memory):
         aux = 0.0
         for i, kind in enumerate(pattern):
-            x, a, _ = _block_apply(cfg, kind, gp[f"s{i}"], x, positions, False)
+            x, a, _ = _block_apply(cfg, kind, gp[f"s{i}"], x, positions, memory, False)
             aux = aux + a
         return x, aux
 
-    # checkpointing only where autograd records: serving runs the plain group
-    needs_grad = torch.is_grad_enabled() and (x.requires_grad or any(
-        t.requires_grad for t in tree_leaves(params["blocks"])))
-    body = _remat(cfg, group) if needs_grad else group
+    body = _remat(cfg, group) if _needs_grad(x, params["blocks"]) else group
     for gi in range(g):
         gp = _index(params["blocks"], gi)
         if not collect_kv:
-            x, a = body(x, gp)
+            x, a = body(x, gp, memory)
             aux = aux + a
             continue
         for i, kind in enumerate(pattern):
-            x, a, kv = _block_apply(cfg, kind, gp[f"s{i}"], x, positions, collect_kv)
+            x, a, kv = _block_apply(cfg, kind, gp[f"s{i}"], x, positions, memory,
+                                    collect_kv)
             aux = aux + a
             per_slot[f"s{i}"].append(kv)
     caches: Dict[str, Any] = {}
@@ -249,7 +268,7 @@ def _run_blocks(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
                   for name, kvs in per_slot.items()}
     for i, (name, rp) in enumerate(sorted(params.get("rem", {}).items())):
         kind = cfg.pattern_of(g * len(pattern) + i)
-        x, a, kv = _block_apply(cfg, kind, rp, x, positions, collect_kv)
+        x, a, kv = _block_apply(cfg, kind, rp, x, positions, memory, collect_kv)
         aux = aux + a
         if collect_kv:
             caches[name] = kv
@@ -261,11 +280,16 @@ def _run_blocks(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
 # ==========================================================================
 
 
-def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+def _embed(params, cfg: ModelConfig, tokens: torch.Tensor,
+           patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings [B, Lt, D]; in a VLM config with ``patches`` [B, P,
+    1024] the projected patches come first, [B, P + Lt, D]."""
     ct = cfg.cdtype
     x = params["embed"][tokens.long()].to(ct)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=ct, device=x.device)
+    if cfg.n_patches and patches is not None:
+        x = torch.cat([patches.to(ct) @ params["w_patch"].to(ct), x], dim=1)
     return x
 
 
@@ -281,14 +305,40 @@ def _positions(b: int, l: int, device) -> torch.Tensor:
     return torch.arange(l, device=device)[None].expand(b, l)
 
 
-def forward(params, cfg: ModelConfig, tokens: torch.Tensor
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B, L] → (logits [B, L, Vp] fp32, aux): aux is the MoE
-    load-balance loss summed over the layers, 0 for dense configs."""
-    check_supported(cfg)
-    x = _embed(params, cfg, tokens)
+def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """Encoder of enc-dec configs: ``frames`` [B, S, 1024] (frontend-stub
+    embeddings) → memory [B, S, D]: ``w_frame``, then the ``n_enc_layers``
+    blocks of non-causal self-attention and MLP (under the config's remat
+    when a gradient is needed), then the final norm."""
+    ct = cfg.cdtype
+    x = frames.to(ct) @ params["w_frame"].to(ct)
+    b, s, _ = x.shape
+    positions = _positions(b, s, x.device)
+    enc = params["encoder"]
+
+    def block(x, gp):
+        h = rms_norm(x, gp["ln1"], cfg.rms_eps)
+        x = x + attention.apply(gp["attn"], cfg, h, positions, causal=False)
+        h = rms_norm(x, gp["ln2"], cfg.rms_eps)
+        return x + mlp.apply(gp["mlp"], cfg, h)
+
+    body = _remat(cfg, block) if _needs_grad(x, enc) else block
+    for i in range(cfg.n_enc_layers):
+        x = body(x, _index(enc["blocks"], i))
+    return rms_norm(x, enc["norm"], cfg.rms_eps)
+
+
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            patches: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens [B, Lt] → (logits [B, L, Vp] fp32, aux), L = Lt + n_patches
+    when ``patches`` are given; aux is the MoE load-balance loss summed over
+    the layers, 0 for dense configs.  Enc-dec configs need ``frames``."""
+    memory = encode(params, cfg, frames) if cfg.enc_dec else None
+    x = _embed(params, cfg, tokens, patches)
     b, l, _ = x.shape
-    x, aux, _ = _run_blocks(params, cfg, x, _positions(b, l, x.device), collect_kv=False)
+    x, aux, _ = _run_blocks(params, cfg, x, _positions(b, l, x.device), memory,
+                            collect_kv=False)
     return _logits(params, cfg, x), torch.as_tensor(aux, dtype=torch.float32, device=x.device)
 
 
@@ -298,12 +348,17 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
 
     The twin of ``repro.models.lm.loss_fn``: fp32 logits, a stable
     logsumexp, CE masked by ``mask`` over ``max(Σ mask, 1)`` tokens, and the
-    metrics ``ce``, ``aux``, ``tokens``.  The reference picks the label's
-    logit by a one-hot contraction over the vocab, which selects exactly one
-    fp32 value; ``torch.gather`` picks the same value bit for bit without
-    the [B, L, V] one-hot temporaries.
+    metrics ``ce``, ``aux``, ``tokens``.  The batch's ``patches`` and
+    ``frames`` go to :func:`forward`; a VLM config scores only the text
+    tail, the logits after the ``n_patches`` prefix.  The reference picks
+    the label's logit by a one-hot contraction over the vocab, which selects
+    exactly one fp32 value; ``torch.gather`` picks the same value bit for
+    bit without the [B, L, V] one-hot temporaries.
     """
-    logits, aux = forward(params, cfg, batch["tokens"])
+    logits, aux = forward(params, cfg, batch["tokens"], patches=batch.get("patches"),
+                          frames=batch.get("frames"))
+    if cfg.n_patches:
+        logits = logits[:, cfg.n_patches:, :]
     m = logits.amax(dim=-1, keepdim=True)
     lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(dim=-1))
     label_logit = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0]
@@ -341,17 +396,22 @@ def _ring_from_prefill(k: torch.Tensor, slots: int) -> torch.Tensor:
     return torch.roll(k[..., -slots:, :, :], p0 % slots, dims=-3)
 
 
-def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: int):
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: int,
+            patches: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None):
     """Run the full prompt, seed the decode cache.
 
     Returns (cache, last_logits [B, Vp]).  ``max_len`` sizes the KV rings of
     full-attention layers (prompt + decode budget); recurrent layers pass
-    their state dicts through.
+    their state dicts through.  The patch prefix counts in the cache's
+    ``pos``; enc-dec blocks keep their projected memory ``mk``/``mv``, sized
+    by the frames' own length.
     """
-    check_supported(cfg)
-    x = _embed(params, cfg, tokens)
+    memory = encode(params, cfg, frames) if cfg.enc_dec else None
+    x = _embed(params, cfg, tokens, patches)
     b, l, _ = x.shape
-    x, _, raw = _run_blocks(params, cfg, x, _positions(b, l, x.device), collect_kv=True)
+    x, _, raw = _run_blocks(params, cfg, x, _positions(b, l, x.device), memory,
+                            collect_kv=True)
     pattern = cfg.layer_pattern
     g, _ = groups_of(cfg)
     cache: Dict[str, Any] = {"blocks": {}, "rem": {}}
@@ -366,6 +426,8 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: int):
         slots = _attn_slots(cfg, kind, max_len)
         cache[group][name] = {"k": _ring_from_prefill(kv["k"], slots),
                               "v": _ring_from_prefill(kv["v"], slots)}
+        if "mk" in kv:
+            cache[group][name]["mk"], cache[group][name]["mv"] = kv["mk"], kv["mv"]
     if not cache["rem"]:
         del cache["rem"]
     cache["pos"] = l
@@ -375,8 +437,9 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: int):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device="cuda") -> Dict[str, Any]:
-    """Empty decode cache (zeros; ``pos`` at the last slot, as in JAX)."""
-    check_supported(cfg)
+    """Empty decode cache (zeros; ``pos`` at the last slot, as in JAX).  An
+    enc-dec config's ``mk``/``mv`` hold ``max(1, max_len // 8)`` memory
+    rows, as the reference's."""
     dev = resolve_device(device)
     g, rem = groups_of(cfg)
     ct = cfg.cdtype
@@ -388,8 +451,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
             return rglru.init_state(cfg, batch, device=dev, lead=lead)
         shape = tuple(lead) + (batch, _attn_slots(cfg, kind, max_len),
                                cfg.n_kv_heads, cfg.hd)
-        return {"k": torch.zeros(shape, dtype=ct, device=dev),
-                "v": torch.zeros(shape, dtype=ct, device=dev)}
+        c = {"k": torch.zeros(shape, dtype=ct, device=dev),
+             "v": torch.zeros(shape, dtype=ct, device=dev)}
+        if cfg.enc_dec:
+            mem = tuple(lead) + (batch, max(1, max_len // 8), cfg.n_kv_heads, cfg.hd)
+            c["mk"] = torch.zeros(mem, dtype=ct, device=dev)
+            c["mv"] = torch.zeros(mem, dtype=ct, device=dev)
+        return c
 
     cache: Dict[str, Any] = {"blocks": {
         f"s{i}": one(kind, (g,)) for i, kind in enumerate(cfg.layer_pattern)}}
@@ -427,6 +495,10 @@ def _block_decode(cfg: ModelConfig, kind: str, p, x, gc, pos: int):
     if cfg.post_norms:
         a = rms_norm(a, p["ln1b"], cfg.rms_eps)
     x = x + a
+    if "xattn" in p:
+        h = rms_norm(x, p["lnx"], cfg.rms_eps)
+        x = x + attention.apply(p["xattn"], cfg, h, None, kv_override=(gc["mk"], gc["mv"]),
+                                causal=False)
     if cfg.d_ff:
         h = rms_norm(x, p["ln2"], cfg.rms_eps)
         f = moe.apply(p["moe"], cfg, h) if cfg.moe is not None else mlp.apply(p["mlp"], cfg, h)

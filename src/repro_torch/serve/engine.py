@@ -12,8 +12,11 @@ from repro_torch.models.common import ModelConfig
 
 
 def make_prefill_step(cfg: ModelConfig, *, max_len: int):
+    """``inputs``: ``tokens`` and, as the config needs, the frontend stubs
+    ``patches`` (VLM) and ``frames`` (enc-dec)."""
     def prefill_step(params, inputs: Dict[str, torch.Tensor]):
-        return lm.prefill(params, cfg, inputs["tokens"], max_len=max_len)
+        return lm.prefill(params, cfg, inputs["tokens"], max_len=max_len,
+                          patches=inputs.get("patches"), frames=inputs.get("frames"))
     return prefill_step
 
 
@@ -31,18 +34,25 @@ def _sync(device: torch.device) -> None:
 @torch.inference_mode()
 def greedy_generate(params, cfg: ModelConfig, prompt: torch.Tensor, steps: int, *,
                     max_len: Optional[int] = None,
-                    stats: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+                    stats: Optional[Dict[str, Any]] = None,
+                    patches: Optional[torch.Tensor] = None,
+                    frames: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Greedy decoding: prompt [B, L] → generated tokens [B, steps].
 
-    If ``stats`` is given it receives ``prefill_s`` and ``decode_s``, host
+    A VLM config may take ``patches`` (the prefix, counted in ``max_len``'s
+    default); an enc-dec config needs ``frames`` (its encoder's input).  If
+    ``stats`` is given it receives ``prefill_s`` and ``decode_s``, host
     clock around work that ends in a device synchronise.
     """
     b, l = prompt.shape
+    if patches is not None:
+        l += patches.shape[1]
     max_len = max_len or (l + steps)
     if stats is not None:
         _sync(prompt.device)
     t0 = time.perf_counter()
-    cache, logits = lm.prefill(params, cfg, prompt, max_len=max_len)
+    cache, logits = lm.prefill(params, cfg, prompt, max_len=max_len, patches=patches,
+                               frames=frames)
     toks = [torch.argmax(logits, dim=-1)[:, None]]
     if stats is not None:
         _sync(prompt.device)

@@ -37,7 +37,7 @@ def card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,l,h,hkv,hd,window,cap,dtype,tol",
-                         ref.FLASH_CASES + ref.FLASH_HD256_CASES)
+                         ref.FLASH_CASES + ref.FLASH_HD256_CASES + ref.FLASH_HD96_CASES)
 def test_flash_kernel_vs_plain(card, b, l, h, hkv, hd, window, cap, dtype, tol):
     rng = np.random.default_rng(l + h)
     q, k, v = (torch.from_numpy(rng.standard_normal((b, l, n, hd), np.float32))
@@ -55,8 +55,9 @@ def test_flash_kernel_vs_plain(card, b, l, h, hkv, hd, window, cap, dtype, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,l,h,hkv,hd,causal,window,cap", ref.FLASH_WGMMA_CASES)
 def test_flash_wgmma_variant_vs_plain(card, b, l, h, hkv, hd, causal, window, cap):
-    """bf16 on the tensor cores: every head dim 16–256, GQA groups 1–16, L not
-    a multiple of the 128-row tile, window, softcap and the non-causal path."""
+    """bf16 on the tensor cores: every head dim 16–256 (96 included), GQA
+    groups 1–16, L not a multiple of the 128-row tile, window, softcap and
+    the non-causal path."""
     rng = np.random.default_rng(l + h + hd)
     q, k, v = (torch.from_numpy(rng.standard_normal((b, l, n, hd), np.float32))
                .to(torch.bfloat16).to(card) for n in (h, hkv, hkv))
@@ -72,7 +73,8 @@ def test_flash_wgmma_variant_vs_plain(card, b, l, h, hkv, hd, causal, window, ca
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd,dtype,want", [(64, "float32", "fma"), (8, "bfloat16", "fma"),
-                                           (128, "bfloat16", "wgmma")])
+                                           (128, "bfloat16", "wgmma"), (96, "bfloat16", "wgmma"),
+                                           (96, "float32", "fma")])
 def test_flash_variant_launch_counts(card, hd, dtype, want):
     q = torch.randn((1, 128, 4, hd), device=card).to(getattr(torch, dtype))
     n0 = dict(ops.flash_variant_launches)
@@ -93,14 +95,43 @@ def test_flash_kernel_refuses_what_it_does_not_take(card):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["gemma2-27b", "mamba2-370m", "recurrentgemma-9b",
-                                  "deepseek-moe-16b", "dbrx-132b"])
+                                  "deepseek-moe-16b", "dbrx-132b", "phi-3-vision-4.2b",
+                                  "seamless-m4t-medium"])
 def test_smoke_model_on_card_matches_cpu(card, arch):
+    """fp32 prefill logits, card against CPU; the VLM with its patch prefix,
+    the enc-dec config with 25 frames (not a multiple of a 64-row tile)."""
     cfg = configs.get_smoke(arch).replace(compute_dtype="float32")
     params = lm.init(torch.Generator().manual_seed(0), cfg, device="cpu")
-    toks = torch.randint(0, cfg.vocab, (2, 23), generator=torch.Generator().manual_seed(1))
-    _, want = lm.prefill(params, cfg, toks, max_len=30)
-    _, got = lm.prefill(tree_to(params, card), cfg, toks.to(card), max_len=30)
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 23), generator=gen)
+    modal = {}
+    if cfg.n_patches:
+        modal["patches"] = torch.randn((2, cfg.n_patches, 1024), generator=gen)
+    if cfg.frame_input:
+        modal["frames"] = torch.randn((2, 25, 1024), generator=gen)
+    max_len = 30 + cfg.n_patches
+    _, want = lm.prefill(params, cfg, toks, max_len=max_len, **modal)
+    _, got = lm.prefill(tree_to(params, card), cfg, toks.to(card), max_len=max_len,
+                        **tree_to(modal, card))
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [512, 1088])
+def test_flash_at_phi3_vision_prefill_shapes(card, l):
+    """phi-3-vision-4.2b's prefill attention, q/k/v [4, L, 32, 96] bf16 (L
+    512 text only, 1088 with the 576-patch prefix), runs the wgmma variant
+    within 2e-2 of the plain version."""
+    rng = np.random.default_rng(l)
+    q, k, v = (torch.from_numpy(rng.standard_normal((4, l, 32, 96), np.float32))
+               .to(torch.bfloat16).to(card) for _ in range(3))
+    n0 = dict(ops.flash_variant_launches)
+    out = ops.flash_attention(q, k, v, causal=True, block_q=64, block_k=64)
+    torch.cuda.synchronize()
+    assert ops.flash_variant_launches == {**n0, "wgmma": n0["wgmma"] + 1}
+    expect = ref.flash_attention_ref(q, k, v, causal=True)
+    np.testing.assert_allclose(out.float().cpu().numpy(), expect.float().cpu().numpy(),
+                               atol=2e-2, rtol=2e-2)
 
 
 @pytest.mark.cuda
@@ -306,11 +337,12 @@ def test_rglru_vec4_refuses_misaligned_inputs(card):
 
 # ---- the training path: lse, the Function's gradients, refusals, a step ------
 
-#: (b, l, h, hkv, hd, window, cap, dtype, tol): the fp32 reference cases on
-#: the fma variant, and bf16 at hd 64, 128 and 256 on wgmma; lse at 1e-5
-#: (fma) and 1e-4 (wgmma, whose exponentials are ex2.approx)
-_LSE_CASES = ([c for c in ref.FLASH_CASES if c[7] == "float32"]
+#: (b, l, h, hkv, hd, window, cap, dtype, tol): the fp32 reference cases and
+#: hd 96 on the fma variant, and bf16 at hd 64, 96, 128 and 256 on wgmma;
+#: lse at 1e-5 (fma) and 1e-4 (wgmma, whose exponentials are ex2.approx)
+_LSE_CASES = ([c for c in ref.FLASH_CASES + ref.FLASH_HD96_CASES if c[7] == "float32"]
               + [(2, 256, 8, 4, 64, 0, 0.0, "bfloat16", 1e-4),
+                 (1, 576, 32, 8, 96, 0, 50.0, "bfloat16", 1e-4),
                  (1, 576, 32, 4, 128, 0, 50.0, "bfloat16", 1e-4),
                  (1, 256, 4, 1, 256, 64, 0.0, "bfloat16", 1e-4)])
 

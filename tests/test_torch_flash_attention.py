@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
@@ -22,7 +23,7 @@ from repro_torch.models import attention  # noqa: E402
 
 torch.set_num_threads(2)
 
-FLASH_CASES = ref.FLASH_CASES + ref.FLASH_HD256_CASES
+FLASH_CASES = ref.FLASH_CASES + ref.FLASH_HD256_CASES + ref.FLASH_HD96_CASES
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -131,11 +132,26 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", fa.HEAD_DIMS)
 def test_variant_by_head_dim_and_dtype(hd, dtype):
-    """bf16 at head dims 16–256 runs on the tensor cores; fp32 (whose 2e-5
-    tolerance rules out TF32) and head dim 8 keep the FMA kernel."""
+    """bf16 at head dims 16–256 (96 included) runs on the tensor cores; fp32
+    (whose 2e-5 tolerance rules out TF32) and head dim 8 keep the FMA
+    kernel."""
     want = "wgmma" if dtype == torch.bfloat16 and hd >= 16 else "fma"
     assert fa.variant(hd, dtype) == want
     assert want in fa.VARIANTS and want in ops.flash_variant_launches
+    assert 96 in fa.HEAD_DIMS and fa.variant(96, torch.bfloat16) == "wgmma"
+
+
+@pytest.mark.parametrize("arch", [a for a in configs.ARCHS if {"attn", "local"} & set(
+    configs.get(a).layer_pattern)])
+def test_every_config_head_dim_is_a_kernel_head_dim(arch):
+    """The reference's kernel takes any head dim and the card's only those
+    it is instantiated at, so every attention config's head dim, at full width and in
+    its smoke config (which may be narrower: phi-3-vision-4.2b runs hd 16
+    there and 96 at full width), must be one of them; the full configs'
+    bf16 serving runs the wgmma variant."""
+    full, smoke = configs.get(arch), configs.get_smoke(arch)
+    assert full.hd in fa.HEAD_DIMS and smoke.hd in fa.HEAD_DIMS
+    assert fa.variant(full.hd, full.cdtype) == "wgmma"
 
 
 def _wgmma_numerics(q, k, v, *, causal, window, softcap):
@@ -213,8 +229,9 @@ def test_build_target_tracks_headers(monkeypatch, tmp_path):
 from repro.models import flash as jflash  # noqa: E402
 from repro_torch.models import flash  # noqa: E402
 
-# (l, causal, window, softcap): causal, windowed, softcapped and non-causal
-_GRAD_CASES = [(l, causal, window, cap) for l in (256, 2048)
+# (l, causal, window, softcap, hd): causal, windowed, softcapped and
+# non-causal, at hd 16 and at phi-3-vision's hd 96
+_GRAD_CASES = [(l, causal, window, cap, hd) for (l, hd) in ((256, 16), (2048, 16), (256, 96))
                for (causal, window, cap) in ((True, 0, 0.0), (True, 96, 0.0),
                                              (True, 0, 30.0), (False, 0, 0.0))]
 
@@ -225,12 +242,12 @@ def _grad_inputs(l, seed, b=1, h=4, hkv=2, hd=16):
     return qn, kn, vn, don
 
 
-@pytest.mark.parametrize("l,causal,window,cap", _GRAD_CASES)
-def test_flash_function_forward_and_grads_vs_jax(l, causal, window, cap):
+@pytest.mark.parametrize("l,causal,window,cap,hd", _GRAD_CASES)
+def test_flash_function_forward_and_grads_vs_jax(l, causal, window, cap, hd):
     """The Function's output and its gradients against ``jax.vjp`` of the
     reference's ``custom_vjp`` (blockwise forward, FA2 backward), fp32 at
     1e-4, on the reference's 512-row tiles."""
-    qn, kn, vn, don = _grad_inputs(l, seed=l + window + int(cap))
+    qn, kn, vn, don = _grad_inputs(l, seed=l + window + int(cap), hd=hd)
     kw = dict(causal=causal, window=window, softcap=cap)
     out_j, vjp = jax.vjp(lambda q, k, v: jflash.flash_attention(q, k, v, **kw),
                          *(jnp.asarray(x) for x in (qn, kn, vn)))
@@ -244,12 +261,12 @@ def test_flash_function_forward_and_grads_vs_jax(l, causal, window, cap):
                                    err_msg=f"d{name}")
 
 
-@pytest.mark.parametrize("l,causal,window,cap", _GRAD_CASES)
-def test_lse_vs_jax_flash_fwd_impl(l, causal, window, cap):
+@pytest.mark.parametrize("l,causal,window,cap,hd", _GRAD_CASES)
+def test_lse_vs_jax_flash_fwd_impl(l, causal, window, cap, hd):
     """The wrapper's lse (the plain version's on the CPU) and the port's
     blockwise forward against the reference's ``_flash_fwd_impl``, 1e-5;
     head h = kv·G + g."""
-    qn, kn, vn, _ = _grad_inputs(l, seed=l + 7)
+    qn, kn, vn, _ = _grad_inputs(l, seed=l + 7, hd=hd)
     b, _, h, hd = qn.shape
     hkv = kn.shape[2]
     kw = dict(causal=causal, window=window, softcap=cap, bq=min(512, l), bk=min(512, l))

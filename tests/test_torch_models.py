@@ -1,5 +1,7 @@
-"""Port model stack against the JAX package: configs, primitives, attention,
-and whole-LM prefill/decode logits on the same converted weights."""
+"""Port model stack against the JAX package: configs, primitives, attention
+(causal, non-causal and cross), and whole-LM prefill/decode logits, caches
+and the loss on the same converted weights, for every family: dense,
+recurrent, VLM (patch prefix) and enc-dec (encoder and cross-attention)."""
 
 import contextlib
 import dataclasses
@@ -24,7 +26,7 @@ torch.set_num_threads(2)
 L, B = 24, 2
 DENSE = ["yi-9b", "gemma2-27b", "qwen1.5-110b", "mistral-large-123b"]
 RECURRENT = ["mamba2-370m", "recurrentgemma-9b"]
-NOT_PORTED = ["phi-3-vision-4.2b", "seamless-m4t-medium"]
+MODAL = ["phi-3-vision-4.2b", "seamless-m4t-medium"]     # VLM, enc-dec
 # fp32 compute differs from JAX only in summation order; bf16 at the
 # reference's own prefill/decode tolerance (tests/test_models.py)
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
@@ -141,29 +143,57 @@ def _flat(tree):
     return {jax.tree_util.keystr(p): v for p, v in jax.tree_util.tree_leaves_with_path(tree)}
 
 
+def _modal_inputs(cfg, rng, b=B, s_frames=3):
+    """The frontend stubs a config takes, as numpy: patches [b, n_patches,
+    1024] for a VLM, frames [b, s_frames, 1024] for an enc-dec config."""
+    out = {}
+    if cfg.n_patches:
+        out["patches"] = rng.standard_normal((b, cfg.n_patches, 1024)).astype(np.float32)
+    if cfg.frame_input:
+        out["frames"] = rng.standard_normal((b, s_frames, 1024)).astype(np.float32)
+    return out
+
+
+def _as_jax(inputs, dtype):
+    return {k: jnp.asarray(v).astype(dtype) for k, v in inputs.items()}
+
+
+def _as_torch(inputs, dtype):
+    return {k: torch.from_numpy(v).to(getattr(torch, dtype)) for k, v in inputs.items()}
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", DENSE + RECURRENT)
+@pytest.mark.parametrize("arch", DENSE + RECURRENT + MODAL)
 def test_lm_forward_prefill_decode_match_jax(arch, dtype):
-    """Forward, prefill (logits and every cache leaf: KV rings and recurrent
-    states), then one decode step (logits and the updated cache).  The
-    mamba2 smoke prompt (L=23, chunk 16) pads 9 rows with dt=0."""
+    """Forward, prefill (logits and every cache leaf: KV rings, recurrent
+    states, the cross-attention memory mk/mv), then one decode step (logits
+    and the updated cache).  The mamba2 smoke prompt (L=23, chunk 16) pads 9
+    rows with dt=0; the VLM's patch prefix counts in L and in the cache's
+    pos; the enc-dec encoder reads 3 frames."""
     cfg = configs.get_smoke(arch).replace(compute_dtype=dtype)
     jcfg = jconfigs.get_smoke(arch).replace(compute_dtype=dtype)
     p_j, p_np = _perturbed_params(jcfg, seed=2)
     p_t = to_torch(p_np, device="cpu")
-    toks = np.random.default_rng(2).integers(0, cfg.vocab, (B, L)).astype(np.int32)
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, cfg.vocab, (B, L)).astype(np.int32)
+    modal = _modal_inputs(cfg, rng)
+    mj, mt = _as_jax(modal, dtype), _as_torch(modal, dtype)
+    n_pre = cfg.n_patches
+    max_len = n_pre + L + 4
     tol = TOL[dtype]
 
     with _jax_mode(dtype):
-        logits_j, _ = jlm.forward(p_j, jcfg, jnp.asarray(toks))
-        cache_j, pre_j = jlm.prefill(p_j, jcfg, jnp.asarray(toks[:, :-1]), max_len=L + 4)
+        logits_j, _ = jlm.forward(p_j, jcfg, jnp.asarray(toks), **mj)
+        cache_j, pre_j = jlm.prefill(p_j, jcfg, jnp.asarray(toks[:, :-1]), max_len=max_len,
+                                     **mj)
         dec_j, dec_cache_j = jlm.decode_step(p_j, jcfg, jnp.asarray(toks[:, -1:]), cache_j)
-    logits_t, aux = lm.forward(p_t, cfg, torch.from_numpy(toks))
-    assert logits_t.shape == (B, L, cfg.padded_vocab) and float(aux) == 0.0
+    logits_t, aux = lm.forward(p_t, cfg, torch.from_numpy(toks), **mt)
+    assert logits_t.shape == (B, n_pre + L, cfg.padded_vocab) and float(aux) == 0.0
     np.testing.assert_allclose(logits_t.numpy(), np.asarray(logits_j, np.float32),
                                atol=tol, rtol=tol)
 
-    cache_t, pre_t = lm.prefill(p_t, cfg, torch.from_numpy(toks[:, :-1]), max_len=L + 4)
+    cache_t, pre_t = lm.prefill(p_t, cfg, torch.from_numpy(toks[:, :-1]), max_len=max_len,
+                                **mt)
     np.testing.assert_allclose(pre_t.numpy(), np.asarray(pre_j, np.float32),
                                atol=tol, rtol=tol)
     flat_t, flat_j = _flat({k: v for k, v in cache_t.items() if k != "pos"}), \
@@ -172,23 +202,27 @@ def test_lm_forward_prefill_decode_match_jax(arch, dtype):
     for key, leaf in flat_t.items():
         np.testing.assert_allclose(leaf.float().numpy(), np.asarray(flat_j[key], np.float32),
                                    atol=tol, rtol=tol, err_msg=key)
-    assert cache_t["pos"] == int(cache_j["pos"]) == L - 1
+    assert cache_t["pos"] == int(cache_j["pos"]) == n_pre + L - 1
+    if cfg.enc_dec:
+        assert cache_t["blocks"]["s0"]["mk"].shape[-3] == modal["frames"].shape[1]
 
     dec_t, cache_t = lm.decode_step(p_t, cfg, torch.from_numpy(toks[:, -1:]), cache_t)
     np.testing.assert_allclose(dec_t.numpy(), np.asarray(dec_j, np.float32),
                                atol=tol, rtol=tol)
-    assert cache_t["pos"] == L
+    assert cache_t["pos"] == n_pre + L
     for key, leaf in _flat({k: v for k, v in cache_t.items() if k != "pos"}).items():
         np.testing.assert_allclose(leaf.float().numpy(), np.asarray(_flat(
             {k: v for k, v in dec_cache_j.items() if k != "pos"})[key], np.float32),
             atol=tol, rtol=tol, err_msg=key)
 
 
-@pytest.mark.parametrize("arch", ["yi-9b", "gemma2-27b"] + RECURRENT)
+@pytest.mark.parametrize("arch", ["yi-9b", "gemma2-27b"] + RECURRENT + MODAL)
 def test_init_tree_layout_matches_jax(arch):
-    """Same keys and shapes for the parameters (``rem/r*`` included) and
-    the decode cache (KV rings, fp32 recurrent ``h`` states, conv tails in
-    the compute dtype)."""
+    """Same keys and shapes for the parameters (``rem/r*``, ``w_patch``,
+    ``w_frame``, the encoder and the cross-attention ``lnx``/``xattn``
+    included) and the decode cache (KV rings, fp32 recurrent ``h`` states,
+    conv tails in the compute dtype, ``mk``/``mv`` of max(1, max_len // 8)
+    rows)."""
     cfg = configs.get_smoke(arch)
     mine = lm.init(torch.Generator().manual_seed(0), cfg, device="cpu")
     theirs = jlm.init(jax.random.PRNGKey(0), jconfigs.get_smoke(arch))
@@ -202,12 +236,6 @@ def test_init_tree_layout_matches_jax(arch):
             == {k: (tuple(v.shape), str(v.dtype)) for k, v in _flat(cache_t).items()})
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        lm.init(torch.Generator().manual_seed(0), configs.get_smoke(arch), device="cpu")
-
-
 def test_convert_round_trip_keeps_bf16_through_fp32():
     tree = jlm.init(jax.random.PRNGKey(0),
                     jconfigs.get_smoke("yi-9b").replace(param_dtype="bfloat16"))
@@ -217,3 +245,115 @@ def test_convert_round_trip_keeps_bf16_through_fp32():
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
         assert a.dtype == np.float32
         np.testing.assert_array_equal(a, np.asarray(b.astype(jnp.float32)))
+
+
+# ---- enc-dec: non-causal and cross-attention; the VLM and enc-dec loss ------
+
+
+@pytest.mark.parametrize("mode", ["cross", "cross_causal_flag", "self_noncausal"])
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "qwen1.5-110b"])
+def test_noncausal_and_cross_attention_match_jax(arch, mode):
+    """``apply(kv_override=project_kv(mem))`` (decode's ``causal=False`` and
+    prefill's default ``causal=True``, which under ``kv_override`` masks
+    nothing) and the encoder's ``apply(causal=False)`` against the JAX
+    package, fp32 at 1e-5.  The memory has S = 70 rows, not a multiple of a
+    64-row tile; qwen1.5's biases (made nonzero) show that ``project_kv``
+    adds none, and under ``kv_override`` q gets no RoPE."""
+    cfg = configs.get_smoke(arch).replace(compute_dtype="float32")
+    jcfg = jconfigs.get_smoke(arch).replace(compute_dtype="float32")
+    rng = np.random.default_rng(4)
+    p_np = _np_tree(jattention.init(jax.random.PRNGKey(4), jcfg))
+    p_np = {k: (v + rng.standard_normal(v.shape).astype(np.float32) if k.startswith("b")
+                else v) for k, v in p_np.items()}
+    p_j, p_t = jax.tree.map(jnp.asarray, p_np), to_torch(p_np, device="cpu")
+    x = rng.standard_normal((B, L, cfg.d_model)).astype(np.float32)
+    mem = rng.standard_normal((B, 70, cfg.d_model)).astype(np.float32)
+    pos = np.arange(L)[None].repeat(B, 0) + 5
+
+    if mode == "self_noncausal":
+        out_j = jattention.apply(p_j, jcfg, jnp.asarray(x), jnp.asarray(pos), causal=False)
+        out_t = attention.apply(p_t, cfg, torch.from_numpy(x), torch.from_numpy(pos),
+                                causal=False)
+    else:
+        mk_j, mv_j = jattention.project_kv(p_j, jcfg, jnp.asarray(mem))
+        mk_t, mv_t = attention.project_kv(p_t, cfg, torch.from_numpy(mem))
+        assert mk_t.shape == (B, 70, cfg.n_kv_heads, cfg.hd)
+        for a, b in ((mk_t, mk_j), (mv_t, mv_j)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5, rtol=1e-5)
+        causal = mode == "cross_causal_flag"
+        out_j = jattention.apply(p_j, jcfg, jnp.asarray(x), jnp.asarray(pos),
+                                 kv_override=(mk_j, mv_j), causal=causal)
+        out_t = attention.apply(p_t, cfg, torch.from_numpy(x), None,
+                                kv_override=(mk_t, mv_t), causal=causal)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=1e-5, rtol=1e-5)
+
+
+def _loss_batch(cfg, seed):
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (B, L)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab, (B, L)).astype(np.int32),
+             "mask": (rng.random((B, L)) < 0.8).astype(np.float32)}
+    batch.update(_modal_inputs(cfg, rng))
+    return batch
+
+
+@pytest.mark.parametrize("remat", ["none", "dots"])
+@pytest.mark.parametrize("arch", MODAL)
+def test_modal_loss_and_grads_match_jax_fp32(arch, remat):
+    """loss_fn and every parameter's gradient (``w_patch``; the encoder,
+    ``w_frame`` and the cross-attention weights) against
+    ``jax.value_and_grad(repro.models.lm.loss_fn)``, fp32 at 1e-4, with
+    and without remat (the encoder's blocks run under it too)."""
+    cfg = configs.get_smoke(arch).replace(compute_dtype="float32", remat=remat)
+    jcfg = jconfigs.get_smoke(arch).replace(compute_dtype="float32", remat=remat)
+    p_j, p_np = _perturbed_params(jcfg, seed=5)
+    batch = _loss_batch(cfg, seed=5)
+    (lj, mj), gj = jax.jit(jax.value_and_grad(jlm.loss_fn, has_aux=True),
+                           static_argnums=1)(p_j, jcfg, jax.tree.map(jnp.asarray, batch))
+    params = jax.tree.map(lambda t: t.requires_grad_(), to_torch(p_np, device="cpu"))
+    loss, metrics = lm.loss_fn(params, cfg, {k: torch.from_numpy(v) for k, v in batch.items()})
+    loss.backward()
+    assert float(loss.detach()) == pytest.approx(float(lj), rel=1e-4, abs=1e-4)
+    assert float(metrics["tokens"]) == float(mj["tokens"]) == batch["mask"].sum()
+    grads = _flat(jax.tree.map(lambda t: t.grad, params))
+    grads_j = _flat(gj)
+    assert grads.keys() == grads_j.keys()
+    for key, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), np.asarray(grads_j[key]), atol=1e-4, rtol=1e-4,
+                                   err_msg=key)
+        if "w_patch" in key or "w_frame" in key or "xattn" in key or "encoder" in key:
+            assert g.abs().max() > 0, key
+
+
+@pytest.mark.parametrize("arch", MODAL)
+def test_modal_loss_matches_eager_jax_bf16(arch):
+    """bf16 loss against JAX op by op at 3e-2 (the reference's bf16 model
+    tolerance); the gradients finite."""
+    cfg = configs.get_smoke(arch).replace(compute_dtype="bfloat16", remat="none")
+    jcfg = jconfigs.get_smoke(arch).replace(compute_dtype="bfloat16", remat="none")
+    p_j, p_np = _perturbed_params(jcfg, seed=6)
+    batch = _loss_batch(cfg, seed=6)
+    with jax.disable_jit():
+        lj, _ = jlm.loss_fn(p_j, jcfg, jax.tree.map(jnp.asarray, batch))
+    params = jax.tree.map(lambda t: t.requires_grad_(), to_torch(p_np, device="cpu"))
+    loss, _ = lm.loss_fn(params, cfg, {k: torch.from_numpy(v) for k, v in batch.items()})
+    loss.backward()
+    assert abs(float(loss.detach()) - float(lj)) <= 3e-2
+    assert all(bool(torch.isfinite(t.grad).all()) for t in common.tree_leaves(params))
+
+
+def test_vlm_loss_scores_only_the_text_tail():
+    """The VLM's loss is the cross-entropy of the logits after the patch
+    prefix against the text labels: the prefix's logits take no part."""
+    cfg = configs.get_smoke("phi-3-vision-4.2b").replace(compute_dtype="float32")
+    params = lm.init(torch.Generator().manual_seed(7), cfg, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in _loss_batch(cfg, seed=7).items()}
+    with torch.no_grad():
+        loss, metrics = lm.loss_fn(params, cfg, batch)
+        logits, _ = lm.forward(params, cfg, batch["tokens"], patches=batch["patches"])
+    assert logits.shape[1] == cfg.n_patches + L
+    ll = torch.log_softmax(logits[:, cfg.n_patches:], -1).gather(
+        -1, batch["labels"].long()[..., None])[..., 0]
+    want = -(ll * batch["mask"]).sum() / batch["mask"].sum()
+    assert float(loss) == pytest.approx(float(want), rel=1e-5)
+    assert float(metrics["tokens"]) == float(batch["mask"].sum())

@@ -1,6 +1,7 @@
 """Port serving against the JAX package: fp32 greedy tokens, the engine's
-step functions, the serve-workflow twin on the copied LocalRunner, and the
-serve launcher on the CPU."""
+step functions (with the VLM's patches and the enc-dec frames), the
+serve-workflow twin on the copied LocalRunner, and the serve launcher on the
+CPU."""
 
 import jax
 import jax.numpy as jnp
@@ -11,6 +12,7 @@ torch = pytest.importorskip("torch")
 
 from repro import configs as jconfigs  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
+from repro.serve import engine as jengine  # noqa: E402
 from repro.serve.engine import greedy_generate as jgreedy  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.convert import to_torch  # noqa: E402
@@ -84,8 +86,47 @@ def test_serve_workflow_twin_returns_jax_tokens_exactly_once(yi_fp32):
     assert out["text"][0].startswith(f"<{ref[0, 0]}>")
 
 
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "seamless-m4t-medium"])
+def test_prefill_step_takes_patches_and_frames_as_jax(arch):
+    """``make_prefill_step`` hands the inputs' ``patches`` and ``frames`` to
+    prefill, as the reference's engine does: fp32 last logits at 1e-4, the
+    cache's pos (patches counted) and its mk/mv (the frames' length); then
+    ``make_decode_step`` against the reference's."""
+    jcfg = jconfigs.get_smoke(arch).replace(compute_dtype="float32")
+    cfg = configs.get_smoke(arch).replace(compute_dtype="float32")
+    p_j = jlm.init(jax.random.PRNGKey(3), jcfg)
+    p_t = to_torch(jax.tree.map(np.asarray, p_j), device="cpu")
+    rng = np.random.default_rng(3)
+    inputs = {"tokens": rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32)}
+    if cfg.n_patches:
+        inputs["patches"] = rng.standard_normal((2, cfg.n_patches, 1024)).astype(np.float32)
+    if cfg.frame_input:
+        inputs["frames"] = rng.standard_normal((2, 5, 1024)).astype(np.float32)
+    max_len = 24 + cfg.n_patches
+    cache_j, logits_j = jengine.make_prefill_step(jcfg, max_len=max_len)(
+        p_j, {k: jnp.asarray(v) for k, v in inputs.items()})
+    cache_t, logits_t = engine.make_prefill_step(cfg, max_len=max_len)(
+        p_t, {k: torch.from_numpy(v) for k, v in inputs.items()})
+    np.testing.assert_allclose(logits_t.numpy(), np.asarray(logits_j), atol=1e-4, rtol=1e-4)
+    assert cache_t["pos"] == int(cache_j["pos"]) == cfg.n_patches + 16
+    if cfg.enc_dec:
+        assert cache_t["blocks"]["s0"]["mk"].shape == cache_j["blocks"]["s0"]["mk"].shape
+        assert cache_t["blocks"]["s0"]["mk"].shape[-3] == 5
+    tok = np.argmax(np.asarray(logits_j), -1)[:, None].astype(np.int32)
+    dec_j, _ = jengine.make_decode_step(jcfg)(p_j, jnp.asarray(tok), cache_j)
+    dec_t, _ = engine.make_decode_step(cfg)(p_t, torch.from_numpy(tok), cache_t)
+    np.testing.assert_allclose(dec_t.numpy(), np.asarray(dec_j), atol=1e-4, rtol=1e-4)
+    # greedy_generate takes the same stubs: its first two tokens are these
+    out = engine.greedy_generate(p_t, cfg, torch.from_numpy(inputs["tokens"]), 2,
+                                 **{k: torch.from_numpy(v) for k, v in inputs.items()
+                                    if k != "tokens"})
+    np.testing.assert_array_equal(out[:, 0].numpy(), tok[:, 0])
+    np.testing.assert_array_equal(out[:, 1].numpy(), np.argmax(np.asarray(dec_j), -1))
+
+
 @pytest.mark.parametrize("arch", ["yi-9b", "mamba2-370m", "recurrentgemma-9b",
-                                  "deepseek-moe-16b"])
+                                  "deepseek-moe-16b", "phi-3-vision-4.2b",
+                                  "seamless-m4t-medium"])
 def test_launch_serve_on_cpu(capsys, arch):
     assert launch_serve.main(["--arch", arch, "--smoke", "--device", "cpu",
                               "--batch", "2", "--prompt-len", "16", "--gen", "4"]) == 0
@@ -126,3 +167,11 @@ def test_profile_serve_on_cpu_reports_host_ops_only():
     assert profile_serve.kernel_class(
         "(anonymous namespace)::rglru_scan_kernel(float const*)") == "rglru_scan"
     assert profile_serve._union_us([(0, 4), (2, 6), (8, 9)]) == 7
+
+
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "seamless-m4t-medium"])
+def test_profile_serve_on_cpu_runs_the_modal_archs(arch):
+    """The enc-dec config's encoder gets frames; the VLM serves text only."""
+    r = profile_serve.run(arch, smoke=True, batch=2, prompt_len=16, decode_steps=2,
+                          device="cpu")
+    assert r["arch"] == arch and r["prefill"]["wall_ms"] > 0 and r["decode"]["wall_ms"] > 0

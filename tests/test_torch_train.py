@@ -199,12 +199,14 @@ def _states(cfg, jcfg, seed=0):
     return jstate, _t(_np(jstate))
 
 
-@pytest.mark.parametrize("arch", ["yi-9b", "mamba2-370m", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["yi-9b", "mamba2-370m", "recurrentgemma-9b",
+                                  "phi-3-vision-4.2b", "seamless-m4t-medium"])
 def test_three_train_steps_match_jax(arch):
     """fp32: losses at rtol 1e-4, every parameter and moment at atol 1e-4
-    after each of 3 steps, on make_batch data: the dense path and both
+    after each of 3 steps, on make_batch data: the dense path, both
     recurrent paths that the card now trains through the scans' backward
-    kernels (here their plain versions)."""
+    kernels (here their plain versions), and the VLM and enc-dec paths, whose
+    batches carry make_batch's patches and frames."""
     cfg, jcfg = _cfgs(arch, compute_dtype="float32", remat="dots")
     jstate, state = _states(cfg, jcfg)
     jfn = jax.jit(jstep.make_train_step(jcfg, lr=1e-3))
