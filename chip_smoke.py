@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--skip-mesh]
 
-Phases, in order; any failure exits non-zero and no phase catches its own:
+``--skip-mesh`` leaves out phase 3b, to read the later phases without the
+four ranks' run before them.  Phases, in order; any failure exits non-zero and no phase catches its own:
 
 1. build    — compile every CUDA kernel of the port (one nvcc per source,
               all started together), print the build seconds and each
@@ -62,6 +63,36 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
               prefill logits within 1e-4, equal greedy tokens, flash
               launches per prefill as the decoder's causal self-attention
               layers imply.
+3b. mesh   — the distributed branches on MESH_RANKS = 4 processes that
+              share the card, each a rank of a gloo process group
+              (``spawn``: the parent has initialised CUDA; NCCL refuses two
+              ranks on one device), forming a (2, 2) ("data", "model")
+              DeviceMesh whose groups must be gloo; the ranks load the
+              kernels this run built and never build one.  (a) yi-9b at
+              full width, depth cut to 4 of 48 layers (1.22 B parameters,
+              4.9 GB of fp32 a rank): prefill of [4, 512] under the mesh
+              context (4 flash launches a rank, wgmma in bf16), the cache
+              placed by cache_shardings with shard_kv_seq (a ring of 544
+              slots, 272 a model rank), then 8 decode steps through
+              attention._decode_seqshard against the same rank's plain
+              decode on the unsharded cache: bf16 with the same tokens fed
+              to both, logits within 1e-1; fp32 greedy, logits within 1e-4
+              and equal tokens; then the bf16 steps again with every gloo
+              all-reduce timed.  (b) deepseek-moe-16b at full width, depth
+              cut to 2 of 28 layers (1.60 B parameters, 6.4 GB a rank):
+              prefill of [4, 512] (1024 tokens a rank, expert capacity 120)
+              and 4 decode steps under the context, so moe.apply runs
+              apply_ep; each layer's output held against
+              parallel.ref.apply_ep_emulated on the same input in the rank's
+              process, and the logits against a run with every MoE layer
+              emulated, 3e-2 in bf16 and 1e-5 in fp32; the emulation runs
+              the ranks' own moe.ep_partial, so each layer's input also goes
+              through apply_ep under parallel.ref.no_drop's capacity (1024
+              rows a rank; no assignment dropped on either path, counted)
+              against moe.apply_ref, with the same tolerances.  Prints the mesh and
+              backend, each rank's peak memory, flash launches, step times
+              of both decodes, the time in all-reduces and max|d|; a rank
+              that fails or outlasts MESH_TIMEOUT fails the run.
 4. serve    — launch/serve at full width (random weights from a seed, fp32
               master weights on the card), batch 4, prompt 512, 32 generated
               tokens, for yi-9b, mamba2-370m, recurrentgemma-9b,
@@ -139,6 +170,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -147,6 +179,7 @@ import time
 from unittest import mock
 
 import torch
+import torch.distributed as dist
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
@@ -160,9 +193,14 @@ from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import rglru_scan as rg  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
+from repro_torch.launch import mesh as launch_mesh  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch.profile_serve import _union_us, kernel_class  # noqa: E402
-from repro_torch.models import attention, flash, lm, rglru, ssm  # noqa: E402
+from repro_torch.models import attention, flash, lm, moe, rglru, ssm  # noqa: E402
+from repro_torch.parallel import mesh_ctx  # noqa: E402
+from repro_torch.parallel import ref as mesh_ref  # noqa: E402
+from repro_torch.parallel.mesh_ctx import mesh_context  # noqa: E402
+from repro_torch.parallel.sharding import cache_shardings, distribute_tree  # noqa: E402
 from repro_torch.serve import workflow  # noqa: E402
 from repro_torch.serve.engine import (greedy_generate, make_decode_step,  # noqa: E402
                                       make_prefill_step)
@@ -194,6 +232,20 @@ PHI_PREFIX_SHAPE = (SERVE_BATCH, PHI.n_patches + SERVE_PROMPT, PHI.n_heads, PHI.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 3
 YI_TRAIN = YI.replace(n_layers=4, remat="dots")
 TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, YI.n_heads, YI.n_kv_heads, YI.hd)
+
+# the mesh phase: MESH_RANKS processes share the one card (NCCL refuses two
+# ranks on a device; gloo all-reduces CUDA tensors through host memory) as a
+# (2, 2) ("data", "model") mesh.  (a) yi-9b at full width, depth cut from 48
+# layers to 4, batch 4 × 512 prompt tokens and MESH_DECODE decode steps in a
+# ring of MESH_MAX_LEN slots (272 a model rank); (b) deepseek-moe-16b at full
+# width, depth cut from 28 layers to 2, the same batch and MESH_DS_DECODE
+# decode steps
+MESH_RANKS, MESH_SHAPE, MESH_AXES = 4, (2, 2), ("data", "model")
+MESH_YI = YI.replace(n_layers=4)
+MESH_MAX_LEN, MESH_DECODE = 544, 8
+MESH_DS = DS.replace(n_layers=2)
+MESH_DS_DECODE = 4
+MESH_TIMEOUT = 600
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s
 HBM_BYTES_S = 3.35e12
@@ -982,6 +1034,267 @@ def phase_model() -> None:
 
 
 # ==========================================================================
+# 3b. mesh: the distributed branches, 4 gloo ranks sharing the card
+# ==========================================================================
+
+
+def _mesh_decode(params, cfg, toks, cache, ctx, steps: int, greedy: bool):
+    """``steps`` decode steps from ``cache`` (under ``ctx``, None: plain);
+    greedy feeds each step its own argmax, otherwise the fixed next tokens
+    of ``toks`` (the same inputs for both paths).  Returns (logits [steps, B,
+    Vp] fp32, host ms per step, each ended by a synchronise)."""
+    tok, logits, ms = toks[:, :1], [], []
+    with mesh_context(ctx):
+        for i in range(steps):
+            t0 = time.perf_counter()
+            lg, cache = lm.decode_step(params, cfg, tok, cache)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            logits.append(lg.float())
+            tok = lg.argmax(-1)[:, None] if greedy else toks[:, i + 1:i + 2]
+    return torch.stack(logits), ms
+
+
+def _mesh_seqshard(mesh) -> dict:
+    """(a) yi-9b at full width, MESH_YI's depth: prefill under the context
+    (flash on the card), the cache placed with its slots over the model
+    axis, MESH_DECODE steps through ``_decode_seqshard`` against the same
+    steps of the plain decode on the unsharded cache: bf16 with the same
+    tokens fed to both (logits within 1e-1), fp32 greedy (logits within
+    1e-4, equal tokens)."""
+    ctx = launch_mesh.make_ctx(mesh, shard_kv_seq=True)
+    params = lm.init(_gen(0), MESH_YI)
+    toks = torch.randint(0, MESH_YI.vocab, (SERVE_BATCH, SERVE_PROMPT + MESH_DECODE + 1),
+                         generator=_gen(1), device="cuda")
+    out = {}
+    for dtype, tol, greedy in (("bfloat16", 1e-1, False), ("float32", 1e-4, True)):
+        cfg = MESH_YI.replace(compute_dtype=dtype)
+        ops.reset_launches()
+        with mesh_context(ctx):
+            cache, _ = lm.prefill(params, cfg, toks[:, :SERVE_PROMPT], max_len=MESH_MAX_LEN)
+        torch.cuda.synchronize()
+        launches, variants = ops.launches["flash_attention"], dict(ops.flash_variant_launches)
+        plain_cache = {**cache, "blocks": _clone_tree(cache["blocks"])}
+        seq_cache = distribute_tree(cache, cache_shardings(cache, ctx), ctx)
+        del cache
+        rest = toks[:, SERVE_PROMPT:]
+        mesh_ctx.reset_collective_stats()
+        seq, seq_ms = _mesh_decode(params, cfg, rest, seq_cache, ctx, MESH_DECODE, greedy)
+        calls = mesh_ctx.collective_stats["calls"]
+        plain, plain_ms = _mesh_decode(params, cfg, rest, plain_cache, None, MESH_DECODE,
+                                       greedy)
+        r = {"flash_launches": launches, "flash_by_variant": variants,
+             "max_abs_err": _max_err(seq, plain), "tol": tol,
+             "tokens_equal": bool(torch.equal(seq.argmax(-1), plain.argmax(-1))),
+             "finite": bool(torch.isfinite(seq).all()), "seq_step_ms": seq_ms,
+             "plain_step_ms": plain_ms, "all_reduces": calls,
+             "local_ring": list(seq_cache["blocks"]["s0"]["k"].to_local().shape)}
+        if dtype == "bfloat16":
+            # the same steps again with every all-reduce timed on its own
+            mesh_ctx.reset_collective_stats(timed=True)
+            _, timed_ms = _mesh_decode(params, cfg, rest, seq_cache, ctx, MESH_DECODE, False)
+            r["timed_step_ms"] = timed_ms
+            r["all_reduce_s"] = mesh_ctx.collective_stats["seconds"]
+            mesh_ctx.reset_collective_stats()
+        out[dtype] = r
+        del seq_cache, plain_cache
+    del params
+    _free()
+    return out
+
+
+def _mesh_ep(mesh) -> dict:
+    """(b) deepseek-moe-16b at full width, MESH_DS's depth: prefill of
+    [4, 512] and MESH_DS_DECODE decode steps (the same tokens on every run)
+    under the context, so every MoE layer runs ``apply_ep``; each layer's
+    output held against ``apply_ep_emulated`` on the same input, and the
+    last logits against a run with every MoE layer emulated.  The emulation
+    runs the ranks' own ``moe.ep_partial``; so each layer's input goes
+    through ``apply_ep`` once more under ``parallel.ref.no_drop``'s capacity,
+    where nothing drops on either path (counted), against ``moe.apply_ref``
+    on the card in the rank's process."""
+    ctx = launch_mesh.make_ctx(mesh)
+    sizes = mesh_ctx.mesh_shape(mesh)
+    params = lm.init(_gen(2), MESH_DS)
+    toks = torch.randint(0, MESH_DS.vocab, (SERVE_BATCH, SERVE_PROMPT + MESH_DS_DECODE),
+                         generator=_gen(3), device="cuda")
+    apply = moe.apply
+    out = {}
+    for dtype, tol in (("bfloat16", 3e-2), ("float32", 1e-5)):
+        cfg = MESH_DS.replace(compute_dtype=dtype)
+
+        def run(ctx, layer):
+            with mesh_context(ctx), mock.patch.object(moe, "apply", layer):
+                cache, lg = lm.prefill(params, cfg, toks[:, :SERVE_PROMPT],
+                                       max_len=SERVE_PROMPT + MESH_DS_DECODE)
+                logits = [lg.float()]
+                for i in range(MESH_DS_DECODE):
+                    lg, cache = lm.decode_step(
+                        params, cfg, toks[:, SERVE_PROMPT + i:SERVE_PROMPT + i + 1], cache)
+                    logits.append(lg.float())
+            torch.cuda.synchronize()
+            return torch.stack(logits)
+
+        calls = []
+
+        def recorded(p, c, x):
+            y = apply(p, c, x)
+            calls.append((p, x, y))
+            return y
+
+        ops.reset_launches()
+        mesh_ctx.reset_collective_stats()
+        t0 = time.perf_counter()
+        logits = run(ctx, recorded)
+        wall = time.perf_counter() - t0
+        launches, variants = ops.launches["flash_attention"], dict(ops.flash_variant_launches)
+        all_reduces = mesh_ctx.collective_stats["calls"]
+        layer_err = max(_max_err(y, mesh_ref.apply_ep_emulated(p, cfg, x, sizes))
+                        for p, x, y in calls)
+        # the independent oracle: every rank runs these all-reduces in one order
+        nd = mesh_ref.no_drop(cfg)
+        with mesh_context(ctx):
+            ref_err = max(_max_err(moe.apply(p, nd, x), moe.apply_ref(p, nd, x))
+                          for p, x, _ in calls)
+        ref_dropped = sum(mesh_ref.dropped(p, nd, x) + mesh_ref.dropped(p, nd, x, sizes)
+                          for p, x, _ in calls)
+        shapes = sorted({tuple(x.shape) for _, x, _ in calls})
+        n_calls = len(calls)
+        calls.clear()
+        emulated = run(None, lambda p, c, x: mesh_ref.apply_ep_emulated(p, c, x, sizes))
+        out[dtype] = {"flash_launches": launches, "flash_by_variant": variants,
+                      "moe_calls": n_calls, "moe_shapes": shapes,
+                      "layer_max_abs_err": layer_err,
+                      "logits_max_abs_err": _max_err(logits, emulated), "tol": tol,
+                      "apply_ref_max_abs_err": ref_err, "apply_ref_dropped": ref_dropped,
+                      "no_drop_capacity_prefill": moe.ep_capacity(
+                          SERVE_PROMPT * SERVE_BATCH // ctx.batch_size, nd),
+                      "finite": bool(torch.isfinite(logits).all()), "all_reduces": all_reduces,
+                      "ep_capacity_prefill": moe.ep_capacity(
+                          SERVE_PROMPT * SERVE_BATCH // ctx.batch_size, cfg),
+                      "run_s": wall}
+    del params
+    _free()
+    return out
+
+
+def _mesh_rank(rank: int, world: int, directory: str) -> None:
+    """One rank of the mesh phase (a ``spawn`` target: the module imports
+    without a card and starts no process group).  Loads the kernels the
+    parent built, never building one; writes ``<directory>/rank<r>.json``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    missing = [n for n in build.SOURCES if not build._target(n).exists()]
+    if missing:
+        _fail(f"rank {rank}: kernels {missing} not built by the parent")
+    launch_mesh.init_ranks(rank, world, f"file://{directory}/rendezvous")
+    mesh = launch_mesh.make_mesh(MESH_SHAPE, MESH_AXES)
+    r = {"rank": rank, "coord": {a: mesh.get_local_rank(a) for a in MESH_AXES},
+         "backend": {a: dist.get_backend(mesh.get_group(a)) for a in MESH_AXES},
+         "device": str(torch.device("cuda", torch.cuda.current_device()))}
+    if set(r["backend"].values()) != {"gloo"}:
+        _fail(f"rank {rank}: mesh groups {r['backend']}, not gloo")
+    with torch.no_grad():
+        r["seqshard"] = _mesh_seqshard(mesh)
+        r["ep"] = _mesh_ep(mesh)
+    r["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    with open(os.path.join(directory, f"rank{rank}.json"), "w") as f:
+        json.dump(r, f)
+    dist.destroy_process_group()
+
+
+def phase_mesh() -> tuple:
+    """Spawn MESH_RANKS ranks on the card, wait for all (a rank that fails
+    or outlasts MESH_TIMEOUT fails the phase and the others are killed),
+    then check and print each rank's results.  Returns (the phase's flash
+    launches as a path's launches, by variant, the ranks' results)."""
+    _free()
+    _log(f"[mesh] parent: {torch.cuda.memory_allocated()} B allocated before spawning "
+         f"{MESH_RANKS} ranks")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    directory = tempfile.mkdtemp(prefix="mesh-", dir=os.path.join(ROOT, "build"))
+    spawn = multiprocessing.get_context("spawn")
+    procs = [spawn.Process(target=_mesh_rank, args=(r, MESH_RANKS, directory))
+             for r in range(MESH_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    while any(p.is_alive() for p in procs) and time.perf_counter() - t0 < MESH_TIMEOUT:
+        if any(p.exitcode not in (None, 0) for p in procs):
+            break
+        time.sleep(0.5)
+    codes = [p.exitcode for p in procs]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join()
+    if codes != [0] * MESH_RANKS:
+        _fail(f"mesh ranks exited {codes} (None: still running after {MESH_TIMEOUT} s)")
+    ranks = []
+    for i in range(MESH_RANKS):
+        with open(os.path.join(directory, f"rank{i}.json")) as f:
+            ranks.append(json.load(f))
+    _log(f"[mesh] {MESH_RANKS} ranks in {time.perf_counter() - t0:.1f}s: mesh "
+         f"{dict(zip(MESH_AXES, MESH_SHAPE))}, backend {ranks[0]['backend']}, all on "
+         f"{ranks[0]['device']}")
+    flash = dict.fromkeys(fa.VARIANTS, 0)
+    for r in ranks:
+        s, e = r["seqshard"], r["ep"]
+        _log(f"[mesh] rank {r['rank']} {r['coord']}: peak mem {r['peak_mem_gb']:.2f} GB; flash "
+             f"launches (a) {s['bfloat16']['flash_launches']} bf16 "
+             f"{s['bfloat16']['flash_by_variant']} + {s['float32']['flash_launches']} fp32, "
+             f"(b) {e['bfloat16']['flash_launches']} bf16 + {e['float32']['flash_launches']} "
+             f"fp32")
+        for dtype, a in s.items():
+            _log(f"[mesh]   (a) yi-9b {MESH_YI.n_layers}L seq-sharded decode {dtype}: max|d| "
+                 f"{a['max_abs_err']:.3e} vs plain (tol {a['tol']}), tokens equal "
+                 f"{a['tokens_equal']}, step ms seq {_ms_list(a['seq_step_ms'])} plain "
+                 f"{_ms_list(a['plain_step_ms'])}, {a['all_reduces']} all-reduces, local "
+                 f"ring {a['local_ring']}" + (
+                     f"; timed pass: {a['all_reduce_s'] * 1e3:.3f} ms in all-reduces over "
+                     f"{MESH_DECODE} steps (step ms {_ms_list(a['timed_step_ms'])})"
+                     if "all_reduce_s" in a else ""))
+            if not (a["max_abs_err"] <= a["tol"] and a["finite"]) or (
+                    dtype == "float32" and not a["tokens_equal"]):
+                _fail(f"rank {r['rank']} seq-sharded decode {dtype}: {a}")
+        for dtype, b in e.items():
+            _log(f"[mesh]   (b) deepseek-moe-16b {MESH_DS.n_layers}L apply_ep {dtype}: layer "
+                 f"max|d| {b['layer_max_abs_err']:.3e}, logits max|d| "
+                 f"{b['logits_max_abs_err']:.3e} vs emulation (tol {b['tol']}), capacity "
+                 f"{b['ep_capacity_prefill']}, {b['all_reduces']} all-reduces, moe inputs "
+                 f"{b['moe_shapes']}, run {b['run_s']:.3f}s; no-drop capacity "
+                 f"{b['no_drop_capacity_prefill']}: layer max|d| "
+                 f"{b['apply_ref_max_abs_err']:.3e} vs apply_ref, "
+                 f"{b['apply_ref_dropped']} dropped")
+            if not (b["layer_max_abs_err"] <= b["tol"] and b["logits_max_abs_err"] <= b["tol"]
+                    and b["apply_ref_max_abs_err"] <= b["tol"]
+                    and b["apply_ref_dropped"] == 0 and b["finite"]):
+                _fail(f"rank {r['rank']} apply_ep {dtype}: {b}")
+        want = (MESH_YI.n_layers, MESH_DS.n_layers)
+        got = (s["bfloat16"]["flash_by_variant"]["wgmma"], e["bfloat16"]["flash_by_variant"]
+               ["wgmma"])
+        if got != want:
+            _fail(f"rank {r['rank']} bf16 prefills ran {got} wgmma flash launches, not {want}")
+        for part in (s, e):
+            for a in part.values():
+                for v, n in a["flash_by_variant"].items():
+                    flash[v] += n
+    launches = {**dict.fromkeys(ops.launches, 0), "flash_attention": sum(flash.values())}
+    return launches, {"flash_attention": flash, "ssd_scan": dict.fromkeys(ssd.VARIANTS, 0),
+                      "rglru_scan": dict.fromkeys(rg.VARIANTS, 0)}, ranks
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def _ms_list(ms) -> str:
+    return "[" + ", ".join(f"{m:.3f}" for m in ms) + "]"
+
+
+# ==========================================================================
 # 4. serve and 5. workflow at full width
 # ==========================================================================
 
@@ -1421,7 +1734,11 @@ def phase_refuse() -> None:
             _fail(f"{arch}: a backward on the card did not run through {kernel}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--skip-mesh"]):
+        print(f"usage: chip_smoke.py [--skip-mesh]; got {argv}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("[chip_smoke] no CUDA device (torch.cuda.is_available() is false)",
               file=sys.stderr)
@@ -1437,6 +1754,11 @@ def main() -> int:
     bwd_rows = phase_scan_bwd()
     phase_model()
     by_path, by_variant = {}, {}
+    mesh_path = (f"mesh: {MESH_RANKS} ranks, yi-9b {MESH_YI.n_layers}L and deepseek-moe-16b "
+                 f"{MESH_DS.n_layers}L prefills")
+    mesh = None
+    if argv != ["--skip-mesh"]:
+        by_path[mesh_path], by_variant[mesh_path], mesh = phase_mesh()
     by_path["yi-9b"], by_variant["yi-9b"] = phase_serve("yi-9b")
     phase_workflow("yi-9b")
     by_path["mamba2-370m"], by_variant["mamba2-370m"] = phase_serve("mamba2-370m")
@@ -1493,7 +1815,8 @@ def main() -> int:
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_kernels.json"), "w") as f:
         json.dump({"card": smi, **kernels, "train": train, "train_recurrent": recurrent,
-                   "train_grads_max_err": grads, "commit": commit, "vlm_prefix": prefix},
+                   "train_grads_max_err": grads, "commit": commit, "vlm_prefix": prefix,
+                   "mesh": mesh},
                   f, indent=1)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

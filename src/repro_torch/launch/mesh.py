@@ -1,0 +1,62 @@
+"""Meshes and the ranks that form them.
+
+The port of :mod:`repro.launch.mesh` on ``torch.distributed``.  A mesh is
+a ``DeviceMesh`` with named dims over the ranks of the default process
+group, which :func:`init_ranks` starts (each rank is one process; nothing
+on the machine tells a program of a cluster, so the caller gives the
+rendezvous, the world size and the rank).  Importing this module starts
+nothing.
+
+Like every entry point of the port, these default to ``device_type="cuda"``
+and raise without a card unless given ``"cpu"``.  The default backend is
+gloo: it runs on CPU and CUDA tensors alike, and several ranks may share
+one card (NCCL refuses two ranks on one device).  The distributed branches
+use only its ``all_reduce``.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+from repro_torch import resolve_device
+from repro_torch.parallel.mesh_ctx import MeshCtx, mesh_shape
+
+
+def init_ranks(rank: int, world_size: int, init_method: str, *,
+               device_type: str = "cuda", backend: str = "gloo") -> None:
+    """Start this process's rank of the default process group.
+
+    ``init_method`` is a rendezvous URL (``tcp://localhost:<port>`` or
+    ``file://<path>``).  On the card, rank r selects card
+    ``r % device_count()`` before the group forms, so that ranks share the
+    cards round-robin.
+    """
+    dev = resolve_device(device_type)
+    if dev.type == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(backend, init_method=init_method, rank=rank,
+                            world_size=world_size)
+
+
+def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], *,
+              device_type: str = "cuda") -> DeviceMesh:
+    """A ``DeviceMesh`` of ``shape`` with dims named ``axes`` over the
+    default process group's ranks (:func:`init_ranks` first); its per-axis
+    groups take the default group's backend."""
+    resolve_device(device_type)
+    if not dist.is_initialized():
+        raise RuntimeError("no default process group: call init_ranks first")
+    return init_device_mesh(device_type, tuple(shape), mesh_dim_names=tuple(axes))
+
+
+def make_ctx(mesh, **knobs) -> MeshCtx:
+    """MeshCtx with the batch axes derived from the mesh's axis names
+    (``mesh`` a ``DeviceMesh`` or a mapping of axis sizes) and parameters
+    FSDP-sharded over ``data``."""
+    batch = tuple(a for a in mesh_shape(mesh) if a in ("pod", "data"))
+    return MeshCtx(mesh, batch_axes=batch, fsdp_axes=("data",), **knobs)
+

@@ -14,7 +14,11 @@ The port of :mod:`repro.models.attention`:
     length: the flash path pads L to a multiple of 64, which is exact only
     under the causal mask;
   * decode of one token against a ring-buffer KV cache keeps the masked
-    dense ``_sdpa`` (the JAX package has no kernel for decode).
+    dense ``_sdpa`` (the JAX package has no kernel for decode);
+  * under a mesh context with ``shard_kv_seq``, a cache placed as DTensors
+    with its slots over the model axis decodes through the flash-decoding
+    :func:`_decode_seqshard`, a two-phase softmax over the ranks' slot
+    blocks.
 """
 
 from __future__ import annotations
@@ -29,6 +33,9 @@ from repro_torch.kernels import ops
 from repro_torch.models import flash
 from repro_torch.models.common import (ModelConfig, apply_rope, dense_init,
                                        rope_angles, softcap)
+from repro_torch.parallel.mesh_ctx import (all_reduce, current_ctx, gather_dim0,
+                                           is_distributed)
+from repro_torch.parallel.sharding import local_slices, spec_of
 
 NEG_INF = -2.3819763e38   # keep finite (matches the flash kernel's masking)
 FLASH_BLOCK = 64          # prefill pads L up to a multiple of this
@@ -231,7 +238,10 @@ def decode_step(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
     """x: [B,1,D]; pos: absolute position. Returns (out [B,1,D], cache).
 
     The new k/v row is written into the ring in place (JAX returns a fresh
-    cache), so the cache passed in is the cache returned.
+    cache), so the cache passed in is the cache returned.  Under a mesh
+    context with ``shard_kv_seq``, a cache of DTensors whose slots the model
+    axis divides takes :func:`_decode_seqshard`; a plain-tensor cache takes
+    the plain path.
     """
     b, l, _ = x.shape
     hd, ct = cfg.hd, cfg.cdtype
@@ -239,6 +249,14 @@ def decode_step(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
     cos, sin = rope_angles(torch.tensor([pos], device=x.device), hd, cfg.rope_theta)
     q = apply_rope(q, cos[None], sin[None])
     k = apply_rope(k, cos[None], sin[None])
+
+    ctx = current_ctx()
+    if (ctx is not None and ctx.shard_kv_seq and is_distributed(cache["k"])
+            and cache["k"].shape[1] % ctx.model_size == 0):
+        out, ck, cv = _decode_seqshard(cfg, q, k, v, cache["k"], cache["v"], pos, window,
+                                       ctx)
+        out = out.reshape(b, l, cfg.n_heads * hd) @ params["wo"].to(ct)
+        return out, {"k": ck, "v": cv}
 
     ck, cv = cache["k"], cache["v"]
     slots = ck.shape[1]
@@ -264,3 +282,65 @@ def _slot_position(idx: torch.Tensor, cur_slot: int, slots: int,
     """Absolute position stored in each ring slot right after writing ``pos``."""
     delta = (cur_slot - idx) % slots
     return pos - delta
+
+
+# ==========================================================================
+# Flash-decoding: the KV ring sharded over the model axis on the SEQUENCE dim
+# with a two-phase softmax.  Per decode step the only traffic between ranks
+# is the [B,H] max, the [B,H] denominator and the [B,H,hd] numerator.
+# ==========================================================================
+
+
+def _decode_seqshard(cfg: ModelConfig, q, k_new, v_new, cache_k, cache_v, pos: int,
+                     window: int, ctx):
+    """One token against a KV ring of DTensors [B, S, Hkv, hd] whose slot
+    dim is sharded over the model axis (and batch over the batch axes, or
+    not at all).  q, k_new, v_new: [B, 1, ·, hd], the global batch.
+
+    The rank owning the ring row of ``pos`` writes the new k/v into its
+    local block in place; the others leave theirs untouched.  Each rank's
+    logits over its slots (masked by the global slot index) give a local
+    max, all-reduced by MAX over the model axis, then the denominator and
+    the numerator [B,Hkv,G,1,hd] are all-reduced by SUM.  Returns (out
+    [B, 1, H, hd] global on every rank, cache_k, cache_v).
+    """
+    b, l, h, hd = q.shape
+    hkv = cfg.n_kv_heads
+    g = h // hkv
+    slots = cache_k.shape[1]
+    spec = spec_of(cache_k)
+    if spec[1] != ctx.model_axis or spec_of(cache_v) != spec:
+        raise ValueError(f"the KV ring's layout {spec} does not shard its slots over "
+                         f"the model axis {ctx.model_axis!r} alone")
+    rows, cols = local_slices(tuple(cache_k.shape), spec, ctx)[:2]
+    ck, cv = cache_k.to_local(), cache_v.to_local()
+    s_loc = cols.stop - cols.start
+    gslot = pos % slots
+    if cols.start <= gslot < cols.stop:                  # the owner writes the row
+        ck[:, gslot - cols.start] = k_new[rows, 0].to(ck.dtype)
+        cv[:, gslot - cols.start] = v_new[rows, 0].to(cv.dtype)
+
+    # ring validity of this rank's slots at absolute position ``pos``
+    idx = cols.start + torch.arange(s_loc, device=q.device)     # global slots
+    kpos = pos - (gslot - idx) % slots
+    valid = (kpos >= 0) & (kpos <= pos)
+    if window:
+        valid &= kpos > pos - window
+
+    qs = q[rows]
+    bl = qs.shape[0]
+    qg = qs.reshape(bl, l, hkv, g, hd)
+    logits = torch.einsum("blkgd,bskd->bkgls", qg.float(), ck.to(qs.dtype).float())
+    logits = logits / torch.tensor(math.sqrt(hd), dtype=torch.float32)
+    logits = softcap(logits, cfg.attn_softcap)
+    logits = torch.where(valid, logits, torch.tensor(NEG_INF, dtype=torch.float32,
+                                                     device=logits.device))
+    group = ctx.group(ctx.model_axis)
+    m = all_reduce(logits.amax(dim=-1), group, "max")            # [B,Hkv,G,1]
+    p = torch.exp(logits - m[..., None])
+    den = all_reduce(p.sum(dim=-1), group)                       # [B,Hkv,G,1]
+    num = all_reduce(torch.einsum("bkgls,bskd->bkgld", p.to(cv.dtype).float(),
+                                  cv.float()), group)            # [B,Hkv,G,1,hd]
+    out = (num / den[..., None]).to(qs.dtype)
+    out = torch.movedim(out, 3, 1).reshape(bl, l, h, hd)
+    return gather_dim0(out, b, ctx, spec[0]), cache_k, cache_v

@@ -9,7 +9,8 @@ repetitions (``blocks/s{i}``), the remainder layers are unstacked
 (``rem/r{i}``).  The JAX ``lax.scan`` over groups is a Python loop here.
 
 Entry points
-  * :func:`init` — parameters on ``device`` from a ``torch.Generator``.
+  * :func:`init` / :func:`init_shapes` — parameters on ``device`` from a
+    ``torch.Generator`` / on the ``meta`` device (no memory, no numbers).
   * :func:`forward` — tokens (+ modality stubs) → (logits, MoE aux loss).
   * :func:`loss_fn` — next-token cross-entropy (+ MoE aux), the training
     objective.
@@ -127,6 +128,14 @@ def init(gen: torch.Generator, cfg: ModelConfig, *, device="cuda") -> Dict[str, 
     if cfg.frame_input:        # audio: frame-embedding projection (frontend stub)
         params["w_frame"] = dense_init(gen, 1024, cfg.d_model, cfg.pdtype, device=dev)
     return params
+
+
+def init_shapes(cfg: ModelConfig, seed: int = 0) -> Dict[str, Any]:
+    """The parameter tree on the ``meta`` device: :func:`init`'s keys,
+    shapes and dtypes with no allocation (the rule table's input at full
+    width).  ``seed`` is the reference's signature; meta tensors hold no
+    numbers."""
+    return init(torch.Generator().manual_seed(seed), cfg, device="meta")
 
 
 def _index(tree: Dict[str, Any], i: int) -> Dict[str, Any]:

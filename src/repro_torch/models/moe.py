@@ -10,6 +10,10 @@ The port of :mod:`repro.models.moe`, same design:
   * Experts: one batched product per projection, ``[E,C,D]×[E,D,F]``.
   * Combine: gather back per assignment, weighted sum over k.
   * Shared experts (DeepSeek): a dense gated MLP applied to every token.
+  * Expert parallel (:func:`apply_ep`, under a mesh context whose model axis
+    divides the experts): each rank takes its token block and its experts,
+    with the capacity on its local token count, and one all-reduce over the
+    model axis combines the ranks' partial outputs.
 
 ``jax.numpy``'s ``.at[...].set(mode="drop")`` drops out-of-range updates;
 ``index_put`` raises on them instead.  So the buffer has one more expert
@@ -33,6 +37,7 @@ from torch.profiler import record_function
 
 from repro_torch.models import mlp
 from repro_torch.models.common import ModelConfig, dense_init
+from repro_torch.parallel.mesh_ctx import all_reduce, current_ctx, gather_dim0
 
 #: the ``record_function`` ranges of one MoE layer
 SCOPES = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine")
@@ -122,13 +127,17 @@ def dispatch(ids: torch.Tensor, num_experts: int, cap: int
 
 
 def apply(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """x: [B, L, D] → [B, L, D].
-
-    The reference dispatches to its expert-parallel ``apply_ep`` when traced
-    under a mesh context; the port has no mesh context yet, so this is
-    always the single-device :func:`apply_ref`.  ``apply_ep`` comes with
-    the slice that ports ``parallel/`` (ROADMAP Queue 1 item 8).
-    """
+    """x: [B, L, D] → [B, L, D].  Dispatches to the expert-parallel
+    :func:`apply_ep` under a mesh context of ranks whose model axis divides
+    the experts, as the reference does; otherwise (no context, or a context
+    of axis sizes alone, which has no ranks) the single-device
+    :func:`apply_ref`, which doubles as the oracle.  ``apply_ep`` serves
+    only: its all-reduce refuses a tensor that needs a gradient."""
+    ctx = current_ctx()
+    m = cfg.moe
+    assert m is not None
+    if ctx is not None and ctx.on_ranks and m.num_experts % ctx.model_size == 0:
+        return apply_ep(params, cfg, x, ctx)
     return apply_ref(params, cfg, x)
 
 
@@ -168,6 +177,93 @@ def apply_ref(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor) -> torc
 
     if m.num_shared:
         y = y + mlp.apply(params["shared"], cfg, x2d)
+    return y.reshape(b, l, d)
+
+
+# ==========================================================================
+# Expert-parallel path
+# ==========================================================================
+#
+# Token activations are sharded over the batch axes and replicated over the
+# model axis; experts are sharded over the model axis.  Dispatch is
+# collective-free — each model rank selects, from its copy of the batch
+# block, the assignments that target its own experts — and the combine is
+# one all-reduce over the model axis.  The reference's shard_map body is
+# :func:`ep_partial` on the rank's blocks; every rank returns the global
+# result.
+
+
+def ep_capacity(t_loc: int, cfg: ModelConfig) -> int:
+    """Rows per expert on a rank: ⌈t_loc·k·cf/E⌉ on the *local* token count,
+    at least 8, rounded up to a multiple of 8 (not 128 as in
+    :func:`capacity`: which tokens drop depends on the path and on the size
+    of the batch axes)."""
+    m = cfg.moe
+    cap = int(math.ceil(t_loc * m.top_k * m.capacity_factor / m.num_experts))
+    return max(8, ((cap + 7) // 8) * 8)
+
+
+def ep_partial(params: Dict[str, Any], cfg: ModelConfig, x_loc: torch.Tensor,
+               lo: int, e_loc: int) -> torch.Tensor:
+    """One rank's share of the MoE output on its token block ``x_loc``
+    [t_loc, D]: the weighted outputs of experts ``lo … lo+e_loc−1`` only,
+    [t_loc, D] in the compute dtype.  Summed over the model ranks it is the
+    layer's output without the shared experts."""
+    m = cfg.moe
+    t_loc, d = x_loc.shape
+    k, e, ct = m.top_k, m.num_experts, cfg.cdtype
+    cap = ep_capacity(t_loc, cfg)
+    with _scope("moe.route"):
+        ids, weights = route(params, cfg, x_loc)
+    with _scope("moe.dispatch"):
+        s = dispatch(ids, e, cap)
+        local_e = s["expert"] - lo
+        valid = s["kept"] & (local_e >= 0) & (local_e < e_loc)
+        idx_e = torch.where(valid, local_e, e_loc)               # row e_loc = trash
+        idx_c = torch.where(valid, s["pos"], 0)
+        buf = torch.zeros((e_loc + 1, cap, d), dtype=ct, device=x_loc.device)
+        buf = buf.index_put((idx_e, idx_c), x_loc[s["order"] // k].to(ct))[:e_loc]
+    with _scope("moe.experts"):
+        w = {n: params[n][lo:lo + e_loc].to(ct) for n in ("w_gate", "w_up", "w_down")}
+        g = mlp.silu(torch.bmm(buf, w["w_gate"]))
+        u = torch.bmm(buf, w["w_up"])
+        out_buf = torch.bmm(g * u, w["w_down"])                 # [e_loc, C, D]
+    with _scope("moe.combine"):
+        gathered = out_buf[torch.clamp(idx_e, max=e_loc - 1), idx_c]
+        gathered = gathered.masked_fill(~valid[:, None], 0.0)
+        per_assign = gathered[torch.argsort(s["order"])].reshape(t_loc, k, d)
+        return torch.bmm(weights.to(ct)[:, None, :], per_assign)[:, 0, :]
+
+
+def apply_ep(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor, ctx) -> torch.Tensor:
+    """Expert-parallel MoE on this rank of ``ctx``'s mesh; x [B, L, D] is the
+    global batch, which every rank holds, and so is the result.
+
+    The rank takes its token block by its coordinate on the batch axes
+    (the B·L tokens split evenly over them) and its experts by its
+    coordinate on the model axis; the partial outputs are summed by one
+    all-reduce over the model axis in the compute dtype, and the blocks
+    gathered back over the batch axes.  The shared experts run on the whole
+    batch outside, as in the reference.
+    """
+    m = cfg.moe
+    b, l, d = x.shape
+    t, ct = b * l, cfg.cdtype
+    batch = tuple(ctx.batch_axes)
+    if t % ctx.batch_size:
+        raise ValueError(f"{t} tokens do not split over the batch axes {batch} "
+                         f"({ctx.batch_size} blocks)")
+    t_loc = t // ctx.batch_size
+    e_loc = m.num_experts // ctx.model_size
+    x2d = x.reshape(t, d)
+    i = ctx.linear_coord(batch)
+    y = ep_partial(params, cfg, x2d[i * t_loc:(i + 1) * t_loc],
+                   ctx.coord(ctx.model_axis) * e_loc, e_loc).to(ct)
+    with _scope("moe.combine"):
+        all_reduce(y, ctx.group(ctx.model_axis))
+        y = gather_dim0(y, t, ctx, batch)
+    if m.num_shared:
+        y = y + mlp.apply(params["shared"], cfg, x2d.to(ct))
     return y.reshape(b, l, d)
 
 

@@ -10,8 +10,10 @@ reference's parameter tree.  Prefill runs the chunked scan through
 :func:`repro_torch.kernels.ops.ssd_scan` — the hand-written CUDA kernel on the
 card, its plain version (:func:`repro_torch.kernels.ref.ssd_chunked`) on the
 CPU — which also returns the final state that seeds decode.  Decode is plain
-PyTorch: the reference has no decode kernel.  The reference's sharding
-hooks (``_constrain``, ``_batch_model``) come with the distributed paths.
+PyTorch: the reference has no decode kernel.  The reference's layout hints
+(``_constrain``, ``_batch_model``) have no counterpart: the port places no
+activation as a DTensor, so they would change nothing
+(:mod:`repro_torch.parallel.mesh_ctx`).
 """
 
 from __future__ import annotations

@@ -1,0 +1,272 @@
+"""Sharding rules: one rule table serving all 10 architectures.
+
+The port of :mod:`repro.parallel.sharding`, with its tables as they stand.
+Parameters are FSDP-sharded over ``fsdp_axes`` on their "depth" dimension
+and TP/EP-sharded over ``model_axis`` on their parallel dimension (heads /
+ffn / experts / vocab / lru width).  Every rule is *divisibility-guarded* —
+an axis that does not divide the dim is dropped, never errored — so the
+same table covers kv-head counts from 1 to 32 and vocabs from 32k to 256k.
+
+Rules address the **trailing** dims of a leaf: scan-stacked parameters carry
+a leading ``[G, ...]`` group dim that always stays unsharded.
+
+A spec is a tuple with one entry per dim: None (replicated), an axis name,
+or a tuple of axis names (major first), as the reference's
+``PartitionSpec`` entries; the trees of specs returned here equal the
+reference's ``NamedSharding`` specs leaf by leaf.  :func:`placements` turns
+a spec into DTensor placements and :func:`distribute_tree` places a tree of
+global tensors as DTensors by slicing, with no collective.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch.parallel.mesh_ctx import MeshCtx, is_distributed, mesh_shape, spec_axes
+
+Spec = Tuple[Any, ...]
+
+# rule tokens
+_F = "__fsdp__"      # substitute ctx.fsdp_axes
+_M = "__model__"     # substitute ctx.model_axis
+_B = "__batch__"     # substitute ctx.batch_axes
+
+
+# Trailing-dim specs per parameter name.  ``None`` = replicated dim.
+_RULES: Dict[str, Tuple] = {
+    # top level
+    "embed": (_M, _F),            # [Vp, D]
+    "lm_head": (_F, _M),          # [D, Vp]
+    # attention
+    "wq": (_F, _M), "wk": (_F, _M), "wv": (_F, _M), "wo": (_M, _F),
+    "bq": (_M,), "bk": (_M,), "bv": (_M,),
+    # dense mlp
+    "w_gate": (_F, _M), "w_up": (_F, _M), "w_down": (_M, _F),
+    # ssm (mamba2) — separate projections: z/x/dt streams TP over heads;
+    # B/C replicated; out-proj contracts the sharded inner dim, like wo.
+    "wz": (_F, _M), "wx": (_F, _M), "wdt": (_F, _M),
+    "wb": (_F, None), "wc": (_F, None),
+    "w_out": (_M, _F),
+    "conv_x_w": (None, _M), "conv_x_b": (_M,),
+    # rglru — lru width is the TP dim
+    "w_x": (_F, _M), "w_r": (None, _M), "w_i": (None, _M),
+    "conv_b": (_M,), "lam": (_M,),
+}
+
+# expert-parallel overrides for leaves under a "moe" subtree (not "shared")
+_MOE_RULES: Dict[str, Tuple] = {
+    "router": (_F, None),             # [D, E] — router math is fp32+replicated
+    "w_gate": (_M, _F, None),         # [E, D, F]
+    "w_up": (_M, _F, None),
+    "w_down": (_M, None, _F),         # [E, F, D]
+}
+
+# rglru conv weight [K, W]
+_RGLRU_CONV = {"conv_w": (None, _M)}
+
+
+def _resolve(entry, ctx: MeshCtx):
+    if entry == _F:
+        return ctx.fsdp_axes if len(ctx.fsdp_axes) > 1 else ctx.fsdp_axes[0]
+    if entry == _M:
+        return ctx.model_axis
+    if entry == _B:
+        return ctx.batch_axes if len(ctx.batch_axes) > 1 else ctx.batch_axes[0]
+    return entry
+
+
+def safe_spec(shape: Sequence[int], spec: Sequence, mesh: Any) -> Spec:
+    """Drop axes that don't divide their dim; keep everything else.  The
+    result has one entry per dim of ``shape``."""
+    sizes = mesh_shape(mesh)
+    out = []
+    for dim, entry in zip(shape, spec):
+        if entry is None:
+            out.append(None)
+            continue
+        axes = spec_axes(entry)
+        prod = 1
+        for a in axes:
+            prod *= sizes[a]
+        if dim % prod != 0:
+            out.append(None)
+        else:
+            out.append(axes if len(axes) > 1 else axes[0])
+    out += [None] * (len(shape) - len(spec))
+    return tuple(out)
+
+
+def _shape(leaf) -> Tuple[int, ...]:
+    return tuple(getattr(leaf, "shape", ()))
+
+
+def spec_for(path: Sequence[str], leaf, ctx: MeshCtx) -> Spec:
+    """The spec of the leaf at ``path`` (its keys, outermost first)."""
+    names = tuple(str(k) for k in path)
+    name = names[-1]
+    in_moe = "moe" in names and "shared" not in names
+    in_rglru = "rec" in names
+    rule: Optional[Tuple] = None
+    if in_moe and name in _MOE_RULES:
+        rule = _MOE_RULES[name]
+    elif in_rglru and name in _RGLRU_CONV:
+        rule = _RGLRU_CONV[name]
+    elif name in _RULES:
+        rule = _RULES[name]
+    shape = _shape(leaf)
+    if rule is None:
+        return (None,) * len(shape)     # replicated (norm scales, conv, scalars)
+    rule = tuple(_resolve(e, ctx) for e in rule)
+    # right-align the rule onto the trailing dims
+    lead = len(shape) - len(rule)
+    if lead < 0:
+        return (None,) * len(shape)
+    return safe_spec(shape, (None,) * lead + rule, ctx.mesh)
+
+
+def _map_with_path(fn, tree, path: Tuple[str, ...] = ()):
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (str(k),)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def param_shardings(params: Any, ctx: MeshCtx):
+    """Tree of specs matching ``params`` (works on ``meta`` trees too)."""
+    return _map_with_path(lambda path, leaf: spec_for(path, leaf, ctx), params)
+
+
+def cache_shardings(cache: Any, ctx: MeshCtx):
+    """Decode-cache specs.
+
+    KV rings shard batch over the batch axes and then the model axis over
+    (in preference order) the slots with ``shard_kv_seq``, else kv-heads,
+    else head_dim.  Recurrent states shard heads / width over the model
+    axis.  ``pos`` (an int in the port) and 0-d leaves are replicated.
+    """
+    b_axes = tuple(ctx.batch_axes)
+    m = ctx.model_axis
+    msize = ctx.model_size
+
+    def rule(path, leaf) -> Spec:
+        name = path[-1]
+        shape = _shape(leaf)
+        rank = len(shape)
+        if name == "pos" or rank == 0:
+            return (None,) * rank
+        spec: list = [None] * rank
+        if name in ("k", "v", "mk", "mv"):
+            lead = rank - 4                           # (G,)B,S,H,hd
+            spec[lead] = b_axes
+            if ctx.shard_kv_seq and shape[lead + 1] % msize == 0:
+                spec[lead + 1] = m                    # flash-decoding layout
+            elif shape[lead + 2] % msize == 0:
+                spec[lead + 2] = m
+            elif shape[lead + 3] % msize == 0:
+                spec[lead + 3] = m
+        elif name == "h" and rank >= 4:               # ssm: (G,)B,H,P,N
+            lead = rank - 4
+            spec[lead] = b_axes
+            if shape[lead + 1] % msize == 0:
+                spec[lead + 1] = m
+        elif name == "h":                             # rglru: (G,)B,W
+            lead = rank - 2
+            spec[lead] = b_axes
+            if shape[lead + 1] % msize == 0:
+                spec[lead + 1] = m
+        elif name.startswith("conv"):                 # (G,)B,K-1,C
+            lead = rank - 3
+            spec[lead] = b_axes
+            if shape[lead + 2] % msize == 0:
+                spec[lead + 2] = m
+        else:
+            return (None,) * rank
+        return safe_spec(shape, spec, ctx.mesh)
+
+    return _map_with_path(rule, cache)
+
+
+def batch_spec(ctx: MeshCtx, rank: int, *, batch_dim: int = 0) -> Spec:
+    """Batch-sharded activation spec: dim0 over batch axes, rest replicated."""
+    entries: list = [None] * rank
+    entries[batch_dim] = (ctx.batch_axes if len(ctx.batch_axes) > 1
+                          else ctx.batch_axes[0])
+    return tuple(entries)
+
+
+def input_shardings(ctx: MeshCtx, tree: Any):
+    """Shard every input leaf on its leading (batch) dim, guarded."""
+    return _map_with_path(
+        lambda _, leaf: safe_spec(_shape(leaf), [tuple(ctx.batch_axes)], ctx.mesh)
+        if _shape(leaf) else (), tree)
+
+
+# ==========================================================================
+# Specs as DTensor placements, and placing a tree
+# ==========================================================================
+
+
+def placements(spec: Spec, mesh) -> list:
+    """DTensor placements (one per mesh dim) of ``spec`` on ``mesh``.
+
+    A dim sharded over several axes lists them major first, which must be
+    the mesh's own order (DTensor's nesting of ``Shard`` on one dim)."""
+    names = list(mesh.mesh_dim_names)
+    out: list = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        axes = spec_axes(entry)
+        if list(axes) != sorted(axes, key=names.index):
+            raise ValueError(f"spec {spec}: axes {axes} of dim {dim} are not in the "
+                             f"mesh's order {tuple(names)}")
+        for a in axes:
+            out[names.index(a)] = Shard(dim)
+    return out
+
+
+def spec_of(t: DTensor) -> Spec:
+    """The spec of a DTensor's placements (the inverse of :func:`placements`)."""
+    names = t.device_mesh.mesh_dim_names
+    dims: list = [[] for _ in range(t.ndim)]
+    for name, p in zip(names, t.placements):
+        if isinstance(p, Shard):
+            dims[p.dim].append(name)
+        elif not isinstance(p, Replicate):
+            raise ValueError(f"placement {p} has no spec")
+    return tuple(None if not a else (a[0] if len(a) == 1 else tuple(a)) for a in dims)
+
+
+def local_slices(shape: Sequence[int], spec: Spec, ctx: MeshCtx) -> Tuple[slice, ...]:
+    """This rank's block of a tensor of global ``shape`` laid out by ``spec``."""
+    out = []
+    for dim, entry in zip(shape, spec):
+        axes = spec_axes(entry)
+        n = 1
+        for a in axes:
+            n *= ctx.axis_size(a)
+        if dim % n:
+            raise ValueError(f"dim {dim} does not split over {axes}")
+        rows = dim // n
+        i = ctx.linear_coord(axes) if axes else 0
+        out.append(slice(i * rows, (i + 1) * rows))
+    return tuple(out)
+
+
+def distribute(x: torch.Tensor, spec: Spec, ctx: MeshCtx) -> DTensor:
+    """A DTensor from the global value ``x`` that every rank holds: each
+    rank keeps (a copy of) its own block.  No collective runs."""
+    local = x[local_slices(tuple(x.shape), spec, ctx)].clone(
+        memory_format=torch.contiguous_format)
+    return DTensor.from_local(local, ctx.mesh, placements(spec, ctx.mesh),
+                              run_check=False)
+
+
+def distribute_tree(tree: Any, specs: Any, ctx: MeshCtx) -> Any:
+    """Place every tensor of ``tree`` by the matching spec of ``specs``;
+    leaves that are not tensors (a cache's ``pos``) pass through."""
+    if isinstance(tree, dict):
+        return {k: distribute_tree(v, specs[k], ctx) for k, v in tree.items()}
+    if not isinstance(tree, torch.Tensor) or is_distributed(tree):
+        return tree
+    return distribute(tree, specs, ctx)

@@ -9,7 +9,10 @@ and renamed into place, so a torn write is never mistaken for a checkpoint
 checkpoint written by either package restores with the other's ``restore``.
 
 numpy has no bfloat16, so a bf16 leaf is written as fp32; :func:`restore`
-casts every leaf to its template's dtype.
+casts every leaf to its template's dtype.  With ``shardings`` it restores
+onto a mesh, possibly another than the one that saved it (the elastic
+failover path): every rank reads the file and keeps its own block of each
+leaf as a DTensor.
 """
 
 from __future__ import annotations
@@ -21,8 +24,11 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import resolve_device
+from repro_torch.parallel.mesh_ctx import current_ctx
+from repro_torch.parallel.sharding import local_slices, placements
 
 _SEP = "§"
 
@@ -37,15 +43,21 @@ def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     return {prefix: (t.float() if t.dtype == torch.bfloat16 else t).numpy()}
 
 
-def _unflatten(template, flat: Dict[str, np.ndarray], device: torch.device, prefix: str = ""):
+def _unflatten(template, flat: Dict[str, np.ndarray], device: torch.device, prefix: str = "",
+               specs=None, ctx=None):
     if isinstance(template, dict):
-        return {k: _unflatten(v, flat, device, f"{prefix}{_SEP}{k}" if prefix else str(k))
+        return {k: _unflatten(v, flat, device, f"{prefix}{_SEP}{k}" if prefix else str(k),
+                              None if specs is None else specs[k], ctx)
                 for k, v in template.items()}
     a = flat[prefix]
     if tuple(a.shape) != tuple(template.shape):
         raise ValueError(f"checkpoint leaf {prefix} has shape {a.shape}, template "
                          f"{tuple(template.shape)}")
-    return torch.from_numpy(np.array(a)).to(device=device, dtype=template.dtype)
+    if specs is None:
+        return torch.from_numpy(np.array(a)).to(device=device, dtype=template.dtype)
+    local = torch.from_numpy(np.array(a[local_slices(a.shape, specs, ctx)]))
+    return DTensor.from_local(local.to(device=device, dtype=template.dtype), ctx.mesh,
+                              placements(specs, ctx.mesh), run_check=False)
 
 
 def save(state, directory: str, step: int, *, keep: int = 3) -> str:
@@ -78,11 +90,23 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(template, directory: str, *, step: Optional[int] = None, device="cuda") -> Any:
+def restore(template, directory: str, *, step: Optional[int] = None, device="cuda",
+            shardings=None, ctx=None) -> Any:
     """Load a checkpoint into the template's structure and dtypes (a tree of
     tensors, e.g. :func:`repro_torch.train.step.train_state_shapes` on the
-    ``meta`` device) on ``device``."""
+    ``meta`` device) on ``device``.
+
+    ``shardings`` (a tree of specs matching the template, e.g.
+    :func:`repro_torch.parallel.sharding.param_shardings` of it) restores
+    onto ``ctx``'s mesh (default: the ambient context): each leaf becomes a
+    DTensor of which this rank holds its own block, sliced from the file
+    with no collective.
+    """
     dev = resolve_device(device)
+    if shardings is not None:
+        ctx = ctx or current_ctx()
+        if ctx is None:
+            raise ValueError("restore(shardings=...) needs a mesh context")
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -90,4 +114,4 @@ def restore(template, directory: str, *, step: Optional[int] = None, device="cud
     path = os.path.join(directory, f"ckpt_{step:08d}.npz")
     with np.load(path) as data:
         flat = {k: data[k] for k in data.files}
-    return _unflatten(template, flat, dev)
+    return _unflatten(template, flat, dev, specs=shardings, ctx=ctx)

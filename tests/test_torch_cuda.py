@@ -710,3 +710,117 @@ def test_flash_at_the_deepseek_serving_shape_runs_wgmma(card):
     expect = ref.flash_attention_ref(q, k, v, causal=True)
     np.testing.assert_allclose(out.float().cpu().numpy(), expect.float().cpu().numpy(),
                                atol=2e-2, rtol=2e-2)
+
+
+# ==========================================================================
+# the distributed branches: 4 gloo ranks sharing the card, a (2, 2) mesh
+# ==========================================================================
+
+MESH_CASES = ["float32-random", "bfloat16-random", "float32-drop", "bfloat16-drop",
+              "float32-nodrop", "bfloat16-nodrop"]
+
+
+def _mesh_moe(mesh_run, case):
+    """(config, input on the card) of a mesh MoE case; kind ``nodrop`` runs
+    ``parallel.ref.no_drop``'s capacity, as the ranks do."""
+    from repro_torch.parallel import ref as pref
+
+    dtype = case.split("-")[0]
+    cfg = configs.get_smoke("deepseek-moe-16b").replace(compute_dtype=dtype)
+    if case.endswith("nodrop"):
+        cfg = pref.no_drop(cfg)
+    x = torch.from_numpy(mesh_run["inputs"][f"x/{case}"]).to(getattr(torch, dtype))
+    return cfg, x.cuda()
+
+
+@pytest.fixture(scope="module")
+def mesh_run(tmp_path_factory):
+    """``tests/torch_mesh_worker.py`` on the card at the smoke configs: 4
+    ranks (NCCL refuses two ranks on one device, gloo takes CUDA tensors),
+    the expert-parallel MoE cases and the sequence-sharded decode."""
+    import os
+    import subprocess
+    import sys
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the ranks place their tensors on it")
+    d = tmp_path_factory.mktemp("mesh_card")
+    cfg = configs.get_smoke("deepseek-moe-16b")
+    p = moe.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    inputs = {f"p/{k}": v.numpy() for k, v in p.items() if k != "shared"}
+    inputs.update({f"p/shared/{k}": v.numpy() for k, v in p["shared"].items()})
+    inputs["cases"] = np.array(",".join(MESH_CASES))
+    rng = np.random.default_rng(7)
+    for case in MESH_CASES:
+        x = rng.standard_normal((4, 16, cfg.d_model)).astype(np.float32)
+        if case.endswith("-drop"):
+            x[:, :12] = x[0, 0]
+        inputs[f"x/{case}"] = torch.from_numpy(x).to(getattr(torch, case.split("-")[0])
+                                                     ).float().numpy()
+    inputs["toks"] = rng.integers(0, configs.get_smoke("yi-9b").vocab, (2, 17))
+    np.savez(d / "inputs.npz", **inputs)
+    here = os.path.dirname(os.path.abspath(__file__))
+    r = subprocess.run([sys.executable, os.path.join(here, "torch_mesh_worker.py"), str(d),
+                        "2", "2", "cuda", "ep,decode"],
+                       env=dict(os.environ, PYTHONPATH=os.path.join(here, "..", "src")),
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-4000:]
+    return {"inputs": inputs, "params": p,
+            "ranks": [dict(np.load(d / f"rank{i}.npz")) for i in range(4)]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MESH_CASES)
+def test_mesh_apply_ep_on_card_ranks_matches_emulation(mesh_run, case):
+    """Each rank's ``apply_ep`` output (gloo all-reduces of CUDA tensors)
+    against ``parallel.ref.apply_ep_emulated`` on the card in this process:
+    fp32 1e-5, bf16 3e-2."""
+    from repro_torch.parallel import ref as pref
+
+    tol = {"float32": 1e-5, "bfloat16": 3e-2}[case.split("-")[0]]
+    cfg, x = _mesh_moe(mesh_run, case)
+    want = pref.apply_ep_emulated(tree_to(mesh_run["params"], "cuda"), cfg, x,
+                                  {"data": 2, "model": 2}).float().cpu().numpy()
+    for i, out in enumerate(mesh_run["ranks"]):
+        assert list(out["backends"]) == ["gloo", "gloo"]
+        np.testing.assert_allclose(out[f"ep/{case}"], want, atol=tol, rtol=tol,
+                                   err_msg=f"rank {i}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["float32-nodrop", "bfloat16-nodrop"])
+def test_mesh_apply_ep_on_card_ranks_matches_apply_ref_without_drops(mesh_run, case):
+    """The oracle that does not run ``moe.ep_partial``: where no assignment
+    drops on either path, each rank's ``apply_ep`` against ``apply_ref`` on
+    the card in this process, fp32 1e-5, bf16 3e-2."""
+    from repro_torch.parallel import ref as pref
+
+    tol = {"float32": 1e-5, "bfloat16": 3e-2}[case.split("-")[0]]
+    cfg, x = _mesh_moe(mesh_run, case)
+    p = tree_to(mesh_run["params"], "cuda")
+    assert pref.dropped(p, cfg, x) == 0 and pref.dropped(p, cfg, x, {"data": 2, "model": 2}) == 0
+    want = moe.apply_ref(p, cfg, x).float().cpu().numpy()
+    for i, out in enumerate(mesh_run["ranks"]):
+        np.testing.assert_allclose(out[f"ep/{case}"], want, atol=tol, rtol=tol,
+                                   err_msg=f"rank {i}")
+
+
+@pytest.mark.cuda
+def test_mesh_seqshard_decode_on_card_matches_plain(mesh_run):
+    """Sequence-sharded decode against each rank's plain decode: bf16
+    within 1e-1 with equal argmax on the first step, fp32 within 1e-4 on
+    every greedy step with equal tokens, the rings' prefill rows exact and
+    their unwritten rows zero."""
+    for i, out in enumerate(mesh_run["ranks"]):
+        plain, seq = out["plain/bfloat16"][0], out["seq/bfloat16"][0]
+        assert np.abs(plain - seq).max() < 1e-1, i
+        np.testing.assert_array_equal(plain.argmax(-1), seq.argmax(-1))
+        np.testing.assert_allclose(out["seq/float32"], out["plain/float32"], atol=1e-4,
+                                   rtol=1e-4, err_msg=f"rank {i}")
+        np.testing.assert_array_equal(out["seq/float32"].argmax(-1),
+                                      out["plain/float32"].argmax(-1))
+        for dtype in ("bfloat16", "float32"):
+            prefill, decode, unwritten = out[f"ring_err/{dtype}"]
+            assert prefill == 0.0 and unwritten == 0.0
+        assert out["ring_err/float32"][1] < 1e-4
+        assert (out["calls/float32"][0], out["calls/float32"][1] > 0) == (0, True)
