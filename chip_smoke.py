@@ -120,6 +120,25 @@ four ranks' run before them.  Phases, in order; any failure exits non-zero and n
               LocalRunner, for yi-9b and mamba2-370m: exactly one detok
               completion, launches per decode replica, and the committed
               tokens equal a direct greedy_generate call.
+5b. dryrun  — launch/dryrun.run_cell on fake CUDA tensors (nothing launched,
+              nothing counted) for the cells this script runs, each held
+              against the same call on the card: yi-9b at full width (48
+              layers, bf16 weights) prefill of [4, 512] and one decode step
+              after it, mamba2-370m's and recurrentgemma-9b's prefills of
+              [4, 512], phase 6's training step.  The card's launches must
+              equal the trace's operator calls, and the predicted peak (the
+              cuBLAS workspaces included: they are released before the
+              call, which allocates them again; the dry run's constant is
+              checked against the card's) must lie within 5 % of
+              torch.cuda.max_memory_allocated() over the call, the
+              arguments resident; prints the dry run's FLOPs and their
+              ratio to model_flops, ops dispatched beside the profiler's
+              device kernels, and the measured MFU (model_flops over the
+              median of five timed calls at 989 TFLOP/s).  Phase 6b's
+              two recurrent steps are dry-run only; every kernel row gets the
+              dry run's FLOPs and bytes a call beside its own (``dryrun``).
+              Phase 2 also times each kernel's operator against its CUDA
+              implementation called directly (op_call_us, launch_call_us).
 6. train    — yi-9b at full width, depth cut to 4 layers (bf16 compute, fp32
               master weights, remat "dots"), batch 2 × 2048 tokens of
               synthetic data: 3 steps of make_train_step from a seeded
@@ -172,6 +191,7 @@ import json
 import math
 import multiprocessing
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -187,13 +207,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch import configs  # noqa: E402
+from repro_torch.configs.shapes import ShapeSpec  # noqa: E402
 from repro_torch.convert import tree_to  # noqa: E402
 from repro_torch.data.synthetic import make_batch  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import rglru_scan as rg  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import hlo_analysis as ha  # noqa: E402
 from repro_torch.launch import mesh as launch_mesh  # noqa: E402
+from repro_torch.launch import op_cost  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch.profile_serve import _union_us, kernel_class  # noqa: E402
 from repro_torch.models import attention, flash, lm, moe, rglru, ssm  # noqa: E402
@@ -247,9 +271,9 @@ MESH_DS = DS.replace(n_layers=2)
 MESH_DS_DECODE = 4
 MESH_TIMEOUT = 600
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s
-HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# H100 SXM5 80GB HBM3 published peaks (launch/hlo_analysis.py): bytes/s and FLOP/s
+HBM_BYTES_S = ha.HBM_BW
+PEAK_FLOPS = {torch.bfloat16: ha.PEAK_FLOPS, torch.float32: ha.PEAK_FLOPS_FP32}
 
 #: the flash-attention variant's source (the row's "source" names the variant run)
 FLASH_SOURCES = {"wgmma": "src/repro_torch/kernels/csrc/flash_attention_sm90.cuh",
@@ -308,6 +332,37 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def _each_ms(fn, iters: int = 5, warmup: int = 2) -> list:
+    """Milliseconds of each of ``iters`` calls of ``fn`` after ``warmup``,
+    each timed alone with CUDA events (host gaps inside a call included)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return times
+
+
+def _host_us(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Host-clock microseconds per call of ``fn`` issued back to back, the
+    device not waited for until after the last (so a call's own host work)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
 
 
 def _device_profile(fn, iters: int = 20, warmup: int = 3):
@@ -381,13 +436,16 @@ def _nbytes(*ts: torch.Tensor) -> int:
 
 
 def _row(name: str, err: float, kernel, plain, nbytes: int, flops: int,
-         dtype: torch.dtype, library, shape: str) -> dict:
+         dtype: torch.dtype, library, shape: str, op=None, launch=None) -> dict:
     """One kernel's line.  ``kernel``, ``plain`` and ``library`` are
     zero-argument calls (``library`` may be None); ms, plain_ms and library_ms
     are their device times, call_ms the kernel wrapper's host-clock time per
-    call.  The least time for the same work is the larger of its bytes (each
-    input read once, each output written once) at the memory rate and its
-    operations at the inputs' type peak."""
+    call.  ``op`` calls the registered operator and ``launch`` its CUDA
+    implementation directly: their host times (op_call_us, launch_call_us)
+    give the dispatcher's cost of a call.  The least time for the same work
+    is the larger of its bytes (each input read once, each output written
+    once) at the memory rate and its operations at the inputs' type peak
+    (``flops``: the kernel module's formula, the one the dry run counts)."""
     bytes_ms = nbytes / HBM_BYTES_S * 1e3
     ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
     source, replaces = KERNELS[name]
@@ -398,7 +456,12 @@ def _row(name: str, err: float, kernel, plain, nbytes: int, flops: int,
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
            "library_ms": library_ms, "shape": shape, "call_ms": _time_ms(kernel),
-           "ms_by_kernel": by_kernel}
+           "ms_by_kernel": by_kernel, "bytes": nbytes, "flops": flops}
+    if op is not None:
+        row["op_call_us"], row["launch_call_us"] = _host_us(op), _host_us(launch)
+        _log(f"[kernels] {name} host time of a call (host clock, before the device waits): "
+             f"the operator {row['op_call_us']:.2f} us, its CUDA implementation called "
+             f"directly {row['launch_call_us']:.2f} us")
     lib = f"{library_ms:.4f}" if library_ms is not None else "null"
     split = (", ".join(f"{k} {v:.4f}" for k, v in by_kernel.items()) if by_kernel
              else "not traced")
@@ -508,15 +571,16 @@ def _flash_at(shape, dtype, seed) -> dict:
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     err = _check(f"flash ({want}) at {shape} {str(dtype)[6:]}", out, expect, tol, tol)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    pairs = int(attention.make_causal_mask(l, l, device="cuda").sum())
     row = _row("flash_attention", err,
                lambda: ops.flash_attention(q, k, v, causal=True, block_q=attention.FLASH_BLOCK,
                                            block_k=attention.FLASH_BLOCK),
                lambda: ref.flash_attention_ref(q, k, v, causal=True),
-               _nbytes(q, k, v, out), 4 * b * h * hd * pairs, dtype,
+               _nbytes(q, k, v, out), fa.flops(b, l, l, h, hd), dtype,
                lambda: torch.nn.functional.scaled_dot_product_attention(
                    qt, kt, vt, is_causal=True, enable_gqa=True),
-               f"q {list(q.shape)}, k/v {list(k.shape)} {str(dtype)[6:]}")
+               f"q {list(q.shape)}, k/v {list(k.shape)} {str(dtype)[6:]}",
+               op=lambda: fa.OP(q, k, v, True, 0, 0.0, False),
+               launch=lambda: fa._launch(q, k, v, True, 0, 0.0, False))
     row["variant"], row["source"] = want, FLASH_SOURCES[want]
     return row
 
@@ -554,11 +618,10 @@ def _flash_train_shape() -> dict:
                  2e-2, 2e-2)
     lse_err = _check("flash (wgmma) lse at the training shape", lse, lse_ref, 1e-4, 1e-4)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    pairs = l * (l + 1) // 2
     row = _row("flash_attention", err,
                lambda: ops.flash_attention(q, k, v, causal=True, return_lse=True),
                lambda: ref.flash_attention_plain_lse(q, k, v, causal=True),
-               _nbytes(q, k, v, out, lse), 4 * b * h * hd * pairs, torch.bfloat16,
+               _nbytes(q, k, v, out, lse), fa.flops(b, l, l, h, hd), torch.bfloat16,
                lambda: torch.nn.functional.scaled_dot_product_attention(
                    qt, kt, vt, is_causal=True, enable_gqa=True),
                f"q {list(q.shape)}, k/v {list(k.shape)} bfloat16, with lse [{b},{h},{l}] fp32")
@@ -665,16 +728,12 @@ def _ssd_at(dtype: torch.dtype) -> dict:
                  f"{str(dtype)[6:]}", y, y_ref, tol, tol)
     _check(f"ssd_scan ({want}) final state at the mamba2-370m shape", h_last, h_ref,
            2e-4, 2e-4)
-    # products the function needs: C·Bᵀ over the causal pairs of each
-    # (batch, chunk), shared by the heads; per head the masked scores times
-    # X, C·h_prevᵀ, and the state update Xᵀ(B ⊙ w)
-    nc, pairs = SERVE_PROMPT // q, q * (q + 1) // 2
-    flops = (2 * SERVE_BATCH * nc * pairs * n
-             + 2 * SERVE_BATCH * nc * nh * (pairs * p + 2 * q * p * n))
     row = _row("ssd_scan", err, lambda: ops.ssd_scan(*args, chunk=q, return_state=True),
-               lambda: ref.ssd_chunked(*args, q), _nbytes(*args, y, h_last), flops,
+               lambda: ref.ssd_chunked(*args, q), _nbytes(*args, y, h_last),
+               ssd.flops(SERVE_BATCH, SERVE_PROMPT, nh, p, n, q),
                dtype, None, f"x {list(args[0].shape)}, B/C {list(args[3].shape)}, chunk {q} "
-               f"{str(dtype)[6:]}")
+               f"{str(dtype)[6:]}", op=lambda: ssd.OP(*args, q, True),
+               launch=lambda: ssd._launch_fwd(*args, q, True))
     row["variant"], row["source"] = want, SSD_SOURCES[want]
     row["library_null_because"] = "no PyTorch call computes the chunked SSD scan"
     return row
@@ -774,7 +833,8 @@ def phase_rglru() -> dict:
                  ref.rglru_scan_ref(log_a, b), 1e-5, 1e-3)
     row = _row("rglru_scan", err, lambda: ops.rglru_scan(log_a, b),
                lambda: ref.rglru_scan_ref(log_a, b), _nbytes(log_a, b, h),
-               3 * log_a.numel(), torch.float32, None, f"log_a/b/h {list(log_a.shape)}")
+               rg.flops(*log_a.shape), torch.float32, None, f"log_a/b/h {list(log_a.shape)}",
+               op=lambda: rg.OP(log_a, b), launch=lambda: rg._launch_fwd(log_a, b))
     row["variant"] = want
     row["ms_cold"] = _cold_ms(lambda: ops.rglru_scan(log_a, b), "rglru_scan_kernel")
     out = torch.empty_like(h)
@@ -870,16 +930,6 @@ def _ssd_bwd_case(what: str, args, chunk: int, with_state: bool, pad: int = 0) -
                for name, a, b in zip(("dx", "ddt", "da", "dB", "dC"), leaves, plain))
 
 
-def _ssd_bwd_flops(bt, l, h, p, n, q) -> int:
-    """Products the SSD backward needs: per (batch, chunk) C·Bᵀ over the
-    causal pairs (shared by the heads); per head r = dy·xᵀ over the pairs,
-    the three pair products into dx, dB, dC, and six [Q,P]×[P,N]-sized
-    state products (S_c, U_c, dS·B, dSᵀ·x, h_in·C, h_inᵀ·dy)."""
-    nc, pairs = l // q, q * (q + 1) // 2
-    return (2 * bt * nc * pairs * n
-            + 2 * bt * nc * h * (pairs * (2 * p + 2 * n) + 6 * q * p * n))
-
-
 def phase_scan_bwd() -> dict:
     """Both backward kernels on the phase-2 cases, then each timed at its
     training shape; returns their rows."""
@@ -919,7 +969,9 @@ def phase_scan_bwd() -> dict:
                      1e-4, 1e-4) for n, g_, w_ in zip(("dlog_a", "db"), got, want))
     rg_row = _row("rglru_scan_bwd", max(err, rg_err), lambda: ops.rglru_scan_bwd(log_a, h, dh),
                   lambda: ref.rglru_scan_bwd_plain(log_a, b, dh), 5 * _nbytes(h),
-                  5 * h.numel(), torch.float32, None, f"log_a/h/dh/dlog_a/db {list(h.shape)}")
+                  rg.bwd_flops(*h.shape), torch.float32, None,
+                  f"log_a/h/dh/dlog_a/db {list(h.shape)}", op=lambda: rg.BWD_OP(log_a, h, dh),
+                  launch=lambda: rg._launch_bwd(log_a, h, dh))
     rg_row["variant"] = rg.variant(h.shape[2])
     rg_row["library_null_because"] = "no PyTorch call computes the recurrence's backward"
     del log_a, b, h, dh, got, want
@@ -945,8 +997,10 @@ def phase_scan_bwd() -> dict:
                    lambda: ops.ssd_scan_bwd(x, dt, a, bm, cm, q, dy, None),
                    lambda: ref.ssd_scan_bwd_plain(x, dt, a, bm, cm, q, dy),
                    2 * _nbytes(x, dt, a, bm, cm) + _nbytes(dy),
-                   _ssd_bwd_flops(MAMBA_TRAIN_BATCH, TRAIN_SEQ, nh, p, n, q), x.dtype, None,
-                   f"x/dy {list(x.shape)} {str(x.dtype)[6:]}, B/C {list(bm.shape)}, chunk {q}")
+                   ssd.bwd_flops(MAMBA_TRAIN_BATCH, TRAIN_SEQ, nh, p, n, q), x.dtype, None,
+                   f"x/dy {list(x.shape)} {str(x.dtype)[6:]}, B/C {list(bm.shape)}, chunk {q}",
+                   op=lambda: ssd.BWD_OP(x, dt, a, bm, cm, q, dy, None),
+                   launch=lambda: ssd._launch_bwd(x, dt, a, bm, cm, q, dy, None))
         row["variant"], row["source"] = kind, SSD_BWD_SOURCES[kind]
         if kind == "mma":       # the heads a block of the pair passes takes
             row["heads_per_block"] = ssd.bwd_heads_per_block(nh)
@@ -1424,6 +1478,191 @@ def phase_workflow(arch: str) -> None:
 
 
 # ==========================================================================
+# 5b. dryrun: the dry run's predictions against the card
+# ==========================================================================
+
+
+#: the op of each kernel row in a dry run's kernel tallies
+DRYRUN_OPS = {"flash_attention": "repro_torch.flash_attention_fwd",
+              "ssd_scan": "repro_torch.ssd_scan_fwd", "rglru_scan": "repro_torch.rglru_scan_fwd",
+              "ssd_scan_bwd": "repro_torch.ssd_scan_bwd",
+              "rglru_scan_bwd": "repro_torch.rglru_scan_bwd"}
+#: the measured peak a cell's predicted peak must lie within, relative
+DRYRUN_RTOL = 0.05
+
+
+def _serve_params(cfg):
+    """bf16 serving weights from a seed, of the dry run's dtypes (its
+    ``serve_dtype`` of the parameter tree)."""
+    return dryrun.serve_dtype(lm.init(_gen(0), cfg.replace(param_dtype="bfloat16"),
+                                      device="cuda"))
+
+
+def _cublas_workspace() -> int:
+    """Bytes of the cuBLAS workspace a thread's handle allocates at its
+    first product on the card: the workspaces are released, one small
+    product allocates this thread's again, and they are released after."""
+    torch._C._cuda_clearCublasWorkspaces()
+    _free()
+    a = torch.ones((64, 64), dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    c = a @ a
+    torch.cuda.synchronize()
+    del c
+    ws = torch.cuda.memory_allocated() - before
+    del a
+    torch._C._cuda_clearCublasWorkspaces()
+    _free()
+    return ws
+
+
+def _dryrun_cell(name: str, cfg, spec, fn, args) -> dict:
+    """Dry-run ``cfg`` at ``spec`` on fake CUDA tensors (nothing launched,
+    nothing counted), then call ``fn(*args)`` on the card, which must be the
+    same call: its launches equal the trace's operator calls; its peak
+    (``max_memory_allocated`` after a reset, the arguments resident) lies
+    within DRYRUN_RTOL of the predicted one.  The prediction holds the
+    cuBLAS workspaces the call allocates (``workspace_bytes``: one for the
+    caller's thread and, in a training step, one for autograd's device
+    thread), so they are released before the call
+    (``torch._C._cuda_clearCublasWorkspaces``).  Blocks that stay resident
+    beside the arguments (``other``, printed) are taken off the measured
+    peak: they belong to no call.  One more call is traced by
+    torch.profiler (device kernels beside the ops dispatched), and five
+    calls after two warm-up calls are timed one by one: their median gives
+    the measured MFU (model_flops over it at the bf16 peak)."""
+    rec = dryrun.run_cell(cfg, spec, verbose=False)
+    if any(ops.launches.values()):
+        _fail(f"dry run {name} counted launches {dict(ops.launches)}")
+    predicted = rec["memory"]["peak_bytes"]
+    workspaces = rec["memory"]["workspace_bytes"]
+    arg_bytes = sum(op_cost.storages(args).values())
+    torch._C._cuda_clearCublasWorkspaces()
+    _free()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    other = base - arg_bytes
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    measured = torch.cuda.max_memory_allocated() - other
+    launches = dict(ops.launches)
+    del out
+    calls = {k: rec["kernels"].get(op, {}).get("calls", 0) for k, op in DRYRUN_OPS.items()}
+    if launches != calls:
+        _fail(f"dry run {name}: operator calls {calls}, card launches {launches}")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    kernels = sum(e.device_type == DeviceType.CUDA for e in prof.events())
+    each = _each_ms(lambda: fn(*args))
+    ms = statistics.median(each)
+    mfu = rec["model_flops"] / (ms / 1e3 * ha.PEAK_FLOPS)
+    r = {"predicted_peak_bytes": predicted, "cublas_workspace_bytes": workspaces,
+         "other_resident_bytes": other, "measured_peak_bytes": measured,
+         "rel_err": (predicted - measured) / measured, "argument_bytes": arg_bytes,
+         "predicted_argument_bytes": rec["memory"]["argument_bytes"], "flops": rec["cost"]["flops"],
+         "model_flops": rec["model_flops"], "flops_ratio": rec["cost"]["flops"] / rec["model_flops"],
+         "bytes_accessed": rec["cost"]["bytes_accessed"], "ops": rec["ops"],
+         "device_kernels": kernels, "first_ms": first_ms, "ms": ms, "ms_each": each,
+         "mfu": mfu, "mfu_range": [rec["model_flops"] / (t / 1e3 * ha.PEAK_FLOPS)
+                                   for t in (max(each), min(each))],
+         "launches": launches, "trace_s": rec["trace_s"], "kernels": rec["kernels"],
+         "ops_by_name": rec["ops_by_name"]}
+    _log(f"[dryrun] {name}: peak predicted {predicted} B (cuBLAS workspaces {workspaces} B "
+         f"of it), measured {measured} B (rel {r['rel_err']:+.5f}, limit {DRYRUN_RTOL}); "
+         f"arguments {arg_bytes} B on the card (predicted {r['predicted_argument_bytes']}), "
+         f"{other} B resident beside them (taken off); FLOPs {r['flops']:.6e} = "
+         f"{r['flops_ratio']:.4f} x model_flops {r['model_flops']:.6e}; {r['ops']} ops "
+         f"dispatched, {kernels} device kernels in the profiler's trace; median {ms:.3f} ms "
+         f"of {_ms_list(each)} (first {first_ms:.3f}), MFU {mfu:.4f} (range "
+         f"{r['mfu_range'][0]:.4f}-{r['mfu_range'][1]:.4f}); launches {launches}; trace "
+         f"{r['trace_s']:.2f}s")
+    if not abs(r["rel_err"]) <= DRYRUN_RTOL:
+        _fail(f"dry run {name}: predicted peak {predicted} B against {measured} B measured")
+    return r
+
+
+def phase_dryrun() -> tuple:
+    """The dry run (launch/dryrun.run_cell on fake CUDA tensors) of the
+    cells this script runs, each held against the same call on the card:
+    yi-9b at full width (48 layers), a prefill of [4, 512] and one decode
+    step after it; mamba2-370m's and recurrentgemma-9b's prefills of
+    [4, 512]; the training step of phase 6.  The two recurrent training
+    steps of phase 6b are dry-run only, for the backward kernels' rows.
+    Returns (each cell's measurements, the kernels' dry-run tallies, the
+    launches of the measured calls)."""
+    workspace = _cublas_workspace()
+    _log(f"[dryrun] cuBLAS workspace of a thread's handle: {workspace} B (the dry run's "
+         f"constant: {ha.CUBLAS_WORKSPACE_BYTES} B)")
+    if workspace != ha.CUBLAS_WORKSPACE_BYTES:
+        _fail(f"cuBLAS workspace {workspace} B, the dry run counts "
+              f"{ha.CUBLAS_WORKSPACE_BYTES} B")
+    ops.reset_launches()
+    cells, tallies, by_path = {}, {}, {}
+    prefill_spec = ShapeSpec("chip_prefill", SERVE_PROMPT, SERVE_BATCH, "prefill")
+    decode_spec = ShapeSpec("chip_decode", SERVE_PROMPT, SERVE_BATCH, "decode")
+
+    def tally(rec_kernels):
+        for row, op in DRYRUN_OPS.items():
+            k = rec_kernels.get(op)
+            if k and row not in tallies:
+                tallies[row] = {"calls": k["calls"], "flops_per_call": k["flops"] / k["calls"],
+                                "bytes_per_call": k["bytes"] / k["calls"]}
+
+    with torch.inference_mode():
+        for arch in ("yi-9b", "mamba2-370m", "recurrentgemma-9b"):
+            cfg = configs.get(arch)
+            params = _serve_params(cfg)
+            tokens = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT), generator=_gen(1),
+                                   device="cuda", dtype=torch.int32)
+            prefill = make_prefill_step(cfg, max_len=SERVE_PROMPT)
+            ops.reset_launches()
+            name = f"{arch} prefill [{SERVE_BATCH}, {SERVE_PROMPT}]"
+            cells[name] = _dryrun_cell(name, cfg, prefill_spec, prefill,
+                                       (params, {"tokens": tokens}))
+            by_path[f"dryrun {name}"] = cells[name]["launches"]
+            tally(cells[name]["kernels"])
+            if arch == "yi-9b":
+                cache, logits = prefill(params, {"tokens": tokens})
+                token = logits.argmax(-1)[:, None].to(torch.int32)
+                del logits
+                ops.reset_launches()
+                name = f"yi-9b decode step at {SERVE_PROMPT} slots"
+                cells[name] = _dryrun_cell(name, cfg, decode_spec, make_decode_step(cfg),
+                                           (params, token, cache))
+                by_path[f"dryrun {name}"] = cells[name]["launches"]
+                del cache, token
+            del params, tokens
+            _free()
+    state = train_state_init(_gen(0), YI_TRAIN, device="cuda")
+    batch = batch_to(make_batch(YI_TRAIN, TRAIN_SEQ, TRAIN_BATCH), "cuda")
+    ops.reset_launches()
+    name = f"yi-9b train ({YI_TRAIN.n_layers} layers, {TRAIN_BATCH} x {TRAIN_SEQ})"
+    cells[name] = _dryrun_cell(name, YI_TRAIN, ShapeSpec("chip_train", TRAIN_SEQ, TRAIN_BATCH,
+                                                         "train"),
+                               make_train_step(YI_TRAIN, lr=3e-4), (state, batch))
+    by_path[f"dryrun {name}"] = cells[name]["launches"]
+    tally(cells[name]["kernels"])
+    del state, batch
+    _free()
+    ops.reset_launches()
+    for cfg, b, l in ((MAMBA_TRAIN, MAMBA_TRAIN_BATCH, TRAIN_SEQ),
+                      (RG_TRAIN, RG_TRAIN_BATCH, RG_TRAIN_SEQ)):
+        rec = dryrun.run_cell(cfg, ShapeSpec("chip_train", l, b, "train"), verbose=False)
+        tally(rec["kernels"])
+    if set(tallies) != set(DRYRUN_OPS) or any(ops.launches.values()):
+        _fail(f"dry runs tallied {sorted(tallies)} and counted {dict(ops.launches)}")
+    _log("[dryrun] kernels per call in the dry runs: " + "; ".join(
+        f"{k} {v['flops_per_call']:.6e} FLOP, {v['bytes_per_call']:.0f} B" for k, v in
+        tallies.items()))
+    return cells, tallies, by_path
+
+
+# ==========================================================================
 # 6. train, 7. grads, 8. commit, 9. refuse
 # ==========================================================================
 
@@ -1775,6 +2014,10 @@ def main(argv=None) -> int:
         rows[name]["launches_by_variant"] = {
             v: sum(n[name][v] for n in by_variant.values())
             for v in by_variant["yi-9b"][name]}
+    t_dry = time.perf_counter()
+    dry_cells, dry_kernels, dry_paths = phase_dryrun()
+    _log(f"[dryrun] phase took {time.perf_counter() - t_dry:.1f}s")
+    by_path.update(dry_paths)
     train = phase_train()
     by_path[f"yi-9b train ({YI_TRAIN.n_layers} layers, {TRAIN_STEPS} steps)"] = train["launches"]
     recurrent = {}
@@ -1787,6 +2030,8 @@ def main(argv=None) -> int:
             for v, n in r["variants"][k].items():
                 row["launches_by_variant"][v] += n
     rows.update(bwd_rows)
+    for name, row in rows.items():      # the dry run's count beside the row's own
+        row["dryrun"] = dry_kernels[name]
     for name, libs, key in (("rglru_scan_bwd", ("rglru_scan",), "rglru_scan_bwd"),
                             ("ssd_scan_bwd", ("ssd_scan_bwd_mma", "ssd_scan_bwd"), "ssd_bwd_")):
         rows[name]["ptxas"] = {fn: {"registers": regs, "spill_stores": st, "spill_loads": ld}
@@ -1816,7 +2061,7 @@ def main(argv=None) -> int:
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_kernels.json"), "w") as f:
         json.dump({"card": smi, **kernels, "train": train, "train_recurrent": recurrent,
                    "train_grads_max_err": grads, "commit": commit, "vlm_prefix": prefix,
-                   "mesh": mesh},
+                   "mesh": mesh, "dryrun": dry_cells},
                   f, indent=1)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

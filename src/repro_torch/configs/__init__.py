@@ -5,4 +5,4 @@ returns the reduced same-family variant the CPU tests use.
 """
 
 from repro_torch.configs.registry import (  # noqa: F401
-    ARCHS, SHAPES, all_cells, get, get_smoke, runnable, skip_reason)
+    ARCHS, SHAPES, all_cells, get, get_smoke, input_specs, runnable, skip_reason)

@@ -1,16 +1,19 @@
-"""Arch registry: the port's copy of ``repro.configs.registry``.
+"""Arch registry and ``input_specs()``: the port of ``repro.configs.registry``.
 
-The JAX registry imports JAX for ``input_specs`` (the dry-run's abstract
-inputs), so the port keeps its own copy of the rest.  ``input_specs`` comes
-with the dry-run tooling.
+``input_specs(cfg, shape, device=...)`` returns every model input of one
+(architecture × shape) cell as empty tensors on ``device``: on the ``meta``
+device they hold no memory, and inside a ``FakeTensorMode`` they are fake
+tensors of the card (the dry run's inputs, :mod:`repro_torch.launch.dryrun`).
 """
 
 from __future__ import annotations
 
 import importlib
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
-from repro_torch.configs.shapes import SHAPES, SUBQUADRATIC_FAMILIES
+import torch
+
+from repro_torch.configs.shapes import SHAPES, SUBQUADRATIC_FAMILIES, ShapeSpec
 from repro_torch.models.common import ModelConfig
 
 _MODULES = {
@@ -59,3 +62,40 @@ def runnable(arch: str, shape: str) -> bool:
 
 def all_cells() -> Tuple[Tuple[str, str], ...]:
     return tuple((a, s) for a in ARCHS for s in SHAPES)
+
+
+# ==========================================================================
+# input_specs
+# ==========================================================================
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec, *, device="cuda") -> Dict[str, Any]:
+    """Model inputs of one cell, empty, on ``device``: the reference's keys,
+    shapes and dtypes.
+
+    train  → {tokens, labels, mask [, patches, frames]}
+    prefill→ {tokens [, patches, frames]}
+    decode → {token, cache}  (cache from ``lm.init_cache``, whose ``pos``
+             is a Python int where the reference's is an int32 scalar)
+    """
+    b, l = shape.global_batch, shape.seq_len
+
+    def empty(shape_, dtype):
+        return torch.empty(tuple(shape_), dtype=dtype, device=device)
+
+    if shape.kind in ("train", "prefill"):
+        lt = l - cfg.n_patches                       # vlm: patches fill the rest
+        out = {"tokens": empty((b, lt), torch.int32)}
+        if shape.kind == "train":
+            out["labels"] = empty((b, lt), torch.int32)
+            out["mask"] = empty((b, lt), torch.float32)
+        if cfg.n_patches:
+            out["patches"] = empty((b, cfg.n_patches, 1024), torch.bfloat16)
+        if cfg.frame_input:
+            out["frames"] = empty((b, max(1, l // 8), 1024), torch.bfloat16)
+        return out
+    if shape.kind == "decode":
+        from repro_torch.models import lm
+        return {"token": empty((b, 1), torch.int32),
+                "cache": lm.init_cache(cfg, b, l, device=device)}
+    raise ValueError(shape.kind)

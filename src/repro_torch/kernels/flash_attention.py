@@ -21,8 +21,10 @@ hold every config's head dim, full and smoke, to :data:`HEAD_DIMS`.
 
 This module validates the tensors, allocates the output (and, for training,
 each row's log-sum-exp) and launches on the calling thread's current
-stream; :func:`repro_torch.kernels.ops.flash_attention` is the public
-wrapper.
+stream, as the operator ``repro_torch::flash_attention_fwd``
+(:mod:`repro_torch.kernels.library`: a fake implementation for tracing and
+the FLOP formula :func:`flops`); :func:`repro_torch.kernels.ops.flash_attention`
+is the public wrapper.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from typing import Tuple, Union
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, library
 
 HEAD_DIMS = (8, 16, 32, 64, 96, 128, 256)
 WGMMA_HEAD_DIMS = (16, 32, 64, 96, 128, 256)
@@ -71,21 +73,33 @@ def check_tiles(l: int, s_len: int, block_q: int, block_k: int) -> None:
         raise ValueError(f"L={l}, S={s_len} must tile by ({bq},{bk})")
 
 
-def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True, window: int = 0, softcap: float = 0.0,
-                        return_lse: bool = False
-                        ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """q: [B,L,H,hd]; k,v: [B,S,Hkv,hd] on the card → [B,L,H,hd] in q's dtype.
+def pairs(l: int, s_len: int, *, causal: bool = True, window: int = 0) -> int:
+    """The (query, key) pairs the kernel's mask keeps over one head: causal,
+    key j ≤ query i (and j > i − window with a window); without causal, j >
+    i − window with a window and every key without one."""
+    if causal:
+        c = min(s_len, window) if window else s_len
+        return l * (l + 1) // 2 if l <= c else c * (c + 1) // 2 + (l - c) * c
+    if not window:
+        return l * s_len
+    return sum(max(0, s_len - max(0, i - window + 1)) for i in range(l))
 
-    With ``return_lse`` also each row's fp32 log-sum-exp, [B,H,L], of its
-    scaled, capped, masked logits (the backward's input); without it the
-    kernel is passed a null pointer and stores nothing more.
-    """
+
+def flops(b: int, l: int, s_len: int, h: int, hd: int, *, causal: bool = True,
+          window: int = 0) -> int:
+    """Products of one forward: q·kᵀ and p·v, 2·hd each per kept pair and
+    head (the kernel table's bound, and the dry run's count)."""
+    return 4 * b * h * hd * pairs(l, s_len, causal=causal, window=window)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """Shapes, dtypes, device and layout (everything but the data's
+    address); returns the variant the call takes."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"expected q [B,L,H,hd], k=v [B,S,Hkv,hd]; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, l, h, hd = q.shape
-    s_len, hkv = k.shape[1], k.shape[2]
+    hkv = k.shape[2]
     if k.shape[0] != b or k.shape[3] != hd or h % hkv:
         raise ValueError(f"incompatible q {tuple(q.shape)} and k/v {tuple(k.shape)}")
     kind = variant(hd, q.dtype)
@@ -93,14 +107,31 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise TypeError(f"q/k/v must share one of {list(_DTYPE_CODE)}; got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda" or t.device != q.device:
+        if not library.on_card(t) or t.device != q.device:
             raise ValueError(f"{name} must be on q's CUDA device; got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if kind == "wgmma" and t.data_ptr() % 16:
-            raise ValueError(f"{name} must start on a 16-byte boundary for TMA")
-    out = torch.empty_like(q)
+    return kind
+
+
+def _buffers(q: torch.Tensor, return_lse: bool):
+    """What a launch allocates, on the card and in a trace: the output and,
+    with ``return_lse``, each row's fp32 log-sum-exp [B,H,L]."""
+    b, l, h, _ = q.shape
     lse = torch.empty((b, h, l), dtype=torch.float32, device=q.device) if return_lse else None
+    return torch.empty_like(q), lse
+
+
+def _launch(q, k, v, causal: bool, window: int, softcap: float, return_lse: bool):
+    """The operator's CUDA implementation: one counted launch."""
+    kind = variant(q.shape[3], q.dtype)
+    if kind == "wgmma":
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must start on a 16-byte boundary for TMA")
+    b, l, h, hd = q.shape
+    s_len, hkv = k.shape[1], k.shape[2]
+    out, lse = _buffers(q, return_lse)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -109,4 +140,40 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      float(softcap), 1.0 / (hd ** 0.5), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd ({kind}) launch failed: cudaError {err}")
+    library.counted("flash_attention", kind)
+    return out, lse
+
+
+def _fake(q, k, v, causal: bool, window: int, softcap: float, return_lse: bool):
+    _check(q, k, v)
+    out, lse = _buffers(q, return_lse)
+    library.fake_allocated(out, lse)
+    return out, lse
+
+
+def _flops(q, k, v, causal: bool, window: int, softcap: float, return_lse: bool, **_):
+    b, l, h, hd = q
+    return flops(b, l, k[1], h, hd, causal=causal, window=window)
+
+
+library.counter("flash_attention", VARIANTS)
+#: ``repro_torch::flash_attention_fwd``
+OP = library.register("flash_attention_fwd(Tensor q, Tensor k, Tensor v, bool causal, "
+                      "int window, float softcap, bool return_lse) -> (Tensor, Tensor?)",
+                      _launch, _fake, _flops)
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0, softcap: float = 0.0,
+                        return_lse: bool = False
+                        ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """q: [B,L,H,hd]; k,v: [B,S,Hkv,hd] on the card → [B,L,H,hd] in q's dtype.
+
+    With ``return_lse`` also each row's fp32 log-sum-exp, [B,H,L], of its
+    scaled, capped, masked logits (the backward's input); without it the
+    kernel is passed a null pointer and stores nothing more.  Checks the
+    inputs, then calls :data:`OP`.
+    """
+    _check(q, k, v)
+    out, lse = OP(q, k, v, bool(causal), int(window), float(softcap), bool(return_lse))
     return (out, lse) if return_lse else out

@@ -5,66 +5,48 @@ CPU it runs the plain version in :mod:`repro_torch.kernels.ref`; on the card
 it launches the hand-written kernel or raises.  There is no switch that sends
 a CUDA tensor to the plain version.
 
-Each wrapper counts its kernel launches in :data:`launches` so that a run can
-show that its main path went through the kernel.  On the card the two scans
-are ``torch.autograd.Function``s (:data:`RGLRUScan`, :data:`SSDScan`) whose
-backward is a kernel too (``rglru_scan_bwd``, ``ssd_scan_bwd``); on the CPU
-autograd differentiates their plain versions.
+Each kernel is a ``torch.library`` operator (:mod:`repro_torch.kernels.library`)
+whose CUDA implementation counts its launches in :data:`launches` and by
+variant; a fake tensor reaches the operator's fake implementation, which
+allocates what the launch would and counts nothing.  On the card the two
+scans are ``torch.autograd.Function``s (:data:`RGLRUScan`, :data:`SSDScan`)
+whose backward is a kernel too (``rglru_scan_bwd``, ``ssd_scan_bwd``); on the
+CPU autograd differentiates their plain versions.
 """
 
 from __future__ import annotations
 
-import threading
-from typing import Callable, Dict, Optional, Tuple, Union
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
-from repro_torch.kernels import ref
+from repro_torch.kernels import library, ref
 from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.kernels import ssd_scan as _ssd
 
 #: kernel name → launches since the last :func:`reset_launches`
-launches: Dict[str, int] = {"flash_attention": 0, "ssd_scan": 0, "rglru_scan": 0,
-                            "ssd_scan_bwd": 0, "rglru_scan_bwd": 0}
+launches = library.launches
 #: flash-attention variant (:func:`flash_attention.variant`) → its share of
 #: ``launches["flash_attention"]``
-flash_variant_launches: Dict[str, int] = dict.fromkeys(_fa.VARIANTS, 0)
+flash_variant_launches = library.variant_launches["flash_attention"]
 #: SSD-scan variant (:func:`ssd_scan.variant`) → its share of
 #: ``launches["ssd_scan"]``
-ssd_variant_launches: Dict[str, int] = dict.fromkeys(_ssd.VARIANTS, 0)
+ssd_variant_launches = library.variant_launches["ssd_scan"]
 #: SSD backward variant (:func:`ssd_scan.bwd_variant`) → its share of
 #: ``launches["ssd_scan_bwd"]``
-ssd_bwd_variant_launches: Dict[str, int] = dict.fromkeys(_ssd.VARIANTS, 0)
+ssd_bwd_variant_launches = library.variant_launches["ssd_scan_bwd"]
 #: RG-LRU-scan variant (:func:`rglru_scan.variant`) → its share of
 #: ``launches["rglru_scan"]``
-rglru_variant_launches: Dict[str, int] = dict.fromkeys(_rg.VARIANTS, 0)
+rglru_variant_launches = library.variant_launches["rglru_scan"]
 #: RG-LRU backward variant (the forward's, by width) → its share of
 #: ``launches["rglru_scan_bwd"]``
-rglru_bwd_variant_launches: Dict[str, int] = dict.fromkeys(_rg.VARIANTS, 0)
-_BY_VARIANT = {"flash_attention": flash_variant_launches, "ssd_scan": ssd_variant_launches,
-               "rglru_scan": rglru_variant_launches,
-               "ssd_scan_bwd": ssd_bwd_variant_launches,
-               "rglru_scan_bwd": rglru_bwd_variant_launches}
-_count_lock = threading.Lock()      # decode replicas launch from worker threads
-
-
-def reset_launches() -> None:
-    with _count_lock:
-        for counts in (launches, *_BY_VARIANT.values()):
-            for name in counts:
-                counts[name] = 0
-
-
-def _counted(name: str, variant: str = "") -> None:
-    with _count_lock:
-        launches[name] += 1
-        if variant:
-            _BY_VARIANT[name][variant] += 1
+rglru_bwd_variant_launches = library.variant_launches["rglru_scan_bwd"]
+reset_launches = library.reset
 
 
 def _check_device(name: str, t: torch.Tensor) -> None:
-    if t.device.type not in ("cpu", "cuda"):
+    if not library.on_card(t):
         raise ValueError(f"{name} runs on cpu or cuda, not {t.device}")
 
 
@@ -92,10 +74,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check_device("flash_attention", q)
     refuse_grad("flash_attention", q, k, v,
                 instead="differentiate through repro_torch.models.flash.flash_attention")
-    out = _fa.flash_attention_fwd(q, k, v, causal=causal, window=window,
-                                  softcap=softcap, return_lse=return_lse)
-    _counted("flash_attention", _fa.variant(q.shape[3], q.dtype))
-    return out
+    return _fa.flash_attention_fwd(q, k, v, causal=causal, window=window, softcap=softcap,
+                                   return_lse=return_lse)
 
 
 def refuse_grad(name: str, *inputs: torch.Tensor, instead: str) -> None:
@@ -169,40 +149,31 @@ def ssd_function(fwd: Callable, bwd: Callable) -> type:
 
 
 def _rglru_fwd(log_a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The forward kernel's launch, counted: what :data:`RGLRUScan` runs."""
-    h = _rg.rglru_scan_fwd(log_a.float(), b.float())
-    _counted("rglru_scan", _rg.variant(log_a.shape[2]))
-    return h
+    """The forward kernel's launch: what :data:`RGLRUScan` runs."""
+    return _rg.rglru_scan_fwd(log_a.float(), b.float())
 
 
 def rglru_scan_bwd(log_a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The RG-LRU backward kernel's launch, counted: (dlog_a, db) fp32 from
-    log_a, the forward's h and dh, all [B,L,W] on the card.  What
-    :data:`RGLRUScan`'s backward runs; callable alone to time it."""
-    out = _rg.rglru_scan_bwd(log_a.float().contiguous(), h, dh.float())
-    _counted("rglru_scan_bwd", _rg.variant(log_a.shape[2]))
-    return out
+    """The RG-LRU backward kernel's launch: (dlog_a, db) fp32 from log_a, the
+    forward's h and dh, all [B,L,W] on the card.  What :data:`RGLRUScan`'s
+    backward runs; callable alone to time it."""
+    return _rg.rglru_scan_bwd(log_a.float().contiguous(), h, dh.float())
 
 
 def _ssd_fwd(x, dt, a, bmat, cmat, q, return_state):
-    """The forward kernel's launch, counted: what :data:`SSDScan` runs."""
-    out = _ssd.ssd_scan_fwd(x, dt, a, bmat, cmat, q, return_state=return_state)
-    _counted("ssd_scan", _ssd.variant(x.shape[3], bmat.shape[-1], q, x.dtype))
-    return out
+    """The forward kernel's launch: what :data:`SSDScan` runs."""
+    return _ssd.ssd_scan_fwd(x, dt, a, bmat, cmat, q, return_state=return_state)
 
 
 def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
                  cmat: torch.Tensor, q: int, dy: torch.Tensor,
                  dh_last: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
-    """The SSD backward kernel's launch, counted by variant: (dx, ddt, da,
-    dB, dC) at chunk q for the cotangents dy and dh_last (None: zero), on
-    the card.  What :data:`SSDScan`'s backward runs; callable alone to time
-    it."""
-    out = _ssd.ssd_scan_bwd(x, dt, a, bmat, cmat, q, dy,
-                            None if dh_last is None else dh_last.float())
-    _counted("ssd_scan_bwd", _ssd.bwd_variant(x.shape[3], bmat.shape[-1], q, x.dtype))
-    return out
+    """The SSD backward kernel's launch: (dx, ddt, da, dB, dC) at chunk q
+    for the cotangents dy and dh_last (None: zero), on the card.  What
+    :data:`SSDScan`'s backward runs; callable alone to time it."""
+    return _ssd.ssd_scan_bwd(x, dt, a, bmat, cmat, q, dy,
+                             None if dh_last is None else dh_last.float())
 
 
 #: the scans on the card: kernel forward, kernel backward

@@ -1,0 +1,173 @@
+"""Op-level cost of one call traced on fake tensors.
+
+The counterpart of :mod:`repro.launch.hlo_cost`.  The reference walks
+optimized HLO text with trip counts, because XLA's ``cost_analysis()``
+counts a ``while`` body once.  Here the layer loop is Python and every op
+reaches the dispatcher, so one ``TorchDispatchMode`` (:class:`OpCounter`),
+run inside ``FlopCounterMode``, tallies a step as it runs on fake tensors
+(``FakeTensorMode``: no card, no memory):
+
+* ``flops`` — ``FlopCounterMode``'s count, the kernels' own formulas
+  (:mod:`repro_torch.kernels.library`) included;
+* ``bytes_read`` / ``bytes_written`` — each op's tensor inputs and outputs,
+  views free: in eager PyTorch nothing fuses, so this is the step's HBM
+  traffic, not a bound;
+* ``ops`` — ops dispatched, views, allocations that launch nothing and
+  queries (``prim.device``: no tensor out) left out: it stands in for
+  launches;
+* ``peak_bytes`` — the most bytes the call held at once beyond its
+  arguments: each new storage rounded up to 512 bytes, as the caching
+  allocator does, and freed when it dies (``weakref.finalize`` on the
+  storage).  What an operator's implementation allocates inside itself
+  (the kernels' scratch) reaches no dispatch mode; a fake implementation
+  reports it through :data:`repro_torch.kernels.library.allocation_hooks`.
+
+The reference's ``Cost.as_dict()`` fields, mapped onto :meth:`Cost.as_dict`:
+``flops`` → ``flops``; ``transcendentals`` → none (``FlopCounterMode``
+counts products only); ``bytes_accessed`` → ``bytes_accessed`` (read +
+written); ``bytes_fused`` → ``bytes_accessed`` (nothing fuses);
+``wire_bytes``, ``collective_ops``, ``collective_bytes`` → none (one card
+runs no collective).
+"""
+
+from __future__ import annotations
+
+import weakref
+from collections import Counter
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, Iterable, Tuple
+
+import torch
+from torch.utils import _pytree as pytree
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro_torch.kernels import library
+
+#: the caching allocator's rounding of a block
+BLOCK = 512
+
+_aten = torch.ops.aten
+#: ops that allocate or relabel and launch nothing
+_NO_LAUNCH = {_aten.empty.memory_format, _aten.empty_strided.default, _aten.empty_like.default,
+              _aten.new_empty.default, _aten.new_empty_strided.default,
+              _aten._unsafe_view.default, _aten.lift_fresh.default}
+
+
+def rounded(nbytes: int) -> int:
+    """Bytes the caching allocator hands out for ``nbytes`` (0 for none)."""
+    return -(-nbytes // BLOCK) * BLOCK
+
+
+def tensors(tree: Any) -> list:
+    return [t for t in pytree.tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def storage_key(t: torch.Tensor) -> int:
+    return t.untyped_storage()._cdata
+
+
+def storages(tree: Any) -> Dict[int, int]:
+    """The distinct storages of the tensors of ``tree``: key → bytes, each
+    rounded as the allocator rounds it."""
+    return {storage_key(t): rounded(t.untyped_storage().nbytes()) for t in tensors(tree)}
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+@dataclass
+class Cost:
+    """What :func:`count` tallied over one call."""
+
+    flops: float = 0.0
+    bytes_read: int = 0
+    bytes_written: int = 0
+    ops: int = 0
+    peak_bytes: int = 0                      # beyond the arguments
+    by_op: Dict[str, dict] = field(default_factory=dict)
+
+    @property
+    def bytes_accessed(self) -> int:
+        return self.bytes_read + self.bytes_written
+
+    def as_dict(self) -> dict:
+        return {"flops": self.flops, "bytes_accessed": self.bytes_accessed,
+                "bytes_read": self.bytes_read, "bytes_written": self.bytes_written,
+                "ops": self.ops, "peak_bytes": self.peak_bytes}
+
+
+class OpCounter(TorchDispatchMode):
+    """Counts ops and bytes and tracks live storages; ``arguments`` are the
+    storages the call starts with (they are never counted as new)."""
+
+    def __init__(self, arguments: Iterable[int] = ()):
+        super().__init__()
+        self.arguments = set(arguments)
+        self.live = 0
+        self.peak = 0
+        self.ops = 0
+        self.bytes_read = 0
+        self.bytes_written = 0
+        self.calls: Counter = Counter()
+        self.op_bytes: Counter = Counter()
+        self._live: Dict[int, int] = {}
+
+    def track(self, ts: Iterable[torch.Tensor], known: Iterable[int] = ()) -> None:
+        """Count each storage of ``ts`` that is new (not an argument, not in
+        ``known``, not already live) as allocated."""
+        known = set(known)
+        for t in ts:
+            st = t.untyped_storage()
+            key = st._cdata
+            if key in known or key in self._live or key in self.arguments:
+                continue
+            n = rounded(st.nbytes())
+            if not n:
+                continue
+            self._live[key] = n
+            self.live += n
+            self.peak = max(self.peak, self.live)
+            weakref.finalize(st, self._free, key)
+
+    def _free(self, key: int) -> None:
+        self.live -= self._live.pop(key, 0)
+
+    def __enter__(self):
+        library.allocation_hooks.append(self.track)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        library.allocation_hooks.remove(self.track)
+        return super().__exit__(*exc)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        ins, outs = tensors((args, kwargs)), tensors(out)
+        self.track(outs, known={storage_key(t) for t in ins})
+        if func.is_view or func in _NO_LAUNCH or not outs:    # no tensor out: a query
+            return out
+        name = str(func.overloadpacket)
+        moved = sum(_nbytes(t) for t in ins) + sum(_nbytes(t) for t in outs)
+        self.ops += 1
+        self.bytes_read += sum(_nbytes(t) for t in ins)
+        self.bytes_written += sum(_nbytes(t) for t in outs)
+        self.calls[name] += 1
+        self.op_bytes[name] += moved
+        return out
+
+
+def count(fn: Callable, *args) -> Tuple[Any, Cost]:
+    """Run ``fn(*args)`` (under an active ``FakeTensorMode``, so nothing runs
+    on a device) and tally it; returns (its output, the :class:`Cost`)."""
+    flop_counter = FlopCounterMode(display=False)
+    counter = OpCounter(storages(args))
+    with flop_counter, counter:
+        out = fn(*args)
+    flops_by_op = {str(op): n for op, n in flop_counter.get_flop_counts()["Global"].items()}
+    by_op = {name: {"calls": counter.calls[name], "bytes": counter.op_bytes[name],
+                    "flops": flops_by_op.get(name, 0)} for name in counter.calls}
+    return out, Cost(flops=float(flop_counter.get_total_flops()),
+                     bytes_read=counter.bytes_read, bytes_written=counter.bytes_written,
+                     ops=counter.ops, peak_bytes=counter.peak, by_op=by_op)

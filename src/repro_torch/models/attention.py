@@ -84,8 +84,8 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits = softcap(logits, cap)
     if mask is not None:
         m = torch.broadcast_to(mask, (b, l, s))[:, None, None, :, :]
-        logits = torch.where(m, logits, torch.tensor(NEG_INF, dtype=torch.float32,
-                                                     device=logits.device))
+        logits = torch.where(m, logits, torch.full((), NEG_INF, dtype=torch.float32,
+                                                  device=logits.device))
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkgls,bskd->blkgd", probs, v)
     return out.reshape(b, l, h, hd)
@@ -246,7 +246,7 @@ def decode_step(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
     b, l, _ = x.shape
     hd, ct = cfg.hd, cfg.cdtype
     q, k, v = _project_qkv(params, cfg, x)
-    cos, sin = rope_angles(torch.tensor([pos], device=x.device), hd, cfg.rope_theta)
+    cos, sin = rope_angles(torch.full((1,), pos, device=x.device), hd, cfg.rope_theta)
     q = apply_rope(q, cos[None], sin[None])
     k = apply_rope(k, cos[None], sin[None])
 
@@ -333,8 +333,8 @@ def _decode_seqshard(cfg: ModelConfig, q, k_new, v_new, cache_k, cache_v, pos: i
     logits = torch.einsum("blkgd,bskd->bkgls", qg.float(), ck.to(qs.dtype).float())
     logits = logits / torch.tensor(math.sqrt(hd), dtype=torch.float32)
     logits = softcap(logits, cfg.attn_softcap)
-    logits = torch.where(valid, logits, torch.tensor(NEG_INF, dtype=torch.float32,
-                                                     device=logits.device))
+    logits = torch.where(valid, logits, torch.full((), NEG_INF, dtype=torch.float32,
+                                                  device=logits.device))
     group = ctx.group(ctx.model_axis)
     m = all_reduce(logits.amax(dim=-1), group, "max")            # [B,Hkv,G,1]
     p = torch.exp(logits - m[..., None])

@@ -58,7 +58,7 @@ def _tile_mask(i: int, j: int, bq: int, bk: int, causal: bool, window: int,
 
 
 def _neg_inf(device) -> torch.Tensor:
-    return torch.tensor(NEG_INF, dtype=_F32, device=device)
+    return torch.full((), NEG_INF, dtype=_F32, device=device)
 
 
 # ==========================================================================

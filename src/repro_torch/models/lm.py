@@ -296,7 +296,7 @@ def _embed(params, cfg: ModelConfig, tokens: torch.Tensor,
     ct = cfg.cdtype
     x = params["embed"][tokens.long()].to(ct)
     if cfg.embed_scale:
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=ct, device=x.device)
+        x = x * torch.full((), cfg.d_model ** 0.5, dtype=ct, device=x.device)
     if cfg.n_patches and patches is not None:
         x = torch.cat([patches.to(ct) @ params["w_patch"].to(ct), x], dim=1)
     return x
@@ -348,7 +348,9 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     b, l, _ = x.shape
     x, aux, _ = _run_blocks(params, cfg, x, _positions(b, l, x.device), memory,
                             collect_kv=False)
-    return _logits(params, cfg, x), torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+    if not torch.is_tensor(aux):          # a dense config's 0.0
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _logits(params, cfg, x), aux.float()
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]

@@ -66,7 +66,7 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     its constants in x's dtype (``F.gelu`` defaults to the exact erf form,
     and its tanh form rounds once and keeps 0.044715 in fp32)."""
     def k(v):
-        return torch.tensor(v, dtype=x.dtype, device=x.device)
+        return torch.full((), v, dtype=x.dtype, device=x.device)
     cdf = 0.5 * (1.0 + torch.tanh(k(math.sqrt(2 / math.pi)) * (x + k(0.044715) * (x ** 3))))
     return x * cdf
 

@@ -44,8 +44,8 @@ def adamw_update(params, grads, opt, step: torch.Tensor, *, lr, b1: float = 0.9,
     """One AdamW step. ``step`` is the 0-based step counter (a 0-d int
     tensor; bias correction uses step+1).  Returns (new_params, new_opt)."""
     t = (step + 1).to(_F32)
-    c1 = 1.0 - torch.pow(torch.tensor(b1, dtype=_F32, device=t.device), t)
-    c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=_F32, device=t.device), t)
+    c1 = 1.0 - torch.pow(torch.full((), b1, dtype=_F32, device=t.device), t)
+    c2 = 1.0 - torch.pow(torch.full((), b2, dtype=_F32, device=t.device), t)
 
     def upd(p, g, m, v):
         g = g.to(_F32)

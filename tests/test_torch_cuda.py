@@ -824,3 +824,42 @@ def test_mesh_seqshard_decode_on_card_matches_plain(mesh_run):
             assert prefill == 0.0 and unwritten == 0.0
         assert out["ring_err/float32"][1] < 1e-4
         assert (out["calls/float32"][0], out["calls/float32"][1] > 0) == (0, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["yi-9b", "mamba2-370m", "recurrentgemma-9b"])
+def test_dry_run_predicts_a_smoke_prefill_peak(card, arch):
+    """launch/dryrun traces the smoke prefill on fake CUDA tensors; the same
+    call on the card, after a warm-up (so the cuBLAS workspace is resident),
+    allocates beyond what was resident before it within 5 % of what the
+    dry run predicts beyond its arguments and that workspace, and launches each kernel as
+    often as the trace calls its operator."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.serve.engine import make_prefill_step
+
+    cfg = configs.get_smoke(arch)
+    b, l = 4, 256
+    rec = dryrun.run_cell(cfg, ShapeSpec("smoke", l, b, "prefill"), verbose=False)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params = dryrun.serve_dtype(lm.init(g, cfg, device="cuda"))
+    inputs = {"tokens": torch.randint(0, cfg.vocab, (b, l), generator=g, device="cuda",
+                                      dtype=torch.int32)}
+    step = make_prefill_step(cfg, max_len=l)
+    with torch.inference_mode():
+        step(params, inputs)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        out = step(params, inputs)
+        torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - base
+    m = rec["memory"]
+    predicted = m["peak_bytes"] - m["argument_bytes"] - m["workspace_bytes"]
+    print(f"[dry run] {arch} smoke prefill [{b}, {l}]: predicted {predicted} B beyond the "
+          f"arguments, measured {measured} B, rel {(predicted - measured) / measured:+.5f}")
+    assert abs(predicted - measured) <= 0.05 * measured, (predicted, measured)
+    calls = {k.split(".")[1].removesuffix("_fwd"): v["calls"] for k, v in rec["kernels"].items()}
+    assert {k: n for k, n in ops.launches.items() if n} == calls
+    del out

@@ -81,3 +81,22 @@ def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
                        env=dict(os.environ, PYTHONPATH=""),
                        capture_output=True, text=True, timeout=300)
     assert r.returncode != 0 and '"ok": true' not in r.stdout
+
+
+#: the dry-run tooling and the kernels' operators
+DRY_RUN = ["configs/registry.py", "kernels/library.py", "launch/hlo_analysis.py",
+           "launch/op_cost.py", "launch/dryrun.py"]
+
+
+@pytest.mark.parametrize("rel", DRY_RUN)
+def test_dry_run_modules_stand_alone(rel):
+    """No import line of JAX or ``repro``, and importing the module alone in
+    a fresh process loads neither."""
+    assert not _IMPORTS_JAX_OR_REPRO.search((PORT / rel).read_text())
+    module = "repro_torch." + rel.removesuffix(".py").replace("/", ".")
+    code = (f"import sys, {module}\n"
+            "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), timeout=300)
+    assert r.returncode == 0, r.stderr
