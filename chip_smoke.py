@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py [--skip-mesh]
 
-``--skip-mesh`` leaves out phase 3b, to read the later phases without the
-four ranks' run before them.  Phases, in order; any failure exits non-zero and no phase catches its own:
+``--skip-mesh`` leaves out phases 3b and 6c, to read the other phases
+without the four ranks' runs.  Phases, in order; any failure exits non-zero and no phase catches its own:
 
 1. build    — compile every CUDA kernel of the port (one nvcc per source,
               all started together), print the build seconds and each
@@ -161,6 +161,31 @@ four ranks' run before them.  Phases, in order; any failure exits non-zero and n
               the same steps with both scans differentiated by autograd
               through their plain versions, step 1's loss and grad norm
               held to within 1e-3 relative.
+6c. mesh train — the sharded train step (make_train_step on a state of
+              DTensors placed by param_shardings, under make_ctx's context)
+              on MESH_RANKS = 4 processes sharing the card as the (2, 2)
+              ("data", "model") gloo mesh: every rank rebuilds phase 6's
+              initial state (yi-9b at full width, depth cut to 4 of 48
+              layers, remat "dots", bf16 compute) from the same seed and
+              keeps its blocks (FSDP over data, TP over model), and runs
+              phase 6's batches (2 × 2048; a rank's block 1 × 2048, its
+              flash calls q [1,2048,16,128], k/v [1,2048,2,128] with lse):
+              3 steps with gather_dtype "" and one with "bfloat16", each
+              step's loss within 3e-2 and grad norm within 5e-2 relative of
+              phase 6's plain step on the same state and batch (the
+              bf16-gathered one against a plain bf16-gathered step from
+              phase 6's state), parameters bf16 after the bf16-gathered
+              step, 8 wgmma flash launches a step on every rank; a timed
+              pass (step 3 again, every collective timed on the host clock
+              after a synchronise); then one fp32 step of the same width cut
+              to one layer (flash fma, 2 launches) within 1e-4 relative of
+              the plain fp32 step's loss and grad norm, and every rank's
+              block of every updated parameter within 1e-4 of the plain
+              step's and of every first moment (the gradient, elementwise)
+              within 1e-4 of its largest (the loss alone cannot tell the
+              ranks apart: the loss reduces over every axis).
+              Prints each rank's step ms, collectives, their seconds in the
+              timed pass and its peak memory beside phase 6's.
 7. grads    — the flash Function (kernel forward, FA2 backward) against
               autograd through the dense plain version on the card: fp32
               on the fma variant, bf16 on wgmma at hd 128.
@@ -176,7 +201,7 @@ four ranks' run before them.  Phases, in order; any failure exits non-zero and n
 
 Phase 2 also holds the flash kernels' log-sum-exp (the backward's input)
 against the plain version on both variants and times the forward with it
-at the training shape.
+at the training shape and at a rank's shape in phase 6c.
 
 The line before the last is one JSON object with a row per kernel
 (flash_attention, ssd_scan, rglru_scan, ssd_scan_bwd, rglru_scan_bwd); the last
@@ -201,6 +226,7 @@ from unittest import mock
 import torch
 import torch.distributed as dist
 from torch.autograd import DeviceType
+from torch.distributed.tensor import DTensor
 from torch.profiler import ProfilerActivity, profile
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -221,10 +247,12 @@ from repro_torch.launch import op_cost  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch.profile_serve import _union_us, kernel_class  # noqa: E402
 from repro_torch.models import attention, flash, lm, moe, rglru, ssm  # noqa: E402
+from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
 from repro_torch.parallel import mesh_ctx  # noqa: E402
 from repro_torch.parallel import ref as mesh_ref  # noqa: E402
 from repro_torch.parallel.mesh_ctx import mesh_context  # noqa: E402
-from repro_torch.parallel.sharding import cache_shardings, distribute_tree  # noqa: E402
+from repro_torch.parallel.sharding import (cache_shardings, distribute_tree,  # noqa: E402
+                                          local_slices, param_shardings, spec_of)
 from repro_torch.serve import workflow  # noqa: E402
 from repro_torch.serve.engine import (greedy_generate, make_decode_step,  # noqa: E402
                                       make_prefill_step)
@@ -270,6 +298,28 @@ MESH_MAX_LEN, MESH_DECODE = 544, 8
 MESH_DS = DS.replace(n_layers=2)
 MESH_DS_DECODE = 4
 MESH_TIMEOUT = 600
+
+# the sharded training phase: MESH_RANKS processes share the card as the
+# (2, 2) ("data", "model") mesh; each rank rebuilds phase 6's initial state
+# (YI_TRAIN from _gen(0): yi-9b at full width, depth cut from 48 layers to
+# 4) and keeps its blocks by the rule table, then runs phase 6's batches
+# (2 × 2048): TRAIN_STEPS steps with gather_dtype "" and one with
+# "bfloat16", each held against phase 6's plain step on the same state and
+# batch (loss within MESH_TRAIN_LOSS_TOL, grad norm within
+# MESH_TRAIN_GNORM_RTOL relative), then one fp32 step of the same width cut
+# to one layer (flash fma) against the plain fp32 step (MESH_TRAIN_FP32_RTOL)
+MESH_TRAIN_FP32 = YI_TRAIN.replace(n_layers=1, compute_dtype="float32")
+MESH_TRAIN_LOSS_TOL, MESH_TRAIN_GNORM_RTOL, MESH_TRAIN_FP32_RTOL = 3e-2, 5e-2, 1e-4
+# ... and each rank's block of every parameter and first moment after the
+# fp32 step against the plain step's (parameters within
+# MESH_TRAIN_PARAM_ATOL, moments within MESH_TRAIN_FP32_RTOL of their block's
+# largest), whose leaves the parent writes to this file for the ranks
+MESH_TRAIN_PARAM_ATOL = 1e-4
+MESH_TRAIN_FP32_REF = os.path.join(ROOT, "build", "mesh_train_fp32_ref.pt")
+MESH_TRAIN_TIMEOUT = 900
+#: a rank's flash call in the sharded step: its batch block and its heads
+MESH_TRAIN_SHAPE = (TRAIN_BATCH // MESH_SHAPE[0], TRAIN_SEQ, YI.n_heads // MESH_SHAPE[1],
+                    YI.n_kv_heads // MESH_SHAPE[1], YI.hd)
 
 # H100 SXM5 80GB HBM3 published peaks (launch/hlo_analysis.py): bytes/s and FLOP/s
 HBM_BYTES_S = ha.HBM_BW
@@ -603,12 +653,12 @@ def _flash_lse_case(b, l, h, hkv, hd, window, cap, dtype, tol) -> float:
                   f"cap={cap} {str(dtype)[6:]}", lse, lse_ref, tol, tol)
 
 
-def _flash_train_shape() -> dict:
-    """The forward with lse at the training shape, as the training step
+def _flash_train_shape(shape=TRAIN_SHAPE, seed: int = 7) -> dict:
+    """The forward with lse at a training shape, as the training step
     launches it (wgmma, bf16), timed against its plain version and the
     library call; lse [B,H,L] fp32 is one more output."""
-    b, l, h, hkv, hd = TRAIN_SHAPE
-    q, k, v = _qkv(b, l, h, hkv, hd, torch.bfloat16, seed=7)
+    b, l, h, hkv, hd = shape
+    q, k, v = _qkv(b, l, h, hkv, hd, torch.bfloat16, seed=seed)
     n0 = dict(ops.flash_variant_launches)
     out, lse = ops.flash_attention(q, k, v, causal=True, return_lse=True)
     if ops.flash_variant_launches != {**n0, "wgmma": n0["wgmma"] + 1}:
@@ -632,8 +682,8 @@ def _flash_train_shape() -> dict:
 def phase_flash_lse() -> tuple:
     """lse on both variants: fma on the reference's fp32 cases and at hd 96
     (1e-5), wgmma at hd 64, 96, 128 and 256 (1e-4: its exponentials are
-    ex2.approx), and the training shape; returns (largest lse error, the
-    training shape's row)."""
+    ex2.approx), the training shape and a rank's shape in the sharded step;
+    returns (largest lse error, the two shapes' rows)."""
     errs = [_flash_lse_case(b, l, h, hkv, hd, window, cap, torch.float32, 1e-5)
             for (b, l, h, hkv, hd, window, cap, dt, _) in ref.FLASH_CASES + ref.FLASH_HD96_CASES
             if dt == "float32"]
@@ -641,7 +691,8 @@ def phase_flash_lse() -> tuple:
                  (1, 576, 32, 4, 128, 0, 50.0), (1, 256, 4, 1, 256, 64, 0.0)):
         errs.append(_flash_lse_case(*case, torch.bfloat16, 1e-4))
     row = _flash_train_shape()
-    return max(errs + [row["lse_max_abs_err"]]), row
+    mesh_row = _flash_train_shape(MESH_TRAIN_SHAPE, seed=8)
+    return max(errs + [row["lse_max_abs_err"], mesh_row["lse_max_abs_err"]]), row, mesh_row
 
 
 def phase_flash() -> dict:
@@ -675,10 +726,11 @@ def phase_flash() -> dict:
     row["at_other_shapes"] = [{k: r[k] for k in (
         "shape", "variant", "source", "max_abs_err", "ms", "plain_ms", "bound_ms",
         "bound_by", "library_ms", "call_ms")} for r in others]
-    row["lse_max_err"], train_row = phase_flash_lse()
-    row["at_train_shape"] = {k: train_row[k] for k in (
-        "shape", "max_abs_err", "lse_max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-        "library_ms", "call_ms", "ms_by_kernel")}
+    row["lse_max_err"], train_row, mesh_row = phase_flash_lse()
+    for key, r in (("at_train_shape", train_row), ("at_mesh_train_shape", mesh_row)):
+        row[key] = {k: r[k] for k in (
+            "shape", "max_abs_err", "lse_max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "call_ms", "ms_by_kernel")}
     return row
 
 
@@ -1236,6 +1288,53 @@ def _mesh_rank(rank: int, world: int, directory: str) -> None:
     """One rank of the mesh phase (a ``spawn`` target: the module imports
     without a card and starts no process group).  Loads the kernels the
     parent built, never building one; writes ``<directory>/rank<r>.json``."""
+    mesh, r = _rank_mesh(rank, world, directory)
+    with torch.no_grad():
+        r["seqshard"] = _mesh_seqshard(mesh)
+        r["ep"] = _mesh_ep(mesh)
+    r["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    with open(os.path.join(directory, f"rank{rank}.json"), "w") as f:
+        json.dump(r, f)
+    dist.destroy_process_group()
+
+
+def _spawn_ranks(target, timeout: float) -> tuple:
+    """Start MESH_RANKS ``spawn`` processes of ``target(rank, world,
+    directory)`` on the card and wait for all: a rank that fails or
+    outlasts ``timeout`` fails the run, and the others are killed.  Returns
+    (each rank's ``<directory>/rank<r>.json``, seconds)."""
+    _free()
+    _log(f"[mesh] parent: {torch.cuda.memory_allocated()} B allocated before spawning "
+         f"{MESH_RANKS} ranks")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    directory = tempfile.mkdtemp(prefix="mesh-", dir=os.path.join(ROOT, "build"))
+    spawn = multiprocessing.get_context("spawn")
+    procs = [spawn.Process(target=target, args=(r, MESH_RANKS, directory))
+             for r in range(MESH_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    while any(p.is_alive() for p in procs) and time.perf_counter() - t0 < timeout:
+        if any(p.exitcode not in (None, 0) for p in procs):
+            break
+        time.sleep(0.5)
+    codes = [p.exitcode for p in procs]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join()
+    if codes != [0] * MESH_RANKS:
+        _fail(f"mesh ranks exited {codes} (None: still running after {timeout} s)")
+    ranks = []
+    for i in range(MESH_RANKS):
+        with open(os.path.join(directory, f"rank{i}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks, time.perf_counter() - t0
+
+
+def _rank_mesh(rank: int, world: int, directory: str):
+    """This rank's (2, 2) gloo mesh on the card, after checking that the
+    parent built every kernel (a rank never builds one)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     missing = [n for n in build.SOURCES if not build._target(n).exists()]
@@ -1248,47 +1347,15 @@ def _mesh_rank(rank: int, world: int, directory: str) -> None:
          "device": str(torch.device("cuda", torch.cuda.current_device()))}
     if set(r["backend"].values()) != {"gloo"}:
         _fail(f"rank {rank}: mesh groups {r['backend']}, not gloo")
-    with torch.no_grad():
-        r["seqshard"] = _mesh_seqshard(mesh)
-        r["ep"] = _mesh_ep(mesh)
-    r["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    with open(os.path.join(directory, f"rank{rank}.json"), "w") as f:
-        json.dump(r, f)
-    dist.destroy_process_group()
+    return mesh, r
 
 
 def phase_mesh() -> tuple:
-    """Spawn MESH_RANKS ranks on the card, wait for all (a rank that fails
-    or outlasts MESH_TIMEOUT fails the phase and the others are killed),
-    then check and print each rank's results.  Returns (the phase's flash
-    launches as a path's launches, by variant, the ranks' results)."""
-    _free()
-    _log(f"[mesh] parent: {torch.cuda.memory_allocated()} B allocated before spawning "
-         f"{MESH_RANKS} ranks")
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    directory = tempfile.mkdtemp(prefix="mesh-", dir=os.path.join(ROOT, "build"))
-    spawn = multiprocessing.get_context("spawn")
-    procs = [spawn.Process(target=_mesh_rank, args=(r, MESH_RANKS, directory))
-             for r in range(MESH_RANKS)]
-    t0 = time.perf_counter()
-    for p in procs:
-        p.start()
-    while any(p.is_alive() for p in procs) and time.perf_counter() - t0 < MESH_TIMEOUT:
-        if any(p.exitcode not in (None, 0) for p in procs):
-            break
-        time.sleep(0.5)
-    codes = [p.exitcode for p in procs]
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-        p.join()
-    if codes != [0] * MESH_RANKS:
-        _fail(f"mesh ranks exited {codes} (None: still running after {MESH_TIMEOUT} s)")
-    ranks = []
-    for i in range(MESH_RANKS):
-        with open(os.path.join(directory, f"rank{i}.json")) as f:
-            ranks.append(json.load(f))
-    _log(f"[mesh] {MESH_RANKS} ranks in {time.perf_counter() - t0:.1f}s: mesh "
+    """Spawn MESH_RANKS ranks on the card (:func:`_spawn_ranks`), then check
+    and print each rank's results.  Returns (the phase's flash launches as a
+    path's launches, by variant, the ranks' results)."""
+    ranks, seconds = _spawn_ranks(_mesh_rank, MESH_TIMEOUT)
+    _log(f"[mesh] {MESH_RANKS} ranks in {seconds:.1f}s: mesh "
          f"{dict(zip(MESH_AXES, MESH_SHAPE))}, backend {ranks[0]['backend']}, all on "
          f"{ranks[0]['device']}")
     flash = dict.fromkeys(fa.VARIANTS, 0)
@@ -1728,14 +1795,30 @@ def phase_train() -> dict:
     _log(f"[train] traced step: device busy {traced_ms:.3f} ms; largest classes (device ms) "
          + ", ".join(f"{k} {v:.3f}" for k, v in top.items()) + "; largest kernels "
          + ", ".join(f"{k[:60]} {v:.3f}" for k, v in kernels.items()))
-    del state
+    # the references of the sharded phase's last two steps: the bf16-gathered
+    # step from this state, and a one-layer fp32 step from the seed
+    _, m = make_train_step(cfg.replace(gather_dtype="bfloat16"), lr=3e-4)(
+        state, batches[TRAIN_STEPS])
+    gather_step = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+    del state, m
+    _free()
+    state = train_state_init(_gen(0), MESH_TRAIN_FP32, device="cuda")
+    new, m = make_train_step(MESH_TRAIN_FP32, lr=3e-4)(state, batches[0])
+    fp32_step = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+    fp32_ref = {k: [t.cpu() for t in tree_leaves(tree)]
+                for k, tree in (("params", new["params"]), ("m", new["opt"]["m"]))}
+    _log(f"[train] plain references of the sharded phase: bf16-gathered step "
+         f"{TRAIN_STEPS + 1} {gather_step}; fp32 {MESH_TRAIN_FP32.n_layers}-layer step 1 "
+         f"{fp32_step}")
+    del state, new, m
     _free()
     dense = _train_dense(cfg, batches[:TRAIN_STEPS], steps)
     del batches
     _free()
     return {"steps": steps, "peak_mem_gb": peak, "launches": launches,
             "traced_device_ms": traced_ms, "top_classes_ms": top, "top_kernels_ms": kernels,
-            "dense_steps": dense}
+            "dense_steps": dense, "gather_bf16_step": gather_step, "fp32_step": fp32_step,
+            "fp32_ref": fp32_ref}
 
 
 def _dense_causal(q, k, v, *, window, cap):
@@ -1763,6 +1846,182 @@ def _train_dense(cfg, batches, steps) -> list:
         _fail("the full-width step-1 loss or gradient norm differs from dense attention's")
     del state
     return out
+
+
+# ==========================================================================
+# 6c. sharded training: the train step under a mesh, 4 gloo ranks
+# ==========================================================================
+
+
+def _sharded_state(cfg, gen: torch.Generator, ctx) -> dict:
+    """train_state_init(gen, cfg) placed by the rule table on ``gen``'s
+    device: the global parameters are drawn, each rank keeps its blocks and
+    drops the rest, and the moments are zero blocks (the global state never
+    exists whole on a rank)."""
+    params = lm.init(gen, cfg, device=gen.device)
+    dparams = distribute_tree(params, param_shardings(params, ctx), ctx)
+    del params
+    _free()
+
+    def zeros(d):
+        return DTensor.from_local(torch.zeros(d.to_local().shape, dtype=torch.float32,
+                                              device=gen.device),
+                                  ctx.mesh, d.placements, run_check=False)
+
+    return {"params": dparams, "opt": {"m": tree_map(zeros, dparams),
+                                       "v": tree_map(zeros, dparams)},
+            "step": torch.zeros((), dtype=torch.int32, device=gen.device)}
+
+
+def _sharded_step(step_fn, state, batch) -> tuple:
+    """One step under the ambient context: (new state, its record: loss,
+    grad norm, host ms ended by a synchronise, flash launches by variant,
+    collectives)."""
+    n0, v0 = ops.launches["flash_attention"], dict(ops.flash_variant_launches)
+    c0 = mesh_ctx.collective_stats["calls"]
+    t0 = time.perf_counter()
+    state, m = step_fn(state, batch)
+    torch.cuda.synchronize()
+    return state, {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                   "step_ms": (time.perf_counter() - t0) * 1e3,
+                   "flash_launches": ops.launches["flash_attention"] - n0,
+                   "flash_by_variant": {v: ops.flash_variant_launches[v] - v0[v]
+                                        for v in v0},
+                   "collectives": mesh_ctx.collective_stats["calls"] - c0}
+
+
+def _mesh_train_rank(rank: int, world: int, directory: str) -> None:
+    """One rank of the sharded training phase: phase 6's state and batches
+    on this rank's blocks, TRAIN_STEPS steps, the bf16-gathered step, a
+    timed pass (step TRAIN_STEPS again, every collective timed), then the
+    one-layer fp32 step.  Writes ``<directory>/rank<r>.json``."""
+    mesh, r = _rank_mesh(rank, world, directory)
+    ctx = launch_mesh.make_ctx(mesh)
+    cfg = YI_TRAIN
+    state = _sharded_state(cfg, _gen(0), ctx)
+    batches = [batch_to(make_batch(cfg, TRAIN_SEQ, TRAIN_BATCH, step=s), state["step"].device)
+               for s in range(TRAIN_STEPS + 1)]
+    r["state_gb"] = sum(t.to_local().numel() * t.to_local().element_size()
+                        for t in tree_leaves(state) if mesh_ctx.is_distributed(t)) / 1e9
+    r["local_wq"] = list(state["params"]["blocks"]["s0"]["attn"]["wq"].to_local().shape)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_fn = make_train_step(cfg, lr=3e-4)
+    ops.reset_launches()
+    mesh_ctx.reset_collective_stats()
+    r["steps"] = []
+    with mesh_context(ctx):
+        for s in range(TRAIN_STEPS):
+            before = state
+            state, rec = _sharded_step(step_fn, state, batches[s])
+            r["steps"].append(rec)
+        gather_fn = make_train_step(cfg.replace(gather_dtype="bfloat16"), lr=3e-4)
+        after, r["gather_step"] = _sharded_step(gather_fn, state, batches[TRAIN_STEPS])
+        r["gather_dtypes"] = sorted({str(t.dtype)[6:] for t in tree_leaves(after["params"])})
+        del after, state
+        _free()
+        mesh_ctx.reset_collective_stats(timed=True)
+        _, timed = _sharded_step(step_fn, before, batches[TRAIN_STEPS - 1])
+        timed["collective_s"] = mesh_ctx.collective_stats["seconds"]
+        r["timed"] = timed
+        mesh_ctx.reset_collective_stats()
+        del before
+        _free()
+    r["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    state = _sharded_state(MESH_TRAIN_FP32, _gen(0), ctx)
+    with mesh_context(ctx):
+        state, r["fp32_step"] = _sharded_step(make_train_step(MESH_TRAIN_FP32, lr=3e-4), state,
+                                              batches[0])
+    plain = torch.load(MESH_TRAIN_FP32_REF, mmap=True)
+
+    def against_plain(tree, leaves, relative):
+        errs = []
+        for got, want in zip(tree_leaves(tree), leaves, strict=True):
+            want = want[local_slices(tuple(got.shape), spec_of(got), ctx)].to(got.device)
+            err = float((got.to_local() - want).abs().max())
+            errs.append(err / (float(want.abs().max()) or 1.0) if relative else err)
+        return errs
+
+    r["fp32_params_max_err"] = against_plain(state["params"], plain["params"], False)
+    r["fp32_m_rel_err"] = against_plain(state["opt"]["m"], plain["m"], True)
+    del state, plain
+    _free()
+    with open(os.path.join(directory, f"rank{rank}.json"), "w") as f:
+        json.dump(r, f)
+    dist.destroy_process_group()
+
+
+def phase_mesh_train(plain: dict, fp32_ref: dict) -> tuple:
+    """The sharded train step on MESH_RANKS ranks against phase 6's plain
+    steps (``plain``: phase_train's record; ``fp32_ref``: the leaves of
+    the plain fp32 step's updated parameters and first moments, on the
+    host).  Fails unless every step's loss is within MESH_TRAIN_LOSS_TOL and
+    its grad norm within MESH_TRAIN_GNORM_RTOL of the plain step's, the fp32
+    step's loss and grad norm within MESH_TRAIN_FP32_RTOL, every rank's block
+    of every updated parameter within MESH_TRAIN_PARAM_ATOL and of every
+    first moment within MESH_TRAIN_FP32_RTOL of its largest, and each
+    rank launched flash (wgmma, 2 a layer a step under remat dots; fma in
+    fp32).  Returns (the phase's flash launches as a path's launches, by
+    variant, the ranks)."""
+    os.makedirs(os.path.dirname(MESH_TRAIN_FP32_REF), exist_ok=True)
+    torch.save(fp32_ref, MESH_TRAIN_FP32_REF)
+    ranks, seconds = _spawn_ranks(_mesh_train_rank, MESH_TRAIN_TIMEOUT)
+    os.remove(MESH_TRAIN_FP32_REF)
+    _log(f"[mesh-train] {MESH_RANKS} ranks in {seconds:.1f}s: mesh "
+         f"{dict(zip(MESH_AXES, MESH_SHAPE))}, yi-9b width, {YI_TRAIN.n_layers} layers, batch "
+         f"{TRAIN_BATCH} x {TRAIN_SEQ}; a rank's wq block {ranks[0]['local_wq']}, its state "
+         f"{ranks[0]['state_gb']:.3f} GB")
+    per_step = 2 * YI_TRAIN.n_layers
+    flash = dict.fromkeys(fa.VARIANTS, 0)
+    wants = plain["steps"][:TRAIN_STEPS] + [plain["gather_bf16_step"]]
+    for r in ranks:
+        recs = r["steps"] + [r["gather_step"]]
+        for i, (got, want) in enumerate(zip(recs, wants)):
+            dl = abs(got["loss"] - want["loss"])
+            dg = abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"]
+            gather = "bfloat16" if i == TRAIN_STEPS else '""'
+            _log(f"[mesh-train] rank {r['rank']} {r['coord']} step {i + 1} (gather_dtype "
+                 f"{gather}): loss {got['loss']:.6f} (plain {want['loss']:.6f}, |d| {dl:.3e}), "
+                 f"grad norm {got['grad_norm']:.6f} (plain {want['grad_norm']:.6f}, rel "
+                 f"{dg:.3e}), {got['step_ms']:.1f} ms, {got['collectives']} collectives, flash "
+                 f"{got['flash_by_variant']}")
+            if not (dl <= MESH_TRAIN_LOSS_TOL and dg <= MESH_TRAIN_GNORM_RTOL):
+                _fail(f"rank {r['rank']} sharded step {i + 1}: {got} against plain {want}")
+            if got["flash_by_variant"]["wgmma"] != per_step or got["flash_launches"] != per_step:
+                _fail(f"rank {r['rank']} sharded step {i + 1}: flash {got['flash_by_variant']}, "
+                      f"not {per_step} wgmma")
+        if r["gather_dtypes"] != ["bfloat16"]:
+            _fail(f"rank {r['rank']}: parameters after the bf16-gathered step are "
+                  f"{r['gather_dtypes']}")
+        t, f32, want = r["timed"], r["fp32_step"], plain["fp32_step"]
+        _log(f"[mesh-train] rank {r['rank']} timed pass (step {TRAIN_STEPS} again): "
+             f"{t['collectives']} collectives, {t['collective_s']:.3f} s of {t['step_ms']:.1f} ms "
+             f"in them (host clock, each after a synchronise), loss {t['loss']:.6f}")
+        df = abs(f32["loss"] - want["loss"]) / abs(want["loss"])
+        dgf = abs(f32["grad_norm"] - want["grad_norm"]) / want["grad_norm"]
+        _log(f"[mesh-train] rank {r['rank']} fp32 {MESH_TRAIN_FP32.n_layers}-layer step: loss "
+             f"{f32['loss']:.7f} (plain {want['loss']:.7f}, rel {df:.3e}), grad norm "
+             f"{f32['grad_norm']:.7f} (plain {want['grad_norm']:.7f}, rel {dgf:.3e}), flash "
+             f"{f32['flash_by_variant']}")
+        if not (df <= MESH_TRAIN_FP32_RTOL and dgf <= MESH_TRAIN_FP32_RTOL):
+            _fail(f"rank {r['rank']} fp32 sharded step {f32} against plain {want}")
+        errs, merrs = r["fp32_params_max_err"], r["fp32_m_rel_err"]
+        _log(f"[mesh-train] rank {r['rank']} fp32 step: its blocks of the {len(errs)} updated "
+             f"parameters against the plain step's, max |d| {max(errs):.3e} (leaf "
+             f"{errs.index(max(errs))}); of the first moments, max |d| {max(merrs):.3e} of "
+             f"the block's largest (leaf {merrs.index(max(merrs))})")
+        if not (max(errs) <= MESH_TRAIN_PARAM_ATOL and max(merrs) <= MESH_TRAIN_FP32_RTOL):
+            _fail(f"rank {r['rank']} fp32 sharded step: updated parameters differ from the "
+                  f"plain step's by {errs}, first moments by {merrs} of their largest")
+        if f32["flash_by_variant"]["fma"] != 2 * MESH_TRAIN_FP32.n_layers:
+            _fail(f"rank {r['rank']} fp32 sharded step: flash {f32['flash_by_variant']}")
+        _log(f"[mesh-train] rank {r['rank']}: peak memory {r['peak_mem_gb']:.2f} GB over the "
+             f"bf16 steps (phase 6's single process: {plain['peak_mem_gb']:.2f} GB)")
+        for rec in r["steps"] + [r["gather_step"], r["timed"], r["fp32_step"]]:
+            for v, n in rec["flash_by_variant"].items():
+                flash[v] += n
+    launches = {**dict.fromkeys(ops.launches, 0), "flash_attention": sum(flash.values())}
+    return launches, flash, ranks
 
 
 def phase_train_grads() -> dict:
@@ -2019,7 +2278,13 @@ def main(argv=None) -> int:
     _log(f"[dryrun] phase took {time.perf_counter() - t_dry:.1f}s")
     by_path.update(dry_paths)
     train = phase_train()
+    fp32_ref = train.pop("fp32_ref")
     by_path[f"yi-9b train ({YI_TRAIN.n_layers} layers, {TRAIN_STEPS} steps)"] = train["launches"]
+    mesh_train, mesh_train_flash = None, dict.fromkeys(fa.VARIANTS, 0)
+    if argv != ["--skip-mesh"]:
+        by_path[f"mesh train: {MESH_RANKS} ranks, yi-9b {YI_TRAIN.n_layers}L"], \
+            mesh_train_flash, mesh_train = phase_mesh_train(train, fp32_ref)
+    del fp32_ref
     recurrent = {}
     for name, cfg, batch, seq in (("mamba2-370m", MAMBA_TRAIN, MAMBA_TRAIN_BATCH, TRAIN_SEQ),
                                   ("recurrentgemma-9b", RG_TRAIN, RG_TRAIN_BATCH, RG_TRAIN_SEQ)):
@@ -2048,6 +2313,8 @@ def main(argv=None) -> int:
             _fail(f"{name} was not launched on any main path")
     rows["flash_attention"]["launches_by_variant"]["wgmma"] += train["launches"][
         "flash_attention"]
+    for v, n in mesh_train_flash.items():
+        rows["flash_attention"]["launches_by_variant"][v] += n
     grads = phase_train_grads()
     commit = phase_commit()
     phase_refuse()
@@ -2061,7 +2328,7 @@ def main(argv=None) -> int:
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_kernels.json"), "w") as f:
         json.dump({"card": smi, **kernels, "train": train, "train_recurrent": recurrent,
                    "train_grads_max_err": grads, "commit": commit, "vlm_prefix": prefix,
-                   "mesh": mesh, "dryrun": dry_cells},
+                   "mesh": mesh, "mesh_train": mesh_train, "dryrun": dry_cells},
                   f, indent=1)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

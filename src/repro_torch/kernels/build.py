@@ -4,8 +4,11 @@ Each source under ``csrc/`` has a plain C interface and becomes its own
 shared library, compiled for Hopper (``sm_90a``) at first use into
 ``<repo>/build/kernels/`` (listed in ``.gitignore``), under a name keyed by a
 hash of the source, every header (``*.cuh``) under ``csrc/`` and the flags,
-so an edited source or header is rebuilt and an unchanged one is reused.  A
-missing ``nvcc`` or a failed build raises: nothing falls back to another path.
+so an edited source or header is rebuilt and an unchanged one is reused.
+Beside each library nvcc's output (ptxas's register and spill report) is
+kept as ``<library>.log``, read back into :data:`build_info` when the
+library is reused; a library without its log is built again.  A missing
+``nvcc`` or a failed build raises: nothing falls back to another path.
 
 :func:`build_all` starts one ``nvcc`` per source together and waits for all,
 so a fresh checkout builds in the time of its slowest kernel.
@@ -43,7 +46,8 @@ CUDA_NVCC = "/usr/local/cuda/bin/nvcc"    # used when nvcc is not on PATH
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-#: name → {"seconds": build wall time or 0.0 if cached, "log": nvcc output}
+#: name → {"seconds": build wall time or 0.0 if cached, "log": nvcc output
+#: (read back from the library's log when cached)}
 build_info: Dict[str, dict] = {}
 
 
@@ -63,11 +67,16 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+def _log_path(lib: Path) -> Path:
+    return lib.with_name(lib.name + ".log")
+
+
 def _start(name: str) -> Optional[tuple]:
-    """Start nvcc for ``name`` unless its library is already built."""
+    """Start nvcc for ``name`` unless its library and its log are already
+    built; a reused library's build info carries the log nvcc wrote."""
     out = _target(name)
-    if out.exists():
-        build_info[name] = {"seconds": 0.0, "log": "cached: " + out.name}
+    if out.exists() and _log_path(out).exists():
+        build_info[name] = {"seconds": 0.0, "log": _log_path(out).read_text()}
         return None
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -86,7 +95,11 @@ def _finish(job: tuple) -> None:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed for {SOURCES[name]} "
                            f"(exit {proc.returncode}):\n{log}")
+    fd, tmp_log = tempfile.mkstemp(suffix=".log", dir=BUILD_DIR)
+    with os.fdopen(fd, "w") as f:
+        f.write(log)
     os.replace(tmp, out)                      # atomic: readers never see a partial .so
+    os.replace(tmp_log, _log_path(out))       # the log after the library it reports
     build_info[name] = {"seconds": time.perf_counter() - t0, "log": log}
 
 

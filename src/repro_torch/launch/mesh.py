@@ -53,10 +53,29 @@ def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], *,
     return init_device_mesh(device_type, tuple(shape), mesh_dim_names=tuple(axes))
 
 
-def make_ctx(mesh, **knobs) -> MeshCtx:
-    """MeshCtx with the batch axes derived from the mesh's axis names
-    (``mesh`` a ``DeviceMesh`` or a mapping of axis sizes) and parameters
-    FSDP-sharded over ``data``."""
-    batch = tuple(a for a in mesh_shape(mesh) if a in ("pod", "data"))
-    return MeshCtx(mesh, batch_axes=batch, fsdp_axes=("data",), **knobs)
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda") -> DeviceMesh:
+    """The reference's production mesh: (16, 16) ``("data", "model")``, or
+    (2, 16, 16) ``("pod", "data", "model")`` with ``multi_pod``, over the
+    default group's ranks, which must be that many."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need = 1
+    for n in shape:
+        need *= n
+    if dist.is_initialized() and dist.get_world_size() != need:
+        raise ValueError(f"the production mesh {shape} needs {need} ranks; the default "
+                         f"process group has {dist.get_world_size()}")
+    return make_mesh(shape, axes, device_type=device_type)
+
+
+def make_ctx(mesh, *, fsdp_over_pod: bool = False, **knobs) -> MeshCtx:
+    """MeshCtx with the batch and FSDP axes derived from the mesh's axis
+    names (``mesh`` a ``DeviceMesh`` or a mapping of axis sizes): the batch
+    over ``pod`` and ``data``, parameters FSDP-sharded over ``data``, or
+    over the batch axes with ``fsdp_over_pod`` on a mesh with a ``pod``
+    axis."""
+    names = tuple(mesh_shape(mesh))
+    batch = tuple(a for a in names if a in ("pod", "data"))
+    fsdp = batch if (fsdp_over_pod and "pod" in names) else ("data",)
+    return MeshCtx(mesh, batch_axes=batch, fsdp_axes=fsdp, **knobs)
 

@@ -18,7 +18,12 @@ The port of :mod:`repro.models.attention`:
   * under a mesh context with ``shard_kv_seq``, a cache placed as DTensors
     with its slots over the model axis decodes through the flash-decoding
     :func:`_decode_seqshard`, a two-phase softmax over the ranks' slot
-    blocks.
+    blocks;
+  * on local blocks (the sharded train step), causal self-attention
+    (:func:`apply_with_kv`) is Megatron's tensor-parallel attention: q/k/v
+    column-parallel, the reference's heads hint before flash, ``wo``
+    row-parallel.  Off local blocks the parameter reads and the
+    tensor-parallel entry and exit are identities.
 """
 
 from __future__ import annotations
@@ -33,9 +38,10 @@ from repro_torch.kernels import ops
 from repro_torch.models import flash
 from repro_torch.models.common import (ModelConfig, apply_rope, dense_init,
                                        rope_angles, softcap)
-from repro_torch.parallel.mesh_ctx import (all_reduce, current_ctx, gather_dim0,
-                                           is_distributed)
-from repro_torch.parallel.sharding import local_slices, spec_of
+from repro_torch.parallel.mesh_ctx import (SHARDED_TODO, all_reduce, blocks_ctx, constrain,
+                                           current_ctx, gather_dim0, is_distributed, spec_axes,
+                                           tp_input, tp_output)
+from repro_torch.parallel.sharding import local_slices, param_spec, spec_of, use_param
 
 NEG_INF = -2.3819763e38   # keep finite (matches the flash kernel's masking)
 FLASH_BLOCK = 64          # prefill pads L up to a multiple of this
@@ -141,12 +147,18 @@ def _flash_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _project(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor, name: str,
              heads: int) -> torch.Tensor:
-    """x @ w{name} (+ b{name}) → [B, L, heads, hd]."""
+    """x @ w{name} (+ b{name}) → [B, L, heads, hd].  On local blocks the
+    product is column-parallel (``w{name}`` and ``b{name}`` are (fsdp, model)
+    and (model,) by the rule table) and the heads hint follows: the heads
+    returned are this rank's (:func:`_heads_constraint`)."""
     b, l, _ = x.shape
-    ct = cfg.cdtype
-    y = x @ params["w" + name].to(ct)
+    ct, n = cfg.cdtype, heads * cfg.hd
+    y = x @ use_param(params["w" + name], "w" + name, (cfg.d_model, n),
+                      model_partial=True).to(ct)
     if "b" + name in params:
-        y = y + params["b" + name].to(ct)
+        y = y + use_param(params["b" + name], "b" + name, (n,), model_partial=True).to(ct)
+    if blocks_ctx() is not None:
+        return _heads_constraint(y, name, heads, cfg)
     return y.reshape(b, l, heads, cfg.hd)
 
 
@@ -175,6 +187,9 @@ def apply(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
     """
     if kv_override is None and causal:
         return apply_with_kv(params, cfg, x, positions, window=window)[0]
+    if blocks_ctx() is not None:
+        raise NotImplementedError(f"on local blocks only causal self-attention is ported "
+                                  f"({SHARDED_TODO})")
     b, l, _ = x.shape
     hd, ct = cfg.hd, cfg.cdtype
     if kv_override is None:
@@ -193,16 +208,69 @@ def apply_with_kv(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
                   positions: torch.Tensor, *, window: int = 0
                   ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Causal self-attention that also returns the post-RoPE (k, v), so the
-    caller can seed a decode cache."""
-    b, l, _ = x.shape
+    caller can seed a decode cache.
+
+    On local blocks ``x`` is this rank's block at the block boundary and
+    ``positions`` [B/batch, L] the whole sequence's: the input enters the
+    column-parallel q/k/v through ``tp_input``, then the heads hint
+    (:func:`_project`).  Where the hint leaves the kv heads unsharded (the
+    model axis splits a kv head, or does not divide ``n_kv_heads·hd`` at
+    all), k/v are whole on every rank and each rank takes the kv heads its
+    q heads read.  Flash runs the rank's heads through the existing path
+    (the kernel on the card, the plain version on the CPU); RoPE follows
+    the hint, on whole heads.  ``wo`` is (model, fsdp): the row-parallel
+    product's partial sum leaves through ``tp_output``.  A rank whose q
+    heads were gathered (the model axis does not divide ``n_heads``) keeps
+    its block of the output's columns, the rows of its ``wo`` block.  The
+    (k, v) returned are then this rank's."""
     hd, ct = cfg.hd, cfg.cdtype
+    x = tp_input(x)
+    b, l, _ = x.shape
     q, k, v = _project_qkv(params, cfg, x)
     cos, sin = rope_angles(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    out = _flash_causal(q, k, v, window=window, cap=cfg.attn_softcap)
-    out = out.reshape(b, l, cfg.n_heads * hd) @ params["wo"].to(ct)
-    return out, (k, v)
+    ctx, hl = blocks_ctx(), q.shape[2]
+    if hl < cfg.n_heads and k.shape[2] == cfg.n_kv_heads:    # this rank's q heads only
+        h0 = ctx.coord(ctx.model_axis) * hl
+        k, v = _local_kv(k, cfg, h0, hl), _local_kv(v, cfg, h0, hl)
+    out = _flash_causal(q, k, v, window=window, cap=cfg.attn_softcap).reshape(b, l, hl * hd)
+    if ctx is not None and hl == cfg.n_heads and ctx.model_size > 1:    # gathered heads
+        c = hl * hd // ctx.model_size
+        out = out.narrow(-1, ctx.coord(ctx.model_axis) * c, c)
+    wo = use_param(params["wo"], "wo", (cfg.n_heads * hd, cfg.d_model), model_partial=True)
+    return tp_output(out @ wo.to(ct)), (k, v)
+
+
+def _heads_constraint(y: torch.Tensor, name: str, n: int, cfg: ModelConfig
+                      ) -> torch.Tensor:
+    """The reference's heads hint, ``[B,L,H,hd]`` over (batch, None, model,
+    None) with its divisibility guard, on the column-parallel product ``y``
+    [B, L, n·hd] of ``w{name}``, whose last dim is this rank's block where
+    the rule table splits ``w{name}`` over the model axis: heads the model
+    axis divides stay split (the block is whole heads), others are gathered
+    over the model axis, as GSPMD does when the guard leaves H unsharded (a
+    rank's block may hold part of a head).  Returns [B, L, heads, hd], this
+    rank's heads."""
+    ctx = blocks_ctx()
+    m, bx = ctx.model_axis, tuple(ctx.batch_axes)
+    split = m in spec_axes(param_spec("w" + name, (cfg.d_model, n * cfg.hd), ctx)[-1])
+    heads = n % ctx.model_size == 0
+    y = constrain(y, bx, None, m if heads else None, src=(bx, None, m if split else None))
+    return y.reshape(y.shape[0], y.shape[1], -1, cfg.hd)
+
+
+def _local_kv(t: torch.Tensor, cfg: ModelConfig, h0: int, hl: int) -> torch.Tensor:
+    """The kv heads [B, L, ·, hd] that q heads ``h0 … h0+hl-1`` read, from
+    all ``n_kv_heads`` of ``t``, as a GQA layout the flash kernel takes
+    (its kv head of q head j is ``j // (hl / kv heads)``)."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    if hl % g == 0:
+        return t[:, :, h0 // g:(h0 + hl) // g]
+    if g % hl == 0:
+        return t[:, :, h0 // g:h0 // g + 1]
+    idx = torch.arange(h0, h0 + hl, device=t.device) // g
+    return t.index_select(2, idx)
 
 
 def project_kv(params: Dict[str, Any], cfg: ModelConfig, mem: torch.Tensor

@@ -29,6 +29,20 @@ enc-dec config (``cfg.enc_dec``) encodes stub frame embeddings ``[B, S,
 1024]`` (``w_frame``, then non-causal self-attention blocks) into the
 memory that a cross-attention in every decoder block reads, and the decode
 cache keeps its projected ``mk``/``mv``.
+
+Sharded training (``MeshCtx.local_blocks``, set by the sharded train step
+for the dense attention families, :func:`check_sharded`): every function
+runs on this rank's blocks.  The embedding is vocab-parallel (``embed`` is
+(model, fsdp) by the rule table: the rank's rows looked up, the rest
+masked, the sum over the model axis), and its output is placed in the
+block boundary's layout (batch-sharded, and sequence-sharded with
+``seq_shard_activations``) by ``constrain_batch``.  The residual stream
+stays in that layout: each row-parallel product leaves through
+``tp_output``, so the reference's ``_cb`` at the other block boundaries
+has nothing to move and is not called.  The logits leave ``_logits``
+split on the vocab over the model axis, and :func:`loss_fn` reduces the
+max, the sum of exps and the label's logit over it without gathering the
+logits.
 """
 
 from __future__ import annotations
@@ -45,6 +59,10 @@ from repro_torch import resolve_device
 from repro_torch.models import attention, mlp, moe, rglru, ssm
 from repro_torch.models.common import (ModelConfig, dense_init, embed_init,
                                        rms_norm, softcap, tree_leaves)
+from repro_torch.parallel.mesh_ctx import (SHARDED_TODO, all_reduce, blocks_ctx,
+                                           constrain_batch, current_ctx, mesh_context, reduce,
+                                           tp_input)
+from repro_torch.parallel.sharding import use_param
 
 
 # ==========================================================================
@@ -147,6 +165,15 @@ def _index(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
 # ==========================================================================
 
 
+def _scale(p: Dict[str, Any], name: str, cfg: ModelConfig) -> torch.Tensor:
+    """A norm's scale as its use sees it: on local blocks it is replicated,
+    its gradient summed over the axes that split the data it meets (the
+    model axis too when the sequence is split over it)."""
+    ctx = blocks_ctx()
+    return use_param(p[name], name, (cfg.d_model,),
+                     model_partial=ctx is not None and ctx.seq_shard_activations)
+
+
 def _block_apply(cfg: ModelConfig, kind: str, p: Dict[str, Any], x: torch.Tensor,
                  positions: torch.Tensor, memory: Optional[torch.Tensor], collect_kv: bool):
     """Returns (x, aux, cache contribution or None): aux is the MoE
@@ -156,7 +183,7 @@ def _block_apply(cfg: ModelConfig, kind: str, p: Dict[str, Any], x: torch.Tensor
     ``mv`` in enc-dec blocks), the state dict of recurrent ones."""
     kv = None
     aux = 0.0
-    h = rms_norm(x, p["ln1"], cfg.rms_eps)
+    h = rms_norm(x, _scale(p, "ln1", cfg), cfg.rms_eps)
     if kind == "ssm":
         if collect_kv:
             y, kv = ssm.apply_with_state(p["ssm"], cfg, h)
@@ -170,7 +197,7 @@ def _block_apply(cfg: ModelConfig, kind: str, p: Dict[str, Any], x: torch.Tensor
             y = rglru.apply(p["rec"], cfg, h)
         x = x + y
         if cfg.d_ff:
-            x = x + mlp.apply(p["mlp"], cfg, rms_norm(x, p["ln2"], cfg.rms_eps))
+            x = x + mlp.apply(p["mlp"], cfg, rms_norm(x, _scale(p, "ln2", cfg), cfg.rms_eps))
         return x, aux, kv
     window = cfg.window if kind == "local" else 0
     if collect_kv:
@@ -180,7 +207,7 @@ def _block_apply(cfg: ModelConfig, kind: str, p: Dict[str, Any], x: torch.Tensor
     else:
         a = attention.apply(p["attn"], cfg, h, positions, window=window)
     if cfg.post_norms:
-        a = rms_norm(a, p["ln1b"], cfg.rms_eps)
+        a = rms_norm(a, _scale(p, "ln1b", cfg), cfg.rms_eps)
     x = x + a
     if "xattn" in p:
         h = rms_norm(x, p["lnx"], cfg.rms_eps)
@@ -189,14 +216,14 @@ def _block_apply(cfg: ModelConfig, kind: str, p: Dict[str, Any], x: torch.Tensor
         if collect_kv:
             kv["mk"], kv["mv"] = mk, mv
     if cfg.d_ff:
-        h = rms_norm(x, p["ln2"], cfg.rms_eps)
+        h = rms_norm(x, _scale(p, "ln2", cfg), cfg.rms_eps)
         if cfg.moe is not None:
             f = moe.apply(p["moe"], cfg, h)
             aux = moe.aux_loss(p["moe"], cfg, h)
         else:
             f = mlp.apply(p["mlp"], cfg, h)
         if cfg.post_norms:
-            f = rms_norm(f, p["ln2b"], cfg.rms_eps)
+            f = rms_norm(f, _scale(p, "ln2b", cfg), cfg.rms_eps)
         x = x + f
     return x, aux, kv
 
@@ -217,7 +244,9 @@ def _remat(cfg: ModelConfig, fn):
     ``_maybe_remat``: ``none`` saves every activation, ``full`` recomputes
     the group in the backward, ``dots`` saves only the matrix products.
     The recompute runs the group's kernels again (the flash launches of a
-    training step are doubled)."""
+    training step are doubled).  It runs under the mesh context of the
+    forward: on the card autograd runs the backward, and so the recompute,
+    on a thread of its own, which does not see the caller's context."""
     if cfg.remat == "none":
         return fn
     if cfg.remat not in ("full", "dots"):
@@ -226,7 +255,17 @@ def _remat(cfg: ModelConfig, fn):
     if cfg.remat == "dots":
         kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
                                              _dots_policy)
-    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    def run(*args):
+        ctx = current_ctx()
+
+        def body(*a):
+            with mesh_context(ctx):
+                return fn(*a)
+
+        return checkpoint(body, *args, use_reentrant=False, **kw)
+
+    return run
 
 
 def _needs_grad(x: torch.Tensor, tree: Dict[str, Any]) -> bool:
@@ -292,22 +331,70 @@ def _run_blocks(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
 def _embed(params, cfg: ModelConfig, tokens: torch.Tensor,
            patches: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token embeddings [B, Lt, D]; in a VLM config with ``patches`` [B, P,
-    1024] the projected patches come first, [B, P + Lt, D]."""
+    1024] the projected patches come first, [B, P + Lt, D].  On local blocks
+    the lookup is vocab-parallel: this rank's rows of ``embed``, the tokens
+    outside them masked to zero, summed over the model axis."""
     ct = cfg.cdtype
-    x = params["embed"][tokens.long()].to(ct)
+    ctx = blocks_ctx()
+    if ctx is None:
+        x = params["embed"][tokens.long()].to(ct)
+    else:
+        e = use_param(params["embed"], "embed", (cfg.padded_vocab, cfg.d_model))
+        rows = e.shape[0]
+        idx = tokens.long() - ctx.coord(ctx.model_axis) * rows
+        inside = (idx >= 0) & (idx < rows)
+        x = reduce(torch.where(inside[..., None], e[idx.clamp(0, rows - 1)], 0).to(ct),
+                   ctx.model_axis, ctx)
     if cfg.embed_scale:
         x = x * torch.full((), cfg.d_model ** 0.5, dtype=ct, device=x.device)
     if cfg.n_patches and patches is not None:
         x = torch.cat([patches.to(ct) @ params["w_patch"].to(ct), x], dim=1)
-    return x
+    return x if ctx is None else constrain_batch(x, src=(tuple(ctx.batch_axes),))
 
 
 def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """fp32 logits of the final norm; on local blocks the head is a
+    column-parallel product, so the logits are in the layout of the
+    reference's hint with no move: the batch over the batch axes (the
+    rank's batch block), the vocab over the model axis (its head's columns;
+    :func:`check_sharded` makes the model axis divide the padded vocab)."""
     ct = cfg.cdtype
-    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = x @ head.to(ct)
-    return softcap(logits.float(), cfg.logit_softcap)
+    x = tp_input(rms_norm(x, _scale(params, "final_norm", cfg), cfg.rms_eps))
+    vd = (cfg.padded_vocab, cfg.d_model)
+    if cfg.tie_embeddings:
+        head = use_param(params["embed"], "embed", vd, model_partial=True).T
+    else:
+        head = use_param(params["lm_head"], "lm_head", vd[::-1], model_partial=True)
+    return softcap((x @ head.to(ct)).float(), cfg.logit_softcap)
+
+
+def check_sharded(cfg: ModelConfig, ctx, *, seq_len: Optional[int] = None,
+                  patches: Optional[torch.Tensor] = None) -> None:
+    """Raise unless the sharded step runs ``cfg`` on ``ctx``'s mesh: the
+    dense attention families ("attn" and "local" layers, a dense MLP, q/k/v
+    biases, tied embeddings, both softcaps), with the model axis dividing
+    the fused q heads, ``d_ff`` and the padded vocab, and under
+    ``seq_shard_activations`` the sequence."""
+    what = [f"{kind} layers" for kind in sorted(set(cfg.layer_pattern) - {"attn", "local"})]
+    if cfg.moe is not None:
+        what.append("MoE layers")
+    if cfg.enc_dec:
+        what.append("the encoder and cross-attention")
+    if patches is not None:
+        what.append("the VLM patch prefix")
+    if what:
+        raise NotImplementedError(f"sharded training of {', '.join(what)} ({cfg.name}) is "
+                                  f"not ported ({SHARDED_TODO})")
+    nm = ctx.model_size
+    for name, n in (("n_heads * head_dim", cfg.n_heads * cfg.hd), ("d_ff", cfg.d_ff),
+                    ("the padded vocab", cfg.padded_vocab)):
+        if n % nm:
+            raise NotImplementedError(
+                f"the model axis ({nm}) does not divide {name} ({n}) of {cfg.name}: the "
+                f"sharded step splits it over the model axis ({SHARDED_TODO})")
+    if seq_len is not None and ctx.seq_shard_activations and seq_len % nm:
+        raise ValueError(f"seq_shard_activations: the model axis ({nm}) does not divide "
+                         f"the sequence ({seq_len})")
 
 
 def _positions(b: int, l: int, device) -> torch.Tensor:
@@ -343,9 +430,12 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     """tokens [B, Lt] → (logits [B, L, Vp] fp32, aux), L = Lt + n_patches
     when ``patches`` are given; aux is the MoE load-balance loss summed over
     the layers, 0 for dense configs.  Enc-dec configs need ``frames``."""
+    ctx = blocks_ctx()
     memory = encode(params, cfg, frames) if cfg.enc_dec else None
     x = _embed(params, cfg, tokens, patches)
     b, l, _ = x.shape
+    if ctx is not None:
+        l = tokens.shape[1]          # x may hold this rank's block of the sequence
     x, aux, _ = _run_blocks(params, cfg, x, _positions(b, l, x.device), memory,
                             collect_kv=False)
     if not torch.is_tensor(aux):          # a dense config's 0.0
@@ -370,17 +460,39 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
                           frames=batch.get("frames"))
     if cfg.n_patches:
         logits = logits[:, cfg.n_patches:, :]
-    m = logits.amax(dim=-1, keepdim=True)
-    lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(dim=-1))
-    label_logit = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0]
+    lse, label_logit = _lse_and_label(logits, batch["labels"].long())
     ll = label_logit - lse
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones_like(ll)
-    denom = torch.clamp(mask.sum(), min=1.0)
-    ce = -(ll * mask).sum() / denom
+    num, den = (ll * mask).sum(), mask.sum()
+    ctx = blocks_ctx()
+    if ctx is not None:               # the sums over the batch's blocks
+        num, den = reduce(num, ctx.batch_axes, ctx), reduce(den, ctx.batch_axes, ctx)
+    denom = torch.clamp(den, min=1.0)
+    ce = -num / denom
     loss = ce + cfg.aux_loss_weight * aux
     return loss, {"ce": ce, "aux": aux, "tokens": denom.float()}
+
+
+def _lse_and_label(logits: torch.Tensor, labels: torch.Tensor):
+    """(logsumexp over the vocab, the label's logit), each [B, L].  On local
+    blocks the logits are this rank's vocab block: the max, the sum of exps
+    and the label's logit (zero on the ranks that do not hold it) are each
+    reduced over the model axis, and the logits stay where they are."""
+    ctx = blocks_ctx()
+    if ctx is None:
+        m = logits.amax(dim=-1, keepdim=True)
+        lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(dim=-1))
+        return lse, torch.gather(logits, -1, labels[..., None])[..., 0]
+    group = ctx.group(ctx.model_axis)
+    m = all_reduce(logits.detach().amax(dim=-1, keepdim=True), group, "max")
+    lse = m[..., 0] + torch.log(reduce(torch.exp(logits - m).sum(dim=-1), ctx.model_axis, ctx))
+    cols = logits.shape[-1]
+    idx = labels - ctx.coord(ctx.model_axis) * cols
+    inside = (idx >= 0) & (idx < cols)
+    picked = torch.gather(logits, -1, idx.clamp(0, cols - 1)[..., None])[..., 0]
+    return lse, reduce(torch.where(inside, picked, 0.0), ctx.model_axis, ctx)
 
 
 # ==========================================================================

@@ -1,4 +1,12 @@
-"""Gated-SiLU MLP (llama/gemma/mistral-family FFN)."""
+"""Gated-SiLU MLP (llama/gemma/mistral-family FFN).
+
+Under local blocks (the sharded train step) it is Megatron's tensor-parallel
+MLP: ``w_gate``/``w_up`` column-parallel and ``w_down`` row-parallel over
+the model axis, as the rule table splits them, the input entering through
+:func:`~repro_torch.parallel.mesh_ctx.tp_input` and the rank's partial sum
+leaving through :func:`~repro_torch.parallel.mesh_ctx.tp_output`.
+Otherwise these are identities and the MLP is the plain one.
+"""
 
 from __future__ import annotations
 
@@ -7,6 +15,8 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.models.common import ModelConfig, dense_init
+from repro_torch.parallel.mesh_ctx import tp_input, tp_output
+from repro_torch.parallel.sharding import use_param
 
 
 def init(gen: torch.Generator, cfg: ModelConfig, d_ff: int = 0, *, device,
@@ -29,6 +39,12 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 def apply(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     ct = cfg.cdtype
-    g = silu(x @ params["w_gate"].to(ct))
-    u = x @ params["w_up"].to(ct)
-    return (g * u) @ params["w_down"].to(ct)
+    d, f = cfg.d_model, cfg.d_ff
+
+    def w(name, shape):
+        return use_param(params[name], name, shape, model_partial=True).to(ct)
+
+    x = tp_input(x)
+    g = silu(x @ w("w_gate", (d, f)))
+    u = x @ w("w_up", (d, f))
+    return tp_output((g * u) @ w("w_down", (f, d)))

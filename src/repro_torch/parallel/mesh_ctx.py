@@ -1,23 +1,45 @@
 """Mesh context: which mesh and axes the model code runs under.
 
-The port of :mod:`repro.parallel.mesh_ctx`.  Model code (attention, moe)
-is mesh-agnostic; where a distribution decision matters (the
-expert-parallel MoE, the sequence-sharded decode) it consults the ambient
-:class:`MeshCtx`.  Smoke tests and the plain oracles run with no context
-set, and every mesh-aware branch is then the plain single-process code.
+The port of :mod:`repro.parallel.mesh_ctx`.  Model code (attention, mlp,
+moe, lm) is mesh-agnostic; where a distribution decision matters it
+consults the ambient :class:`MeshCtx`.  Smoke tests and the plain oracles
+run with no context set, and every mesh-aware branch is then the plain
+single-process code.
 
-Execution model.  Each rank is one process holding the global value of
-every plain tensor, which is what the reference's jit sees: a global array
-whose layout is only a hint.  The reference's two ``shard_map`` bodies
-(``moe.apply_ep`` and ``attention._decode_seqshard``) are plain functions
-on the rank's own block, taken by its mesh coordinate, that combine with
-:func:`all_reduce` over the mesh's per-axis process groups and return the
-global result on every rank, as ``shard_map``'s ``out_specs`` do.  There
-is no ``shard_map`` here, and no layout hint (the reference's
-``constrain``): the port places no activation as a DTensor, so a hint
-would change nothing.  Only a decode cache is placed as DTensors
-(:func:`repro_torch.parallel.sharding.distribute_tree`).  The collectives
-are not differentiable: the distributed branches serve, they do not train.
+Execution model.  Each rank is one process.  There is no ``shard_map`` and
+no GSPMD: the reference's jitted programs become explicit per-rank code
+that combines through :func:`all_reduce` over the mesh's per-axis process
+groups (gloo runs ``all_reduce`` on CUDA tensors as well as CPU ones; its
+``all_gather`` and DTensor's redistributions run on CPU tensors only).
+Two modes:
+
+* global values (serving).  A rank holds the global value of every plain
+  tensor, which is what the reference's jit sees.  The two ``shard_map``
+  bodies (``moe.apply_ep`` and ``attention._decode_seqshard``) are plain
+  functions on the rank's own block, taken by its mesh coordinate, that
+  return the global result on every rank.  Only a decode cache placed as
+  DTensors takes ``_decode_seqshard``.  :func:`all_reduce` is not
+  differentiable and refuses a tensor that needs a gradient.
+* local blocks (``MeshCtx.local_blocks``, set by the sharded train step,
+  :mod:`repro_torch.train.step`).  A rank holds its own block of every
+  parameter (placed by the rule table) and of every activation, and the
+  layout changes are the differentiable collectives below (:func:`gather`,
+  :func:`scatter`, :func:`reduce`, :func:`replicate`).  The layout hints
+  (:func:`constrain`, :func:`constrain_batch`) move a local block from the
+  layout it is in (``src``) to the hinted one; in the other mode, or without
+  a ``DeviceMesh``, they return their input.  The model code calls them
+  only where the layouts differ: the embedding's output (sequence-split
+  under ``seq_shard_activations``) and the heads hint before flash.  The
+  residual stream stays in the block boundary's layout by construction
+  (:func:`tp_output`), and the logits leave the vocab-split head in the
+  reference's hinted layout.
+
+Gradients under local blocks follow Megatron's convention: a value the
+model axis holds whole (the residual stream, the logits' reductions) has
+its whole gradient on each rank; inside a tensor-parallel product the
+input's gradient is the rank's partial, summed by the backward of the
+collective that entered the product (:func:`replicate` over the model
+axis, or the sequence :func:`gather` under ``seq_shard_activations``).
 
 ``MeshCtx.mesh`` is a :class:`~torch.distributed.device_mesh.DeviceMesh`
 or, for the rule table alone, a mapping from axis name to size: a rule
@@ -54,16 +76,23 @@ class MeshCtx:
     on the multi-pod mesh, ``("data",)`` single-pod).
     ``model_axis`` — the TP/EP axis.
     ``fsdp_axes`` — axes parameters shard over.
+    ``seq_shard_activations`` — block boundaries are also sequence-sharded
+    over the model axis (Megatron's sequence parallelism): norms and the
+    residual run on ``[B/batch, L/model, D]`` blocks.
     ``shard_kv_seq`` — flash-decoding: a decode cache placed as DTensors with
     its slot dim over the model axis decodes through
     ``attention._decode_seqshard``.
+    ``local_blocks`` — the model code runs on this rank's blocks of the
+    parameters and activations (the sharded train step sets it).
     """
 
     mesh: Any
     batch_axes: Tuple[str, ...] = ("data",)
     model_axis: str = "model"
     fsdp_axes: Tuple[str, ...] = ("data",)
+    seq_shard_activations: bool = False
     shard_kv_seq: bool = False
+    local_blocks: bool = False
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -112,6 +141,9 @@ class MeshCtx:
             i = i * self.shape[a] + self.coord(a)
         return i
 
+
+#: where the ports of what the sharded train step does not run yet are queued
+SHARDED_TODO = "ROADMAP Queue 1 item 16"
 
 _CTX: contextvars.ContextVar[Optional[MeshCtx]] = contextvars.ContextVar(
     "repro_torch_mesh_ctx", default=None)
@@ -184,19 +216,244 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     return x
 
 
-def gather_dim0(local: torch.Tensor, n: int, ctx: MeshCtx, entry) -> torch.Tensor:
-    """The global ``[n, ...]`` tensor whose dim-0 blocks over the axes of the
-    spec entry ``entry`` are each rank's ``local``, on every rank: a
-    zero-filled global buffer with the rank's block written in, summed over
-    each axis's group in turn (``all_reduce`` only; adding zeros is exact).
-    ``entry`` None: dim 0 is not sharded and ``local`` is already global."""
+def axes_size(ctx: MeshCtx, entry) -> int:
+    """The number of blocks a spec entry (an axis name, a tuple of them or
+    None) splits a dim into."""
+    n = 1
+    for a in spec_axes(entry):
+        n *= ctx.axis_size(a)
+    return n
+
+
+def gather_block(local: torch.Tensor, dim: int, ctx: MeshCtx, entry) -> torch.Tensor:
+    """The tensor whose ``dim`` blocks over the axes of the spec entry
+    ``entry`` are each rank's ``local``, on every rank: a zero-filled buffer
+    with the rank's block written in, summed over each axis's group in turn
+    (``all_reduce`` only; adding zeros is exact).  ``entry`` None: the dim is
+    not sharded and ``local`` is returned."""
     axes = spec_axes(entry)
     if not axes:
         return local
-    rows = local.shape[0]
+    dim = dim % local.ndim
+    rows = local.shape[dim]
+    shape = list(local.shape)
+    shape[dim] = rows * axes_size(ctx, axes)
+    full = local.new_zeros(shape)
     i = ctx.linear_coord(axes)
-    full = local.new_zeros((n,) + tuple(local.shape[1:]))
-    full[i * rows:(i + 1) * rows] = local
+    full.narrow(dim, i * rows, rows).copy_(local)
     for a in axes:
         all_reduce(full, ctx.group(a))
     return full
+
+
+def gather_dim0(local: torch.Tensor, n: int, ctx: MeshCtx, entry) -> torch.Tensor:
+    """The global ``[n, ...]`` tensor whose dim-0 blocks over the axes of the
+    spec entry ``entry`` are each rank's ``local``, on every rank."""
+    full = gather_block(local, 0, ctx, entry)
+    if full.shape[0] != n:
+        raise ValueError(f"dim 0 blocks of {local.shape[0]} rows do not make {n}")
+    return full
+
+
+def _my_block(full: torch.Tensor, dim: int, ctx: MeshCtx, axes: Tuple[str, ...]):
+    n = axes_size(ctx, axes)
+    if full.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(full.shape)} does not split over {axes}")
+    rows = full.shape[dim] // n
+    return full.narrow(dim, ctx.linear_coord(axes) * rows, rows).contiguous()
+
+
+# ==========================================================================
+# Differentiable collectives (local blocks)
+# ==========================================================================
+#
+# Each is an ``autograd.Function`` built on :func:`all_reduce` alone.  Their
+# backwards pair up as in Megatron's tensor and sequence parallelism:
+# gather ↔ reduce-scatter, scatter ↔ gather, reduce (the row-parallel
+# product's sum) ↔ identity, replicate (the column-parallel product's
+# input) ↔ all-reduce.
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, dim, axes, ctx):
+        fctx.dim, fctx.axes, fctx.ctx = dim, axes, ctx
+        return gather_block(x, dim, ctx, axes)
+
+    @staticmethod
+    def backward(fctx, g):
+        g = g.contiguous().clone()
+        for a in fctx.axes:
+            all_reduce(g, fctx.ctx.group(a))
+        return _my_block(g, fctx.dim, fctx.ctx, fctx.axes), None, None, None
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, dim, axes, ctx):
+        fctx.dim, fctx.axes, fctx.ctx = dim, axes, ctx
+        return _my_block(x, dim, ctx, axes)
+
+    @staticmethod
+    def backward(fctx, g):
+        return gather_block(g.contiguous(), fctx.dim, fctx.ctx, fctx.axes), None, None, None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, axes, ctx):
+        y = x.contiguous().clone()
+        for a in axes:
+            all_reduce(y, ctx.group(a))
+        return y
+
+    @staticmethod
+    def backward(fctx, g):
+        return g, None, None
+
+
+class _Replicate(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, axes, ctx):
+        fctx.axes, fctx.ctx = axes, ctx
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        g = g.contiguous().clone()
+        for a in fctx.axes:
+            all_reduce(g, fctx.ctx.group(a))
+        return g, None, None
+
+
+def gather(x: torch.Tensor, dim: int, axes, ctx: Optional[MeshCtx] = None) -> torch.Tensor:
+    """The blocks of ``x`` along ``dim`` over ``axes`` (an axis name or a
+    tuple, major first) joined on every rank; backward: the gradient summed
+    over ``axes`` and cut to this rank's block (a reduce-scatter)."""
+    axes = spec_axes(axes)
+    if not axes:
+        return x
+    return _Gather.apply(x, dim % x.ndim, axes, ctx or current_ctx())
+
+
+def scatter(x: torch.Tensor, dim: int, axes, ctx: Optional[MeshCtx] = None) -> torch.Tensor:
+    """This rank's block of ``x`` (held whole on every rank) along ``dim``
+    over ``axes``; backward: the blocks' gradients joined (a gather)."""
+    axes = spec_axes(axes)
+    if not axes:
+        return x
+    return _Scatter.apply(x, dim % x.ndim, axes, ctx or current_ctx())
+
+
+def reduce(x: torch.Tensor, axes, ctx: Optional[MeshCtx] = None) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``axes`` (forward ``all_reduce``);
+    backward: the identity."""
+    axes = spec_axes(axes)
+    if not axes:
+        return x
+    return _Reduce.apply(x, axes, ctx or current_ctx())
+
+
+def replicate(x: torch.Tensor, axes, ctx: Optional[MeshCtx] = None) -> torch.Tensor:
+    """``x`` itself; backward: the gradient summed over the ranks of
+    ``axes`` (``all_reduce``): the ranks' partial gradients of a value they
+    hold alike, such as a parameter replicated along the axes that split
+    the batch or the sequence."""
+    axes = spec_axes(axes)
+    if not axes:
+        return x
+    return _Replicate.apply(x, axes, ctx or current_ctx())
+
+
+# ==========================================================================
+# Layout hints
+# ==========================================================================
+
+
+def blocks_ctx() -> Optional[MeshCtx]:
+    """The ambient context if the model code runs on local blocks on a
+    ``DeviceMesh``, else None."""
+    ctx = current_ctx()
+    if ctx is None or not ctx.local_blocks or not ctx.on_ranks:
+        return None
+    return ctx
+
+
+def relayout(x: torch.Tensor, src, dst, ctx: MeshCtx) -> torch.Tensor:
+    """Move a local block from layout ``src`` to ``dst`` (specs with one
+    entry per dim): a dim sharded in ``src`` and not in ``dst`` is gathered,
+    one sharded in ``dst`` and not in ``src`` is scattered."""
+    for dim, (a, b) in enumerate(zip(src, dst)):
+        a, b = spec_axes(a), spec_axes(b)
+        if a == b:
+            continue
+        if a and not b:
+            x = gather(x, dim, a, ctx)
+        elif b and not a:
+            x = scatter(x, dim, b, ctx)
+        else:
+            raise ValueError(f"dim {dim}: no move from {a} to {b}")
+    return x
+
+
+def _pad(spec, ndim: int) -> tuple:
+    return tuple(spec) + (None,) * (ndim - len(spec))
+
+
+def constrain(x: torch.Tensor, *spec, src=None) -> torch.Tensor:
+    """The counterpart of ``with_sharding_constraint`` against the ambient
+    mesh, with the reference's divisibility guard: an axis that does not
+    divide its dim is dropped.
+
+    On local blocks, ``x`` is moved from its current layout ``src`` (a spec;
+    None: ``x`` is in the hinted layout already, as the residual stream is at
+    every block boundary) to the hinted one.  Without a context, on a
+    mapping of sizes or on global values, ``x`` is returned."""
+    ctx = blocks_ctx()
+    if ctx is None or src is None:
+        return x
+    from repro_torch.parallel.sharding import safe_spec
+    src = _pad(src, x.ndim)
+    shape = [n * axes_size(ctx, e) for n, e in zip(x.shape, src)]
+    return relayout(x, src, safe_spec(shape, _pad(spec, x.ndim), ctx.mesh), ctx)
+
+
+def constrain_batch(x: torch.Tensor, src=None) -> torch.Tensor:
+    """Block-boundary activation layout: batch-sharded on dim 0; with
+    ``seq_shard_activations`` also sequence-sharded on dim 1 over the model
+    axis (for ``ndim >= 3``), which divides the activations a rank keeps
+    between blocks by the model axis's size.  ``src``: as :func:`constrain`."""
+    ctx = blocks_ctx()
+    if ctx is None:
+        return x
+    spec: list = [tuple(ctx.batch_axes)] + [None] * (x.ndim - 1)
+    if ctx.seq_shard_activations and x.ndim >= 3:
+        spec[1] = ctx.model_axis
+    return constrain(x, *spec, src=src)
+
+
+def tp_input(x: torch.Tensor) -> torch.Tensor:
+    """A block-boundary activation [B, L, D] as the input of column-parallel
+    products: with ``seq_shard_activations`` the sequence gathered over the
+    model axis, else :func:`replicate` over it (whose backward sums the
+    products' partial gradients).  Identity unless on local blocks."""
+    ctx = blocks_ctx()
+    if ctx is None:
+        return x
+    if ctx.seq_shard_activations:
+        return gather(x, 1, ctx.model_axis, ctx)
+    return replicate(x, ctx.model_axis, ctx)
+
+
+def tp_output(z: torch.Tensor) -> torch.Tensor:
+    """A row-parallel product's partial sum [B, L, D] back to the block
+    boundary's layout: summed over the model axis, and with
+    ``seq_shard_activations`` cut to this rank's sequence block (a
+    reduce-scatter).  Identity unless on local blocks."""
+    ctx = blocks_ctx()
+    if ctx is None:
+        return z
+    z = reduce(z, ctx.model_axis, ctx)
+    if ctx.seq_shard_activations:
+        return scatter(z, 1, ctx.model_axis, ctx)
+    return z

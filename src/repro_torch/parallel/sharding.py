@@ -14,18 +14,27 @@ A spec is a tuple with one entry per dim: None (replicated), an axis name,
 or a tuple of axis names (major first), as the reference's
 ``PartitionSpec`` entries; the trees of specs returned here equal the
 reference's ``NamedSharding`` specs leaf by leaf.  :func:`placements` turns
-a spec into DTensor placements and :func:`distribute_tree` places a tree of
-global tensors as DTensors by slicing, with no collective.
+a spec into DTensor placements, :func:`distribute_tree` places a tree of
+global tensors as DTensors by slicing, with no collective, and
+:func:`gather_rows` and :func:`gather_tree` join such tensors back into
+global values.
+
+Under local blocks (``MeshCtx.local_blocks``, the sharded train step) the
+model code reads each parameter through :func:`use_param`, which looks its
+spec up in the same table: the FSDP dims are gathered for the use, the
+model axis's split stays, and the gradient comes back as the rank's block.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from repro_torch.parallel.mesh_ctx import MeshCtx, is_distributed, mesh_shape, spec_axes
+from repro_torch.parallel.mesh_ctx import (MeshCtx, all_reduce, axes_size, blocks_ctx,
+                                           gather, is_distributed, mesh_shape, replicate,
+                                           spec_axes)
 
 Spec = Tuple[Any, ...]
 
@@ -242,9 +251,7 @@ def local_slices(shape: Sequence[int], spec: Spec, ctx: MeshCtx) -> Tuple[slice,
     out = []
     for dim, entry in zip(shape, spec):
         axes = spec_axes(entry)
-        n = 1
-        for a in axes:
-            n *= ctx.axis_size(a)
+        n = axes_size(ctx, axes)
         if dim % n:
             raise ValueError(f"dim {dim} does not split over {axes}")
         rows = dim // n
@@ -270,3 +277,104 @@ def distribute_tree(tree: Any, specs: Any, ctx: MeshCtx) -> Any:
     if not isinstance(tree, torch.Tensor) or is_distributed(tree):
         return tree
     return distribute(tree, specs, ctx)
+
+
+def gather_rows(t: DTensor, start: int = 0, stop: Optional[int] = None) -> torch.Tensor:
+    """Rows ``start:stop`` (all by default) of dim 0 of the global value of
+    the DTensor ``t``, on every rank of its mesh: a collective, every rank
+    calls it with the same rows.  Joined with ``all_reduce`` alone (gloo has
+    no ``all_gather`` for CUDA tensors): a zero-filled buffer of those rows
+    only, the part of this rank's block that falls in them written in,
+    summed over the axes that split ``t`` (adding zeros is exact).  A 0-d
+    ``t`` is replicated: its value."""
+    local = t.to_local()
+    if t.ndim == 0:
+        return local
+    shape, spec = tuple(t.shape), spec_of(t)
+    ctx = MeshCtx(t.device_mesh)
+    stop = shape[0] if stop is None else stop
+    block = local_slices(shape, spec, ctx)
+    out = local.new_zeros((stop - start,) + shape[1:])
+    lo, hi = max(start, block[0].start), min(stop, block[0].stop)
+    if lo < hi:
+        out[(slice(lo - start, hi - start),) + block[1:]] = \
+            local[lo - block[0].start:hi - block[0].start]
+    for entry in spec:
+        for axis in spec_axes(entry):
+            all_reduce(out, ctx.group(axis))
+    return out
+
+
+def gather_tree(tree: Any) -> Any:
+    """The global value of every DTensor of ``tree`` on every rank
+    (:func:`gather_rows`); other leaves pass through.  Every rank of the
+    DTensors' mesh must call it with the same tree.  Each rank then holds
+    the whole tree: :func:`repro_torch.train.checkpoint.save` joins a
+    sharded state a piece at a time instead."""
+    if isinstance(tree, dict):
+        return {k: gather_tree(v) for k, v in tree.items()}
+    return gather_rows(tree) if is_distributed(tree) else tree
+
+
+# ==========================================================================
+# Parameters and inputs under local blocks
+# ==========================================================================
+
+
+class _Leaf(NamedTuple):
+    shape: Tuple[int, ...]
+
+
+def param_spec(name: str, shape: Sequence[int], ctx: MeshCtx) -> Spec:
+    """The rule table's spec of parameter ``name`` of global ``shape`` (its
+    trailing dims: a stacked leaf's ``[G]`` dim is never sharded)."""
+    return spec_for((name,), _Leaf(tuple(shape)), ctx)
+
+
+def use_param(w: torch.Tensor, name: str, shape: Sequence[int], *,
+              model_partial: bool = False) -> torch.Tensor:
+    """The value of parameter ``name`` (global ``shape``) that this rank's
+    computation uses, from its block ``w``.
+
+    Under local blocks: gathered over the FSDP axes of its spec (the
+    gather's backward is a reduce-scatter, so the gradient comes back as
+    this rank's block), still split over the model axis where the rule
+    table splits it.  Its gradient is also summed over the axes that split
+    the data it meets and do not split the parameter: the batch axes, and
+    the model axis when ``model_partial`` (the sequence is split over it, or
+    a tensor-parallel product takes the rank's partial from it).
+    Otherwise ``w`` is returned."""
+    ctx = blocks_ctx()
+    if ctx is None:
+        return w
+    spec = param_spec(name, shape, ctx)
+    local = tuple(n // axes_size(ctx, e) for n, e in zip(shape, spec))
+    if tuple(w.shape) != local:
+        raise ValueError(f"parameter {name}: block {tuple(w.shape)}, the rule table's "
+                         f"{local} of {tuple(shape)} by {spec}")
+    split = {a for e in spec for a in spec_axes(e)}
+    need = set(ctx.batch_axes) | ({ctx.model_axis} if model_partial else set())
+    w = replicate(w, tuple(a for a in ctx.all_axes if a in need and a not in split), ctx)
+    for dim, entry in enumerate(spec):
+        fsdp = tuple(a for a in spec_axes(entry) if a != ctx.model_axis)
+        if fsdp:
+            w = gather(w, dim, fsdp, ctx)
+    return w
+
+
+def local_batch(batch: Dict[str, torch.Tensor], ctx: MeshCtx) -> Dict[str, torch.Tensor]:
+    """This rank's block of every input: a DTensor's local block, or the
+    slice of a global tensor by :func:`input_shardings`.  The batch must
+    split over the batch axes: a replicated batch would count each example
+    once a batch rank."""
+    specs = input_shardings(ctx, batch)
+    out = {}
+    for k, x in batch.items():
+        if is_distributed(x):
+            out[k] = x.to_local()
+            continue
+        if x.ndim and spec_axes(specs[k][0]) != tuple(ctx.batch_axes):
+            raise ValueError(f"input {k} {tuple(x.shape)}: dim 0 does not split over the "
+                             f"batch axes {ctx.batch_axes}")
+        out[k] = x[local_slices(tuple(x.shape), specs[k], ctx)] if x.ndim else x
+    return out

@@ -12,35 +12,65 @@ numpy has no bfloat16, so a bf16 leaf is written as fp32; :func:`restore`
 casts every leaf to its template's dtype.  With ``shardings`` it restores
 onto a mesh, possibly another than the one that saved it (the elastic
 failover path): every rank reads the file and keeps its own block of each
-leaf as a DTensor.
+leaf as a DTensor.  :func:`save` of a state of DTensors (the sharded train
+step's) writes the same file as an unsharded save, so either package
+restores it sharded or whole: it joins each leaf a piece of whole dim-0
+rows at a time (:data:`SAVE_PIECE_BYTES`), so no rank ever holds a leaf's
+global value, let alone the state's, and rank 0 streams each piece into
+the file as it comes.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import re
 import tempfile
-from typing import Any, Dict, Optional
+import zipfile
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
 from repro_torch import resolve_device
-from repro_torch.parallel.mesh_ctx import current_ctx
-from repro_torch.parallel.sharding import local_slices, placements
+from repro_torch.models.common import tree_leaves
+from repro_torch.parallel.mesh_ctx import current_ctx, is_distributed
+from repro_torch.parallel.sharding import gather_rows, local_slices, placements
 
 _SEP = "§"
 
+#: the most bytes of a DTensor leaf's global value that :func:`save` joins
+#: on a rank at once: a piece of whole dim-0 rows, at least one row
+SAVE_PIECE_BYTES = 256 << 20
 
-def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+
+def _leaves(tree, prefix: str = "") -> Iterator[Tuple[str, torch.Tensor]]:
+    """(key, leaf) in the file's order: the paths joined with ``§``, dict
+    keys sorted, as JAX flattens a dict."""
     if isinstance(tree, dict):
-        flat: Dict[str, np.ndarray] = {}
         for k in sorted(tree):
-            flat.update(_flatten(tree[k], f"{prefix}{_SEP}{k}" if prefix else str(k)))
-        return flat
-    t = tree.detach().cpu()
-    return {prefix: (t.float() if t.dtype == torch.bfloat16 else t).numpy()}
+            yield from _leaves(tree[k], f"{prefix}{_SEP}{k}" if prefix else str(k))
+    else:
+        yield prefix, tree
+
+
+def _pieces(t: torch.Tensor) -> Iterator[np.ndarray]:
+    """The global value of leaf ``t`` on the host, in order: a plain tensor
+    whole, a DTensor in pieces of whole dim-0 rows of at most
+    :data:`SAVE_PIECE_BYTES` (at least one row), each joined on every rank
+    (:func:`~repro_torch.parallel.sharding.gather_rows`).  A bf16 leaf
+    comes out as fp32 (numpy has no bfloat16)."""
+    if not is_distributed(t) or t.ndim == 0:
+        pieces = iter([gather_rows(t) if is_distributed(t) else t])
+    else:
+        n = t.shape[0]
+        rows = max(1, SAVE_PIECE_BYTES // max(1, math.prod(t.shape[1:]) * t.element_size()))
+        pieces = (gather_rows(t, r, min(r + rows, n)) for r in range(0, max(n, 1), rows))
+    for p in pieces:
+        p = p.detach().cpu()
+        yield (p.float() if p.dtype == torch.bfloat16 else p).numpy()
 
 
 def _unflatten(template, flat: Dict[str, np.ndarray], device: torch.device, prefix: str = "",
@@ -61,13 +91,39 @@ def _unflatten(template, flat: Dict[str, np.ndarray], device: torch.device, pref
 
 
 def save(state, directory: str, step: int, *, keep: int = 3) -> str:
-    """Atomically write ``<dir>/ckpt_<step>.npz``; prune to ``keep`` newest."""
-    os.makedirs(directory, exist_ok=True)
-    flat = _flatten(state)
+    """Atomically write ``<dir>/ckpt_<step>.npz``; prune to ``keep`` newest.
+
+    A state with DTensor leaves is a collective: every rank calls ``save``,
+    each leaf is joined a piece at a time (:func:`_pieces`), rank 0 writes,
+    and every rank returns once the file is in place."""
     path = os.path.join(directory, f"ckpt_{step:08d}.npz")
+    if not any(is_distributed(t) for t in tree_leaves(state)):
+        return _write(state, directory, path, keep)
+    if dist.get_rank() == 0:
+        _write(state, directory, path, keep)
+    else:
+        for _, t in _leaves(state):
+            for _ in _pieces(t):
+                pass
+    dist.barrier()
+    return path
+
+
+def _write(state, directory: str, path: str, keep: int) -> str:
+    """Write ``state`` as ``np.savez`` does (one ``<key>.npy`` member a leaf
+    in an uncompressed zip), a leaf's pieces streamed into its member."""
+    os.makedirs(directory, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
-    with os.fdopen(fd, "wb") as f:
-        np.savez(f, **flat)
+    with os.fdopen(fd, "wb") as f, zipfile.ZipFile(f, "w", zipfile.ZIP_STORED,
+                                                   allowZip64=True) as zf:
+        for key, t in _leaves(state):
+            with zf.open(key + ".npy", "w", force_zip64=True) as member:
+                for i, a in enumerate(_pieces(t)):
+                    if i == 0:
+                        np.lib.format.write_array_header_1_0(member, {
+                            "descr": np.lib.format.dtype_to_descr(a.dtype),
+                            "fortran_order": False, "shape": tuple(t.shape)})
+                    member.write(np.ascontiguousarray(a).reshape(-1).view(np.uint8))
     os.replace(tmp, path)
     for old in all_steps(directory)[:-keep]:
         os.remove(os.path.join(directory, f"ckpt_{old:08d}.npz"))

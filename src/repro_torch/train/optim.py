@@ -6,7 +6,9 @@ step + 1, and weight decay applies only to leaves with ``ndim >= 2`` (the
 stacked ``[G, d]`` norm scales included, as in the reference).  Plain
 functions under ``torch.no_grad``, not ``torch.optim``: its AdamW puts eps
 and the decay elsewhere.  Each returns new trees and leaves its inputs as
-they were, as the reference's pure functions do.
+they were, as the reference's pure functions do.  On a rank's blocks of a
+sharded tree AdamW is the same elementwise update; only the global norm
+sums over the ranks.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.parallel.mesh_ctx import all_reduce, spec_axes
 
 _F32 = torch.float32
 
@@ -27,13 +30,32 @@ def adamw_init(params) -> Dict[str, Any]:
 
 
 @torch.no_grad()
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(_F32))) for x in tree_leaves(tree)))
+def global_norm(tree, specs=None, ctx=None) -> torch.Tensor:
+    """The L2 norm over every leaf.  With ``specs`` (a tree of specs
+    matching ``tree``, whose leaves are this rank's blocks on ``ctx``'s
+    mesh) the norm of the global tree: each leaf's sum of squares is summed
+    over exactly the axes its spec shards it on, so a leaf replicated along
+    an axis counts once; leaves sharded alike share one all-reduce."""
+    sq = lambda x: torch.sum(torch.square(x.to(_F32)))  # noqa: E731
+    if specs is None:
+        return torch.sqrt(sum(sq(x) for x in tree_leaves(tree)))
+    names = ctx.all_axes
+    by_axes: Dict[Tuple[str, ...], torch.Tensor] = {}
+    for x, spec in zip(tree_leaves(tree), tree_leaves(specs)):
+        axes = tuple(a for a in names if any(a in spec_axes(e) for e in spec))
+        by_axes[axes] = by_axes[axes] + sq(x) if axes in by_axes else sq(x)
+    for axes, s in by_axes.items():
+        for a in axes:
+            all_reduce(s, ctx.group(a))
+    return torch.sqrt(sum(by_axes.values()))
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float) -> Tuple[Any, torch.Tensor]:
-    gnorm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, specs=None, ctx=None
+                        ) -> Tuple[Any, torch.Tensor]:
+    """Scale ``grads`` so that their global norm is at most ``max_norm``;
+    ``specs``/``ctx`` as :func:`global_norm`."""
+    gnorm = global_norm(grads, specs, ctx)
     scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     return tree_map(lambda g: g * scale.to(g.dtype), grads), gnorm
 

@@ -4,18 +4,35 @@ global-norm clip, AdamW, with microbatching and the ``gather_dtype`` cast.
 The port of :mod:`repro.train.step`.  The state is a plain dict of the
 reference's layout, ``{"params", "opt": {"m", "v"}, "step"}``, so a
 checkpoint of either side restores on the other.
+
+Under a mesh context on a ``DeviceMesh``, a state whose parameters are
+DTensors (placed by :func:`repro_torch.parallel.sharding.param_shardings`
+through ``distribute_tree``: FSDP over ``ctx.fsdp_axes``, TP over the model
+axis) takes the sharded step, the counterpart of the reference's
+``jax.jit(make_train_step(cfg), in_shardings=(param_shardings(state, ctx),
+input_shardings(ctx, batch)))``: each rank computes on its own blocks
+(``MeshCtx.local_blocks``) and its block of the batch, the layout changes
+are the differentiable collectives of :mod:`repro_torch.parallel.mesh_ctx`,
+the gradients come back as the rank's blocks through the gathers'
+backwards, the global norm sums over the ranks, and AdamW updates each
+block where it lies.  The dense attention families only
+(:func:`repro_torch.models.lm.check_sharded`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import resolve_device
 from repro_torch.models import lm
 from repro_torch.models.common import (ModelConfig, cast_tree, torch_dtype, tree_leaves,
                                        tree_map)
+from repro_torch.parallel.mesh_ctx import current_ctx, is_distributed, mesh_context
+from repro_torch.parallel.sharding import local_batch, placements, spec_of
 from repro_torch.train import optim
 
 TrainState = Dict[str, Any]     # {"params", "opt": {"m","v"}, "step"}
@@ -51,8 +68,15 @@ def make_train_step(cfg: ModelConfig, *, lr: float = 3e-4, max_grad_norm: float 
     ``batch`` holds tensors on the state's device.  With ``cfg.gather_dtype``
     the master tree is cast before the gradient and AdamW updates the cast
     tree, as the reference does (``repro/train/step.py:55-59,81``): after one
-    step the parameters are in ``gather_dtype`` and m, v stay fp32.
-    Microbatch gradients are summed in fp32 and divided by their count.
+    step the parameters are in ``gather_dtype`` and m, v stay fp32.  In the
+    sharded step the cast is of each rank's blocks, before any gather, so
+    every gather moves ``gather_dtype`` bytes.  Microbatch gradients are
+    summed in fp32 and divided by their count.
+
+    Under a mesh context, a state of DTensors takes the sharded step (the
+    module's docstring); its batch is global tensors, of which each rank
+    takes its block, or DTensors, and the new state is DTensors placed as
+    the old one.
     """
 
     def grads_of(params, mb):
@@ -64,9 +88,7 @@ def make_train_step(cfg: ModelConfig, *, lr: float = 3e-4, max_grad_norm: float 
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                 tree_map(lambda _: next(it), params))
 
-    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]
-                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        params = state["params"]
+    def update(params, opt, step, batch, specs=None, ctx=None):
         if cfg.gather_dtype:
             params = cast_tree(params, torch_dtype(cfg.gather_dtype))
         params = tree_map(lambda p: p.detach().requires_grad_(), params)
@@ -86,16 +108,44 @@ def make_train_step(cfg: ModelConfig, *, lr: float = 3e-4, max_grad_norm: float 
             loss = loss / microbatches
             metrics = {k: torch.stack([m[k] for m in mets]).mean(dim=0) for k in mets[0]}
 
-        grads, gnorm = optim.clip_by_global_norm(grads, max_grad_norm)
-        step_lr = lr_schedule(state["step"]) if lr_schedule is not None else lr
+        grads, gnorm = optim.clip_by_global_norm(grads, max_grad_norm, specs, ctx)
+        step_lr = lr_schedule(step) if lr_schedule is not None else lr
         params = tree_map(lambda p: p.detach(), params)
         new_params, new_opt = optim.adamw_update(
-            params, grads, state["opt"], state["step"], lr=step_lr,
-            weight_decay=weight_decay)
-        new_state = {"params": new_params, "opt": new_opt, "step": state["step"] + 1}
+            params, grads, opt, step, lr=step_lr, weight_decay=weight_decay)
         metrics = dict(metrics)
         metrics.update(loss=loss, grad_norm=gnorm,
                        lr=torch.as_tensor(step_lr, dtype=torch.float32))
-        return new_state, metrics
+        return new_params, new_opt, metrics
+
+    def sharded_step(state: TrainState, batch: Dict[str, torch.Tensor], ctx):
+        lm.check_sharded(cfg, ctx, seq_len=batch["tokens"].shape[1],
+                         patches=batch.get("patches"))
+        specs = tree_map(spec_of, state["params"])
+        local = lambda t: t.to_local() if is_distributed(t) else t  # noqa: E731
+        blocks = dataclasses.replace(ctx, local_blocks=True)
+        with mesh_context(blocks):
+            params, opt, metrics = update(
+                tree_map(local, state["params"]), tree_map(local, state["opt"]),
+                local(state["step"]), local_batch(batch, blocks), specs, blocks)
+
+        def place(t, spec):
+            return DTensor.from_local(t, ctx.mesh, placements(spec, ctx.mesh),
+                                      run_check=False)
+
+        step = state["step"]
+        step = place(local(step) + 1, ()) if is_distributed(step) else step + 1
+        return {"params": tree_map(place, params, specs),
+                "opt": {k: tree_map(place, opt[k], specs) for k in ("m", "v")},
+                "step": step}, metrics
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        ctx = current_ctx()
+        if ctx is not None and ctx.on_ranks and any(
+                is_distributed(t) for t in tree_leaves(state["params"])):
+            return sharded_step(state, batch, ctx)
+        params, opt, metrics = update(state["params"], state["opt"], state["step"], batch)
+        return {"params": params, "opt": opt, "step": state["step"] + 1}, metrics
 
     return train_step

@@ -1,0 +1,423 @@
+"""The port's sharded train step on gloo process groups of CPU ranks,
+against the JAX package's jitted sharded step on 8 virtual devices:
+
+    jax.jit(make_train_step(cfg),
+            in_shardings=(param_shardings(state), input_shardings(batch)),
+            out_shardings=(state_shardings, None))
+
+on the same converted weights and batches, for every case of
+``torch_mesh_train_worker.CASES``: yi-9b smoke on (2, 4) at L 64 and at L
+2048 (the reference's flash branch and heads hint; the model axis splits
+each kv head), qwen1.5-110b smoke (q/k/v biases), gemma2-27b smoke (local
+and global layers, both softcaps, tied embeddings, post-norms) on (2, 2, 2)
+``("pod", "data", "model")`` with FSDP over ``data`` and over ``("pod",
+"data")``, yi-9b with ``seq_shard_activations``, yi-9b with
+``gather_dtype="bfloat16"`` and yi-9b in bf16 compute.  After 2 steps: each
+step's loss and grad norm, and every gathered parameter and both moments,
+fp32 within the reference tests' 1e-4, the bf16 loss within 3e-2.  The same
+against the port's own single-process step.  Also the twin of
+``test_seq_shard_reduces_saved_activations``, each collective's backward
+against its adjoint (4 ranks, fp64), each rank's state bytes against the
+rule table's share, a sharded save restored sharded (and by the
+reference), and the configs the sharded step refuses.
+
+The ranks run in ``tests/torch_mesh_train_worker.py`` (subprocesses with a
+timeout, so a hung collective fails these tests and not the suite), the
+reference in a subprocess with 8 host devices; all start together.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro import configs as jconfigs  # noqa: E402
+from repro.models import lm as jlm  # noqa: E402
+from repro.train import checkpoint as jckpt  # noqa: E402
+from repro.train import step as jstep  # noqa: E402
+from repro_torch.convert import to_torch  # noqa: E402
+from repro_torch.launch import mesh as launch_mesh  # noqa: E402
+from repro_torch.models.common import tree_leaves  # noqa: E402
+from repro_torch.parallel import mesh_ctx  # noqa: E402
+from repro_torch.parallel.sharding import param_shardings  # noqa: E402
+from repro_torch.train import optim  # noqa: E402
+from repro_torch.train.step import make_train_step  # noqa: E402
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, HERE)
+
+import torch_mesh_train_worker as worker  # noqa: E402
+
+torch.set_num_threads(2)
+
+SRC = os.path.join(HERE, "..", "src")
+TIMEOUT = 300
+FP32_CASES = [c for c in worker.CASES if c not in ("yi-gather", "yi-bf16")]
+TOL = 1e-4          # the reference's train-step tests, fp32
+BF16_LOSS_TOL = 3e-2
+LR = 3e-4           # make_train_step's default, both packages
+#: the reference's cases in two processes of 8 host devices each, run together
+JAX_PARTS = [list(worker.CASES)[0::2], list(worker.CASES)[1::2]]
+
+_JAX_STEPS = """
+import sys, numpy as np, jax, jax.numpy as jnp
+sys.path.insert(0, sys.argv[2])
+import torch_mesh_train_worker as w
+from repro import configs
+from repro.launch.mesh import make_ctx, make_mesh
+from repro.parallel.mesh_ctx import mesh_context
+from repro.parallel.sharding import input_shardings, param_shardings
+from repro.train import optim
+from repro.train.step import make_train_step
+d, names = sys.argv[1], sys.argv[3].split(",")
+inp = dict(np.load(d + "/inputs.npz"))
+out = {}
+for name in names:
+    arch, (shape, axes), b, l, over, knobs = w.CASES[name]
+    cfg = configs.get_smoke(arch).replace(**{**w.FP32_OVERRIDES, **over})
+    params = jax.tree.map(jnp.asarray, w.unflatten(inp, "params/" + name))
+    state = {"params": params, "opt": optim.adamw_init(params),
+             "step": jnp.zeros((), jnp.int32)}
+    ctx = make_ctx(make_mesh(shape, axes), **knobs)
+    with mesh_context(ctx):
+        st_sh = param_shardings(state, ctx)
+        batches = [{k: jnp.asarray(inp[f"batch/{name}/{s}/{k}"])
+                    for k in ("tokens", "labels", "mask")} for s in range(w.STEPS)]
+        fn = jax.jit(make_train_step(cfg),
+                     in_shardings=(st_sh, input_shardings(ctx, batches[0])),
+                     out_shardings=(st_sh, None))
+        losses, norms = [], []
+        for batch in batches:
+            state, m = fn(state, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+    out[name + "/loss"], out[name + "/grad_norm"] = np.array(losses), np.array(norms)
+    for k, v in w.flatten(state).items():
+        out[f"{name}/state/{k}"] = np.asarray(v.astype(jnp.float32))
+        out[f"{name}/dtype/{k}"] = np.array(str(v.dtype))
+np.savez(f"{d}/jax_steps-{names[0]}.npz", **out)
+print("JAX_STEPS_OK")
+"""
+
+
+def _inputs(d):
+    """Each case's initial parameters from the reference's ``lm.init`` and
+    its batches (tokens, next-token labels, a random mask), from a seed."""
+    inputs = {}
+    for i, name in enumerate(worker.CASES):
+        arch, _, b, l, over, _ = worker.CASES[name]
+        jcfg = jconfigs.get_smoke(arch).replace(**{**worker.FP32_OVERRIDES, **over})
+        params = jax.tree.map(np.asarray, jlm.init(jax.random.PRNGKey(i), jcfg))
+        inputs.update({f"params/{name}/{k}": v for k, v in worker.flatten(params).items()})
+        rng = np.random.default_rng(i)
+        for s in range(worker.STEPS):
+            toks = rng.integers(0, jcfg.vocab, (b, l + 1)).astype(np.int32)
+            inputs[f"batch/{name}/{s}/tokens"] = toks[:, :-1]
+            inputs[f"batch/{name}/{s}/labels"] = toks[:, 1:]
+            inputs[f"batch/{name}/{s}/mask"] = (rng.random((b, l)) > 0.1).astype(np.float32)
+    np.savez(d / "inputs.npz", **inputs)
+    return inputs
+
+
+def _single_process(inputs, name):
+    """The port's own step in this process on the same weights and batches."""
+    cfg = worker.case_config(name)
+    params = to_torch(worker.unflatten(inputs, f"params/{name}"), device="cpu")
+    state = {"params": params, "opt": optim.adamw_init(params),
+             "step": torch.zeros((), dtype=torch.int32)}
+    step = make_train_step(cfg)
+    losses, norms = [], []
+    for s in range(worker.STEPS):
+        batch = {k: torch.from_numpy(inputs[f"batch/{name}/{s}/{k}"])
+                 for k in ("tokens", "labels", "mask")}
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return {"loss": np.array(losses), "grad_norm": np.array(norms), "state": state}
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    d = tmp_path_factory.mktemp("mesh_train")
+    inputs = _inputs(d)
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    jax_env = dict(env, XLA_FLAGS="--xla_force_host_platform_device_count=8",
+                   JAX_PLATFORMS="cpu")
+    script = os.path.join(HERE, "torch_mesh_train_worker.py")
+
+    def start(args, env):
+        return subprocess.Popen([sys.executable, *args], env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+
+    procs = [start(["-c", textwrap.dedent(_JAX_STEPS), str(d), HERE, ",".join(part)], jax_env)
+             for part in JAX_PARTS]
+    procs += [start([script, str(d), "8", "train,saved,thread,ckpt,refuse"], env),
+              start([script, str(d), "4", "adjoint"], env)]
+    single = {name: _single_process(inputs, name) for name in worker.CASES}
+    logs = []
+    for proc in procs:
+        try:
+            o, e = proc.communicate(timeout=TIMEOUT)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            pytest.fail(f"{proc.args[:3]} did not finish in {TIMEOUT} s")
+        logs.append((proc.returncode, o[-2000:] + e[-4000:]))
+    for rc, log in logs:
+        assert rc == 0, log
+
+    def ranks(task, n):
+        return [dict(np.load(d / f"{task}-rank{r}.npz")) for r in range(n)]
+
+    jax_out = {}
+    for part in JAX_PARTS:
+        jax_out.update(np.load(d / f"jax_steps-{part[0]}.npz"))
+    return {"dir": d, "inputs": inputs, "jax": jax_out,
+            "single": single, "train": ranks("train", 8), "saved": ranks("saved", 8),
+            "thread": ranks("thread", 8), "ckpt": ranks("ckpt", 8),
+            "refuse": ranks("refuse", 8),
+            "adjoint": ranks("adjoint", 4)}
+
+
+def _state_np(state):
+    return {k: worker._np(v) for k, v in worker.flatten(state).items()}
+
+
+# ==========================================================================
+# the sharded step against the reference's and the port's own
+# ==========================================================================
+
+
+def _hold_state(got, want, case, *, moments=TOL):
+    """Every parameter and moment of ``case`` after the steps, ``got``
+    against ``want`` (flat ``<case>/state/<path>`` arrays): the step count
+    equal, the moments within ``moments`` of their leaf's largest value, the
+    parameters within 1e-4, except where a step's gradient vanished into
+    rounding without being zero: with 0 < √v below 1e-6 of its leaf's
+    largest, Adam's step m̂/(√v̂ + eps) takes the direction that the
+    summation order gives the gradient's sign (fp32 jitted and eager JAX
+    disagree there too), so those elements are held to the bound of the
+    steps, 2·lr each, and must be fewer than 1e-4 of the elements."""
+    keys = sorted(k for k in want if k.startswith(f"{case}/state/"))
+    assert keys and keys == sorted(k for k in got if k.startswith(f"{case}/state/"))
+    vanished = total = 0
+    for k in keys:
+        a, b = got[k], want[k]
+        if k.endswith("/state/step"):
+            assert int(a) == int(b) == worker.STEPS
+            continue
+        if "/state/opt/" in k:
+            scale = max(float(np.abs(b).max()), 1e-30)
+            np.testing.assert_allclose(a, b, atol=moments * scale, err_msg=k)
+            continue
+        root = np.sqrt(want[k.replace("/state/params/", "/state/opt/v/")])
+        flat = (root > 0) & (root < 1e-6 * float(root.max()))
+        diff = np.abs(a - b)
+        assert float(diff[~flat].max(initial=0.0)) <= TOL, k
+        assert float(diff[flat].max(initial=0.0)) <= 2 * LR * worker.STEPS, k
+        vanished += int(flat.sum())
+        total += flat.size
+    assert vanished <= 1e-4 * total, (vanished, total)
+
+
+@pytest.mark.parametrize("case", FP32_CASES)
+def test_sharded_step_matches_jax_sharded_step(run, case):
+    """Loss and grad norm at every step (rel 1e-4), every parameter and
+    moment after the last (1e-4, :func:`_hold_state`), every rank the same
+    loss."""
+    want, ranks = run["jax"], run["train"]
+    for r, out in enumerate(ranks):
+        np.testing.assert_allclose(out[f"{case}/loss"], want[f"{case}/loss"], rtol=TOL,
+                                   err_msg=f"rank {r}")
+        np.testing.assert_allclose(out[f"{case}/grad_norm"], want[f"{case}/grad_norm"],
+                                   rtol=TOL, err_msg=f"rank {r}")
+        np.testing.assert_array_equal(out[f"{case}/loss"], ranks[0][f"{case}/loss"])
+    _hold_state(ranks[0], want, case)
+
+
+@pytest.mark.parametrize("case", FP32_CASES)
+def test_sharded_step_matches_single_process_step(run, case):
+    single, out = run["single"][case], run["train"][0]
+    np.testing.assert_allclose(out[f"{case}/loss"], single["loss"], rtol=TOL)
+    np.testing.assert_allclose(out[f"{case}/grad_norm"], single["grad_norm"], rtol=TOL)
+    want = {f"{case}/state/{k}": v for k, v in _state_np(single["state"]).items()}
+    _hold_state(out, want, case)
+
+
+def test_sharded_step_bf16_loss(run):
+    """bf16 compute: the loss of every step within the reference tests'
+    3e-2 of the reference's sharded step and of the port's single-process
+    step."""
+    for out in run["train"]:
+        np.testing.assert_allclose(out["yi-bf16/loss"], run["jax"]["yi-bf16/loss"],
+                                   atol=BF16_LOSS_TOL)
+        np.testing.assert_allclose(out["yi-bf16/loss"], run["single"]["yi-bf16"]["loss"],
+                                   atol=BF16_LOSS_TOL)
+
+
+def test_gather_dtype_casts_the_blocks_as_the_reference(run):
+    """``gather_dtype="bfloat16"``: after the steps the parameters are bf16
+    and m, v fp32 on both sides; the first step's loss (the cast weights
+    in fp32 compute) within 1e-4.  The gradients are bf16 and the ranks sum
+    them in another order than the reference, so the rest is held at bf16's
+    resolution: the grad norms within 1e-3, the moments within 3e-2 of their
+    leaf's largest; each parameter within the bound of the steps (2·lr
+    each: at bf16's resolution a small gradient's sign, and so its Adam
+    step, is the summation order's), and all but 1e-3 of them within 2 bf16
+    ulps of their leaf's largest."""
+    want, out = run["jax"], run["train"][0]
+    kinds = dict(str(v).split(":") for v in out["yi-gather/dtypes"])
+    ref_kinds = {k[len("yi-gather/dtype/"):]: str(want[k]) for k in want
+                 if k.startswith("yi-gather/dtype/")}
+    assert kinds == ref_kinds
+    assert {v for k, v in kinds.items() if k.startswith("params/")} == {"bfloat16"}
+    assert {v for k, v in kinds.items() if k.startswith("opt/")} == {"float32"}
+    np.testing.assert_allclose(out["yi-gather/loss"][0], want["yi-gather/loss"][0], rtol=TOL)
+    np.testing.assert_allclose(out["yi-gather/loss"], want["yi-gather/loss"], rtol=1e-3)
+    np.testing.assert_allclose(out["yi-gather/grad_norm"], want["yi-gather/grad_norm"],
+                               rtol=1e-3)
+    far = total = 0
+    for k in (k for k in want if k.startswith("yi-gather/state/")):
+        if "/state/opt/" in k:
+            scale = max(float(np.abs(want[k]).max()), 1e-30)
+            np.testing.assert_allclose(out[k], want[k], atol=BF16_LOSS_TOL * scale, err_msg=k)
+        elif "/state/params/" in k:
+            diff = np.abs(out[k] - want[k])
+            assert float(diff.max()) <= 2 * LR * worker.STEPS, k
+            far += int((diff > 2 ** -7 * float(np.abs(want[k]).max())).sum())
+            total += diff.size
+    assert far <= 1e-3 * total, (far, total)
+
+
+@pytest.mark.parametrize("case", list(worker.CASES))
+def test_each_rank_holds_the_rule_tables_share(run, case):
+    """A rank's bytes of parameters and moments after the steps: each leaf's
+    global bytes over the sizes of the axes its spec shards it on."""
+    _, (shape, axes), _, _, _, knobs = worker.CASES[case]
+    ctx = launch_mesh.make_ctx(dict(zip(axes, shape)), **knobs)
+    state = run["single"][case]["state"]
+    specs = param_shardings(state, ctx)
+    want = 0
+    for leaf, spec in zip(tree_leaves(state), tree_leaves(specs)):
+        n = 1
+        for e in spec:
+            for a in mesh_ctx.spec_axes(e):
+                n *= ctx.axis_size(a)
+        want += leaf.numel() * leaf.element_size() // n
+    for out in run["train"]:
+        assert int(out[f"{case}/state_bytes"]) == want
+
+
+def test_sharded_steps_run_collectives(run):
+    for out in run["train"]:
+        for case in worker.CASES:
+            assert int(out[f"{case}/collectives"]) > 0
+
+
+# ==========================================================================
+# activations kept for the backward
+# ==========================================================================
+
+
+def test_seq_shard_reduces_saved_activations(run):
+    """The twin of the reference's test: yi-9b smoke, remat "full", (2, 4),
+    B 8, L 64.  Rank 0 keeps fewer bytes for the backward with
+    ``seq_shard_activations``: the residual stream each checkpointed group
+    keeps shrinks by the model axis (4), the tensors autograd saves outside
+    the groups shrink too (the final norm runs on the sequence block)."""
+    saved, groups = run["saved"][0]["saved/plain"]
+    saved_seq, groups_seq = run["saved"][0]["saved/seq"]
+    assert saved_seq + groups_seq < saved + groups
+    assert groups_seq * 4 == groups
+    assert saved_seq < saved
+
+
+def test_recompute_keeps_the_mesh_context_on_another_thread(run):
+    """The remat recompute re-enters the forward's mesh context: with the
+    backward on a thread that does not see it (as autograd's device thread
+    on the card), the gradients are the same bits."""
+    for out in run["thread"]:
+        assert float(out["thread/max_diff"]) == 0.0
+
+
+# ==========================================================================
+# the collectives
+# ==========================================================================
+
+
+@pytest.mark.parametrize("name", ["gather", "gather2", "scatter", "reduce", "replicate"])
+def test_collective_backward_is_the_adjoint(run, name):
+    """fp64 on 4 ranks: Σ_ranks <f(x), y> against Σ_ranks <x, f'(y)> with the
+    worker's convention for values held alike (``_adjoint``), on every rank."""
+    for out in run["adjoint"]:
+        a, b = out[f"adjoint/{name}"]
+        assert a == pytest.approx(b, rel=1e-12)
+
+
+def test_collectives_without_blocks_return_their_input():
+    """Without a context, or on a mapping of sizes, the hints and the
+    tensor-parallel entry and exit change nothing."""
+    x = torch.randn(2, 4, 8)
+    assert mesh_ctx.constrain(x, "data", None, "model", src=("data",)) is x
+    assert mesh_ctx.constrain_batch(x) is x and mesh_ctx.tp_input(x) is x
+    ctx = launch_mesh.make_ctx({"data": 2, "model": 2}, seq_shard_activations=True)
+    with mesh_ctx.mesh_context(dataclasses.replace(ctx, local_blocks=True)):
+        assert mesh_ctx.blocks_ctx() is None        # a mapping runs no collective
+        assert mesh_ctx.constrain_batch(x, src=("data",)) is x
+        assert mesh_ctx.tp_output(x) is x
+
+
+# ==========================================================================
+# checkpoints, refusals, meshes
+# ==========================================================================
+
+
+def test_sharded_save_restores_sharded_and_in_the_reference(run):
+    for out in run["ckpt"]:
+        assert bool(out["ckpt/exists"]) and bool(out["ckpt/equal"])
+    jcfg = jconfigs.get_smoke("yi-9b").replace(compute_dtype="float32")
+    template = jstep.train_state_shapes(jcfg)
+    jstate = jckpt.restore(template, str(run["dir"] / "ckpt"))
+    assert int(jstate["step"]) == 0
+    for k, v in worker.flatten(jax.tree.map(np.asarray, jstate["params"])).items():
+        np.testing.assert_array_equal(v, run["inputs"][f"params/yi/{k}"], err_msg=k)
+
+
+def test_sharded_save_joins_a_piece_at_a_time(run):
+    """No rank holds a leaf's global value during a sharded save: the bytes
+    it allocates at its peak stay within two pieces (the one being written
+    and the next), below the largest leaf's global bytes."""
+    for out in run["ckpt"]:
+        peak, leaf = int(out["ckpt/peak_bytes"]), int(out["ckpt/leaf_bytes"])
+        assert 0 < peak <= 2 * worker.SAVE_PIECE_BYTES < leaf, (peak, leaf)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b", "deepseek-moe-16b"])
+def test_unported_configs_raise(run, arch):
+    for out in run["refuse"]:
+        msg = str(out[f"refuse/{arch}"])
+        assert "not ported" in msg and str(out["refuse/todo"]) in msg, msg
+
+
+def test_production_mesh_needs_its_ranks(run):
+    for out in run["refuse"]:
+        assert "256 ranks" in str(out["refuse/production"])
+
+
+@pytest.mark.parametrize("fsdp_over_pod", [False, True])
+def test_make_ctx_fsdp_over_pod(fsdp_over_pod):
+    """The reference's rule: FSDP over the batch axes when asked and a
+    ``pod`` axis exists, else over ``data``."""
+    sizes = {"pod": 2, "data": 2, "model": 2}
+    ctx = launch_mesh.make_ctx(sizes, fsdp_over_pod=fsdp_over_pod)
+    assert ctx.batch_axes == ("pod", "data")
+    assert ctx.fsdp_axes == (("pod", "data") if fsdp_over_pod else ("data",))
+    two = launch_mesh.make_ctx({"data": 2, "model": 2}, fsdp_over_pod=fsdp_over_pod)
+    assert two.fsdp_axes == ("data",)

@@ -1,0 +1,431 @@
+"""Rank worker of ``test_torch_mesh_train.py``: the port's sharded train
+step on a gloo process group of CPU processes.
+
+    python tests/torch_mesh_train_worker.py <dir> <world> <tasks> [<cases>]
+
+starts ``world`` ranks (``spawn``), which meet through a file under
+``<dir>`` and run the comma-separated ``tasks``:
+
+* ``train``: every case of :data:`CASES` (world 8; or the comma-separated
+  ``cases``): the initial parameters
+  and the batches of ``<dir>/inputs.npz`` placed by the rule table on the
+  case's mesh, :data:`STEPS` steps of ``make_train_step`` under the mesh
+  context; each step's loss and grad norm, this rank's state bytes, and
+  (rank 0) the gathered final state;
+* ``saved``: yi-9b smoke, remat "full", on the (2, 4) mesh, with and
+  without ``seq_shard_activations``: the bytes rank 0 keeps for the
+  backward of one loss, counted by ``saved_tensors_hooks`` (the tensors
+  autograd saves) plus the inputs each checkpointed group keeps for its
+  recompute;
+* ``thread``: the yi case's gradients with the backward run on another
+  thread, which does not see the mesh context (autograd's device thread
+  does so on the card), against the backward on the calling thread;
+* ``ckpt``: a sharded ``checkpoint.save`` of the yi case's first state,
+  the bytes it allocates at its peak, and ``restore(shardings=...)`` of it;
+* ``refuse``: the sharded step on an SSM, an RG-LRU and an MoE config;
+* ``adjoint`` (world 4, a (2, 2) mesh): each differentiable collective's
+  backward against its adjoint, in fp64.
+
+Each rank writes ``<dir>/<task>-rank<r>.npz``.  Imports no JAX.
+"""
+
+import os
+import sys
+import weakref
+
+import numpy as np
+import torch
+import torch.multiprocessing as mp
+from torch.utils._python_dispatch import TorchDispatchMode
+import torch.utils._pytree as pytree
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+STEPS = 2
+MESH_24 = ((2, 4), ("data", "model"))
+MESH_222 = ((2, 2, 2), ("pod", "data", "model"))
+
+#: case → (arch, mesh, batch, seq, config overrides, context knobs).  The
+#: yi-9b smoke config on (2, 4) splits each of its 2 kv heads over the model
+#: axis (n_kv_heads·hd 16 over 4); at L 2048 the reference takes its flash
+#: branch and its heads hint.
+CASES = {
+    "yi": ("yi-9b", MESH_24, 8, 64, {}, {}),
+    "yi-flash": ("yi-9b", MESH_24, 2, 2048, {}, {}),
+    "qwen": ("qwen1.5-110b", MESH_24, 8, 64, {}, {}),
+    "gemma": ("gemma2-27b", MESH_222, 8, 64, {}, {}),
+    "gemma-pod": ("gemma2-27b", MESH_222, 8, 64, {}, {"fsdp_over_pod": True}),
+    "yi-seq": ("yi-9b", MESH_24, 8, 64, {}, {"seq_shard_activations": True}),
+    "yi-gather": ("yi-9b", MESH_24, 8, 64, {"gather_dtype": "bfloat16"}, {}),
+    "yi-bf16": ("yi-9b", MESH_24, 8, 64, {"compute_dtype": "bfloat16"}, {}),
+}
+#: the pieces of the ``ckpt`` task's save: the yi-9b smoke state's largest
+#: dim-0 row (a layer of ``w_gate``, 64 × 128 fp32), a quarter of its largest
+#: leaf
+SAVE_PIECE_BYTES = 64 * 128 * 4
+#: every case but "yi-bf16" runs fp32 compute
+FP32_OVERRIDES = {"compute_dtype": "float32"}
+
+
+def case_config(name):
+    from repro_torch import configs
+
+    arch, _, _, _, over, _ = CASES[name]
+    return configs.get_smoke(arch).replace(**{**FP32_OVERRIDES, **over})
+
+
+def flatten(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(flatten(tree[k], f"{prefix}/{k}" if prefix else k))
+        return out
+    return {prefix: tree}
+
+
+def unflatten(flat, prefix):
+    tree = {}
+    for key, v in flat.items():
+        if not key.startswith(prefix + "/"):
+            continue
+        node, parts = tree, key[len(prefix) + 1:].split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return tree
+
+
+def _np(t):
+    t = t.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _state(params_np, ctx):
+    from repro_torch.convert import to_torch
+    from repro_torch.parallel.sharding import distribute_tree, param_shardings
+    from repro_torch.train import optim
+
+    params = to_torch(params_np, device="cpu")
+    state = {"params": params, "opt": optim.adamw_init(params),
+             "step": torch.zeros((), dtype=torch.int32)}
+    return distribute_tree(state, param_shardings(state, ctx), ctx)
+
+
+def _batch(inputs, name, s):
+    return {k: torch.from_numpy(inputs[f"batch/{name}/{s}/{k}"])
+            for k in ("tokens", "labels", "mask")}
+
+
+def _local_bytes(tree):
+    from repro_torch.models.common import tree_leaves
+
+    return sum(t.to_local().numel() * t.to_local().element_size() for t in tree_leaves(tree)
+               if hasattr(t, "to_local"))
+
+
+def _train(inputs, meshes, out, rank, names):
+    from repro_torch.launch.mesh import make_ctx
+    from repro_torch.parallel import mesh_ctx as mc
+    from repro_torch.parallel.sharding import gather_tree
+    from repro_torch.train.step import make_train_step
+
+    for name in names:
+        _, mesh, _, _, _, knobs = CASES[name]
+        ctx = make_ctx(meshes[mesh], **knobs)
+        cfg = case_config(name)
+        state = _state(unflatten(inputs, f"params/{name}"), ctx)
+        step = make_train_step(cfg)
+        losses, norms = [], []
+        mc.reset_collective_stats()
+        with mc.mesh_context(ctx):
+            for s in range(STEPS):
+                state, m = step(state, _batch(inputs, name, s))
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+        out[f"{name}/loss"], out[f"{name}/grad_norm"] = np.array(losses), np.array(norms)
+        out[f"{name}/collectives"] = np.array(mc.collective_stats["calls"])
+        out[f"{name}/state_bytes"] = np.array(_local_bytes(state))
+        full = gather_tree(state)
+        if rank == 0:
+            out.update({f"{name}/state/{k}": _np(v) for k, v in flatten(full).items()})
+            out[f"{name}/dtypes"] = np.array(sorted(
+                f"{k}:{str(v.dtype)[6:]}" for k, v in flatten(full).items()))
+
+
+def _saved(inputs, meshes, out, rank):
+    """Bytes kept for the backward of one loss on this rank: what autograd
+    saves outside the checkpointed groups (``saved_tensors_hooks``; inside
+    a group the checkpoint saves nothing and recomputes) and the inputs each
+    group's checkpoint keeps for its recompute, counted once a storage."""
+    import dataclasses
+    from unittest import mock
+
+    from repro_torch.launch.mesh import make_ctx
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.parallel import mesh_ctx as mc
+    from repro_torch.parallel.sharding import local_batch
+
+    cfg = case_config("yi").replace(remat="full")
+    batch = _batch(inputs, "yi", 0)
+    for seq in (False, True):
+        ctx = dataclasses.replace(make_ctx(meshes[MESH_24], seq_shard_activations=seq),
+                                  local_blocks=True)
+        state = _state(unflatten(inputs, "params/yi"), ctx)
+        params = tree_map(lambda t: t.to_local().requires_grad_(), state["params"])
+        seen = {"saved": {}, "groups": {}}
+
+        def pack(t):
+            seen["saved"][t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+            return t
+
+        def kept(fn, *args, **kw):
+            for t in args:
+                if isinstance(t, torch.Tensor):
+                    seen["groups"][t.untyped_storage().data_ptr()] = \
+                        t.untyped_storage().nbytes()
+            return checkpoint(fn, *args, **kw)
+
+        checkpoint = lm.checkpoint
+        with mc.mesh_context(ctx), mock.patch.object(lm, "checkpoint", kept), \
+                torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            loss, _ = lm.loss_fn(params, cfg, local_batch(batch, ctx))
+        with mc.mesh_context(ctx):
+            torch.autograd.grad(loss, tree_leaves(params))
+        key = "seq" if seq else "plain"
+        out[f"saved/{key}"] = np.array([sum(seen["saved"].values()),
+                                        sum(seen["groups"].values())])
+
+
+def _thread(inputs, meshes, out, rank):
+    """The remat recompute runs where the backward runs: on the card that is
+    autograd's own thread, without the caller's context variables."""
+    import dataclasses
+    import threading
+
+    from repro_torch.launch.mesh import make_ctx
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.parallel import mesh_ctx as mc
+    from repro_torch.parallel.sharding import local_batch
+
+    cfg = case_config("yi")
+    ctx = dataclasses.replace(make_ctx(meshes[MESH_24]), local_blocks=True)
+    state = _state(unflatten(inputs, "params/yi"), ctx)
+    params = tree_map(lambda t: t.to_local().requires_grad_(), state["params"])
+    batch = local_batch(_batch(inputs, "yi", 0), ctx)
+    grads = {}
+
+    def run(where):
+        with mc.mesh_context(ctx):
+            loss, _ = lm.loss_fn(params, cfg, batch)
+        if where == "here":
+            with mc.mesh_context(ctx):
+                grads[where] = torch.autograd.grad(loss, tree_leaves(params))
+            return
+        worker = threading.Thread(target=lambda: grads.__setitem__(
+            where, torch.autograd.grad(loss, tree_leaves(params))))
+        worker.start()
+        worker.join()
+
+    run("here")
+    run("thread")
+    assert cfg.remat != "none" and "thread" in grads
+    out["thread/max_diff"] = np.array(max(float((a - b).abs().max())
+                                          for a, b in zip(grads["here"], grads["thread"])))
+
+
+class _PeakBytes(TorchDispatchMode):
+    """The most bytes of tensor storage that ops under the mode allocated
+    and that were alive at once; storages in ``known`` (the state's blocks)
+    are not counted."""
+
+    def __init__(self, known):
+        super().__init__()
+        self.known, self.refs, self.now, self.peak = set(known), {}, 0, 0
+
+    def _drop(self, ptr, n):
+        self.refs[ptr] -= 1
+        if not self.refs[ptr]:
+            del self.refs[ptr]
+            self.now -= n
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in pytree.tree_leaves(out):
+            if not isinstance(t, torch.Tensor):
+                continue
+            st = t.untyped_storage()
+            ptr, n = st.data_ptr(), st.nbytes()
+            if ptr in self.known:
+                continue
+            if ptr not in self.refs:
+                self.refs[ptr] = 0
+                self.now += n
+                self.peak = max(self.peak, self.now)
+            self.refs[ptr] += 1
+            weakref.finalize(t, self._drop, ptr, n)
+        return out
+
+
+def _ckpt(inputs, meshes, out, rank, directory):
+    """A sharded save of the yi case's first state with the pieces cut to
+    :data:`SAVE_PIECE_BYTES` (the state's largest dim-0 row): the peak bytes
+    the save allocates on this rank's device, the largest leaf's global
+    bytes, and ``restore(shardings=...)`` of the file against the state."""
+    from repro_torch.launch.mesh import make_ctx
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.parallel.sharding import param_shardings
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.step import train_state_shapes
+
+    ctx = make_ctx(meshes[MESH_24])
+    state = _state(unflatten(inputs, "params/yi"), ctx)
+    ckpt.SAVE_PIECE_BYTES = SAVE_PIECE_BYTES
+    leaves = tree_leaves(state)
+    with _PeakBytes(t.to_local().untyped_storage().data_ptr() for t in leaves) as peak:
+        path = ckpt.save(state, os.path.join(directory, "ckpt"), 5)
+    out["ckpt/peak_bytes"] = np.array(peak.peak)
+    out["ckpt/leaf_bytes"] = np.array(max(t.numel() * t.element_size() for t in leaves))
+    out["ckpt/exists"] = np.array(os.path.exists(path))
+    template = train_state_shapes(case_config("yi"))
+    back = ckpt.restore(template, os.path.join(directory, "ckpt"), device="cpu",
+                        shardings=param_shardings(template, ctx), ctx=ctx)
+    out["ckpt/equal"] = np.array(all(
+        torch.equal(a.to_local(), b.to_local())
+        for a, b in zip(flatten(state).values(), flatten(back).values())))
+
+
+def _refuse(inputs, meshes, out, rank):
+    """The sharded step on configs it does not port: each raises before any
+    collective, on every rank alike."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_ctx, make_production_mesh
+    from repro_torch.parallel.mesh_ctx import SHARDED_TODO, mesh_context
+    from repro_torch.parallel.sharding import distribute_tree, param_shardings
+    from repro_torch.train.step import make_train_step, train_state_init
+
+    ctx = make_ctx(meshes[MESH_24])
+    for arch in ("mamba2-370m", "recurrentgemma-9b", "deepseek-moe-16b"):
+        cfg = configs.get_smoke(arch).replace(compute_dtype="float32")
+        state = train_state_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+        state = distribute_tree(state, param_shardings(state, ctx), ctx)
+        toks = torch.zeros((8, 64), dtype=torch.int64)
+        batch = {"tokens": toks, "labels": toks, "mask": torch.ones((8, 64))}
+        try:
+            with mesh_context(ctx):
+                make_train_step(cfg)(state, batch)
+            out[f"refuse/{arch}"] = np.array("")
+        except NotImplementedError as e:
+            out[f"refuse/{arch}"] = np.array(str(e))
+    out["refuse/todo"] = np.array(SHARDED_TODO)
+    try:
+        make_production_mesh(device_type="cpu")
+        out["refuse/production"] = np.array("")
+    except ValueError as e:
+        out["refuse/production"] = np.array(str(e))
+
+
+def _adjoint(meshes, out, rank):
+    """For each collective f (a linear map of the ranks' stacked inputs):
+    Σ_ranks <f(x), y> against Σ_ranks <x, backward(y)>.  gather's backward
+    is its exact adjoint (a reduce-scatter).  The others follow Megatron's
+    convention, whose adjoints hold when the gradient of a value every rank
+    holds alike counts once, not once a rank: scatter's backward (a gather)
+    against slicing's adjoint followed by that count, reduce's (identity)
+    and replicate's (all-reduce) likewise."""
+    from repro_torch.launch.mesh import make_ctx
+    from repro_torch.parallel import mesh_ctx as mc
+
+    ctx = make_ctx(meshes[((2, 2), ("data", "model"))])
+    g = torch.Generator().manual_seed(100 + rank)
+    n = ctx.model_size
+    m = ctx.model_axis
+
+    def pair(f, shape_in, shape_out):
+        x = torch.randn(shape_in, generator=g, dtype=torch.float64, requires_grad=True)
+        y = torch.randn(shape_out, generator=g, dtype=torch.float64)
+        fx = f(x)
+        (gx,) = torch.autograd.grad(fx, x, y)
+        return x.detach(), fx.detach(), y, gx
+
+    def total(v):
+        v = v.detach().clone()
+        for a in ctx.all_axes:
+            mc.all_reduce(v, ctx.group(a))
+        return v
+
+    out_vals = {}
+    with mc.mesh_context(ctx):
+        # gather over the model axis: <gather(x), y> summed over the ranks
+        x, fx, y, gx = pair(lambda t: mc.gather(t, 1, m, ctx), (3, 2, 5), (3, 2 * n, 5))
+        out_vals["gather"] = (total((fx * y).sum()), total((x * gx).sum()))
+        # gather over two axes at once (a dim split over data and model)
+        x, fx, y, gx = pair(lambda t: mc.gather(t, 0, ("data", "model"), ctx), (2, 3),
+                            (2 * ctx.axis_size("data") * n, 3))
+        out_vals["gather2"] = (total((fx * y).sum()), total((x * gx).sum()))
+        # scatter: input held alike on the model axis; its gradient there counts once
+        base = torch.randn((3, 4 * n), generator=torch.Generator().manual_seed(7),
+                           dtype=torch.float64)
+        x = base.clone().requires_grad_()
+        y = torch.randn((3, 4), generator=g, dtype=torch.float64)
+        fx = mc.scatter(x, 1, m, ctx)
+        (gx,) = torch.autograd.grad(fx, x, y)
+        out_vals["scatter"] = (total((fx * y).sum()), total((base * gx).sum()) / n)
+        # reduce: output held alike on the model axis; y alike there too
+        x = torch.randn((4, 3), generator=g, dtype=torch.float64, requires_grad=True)
+        y = torch.randn((4, 3), generator=torch.Generator().manual_seed(8 + ctx.coord("data")),
+                        dtype=torch.float64)
+        fx = mc.reduce(x, m, ctx)
+        (gx,) = torch.autograd.grad(fx, x, y)
+        out_vals["reduce"] = (total((fx * y).sum()) / n, total((x.detach() * gx).sum()))
+        # replicate: input held alike on the model axis, output's gradient partial
+        x0 = torch.randn((5,), generator=torch.Generator().manual_seed(9 + ctx.coord("data")),
+                         dtype=torch.float64)
+        x = x0.clone().requires_grad_()
+        y = torch.randn((5,), generator=g, dtype=torch.float64)
+        fx = mc.replicate(x, m, ctx)
+        (gx,) = torch.autograd.grad(fx, x, y)
+        out_vals["replicate"] = (total((fx.detach() * y).sum()), total((x0 * gx).sum()) / n)
+    for k, (a, b) in out_vals.items():
+        out[f"adjoint/{k}"] = np.array([float(a), float(b)])
+
+
+def _rank(rank, world, directory, tasks, names):
+    torch.set_num_threads(1)
+    from repro_torch.launch.mesh import init_ranks, make_mesh
+
+    init_ranks(rank, world, f"file://{directory}/rendezvous-{world}", device_type="cpu")
+    shapes = [MESH_24, MESH_222] if world == 8 else [((2, 2), ("data", "model"))]
+    meshes = {s: make_mesh(*s, device_type="cpu") for s in shapes}
+    inputs = dict(np.load(os.path.join(directory, "inputs.npz"))) if world == 8 else {}
+    for task in tasks:
+        out = {}
+        if task == "train":
+            _train(inputs, meshes, out, rank, names)
+        elif task == "saved":
+            _saved(inputs, meshes, out, rank)
+        elif task == "thread":
+            _thread(inputs, meshes, out, rank)
+        elif task == "ckpt":
+            _ckpt(inputs, meshes, out, rank, directory)
+        elif task == "refuse":
+            _refuse(inputs, meshes, out, rank)
+        elif task == "adjoint":
+            _adjoint(meshes, out, rank)
+        else:
+            raise ValueError(f"unknown task {task}")
+        np.savez(os.path.join(directory, f"{task}-rank{rank}.npz"), **out)
+    torch.distributed.destroy_process_group()
+
+
+def main(argv):
+    directory, world = argv[0], int(argv[1])
+    names = argv[3].split(",") if len(argv) > 3 else list(CASES)
+    mp.spawn(_rank, args=(world, directory, argv[2].split(","), names), nprocs=world,
+             join=True)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
