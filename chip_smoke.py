@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--skip-mesh]
 
-``--skip-mesh`` leaves out phases 3b and 6c, to read the other phases
+``--skip-mesh`` leaves out phases 3b, 6c and 6d, to read the other phases
 without the four ranks' runs.  Phases, in order; any failure exits non-zero and no phase catches its own:
 
 1. build    — compile every CUDA kernel of the port (one nvcc per source,
@@ -186,6 +186,36 @@ without the four ranks' runs.  Phases, in order; any failure exits non-zero and 
               ranks apart: the loss reduces over every axis).
               Prints each rank's step ms, collectives, their seconds in the
               timed pass and its peak memory beside phase 6's.
+6d. mesh train recurrent — the sharded train step of the recurrent
+              families on the MESH_RANKS ranks, spawned again as the (2, 2)
+              ("data", "model") gloo mesh on the card, remat "dots", bf16
+              compute, batch 2 × 2048 (a rank's block 1 × 2048): (a)
+              mamba2-370m at full width (d 1024, 32 heads of 64, N 128,
+              chunk 256), depth cut to 8 of 48 layers: a rank's scans run
+              16 heads; (b) recurrentgemma-9b at full width (d 4096, W
+              4096, d_ff 12288, vocab 256000), one (rglru, rglru, local)
+              group: a rank's RG-LRU scans run W 2048 and its local
+              attention 8 q heads of hd 256 against the one kv head.  The
+              parent first runs the plain steps on the same state (from
+              the seed) and batches, and frees them; each rank rebuilds the
+              state from the seed and keeps its blocks.  Per arch: 3 steps,
+              each step's loss within 3e-2 and grad norm within 5e-2
+              relative of the plain step's, its launches exactly the scan
+              forwards twice and each scan backward once a scan layer and
+              flash twice a local layer, all on the bf16 variants (mma,
+              vec4, wgmma); a timed pass (a fourth step on the first batch,
+              every collective timed); then one fp32 step (mamba2-370m cut
+              to one layer, on the fma scans; recurrentgemma-9b's group, on
+              flash's fma) within 1e-4 relative of the plain step's loss
+              and grad norm, every rank's block of every updated parameter
+              (the per-head A_log, D and dt_bias, whose gradient is summed
+              over the model axis, included) within 1e-4 of the plain
+              step's and of every first moment within 1e-4 of its largest.
+              Prints each rank's step ms, collectives a step, their seconds
+              in the timed pass and its peak memory.  Phase 2 holds and
+              times each kernel at a rank's shape here; every row of the
+              kernel line gets that entry under at_other_shapes with these
+              launches (all ranks, the bf16 steps and timed passes).
 7. grads    — the flash Function (kernel forward, FA2 backward) against
               autograd through the dense plain version on the card: fp32
               on the fma variant, bf16 on wgmma at hd 128.
@@ -201,7 +231,8 @@ without the four ranks' runs.  Phases, in order; any failure exits non-zero and 
 
 Phase 2 also holds the flash kernels' log-sum-exp (the backward's input)
 against the plain version on both variants and times the forward with it
-at the training shape and at a rank's shape in phase 6c.
+at the training shape and at a rank's shape in phase 6c, and holds and
+times every kernel at a rank's shape in phase 6d.
 
 The line before the last is one JSON object with a row per kernel
 (flash_attention, ssd_scan, rglru_scan, ssd_scan_bwd, rglru_scan_bwd); the last
@@ -347,6 +378,47 @@ RG_TRAIN = RG.replace(n_layers=3, remat="dots")
 #: step 1's loss and gradient norm through the scan kernels against those
 #: through the scans' plain versions, relative
 STEP1_RTOL = 1e-3
+
+# the sharded training of the recurrent families (phase 6d): the MESH_RANKS
+# ranks again as the (2, 2) ("data", "model") mesh, remat "dots", bf16
+# compute, batch TRAIN_BATCH × TRAIN_SEQ (a rank's block 1 × 2048; phase 6b's
+# 1 × 4096 does not split over a data axis of 2): mamba2-370m at full width,
+# its depth cut from 48 layers to 8 (the sharded step's time is gloo's host
+# collectives, not the card's), and recurrentgemma-9b at full width, one
+# (rglru, rglru, local) group (RG_TRAIN; at L 2048 its window of 2048 does
+# not bind, phases 2 and 6b hold the windowed kernel).  Each is held against
+# the plain step on the same state and batches (MESH_TRAIN_LOSS_TOL,
+# MESH_TRAIN_GNORM_RTOL), then one fp32 step against the plain fp32 step
+# (MESH_TRAIN_FP32_RTOL, MESH_TRAIN_PARAM_ATOL): mamba2-370m cut to one
+# layer, recurrentgemma-9b's one group (one layer of it would leave the
+# stacked slots empty, a config the reference's init refuses)
+MESH_REC = {"mamba2-370m": MAMBA.replace(n_layers=8, remat="dots"),
+            "recurrentgemma-9b": RG_TRAIN}
+MESH_REC_FP32 = {"mamba2-370m": MESH_REC["mamba2-370m"].replace(
+                     n_layers=1, compute_dtype="float32"),
+                 "recurrentgemma-9b": MESH_REC["recurrentgemma-9b"].replace(
+                     compute_dtype="float32")}
+#: the batches of phase 6d and the plain fp32 steps' leaves, which the parent
+#: writes for the ranks
+MESH_REC_INPUTS = os.path.join(ROOT, "build", "mesh_rec_inputs.pt")
+MESH_REC_FP32_REF = os.path.join(ROOT, "build", "mesh_rec_fp32_ref_{}.pt")
+#: a rank's kernel calls in phase 6d: its batch block (1), and its block of
+#: the SSM's heads (16 of 32), of the RG-LRU width (2048 of 4096) and of the
+#: local attention's q heads (8 of 16; its one kv head gathered)
+MESH_REC_BT = TRAIN_BATCH // MESH_SHAPE[0]
+MESH_REC_SSD = (MESH_REC_BT, TRAIN_SEQ, ssm.dims(MAMBA)[1] // MESH_SHAPE[1])
+MESH_REC_RGLRU = (MESH_REC_BT, TRAIN_SEQ, rglru.width(RG) // MESH_SHAPE[1])
+MESH_REC_FLASH = (MESH_REC_BT, TRAIN_SEQ, RG.n_heads // MESH_SHAPE[1], RG.n_kv_heads, RG.hd)
+#: the variant each kernel runs in bf16 compute and in fp32
+BF16_VARIANTS = {"flash_attention": "wgmma", "ssd_scan": "mma", "ssd_scan_bwd": "mma",
+                 "rglru_scan": "vec4", "rglru_scan_bwd": "vec4"}
+FP32_VARIANTS = {**BF16_VARIANTS, "flash_attention": "fma", "ssd_scan": "fma",
+                 "ssd_scan_bwd": "fma"}
+
+#: the keys of a kernel's line that an entry at another shape repeats
+SHAPE_KEYS = ("shape", "variant", "source", "max_abs_err", "ms", "plain_ms", "bound_ms",
+              "bound_by", "library_ms", "call_ms", "ms_by_kernel")
+
 
 KERNELS = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention_sm90.cuh",
@@ -653,29 +725,36 @@ def _flash_lse_case(b, l, h, hkv, hd, window, cap, dtype, tol) -> float:
                   f"cap={cap} {str(dtype)[6:]}", lse, lse_ref, tol, tol)
 
 
-def _flash_train_shape(shape=TRAIN_SHAPE, seed: int = 7) -> dict:
+def _flash_train_shape(shape=TRAIN_SHAPE, seed: int = 7, window: int = 0) -> dict:
     """The forward with lse at a training shape, as the training step
-    launches it (wgmma, bf16), timed against its plain version and the
-    library call; lse [B,H,L] fp32 is one more output."""
+    launches it (wgmma, bf16; ``window`` as a local layer passes it),
+    timed against its plain version and the library call (causal: a window
+    of at least L does not bind); lse [B,H,L] fp32 is one more output."""
     b, l, h, hkv, hd = shape
+    if window and window < l:
+        _fail(f"the library call computes no window: {window} binds at L {l}")
     q, k, v = _qkv(b, l, h, hkv, hd, torch.bfloat16, seed=seed)
     n0 = dict(ops.flash_variant_launches)
-    out, lse = ops.flash_attention(q, k, v, causal=True, return_lse=True)
+    out, lse = ops.flash_attention(q, k, v, causal=True, window=window, return_lse=True)
     if ops.flash_variant_launches != {**n0, "wgmma": n0["wgmma"] + 1}:
-        _fail("flash at the training shape did not run the wgmma variant")
-    out_ref, lse_ref = ref.flash_attention_plain_lse(q, k, v, causal=True)
-    err = _check(f"flash (wgmma) at the training shape {list(q.shape)} bfloat16", out, out_ref,
-                 2e-2, 2e-2)
-    lse_err = _check("flash (wgmma) lse at the training shape", lse, lse_ref, 1e-4, 1e-4)
+        _fail(f"flash at the training shape {shape} did not run the wgmma variant")
+    out_ref, lse_ref = ref.flash_attention_plain_lse(q, k, v, causal=True, window=window)
+    err = _check(f"flash (wgmma) at the training shape {list(q.shape)} window {window} "
+                 f"bfloat16", out, out_ref, 2e-2, 2e-2)
+    lse_err = _check(f"flash (wgmma) lse at the training shape {list(q.shape)}", lse, lse_ref,
+                     1e-4, 1e-4)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     row = _row("flash_attention", err,
-               lambda: ops.flash_attention(q, k, v, causal=True, return_lse=True),
-               lambda: ref.flash_attention_plain_lse(q, k, v, causal=True),
+               lambda: ops.flash_attention(q, k, v, causal=True, window=window,
+                                           return_lse=True),
+               lambda: ref.flash_attention_plain_lse(q, k, v, causal=True, window=window),
                _nbytes(q, k, v, out, lse), fa.flops(b, l, l, h, hd), torch.bfloat16,
                lambda: torch.nn.functional.scaled_dot_product_attention(
                    qt, kt, vt, is_causal=True, enable_gqa=True),
-               f"q {list(q.shape)}, k/v {list(k.shape)} bfloat16, with lse [{b},{h},{l}] fp32")
+               f"q {list(q.shape)}, k/v {list(k.shape)} bfloat16, window {window}, with lse "
+               f"[{b},{h},{l}] fp32")
     row["lse_max_abs_err"] = lse_err
+    row["variant"], row["source"] = "wgmma", FLASH_SOURCES["wgmma"]
     return row
 
 
@@ -762,14 +841,17 @@ def _ssd_case(what: str, args, chunk: int, tol: float) -> str:
     return ran[0]
 
 
-def _ssd_at(dtype: torch.dtype) -> dict:
-    """ssd_scan at the mamba2-370m prefill shape (2 chunks of 256, so the
-    carry is used; A = −linspace(1, 16), dt = softplus(N(0,1) + dt_bias) as
-    the model's init), timed against its plain version."""
-    _, nh, p, n = ssm.dims(MAMBA)
+def _ssd_at(dtype: torch.dtype, bt: int = SERVE_BATCH, l: int = SERVE_PROMPT,
+            nh: int = 0) -> dict:
+    """ssd_scan at a mamba2-370m shape (the prefill's by default: 2 chunks of
+    256, so the carry is used; ``nh`` heads, all 32 by default; A =
+    −linspace(1, 16), dt = softplus(N(0,1) + dt_bias) as the model's init),
+    timed against its plain version."""
+    _, heads, p, n = ssm.dims(MAMBA)
+    nh = nh or heads
     q = MAMBA.ssm.chunk
     want = ssd.variant(p, n, q, dtype)
-    args = _ssd_inputs(SERVE_BATCH, SERVE_PROMPT, nh, p, n, dtype, seed=4, dt0=0.01)
+    args = _ssd_inputs(bt, l, nh, p, n, dtype, seed=4, dt0=0.01)
     n0 = dict(ops.ssd_variant_launches)
     y, h_last = ops.ssd_scan(*args, chunk=q, return_state=True)
     if ops.ssd_variant_launches != {**n0, want: n0[want] + 1}:
@@ -782,7 +864,7 @@ def _ssd_at(dtype: torch.dtype) -> dict:
            2e-4, 2e-4)
     row = _row("ssd_scan", err, lambda: ops.ssd_scan(*args, chunk=q, return_state=True),
                lambda: ref.ssd_chunked(*args, q), _nbytes(*args, y, h_last),
-               ssd.flops(SERVE_BATCH, SERVE_PROMPT, nh, p, n, q),
+               ssd.flops(bt, l, nh, p, n, q),
                dtype, None, f"x {list(args[0].shape)}, B/C {list(args[3].shape)}, chunk {q} "
                f"{str(dtype)[6:]}", op=lambda: ssd.OP(*args, q, True),
                launch=lambda: ssd._launch_fwd(*args, q, True))
@@ -822,9 +904,7 @@ def phase_ssd() -> dict:
     if row["variant"] != "mma":
         _fail("the mamba2-370m serving shape does not take the mma variant")
     other = _ssd_at(torch.float32)                       # the fma variant's time
-    row["at_other_shapes"] = [{k: other[k] for k in (
-        "shape", "variant", "source", "max_abs_err", "ms", "plain_ms", "bound_ms",
-        "bound_by", "library_ms", "call_ms", "ms_by_kernel")}]
+    row["at_other_shapes"] = [{k: other[k] for k in SHAPE_KEYS}]
     return row
 
 
@@ -982,6 +1062,63 @@ def _ssd_bwd_case(what: str, args, chunk: int, with_state: bool, pad: int = 0) -
                for name, a, b in zip(("dx", "ddt", "da", "dB", "dC"), leaves, plain))
 
 
+def _rglru_bwd_at(bt: int, l: int, w: int) -> dict:
+    """rglru_scan_bwd at a training shape [bt, l, w], held against the plain
+    version and timed; returns its row."""
+    log_a, b = _rglru_inputs(bt, l, w, torch.float32, seed=21)
+    h = ops.rglru_scan(log_a, b)
+    dh = torch.randn(h.shape, generator=_gen(22), device="cuda")
+    v0 = dict(ops.rglru_bwd_variant_launches)
+    got = ops.rglru_scan_bwd(log_a, h, dh)
+    kind = rg.variant(w)
+    if ops.rglru_bwd_variant_launches != {**v0, kind: v0[kind] + 1}:
+        _fail(f"rglru_scan_bwd at {list(h.shape)} did not run {kind}")
+    want = ref.rglru_scan_bwd_plain(log_a, b, dh)
+    err = max(_check(f"rglru_scan_bwd at the training shape {list(h.shape)} {n}", g_, w_,
+                     1e-4, 1e-4) for n, g_, w_ in zip(("dlog_a", "db"), got, want))
+    row = _row("rglru_scan_bwd", err, lambda: ops.rglru_scan_bwd(log_a, h, dh),
+               lambda: ref.rglru_scan_bwd_plain(log_a, b, dh), 5 * _nbytes(h),
+               rg.bwd_flops(*h.shape), torch.float32, None,
+               f"log_a/h/dh/dlog_a/db {list(h.shape)}", op=lambda: rg.BWD_OP(log_a, h, dh),
+               launch=lambda: rg._launch_bwd(log_a, h, dh))
+    row["variant"], row["source"] = kind, KERNELS["rglru_scan_bwd"][0]
+    row["library_null_because"] = "no PyTorch call computes the recurrence's backward"
+    return row
+
+
+def _ssd_bwd_at(dtype: torch.dtype, bt: int, l: int, nh: int) -> dict:
+    """ssd_scan_bwd at a mamba2-370m training shape (``nh`` heads) in
+    ``dtype``, held against the plain version and timed; returns its row
+    (the mma variant's with the heads a block of its pair passes takes)."""
+    _, _, p, n = ssm.dims(MAMBA)
+    q = MAMBA.ssm.chunk
+    kind = ssd.bwd_variant(p, n, q, dtype)
+    x, dt, a, bm, cm = _ssd_inputs(bt, l, nh, p, n, dtype, seed=23, dt0=0.01)
+    dy = torch.randn(x.shape, generator=_gen(24), device="cuda").to(x.dtype)
+    v0 = dict(ops.ssd_bwd_variant_launches)
+    got = ops.ssd_scan_bwd(x, dt, a, bm, cm, q, dy, None)
+    if ops.ssd_bwd_variant_launches != {**v0, kind: v0[kind] + 1}:
+        _fail(f"ssd_scan_bwd at {list(x.shape)} in {dtype} did not run {kind}")
+    want = ref.ssd_scan_bwd_plain(x, dt, a, bm, cm, q, dy)
+    err = max(_check_grad(f"ssd_scan_bwd ({kind}) at the training shape {list(x.shape)} "
+                          f"{str(dtype)[6:]} {nm}", nm, g_, w_)
+              for nm, g_, w_ in zip(("dx", "ddt", "da", "dB", "dC"), got, want))
+    del got, want
+    row = _row("ssd_scan_bwd", err,
+               lambda: ops.ssd_scan_bwd(x, dt, a, bm, cm, q, dy, None),
+               lambda: ref.ssd_scan_bwd_plain(x, dt, a, bm, cm, q, dy),
+               2 * _nbytes(x, dt, a, bm, cm) + _nbytes(dy),
+               ssd.bwd_flops(bt, l, nh, p, n, q), x.dtype, None,
+               f"x/dy {list(x.shape)} {str(x.dtype)[6:]}, B/C {list(bm.shape)}, chunk {q}",
+               op=lambda: ssd.BWD_OP(x, dt, a, bm, cm, q, dy, None),
+               launch=lambda: ssd._launch_bwd(x, dt, a, bm, cm, q, dy, None))
+    row["variant"], row["source"] = kind, SSD_BWD_SOURCES[kind]
+    if kind == "mma":       # the heads a block of the pair passes takes
+        row["heads_per_block"] = ssd.bwd_heads_per_block(nh)
+    row["library_null_because"] = "no PyTorch call computes the chunked SSD backward"
+    return row
+
+
 def phase_scan_bwd() -> dict:
     """Both backward kernels on the phase-2 cases, then each timed at its
     training shape; returns their rows."""
@@ -1012,60 +1149,61 @@ def phase_scan_bwd() -> dict:
     ssd_err = max(errs)
 
     # the training shapes, each timed alone
-    log_a, b = _rglru_inputs(1, RG_TRAIN_SEQ, rglru.width(RG), torch.float32, seed=21)
-    h = ops.rglru_scan(log_a, b)
-    dh = torch.randn(h.shape, generator=_gen(22), device="cuda")
-    got = ops.rglru_scan_bwd(log_a, h, dh)
-    want = ref.rglru_scan_bwd_plain(log_a, b, dh)
-    err = max(_check(f"rglru_scan_bwd at the training shape {list(h.shape)} {n}", g_, w_,
-                     1e-4, 1e-4) for n, g_, w_ in zip(("dlog_a", "db"), got, want))
-    rg_row = _row("rglru_scan_bwd", max(err, rg_err), lambda: ops.rglru_scan_bwd(log_a, h, dh),
-                  lambda: ref.rglru_scan_bwd_plain(log_a, b, dh), 5 * _nbytes(h),
-                  rg.bwd_flops(*h.shape), torch.float32, None,
-                  f"log_a/h/dh/dlog_a/db {list(h.shape)}", op=lambda: rg.BWD_OP(log_a, h, dh),
-                  launch=lambda: rg._launch_bwd(log_a, h, dh))
-    rg_row["variant"] = rg.variant(h.shape[2])
-    rg_row["library_null_because"] = "no PyTorch call computes the recurrence's backward"
-    del log_a, b, h, dh, got, want
-
-    _, nh, p, n = ssm.dims(MAMBA)
-    q = MAMBA.ssm.chunk
+    rg_row = _rglru_bwd_at(1, RG_TRAIN_SEQ, rglru.width(RG))
+    rg_row["max_abs_err"] = max(rg_row["max_abs_err"], rg_err)
+    _, nh, _, _ = ssm.dims(MAMBA)
     rows = {}
     for dtype in (torch.float32, MAMBA.cdtype):           # fma first: its line comes earlier
-        kind = ssd.bwd_variant(p, n, q, dtype)
-        x, dt, a, bm, cm = _ssd_inputs(MAMBA_TRAIN_BATCH, TRAIN_SEQ, nh, p, n, dtype,
-                                       seed=23, dt0=0.01)
-        dy = torch.randn(x.shape, generator=_gen(24), device="cuda").to(x.dtype)
-        v0 = dict(ops.ssd_bwd_variant_launches)
-        got = ops.ssd_scan_bwd(x, dt, a, bm, cm, q, dy, None)
-        if ops.ssd_bwd_variant_launches != {**v0, kind: v0[kind] + 1}:
-            _fail(f"ssd_scan_bwd at the training shape in {dtype} did not run {kind}")
-        want = ref.ssd_scan_bwd_plain(x, dt, a, bm, cm, q, dy)
-        err = max(_check_grad(f"ssd_scan_bwd ({kind}) at the training shape {list(x.shape)} "
-                              f"{str(dtype)[6:]} {nm}", nm, g_, w_)
-                  for nm, g_, w_ in zip(("dx", "ddt", "da", "dB", "dC"), got, want))
-        del got, want
-        row = _row("ssd_scan_bwd", err,
-                   lambda: ops.ssd_scan_bwd(x, dt, a, bm, cm, q, dy, None),
-                   lambda: ref.ssd_scan_bwd_plain(x, dt, a, bm, cm, q, dy),
-                   2 * _nbytes(x, dt, a, bm, cm) + _nbytes(dy),
-                   ssd.bwd_flops(MAMBA_TRAIN_BATCH, TRAIN_SEQ, nh, p, n, q), x.dtype, None,
-                   f"x/dy {list(x.shape)} {str(x.dtype)[6:]}, B/C {list(bm.shape)}, chunk {q}",
-                   op=lambda: ssd.BWD_OP(x, dt, a, bm, cm, q, dy, None),
-                   launch=lambda: ssd._launch_bwd(x, dt, a, bm, cm, q, dy, None))
-        row["variant"], row["source"] = kind, SSD_BWD_SOURCES[kind]
-        if kind == "mma":       # the heads a block of the pair passes takes
-            row["heads_per_block"] = ssd.bwd_heads_per_block(nh)
-        rows[kind] = row
-        del x, dt, a, bm, cm, dy
+        row = _ssd_bwd_at(dtype, MAMBA_TRAIN_BATCH, TRAIN_SEQ, nh)
+        rows[row["variant"]] = row
     ssd_row = rows["mma"]
     ssd_row["max_abs_err"] = max(ssd_row["max_abs_err"], ssd_err)
-    ssd_row["at_other_shapes"] = [{k: rows["fma"][k] for k in (
-        "shape", "variant", "source", "max_abs_err", "ms", "plain_ms", "bound_ms",
-        "bound_by", "library_ms", "call_ms", "ms_by_kernel")}]
-    ssd_row["library_null_because"] = "no PyTorch call computes the chunked SSD backward"
+    ssd_row["at_other_shapes"] = [{k: rows["fma"][k] for k in SHAPE_KEYS}]
     _free()
     return {"ssd_scan_bwd": ssd_row, "rglru_scan_bwd": rg_row}
+
+
+def _rglru_at(bt: int, l: int, w: int) -> dict:
+    """rglru_scan at a training shape [bt, l, w], held against the plain
+    version and timed; returns its row."""
+    log_a, b = _rglru_inputs(bt, l, w, torch.float32, seed=25)
+    kind = rg.variant(w)
+    v0 = dict(ops.rglru_variant_launches)
+    h = ops.rglru_scan(log_a, b)
+    if ops.rglru_variant_launches != {**v0, kind: v0[kind] + 1}:
+        _fail(f"rglru_scan at {list(h.shape)} did not run {kind}")
+    err = _check(f"rglru_scan ({kind}) at {list(h.shape)}", h, ref.rglru_scan_ref(log_a, b),
+                 1e-5, 1e-3)
+    row = _row("rglru_scan", err, lambda: ops.rglru_scan(log_a, b),
+               lambda: ref.rglru_scan_ref(log_a, b), _nbytes(log_a, b, h),
+               rg.flops(*log_a.shape), torch.float32, None, f"log_a/b/h {list(log_a.shape)}")
+    row["variant"] = kind
+    return row
+
+
+def phase_rank_shapes() -> dict:
+    """Each kernel at a rank's shape in phase 6d's sharded steps
+    (MESH_REC_SSD, MESH_REC_RGLRU, MESH_REC_FLASH: bf16, so the mma, vec4
+    and wgmma variants), held against its plain version and timed as at
+    its own shape; returns kernel name → its entry at that shape (the
+    launches are phase 6d's, filled in after it)."""
+    bt, l, hl = MESH_REC_SSD
+    rows = {"flash_attention": _flash_train_shape(MESH_REC_FLASH, seed=9, window=RG.window),
+            "ssd_scan": _ssd_at(MAMBA.cdtype, bt, l, hl),
+            "rglru_scan": _rglru_at(*MESH_REC_RGLRU),
+            "ssd_scan_bwd": _ssd_bwd_at(MAMBA.cdtype, bt, l, hl),
+            "rglru_scan_bwd": _rglru_bwd_at(*MESH_REC_RGLRU)}
+    out = {}
+    for name, row in rows.items():
+        if row["variant"] != BF16_VARIANTS[name]:
+            _fail(f"{name} at a rank's shape {row['shape']} runs {row['variant']}, not "
+                  f"{BF16_VARIANTS[name]}")
+        out[name] = {"at": "a rank's shape in the sharded steps of phase 6d, (2, 2) mesh",
+                     **{k: row.get(k) for k in SHAPE_KEYS}}
+        if "heads_per_block" in row:
+            out[name]["heads_per_block"] = row["heads_per_block"]
+    _free()
+    return out
 
 
 # ==========================================================================
@@ -1873,21 +2011,60 @@ def _sharded_state(cfg, gen: torch.Generator, ctx) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=gen.device)}
 
 
+def _variant_launches() -> dict:
+    """Each kernel's launches so far by variant (ops' counters)."""
+    return {"flash_attention": dict(ops.flash_variant_launches),
+            "ssd_scan": dict(ops.ssd_variant_launches),
+            "ssd_scan_bwd": dict(ops.ssd_bwd_variant_launches),
+            "rglru_scan": dict(ops.rglru_variant_launches),
+            "rglru_scan_bwd": dict(ops.rglru_bwd_variant_launches)}
+
+
+def _on_variants(launches: dict, variants: dict) -> dict:
+    """``launches`` (kernel → count) as launches by variant, every one on
+    the variant ``variants`` names for its kernel."""
+    return {k: {**dict.fromkeys(v, 0), variants[k]: launches[k]}
+            for k, v in _variant_launches().items()}
+
+
 def _sharded_step(step_fn, state, batch) -> tuple:
     """One step under the ambient context: (new state, its record: loss,
-    grad norm, host ms ended by a synchronise, flash launches by variant,
+    grad norm, host ms ended by a synchronise, each kernel's launches and
+    launches by variant (flash's also as flash_launches, flash_by_variant),
     collectives)."""
-    n0, v0 = ops.launches["flash_attention"], dict(ops.flash_variant_launches)
+    n0, v0 = dict(ops.launches), _variant_launches()
     c0 = mesh_ctx.collective_stats["calls"]
     t0 = time.perf_counter()
     state, m = step_fn(state, batch)
     torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    v1 = _variant_launches()
+    variants = {k: {v: v1[k][v] - v0[k][v] for v in v0[k]} for k in v0}
     return state, {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-                   "step_ms": (time.perf_counter() - t0) * 1e3,
-                   "flash_launches": ops.launches["flash_attention"] - n0,
-                   "flash_by_variant": {v: ops.flash_variant_launches[v] - v0[v]
-                                        for v in v0},
+                   "step_ms": ms, "launches": {k: ops.launches[k] - n0[k] for k in n0},
+                   "variants": variants,
+                   "flash_launches": ops.launches["flash_attention"] - n0["flash_attention"],
+                   "flash_by_variant": variants["flash_attention"],
                    "collectives": mesh_ctx.collective_stats["calls"] - c0}
+
+
+def _against_plain(tree, leaves, ctx, relative: bool) -> list:
+    """Each rank's block of every leaf of ``tree`` (DTensors) against the
+    same block of the plain step's leaf (``leaves``, global, on the host):
+    max |d|, over the block's largest value when ``relative``."""
+    errs = []
+    for got, want in zip(tree_leaves(tree), leaves, strict=True):
+        want = want[local_slices(tuple(got.shape), spec_of(got), ctx)].to(got.device)
+        err = float((got.to_local() - want).abs().max())
+        errs.append(err / (float(want.abs().max()) or 1.0) if relative else err)
+    return errs
+
+
+def _leaf_paths(tree, prefix: str = "") -> list:
+    """The paths of ``tree``'s leaves, in tree_leaves' order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in _leaf_paths(v, f"{prefix}{k}/")]
+    return [prefix[:-1]]
 
 
 def _mesh_train_rank(rank: int, world: int, directory: str) -> None:
@@ -1933,17 +2110,8 @@ def _mesh_train_rank(rank: int, world: int, directory: str) -> None:
         state, r["fp32_step"] = _sharded_step(make_train_step(MESH_TRAIN_FP32, lr=3e-4), state,
                                               batches[0])
     plain = torch.load(MESH_TRAIN_FP32_REF, mmap=True)
-
-    def against_plain(tree, leaves, relative):
-        errs = []
-        for got, want in zip(tree_leaves(tree), leaves, strict=True):
-            want = want[local_slices(tuple(got.shape), spec_of(got), ctx)].to(got.device)
-            err = float((got.to_local() - want).abs().max())
-            errs.append(err / (float(want.abs().max()) or 1.0) if relative else err)
-        return errs
-
-    r["fp32_params_max_err"] = against_plain(state["params"], plain["params"], False)
-    r["fp32_m_rel_err"] = against_plain(state["opt"]["m"], plain["m"], True)
+    r["fp32_params_max_err"] = _against_plain(state["params"], plain["params"], ctx, False)
+    r["fp32_m_rel_err"] = _against_plain(state["opt"]["m"], plain["m"], ctx, True)
     del state, plain
     _free()
     with open(os.path.join(directory, f"rank{rank}.json"), "w") as f:
@@ -2022,6 +2190,216 @@ def phase_mesh_train(plain: dict, fp32_ref: dict) -> tuple:
                 flash[v] += n
     launches = {**dict.fromkeys(ops.launches, 0), "flash_attention": sum(flash.values())}
     return launches, flash, ranks
+
+
+# ==========================================================================
+# 6d. sharded training of the recurrent families, 4 gloo ranks
+# ==========================================================================
+
+
+def _mesh_rec_references() -> dict:
+    """The plain steps phase 6d is held against, on the card before the
+    ranks start: per arch, TRAIN_STEPS bf16 steps of MESH_REC from _gen(0)
+    on make_batch's batches, and the fp32 step of MESH_REC_FP32 on the
+    first batch.  Writes the batches (MESH_REC_INPUTS) and the fp32 step's
+    updated parameters and first moments (MESH_REC_FP32_REF) for the ranks;
+    returns each arch's losses and grad norms."""
+    os.makedirs(os.path.dirname(MESH_REC_INPUTS), exist_ok=True)
+    refs, inputs = {}, {}
+    for arch, cfg in MESH_REC.items():
+        t0 = time.perf_counter()
+        batches = [batch_to(make_batch(cfg, TRAIN_SEQ, TRAIN_BATCH, step=s), "cpu")
+                   for s in range(TRAIN_STEPS)]
+        inputs[arch] = batches
+        t_data = time.perf_counter() - t0
+        state = train_state_init(_gen(0), cfg, device="cuda")
+        step_fn = make_train_step(cfg, lr=3e-4)
+        steps = []
+        for b in batches:
+            state, m = step_fn(state, batch_to(b, "cuda"))
+            steps.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])})
+        del state, m
+        _free()
+        f32 = MESH_REC_FP32[arch]
+        state = train_state_init(_gen(0), f32, device="cuda")
+        new, m = make_train_step(f32, lr=3e-4)(state, batch_to(batches[0], "cuda"))
+        fp32_step = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+        del state, m
+        _free()
+        t1 = time.perf_counter()
+        torch.save({k: [t.cpu() for t in tree_leaves(tree)]
+                    for k, tree in (("params", new["params"]), ("m", new["opt"]["m"]))},
+                   MESH_REC_FP32_REF.format(arch))
+        del new
+        _free()
+        refs[arch] = {"steps": steps, "fp32_step": fp32_step}
+        _log(f"[mesh-rec] plain references, {arch}: {cfg.n_layers} layers, batch "
+             f"{TRAIN_BATCH} x {TRAIN_SEQ}: " + "; ".join(
+                 f"step {i + 1} loss {d['loss']:.6f} grad norm {d['grad_norm']:.6f}"
+                 for i, d in enumerate(steps))
+             + f"; fp32 {f32.n_layers}-layer step {fp32_step}; {time.perf_counter() - t0:.1f}s "
+             f"({t_data:.1f}s of batches, {time.perf_counter() - t1:.1f}s writing the fp32 "
+             f"leaves)")
+    torch.save(inputs, MESH_REC_INPUTS)
+    return refs
+
+
+def _mesh_rec_arch(arch: str, ctx, batches: list) -> dict:
+    """One arch on this rank: MESH_REC[arch]'s state rebuilt from _gen(0)
+    with this rank's blocks kept, TRAIN_STEPS sharded steps, a timed pass
+    (a further step on the first batch, every collective timed on the host
+    clock after a synchronise), then the fp32 step of MESH_REC_FP32[arch]
+    with its blocks against the plain step's."""
+    cfg = MESH_REC[arch]
+    state = _sharded_state(cfg, _gen(0), ctx)
+    r = {"state_gb": sum(t.to_local().numel() * t.to_local().element_size()
+                         for t in tree_leaves(state) if mesh_ctx.is_distributed(t)) / 1e9}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_fn = make_train_step(cfg, lr=3e-4)
+    ops.reset_launches()
+    mesh_ctx.reset_collective_stats()
+    r["steps"] = []
+    with mesh_context(ctx):
+        for b in batches:
+            state, rec = _sharded_step(step_fn, state, b)
+            r["steps"].append(rec)
+        mesh_ctx.reset_collective_stats(timed=True)
+        state, timed = _sharded_step(step_fn, state, batches[0])
+        timed["collective_s"] = mesh_ctx.collective_stats["seconds"]
+        r["timed"] = timed
+        mesh_ctx.reset_collective_stats()
+    r["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del state
+    _free()
+    f32 = MESH_REC_FP32[arch]
+    state = _sharded_state(f32, _gen(0), ctx)
+    with mesh_context(ctx):
+        state, r["fp32_step"] = _sharded_step(make_train_step(f32, lr=3e-4), state,
+                                              batches[0])
+    plain = torch.load(MESH_REC_FP32_REF.format(arch), mmap=True)
+    r["fp32_leaves"] = _leaf_paths(state["params"])
+    r["fp32_params_max_err"] = _against_plain(state["params"], plain["params"], ctx, False)
+    r["fp32_m_rel_err"] = _against_plain(state["opt"]["m"], plain["m"], ctx, True)
+    del state, plain
+    _free()
+    return r
+
+
+def _mesh_rec_rank(rank: int, world: int, directory: str) -> None:
+    """One rank of phase 6d: each arch of MESH_REC on this rank's blocks of
+    the parent's batches.  Writes ``<directory>/rank<r>.json``."""
+    mesh, r = _rank_mesh(rank, world, directory)
+    ctx = launch_mesh.make_ctx(mesh)
+    inputs = torch.load(MESH_REC_INPUTS)
+    for arch in MESH_REC:
+        r[arch] = _mesh_rec_arch(arch, ctx, [batch_to(b, "cuda") for b in inputs[arch]])
+    with open(os.path.join(directory, f"rank{rank}.json"), "w") as f:
+        json.dump(r, f)
+    dist.destroy_process_group()
+
+
+def _check_mesh_rec(r: dict, arch: str, plain: dict) -> None:
+    """One rank's record of one arch against the plain steps: fails unless
+    every bf16 step's loss is within MESH_TRAIN_LOSS_TOL and its grad norm
+    within MESH_TRAIN_GNORM_RTOL, its launches exactly _train_launches on
+    the bf16 variants, the fp32 step's loss and grad norm within
+    MESH_TRAIN_FP32_RTOL with its launches on the fp32 variants, and the
+    rank's block of every updated parameter within MESH_TRAIN_PARAM_ATOL
+    and of every first moment within MESH_TRAIN_FP32_RTOL of its largest."""
+    a, cfg, f32 = r[arch], MESH_REC[arch], MESH_REC_FP32[arch]
+    want_launches = _train_launches(cfg)
+    want_variants = _on_variants(want_launches, BF16_VARIANTS)
+    who = f"rank {r['rank']} {r['coord']} {arch}"
+    for i, (got, want) in enumerate(zip(a["steps"] + [a["timed"]],
+                                        plain["steps"] + [None])):
+        line = (f"[mesh-rec] {who} " + (f"step {i + 1}" if want else "timed pass (step 1's "
+                                                                         "batch)")
+                + f": loss {got['loss']:.6f}")
+        if want is not None:
+            dl = abs(got["loss"] - want["loss"])
+            dg = abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"]
+            line += (f" (plain {want['loss']:.6f}, |d| {dl:.3e}), grad norm "
+                     f"{got['grad_norm']:.6f} (plain {want['grad_norm']:.6f}, rel {dg:.3e})")
+            if not (dl <= MESH_TRAIN_LOSS_TOL and dg <= MESH_TRAIN_GNORM_RTOL):
+                _fail(f"{who} sharded step {i + 1}: {got} against plain {want}")
+        else:
+            line += (f", {got['collective_s']:.3f} s of {got['step_ms']:.1f} ms in its "
+                     f"collectives (host clock, each after a synchronise)")
+        _log(line + f", {got['step_ms']:.1f} ms, {got['collectives']} collectives, launches "
+             f"{ {k: n for k, n in got['launches'].items() if n} }")
+        if got["launches"] != want_launches or got["variants"] != want_variants:
+            _fail(f"{who} sharded step {i + 1}: launches {got['variants']}, not "
+                  f"{want_variants}")
+    got, want = a["fp32_step"], plain["fp32_step"]
+    df = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    dg = abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"]
+    errs, merrs, names = a["fp32_params_max_err"], a["fp32_m_rel_err"], a["fp32_leaves"]
+    heads = [i for i, n in enumerate(names) if n.rsplit("/", 1)[-1] in ("A_log", "D", "dt_bias")]
+    _log(f"[mesh-rec] {who} fp32 {f32.n_layers}-layer step: loss {got['loss']:.7f} (plain "
+         f"{want['loss']:.7f}, rel {df:.3e}), grad norm {got['grad_norm']:.7f} (plain "
+         f"{want['grad_norm']:.7f}, rel {dg:.3e}), launches "
+         f"{ {k: n for k, n in got['launches'].items() if n} }; its blocks of the {len(errs)} "
+         f"updated parameters against the plain step's, max |d| {max(errs):.3e} "
+         f"({names[errs.index(max(errs))]}); of the first moments, max |d| {max(merrs):.3e} "
+         f"of the block's largest ({names[merrs.index(max(merrs))]})" + (
+             f"; the per-head vectors {[names[i] for i in heads]}: max |d| "
+             f"{max(errs[i] for i in heads):.3e}, moments {max(merrs[i] for i in heads):.3e}"
+             if heads else ""))
+    if not (df <= MESH_TRAIN_FP32_RTOL and dg <= MESH_TRAIN_FP32_RTOL):
+        _fail(f"{who} fp32 sharded step {got} against plain {want}")
+    if not (max(errs) <= MESH_TRAIN_PARAM_ATOL and max(merrs) <= MESH_TRAIN_FP32_RTOL):
+        _fail(f"{who} fp32 sharded step: updated parameters differ from the plain step's by "
+              f"{dict(zip(names, errs))}, first moments by {dict(zip(names, merrs))}")
+    want_launches = _train_launches(f32)
+    if got["launches"] != want_launches or got["variants"] != _on_variants(want_launches,
+                                                                           FP32_VARIANTS):
+        _fail(f"{who} fp32 sharded step: launches {got['variants']}")
+
+
+def phase_mesh_train_recurrent() -> tuple:
+    """Phase 6d: the plain references (:func:`_mesh_rec_references`), the
+    MESH_RANKS ranks (:func:`_mesh_rec_rank`), each rank's record checked
+    (:func:`_check_mesh_rec`).  Returns (the phase's launches as a path's,
+    its launches by variant, the launches at a rank's shape of the bf16
+    steps and timed passes on all ranks, the ranks' records)."""
+    t0 = time.perf_counter()
+    plain = _mesh_rec_references()
+    ranks, seconds = _spawn_ranks(_mesh_rec_rank, MESH_TRAIN_TIMEOUT)
+    os.remove(MESH_REC_INPUTS)
+    for arch in MESH_REC:
+        os.remove(MESH_REC_FP32_REF.format(arch))
+    _log(f"[mesh-rec] {MESH_RANKS} ranks in {seconds:.1f}s: mesh "
+         f"{dict(zip(MESH_AXES, MESH_SHAPE))}, batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+         + ", ".join(f"{arch} {cfg.n_layers} layers (a rank's state "
+                     f"{ranks[0][arch]['state_gb']:.3f} GB)" for arch, cfg in MESH_REC.items()))
+    launches = dict.fromkeys(ops.launches, 0)
+    variants = {k: dict.fromkeys(v, 0) for k, v in _variant_launches().items()}
+    at_rank_shape = dict.fromkeys(ops.launches, 0)
+    for r in ranks:
+        for arch in MESH_REC:
+            _check_mesh_rec(r, arch, plain[arch])
+            a = r[arch]
+            for rec in a["steps"] + [a["timed"], a["fp32_step"]]:
+                for k, n in rec["launches"].items():
+                    launches[k] += n
+                for k, by in rec["variants"].items():
+                    for v, n in by.items():
+                        variants[k][v] += n
+            for rec in a["steps"] + [a["timed"]]:
+                for k, n in rec["launches"].items():
+                    at_rank_shape[k] += n
+            steps = a["steps"]
+            _log(f"[mesh-rec] rank {r['rank']} {arch}: step ms "
+                 f"{_ms_list([s['step_ms'] for s in steps])}, {steps[-1]['collectives']} "
+                 f"collectives a step, {a['timed']['collective_s']:.3f} s of them in the timed "
+                 f"pass's {a['timed']['step_ms']:.1f} ms; peak memory {a['peak_mem_gb']:.2f} GB")
+    missing = [k for k, n in launches.items() if not n]
+    if missing:
+        _fail(f"phase 6d launched no {missing}")
+    _log(f"[mesh-rec] phase took {time.perf_counter() - t0:.1f}s; launches on all ranks "
+         f"{launches}")
+    return launches, variants, at_rank_shape, ranks
 
 
 def phase_train_grads() -> dict:
@@ -2107,21 +2485,8 @@ def phase_train_recurrent(name: str, cfg, batch: int, seq: int, per_step: dict) 
             if zero:
                 _fail(f"{name}: scan-layer weights with a zero gradient: {zero}")
     launches = dict(ops.launches)
-    want_variants = {"ssd_scan": {**dict.fromkeys(ssd.VARIANTS, 0),
-                                  "mma": launches["ssd_scan"]},
-                     "ssd_scan_bwd": {**dict.fromkeys(ssd.VARIANTS, 0),
-                                      "mma": launches["ssd_scan_bwd"]},
-                     "rglru_scan": {**dict.fromkeys(rg.VARIANTS, 0),
-                                    "vec4": launches["rglru_scan"]},
-                     "rglru_scan_bwd": {**dict.fromkeys(rg.VARIANTS, 0),
-                                        "vec4": launches["rglru_scan_bwd"]},
-                     "flash_attention": {**dict.fromkeys(fa.VARIANTS, 0),
-                                         "wgmma": launches["flash_attention"]}}
-    variants = {"ssd_scan": dict(ops.ssd_variant_launches),
-                "ssd_scan_bwd": dict(ops.ssd_bwd_variant_launches),
-                "rglru_scan": dict(ops.rglru_variant_launches),
-                "rglru_scan_bwd": dict(ops.rglru_bwd_variant_launches),
-                "flash_attention": dict(ops.flash_variant_launches)}
+    want_variants = _on_variants(launches, BF16_VARIANTS)
+    variants = _variant_launches()
     if variants != want_variants:
         _fail(f"{name} training launches by variant {variants}, not {want_variants}")
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -2250,6 +2615,7 @@ def main(argv=None) -> int:
     rows = {"flash_attention": phase_flash(), "ssd_scan": phase_ssd(),
             "rglru_scan": phase_rglru()}
     bwd_rows = phase_scan_bwd()
+    rank_rows = phase_rank_shapes()
     phase_model()
     by_path, by_variant = {}, {}
     mesh_path = (f"mesh: {MESH_RANKS} ranks, yi-9b {MESH_YI.n_layers}L and deepseek-moe-16b "
@@ -2294,6 +2660,12 @@ def main(argv=None) -> int:
         for k, row in rows.items():
             for v, n in r["variants"][k].items():
                 row["launches_by_variant"][v] += n
+    mesh_rec, mesh_rec_variants, at_rank_shape = None, {}, dict.fromkeys(ops.launches, 0)
+    if argv != ["--skip-mesh"]:
+        rec_path = f"mesh train recurrent: {MESH_RANKS} ranks, " + ", ".join(
+            f"{arch} {cfg.n_layers}L" for arch, cfg in MESH_REC.items())
+        by_path[rec_path], mesh_rec_variants, at_rank_shape, mesh_rec = \
+            phase_mesh_train_recurrent()
     rows.update(bwd_rows)
     for name, row in rows.items():      # the dry run's count beside the row's own
         row["dryrun"] = dry_kernels[name]
@@ -2306,6 +2678,11 @@ def main(argv=None) -> int:
     for name, variants in (("rglru_scan_bwd", rg.VARIANTS), ("ssd_scan_bwd", ssd.VARIANTS)):
         rows[name]["launches_by_variant"] = {
             v: sum(r["variants"][name][v] for r in recurrent.values()) for v in variants}
+    for name, row in rows.items():
+        for v, n in mesh_rec_variants.get(name, {}).items():
+            row["launches_by_variant"][v] += n
+        row.setdefault("at_other_shapes", []).append(
+            {**rank_rows[name], "launches": at_rank_shape[name]})
     for name, row in rows.items():
         row["launches_by_path"] = {arch: n[name] for arch, n in by_path.items() if n[name]}
         row["launches"] = sum(row["launches_by_path"].values())
@@ -2328,7 +2705,8 @@ def main(argv=None) -> int:
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_kernels.json"), "w") as f:
         json.dump({"card": smi, **kernels, "train": train, "train_recurrent": recurrent,
                    "train_grads_max_err": grads, "commit": commit, "vlm_prefix": prefix,
-                   "mesh": mesh, "mesh_train": mesh_train, "dryrun": dry_cells},
+                   "mesh": mesh, "mesh_train": mesh_train, "mesh_train_recurrent": mesh_rec,
+                   "dryrun": dry_cells},
                   f, indent=1)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -31,8 +31,12 @@ memory that a cross-attention in every decoder block reads, and the decode
 cache keeps its projected ``mk``/``mv``.
 
 Sharded training (``MeshCtx.local_blocks``, set by the sharded train step
-for the dense attention families, :func:`check_sharded`): every function
-runs on this rank's blocks.  The embedding is vocab-parallel (``embed`` is
+for the dense attention families and the recurrent ones,
+:func:`check_sharded`): every function runs on this rank's blocks, the
+stacked groups and the remainder layers alike; the "ssm" and "rglru"
+layers are tensor-parallel over the heads and the lru width
+(:mod:`repro_torch.models.ssm`, :mod:`repro_torch.models.rglru`).  The
+embedding is vocab-parallel (``embed`` is
 (model, fsdp) by the rule table: the rank's rows looked up, the rest
 masked, the sum over the model axis), and its output is placed in the
 block boundary's layout (batch-sharded, and sequence-sharded with
@@ -372,10 +376,15 @@ def check_sharded(cfg: ModelConfig, ctx, *, seq_len: Optional[int] = None,
                   patches: Optional[torch.Tensor] = None) -> None:
     """Raise unless the sharded step runs ``cfg`` on ``ctx``'s mesh: the
     dense attention families ("attn" and "local" layers, a dense MLP, q/k/v
-    biases, tied embeddings, both softcaps), with the model axis dividing
-    the fused q heads, ``d_ff`` and the padded vocab, and under
-    ``seq_shard_activations`` the sequence."""
-    what = [f"{kind} layers" for kind in sorted(set(cfg.layer_pattern) - {"attn", "local"})]
+    biases, tied embeddings, both softcaps) and the recurrent ones ("ssm"
+    and "rglru" layers), with the model axis dividing what it splits: the
+    fused q heads, ``d_ff``, the SSM's heads and inner width, the RG-LRU
+    width and the padded vocab, and under ``seq_shard_activations`` the
+    sequence.  Where it does not, the rule table's guard would drop the
+    model axis from a leaf and its rank would compute more than its
+    block."""
+    kinds = set(cfg.layer_pattern)
+    what = [f"{kind} layers" for kind in sorted(kinds - {"attn", "local", "ssm", "rglru"})]
     if cfg.moe is not None:
         what.append("MoE layers")
     if cfg.enc_dec:
@@ -386,8 +395,15 @@ def check_sharded(cfg: ModelConfig, ctx, *, seq_len: Optional[int] = None,
         raise NotImplementedError(f"sharded training of {', '.join(what)} ({cfg.name}) is "
                                   f"not ported ({SHARDED_TODO})")
     nm = ctx.model_size
-    for name, n in (("n_heads * head_dim", cfg.n_heads * cfg.hd), ("d_ff", cfg.d_ff),
-                    ("the padded vocab", cfg.padded_vocab)):
+    split = [("d_ff", cfg.d_ff), ("the padded vocab", cfg.padded_vocab)]
+    if kinds & {"attn", "local"}:
+        split.append(("n_heads * head_dim", cfg.n_heads * cfg.hd))
+    if "ssm" in kinds:
+        di, nh, _, _ = ssm.dims(cfg)
+        split += [("the SSM heads", nh), ("the SSM inner width", di)]
+    if "rglru" in kinds:
+        split.append(("the RG-LRU width", rglru.width(cfg)))
+    for name, n in split:
         if n % nm:
             raise NotImplementedError(
                 f"the model axis ({nm}) does not divide {name} ({n}) of {cfg.name}: the "

@@ -12,6 +12,17 @@ RG-LRU:  r_t = σ(W_r ξ_t),  i_t = σ(W_i ξ_t),
 Prefill runs the recurrence through :func:`repro_torch.kernels.ops.rglru_scan`
 — the hand-written CUDA kernel on the card, the log-depth plain version on
 the CPU.  Decode carries an O(1) [B,W] state in plain PyTorch.
+
+On local blocks (the sharded train step) the block is tensor-parallel over
+the lru width W: the input enters through ``tp_input``; ``w_x`` and
+``w_gate`` are column-parallel (the rank's W block), the causal conv and Λ
+are the rank's channels, and the scan runs on ``[B/batch, L, W/model]``.
+The gate products ``w_r``/``w_i`` are (None, model) by the rule table: they
+contract the whole width, so ξ is gathered over the model axis (backward: a
+reduce-scatter) before their fp32 products; gathering ξ in the compute
+dtype and then casting is the same as casting first.  ``w_out`` is
+row-parallel and its partial sum leaves through ``tp_output``.  Off local
+blocks these are identities.
 """
 
 from __future__ import annotations
@@ -24,6 +35,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops, ref
 from repro_torch.models.common import ModelConfig, dense_init, softplus
+from repro_torch.parallel.mesh_ctx import blocks_ctx, gather, tp_input, tp_output
+from repro_torch.parallel.sharding import use_param
 
 C_FACTOR = 8.0
 SCAN_BLOCK = 256          # prefill pads L > SCAN_BLOCK up to a multiple of it
@@ -71,16 +84,27 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return x * cdf
 
 
-def _gates(params, xi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _param(params, name: str, shape) -> torch.Tensor:
+    """The value of ``params[name]`` this rank's computation uses (the
+    rule table's spec of ``rec/<name>``): whole off local blocks."""
+    return use_param(params[name], ("rec", name), shape, model_partial=True)
+
+
+def _gates(params, cfg: ModelConfig, xi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (log_a [.., W] ≤ 0, gated input multiplier).
 
     The w_r / w_i products run in fp32, as in the reference, whatever the
-    compute dtype.
+    compute dtype.  On local blocks ``xi`` is the rank's W block: the
+    products take it gathered over the model axis and give the rank's
+    columns.
     """
     f32 = torch.float32
-    r = torch.sigmoid(xi.to(f32) @ params["w_r"].to(f32))
-    i = torch.sigmoid(xi.to(f32) @ params["w_i"].to(f32))
-    log_a = -C_FACTOR * softplus(params["lam"].to(f32)) * r
+    w = width(cfg)
+    ctx = blocks_ctx()
+    xw = xi if ctx is None else gather(xi, -1, ctx.model_axis, ctx)
+    r = torch.sigmoid(xw.to(f32) @ _param(params, "w_r", (w, w)).to(f32))
+    i = torch.sigmoid(xw.to(f32) @ _param(params, "w_i", (w, w)).to(f32))
+    log_a = -C_FACTOR * softplus(_param(params, "lam", (w,)).to(f32)) * r
     beta = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
     return log_a, beta * i * xi.to(f32)
 
@@ -128,12 +152,15 @@ def apply_with_state(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor
 def _apply_impl(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
                 collect_state: bool):
     ct = cfg.cdtype
-    xi_raw = x @ params["w_x"].to(ct)
-    xi = _causal_conv(xi_raw, params["conv_w"].to(ct), params["conv_b"].to(ct))
-    log_a, b = _gates(params, xi)
+    d, w, k = cfg.d_model, width(cfg), cfg.rglru.conv_kernel
+    x = tp_input(x)
+    xi_raw = x @ _param(params, "w_x", (d, w)).to(ct)
+    xi = _causal_conv(xi_raw, _param(params, "conv_w", (k, w)).to(ct),
+                      _param(params, "conv_b", (w,)).to(ct))
+    log_a, b = _gates(params, cfg, xi)
     h = _scan(log_a, b)
-    gate = gelu(x @ params["w_gate"].to(ct))
-    out = (h.to(ct) * gate) @ params["w_out"].to(ct)
+    gate = gelu(x @ _param(params, "w_gate", (d, w)).to(ct))
+    out = tp_output((h.to(ct) * gate) @ _param(params, "w_out", (w, d)).to(ct))
     if not collect_state:
         return out, None
     km1 = cfg.rglru.conv_kernel - 1
@@ -168,7 +195,7 @@ def decode_step(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
     xi = x[:, 0, :] @ params["w_x"].to(ct)                        # [B,W]
     hist = torch.cat([state["conv"], xi[:, None, :]], dim=1)
     xi = torch.einsum("bkc,kc->bc", hist, params["conv_w"].to(ct)) + params["conv_b"].to(ct)
-    log_a, b = _gates(params, xi)
+    log_a, b = _gates(params, cfg, xi)
     h = torch.exp(log_a) * state["h"] + b
     gate = gelu(x[:, 0, :] @ params["w_gate"].to(ct))
     out = ((h.to(ct) * gate) @ params["w_out"].to(ct))[:, None, :]

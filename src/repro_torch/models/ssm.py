@@ -10,10 +10,23 @@ reference's parameter tree.  Prefill runs the chunked scan through
 :func:`repro_torch.kernels.ops.ssd_scan` — the hand-written CUDA kernel on the
 card, its plain version (:func:`repro_torch.kernels.ref.ssd_chunked`) on the
 CPU — which also returns the final state that seeds decode.  Decode is plain
-PyTorch: the reference has no decode kernel.  The reference's layout hints
-(``_constrain``, ``_batch_model``) have no counterpart: the port places no
-activation as a DTensor, so they would change nothing
-(:mod:`repro_torch.parallel.mesh_ctx`).
+PyTorch: the reference has no decode kernel.
+
+On local blocks (the sharded train step) the block is tensor-parallel over
+the heads: the input enters through ``tp_input``; ``wz``, ``wx`` and
+``wdt`` are column-parallel (the rank's heads), ``conv_x_*`` the rank's
+channels, and ``A_log``, ``D`` and ``dt_bias``, which the rule table
+replicates, are cut to the rank's heads by ``use_param_block``.  ``wb``,
+``wc`` and ``conv_b_*``/``conv_c_*`` are whole over the model axis, and B
+and C feed only the rank's heads, so their gradients are partial sums,
+summed over the model axis by ``use_param(..., model_partial=True)``.  The
+scan runs on ``[B/batch, L, H/model, P]``; ``w_out`` is row-parallel and
+its partial sum leaves through ``tp_output``.  The reference's layout
+hints (``_constrain``, ``_batch_model``) move nothing there: the
+column-parallel outputs are already (batch, ·, model), and ``tp_input``
+has gathered the sequence under ``seq_shard_activations``; they are not
+called.  Off local blocks the parameter reads and the tensor-parallel
+entry and exit are identities.
 """
 
 from __future__ import annotations
@@ -27,6 +40,8 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models.common import ModelConfig, dense_init, softplus
 from repro_torch.models.mlp import silu
+from repro_torch.parallel.mesh_ctx import tp_input, tp_output
+from repro_torch.parallel.sharding import use_param, use_param_block
 
 
 def dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
@@ -101,22 +116,31 @@ def apply_with_state(params: Dict[str, Any], cfg: ModelConfig, xin: torch.Tensor
 def _apply_impl(params: Dict[str, Any], cfg: ModelConfig, xin: torch.Tensor,
                 collect_state: bool):
     s = cfg.ssm
-    di, nh, p, _ = dims(cfg)
+    di, nh, p, n = dims(cfg)
     ct = cfg.cdtype
+    d, k = cfg.d_model, s.d_conv
+
+    def w(name, shape):
+        return use_param(params[name], name, shape, model_partial=True).to(ct)
+
+    def heads(name):
+        return use_param_block(params[name], name, (nh,), 0)
+
+    xin = tp_input(xin)
     bt, l, _ = xin.shape
+    z = xin @ w("wz", (d, di))                                     # [B,L,di]
+    x_raw = xin @ w("wx", (d, di))                                 # [B,L,di]
+    b_raw = xin @ w("wb", (d, n))                                  # [B,L,N]
+    c_raw = xin @ w("wc", (d, n))
+    dt_raw = xin @ w("wdt", (d, nh))                               # [B,L,H]
 
-    z = xin @ params["wz"].to(ct)                                  # [B,L,di]
-    x_raw = xin @ params["wx"].to(ct)                              # [B,L,di]
-    b_raw = xin @ params["wb"].to(ct)                              # [B,L,N]
-    c_raw = xin @ params["wc"].to(ct)
-    dt_raw = xin @ params["wdt"].to(ct)                            # [B,L,H]
-
-    x = silu(_causal_conv(x_raw, params["conv_x_w"].to(ct), params["conv_x_b"].to(ct)))
-    b = silu(_causal_conv(b_raw, params["conv_b_w"].to(ct), params["conv_b_b"].to(ct)))
-    c = silu(_causal_conv(c_raw, params["conv_c_w"].to(ct), params["conv_c_b"].to(ct)))
-    dt = softplus(dt_raw.float() + params["dt_bias"].float())     # [B,L,H]
-    A = -torch.exp(params["A_log"].float())
-    xh = x.reshape(bt, l, nh, p)
+    x = silu(_causal_conv(x_raw, w("conv_x_w", (k, di)), w("conv_x_b", (di,))))
+    b = silu(_causal_conv(b_raw, w("conv_b_w", (k, n)), w("conv_b_b", (n,))))
+    c = silu(_causal_conv(c_raw, w("conv_c_w", (k, n)), w("conv_c_b", (n,))))
+    dt = softplus(dt_raw.float() + heads("dt_bias").float())       # [B,L,H]
+    A = -torch.exp(heads("A_log").float())
+    hl = dt.shape[-1]                                              # this rank's heads
+    xh = x.reshape(bt, l, hl, p)
     # pad to a chunk multiple; dt=0 on padding ⇒ identity state updates, so
     # the padded scan's final state is the true h_last
     q = min(s.chunk, l)
@@ -129,9 +153,9 @@ def _apply_impl(params: Dict[str, Any], cfg: ModelConfig, xin: torch.Tensor,
         y = y[:, :l]
     else:
         y, h_last = ops.ssd_scan(xh.to(ct), dt, A, b, c, chunk=q, return_state=True)
-    y = y + xh * params["D"].to(ct)[None, None, :, None]
-    y = y.reshape(bt, l, di) * silu(z)
-    out = y @ params["w_out"].to(ct)
+    y = y + xh * heads("D").to(ct)[None, None, :, None]
+    y = y.reshape(bt, l, hl * p) * silu(z)
+    out = tp_output(y @ w("w_out", (di, d)))
     if not collect_state:
         return out, None
 

@@ -142,7 +142,8 @@ class MeshCtx:
         return i
 
 
-#: where the ports of what the sharded train step does not run yet are queued
+#: where the ports of what the sharded train step does not run yet (MoE layers,
+#: the enc-dec encoder and cross-attention, the VLM patch prefix) are queued
 SHARDED_TODO = "ROADMAP Queue 1 item 16"
 
 _CTX: contextvars.ContextVar[Optional[MeshCtx]] = contextvars.ContextVar(

@@ -23,6 +23,9 @@ Under local blocks (``MeshCtx.local_blocks``, the sharded train step) the
 model code reads each parameter through :func:`use_param`, which looks its
 spec up in the same table: the FSDP dims are gathered for the use, the
 model axis's split stays, and the gradient comes back as the rank's block.
+A parameter the table replicates over the model axis that feeds only the
+rank's block of a split dim (the SSM's per-head vectors) is read through
+:func:`use_param_block`.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.parallel.mesh_ctx import (MeshCtx, all_reduce, axes_size, blocks_ctx,
                                            gather, is_distributed, mesh_shape, replicate,
-                                           spec_axes)
+                                           scatter, spec_axes)
 
 Spec = Tuple[Any, ...]
 
@@ -325,16 +328,20 @@ class _Leaf(NamedTuple):
     shape: Tuple[int, ...]
 
 
-def param_spec(name: str, shape: Sequence[int], ctx: MeshCtx) -> Spec:
+def param_spec(name, shape: Sequence[int], ctx: MeshCtx) -> Spec:
     """The rule table's spec of parameter ``name`` of global ``shape`` (its
-    trailing dims: a stacked leaf's ``[G]`` dim is never sharded)."""
-    return spec_for((name,), _Leaf(tuple(shape)), ctx)
+    trailing dims: a stacked leaf's ``[G]`` dim is never sharded).
+    ``name`` is the leaf's key, or a tuple of the keys of its path where the
+    rule depends on the subtree (``("rec", "conv_w")``)."""
+    path = tuple(name) if isinstance(name, tuple) else (name,)
+    return spec_for(path, _Leaf(tuple(shape)), ctx)
 
 
-def use_param(w: torch.Tensor, name: str, shape: Sequence[int], *,
+def use_param(w: torch.Tensor, name, shape: Sequence[int], *,
               model_partial: bool = False) -> torch.Tensor:
-    """The value of parameter ``name`` (global ``shape``) that this rank's
-    computation uses, from its block ``w``.
+    """The value of parameter ``name`` (global ``shape``; ``name`` as
+    :func:`param_spec` takes it) that this rank's computation uses, from its
+    block ``w``.
 
     Under local blocks: gathered over the FSDP axes of its spec (the
     gather's backward is a reduce-scatter, so the gradient comes back as
@@ -360,6 +367,20 @@ def use_param(w: torch.Tensor, name: str, shape: Sequence[int], *,
         if fsdp:
             w = gather(w, dim, fsdp, ctx)
     return w
+
+
+def use_param_block(w: torch.Tensor, name, shape: Sequence[int], dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` over the model axis of parameter
+    ``name``, which the rule table does not split over it but whose use
+    meets only the rank's block of a split dim (the SSM's ``A_log``, ``D``
+    and ``dt_bias`` [H] against the rank's heads).  The rank's gradient of
+    the whole is the blocks' gradients joined over the model axis (the
+    backward of :func:`~repro_torch.parallel.mesh_ctx.scatter`), so each
+    rank holds the same gradient, as for any replicated parameter.  Off
+    local blocks: :func:`use_param`'s value, whole."""
+    w = use_param(w, name, shape)
+    ctx = blocks_ctx()
+    return w if ctx is None else scatter(w, dim, ctx.model_axis, ctx)
 
 
 def local_batch(batch: Dict[str, torch.Tensor], ctx: MeshCtx) -> Dict[str, torch.Tensor]:

@@ -863,3 +863,71 @@ def test_dry_run_predicts_a_smoke_prefill_peak(card, arch):
     calls = {k.split(".")[1].removesuffix("_fwd"): v["calls"] for k, v in rec["kernels"].items()}
     assert {k: n for k, n in ops.launches.items() if n} == calls
     del out
+
+
+# ==========================================================================
+# the sharded train step of the recurrent families: 4 gloo ranks sharing the
+# card as a (2, 2) ("data", "model") mesh
+# ==========================================================================
+
+
+@pytest.fixture(scope="module")
+def mesh_train_card(tmp_path_factory):
+    """``tests/torch_mesh_train_worker.py``'s ``card`` task: the fp32
+    sharded steps of the mamba2-370m and recurrentgemma-9b smoke configs on
+    4 ranks on the card, through the scan kernels and their backwards."""
+    import os
+    import subprocess
+    import sys
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the ranks place their tensors on it")
+    d = tmp_path_factory.mktemp("mesh_train_card")
+    here = os.path.dirname(os.path.abspath(__file__))
+    r = subprocess.run([sys.executable, os.path.join(here, "torch_mesh_train_worker.py"),
+                        str(d), "4", "card"],
+                       env=dict(os.environ, PYTHONPATH=os.path.join(here, "..", "src")),
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-4000:]
+    return [dict(np.load(d / f"card-rank{i}.npz")) for i in range(4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b"])
+def test_mesh_train_step_on_card_ranks_matches_plain(mesh_train_card, card, arch):
+    """Each rank's fp32 sharded steps (the scans at the rank's heads or
+    width block) against the plain steps on the card in this process from
+    the same state and batches: losses and grad norms at 1e-4 relative, the
+    gathered parameters at 1e-4 and the moments within 1e-4 of their leaf's
+    largest, every rank launching each kernel as often as the plain step."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_mesh_train_worker as worker
+
+    cfg, state, batches = worker.card_inputs(arch)
+    state = tree_to(state, card)
+    step = make_train_step(cfg)
+    ops.reset_launches()
+    losses, norms = [], []
+    for batch in batches:
+        state, m = step(state, batch_to(batch, card))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    launches = [ops.launches[k] for k in sorted(ops.launches)]
+    assert ops.launches["ssd_scan_bwd"] + ops.launches["rglru_scan_bwd"] > 0
+    for i, out in enumerate(mesh_train_card):
+        np.testing.assert_allclose(out[f"{arch}/loss"], losses, rtol=1e-4, err_msg=f"rank {i}")
+        np.testing.assert_allclose(out[f"{arch}/grad_norm"], norms, rtol=1e-4,
+                                   err_msg=f"rank {i}")
+        assert list(out["launch_names"]) == sorted(ops.launches)
+        assert list(out[f"{arch}/launches"]) == launches, i
+    got = mesh_train_card[0]
+    for key, want in worker.flatten({"params": state["params"], "opt": state["opt"]}).items():
+        a, b = got[f"{arch}/state/{key}"], worker._np(want.cpu())
+        if key.startswith("opt/"):
+            np.testing.assert_allclose(a, b, atol=1e-4 * max(float(np.abs(b).max()), 1e-30),
+                                       err_msg=key)
+        else:
+            np.testing.assert_allclose(a, b, atol=1e-4, err_msg=key)

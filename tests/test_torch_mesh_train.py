@@ -12,14 +12,20 @@ each kv head), qwen1.5-110b smoke (q/k/v biases), gemma2-27b smoke (local
 and global layers, both softcaps, tied embeddings, post-norms) on (2, 2, 2)
 ``("pod", "data", "model")`` with FSDP over ``data`` and over ``("pod",
 "data")``, yi-9b with ``seq_shard_activations``, yi-9b with
-``gather_dtype="bfloat16"`` and yi-9b in bf16 compute.  After 2 steps: each
-step's loss and grad norm, and every gathered parameter and both moments,
-fp32 within the reference tests' 1e-4, the bf16 loss within 3e-2.  The same
+``gather_dtype="bfloat16"`` and yi-9b in bf16 compute; the recurrent
+families: mamba2-370m smoke on (2, 4) (the SSM's heads over the model
+axis), with and without ``seq_shard_activations``, and recurrentgemma-9b
+smoke on (2, 2, 2) with FSDP over ``("pod", "data")`` (the RG-LRU width
+over the model axis, stacked and remainder layers, local attention with
+one kv head), in fp32 and in bf16 compute.  After 2 steps: each step's
+loss and grad norm, and every gathered parameter and both moments, fp32
+within the reference tests' 1e-4, the bf16 losses within 3e-2.  The same
 against the port's own single-process step.  Also the twin of
 ``test_seq_shard_reduces_saved_activations``, each collective's backward
 against its adjoint (4 ranks, fp64), each rank's state bytes against the
 rule table's share, a sharded save restored sharded (and by the
-reference), and the configs the sharded step refuses.
+reference), the configs the sharded step refuses, and every full
+recurrent config's shapes at a rank against the scan kernels' domains.
 
 The ranks run in ``tests/torch_mesh_train_worker.py`` (subprocesses with a
 timeout, so a hung collective fails these tests and not the suite), the
@@ -42,8 +48,14 @@ from repro import configs as jconfigs  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro.train import checkpoint as jckpt  # noqa: E402
 from repro.train import step as jstep  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.convert import to_torch  # noqa: E402
+from repro_torch.kernels import rglru_scan as rg  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.launch import mesh as launch_mesh  # noqa: E402
+from repro_torch.models import lm as tlm  # noqa: E402
+from repro_torch.models import rglru as trglru  # noqa: E402
+from repro_torch.models import ssm as tssm  # noqa: E402
 from repro_torch.models.common import tree_leaves  # noqa: E402
 from repro_torch.parallel import mesh_ctx  # noqa: E402
 from repro_torch.parallel.sharding import param_shardings  # noqa: E402
@@ -59,7 +71,7 @@ torch.set_num_threads(2)
 
 SRC = os.path.join(HERE, "..", "src")
 TIMEOUT = 300
-FP32_CASES = [c for c in worker.CASES if c not in ("yi-gather", "yi-bf16")]
+FP32_CASES = [c for c in worker.CASES if c not in ("yi-gather",) + worker.BF16_CASES]
 TOL = 1e-4          # the reference's train-step tests, fp32
 BF16_LOSS_TOL = 3e-2
 LR = 3e-4           # make_train_step's default, both packages
@@ -204,7 +216,10 @@ def _hold_state(got, want, case, *, moments=TOL):
     largest, Adam's step m̂/(√v̂ + eps) takes the direction that the
     summation order gives the gradient's sign (fp32 jitted and eager JAX
     disagree there too), so those elements are held to the bound of the
-    steps, 2·lr each, and must be fewer than 1e-4 of the elements."""
+    steps, 2·lr each, and those of them beyond 1e-4 must be fewer than 1e-4
+    of the elements (a leaf whose gradient is small everywhere, as the
+    RG-LRU's saturated gates, may hold many such elements that agree
+    within 1e-4 all the same)."""
     keys = sorted(k for k in want if k.startswith(f"{case}/state/"))
     assert keys and keys == sorted(k for k in got if k.startswith(f"{case}/state/"))
     vanished = total = 0
@@ -222,7 +237,7 @@ def _hold_state(got, want, case, *, moments=TOL):
         diff = np.abs(a - b)
         assert float(diff[~flat].max(initial=0.0)) <= TOL, k
         assert float(diff[flat].max(initial=0.0)) <= 2 * LR * worker.STEPS, k
-        vanished += int(flat.sum())
+        vanished += int((flat & (diff > TOL)).sum())
         total += flat.size
     assert vanished <= 1e-4 * total, (vanished, total)
 
@@ -259,6 +274,17 @@ def test_sharded_step_bf16_loss(run):
         np.testing.assert_allclose(out["yi-bf16/loss"], run["jax"]["yi-bf16/loss"],
                                    atol=BF16_LOSS_TOL)
         np.testing.assert_allclose(out["yi-bf16/loss"], run["single"]["yi-bf16"]["loss"],
+                                   atol=BF16_LOSS_TOL)
+
+
+def test_recurrent_sharded_step_bf16_loss(run):
+    """recurrentgemma-9b smoke in bf16 compute (the RG-LRU's gate products
+    stay fp32, its scan runs in fp32): the loss of every step within 3e-2 of
+    the reference's sharded step and of the port's single-process step."""
+    for out in run["train"]:
+        np.testing.assert_allclose(out["rg-bf16/loss"], run["jax"]["rg-bf16/loss"],
+                                   atol=BF16_LOSS_TOL)
+        np.testing.assert_allclose(out["rg-bf16/loss"], run["single"]["rg-bf16"]["loss"],
                                    atol=BF16_LOSS_TOL)
 
 
@@ -352,7 +378,8 @@ def test_recompute_keeps_the_mesh_context_on_another_thread(run):
 # ==========================================================================
 
 
-@pytest.mark.parametrize("name", ["gather", "gather2", "scatter", "reduce", "replicate"])
+@pytest.mark.parametrize("name", ["gather", "gather2", "scatter", "reduce", "replicate",
+                                  "param_block"])
 def test_collective_backward_is_the_adjoint(run, name):
     """fp64 on 4 ranks: Σ_ranks <f(x), y> against Σ_ranks <x, f'(y)> with the
     worker's convention for values held alike (``_adjoint``), on every rank."""
@@ -399,11 +426,40 @@ def test_sharded_save_joins_a_piece_at_a_time(run):
         assert 0 < peak <= 2 * worker.SAVE_PIECE_BYTES < leaf, (peak, leaf)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b", "deepseek-moe-16b"])
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "seamless-m4t-medium",
+                                  "phi-3-vision-4.2b"])
 def test_unported_configs_raise(run, arch):
     for out in run["refuse"]:
         msg = str(out[f"refuse/{arch}"])
         assert "not ported" in msg and str(out["refuse/todo"]) in msg, msg
+
+
+@pytest.mark.parametrize("model", [2, 4])
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b"])
+def test_full_recurrent_configs_shard_into_the_scan_kernels_domains(arch, model):
+    """The sharded step admits each full recurrent config on the (2, model)
+    meshes, and a rank's scans lie in the card's domains: the SSM's heads
+    and inner width split evenly, the mma forward and backward take P, N
+    and the chunk in bf16, the backward's pair passes group 8 of the rank's
+    heads; the RG-LRU's width block is the vec4 variant's and tiles at the
+    training and serving lengths.  The smoke configs cannot show a gap
+    here: they are narrower than every domain's edge."""
+    cfg = tconfigs.get(arch)
+    ctx = launch_mesh.make_ctx({"data": 2, "model": model})
+    tlm.check_sharded(cfg, ctx, seq_len=2048)
+    if cfg.ssm is not None:
+        di, nh, p, n = tssm.dims(cfg)
+        hl, q = nh // model, cfg.ssm.chunk
+        assert hl * model == nh and (di // model) == hl * p
+        assert ssd.variant(p, n, q, torch.bfloat16) == "mma"
+        assert ssd.bwd_variant(p, n, q, torch.bfloat16) == "mma"
+        assert ssd.bwd_heads_per_block(hl) == ssd.BWD_HEADS_PER_BLOCK
+        assert ssd.check_chunk(2048, q) == q
+    if cfg.rglru is not None:
+        wl = trglru.width(cfg) // model
+        assert wl * model == trglru.width(cfg) and rg.variant(wl) == "vec4"
+        for l in (2048, 4096):
+            rg.check_tiles(l, wl, trglru.SCAN_BLOCK, trglru.SCAN_BLOCK)
 
 
 def test_production_mesh_needs_its_ranks(run):

@@ -22,9 +22,14 @@ starts ``world`` ranks (``spawn``), which meet through a file under
   does so on the card), against the backward on the calling thread;
 * ``ckpt``: a sharded ``checkpoint.save`` of the yi case's first state,
   the bytes it allocates at its peak, and ``restore(shardings=...)`` of it;
-* ``refuse``: the sharded step on an SSM, an RG-LRU and an MoE config;
+* ``refuse``: the sharded step on an MoE config, an enc-dec config and a
+  VLM batch with its patch prefix;
 * ``adjoint`` (world 4, a (2, 2) mesh): each differentiable collective's
-  backward against its adjoint, in fp64.
+  backward against its adjoint, in fp64;
+* ``card`` (world 4, a (2, 2) mesh on the NVIDIA card, ranks sharing it):
+  :data:`STEPS` fp32 sharded steps of each of :data:`CARD_ARCHS` from
+  :func:`card_inputs`, through the scan kernels; the losses, grad norms,
+  launches and (rank 0) the gathered final state.
 
 Each rank writes ``<dir>/<task>-rank<r>.npz``.  Imports no JAX.
 """
@@ -49,7 +54,10 @@ MESH_222 = ((2, 2, 2), ("pod", "data", "model"))
 #: case → (arch, mesh, batch, seq, config overrides, context knobs).  The
 #: yi-9b smoke config on (2, 4) splits each of its 2 kv heads over the model
 #: axis (n_kv_heads·hd 16 over 4); at L 2048 the reference takes its flash
-#: branch and its heads hint.
+#: branch and its heads hint.  mamba2-370m smoke on (2, 4): 2 of its 8 SSM
+#: heads a rank, L 64 in 4 chunks of 16.  recurrentgemma-9b smoke on (2, 2,
+#: 2): L 64 against a window of 16, one (rglru, rglru, local) group and two
+#: remainder rglru layers, its one kv head's hd 16 split over the model axis.
 CASES = {
     "yi": ("yi-9b", MESH_24, 8, 64, {}, {}),
     "yi-flash": ("yi-9b", MESH_24, 2, 2048, {}, {}),
@@ -59,13 +67,23 @@ CASES = {
     "yi-seq": ("yi-9b", MESH_24, 8, 64, {}, {"seq_shard_activations": True}),
     "yi-gather": ("yi-9b", MESH_24, 8, 64, {"gather_dtype": "bfloat16"}, {}),
     "yi-bf16": ("yi-9b", MESH_24, 8, 64, {"compute_dtype": "bfloat16"}, {}),
+    "mamba2": ("mamba2-370m", MESH_24, 8, 64, {}, {}),
+    "mamba2-seq": ("mamba2-370m", MESH_24, 8, 64, {}, {"seq_shard_activations": True}),
+    "rg": ("recurrentgemma-9b", MESH_222, 8, 64, {}, {"fsdp_over_pod": True}),
+    "rg-bf16": ("recurrentgemma-9b", MESH_222, 8, 64, {"compute_dtype": "bfloat16"},
+                {"fsdp_over_pod": True}),
 }
+#: the cases in bf16 compute (their losses are held at bf16's tolerance)
+BF16_CASES = ("yi-bf16", "rg-bf16")
 #: the pieces of the ``ckpt`` task's save: the yi-9b smoke state's largest
 #: dim-0 row (a layer of ``w_gate``, 64 × 128 fp32), a quarter of its largest
 #: leaf
 SAVE_PIECE_BYTES = 64 * 128 * 4
-#: every case but "yi-bf16" runs fp32 compute
+#: every case but those of BF16_CASES runs fp32 compute
 FP32_OVERRIDES = {"compute_dtype": "float32"}
+MESH_22 = ((2, 2), ("data", "model"))
+#: the ``card`` task's configs (smoke, fp32), their batch and length
+CARD_ARCHS, CARD_BATCH, CARD_SEQ = ("mamba2-370m", "recurrentgemma-9b"), 4, 64
 
 
 def case_config(name):
@@ -94,6 +112,21 @@ def unflatten(flat, prefix):
             node = node.setdefault(p, {})
         node[parts[-1]] = v
     return tree
+
+
+def card_inputs(arch):
+    """(config, state on the CPU, batches) of the ``card`` task's ``arch``:
+    the smoke config in fp32, the port's initial state from seed 0, the
+    synthetic batches of steps 0 … STEPS−1."""
+    from repro_torch import configs
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.train.commit import batch_to
+    from repro_torch.train.step import train_state_init
+
+    cfg = configs.get_smoke(arch).replace(compute_dtype="float32")
+    state = train_state_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    return cfg, state, [batch_to(make_batch(cfg, CARD_SEQ, CARD_BATCH, step=s), "cpu")
+                        for s in range(STEPS)]
 
 
 def _np(t):
@@ -298,7 +331,8 @@ def _ckpt(inputs, meshes, out, rank, directory):
 
 
 def _refuse(inputs, meshes, out, rank):
-    """The sharded step on configs it does not port: each raises before any
+    """The sharded step on what it does not port: an MoE config, an enc-dec
+    config and a VLM batch with its patch prefix.  Each raises before any
     collective, on every rank alike."""
     from repro_torch import configs
     from repro_torch.launch.mesh import make_ctx, make_production_mesh
@@ -307,12 +341,16 @@ def _refuse(inputs, meshes, out, rank):
     from repro_torch.train.step import make_train_step, train_state_init
 
     ctx = make_ctx(meshes[MESH_24])
-    for arch in ("mamba2-370m", "recurrentgemma-9b", "deepseek-moe-16b"):
+    for arch in ("deepseek-moe-16b", "seamless-m4t-medium", "phi-3-vision-4.2b"):
         cfg = configs.get_smoke(arch).replace(compute_dtype="float32")
         state = train_state_init(torch.Generator().manual_seed(0), cfg, device="cpu")
         state = distribute_tree(state, param_shardings(state, ctx), ctx)
         toks = torch.zeros((8, 64), dtype=torch.int64)
         batch = {"tokens": toks, "labels": toks, "mask": torch.ones((8, 64))}
+        if cfg.n_patches:
+            batch["patches"] = torch.zeros((8, cfg.n_patches, 1024))
+        if cfg.enc_dec:
+            batch["frames"] = torch.zeros((8, 8, 1024))
         try:
             with mesh_context(ctx):
                 make_train_step(cfg)(state, batch)
@@ -327,6 +365,38 @@ def _refuse(inputs, meshes, out, rank):
         out["refuse/production"] = np.array(str(e))
 
 
+def _card(meshes, out, rank):
+    """The ``card`` task: each arch's state placed by the rule table on the
+    (2, 2) mesh of ranks on the card, STEPS sharded steps."""
+    from repro_torch.convert import tree_to
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_ctx
+    from repro_torch.parallel.mesh_ctx import mesh_context
+    from repro_torch.parallel.sharding import distribute_tree, gather_tree, param_shardings
+    from repro_torch.train.commit import batch_to
+    from repro_torch.train.step import make_train_step
+
+    ctx = make_ctx(meshes[MESH_22])
+    for arch in CARD_ARCHS:
+        cfg, state, batches = card_inputs(arch)
+        state = tree_to(state, "cuda")
+        state = distribute_tree(state, param_shardings(state, ctx), ctx)
+        step = make_train_step(cfg)
+        losses, norms = [], []
+        ops.reset_launches()
+        with mesh_context(ctx):
+            for batch in batches:
+                state, m = step(state, batch_to(batch, "cuda"))
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+        out[f"{arch}/loss"], out[f"{arch}/grad_norm"] = np.array(losses), np.array(norms)
+        out[f"{arch}/launches"] = np.array([ops.launches[k] for k in sorted(ops.launches)])
+        out["launch_names"] = np.array(sorted(ops.launches))
+        full = gather_tree(state)
+        if rank == 0:
+            out.update({f"{arch}/state/{k}": _np(v.cpu()) for k, v in flatten(full).items()})
+
+
 def _adjoint(meshes, out, rank):
     """For each collective f (a linear map of the ranks' stacked inputs):
     Σ_ranks <f(x), y> against Σ_ranks <x, backward(y)>.  gather's backward
@@ -335,10 +405,13 @@ def _adjoint(meshes, out, rank):
     holds alike counts once, not once a rank: scatter's backward (a gather)
     against slicing's adjoint followed by that count, reduce's (identity)
     and replicate's (all-reduce) likewise."""
+    import dataclasses
+
     from repro_torch.launch.mesh import make_ctx
     from repro_torch.parallel import mesh_ctx as mc
+    from repro_torch.parallel.sharding import use_param_block
 
-    ctx = make_ctx(meshes[((2, 2), ("data", "model"))])
+    ctx = make_ctx(meshes[MESH_22])
     g = torch.Generator().manual_seed(100 + rank)
     n = ctx.model_size
     m = ctx.model_axis
@@ -388,6 +461,19 @@ def _adjoint(meshes, out, rank):
         fx = mc.replicate(x, m, ctx)
         (gx,) = torch.autograd.grad(fx, x, y)
         out_vals["replicate"] = (total((fx.detach() * y).sum()), total((x0 * gx).sum()) / n)
+    # use_param_block: a parameter held alike on every rank (replicated by the
+    # rule table) cut to the rank's model block; its gradient counts once
+    blocks = dataclasses.replace(ctx, local_blocks=True)
+    with mc.mesh_context(blocks):
+        x0 = torch.randn((4 * n,), generator=torch.Generator().manual_seed(10),
+                         dtype=torch.float64)
+        x = x0.clone().requires_grad_()
+        y = torch.randn((4,), generator=g, dtype=torch.float64)
+        fx = use_param_block(x, "D", (4 * n,), 0)
+        (gx,) = torch.autograd.grad(fx, x, y)
+        world = n * ctx.axis_size("data")
+        out_vals["param_block"] = (total((fx.detach() * y).sum()),
+                                   total((x0 * gx).sum()) / world)
     for k, (a, b) in out_vals.items():
         out[f"adjoint/{k}"] = np.array([float(a), float(b)])
 
@@ -396,9 +482,10 @@ def _rank(rank, world, directory, tasks, names):
     torch.set_num_threads(1)
     from repro_torch.launch.mesh import init_ranks, make_mesh
 
-    init_ranks(rank, world, f"file://{directory}/rendezvous-{world}", device_type="cpu")
-    shapes = [MESH_24, MESH_222] if world == 8 else [((2, 2), ("data", "model"))]
-    meshes = {s: make_mesh(*s, device_type="cpu") for s in shapes}
+    device = "cuda" if "card" in tasks else "cpu"
+    init_ranks(rank, world, f"file://{directory}/rendezvous-{world}", device_type=device)
+    shapes = [MESH_24, MESH_222] if world == 8 else [MESH_22]
+    meshes = {s: make_mesh(*s, device_type=device) for s in shapes}
     inputs = dict(np.load(os.path.join(directory, "inputs.npz"))) if world == 8 else {}
     for task in tasks:
         out = {}
@@ -414,6 +501,8 @@ def _rank(rank, world, directory, tasks, names):
             _refuse(inputs, meshes, out, rank)
         elif task == "adjoint":
             _adjoint(meshes, out, rank)
+        elif task == "card":
+            _card(meshes, out, rank)
         else:
             raise ValueError(f"unknown task {task}")
         np.savez(os.path.join(directory, f"{task}-rank{rank}.npz"), **out)
