@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py [--skip-mesh]
 
-``--skip-mesh`` leaves out phases 3b, 6c and 6d, to read the other phases
-without the four ranks' runs.  Phases, in order; any failure exits non-zero and no phase catches its own:
+``--skip-mesh`` leaves out phases 3b, 6c, 6d and 6e, to read the other
+phases without the four ranks' runs.  Phases, in order; any failure exits non-zero and no phase catches its own:
 
 1. build    — compile every CUDA kernel of the port (one nvcc per source,
               all started together), print the build seconds and each
@@ -216,6 +216,35 @@ without the four ranks' runs.  Phases, in order; any failure exits non-zero and 
               times each kernel at a rank's shape here; every row of the
               kernel line gets that entry under at_other_shapes with these
               launches (all ranks, the bf16 steps and timed passes).
+6e. mesh train MoE — the sharded train step of the MoE family on the
+              MESH_RANKS ranks, spawned again as the (2, 2) ("data",
+              "model") gloo mesh on the card, after the parent has run and
+              freed its plain steps: deepseek-moe-16b at full width (64
+              routed experts of 1408, top-6, 2 shared; 32 experts a model
+              rank, expert parallel), depth cut to 2 of 28 layers, remat
+              "dots", bf16 compute, batch 2 × 2048 (a rank's block 1 ×
+              2048, its flash calls q/k/v [1,2048,8,128] with lse), at
+              parallel.ref.no_drop's capacity factor (E/k: nothing drops,
+              so the ranks' expert-parallel layer and the plain one compute
+              the same function).  The parent's 3 plain steps are the first
+              MoE training steps on the card (ms, tokens/s, peak memory,
+              flash launches exact on wgmma); each rank rebuilds the state
+              from the seed and keeps its blocks: 3 steps, each step's loss
+              within 3e-2 and grad norm within 5e-2 relative of the plain
+              step's, a timed pass (every collective timed), one step at
+              the config's own capacity factor 1.25 (the assignments each
+              rank's experts drop, and the loss, finite and the same on
+              every rank; not held against the plain step, which drops
+              other assignments), flash exactly twice a layer on wgmma in
+              each; then one fp32 step cut to one layer on flash's fma,
+              within 1e-4 relative of the plain fp32 step's loss and grad
+              norm, every rank's block of every updated parameter (router,
+              experts, shared experts included) within 1e-4 of the plain
+              step's and of every first moment within 1e-4 of its largest.
+              Prints each rank's step ms, collectives a step, their seconds
+              in the timed pass, peak memory and state bytes.  Phase 2
+              holds and times flash at this rank's shape: the flash row
+              gets that entry under at_other_shapes with these launches.
 7. grads    — the flash Function (kernel forward, FA2 backward) against
               autograd through the dense plain version on the card: fp32
               on the fma variant, bf16 on wgmma at hd 128.
@@ -232,7 +261,8 @@ without the four ranks' runs.  Phases, in order; any failure exits non-zero and 
 Phase 2 also holds the flash kernels' log-sum-exp (the backward's input)
 against the plain version on both variants and times the forward with it
 at the training shape and at a rank's shape in phase 6c, and holds and
-times every kernel at a rank's shape in phase 6d.
+times every kernel at a rank's shape in phase 6d and flash at a rank's
+shape in phase 6e.
 
 The line before the last is one JSON object with a row per kernel
 (flash_attention, ssd_scan, rglru_scan, ssd_scan_bwd, rglru_scan_bwd); the last
@@ -409,6 +439,32 @@ MESH_REC_BT = TRAIN_BATCH // MESH_SHAPE[0]
 MESH_REC_SSD = (MESH_REC_BT, TRAIN_SEQ, ssm.dims(MAMBA)[1] // MESH_SHAPE[1])
 MESH_REC_RGLRU = (MESH_REC_BT, TRAIN_SEQ, rglru.width(RG) // MESH_SHAPE[1])
 MESH_REC_FLASH = (MESH_REC_BT, TRAIN_SEQ, RG.n_heads // MESH_SHAPE[1], RG.n_kv_heads, RG.hd)
+# the sharded training of the MoE family (phase 6e): the MESH_RANKS ranks
+# again as the (2, 2) ("data", "model") mesh, deepseek-moe-16b at full width
+# (16 heads of 128, 64 routed experts of 1408, top-6, and 2 shared; 32
+# experts a model rank), depth cut from 28 layers to 2 (1.595 B parameters,
+# 25.5 GB of parameters, gradients and moments; all 28 would need ~270 GB),
+# bf16 compute, batch TRAIN_BATCH × TRAIN_SEQ (a rank's block 1 × 2048), at
+# parallel.ref.no_drop's capacity factor E/k, where nothing drops and the
+# rank's expert-parallel layer computes the plain one's function: TRAIN_STEPS
+# steps held against the plain steps (MESH_TRAIN_LOSS_TOL,
+# MESH_TRAIN_GNORM_RTOL), a timed pass, one fp32 step cut to one layer
+# (MESH_TRAIN_FP32_RTOL, MESH_TRAIN_PARAM_ATOL), then one bf16 step at the
+# config's own capacity factor 1.25 (MESH_MOE_CF): the share each rank drops,
+# and the loss, finite and the same on every rank (the plain step drops other
+# assignments: its capacity is rounded to 128 on all the tokens, a rank's to
+# 8 on its own)
+MESH_MOE_CF = DS.replace(n_layers=2, remat="dots")
+MESH_MOE = mesh_ref.no_drop(MESH_MOE_CF)
+MESH_MOE_FP32 = MESH_MOE.replace(n_layers=1, compute_dtype="float32")
+#: the batches of phase 6e and the plain fp32 step's leaves, which the parent
+#: writes for the ranks
+MESH_MOE_INPUTS = os.path.join(ROOT, "build", "mesh_moe_inputs.pt")
+MESH_MOE_FP32_REF = os.path.join(ROOT, "build", "mesh_moe_fp32_ref.pt")
+#: a rank's flash call in phase 6e: its batch block and its 8 of the 16 heads
+#: (MHA: 8 kv heads too), hd 128
+MESH_MOE_FLASH = (TRAIN_BATCH // MESH_SHAPE[0], TRAIN_SEQ, DS.n_heads // MESH_SHAPE[1],
+                  DS.n_kv_heads // MESH_SHAPE[1], DS.hd)
 #: the variant each kernel runs in bf16 compute and in fp32
 BF16_VARIANTS = {"flash_attention": "wgmma", "ssd_scan": "mma", "ssd_scan_bwd": "mma",
                  "rglru_scan": "vec4", "rglru_scan_bwd": "vec4"}
@@ -1184,24 +1240,29 @@ def _rglru_at(bt: int, l: int, w: int) -> dict:
 def phase_rank_shapes() -> dict:
     """Each kernel at a rank's shape in phase 6d's sharded steps
     (MESH_REC_SSD, MESH_REC_RGLRU, MESH_REC_FLASH: bf16, so the mma, vec4
-    and wgmma variants), held against its plain version and timed as at
-    its own shape; returns kernel name → its entry at that shape (the
-    launches are phase 6d's, filled in after it)."""
+    and wgmma variants), and flash at a rank's shape in phase 6e's
+    (MESH_MOE_FLASH), held against its plain version and timed as at its
+    own shape; returns phase → kernel name → its entry at that shape (the
+    launches are the phase's, filled in after it)."""
     bt, l, hl = MESH_REC_SSD
     rows = {"flash_attention": _flash_train_shape(MESH_REC_FLASH, seed=9, window=RG.window),
             "ssd_scan": _ssd_at(MAMBA.cdtype, bt, l, hl),
             "rglru_scan": _rglru_at(*MESH_REC_RGLRU),
             "ssd_scan_bwd": _ssd_bwd_at(MAMBA.cdtype, bt, l, hl),
             "rglru_scan_bwd": _rglru_bwd_at(*MESH_REC_RGLRU)}
-    out = {}
+    out = {"6d": {}, "6e": {}}
     for name, row in rows.items():
         if row["variant"] != BF16_VARIANTS[name]:
             _fail(f"{name} at a rank's shape {row['shape']} runs {row['variant']}, not "
                   f"{BF16_VARIANTS[name]}")
-        out[name] = {"at": "a rank's shape in the sharded steps of phase 6d, (2, 2) mesh",
-                     **{k: row.get(k) for k in SHAPE_KEYS}}
+        out["6d"][name] = {"at": "a rank's shape in the sharded steps of phase 6d, (2, 2) mesh",
+                           **{k: row.get(k) for k in SHAPE_KEYS}}
         if "heads_per_block" in row:
-            out[name]["heads_per_block"] = row["heads_per_block"]
+            out["6d"][name]["heads_per_block"] = row["heads_per_block"]
+    row = _flash_train_shape(MESH_MOE_FLASH, seed=10)
+    out["6e"]["flash_attention"] = {
+        "at": "a rank's shape in the sharded MoE steps of phase 6e, (2, 2) mesh",
+        **{k: row.get(k) for k in SHAPE_KEYS + ("lse_max_abs_err",)}}
     _free()
     return out
 
@@ -2299,23 +2360,30 @@ def _mesh_rec_rank(rank: int, world: int, directory: str) -> None:
     dist.destroy_process_group()
 
 
-def _check_mesh_rec(r: dict, arch: str, plain: dict) -> None:
-    """One rank's record of one arch against the plain steps: fails unless
-    every bf16 step's loss is within MESH_TRAIN_LOSS_TOL and its grad norm
-    within MESH_TRAIN_GNORM_RTOL, its launches exactly _train_launches on
-    the bf16 variants, the fp32 step's loss and grad norm within
-    MESH_TRAIN_FP32_RTOL with its launches on the fp32 variants, and the
-    rank's block of every updated parameter within MESH_TRAIN_PARAM_ATOL
-    and of every first moment within MESH_TRAIN_FP32_RTOL of its largest."""
-    a, cfg, f32 = r[arch], MESH_REC[arch], MESH_REC_FP32[arch]
+def _check_sharded(tag: str, who: str, a: dict, cfg, f32, plain: dict, focus: tuple) -> None:
+    """One rank's record ``a`` of the sharded steps of ``cfg`` (and the fp32
+    step of ``f32``) against the plain steps: fails unless every bf16
+    step's loss is within MESH_TRAIN_LOSS_TOL and its grad norm within
+    MESH_TRAIN_GNORM_RTOL, every bf16 step (the timed pass, and a
+    capacity-factor step ``cf_step`` where the record has one, included)
+    launches exactly _train_launches on the bf16 variants, the fp32 step's
+    loss and grad norm are within MESH_TRAIN_FP32_RTOL with its launches on
+    the fp32 variants, and the rank's block of every updated parameter is
+    within MESH_TRAIN_PARAM_ATOL and of every first moment within
+    MESH_TRAIN_FP32_RTOL of its largest.  ``focus`` is (a label, a
+    predicate on leaf paths): those leaves' errors are printed apart."""
     want_launches = _train_launches(cfg)
     want_variants = _on_variants(want_launches, BF16_VARIANTS)
-    who = f"rank {r['rank']} {r['coord']} {arch}"
-    for i, (got, want) in enumerate(zip(a["steps"] + [a["timed"]],
-                                        plain["steps"] + [None])):
-        line = (f"[mesh-rec] {who} " + (f"step {i + 1}" if want else "timed pass (step 1's "
-                                                                         "batch)")
-                + f": loss {got['loss']:.6f}")
+    extra = [a["timed"]] + ([a["cf_step"]] if "cf_step" in a else [])
+    for i, (got, want) in enumerate(zip(a["steps"] + extra,
+                                        plain["steps"] + [None] * len(extra))):
+        if want is not None:
+            what = f"step {i + 1}"
+        elif "collective_s" in got:
+            what = "timed pass (step 1's batch)"
+        else:
+            what = f"capacity factor {got['capacity_factor']} step (step 1's batch)"
+        line = f"[{tag}] {who} {what}: loss {got['loss']:.6f}"
         if want is not None:
             dl = abs(got["loss"] - want["loss"])
             dg = abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"]
@@ -2323,29 +2391,36 @@ def _check_mesh_rec(r: dict, arch: str, plain: dict) -> None:
                      f"{got['grad_norm']:.6f} (plain {want['grad_norm']:.6f}, rel {dg:.3e})")
             if not (dl <= MESH_TRAIN_LOSS_TOL and dg <= MESH_TRAIN_GNORM_RTOL):
                 _fail(f"{who} sharded step {i + 1}: {got} against plain {want}")
-        else:
+        elif "collective_s" in got:
             line += (f", {got['collective_s']:.3f} s of {got['step_ms']:.1f} ms in its "
                      f"collectives (host clock, each after a synchronise)")
+        else:
+            line += (f", grad norm {got['grad_norm']:.6f}; this rank's experts took "
+                     f"{got['routed']} assignments over {got['layers']} layers at capacity "
+                     f"{got['capacity']} and dropped {got['dropped']} "
+                     f"({got['dropped'] / got['routed']:.4%})")
+            if not (math.isfinite(got["loss"]) and math.isfinite(got["grad_norm"])):
+                _fail(f"{who} {what}: {got}")
         _log(line + f", {got['step_ms']:.1f} ms, {got['collectives']} collectives, launches "
              f"{ {k: n for k, n in got['launches'].items() if n} }")
         if got["launches"] != want_launches or got["variants"] != want_variants:
-            _fail(f"{who} sharded step {i + 1}: launches {got['variants']}, not "
-                  f"{want_variants}")
+            _fail(f"{who} sharded {what}: launches {got['variants']}, not {want_variants}")
     got, want = a["fp32_step"], plain["fp32_step"]
     df = abs(got["loss"] - want["loss"]) / abs(want["loss"])
     dg = abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"]
     errs, merrs, names = a["fp32_params_max_err"], a["fp32_m_rel_err"], a["fp32_leaves"]
-    heads = [i for i, n in enumerate(names) if n.rsplit("/", 1)[-1] in ("A_log", "D", "dt_bias")]
-    _log(f"[mesh-rec] {who} fp32 {f32.n_layers}-layer step: loss {got['loss']:.7f} (plain "
+    label, picked = focus
+    some = [i for i, n in enumerate(names) if picked(n)]
+    _log(f"[{tag}] {who} fp32 {f32.n_layers}-layer step: loss {got['loss']:.7f} (plain "
          f"{want['loss']:.7f}, rel {df:.3e}), grad norm {got['grad_norm']:.7f} (plain "
          f"{want['grad_norm']:.7f}, rel {dg:.3e}), launches "
          f"{ {k: n for k, n in got['launches'].items() if n} }; its blocks of the {len(errs)} "
          f"updated parameters against the plain step's, max |d| {max(errs):.3e} "
          f"({names[errs.index(max(errs))]}); of the first moments, max |d| {max(merrs):.3e} "
          f"of the block's largest ({names[merrs.index(max(merrs))]})" + (
-             f"; the per-head vectors {[names[i] for i in heads]}: max |d| "
-             f"{max(errs[i] for i in heads):.3e}, moments {max(merrs[i] for i in heads):.3e}"
-             if heads else ""))
+             f"; {label} {[names[i] for i in some]}: max |d| "
+             f"{max(errs[i] for i in some):.3e}, moments {max(merrs[i] for i in some):.3e}"
+             if some else ""))
     if not (df <= MESH_TRAIN_FP32_RTOL and dg <= MESH_TRAIN_FP32_RTOL):
         _fail(f"{who} fp32 sharded step {got} against plain {want}")
     if not (max(errs) <= MESH_TRAIN_PARAM_ATOL and max(merrs) <= MESH_TRAIN_FP32_RTOL):
@@ -2360,7 +2435,7 @@ def _check_mesh_rec(r: dict, arch: str, plain: dict) -> None:
 def phase_mesh_train_recurrent() -> tuple:
     """Phase 6d: the plain references (:func:`_mesh_rec_references`), the
     MESH_RANKS ranks (:func:`_mesh_rec_rank`), each rank's record checked
-    (:func:`_check_mesh_rec`).  Returns (the phase's launches as a path's,
+    (:func:`_check_sharded`).  Returns (the phase's launches as a path's,
     its launches by variant, the launches at a rank's shape of the bf16
     steps and timed passes on all ranks, the ranks' records)."""
     t0 = time.perf_counter()
@@ -2378,7 +2453,10 @@ def phase_mesh_train_recurrent() -> tuple:
     at_rank_shape = dict.fromkeys(ops.launches, 0)
     for r in ranks:
         for arch in MESH_REC:
-            _check_mesh_rec(r, arch, plain[arch])
+            _check_sharded("mesh-rec", f"rank {r['rank']} {r['coord']} {arch}", r[arch],
+                           MESH_REC[arch], MESH_REC_FP32[arch], plain[arch],
+                           ("the per-head vectors", lambda n: n.rsplit("/", 1)[-1] in
+                            ("A_log", "D", "dt_bias")))
             a = r[arch]
             for rec in a["steps"] + [a["timed"], a["fp32_step"]]:
                 for k, n in rec["launches"].items():
@@ -2400,6 +2478,218 @@ def phase_mesh_train_recurrent() -> tuple:
     _log(f"[mesh-rec] phase took {time.perf_counter() - t0:.1f}s; launches on all ranks "
          f"{launches}")
     return launches, variants, at_rank_shape, ranks
+
+
+# ==========================================================================
+# 6e. sharded training of the MoE family, 4 gloo ranks
+# ==========================================================================
+
+
+def _mesh_moe_references() -> dict:
+    """The plain steps phase 6e is held against, on the card before the
+    ranks start: TRAIN_STEPS bf16 steps of MESH_MOE from _gen(0) on
+    make_batch's batches (the first MoE training steps on the card: each
+    step's ms, tokens/s, flash launches and the peak memory), and the fp32
+    step of MESH_MOE_FP32 on the first batch.  Writes the batches
+    (MESH_MOE_INPUTS) and the fp32 step's updated parameters and first
+    moments (MESH_MOE_FP32_REF) for the ranks; returns the steps' record
+    and their launches by kernel and by variant."""
+    os.makedirs(os.path.dirname(MESH_MOE_INPUTS), exist_ok=True)
+    _free()
+    t0 = time.perf_counter()
+    cfg = MESH_MOE
+    batches = [batch_to(make_batch(cfg, TRAIN_SEQ, TRAIN_BATCH, step=s), "cpu")
+               for s in range(TRAIN_STEPS)]
+    t_data = time.perf_counter() - t0
+    state = train_state_init(_gen(0), cfg, device="cuda")
+    step_fn = make_train_step(cfg, lr=3e-4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    want = _train_launches(cfg)
+    steps = []
+    for i, b in enumerate(batches):
+        n0, v0 = dict(ops.launches), _variant_launches()["flash_attention"]
+        t1 = time.perf_counter()
+        state, m = step_fn(state, batch_to(b, "cuda"))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        launched = {k: ops.launches[k] - n0[k] for k in n0}
+        wgmma = ops.flash_variant_launches["wgmma"] - v0["wgmma"]
+        steps.append({"loss": float(m["loss"]), "aux": float(m["aux"]),
+                      "grad_norm": float(m["grad_norm"]), "step_ms": ms,
+                      "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / ms * 1e3, "launches": launched})
+        if not (math.isfinite(steps[-1]["loss"]) and math.isfinite(steps[-1]["grad_norm"])):
+            _fail(f"deepseek-moe-16b plain step {i + 1}: {steps[-1]}")
+        if launched != want or wgmma != want["flash_attention"]:
+            _fail(f"deepseek-moe-16b plain step {i + 1}: launches {launched} ({wgmma} wgmma), "
+                  f"not {want} on wgmma")
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del state, m
+    _free()
+    state = train_state_init(_gen(0), MESH_MOE_FP32, device="cuda")
+    new, m = make_train_step(MESH_MOE_FP32, lr=3e-4)(state, batch_to(batches[0], "cuda"))
+    fp32_step = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+    del state, m
+    _free()
+    t1 = time.perf_counter()
+    torch.save({k: [t.cpu() for t in tree_leaves(tree)]
+                for k, tree in (("params", new["params"]), ("m", new["opt"]["m"]))},
+               MESH_MOE_FP32_REF)
+    del new
+    _free()
+    torch.save(batches, MESH_MOE_INPUTS)
+    _log(f"[mesh-moe] plain references: deepseek-moe-16b width, {cfg.n_layers} layers, "
+         f"{cfg.param_count() / 1e9:.3f} B params, capacity factor "
+         f"{cfg.moe.capacity_factor:.4f} (no_drop), batch {TRAIN_BATCH} x {TRAIN_SEQ}: " + "; ".join(
+             f"step {i + 1} loss {d['loss']:.6f} (aux {d['aux']:.6f}) grad norm "
+             f"{d['grad_norm']:.6f}, {d['step_ms']:.1f} ms, {d['tokens_per_s']:.1f} tokens/s"
+             for i, d in enumerate(steps))
+         + f"; peak memory {peak:.2f} GB; flash launches {launches['flash_attention']} (all "
+         f"wgmma); fp32 {MESH_MOE_FP32.n_layers}-layer step {fp32_step}; "
+         f"{time.perf_counter() - t0:.1f}s ({t_data:.1f}s of batches, "
+         f"{time.perf_counter() - t1:.1f}s writing the fp32 leaves)")
+    variants = {k: dict.fromkeys(v, 0) for k, v in _variant_launches().items()}
+    variants["flash_attention"]["wgmma"] = launches["flash_attention"]
+    return {"steps": steps, "fp32_step": fp32_step, "peak_mem_gb": peak,
+            "params_b": cfg.param_count() / 1e9}, launches, variants
+
+
+def _drop_recorder(record: list, n: int):
+    """``moe.ep_partial`` that also keeps, for its first ``n`` calls (the
+    forward's layers; the remat recompute calls it again), its router, token
+    block and expert range, so that the assignments it drops are counted
+    after the step (an op run inside the checkpointed forward would shift
+    the saved products that the recompute replays)."""
+    partial = moe.ep_partial
+
+    def recorded(params, cfg, x_loc, lo):
+        if len(record) < n:
+            record.append((params["router"].detach(), x_loc.detach(), lo,
+                           params["w_gate"].shape[0]))
+        return partial(params, cfg, x_loc, lo)
+
+    return recorded
+
+
+def _rank_drops(record: list, cfg) -> dict:
+    """Assignments to this rank's experts in the recorded calls, and those
+    of them past an expert's capacity (``moe.ep_capacity`` on the block)."""
+    routed = dropped = 0
+    with torch.no_grad():
+        for router, x_loc, lo, e_loc in record:
+            ids, _ = moe.route({"router": router}, cfg, x_loc)
+            s = moe.dispatch(ids, cfg.moe.num_experts, moe.ep_capacity(x_loc.shape[0], cfg))
+            mine = (s["expert"] >= lo) & (s["expert"] < lo + e_loc)
+            routed += int(mine.sum())
+            dropped += int((mine & ~s["kept"]).sum())
+    return {"routed": routed, "dropped": dropped, "capacity": moe.ep_capacity(
+        record[0][1].shape[0], cfg), "layers": len(record)}
+
+
+def _mesh_moe_rank(rank: int, world: int, directory: str) -> None:
+    """One rank of phase 6e: MESH_MOE's state rebuilt from _gen(0) with this
+    rank's blocks kept, TRAIN_STEPS sharded steps on the parent's batches, a
+    timed pass (a further step on the first batch, every collective timed
+    on the host clock after a synchronise), one step of MESH_MOE_CF (the
+    config's capacity factor) with the assignments this rank drops, then
+    the fp32 step of MESH_MOE_FP32 with its blocks against the plain
+    step's.  Writes ``<directory>/rank<r>.json``."""
+    mesh, r = _rank_mesh(rank, world, directory)
+    ctx = launch_mesh.make_ctx(mesh)
+    batches = [batch_to(b, "cuda") for b in torch.load(MESH_MOE_INPUTS)]
+    cfg = MESH_MOE
+    state = _sharded_state(cfg, _gen(0), ctx)
+    r["state_gb"] = sum(t.to_local().numel() * t.to_local().element_size()
+                        for t in tree_leaves(state) if mesh_ctx.is_distributed(t)) / 1e9
+    r["local_w_gate"] = list(state["params"]["blocks"]["s0"]["moe"]["w_gate"].to_local().shape)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_fn = make_train_step(cfg, lr=3e-4)
+    ops.reset_launches()
+    mesh_ctx.reset_collective_stats()
+    r["steps"] = []
+    record = []
+    with mesh_context(ctx):
+        for b in batches:
+            state, rec = _sharded_step(step_fn, state, b)
+            r["steps"].append(rec)
+        mesh_ctx.reset_collective_stats(timed=True)
+        state, timed = _sharded_step(step_fn, state, batches[0])
+        timed["collective_s"] = mesh_ctx.collective_stats["seconds"]
+        r["timed"] = timed
+        mesh_ctx.reset_collective_stats()
+        with mock.patch.object(moe, "ep_partial", _drop_recorder(record, cfg.n_layers)):
+            state, r["cf_step"] = _sharded_step(make_train_step(MESH_MOE_CF, lr=3e-4), state,
+                                                batches[0])
+    r["cf_step"].update(_rank_drops(record, MESH_MOE_CF),
+                        capacity_factor=MESH_MOE_CF.moe.capacity_factor)
+    del record
+    r["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del state
+    _free()
+    state = _sharded_state(MESH_MOE_FP32, _gen(0), ctx)
+    with mesh_context(ctx):
+        state, r["fp32_step"] = _sharded_step(make_train_step(MESH_MOE_FP32, lr=3e-4), state,
+                                              batches[0])
+    plain = torch.load(MESH_MOE_FP32_REF, mmap=True)
+    r["fp32_leaves"] = _leaf_paths(state["params"])
+    r["fp32_params_max_err"] = _against_plain(state["params"], plain["params"], ctx, False)
+    r["fp32_m_rel_err"] = _against_plain(state["opt"]["m"], plain["m"], ctx, True)
+    del state, plain
+    _free()
+    with open(os.path.join(directory, f"rank{rank}.json"), "w") as f:
+        json.dump(r, f)
+    dist.destroy_process_group()
+
+
+def phase_mesh_train_moe() -> tuple:
+    """Phase 6e: the plain references (:func:`_mesh_moe_references`), the
+    MESH_RANKS ranks (:func:`_mesh_moe_rank`), each rank's record checked
+    (:func:`_check_sharded`), and the capacity-factor step's loss the same
+    on every rank.  Returns (the plain steps' record, their launches, by
+    variant; the ranks' launches, by variant, the launches at a rank's
+    shape of the bf16 steps, timed passes and capacity-factor steps on all
+    ranks; the ranks' records)."""
+    t0 = time.perf_counter()
+    plain, plain_launches, plain_variants = _mesh_moe_references()
+    ranks, seconds = _spawn_ranks(_mesh_moe_rank, MESH_TRAIN_TIMEOUT)
+    os.remove(MESH_MOE_INPUTS)
+    os.remove(MESH_MOE_FP32_REF)
+    _log(f"[mesh-moe] {MESH_RANKS} ranks in {seconds:.1f}s: mesh "
+         f"{dict(zip(MESH_AXES, MESH_SHAPE))}, deepseek-moe-16b width, {MESH_MOE.n_layers} "
+         f"layers, batch {TRAIN_BATCH} x {TRAIN_SEQ}; a rank's w_gate block "
+         f"{ranks[0]['local_w_gate']}, its state {ranks[0]['state_gb']:.3f} GB")
+    launches = dict.fromkeys(ops.launches, 0)
+    variants = {k: dict.fromkeys(v, 0) for k, v in _variant_launches().items()}
+    at_rank_shape = dict.fromkeys(ops.launches, 0)
+    for r in ranks:
+        _check_sharded("mesh-moe", f"rank {r['rank']} {r['coord']}", r, MESH_MOE,
+                       MESH_MOE_FP32, plain, ("the MoE leaves", lambda n: "/moe/" in n))
+        for rec in r["steps"] + [r["timed"], r["cf_step"], r["fp32_step"]]:
+            for k, n in rec["launches"].items():
+                launches[k] += n
+            for k, by in rec["variants"].items():
+                for v, n in by.items():
+                    variants[k][v] += n
+        for rec in r["steps"] + [r["timed"], r["cf_step"]]:
+            for k, n in rec["launches"].items():
+                at_rank_shape[k] += n
+        steps = r["steps"]
+        _log(f"[mesh-moe] rank {r['rank']}: step ms {_ms_list([s['step_ms'] for s in steps])}, "
+             f"{steps[-1]['collectives']} collectives a step, {r['timed']['collective_s']:.3f} s "
+             f"of them in the timed pass's {r['timed']['step_ms']:.1f} ms; peak memory "
+             f"{r['peak_mem_gb']:.2f} GB (the plain single process: "
+             f"{plain['peak_mem_gb']:.2f} GB), state {r['state_gb']:.3f} GB")
+    cf = [r["cf_step"]["loss"] for r in ranks]
+    if len(set(cf)) != 1:
+        _fail(f"the capacity factor 1.25 step's loss differs between the ranks: {cf}")
+    if not launches["flash_attention"]:
+        _fail("phase 6e launched no flash")
+    _log(f"[mesh-moe] phase took {time.perf_counter() - t0:.1f}s; launches on all ranks "
+         f"{launches}")
+    return plain, plain_launches, plain_variants, launches, variants, at_rank_shape, ranks
 
 
 def phase_train_grads() -> dict:
@@ -2660,12 +2950,21 @@ def main(argv=None) -> int:
         for k, row in rows.items():
             for v, n in r["variants"][k].items():
                 row["launches_by_variant"][v] += n
-    mesh_rec, mesh_rec_variants, at_rank_shape = None, {}, dict.fromkeys(ops.launches, 0)
+    mesh_rec, mesh_moe, extra_variants = None, None, []
+    at_rank_shape = {p: dict.fromkeys(ops.launches, 0) for p in rank_rows}
     if argv != ["--skip-mesh"]:
         rec_path = f"mesh train recurrent: {MESH_RANKS} ranks, " + ", ".join(
             f"{arch} {cfg.n_layers}L" for arch, cfg in MESH_REC.items())
-        by_path[rec_path], mesh_rec_variants, at_rank_shape, mesh_rec = \
+        by_path[rec_path], rec_variants, at_rank_shape["6d"], mesh_rec = \
             phase_mesh_train_recurrent()
+        plain_moe, plain_path, plain_variants, moe_path, moe_variants, at_rank_shape["6e"], \
+            moe_ranks = phase_mesh_train_moe()
+        by_path[f"deepseek-moe-16b train ({MESH_MOE.n_layers} layers, {TRAIN_STEPS} steps, "
+                f"no_drop)"] = plain_path
+        by_path[f"mesh train MoE: {MESH_RANKS} ranks, deepseek-moe-16b "
+                f"{MESH_MOE.n_layers}L"] = moe_path
+        extra_variants = [rec_variants, plain_variants, moe_variants]
+        mesh_moe = {"plain": plain_moe, "ranks": moe_ranks}
     rows.update(bwd_rows)
     for name, row in rows.items():      # the dry run's count beside the row's own
         row["dryrun"] = dry_kernels[name]
@@ -2679,10 +2978,13 @@ def main(argv=None) -> int:
         rows[name]["launches_by_variant"] = {
             v: sum(r["variants"][name][v] for r in recurrent.values()) for v in variants}
     for name, row in rows.items():
-        for v, n in mesh_rec_variants.get(name, {}).items():
-            row["launches_by_variant"][v] += n
-        row.setdefault("at_other_shapes", []).append(
-            {**rank_rows[name], "launches": at_rank_shape[name]})
+        for variants in extra_variants:
+            for v, n in variants[name].items():
+                row["launches_by_variant"][v] += n
+    for phase, entries in rank_rows.items():
+        for name, entry in entries.items():
+            rows[name].setdefault("at_other_shapes", []).append(
+                {**entry, "launches": at_rank_shape[phase][name]})
     for name, row in rows.items():
         row["launches_by_path"] = {arch: n[name] for arch, n in by_path.items() if n[name]}
         row["launches"] = sum(row["launches_by_path"].values())
@@ -2706,6 +3008,7 @@ def main(argv=None) -> int:
         json.dump({"card": smi, **kernels, "train": train, "train_recurrent": recurrent,
                    "train_grads_max_err": grads, "commit": commit, "vlm_prefix": prefix,
                    "mesh": mesh, "mesh_train": mesh_train, "mesh_train_recurrent": mesh_rec,
+                   "mesh_train_moe": mesh_moe,
                    "dryrun": dry_cells},
                   f, indent=1)
     print(json.dumps(kernels))

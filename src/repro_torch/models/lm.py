@@ -31,11 +31,13 @@ memory that a cross-attention in every decoder block reads, and the decode
 cache keeps its projected ``mk``/``mv``.
 
 Sharded training (``MeshCtx.local_blocks``, set by the sharded train step
-for the dense attention families and the recurrent ones,
+for the dense attention families, the MoE family and the recurrent ones,
 :func:`check_sharded`): every function runs on this rank's blocks, the
 stacked groups and the remainder layers alike; the "ssm" and "rglru"
 layers are tensor-parallel over the heads and the lru width
-(:mod:`repro_torch.models.ssm`, :mod:`repro_torch.models.rglru`).  The
+(:mod:`repro_torch.models.ssm`, :mod:`repro_torch.models.rglru`), the MoE
+layers expert-parallel over the model axis with a load-balance loss over
+every token (:mod:`repro_torch.models.moe`).  The
 embedding is vocab-parallel (``embed`` is
 (model, fsdp) by the rule table: the rank's rows looked up, the rest
 masked, the sum over the model axis), and its output is placed in the
@@ -376,17 +378,18 @@ def check_sharded(cfg: ModelConfig, ctx, *, seq_len: Optional[int] = None,
                   patches: Optional[torch.Tensor] = None) -> None:
     """Raise unless the sharded step runs ``cfg`` on ``ctx``'s mesh: the
     dense attention families ("attn" and "local" layers, a dense MLP, q/k/v
-    biases, tied embeddings, both softcaps) and the recurrent ones ("ssm"
-    and "rglru" layers), with the model axis dividing what it splits: the
-    fused q heads, ``d_ff``, the SSM's heads and inner width, the RG-LRU
-    width and the padded vocab, and under ``seq_shard_activations`` the
-    sequence.  Where it does not, the rule table's guard would drop the
-    model axis from a leaf and its rank would compute more than its
-    block."""
+    biases, tied embeddings, both softcaps), the MoE family (expert
+    parallel, :func:`repro_torch.models.moe.apply_blocks`) and the
+    recurrent ones ("ssm" and "rglru" layers), with the model axis dividing
+    what it splits: the fused q heads, ``d_ff`` of a dense MLP, the experts
+    and the shared experts' width, the SSM's heads and inner width, the
+    RG-LRU width and the padded vocab, and under ``seq_shard_activations``
+    the sequence.  Where it does not, the rule table's guard would drop the
+    model axis from a leaf and its rank would compute more than its block
+    (the reference's MoE falls back to a global dispatch, which the port
+    does not run)."""
     kinds = set(cfg.layer_pattern)
     what = [f"{kind} layers" for kind in sorted(kinds - {"attn", "local", "ssm", "rglru"})]
-    if cfg.moe is not None:
-        what.append("MoE layers")
     if cfg.enc_dec:
         what.append("the encoder and cross-attention")
     if patches is not None:
@@ -395,7 +398,13 @@ def check_sharded(cfg: ModelConfig, ctx, *, seq_len: Optional[int] = None,
         raise NotImplementedError(f"sharded training of {', '.join(what)} ({cfg.name}) is "
                                   f"not ported ({SHARDED_TODO})")
     nm = ctx.model_size
-    split = [("d_ff", cfg.d_ff), ("the padded vocab", cfg.padded_vocab)]
+    split = [("the padded vocab", cfg.padded_vocab)]
+    if cfg.moe is None:
+        split.append(("d_ff", cfg.d_ff))
+    else:
+        split.append(("the experts", cfg.moe.num_experts))
+        if cfg.moe.num_shared:
+            split.append(("the shared experts' width", moe.shared_width(cfg)))
     if kinds & {"attn", "local"}:
         split.append(("n_heads * head_dim", cfg.n_heads * cfg.hd))
     if "ssm" in kinds:

@@ -37,9 +37,12 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1 / (1 + torch.exp(-x)))
 
 
-def apply(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def apply(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
+          d_ff: int = 0) -> torch.Tensor:
+    """The MLP of width ``d_ff`` (default ``cfg.d_ff``; the MoE shared
+    experts' is wider, as :func:`init` was given it)."""
     ct = cfg.cdtype
-    d, f = cfg.d_model, cfg.d_ff
+    d, f = cfg.d_model, d_ff or cfg.d_ff
 
     def w(name, shape):
         return use_param(params[name], name, shape, model_partial=True).to(ct)

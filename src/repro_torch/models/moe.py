@@ -10,10 +10,13 @@ The port of :mod:`repro.models.moe`, same design:
   * Experts: one batched product per projection, ``[E,C,D]×[E,D,F]``.
   * Combine: gather back per assignment, weighted sum over k.
   * Shared experts (DeepSeek): a dense gated MLP applied to every token.
-  * Expert parallel (:func:`apply_ep`, under a mesh context whose model axis
-    divides the experts): each rank takes its token block and its experts,
-    with the capacity on its local token count, and one all-reduce over the
-    model axis combines the ranks' partial outputs.
+  * Expert parallel, under a mesh context whose model axis divides the
+    experts: each rank routes its token block to its own experts, with the
+    capacity on its local token count, and a sum over the model axis
+    combines the ranks' partial outputs.  Serving (:func:`apply_ep`) takes
+    the blocks from global values and combines with an all-reduce; the
+    sharded train step (:func:`apply_blocks`, on local blocks) holds them
+    and combines with the differentiable ``tp_output``.
 
 ``jax.numpy``'s ``.at[...].set(mode="drop")`` drops out-of-range updates;
 ``index_put`` raises on them instead.  So the buffer has one more expert
@@ -37,7 +40,9 @@ from torch.profiler import record_function
 
 from repro_torch.models import mlp
 from repro_torch.models.common import ModelConfig, dense_init
-from repro_torch.parallel.mesh_ctx import all_reduce, current_ctx, gather_dim0
+from repro_torch.parallel.mesh_ctx import (all_reduce, blocks_ctx, current_ctx, gather_dim0,
+                                           reduce, tp_input, tp_output)
+from repro_torch.parallel.sharding import use_param
 
 #: the ``record_function`` ranges of one MoE layer
 SCOPES = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine")
@@ -92,8 +97,8 @@ def _top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return values[..., :k], ids[..., :k]
 
 
-def _router_probs(params: Dict[str, Any], x2d: torch.Tensor) -> torch.Tensor:
-    logits = x2d.float() @ params["router"].float()
+def _router_probs(router: torch.Tensor, x2d: torch.Tensor) -> torch.Tensor:
+    logits = x2d.float() @ router.float()
     return torch.softmax(logits, dim=-1)
 
 
@@ -101,7 +106,7 @@ def route(params: Dict[str, Any], cfg: ModelConfig, x2d: torch.Tensor
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x2d: [T, D] → (expert_ids [T,k] int64, weights [T,k] fp32); router
     math in fp32."""
-    weights, ids = _top_k(_router_probs(params, x2d), cfg.moe.top_k)
+    weights, ids = _top_k(_router_probs(params["router"], x2d), cfg.moe.top_k)
     return ids, weights / weights.sum(dim=-1, keepdim=True)
 
 
@@ -127,15 +132,18 @@ def dispatch(ids: torch.Tensor, num_experts: int, cap: int
 
 
 def apply(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """x: [B, L, D] → [B, L, D].  Dispatches to the expert-parallel
-    :func:`apply_ep` under a mesh context of ranks whose model axis divides
-    the experts, as the reference does; otherwise (no context, or a context
-    of axis sizes alone, which has no ranks) the single-device
-    :func:`apply_ref`, which doubles as the oracle.  ``apply_ep`` serves
-    only: its all-reduce refuses a tensor that needs a gradient."""
+    """x: [B, L, D] → [B, L, D].  On local blocks (the sharded train step)
+    the expert-parallel :func:`apply_blocks`; under a mesh context of ranks
+    whose model axis divides the experts, on global values (serving), the
+    expert-parallel :func:`apply_ep`, whose all-reduce refuses a tensor
+    that needs a gradient; otherwise (no context, or a context of axis
+    sizes alone, which has no ranks) the single-device :func:`apply_ref`,
+    which doubles as the oracle."""
     ctx = current_ctx()
     m = cfg.moe
     assert m is not None
+    if blocks_ctx() is not None:
+        return apply_blocks(params, cfg, x, ctx)
     if ctx is not None and ctx.on_ranks and m.num_experts % ctx.model_size == 0:
         return apply_ep(params, cfg, x, ctx)
     return apply_ref(params, cfg, x)
@@ -176,21 +184,29 @@ def apply_ref(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor) -> torc
         y = torch.bmm(weights.to(ct)[:, None, :], per_assign)[:, 0, :]
 
     if m.num_shared:
-        y = y + mlp.apply(params["shared"], cfg, x2d)
+        y = y + mlp.apply(params["shared"], cfg, x2d, d_ff=shared_width(cfg))
     return y.reshape(b, l, d)
 
 
 # ==========================================================================
-# Expert-parallel path
+# Expert-parallel paths
 # ==========================================================================
 #
 # Token activations are sharded over the batch axes and replicated over the
 # model axis; experts are sharded over the model axis.  Dispatch is
 # collective-free — each model rank selects, from its copy of the batch
 # block, the assignments that target its own experts — and the combine is
-# one all-reduce over the model axis.  The reference's shard_map body is
-# :func:`ep_partial` on the rank's blocks; every rank returns the global
-# result.
+# one sum over the model axis.  The reference's shard_map body is
+# :func:`ep_partial` on the rank's blocks.  Serving (:func:`apply_ep`):
+# every rank holds the global batch and returns the global result.  The
+# sharded train step (:func:`apply_blocks`): every rank holds its batch
+# block and its experts, and returns its block of the output.
+
+
+def shared_width(cfg: ModelConfig) -> int:
+    """The shared experts' MLP width: F · num_shared (not ``cfg.d_ff``, a
+    flag in MoE configs)."""
+    return cfg.moe.d_expert * cfg.moe.num_shared
 
 
 def ep_capacity(t_loc: int, cfg: ModelConfig) -> int:
@@ -203,15 +219,25 @@ def ep_capacity(t_loc: int, cfg: ModelConfig) -> int:
     return max(8, ((cap + 7) // 8) * 8)
 
 
+def expert_block(params: Dict[str, Any], lo: int, e_loc: int) -> Dict[str, Any]:
+    """The router and experts ``lo … lo+e_loc−1`` of global MoE parameters,
+    as :func:`ep_partial` takes them."""
+    return {"router": params["router"],
+            **{n: params[n][lo:lo + e_loc] for n in ("w_gate", "w_up", "w_down")}}
+
+
 def ep_partial(params: Dict[str, Any], cfg: ModelConfig, x_loc: torch.Tensor,
-               lo: int, e_loc: int) -> torch.Tensor:
+               lo: int) -> torch.Tensor:
     """One rank's share of the MoE output on its token block ``x_loc``
-    [t_loc, D]: the weighted outputs of experts ``lo … lo+e_loc−1`` only,
-    [t_loc, D] in the compute dtype.  Summed over the model ranks it is the
-    layer's output without the shared experts."""
+    [t_loc, D]: the weighted outputs of its experts only, [t_loc, D] in the
+    compute dtype.  ``params`` holds the router [D, E] and the rank's block
+    of the experts, ``w_gate``/``w_up`` [e_loc, D, F] and ``w_down`` [e_loc,
+    F, D], global experts ``lo … lo+e_loc−1``.  Summed over the model ranks
+    it is the layer's output without the shared experts."""
     m = cfg.moe
     t_loc, d = x_loc.shape
     k, e, ct = m.top_k, m.num_experts, cfg.cdtype
+    e_loc = params["w_gate"].shape[0]
     cap = ep_capacity(t_loc, cfg)
     with _scope("moe.route"):
         ids, weights = route(params, cfg, x_loc)
@@ -224,10 +250,9 @@ def ep_partial(params: Dict[str, Any], cfg: ModelConfig, x_loc: torch.Tensor,
         buf = torch.zeros((e_loc + 1, cap, d), dtype=ct, device=x_loc.device)
         buf = buf.index_put((idx_e, idx_c), x_loc[s["order"] // k].to(ct))[:e_loc]
     with _scope("moe.experts"):
-        w = {n: params[n][lo:lo + e_loc].to(ct) for n in ("w_gate", "w_up", "w_down")}
-        g = mlp.silu(torch.bmm(buf, w["w_gate"]))
-        u = torch.bmm(buf, w["w_up"])
-        out_buf = torch.bmm(g * u, w["w_down"])                 # [e_loc, C, D]
+        g = mlp.silu(torch.bmm(buf, params["w_gate"].to(ct)))
+        u = torch.bmm(buf, params["w_up"].to(ct))
+        out_buf = torch.bmm(g * u, params["w_down"].to(ct))    # [e_loc, C, D]
     with _scope("moe.combine"):
         gathered = out_buf[torch.clamp(idx_e, max=e_loc - 1), idx_c]
         gathered = gathered.masked_fill(~valid[:, None], 0.0)
@@ -236,15 +261,16 @@ def ep_partial(params: Dict[str, Any], cfg: ModelConfig, x_loc: torch.Tensor,
 
 
 def apply_ep(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor, ctx) -> torch.Tensor:
-    """Expert-parallel MoE on this rank of ``ctx``'s mesh; x [B, L, D] is the
-    global batch, which every rank holds, and so is the result.
+    """Expert-parallel MoE for serving on this rank of ``ctx``'s mesh; x [B,
+    L, D] is the global batch, which every rank holds, and so is the result.
 
     The rank takes its token block by its coordinate on the batch axes
     (the B·L tokens split evenly over them) and its experts by its
     coordinate on the model axis; the partial outputs are summed by one
     all-reduce over the model axis in the compute dtype, and the blocks
-    gathered back over the batch axes.  The shared experts run on the whole
-    batch outside, as in the reference.
+    gathered back over the batch axes.  The all-reduces are not
+    differentiable: the sharded train step takes :func:`apply_blocks`.  The
+    shared experts run on the whole batch outside, as in the reference.
     """
     m = cfg.moe
     b, l, d = x.shape
@@ -257,25 +283,83 @@ def apply_ep(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor, ctx) -> 
     e_loc = m.num_experts // ctx.model_size
     x2d = x.reshape(t, d)
     i = ctx.linear_coord(batch)
-    y = ep_partial(params, cfg, x2d[i * t_loc:(i + 1) * t_loc],
-                   ctx.coord(ctx.model_axis) * e_loc, e_loc).to(ct)
+    lo = ctx.coord(ctx.model_axis) * e_loc
+    y = ep_partial(expert_block(params, lo, e_loc), cfg, x2d[i * t_loc:(i + 1) * t_loc],
+                   lo).to(ct)
     with _scope("moe.combine"):
         all_reduce(y, ctx.group(ctx.model_axis))
         y = gather_dim0(y, t, ctx, batch)
     if m.num_shared:
-        y = y + mlp.apply(params["shared"], cfg, x2d.to(ct))
+        y = y + mlp.apply(params["shared"], cfg, x2d.to(ct), d_ff=shared_width(cfg))
     return y.reshape(b, l, d)
+
+
+def apply_blocks(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
+                 ctx) -> torch.Tensor:
+    """Expert-parallel MoE on this rank's blocks (the sharded train step):
+    x [B_loc, L, D] (or [B_loc, L/model, D] with ``seq_shard_activations``)
+    → the same block of the output.
+
+    The counterpart of the reference's ``shard_map`` body, differentiable.
+    The input enters through ``tp_input`` (the sequence gathered under
+    ``seq_shard_activations``, so the rank's t_loc = B_loc·L tokens are the
+    reference's block of ``x2d`` rows, in its order), the capacity is
+    :func:`ep_capacity` of t_loc, and the experts are the rank's block by
+    the rule table (E over the model axis, D gathered over the FSDP axes).
+    The partial output leaves through ``tp_output``, a sum over the model
+    axis whose backward is the identity.  The router is read with its
+    gradient summed over the model axis: each model rank's routing weights
+    meet only its own experts' outputs.  The shared experts are the
+    tensor-parallel MLP on the same block.  The model axis must divide the
+    experts (``lm.check_sharded``)."""
+    m = cfg.moe
+    d, f, e = cfg.d_model, m.d_expert, m.num_experts
+    shapes = {"router": (d, e), "w_gate": (e, d, f), "w_up": (e, d, f), "w_down": (e, f, d)}
+    w = {n: use_param(params[n], ("moe", n), shape, model_partial=n == "router")
+         for n, shape in shapes.items()}
+    xin = tp_input(x)
+    b, l, _ = xin.shape
+    lo = ctx.coord(ctx.model_axis) * w["w_gate"].shape[0]
+    y = ep_partial(w, cfg, xin.reshape(b * l, d), lo).to(cfg.cdtype)
+    with _scope("moe.combine"):
+        y = tp_output(y.reshape(b, l, d))
+    if m.num_shared:
+        y = y + mlp.apply(params["shared"], cfg, x, d_ff=shared_width(cfg))
+    return y
 
 
 def aux_loss(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Load-balancing auxiliary loss (Switch-style): E · Σ_e f_e · p_e, with
     f_e the share of top-k assignments to expert e and p_e its mean router
-    probability."""
+    probability, over every token.
+
+    On local blocks x is the rank's block of the tokens: the counts and the
+    probability sums are summed over the batch axes (and the model axis,
+    which splits the sequence under ``seq_shard_activations``) before they
+    are divided, since a product of two means does not split over blocks.
+    The sum's backward is the identity, so the router's gradient through
+    this loss is partial over the axes that split the tokens: summed over
+    the model axis only under ``seq_shard_activations`` (otherwise every
+    model rank computes it whole, on the same tokens)."""
     m = cfg.moe
+    ctx = blocks_ctx()
+    router = params["router"]
+    if ctx is not None:
+        router = use_param(router, ("moe", "router"), (cfg.d_model, m.num_experts),
+                           model_partial=ctx.seq_shard_activations)
     with _scope("moe.route"):
-        probs = _router_probs(params, x.reshape(-1, x.shape[-1]))      # [T, E]
+        x2d = x.reshape(-1, x.shape[-1])
+        probs = _router_probs(router, x2d)                               # [T, E]
         _, ids = _top_k(probs, m.top_k)
         experts = torch.arange(m.num_experts, device=x.device)
         counts = (ids[..., None] == experts).float().sum(dim=(0, 1))
+        if ctx is None:
+            imp = probs.mean(dim=0)
+        else:
+            axes = tuple(ctx.batch_axes) + ((ctx.model_axis,) if ctx.seq_shard_activations
+                                            else ())
+            sums = reduce(torch.cat([counts, probs.sum(dim=0)]), axes, ctx)
+            tokens = x2d.shape[0] * math.prod(ctx.axis_size(a) for a in axes)
+            counts, imp = sums[:m.num_experts], sums[m.num_experts:] / tokens
         frac = counts / counts.sum()
-        return m.num_experts * (frac * probs.mean(dim=0)).sum()
+        return m.num_experts * (frac * imp).sum()

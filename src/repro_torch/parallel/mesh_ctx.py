@@ -27,7 +27,9 @@ Two modes:
   :func:`scatter`, :func:`reduce`, :func:`replicate`).  The layout hints
   (:func:`constrain`, :func:`constrain_batch`) move a local block from the
   layout it is in (``src``) to the hinted one; in the other mode, or without
-  a ``DeviceMesh``, they return their input.  The model code calls them
+  a ``DeviceMesh``, they return their input.  The MoE layer takes its
+  expert-parallel ``moe.apply_blocks`` here, combining through
+  :func:`tp_output`.  The model code calls them
   only where the layouts differ: the embedding's output (sequence-split
   under ``seq_shard_activations``) and the heads hint before flash.  The
   residual stream stays in the block boundary's layout by construction
@@ -142,8 +144,9 @@ class MeshCtx:
         return i
 
 
-#: where the ports of what the sharded train step does not run yet (MoE layers,
-#: the enc-dec encoder and cross-attention, the VLM patch prefix) are queued
+#: where the ports of what the sharded train step does not run yet (the enc-dec
+#: encoder and cross-attention, the VLM patch prefix, an MoE layer whose experts
+#: the model axis does not divide) are queued
 SHARDED_TODO = "ROADMAP Queue 1 item 16"
 
 _CTX: contextvars.ContextVar[Optional[MeshCtx]] = contextvars.ContextVar(
@@ -197,13 +200,14 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     """In-place all-reduce of ``x`` over ``group`` (``op`` "sum" or "max").
     Uses only ``all_reduce``, which gloo implements for CUDA tensors as
     well as CPU ones.  Autograd does not see it, so a tensor that would
-    carry a gradient is refused: the reference's psum is differentiable,
-    this is not."""
+    carry a gradient is refused: the serving branches call it directly, and
+    the local-blocks paths (the sharded train step, ``moe.apply_blocks``
+    included) through the differentiable collectives below."""
     if torch.is_grad_enabled() and x.requires_grad:
         raise NotImplementedError(
-            "the distributed branches (moe.apply_ep, attention._decode_seqshard) do not "
-            "differentiate their all-reduces: run them under torch.no_grad(), or "
-            "without a mesh context")
+            "the serving branches (moe.apply_ep, attention._decode_seqshard) do not "
+            "differentiate their all-reduces: run them under torch.no_grad(), or train on "
+            "local blocks (the sharded train step: moe.apply_blocks)")
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     collective_stats["calls"] += 1
     if not collective_stats["timed"]:

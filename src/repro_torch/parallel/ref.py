@@ -50,12 +50,14 @@ def apply_ep_emulated(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
     x2d = x.reshape(t, d)
     y = torch.zeros((t, d), dtype=ct, device=x.device)
     for rows in _blocks(t, mesh_sizes, tuple(batch_axes)):
-        part = moe.ep_partial(params, cfg, x2d[rows], 0, e_loc).to(ct)
+        part = moe.ep_partial(moe.expert_block(params, 0, e_loc), cfg, x2d[rows], 0).to(ct)
         for r in range(1, n_model):
-            part = part + moe.ep_partial(params, cfg, x2d[rows], r * e_loc, e_loc).to(ct)
+            lo = r * e_loc
+            part = part + moe.ep_partial(moe.expert_block(params, lo, e_loc), cfg, x2d[rows],
+                                         lo).to(ct)
         y[rows] = part
     if m.num_shared:
-        y = y + mlp.apply(params["shared"], cfg, x2d.to(ct))
+        y = y + mlp.apply(params["shared"], cfg, x2d.to(ct), d_ff=moe.shared_width(cfg))
     return y.reshape(b, l, d)
 
 

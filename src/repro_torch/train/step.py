@@ -15,9 +15,9 @@ input_shardings(ctx, batch)))``: each rank computes on its own blocks
 are the differentiable collectives of :mod:`repro_torch.parallel.mesh_ctx`,
 the gradients come back as the rank's blocks through the gathers'
 backwards, the global norm sums over the ranks, and AdamW updates each
-block where it lies.  The dense attention families and the recurrent ones
-(Mamba2's "ssm", RecurrentGemma's "rglru" with its local attention); MoE,
-enc-dec and the VLM patch prefix raise
+block where it lies.  The dense attention families, the MoE family
+(expert parallel) and the recurrent ones (Mamba2's "ssm", RecurrentGemma's
+"rglru" with its local attention); enc-dec and the VLM patch prefix raise
 (:func:`repro_torch.models.lm.check_sharded`).
 """
 

@@ -866,16 +866,17 @@ def test_dry_run_predicts_a_smoke_prefill_peak(card, arch):
 
 
 # ==========================================================================
-# the sharded train step of the recurrent families: 4 gloo ranks sharing the
-# card as a (2, 2) ("data", "model") mesh
+# the sharded train step of the recurrent and MoE families: 4 gloo ranks
+# sharing the card as a (2, 2) ("data", "model") mesh
 # ==========================================================================
 
 
 @pytest.fixture(scope="module")
 def mesh_train_card(tmp_path_factory):
     """``tests/torch_mesh_train_worker.py``'s ``card`` task: the fp32
-    sharded steps of the mamba2-370m and recurrentgemma-9b smoke configs on
-    4 ranks on the card, through the scan kernels and their backwards."""
+    sharded steps of the mamba2-370m, recurrentgemma-9b and deepseek-moe-16b
+    (at ``no_drop``'s capacity, expert parallel) smoke configs on 4 ranks on
+    the card, through the scan kernels and their backwards and flash."""
     import os
     import subprocess
     import sys
@@ -893,10 +894,11 @@ def mesh_train_card(tmp_path_factory):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b", "deepseek-moe-16b"])
 def test_mesh_train_step_on_card_ranks_matches_plain(mesh_train_card, card, arch):
     """Each rank's fp32 sharded steps (the scans at the rank's heads or
-    width block) against the plain steps on the card in this process from
+    width block; the MoE layers expert parallel, 4 of the 8 experts a rank,
+    where nothing drops) against the plain steps on the card in this process from
     the same state and batches: losses and grad norms at 1e-4 relative, the
     gathered parameters at 1e-4 and the moments within 1e-4 of their leaf's
     largest, every rank launching each kernel as often as the plain step."""
@@ -916,7 +918,10 @@ def test_mesh_train_step_on_card_ranks_matches_plain(mesh_train_card, card, arch
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
     launches = [ops.launches[k] for k in sorted(ops.launches)]
-    assert ops.launches["ssd_scan_bwd"] + ops.launches["rglru_scan_bwd"] > 0
+    if cfg.moe is None:
+        assert ops.launches["ssd_scan_bwd"] + ops.launches["rglru_scan_bwd"] > 0
+    else:
+        assert ops.launches["flash_attention"] > 0
     for i, out in enumerate(mesh_train_card):
         np.testing.assert_allclose(out[f"{arch}/loss"], losses, rtol=1e-4, err_msg=f"rank {i}")
         np.testing.assert_allclose(out[f"{arch}/grad_norm"], norms, rtol=1e-4,

@@ -10,8 +10,8 @@ starts ``world`` ranks (``spawn``), which meet through a file under
   ``cases``): the initial parameters
   and the batches of ``<dir>/inputs.npz`` placed by the rule table on the
   case's mesh, :data:`STEPS` steps of ``make_train_step`` under the mesh
-  context; each step's loss and grad norm, this rank's state bytes, and
-  (rank 0) the gathered final state;
+  context; each step's loss, MoE aux loss and grad norm, this rank's state
+  bytes, and (rank 0) the gathered final state;
 * ``saved``: yi-9b smoke, remat "full", on the (2, 4) mesh, with and
   without ``seq_shard_activations``: the bytes rank 0 keeps for the
   backward of one loss, counted by ``saved_tensors_hooks`` (the tensors
@@ -22,14 +22,15 @@ starts ``world`` ranks (``spawn``), which meet through a file under
   does so on the card), against the backward on the calling thread;
 * ``ckpt``: a sharded ``checkpoint.save`` of the yi case's first state,
   the bytes it allocates at its peak, and ``restore(shardings=...)`` of it;
-* ``refuse``: the sharded step on an MoE config, an enc-dec config and a
-  VLM batch with its patch prefix;
+* ``refuse``: the sharded step on an MoE config whose experts the model
+  axis does not divide (dbrx-132b smoke, 4 experts, on a (1, 8) mesh), an
+  enc-dec config and a VLM batch with its patch prefix;
 * ``adjoint`` (world 4, a (2, 2) mesh): each differentiable collective's
   backward against its adjoint, in fp64;
 * ``card`` (world 4, a (2, 2) mesh on the NVIDIA card, ranks sharing it):
   :data:`STEPS` fp32 sharded steps of each of :data:`CARD_ARCHS` from
-  :func:`card_inputs`, through the scan kernels; the losses, grad norms,
-  launches and (rank 0) the gathered final state.
+  :func:`card_inputs`, through the scan kernels and flash; the losses,
+  grad norms, launches and (rank 0) the gathered final state.
 
 Each rank writes ``<dir>/<task>-rank<r>.npz``.  Imports no JAX.
 """
@@ -50,6 +51,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 STEPS = 2
 MESH_24 = ((2, 4), ("data", "model"))
 MESH_222 = ((2, 2, 2), ("pod", "data", "model"))
+MESH_18 = ((1, 8), ("data", "model"))
 
 #: case → (arch, mesh, batch, seq, config overrides, context knobs).  The
 #: yi-9b smoke config on (2, 4) splits each of its 2 kv heads over the model
@@ -58,6 +60,12 @@ MESH_222 = ((2, 2, 2), ("pod", "data", "model"))
 #: heads a rank, L 64 in 4 chunks of 16.  recurrentgemma-9b smoke on (2, 2,
 #: 2): L 64 against a window of 16, one (rglru, rglru, local) group and two
 #: remainder rglru layers, its one kv head's hd 16 split over the model axis.
+#: deepseek-moe-16b smoke on (2, 4): 2 of its 8 experts a rank, top-2, at
+#: its own capacity factor 1.25 (80 rows an expert on a rank's 256 tokens);
+#: "ds" sets the flag d_ff to 48, so that the shared experts' width (96)
+#: differs from it, as at the full config (2816 against 1408).  dbrx-132b
+#: smoke on (2, 2, 2): GQA 8/2, no shared experts, 2 of its 4 experts a
+#: rank.
 CASES = {
     "yi": ("yi-9b", MESH_24, 8, 64, {}, {}),
     "yi-flash": ("yi-9b", MESH_24, 2, 2048, {}, {}),
@@ -72,7 +80,15 @@ CASES = {
     "rg": ("recurrentgemma-9b", MESH_222, 8, 64, {}, {"fsdp_over_pod": True}),
     "rg-bf16": ("recurrentgemma-9b", MESH_222, 8, 64, {"compute_dtype": "bfloat16"},
                 {"fsdp_over_pod": True}),
+    "ds": ("deepseek-moe-16b", MESH_24, 8, 64, {"d_ff": 48}, {}),
+    "ds-seq": ("deepseek-moe-16b", MESH_24, 8, 64, {}, {"seq_shard_activations": True}),
+    "dbrx": ("dbrx-132b", MESH_222, 8, 64, {}, {"fsdp_over_pod": True}),
 }
+#: the MoE cases: their sharded step drops other assignments than the
+#: single-process step (a rank's capacity is rounded to 8 on its tokens, the
+#: plain one to 128 on all of them), so they are held against the
+#: reference's sharded step only
+MOE_CASES = ("ds", "ds-seq", "dbrx")
 #: the cases in bf16 compute (their losses are held at bf16's tolerance)
 BF16_CASES = ("yi-bf16", "rg-bf16")
 #: the pieces of the ``ckpt`` task's save: the yi-9b smoke state's largest
@@ -82,8 +98,11 @@ SAVE_PIECE_BYTES = 64 * 128 * 4
 #: every case but those of BF16_CASES runs fp32 compute
 FP32_OVERRIDES = {"compute_dtype": "float32"}
 MESH_22 = ((2, 2), ("data", "model"))
-#: the ``card`` task's configs (smoke, fp32), their batch and length
-CARD_ARCHS, CARD_BATCH, CARD_SEQ = ("mamba2-370m", "recurrentgemma-9b"), 4, 64
+#: the ``card`` task's configs (smoke, fp32; an MoE config at
+#: ``parallel.ref.no_drop``'s capacity, where the sharded and the plain steps
+#: compute the same function), their batch and length
+CARD_ARCHS = ("mamba2-370m", "recurrentgemma-9b", "deepseek-moe-16b")
+CARD_BATCH, CARD_SEQ = 4, 64
 
 
 def case_config(name):
@@ -117,13 +136,17 @@ def unflatten(flat, prefix):
 def card_inputs(arch):
     """(config, state on the CPU, batches) of the ``card`` task's ``arch``:
     the smoke config in fp32, the port's initial state from seed 0, the
-    synthetic batches of steps 0 … STEPS−1."""
+    synthetic batches of steps 0 … STEPS−1; an MoE config at
+    ``no_drop``'s capacity."""
     from repro_torch import configs
     from repro_torch.data.synthetic import make_batch
+    from repro_torch.parallel.ref import no_drop
     from repro_torch.train.commit import batch_to
     from repro_torch.train.step import train_state_init
 
     cfg = configs.get_smoke(arch).replace(compute_dtype="float32")
+    if cfg.moe is not None:
+        cfg = no_drop(cfg)
     state = train_state_init(torch.Generator().manual_seed(0), cfg, device="cpu")
     return cfg, state, [batch_to(make_batch(cfg, CARD_SEQ, CARD_BATCH, step=s), "cpu")
                         for s in range(STEPS)]
@@ -169,14 +192,16 @@ def _train(inputs, meshes, out, rank, names):
         cfg = case_config(name)
         state = _state(unflatten(inputs, f"params/{name}"), ctx)
         step = make_train_step(cfg)
-        losses, norms = [], []
+        losses, norms, aux = [], [], []
         mc.reset_collective_stats()
         with mc.mesh_context(ctx):
             for s in range(STEPS):
                 state, m = step(state, _batch(inputs, name, s))
                 losses.append(float(m["loss"]))
                 norms.append(float(m["grad_norm"]))
+                aux.append(float(m["aux"]))
         out[f"{name}/loss"], out[f"{name}/grad_norm"] = np.array(losses), np.array(norms)
+        out[f"{name}/aux"] = np.array(aux)
         out[f"{name}/collectives"] = np.array(mc.collective_stats["calls"])
         out[f"{name}/state_bytes"] = np.array(_local_bytes(state))
         full = gather_tree(state)
@@ -331,17 +356,20 @@ def _ckpt(inputs, meshes, out, rank, directory):
 
 
 def _refuse(inputs, meshes, out, rank):
-    """The sharded step on what it does not port: an MoE config, an enc-dec
-    config and a VLM batch with its patch prefix.  Each raises before any
-    collective, on every rank alike."""
+    """The sharded step on what it does not port: an MoE config whose
+    experts the model axis does not divide (the reference falls back to its
+    global dispatch there), an enc-dec config and a VLM batch with its
+    patch prefix.  Each raises before any collective, on every rank
+    alike."""
     from repro_torch import configs
     from repro_torch.launch.mesh import make_ctx, make_production_mesh
     from repro_torch.parallel.mesh_ctx import SHARDED_TODO, mesh_context
     from repro_torch.parallel.sharding import distribute_tree, param_shardings
     from repro_torch.train.step import make_train_step, train_state_init
 
-    ctx = make_ctx(meshes[MESH_24])
-    for arch in ("deepseek-moe-16b", "seamless-m4t-medium", "phi-3-vision-4.2b"):
+    for arch, mesh in (("dbrx-132b", MESH_18), ("seamless-m4t-medium", MESH_24),
+                       ("phi-3-vision-4.2b", MESH_24)):
+        ctx = make_ctx(meshes[mesh])
         cfg = configs.get_smoke(arch).replace(compute_dtype="float32")
         state = train_state_init(torch.Generator().manual_seed(0), cfg, device="cpu")
         state = distribute_tree(state, param_shardings(state, ctx), ctx)
@@ -484,7 +512,7 @@ def _rank(rank, world, directory, tasks, names):
 
     device = "cuda" if "card" in tasks else "cpu"
     init_ranks(rank, world, f"file://{directory}/rendezvous-{world}", device_type=device)
-    shapes = [MESH_24, MESH_222] if world == 8 else [MESH_22]
+    shapes = [MESH_24, MESH_222, MESH_18] if world == 8 else [MESH_22]
     meshes = {s: make_mesh(*s, device_type=device) for s in shapes}
     inputs = dict(np.load(os.path.join(directory, "inputs.npz"))) if world == 8 else {}
     for task in tasks:
