@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py [--skip-mesh]
 
-``--skip-mesh`` leaves out phases 3b, 6c, 6d and 6e, to read the other
-phases without the four ranks' runs.  Phases, in order; any failure exits non-zero and no phase catches its own:
+``--skip-mesh`` leaves out phases 3b, 6c, 6d, 6e and 6f, to read the
+other phases without the four ranks' runs.  Phases, in order; any failure exits non-zero and no phase catches its own:
 
 1. build    — compile every CUDA kernel of the port (one nvcc per source,
               all started together), print the build seconds and each
@@ -197,7 +197,8 @@ phases without the four ranks' runs.  Phases, in order; any failure exits non-ze
               group: a rank's RG-LRU scans run W 2048 and its local
               attention 8 q heads of hd 256 against the one kv head.  The
               parent first runs the plain steps on the same state (from
-              the seed) and batches, and frees them; each rank rebuilds the
+              the seed) and batches (each step's ms and launches, exact on
+              the bf16 variants), and frees them; each rank rebuilds the
               state from the seed and keeps its blocks.  Per arch: 3 steps,
               each step's loss within 3e-2 and grad norm within 5e-2
               relative of the plain step's, its launches exactly the scan
@@ -245,6 +246,38 @@ phases without the four ranks' runs.  Phases, in order; any failure exits non-ze
               in the timed pass, peak memory and state bytes.  Phase 2
               holds and times flash at this rank's shape: the flash row
               gets that entry under at_other_shapes with these launches.
+6f. mesh train multimodal — the sharded train step of the VLM and
+              enc-dec families on the MESH_RANKS ranks, spawned again as
+              the (2, 2) ("data", "model") gloo mesh on the card, after the
+              parent has run and freed its plain steps, remat "dots", bf16
+              compute, batch 2 × 2048 positions (a rank's block 1 × 2048):
+              phi-3-vision-4.2b at full width, depth cut to 4 of 32 layers,
+              its 576 patches before 1472 tokens (w_patch replicated; a
+              rank's flash calls q/k/v [1,2048,16,96] with lse), and
+              seamless-m4t-medium at full width, depth cut to 4 + 4 of 12 +
+              12 layers, 256 frames and 2048 tokens (the encoder's
+              non-causal attention and the cross-attention tensor-parallel
+              on the dense plain attention; a rank's flash calls
+              [1,2048,8,64]).  The parent's 3 plain steps of each are the
+              first training steps of either family on the card (ms,
+              positions/s, peak memory, flash launches exact on wgmma);
+              each rank rebuilds the state from the seed and keeps its
+              blocks: 3 steps, each step's loss within 3e-2 and grad norm
+              within 5e-2 relative of the plain step's, a timed pass (every
+              collective timed), one step from the initial state with
+              seq_shard_activations against the plain step 1 likewise, flash
+              exactly twice a decoder layer on wgmma in each (8 a step);
+              then one fp32 step (phi-3-vision-4.2b cut to one layer,
+              seamless-m4t-medium to 1 + 1) within 1e-4 relative of the
+              plain fp32 step's loss and grad norm, every rank's block of
+              every updated parameter (w_patch, w_frame, the encoder, lnx
+              and the cross-attention included) within 1e-4 of the plain
+              step's and of every first moment within 1e-4 of its largest.
+              Prints each rank's step ms, collectives a step, their seconds
+              in the timed pass, peak memory and state bytes.  Phase 2
+              holds and times flash at each arch's rank shape: the flash
+              row gets those entries under at_other_shapes with these
+              launches.
 7. grads    — the flash Function (kernel forward, FA2 backward) against
               autograd through the dense plain version on the card: fp32
               on the fma variant, bf16 on wgmma at hd 128.
@@ -262,7 +295,7 @@ Phase 2 also holds the flash kernels' log-sum-exp (the backward's input)
 against the plain version on both variants and times the forward with it
 at the training shape and at a rank's shape in phase 6c, and holds and
 times every kernel at a rank's shape in phase 6d and flash at a rank's
-shape in phase 6e.
+shape in phases 6e and 6f.
 
 The line before the last is one JSON object with a row per kernel
 (flash_attention, ssd_scan, rglru_scan, ssd_scan_bwd, rglru_scan_bwd); the last
@@ -272,6 +305,7 @@ prints no result.
 
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import math
@@ -465,6 +499,38 @@ MESH_MOE_FP32_REF = os.path.join(ROOT, "build", "mesh_moe_fp32_ref.pt")
 #: (MHA: 8 kv heads too), hd 128
 MESH_MOE_FLASH = (TRAIN_BATCH // MESH_SHAPE[0], TRAIN_SEQ, DS.n_heads // MESH_SHAPE[1],
                   DS.n_kv_heads // MESH_SHAPE[1], DS.hd)
+# the sharded training of the multimodal families (phase 6f): the MESH_RANKS
+# ranks again as the (2, 2) ("data", "model") mesh, remat "dots", bf16
+# compute, batch TRAIN_BATCH × TRAIN_SEQ positions (a rank's block 1 × 2048):
+# phi-3-vision-4.2b at full width (32 MHA heads of 96, d_ff 8192) with its
+# 576-patch prefix before 1472 tokens, depth cut from 32 layers to 4 (653 M
+# parameters); seamless-m4t-medium at full width (16 MHA heads of 64, d_ff
+# 4096, its 256256-row padded vocab) with make_batch's 256 frames (L / 8)
+# before 2048 tokens, depth cut from 12 + 12 layers to 4 + 4 (677 M
+# parameters).  Each is held against the plain steps on the same state and
+# batches (MESH_TRAIN_LOSS_TOL, MESH_TRAIN_GNORM_RTOL), one step with
+# seq_shard_activations against the plain step 1 likewise, then one fp32
+# step against the plain fp32 step (MESH_TRAIN_FP32_RTOL,
+# MESH_TRAIN_PARAM_ATOL): phi-3-vision-4.2b cut to one layer,
+# seamless-m4t-medium to 1 + 1
+SEAMLESS = configs.get("seamless-m4t-medium")
+MESH_MM = {"phi-3-vision-4.2b": PHI.replace(n_layers=4, remat="dots"),
+           "seamless-m4t-medium": SEAMLESS.replace(n_layers=4, n_enc_layers=4, remat="dots")}
+MESH_MM_FP32 = {"phi-3-vision-4.2b": MESH_MM["phi-3-vision-4.2b"].replace(
+                    n_layers=1, compute_dtype="float32"),
+                "seamless-m4t-medium": MESH_MM["seamless-m4t-medium"].replace(
+                    n_layers=1, n_enc_layers=1, compute_dtype="float32")}
+#: the batches of phase 6f and the plain fp32 steps' leaves, which the parent
+#: writes for the ranks
+MESH_MM_INPUTS = os.path.join(ROOT, "build", "mesh_mm_inputs.pt")
+MESH_MM_FP32_REF = os.path.join(ROOT, "build", "mesh_mm_fp32_ref_{}.pt")
+#: a rank's flash call in phase 6f: its batch block and its half of the
+#: decoder's MHA heads (phi-3-vision-4.2b 16 of 32 at hd 96,
+#: seamless-m4t-medium 8 of 16 at hd 64); the encoder and the
+#: cross-attention run the dense plain attention
+MESH_MM_FLASH = {arch: (TRAIN_BATCH // MESH_SHAPE[0], TRAIN_SEQ, cfg.n_heads // MESH_SHAPE[1],
+                        cfg.n_kv_heads // MESH_SHAPE[1], cfg.hd)
+                 for arch, cfg in MESH_MM.items()}
 #: the variant each kernel runs in bf16 compute and in fp32
 BF16_VARIANTS = {"flash_attention": "wgmma", "ssd_scan": "mma", "ssd_scan_bwd": "mma",
                  "rglru_scan": "vec4", "rglru_scan_bwd": "vec4"}
@@ -1241,9 +1307,10 @@ def phase_rank_shapes() -> dict:
     """Each kernel at a rank's shape in phase 6d's sharded steps
     (MESH_REC_SSD, MESH_REC_RGLRU, MESH_REC_FLASH: bf16, so the mma, vec4
     and wgmma variants), and flash at a rank's shape in phase 6e's
-    (MESH_MOE_FLASH), held against its plain version and timed as at its
-    own shape; returns phase → kernel name → its entry at that shape (the
-    launches are the phase's, filled in after it)."""
+    (MESH_MOE_FLASH) and in phase 6f's for each arch (MESH_MM_FLASH), held
+    against its plain version and timed as at its own shape; returns phase
+    (``6f <arch>`` for phase 6f) → kernel name → its entry at that shape
+    (the launches are the phase's, filled in after it)."""
     bt, l, hl = MESH_REC_SSD
     rows = {"flash_attention": _flash_train_shape(MESH_REC_FLASH, seed=9, window=RG.window),
             "ssd_scan": _ssd_at(MAMBA.cdtype, bt, l, hl),
@@ -1263,6 +1330,11 @@ def phase_rank_shapes() -> dict:
     out["6e"]["flash_attention"] = {
         "at": "a rank's shape in the sharded MoE steps of phase 6e, (2, 2) mesh",
         **{k: row.get(k) for k in SHAPE_KEYS + ("lse_max_abs_err",)}}
+    for i, (arch, shape) in enumerate(MESH_MM_FLASH.items()):
+        row = _flash_train_shape(shape, seed=11 + i)
+        out[f"6f {arch}"] = {"flash_attention": {
+            "at": f"a rank's shape in the sharded {arch} steps of phase 6f, (2, 2) mesh",
+            **{k: row.get(k) for k in SHAPE_KEYS + ("lse_max_abs_err",)}}}
     _free()
     return out
 
@@ -2254,20 +2326,47 @@ def phase_mesh_train(plain: dict, fp32_ref: dict) -> tuple:
 
 
 # ==========================================================================
-# 6d. sharded training of the recurrent families, 4 gloo ranks
+# 6d, 6f. sharded training of several archs (the recurrent families, the
+# VLM and enc-dec families), 4 gloo ranks
 # ==========================================================================
 
 
-def _mesh_rec_references() -> dict:
-    """The plain steps phase 6d is held against, on the card before the
-    ranks start: per arch, TRAIN_STEPS bf16 steps of MESH_REC from _gen(0)
-    on make_batch's batches, and the fp32 step of MESH_REC_FP32 on the
-    first batch.  Writes the batches (MESH_REC_INPUTS) and the fp32 step's
-    updated parameters and first moments (MESH_REC_FP32_REF) for the ranks;
-    returns each arch's losses and grad norms."""
-    os.makedirs(os.path.dirname(MESH_REC_INPUTS), exist_ok=True)
+def _multimodal_leaf(path: str) -> bool:
+    """The leaves phase 6f's fp32 check prints apart: the patch and frame
+    projections, the cross-attention and its norm, the encoder."""
+    return (path in ("w_patch", "w_frame") or path.startswith("encoder/")
+            or "/lnx" in path or "/xattn/" in path)
+
+
+#: the phases that train several archs on the ranks: the log's tag, the
+#: bf16 configs and the fp32 ones by arch, the file of the batches and the
+#: pattern of the fp32 leaves' files the parent writes for the ranks, whether
+#: the ranks also run a step with seq_shard_activations, and the leaves
+#: (a label, a predicate on their paths) whose fp32 errors are printed apart
+MESH_ARCH_PHASES = {
+    "6d": {"tag": "mesh-rec", "cfgs": MESH_REC, "fp32": MESH_REC_FP32,
+           "inputs": MESH_REC_INPUTS, "ref": MESH_REC_FP32_REF, "seq_step": False,
+           "focus": ("the per-head vectors",
+                     lambda n: n.rsplit("/", 1)[-1] in ("A_log", "D", "dt_bias"))},
+    "6f": {"tag": "mesh-mm", "cfgs": MESH_MM, "fp32": MESH_MM_FP32,
+           "inputs": MESH_MM_INPUTS, "ref": MESH_MM_FP32_REF, "seq_step": True,
+           "focus": ("the multimodal leaves", _multimodal_leaf)},
+}
+
+
+def _plain_references(phase: str) -> dict:
+    """The plain steps a phase of MESH_ARCH_PHASES is held against, on the
+    card before the ranks start: per arch, TRAIN_STEPS bf16 steps from
+    _gen(0) on make_batch's batches (each step's ms, positions/s and
+    launches, exact on the bf16 variants; the peak memory), and the fp32
+    step on the first batch.  Writes the batches and the fp32 steps'
+    updated parameters and first moments for the ranks; returns each arch's
+    record."""
+    p = MESH_ARCH_PHASES[phase]
+    os.makedirs(os.path.dirname(p["inputs"]), exist_ok=True)
     refs, inputs = {}, {}
-    for arch, cfg in MESH_REC.items():
+    for arch, cfg in p["cfgs"].items():
+        _free()
         t0 = time.perf_counter()
         batches = [batch_to(make_batch(cfg, TRAIN_SEQ, TRAIN_BATCH, step=s), "cpu")
                    for s in range(TRAIN_STEPS)]
@@ -2275,13 +2374,23 @@ def _mesh_rec_references() -> dict:
         t_data = time.perf_counter() - t0
         state = train_state_init(_gen(0), cfg, device="cuda")
         step_fn = make_train_step(cfg, lr=3e-4)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        want = _train_launches(cfg)
         steps = []
-        for b in batches:
-            state, m = step_fn(state, batch_to(b, "cuda"))
-            steps.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])})
-        del state, m
+        for i, b in enumerate(batches):
+            state, rec = _sharded_step(step_fn, state, batch_to(b, "cuda"))
+            rec["positions_per_s"] = TRAIN_BATCH * TRAIN_SEQ / rec["step_ms"] * 1e3
+            steps.append(rec)
+            if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])):
+                _fail(f"{arch} plain step {i + 1}: {rec}")
+            if rec["launches"] != want or rec["variants"] != _on_variants(want, BF16_VARIANTS):
+                _fail(f"{arch} plain step {i + 1}: launches {rec['variants']}, not {want} on "
+                      f"{BF16_VARIANTS}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del state
         _free()
-        f32 = MESH_REC_FP32[arch]
+        f32 = p["fp32"][arch]
         state = train_state_init(_gen(0), f32, device="cuda")
         new, m = make_train_step(f32, lr=3e-4)(state, batch_to(batches[0], "cuda"))
         fp32_step = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
@@ -2290,28 +2399,39 @@ def _mesh_rec_references() -> dict:
         t1 = time.perf_counter()
         torch.save({k: [t.cpu() for t in tree_leaves(tree)]
                     for k, tree in (("params", new["params"]), ("m", new["opt"]["m"]))},
-                   MESH_REC_FP32_REF.format(arch))
+                   p["ref"].format(arch))
         del new
         _free()
-        refs[arch] = {"steps": steps, "fp32_step": fp32_step}
-        _log(f"[mesh-rec] plain references, {arch}: {cfg.n_layers} layers, batch "
-             f"{TRAIN_BATCH} x {TRAIN_SEQ}: " + "; ".join(
-                 f"step {i + 1} loss {d['loss']:.6f} grad norm {d['grad_norm']:.6f}"
-                 for i, d in enumerate(steps))
-             + f"; fp32 {f32.n_layers}-layer step {fp32_step}; {time.perf_counter() - t0:.1f}s "
+        modal = {k: list(v.shape) for k, v in batches[0].items() if k in ("patches", "frames")}
+        refs[arch] = {"steps": steps, "fp32_step": fp32_step, "peak_mem_gb": peak,
+                      "params_b": cfg.param_count() / 1e9, "inputs": modal}
+        _log(f"[{p['tag']}] plain references, {arch}: width {cfg.d_model}, {cfg.n_layers} "
+             + (f"+ {cfg.n_enc_layers} " if cfg.enc_dec else "")
+             + f"layers, {cfg.param_count() / 1e9:.3f} B params, tokens "
+             f"{list(batches[0]['tokens'].shape)}" + (f", {modal}" if modal else "") + ": "
+             + "; ".join(f"step {i + 1} loss {d['loss']:.6f} grad norm {d['grad_norm']:.6f}, "
+                         f"{d['step_ms']:.1f} ms, {d['positions_per_s']:.1f} positions/s"
+                         for i, d in enumerate(steps))
+             + f"; peak memory {peak:.2f} GB; launches a step "
+             f"{ {k: n for k, n in want.items() if n} } (bf16 variants); fp32 "
+             f"{f32.n_layers}-layer step {fp32_step}; {time.perf_counter() - t0:.1f}s "
              f"({t_data:.1f}s of batches, {time.perf_counter() - t1:.1f}s writing the fp32 "
              f"leaves)")
-    torch.save(inputs, MESH_REC_INPUTS)
+    torch.save(inputs, p["inputs"])
     return refs
 
 
-def _mesh_rec_arch(arch: str, ctx, batches: list) -> dict:
-    """One arch on this rank: MESH_REC[arch]'s state rebuilt from _gen(0)
-    with this rank's blocks kept, TRAIN_STEPS sharded steps, a timed pass
-    (a further step on the first batch, every collective timed on the host
-    clock after a synchronise), then the fp32 step of MESH_REC_FP32[arch]
-    with its blocks against the plain step's."""
-    cfg = MESH_REC[arch]
+def _mesh_arch(phase: str, arch: str, mesh, batches: list) -> dict:
+    """One arch of a phase of MESH_ARCH_PHASES on this rank: its state
+    rebuilt from _gen(0) with this rank's blocks kept, TRAIN_STEPS sharded
+    steps, a timed pass (a further step on the first batch, every
+    collective timed on the host clock after a synchronise), where the
+    phase asks for it one step from the initial state on the first batch
+    with seq_shard_activations, then the fp32 step with its blocks against
+    the plain step's."""
+    p = MESH_ARCH_PHASES[phase]
+    cfg, f32 = p["cfgs"][arch], p["fp32"][arch]
+    ctx = launch_mesh.make_ctx(mesh)
     state = _sharded_state(cfg, _gen(0), ctx)
     r = {"state_gb": sum(t.to_local().numel() * t.to_local().element_size()
                          for t in tree_leaves(state) if mesh_ctx.is_distributed(t)) / 1e9}
@@ -2330,15 +2450,20 @@ def _mesh_rec_arch(arch: str, ctx, batches: list) -> dict:
         timed["collective_s"] = mesh_ctx.collective_stats["seconds"]
         r["timed"] = timed
         mesh_ctx.reset_collective_stats()
-    r["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     del state
     _free()
-    f32 = MESH_REC_FP32[arch]
+    if p["seq_step"]:
+        state = _sharded_state(cfg, _gen(0), ctx)
+        with mesh_context(launch_mesh.make_ctx(mesh, seq_shard_activations=True)):
+            _, r["seq_step"] = _sharded_step(step_fn, state, batches[0])
+        del state
+        _free()
+    r["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     state = _sharded_state(f32, _gen(0), ctx)
     with mesh_context(ctx):
         state, r["fp32_step"] = _sharded_step(make_train_step(f32, lr=3e-4), state,
                                               batches[0])
-    plain = torch.load(MESH_REC_FP32_REF.format(arch), mmap=True)
+    plain = torch.load(p["ref"].format(arch), mmap=True)
     r["fp32_leaves"] = _leaf_paths(state["params"])
     r["fp32_params_max_err"] = _against_plain(state["params"], plain["params"], ctx, False)
     r["fp32_m_rel_err"] = _against_plain(state["opt"]["m"], plain["m"], ctx, True)
@@ -2347,14 +2472,15 @@ def _mesh_rec_arch(arch: str, ctx, batches: list) -> dict:
     return r
 
 
-def _mesh_rec_rank(rank: int, world: int, directory: str) -> None:
-    """One rank of phase 6d: each arch of MESH_REC on this rank's blocks of
-    the parent's batches.  Writes ``<directory>/rank<r>.json``."""
+def _mesh_archs_rank(phase: str, rank: int, world: int, directory: str) -> None:
+    """One rank of a phase of MESH_ARCH_PHASES: each of its archs on this
+    rank's blocks of the parent's batches.  Writes
+    ``<directory>/rank<r>.json``."""
     mesh, r = _rank_mesh(rank, world, directory)
-    ctx = launch_mesh.make_ctx(mesh)
-    inputs = torch.load(MESH_REC_INPUTS)
-    for arch in MESH_REC:
-        r[arch] = _mesh_rec_arch(arch, ctx, [batch_to(b, "cuda") for b in inputs[arch]])
+    p = MESH_ARCH_PHASES[phase]
+    inputs = torch.load(p["inputs"])
+    for arch in p["cfgs"]:
+        r[arch] = _mesh_arch(phase, arch, mesh, [batch_to(b, "cuda") for b in inputs[arch]])
     with open(os.path.join(directory, f"rank{rank}.json"), "w") as f:
         json.dump(r, f)
     dist.destroy_process_group()
@@ -2364,8 +2490,10 @@ def _check_sharded(tag: str, who: str, a: dict, cfg, f32, plain: dict, focus: tu
     """One rank's record ``a`` of the sharded steps of ``cfg`` (and the fp32
     step of ``f32``) against the plain steps: fails unless every bf16
     step's loss is within MESH_TRAIN_LOSS_TOL and its grad norm within
-    MESH_TRAIN_GNORM_RTOL, every bf16 step (the timed pass, and a
-    capacity-factor step ``cf_step`` where the record has one, included)
+    MESH_TRAIN_GNORM_RTOL (a ``seq_step`` under seq_shard_activations,
+    where the record has one, against the plain step 1), every bf16 step
+    (the timed pass, and a capacity-factor step ``cf_step`` where the
+    record has one, included)
     launches exactly _train_launches on the bf16 variants, the fp32 step's
     loss and grad norm are within MESH_TRAIN_FP32_RTOL with its launches on
     the fp32 variants, and the rank's block of every updated parameter is
@@ -2374,15 +2502,16 @@ def _check_sharded(tag: str, who: str, a: dict, cfg, f32, plain: dict, focus: tu
     predicate on leaf paths): those leaves' errors are printed apart."""
     want_launches = _train_launches(cfg)
     want_variants = _on_variants(want_launches, BF16_VARIANTS)
-    extra = [a["timed"]] + ([a["cf_step"]] if "cf_step" in a else [])
-    for i, (got, want) in enumerate(zip(a["steps"] + extra,
-                                        plain["steps"] + [None] * len(extra))):
-        if want is not None:
-            what = f"step {i + 1}"
-        elif "collective_s" in got:
-            what = "timed pass (step 1's batch)"
-        else:
-            what = f"capacity factor {got['capacity_factor']} step (step 1's batch)"
+    recs = [(f"step {i + 1}", got, want)
+            for i, (got, want) in enumerate(zip(a["steps"], plain["steps"], strict=True))]
+    if "seq_step" in a:
+        recs.append(("seq_shard_activations step (step 1's state and batch)", a["seq_step"],
+                     plain["steps"][0]))
+    recs.append(("timed pass (step 1's batch)", a["timed"], None))
+    if "cf_step" in a:
+        recs.append((f"capacity factor {a['cf_step']['capacity_factor']} step (step 1's "
+                     f"batch)", a["cf_step"], None))
+    for what, got, want in recs:
         line = f"[{tag}] {who} {what}: loss {got['loss']:.6f}"
         if want is not None:
             dl = abs(got["loss"] - want["loss"])
@@ -2390,7 +2519,7 @@ def _check_sharded(tag: str, who: str, a: dict, cfg, f32, plain: dict, focus: tu
             line += (f" (plain {want['loss']:.6f}, |d| {dl:.3e}), grad norm "
                      f"{got['grad_norm']:.6f} (plain {want['grad_norm']:.6f}, rel {dg:.3e})")
             if not (dl <= MESH_TRAIN_LOSS_TOL and dg <= MESH_TRAIN_GNORM_RTOL):
-                _fail(f"{who} sharded step {i + 1}: {got} against plain {want}")
+                _fail(f"{who} sharded {what}: {got} against plain {want}")
         elif "collective_s" in got:
             line += (f", {got['collective_s']:.3f} s of {got['step_ms']:.1f} ms in its "
                      f"collectives (host clock, each after a synchronise)")
@@ -2432,52 +2561,75 @@ def _check_sharded(tag: str, who: str, a: dict, cfg, f32, plain: dict, focus: tu
         _fail(f"{who} fp32 sharded step: launches {got['variants']}")
 
 
-def phase_mesh_train_recurrent() -> tuple:
-    """Phase 6d: the plain references (:func:`_mesh_rec_references`), the
-    MESH_RANKS ranks (:func:`_mesh_rec_rank`), each rank's record checked
-    (:func:`_check_sharded`).  Returns (the phase's launches as a path's,
-    its launches by variant, the launches at a rank's shape of the bf16
-    steps and timed passes on all ranks, the ranks' records)."""
+def _add_launches(total: dict, by_variant: dict, recs: list) -> None:
+    """Add the records' launches into ``total`` (kernel → count) and
+    ``by_variant`` (kernel → variant → count)."""
+    for rec in recs:
+        for k, n in rec["launches"].items():
+            total[k] += n
+        for k, by in rec["variants"].items():
+            for v, n in by.items():
+                by_variant[k][v] += n
+
+
+def phase_mesh_train_archs(phase: str) -> tuple:
+    """Phase 6d or 6f (MESH_ARCH_PHASES): the plain references
+    (:func:`_plain_references`), the MESH_RANKS ranks
+    (:func:`_mesh_archs_rank`), each rank's record checked
+    (:func:`_check_sharded`); fails unless each arch's sharded steps
+    launched every kernel its config launches.  Returns (the plain steps'
+    records, their launches, by variant; the ranks' launches, by variant,
+    per arch the launches at a rank's shape of the bf16 steps, the
+    seq_shard_activations steps and the timed passes on all ranks; the
+    ranks' records)."""
+    p = MESH_ARCH_PHASES[phase]
+    tag, cfgs = p["tag"], p["cfgs"]
     t0 = time.perf_counter()
-    plain = _mesh_rec_references()
-    ranks, seconds = _spawn_ranks(_mesh_rec_rank, MESH_TRAIN_TIMEOUT)
-    os.remove(MESH_REC_INPUTS)
-    for arch in MESH_REC:
-        os.remove(MESH_REC_FP32_REF.format(arch))
-    _log(f"[mesh-rec] {MESH_RANKS} ranks in {seconds:.1f}s: mesh "
+    plain = _plain_references(phase)
+    ranks, seconds = _spawn_ranks(functools.partial(_mesh_archs_rank, phase),
+                                  MESH_TRAIN_TIMEOUT)
+    os.remove(p["inputs"])
+    for arch in cfgs:
+        os.remove(p["ref"].format(arch))
+    _log(f"[{tag}] {MESH_RANKS} ranks in {seconds:.1f}s: mesh "
          f"{dict(zip(MESH_AXES, MESH_SHAPE))}, batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
-         + ", ".join(f"{arch} {cfg.n_layers} layers (a rank's state "
-                     f"{ranks[0][arch]['state_gb']:.3f} GB)" for arch, cfg in MESH_REC.items()))
-    launches = dict.fromkeys(ops.launches, 0)
-    variants = {k: dict.fromkeys(v, 0) for k, v in _variant_launches().items()}
-    at_rank_shape = dict.fromkeys(ops.launches, 0)
+         + ", ".join(f"{arch} {cfg.n_layers}" + (f" + {cfg.n_enc_layers}" if cfg.enc_dec else "")
+                     + f" layers (a rank's state {ranks[0][arch]['state_gb']:.3f} GB)"
+                     for arch, cfg in cfgs.items()))
+
+    def zeros():
+        return (dict.fromkeys(ops.launches, 0),
+                {k: dict.fromkeys(v, 0) for k, v in _variant_launches().items()})
+
+    plain_launches, plain_variants = zeros()
+    _add_launches(plain_launches, plain_variants, [s for a in plain.values() for s in a["steps"]])
+    launches, variants = zeros()
+    at_rank_shape = {arch: dict.fromkeys(ops.launches, 0) for arch in cfgs}
     for r in ranks:
-        for arch in MESH_REC:
-            _check_sharded("mesh-rec", f"rank {r['rank']} {r['coord']} {arch}", r[arch],
-                           MESH_REC[arch], MESH_REC_FP32[arch], plain[arch],
-                           ("the per-head vectors", lambda n: n.rsplit("/", 1)[-1] in
-                            ("A_log", "D", "dt_bias")))
+        for arch in cfgs:
             a = r[arch]
-            for rec in a["steps"] + [a["timed"], a["fp32_step"]]:
-                for k, n in rec["launches"].items():
-                    launches[k] += n
-                for k, by in rec["variants"].items():
-                    for v, n in by.items():
-                        variants[k][v] += n
-            for rec in a["steps"] + [a["timed"]]:
-                for k, n in rec["launches"].items():
-                    at_rank_shape[k] += n
+            _check_sharded(tag, f"rank {r['rank']} {r['coord']} {arch}", a, cfgs[arch],
+                           p["fp32"][arch], plain[arch], p["focus"])
+            bf16 = a["steps"] + [a[k] for k in ("seq_step",) if k in a] + [a["timed"]]
+            _add_launches(launches, variants, bf16 + [a["fp32_step"]])
+            _add_launches(at_rank_shape[arch], zeros()[1], bf16)
             steps = a["steps"]
-            _log(f"[mesh-rec] rank {r['rank']} {arch}: step ms "
-                 f"{_ms_list([s['step_ms'] for s in steps])}, {steps[-1]['collectives']} "
-                 f"collectives a step, {a['timed']['collective_s']:.3f} s of them in the timed "
-                 f"pass's {a['timed']['step_ms']:.1f} ms; peak memory {a['peak_mem_gb']:.2f} GB")
-    missing = [k for k, n in launches.items() if not n]
-    if missing:
-        _fail(f"phase 6d launched no {missing}")
-    _log(f"[mesh-rec] phase took {time.perf_counter() - t0:.1f}s; launches on all ranks "
+            _log(f"[{tag}] rank {r['rank']} {arch}: step ms "
+                 f"{_ms_list([s['step_ms'] for s in steps])}"
+                 + (f", seq_shard_activations step {a['seq_step']['step_ms']:.1f} ms "
+                    f"({a['seq_step']['collectives']} collectives)" if "seq_step" in a else "")
+                 + f", {steps[-1]['collectives']} collectives a step, "
+                 f"{a['timed']['collective_s']:.3f} s of them in the timed pass's "
+                 f"{a['timed']['step_ms']:.1f} ms; peak memory {a['peak_mem_gb']:.2f} GB (the "
+                 f"plain single process: {plain[arch]['peak_mem_gb']:.2f} GB), state "
+                 f"{a['state_gb']:.3f} GB")
+    for arch, cfg in cfgs.items():
+        missing = [k for k, n in _train_launches(cfg).items() if n and not at_rank_shape[arch][k]]
+        if missing:
+            _fail(f"phase {phase} launched no {missing} in {arch}'s sharded steps")
+    _log(f"[{tag}] phase took {time.perf_counter() - t0:.1f}s; launches on all ranks "
          f"{launches}")
-    return launches, variants, at_rank_shape, ranks
+    return plain, plain_launches, plain_variants, launches, variants, at_rank_shape, ranks
 
 
 # ==========================================================================
@@ -2950,21 +3102,36 @@ def main(argv=None) -> int:
         for k, row in rows.items():
             for v, n in r["variants"][k].items():
                 row["launches_by_variant"][v] += n
-    mesh_rec, mesh_moe, extra_variants = None, None, []
+    mesh_rec, mesh_moe, mesh_mm, extra_variants = None, None, None, []
     at_rank_shape = {p: dict.fromkeys(ops.launches, 0) for p in rank_rows}
     if argv != ["--skip-mesh"]:
-        rec_path = f"mesh train recurrent: {MESH_RANKS} ranks, " + ", ".join(
-            f"{arch} {cfg.n_layers}L" for arch, cfg in MESH_REC.items())
-        by_path[rec_path], rec_variants, at_rank_shape["6d"], mesh_rec = \
-            phase_mesh_train_recurrent()
+        def train_paths(phase: str, what: str) -> tuple:
+            """A phase of MESH_ARCH_PHASES: its plain and sharded steps as
+            two paths, and their launches by variant."""
+            plain, plain_path, plain_variants, path, variants, at_rank, ranks = \
+                phase_mesh_train_archs(phase)
+            cfgs = MESH_ARCH_PHASES[phase]["cfgs"]
+            by_path[", ".join(f"{arch} train ({cfg.n_layers}"
+                              + (f" + {cfg.n_enc_layers}" if cfg.enc_dec else "")
+                              + f" layers, {TRAIN_STEPS} steps)"
+                              for arch, cfg in cfgs.items())] = plain_path
+            by_path[f"mesh train {what}: {MESH_RANKS} ranks, " + ", ".join(
+                f"{arch} {cfg.n_layers}L" for arch, cfg in cfgs.items())] = path
+            return at_rank, {"plain": plain, "ranks": ranks}, [plain_variants, variants]
+
+        rec_at_rank, mesh_rec, rec_variants = train_paths("6d", "recurrent")
+        at_rank_shape["6d"] = {k: sum(n[k] for n in rec_at_rank.values()) for k in ops.launches}
         plain_moe, plain_path, plain_variants, moe_path, moe_variants, at_rank_shape["6e"], \
             moe_ranks = phase_mesh_train_moe()
         by_path[f"deepseek-moe-16b train ({MESH_MOE.n_layers} layers, {TRAIN_STEPS} steps, "
                 f"no_drop)"] = plain_path
         by_path[f"mesh train MoE: {MESH_RANKS} ranks, deepseek-moe-16b "
                 f"{MESH_MOE.n_layers}L"] = moe_path
-        extra_variants = [rec_variants, plain_variants, moe_variants]
         mesh_moe = {"plain": plain_moe, "ranks": moe_ranks}
+        mm_at_rank, mesh_mm, mm_variants = train_paths("6f", "multimodal")
+        for arch, n in mm_at_rank.items():
+            at_rank_shape[f"6f {arch}"] = n
+        extra_variants = rec_variants + [plain_variants, moe_variants] + mm_variants
     rows.update(bwd_rows)
     for name, row in rows.items():      # the dry run's count beside the row's own
         row["dryrun"] = dry_kernels[name]
@@ -3008,7 +3175,7 @@ def main(argv=None) -> int:
         json.dump({"card": smi, **kernels, "train": train, "train_recurrent": recurrent,
                    "train_grads_max_err": grads, "commit": commit, "vlm_prefix": prefix,
                    "mesh": mesh, "mesh_train": mesh_train, "mesh_train_recurrent": mesh_rec,
-                   "mesh_train_moe": mesh_moe,
+                   "mesh_train_moe": mesh_moe, "mesh_train_multimodal": mesh_mm,
                    "dryrun": dry_cells},
                   f, indent=1)
     print(json.dumps(kernels))

@@ -19,15 +19,16 @@ The port of :mod:`repro.models.attention`:
     with its slots over the model axis decodes through the flash-decoding
     :func:`_decode_seqshard`, a two-phase softmax over the ranks' slot
     blocks;
-  * on local blocks (the sharded train step), causal self-attention
-    (:func:`apply_with_kv`) is Megatron's tensor-parallel attention: q/k/v
-    column-parallel, the reference's heads hint before flash, ``wo``
-    row-parallel.  Off local blocks the parameter reads and the
-    tensor-parallel entry and exit are identities.
+  * on local blocks (the sharded train step), every attention
+    (:func:`_tp_attend`: causal, non-causal and cross) is Megatron's
+    tensor-parallel attention: q/k/v column-parallel, the reference's heads
+    hint before the attention, ``wo`` row-parallel.  Off local blocks the
+    parameter reads and the tensor-parallel entry and exit are identities.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -38,7 +39,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import flash
 from repro_torch.models.common import (ModelConfig, apply_rope, dense_init,
                                        rope_angles, softcap)
-from repro_torch.parallel.mesh_ctx import (SHARDED_TODO, all_reduce, blocks_ctx, constrain,
+from repro_torch.parallel.mesh_ctx import (all_reduce, blocks_ctx, constrain,
                                            current_ctx, gather_dim0, is_distributed, spec_axes,
                                            tp_input, tp_output)
 from repro_torch.parallel.sharding import local_slices, param_spec, spec_of, use_param
@@ -146,16 +147,16 @@ def _flash_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _project(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor, name: str,
-             heads: int) -> torch.Tensor:
-    """x @ w{name} (+ b{name}) → [B, L, heads, hd].  On local blocks the
-    product is column-parallel (``w{name}`` and ``b{name}`` are (fsdp, model)
-    and (model,) by the rule table) and the heads hint follows: the heads
-    returned are this rank's (:func:`_heads_constraint`)."""
+             heads: int, *, bias: bool = True) -> torch.Tensor:
+    """x @ w{name} (+ b{name} when ``bias``) → [B, L, heads, hd].  On local
+    blocks the product is column-parallel (``w{name}`` and ``b{name}`` are
+    (fsdp, model) and (model,) by the rule table) and the heads hint
+    follows: the heads returned are this rank's (:func:`_heads_constraint`)."""
     b, l, _ = x.shape
     ct, n = cfg.cdtype, heads * cfg.hd
     y = x @ use_param(params["w" + name], "w" + name, (cfg.d_model, n),
                       model_partial=True).to(ct)
-    if "b" + name in params:
+    if bias and "b" + name in params:
         y = y + use_param(params["b" + name], "b" + name, (n,), model_partial=True).to(ct)
     if blocks_ctx() is not None:
         return _heads_constraint(y, name, heads, cfg)
@@ -183,58 +184,61 @@ def apply(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
     Causal self-attention goes through the flash path.  Without ``causal``,
     and always under ``kv_override``, the dense ``_sdpa`` runs with no mask,
     as in the reference: under ``kv_override`` q gets no RoPE and
-    ``causal`` is not read (``positions`` may be None).
+    ``causal`` is not read (``positions`` may be None).  On local blocks
+    both are tensor-parallel as :func:`apply_with_kv` is (:func:`_tp_attend`).
     """
     if kv_override is None and causal:
         return apply_with_kv(params, cfg, x, positions, window=window)[0]
-    if blocks_ctx() is not None:
-        raise NotImplementedError(f"on local blocks only causal self-attention is ported "
-                                  f"({SHARDED_TODO})")
-    b, l, _ = x.shape
-    hd, ct = cfg.hd, cfg.cdtype
-    if kv_override is None:
-        q, k, v = _project_qkv(params, cfg, x)
-        cos, sin = rope_angles(positions, hd, cfg.rope_theta)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-    else:
-        q = _project(params, cfg, x, "q", cfg.n_heads)
-        k, v = kv_override
-    out = _sdpa(q, k, v, None, cfg.attn_softcap)
-    return out.reshape(b, l, cfg.n_heads * hd) @ params["wo"].to(ct)
+    dense = functools.partial(_sdpa, mask=None, cap=cfg.attn_softcap)
+    return _tp_attend(params, cfg, x, positions, kv_override, dense)[0]
 
 
 def apply_with_kv(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
                   positions: torch.Tensor, *, window: int = 0
                   ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Causal self-attention that also returns the post-RoPE (k, v), so the
-    caller can seed a decode cache.
+    caller can seed a decode cache: flash on :func:`_tp_attend`'s heads."""
+    flash_causal = functools.partial(_flash_causal, window=window, cap=cfg.attn_softcap)
+    return _tp_attend(params, cfg, x, positions, None, flash_causal)
+
+
+def _tp_attend(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
+               positions: Optional[torch.Tensor],
+               kv: Optional[Tuple[torch.Tensor, torch.Tensor]], attend
+               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Attention of ``x`` by ``attend(q, k, v)`` → [B, L, heads, hd], with
+    q, k, v projected from ``x`` and roped at ``positions`` (self-attention)
+    or q projected with no RoPE against ``kv``, the memory's projected (k,
+    v) (cross-attention).  Returns (out [B, L, D], the (k, v) attended).
 
     On local blocks ``x`` is this rank's block at the block boundary and
     ``positions`` [B/batch, L] the whole sequence's: the input enters the
-    column-parallel q/k/v through ``tp_input``, then the heads hint
-    (:func:`_project`).  Where the hint leaves the kv heads unsharded (the
-    model axis splits a kv head, or does not divide ``n_kv_heads·hd`` at
-    all), k/v are whole on every rank and each rank takes the kv heads its
-    q heads read.  Flash runs the rank's heads through the existing path
-    (the kernel on the card, the plain version on the CPU); RoPE follows
-    the hint, on whole heads.  ``wo`` is (model, fsdp): the row-parallel
-    product's partial sum leaves through ``tp_output``.  A rank whose q
-    heads were gathered (the model axis does not divide ``n_heads``) keeps
-    its block of the output's columns, the rows of its ``wo`` block.  The
-    (k, v) returned are then this rank's."""
+    column-parallel projections through ``tp_input``, then the heads hint
+    (:func:`_project`; :func:`project_kv` gives ``kv`` in the same layout).
+    Where the hint leaves the kv heads unsharded (the model axis splits a
+    kv head, or does not divide ``n_kv_heads·hd`` at all), k/v are whole on
+    every rank and each rank takes the kv heads its q heads read.  RoPE
+    follows the hint, on whole heads.  ``wo`` is (model, fsdp): the
+    row-parallel product's partial sum leaves through ``tp_output``.  A
+    rank whose q heads were gathered (the model axis does not divide
+    ``n_heads``) keeps its block of the output's columns, the rows of its
+    ``wo`` block.  The (k, v) returned are then this rank's."""
     hd, ct = cfg.hd, cfg.cdtype
     x = tp_input(x)
     b, l, _ = x.shape
-    q, k, v = _project_qkv(params, cfg, x)
-    cos, sin = rope_angles(positions, hd, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if kv is None:
+        q, k, v = _project_qkv(params, cfg, x)
+        cos, sin = rope_angles(positions, hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    else:
+        q = _project(params, cfg, x, "q", cfg.n_heads)
+        k, v = kv
     ctx, hl = blocks_ctx(), q.shape[2]
     if hl < cfg.n_heads and k.shape[2] == cfg.n_kv_heads:    # this rank's q heads only
         h0 = ctx.coord(ctx.model_axis) * hl
         k, v = _local_kv(k, cfg, h0, hl), _local_kv(v, cfg, h0, hl)
-    out = _flash_causal(q, k, v, window=window, cap=cfg.attn_softcap).reshape(b, l, hl * hd)
+    out = attend(q, k, v).reshape(b, l, hl * hd)
     if ctx is not None and hl == cfg.n_heads and ctx.model_size > 1:    # gathered heads
         c = hl * hd // ctx.model_size
         out = out.narrow(-1, ctx.coord(ctx.model_axis) * c, c)
@@ -277,12 +281,14 @@ def project_kv(params: Dict[str, Any], cfg: ModelConfig, mem: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Encoder memory [B,S,D] → cross-attention (k, v) [B,S,Hkv,hd], projected
     once and reused by every decode step.  No ``bk``/``bv`` bias and no
-    RoPE, as in the reference."""
-    b, s, _ = mem.shape
-    ct = cfg.cdtype
-    k = (mem @ params["wk"].to(ct)).reshape(b, s, cfg.n_kv_heads, cfg.hd)
-    v = (mem @ params["wv"].to(ct)).reshape(b, s, cfg.n_kv_heads, cfg.hd)
-    return k, v
+    RoPE, as in the reference.  On local blocks ``mem`` is in the block
+    boundary's layout and enters through ``tp_input`` (the frames' sequence
+    gathered over the model axis under ``seq_shard_activations``): the
+    products are column-parallel and the kv heads returned follow the heads
+    hint, as :func:`_project`'s."""
+    mem = tp_input(mem)
+    return (_project(params, cfg, mem, "k", cfg.n_kv_heads, bias=False),
+            _project(params, cfg, mem, "v", cfg.n_kv_heads, bias=False))
 
 
 # ==========================================================================

@@ -31,17 +31,22 @@ memory that a cross-attention in every decoder block reads, and the decode
 cache keeps its projected ``mk``/``mv``.
 
 Sharded training (``MeshCtx.local_blocks``, set by the sharded train step
-for the dense attention families, the MoE family and the recurrent ones,
-:func:`check_sharded`): every function runs on this rank's blocks, the
-stacked groups and the remainder layers alike; the "ssm" and "rglru"
-layers are tensor-parallel over the heads and the lru width
+for the dense attention families, the VLM with its patch prefix, the
+enc-dec encoder and cross-attention, the MoE family and the recurrent
+ones, :func:`check_sharded`): every function runs on this rank's blocks,
+the stacked groups, the remainder layers and the encoder's blocks alike;
+attention (causal, the encoder's non-causal and the cross-attention) and
+the MLPs are tensor-parallel over the heads and ``d_ff``, the "ssm" and
+"rglru" layers over the heads and the lru width
 (:mod:`repro_torch.models.ssm`, :mod:`repro_torch.models.rglru`), the MoE
 layers expert-parallel over the model axis with a load-balance loss over
 every token (:mod:`repro_torch.models.moe`).  The
 embedding is vocab-parallel (``embed`` is
 (model, fsdp) by the rule table: the rank's rows looked up, the rest
-masked, the sum over the model axis), and its output is placed in the
-block boundary's layout (batch-sharded, and sequence-sharded with
+masked, the sum over the model axis); the patch prefix (``w_patch``) and
+the frames' projection (``w_frame``) are replicated.  The embedding's
+output (with its patch prefix) and the frames' projection are placed in
+the block boundary's layout (batch-sharded, and sequence-sharded with
 ``seq_shard_activations``) by ``constrain_batch``.  The residual stream
 stays in that layout: each row-parallel product leaves through
 ``tp_output``, so the reference's ``_cb`` at the other block boundaries
@@ -216,7 +221,7 @@ def _block_apply(cfg: ModelConfig, kind: str, p: Dict[str, Any], x: torch.Tensor
         a = rms_norm(a, _scale(p, "ln1b", cfg), cfg.rms_eps)
     x = x + a
     if "xattn" in p:
-        h = rms_norm(x, p["lnx"], cfg.rms_eps)
+        h = rms_norm(x, _scale(p, "lnx", cfg), cfg.rms_eps)
         mk, mv = attention.project_kv(p["xattn"], cfg, memory)
         x = x + attention.apply(p["xattn"], cfg, h, positions, kv_override=(mk, mv))
         if collect_kv:
@@ -339,7 +344,12 @@ def _embed(params, cfg: ModelConfig, tokens: torch.Tensor,
     """Token embeddings [B, Lt, D]; in a VLM config with ``patches`` [B, P,
     1024] the projected patches come first, [B, P + Lt, D].  On local blocks
     the lookup is vocab-parallel: this rank's rows of ``embed``, the tokens
-    outside them masked to zero, summed over the model axis."""
+    outside them masked to zero, summed over the model axis; ``w_patch`` is
+    replicated and meets the rank's whole batch block (its gradient is
+    summed over the batch axes only: the sequence is cut after the
+    concatenation, and the cut's backward joins the blocks' gradients).
+    The result is placed in the block boundary's layout, the whole P + Lt
+    sequence cut under ``seq_shard_activations``."""
     ct = cfg.cdtype
     ctx = blocks_ctx()
     if ctx is None:
@@ -354,7 +364,8 @@ def _embed(params, cfg: ModelConfig, tokens: torch.Tensor,
     if cfg.embed_scale:
         x = x * torch.full((), cfg.d_model ** 0.5, dtype=ct, device=x.device)
     if cfg.n_patches and patches is not None:
-        x = torch.cat([patches.to(ct) @ params["w_patch"].to(ct), x], dim=1)
+        w = use_param(params["w_patch"], "w_patch", (1024, cfg.d_model))
+        x = torch.cat([patches.to(ct) @ w.to(ct), x], dim=1)
     return x if ctx is None else constrain_batch(x, src=(tuple(ctx.batch_axes),))
 
 
@@ -375,28 +386,25 @@ def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def check_sharded(cfg: ModelConfig, ctx, *, seq_len: Optional[int] = None,
-                  patches: Optional[torch.Tensor] = None) -> None:
+                  patches: Optional[torch.Tensor] = None,
+                  frames: Optional[torch.Tensor] = None) -> None:
     """Raise unless the sharded step runs ``cfg`` on ``ctx``'s mesh: the
     dense attention families ("attn" and "local" layers, a dense MLP, q/k/v
-    biases, tied embeddings, both softcaps), the MoE family (expert
+    biases, tied embeddings, both softcaps), the VLM with its patch prefix,
+    the enc-dec encoder and cross-attention, the MoE family (expert
     parallel, :func:`repro_torch.models.moe.apply_blocks`) and the
     recurrent ones ("ssm" and "rglru" layers), with the model axis dividing
     what it splits: the fused q heads, ``d_ff`` of a dense MLP, the experts
     and the shared experts' width, the SSM's heads and inner width, the
-    RG-LRU width and the padded vocab, and under ``seq_shard_activations``
-    the sequence.  Where it does not, the rule table's guard would drop the
+    RG-LRU width and the padded vocab (``NotImplementedError``), and under
+    ``seq_shard_activations`` the sequences cut at a block boundary
+    (``ValueError``): the decoder's whole ``seq_len`` tokens plus the
+    ``patches``' prefix, and the ``frames``' length.  Where the model axis
+    does not divide a split dim, the rule table's guard would drop the
     model axis from a leaf and its rank would compute more than its block
     (the reference's MoE falls back to a global dispatch, which the port
     does not run)."""
     kinds = set(cfg.layer_pattern)
-    what = [f"{kind} layers" for kind in sorted(kinds - {"attn", "local", "ssm", "rglru"})]
-    if cfg.enc_dec:
-        what.append("the encoder and cross-attention")
-    if patches is not None:
-        what.append("the VLM patch prefix")
-    if what:
-        raise NotImplementedError(f"sharded training of {', '.join(what)} ({cfg.name}) is "
-                                  f"not ported ({SHARDED_TODO})")
     nm = ctx.model_size
     split = [("the padded vocab", cfg.padded_vocab)]
     if cfg.moe is None:
@@ -417,9 +425,19 @@ def check_sharded(cfg: ModelConfig, ctx, *, seq_len: Optional[int] = None,
             raise NotImplementedError(
                 f"the model axis ({nm}) does not divide {name} ({n}) of {cfg.name}: the "
                 f"sharded step splits it over the model axis ({SHARDED_TODO})")
-    if seq_len is not None and ctx.seq_shard_activations and seq_len % nm:
-        raise ValueError(f"seq_shard_activations: the model axis ({nm}) does not divide "
-                         f"the sequence ({seq_len})")
+    if not ctx.seq_shard_activations:
+        return
+    seqs = []
+    if seq_len is not None:
+        prefix = patches.shape[1] if cfg.n_patches and patches is not None else 0
+        seqs.append(("the sequence" + (f" of {prefix} patches and {seq_len} tokens"
+                                       if prefix else ""), seq_len + prefix))
+    if cfg.enc_dec and frames is not None:
+        seqs.append(("the frames", frames.shape[1]))
+    for name, n in seqs:
+        if n % nm:
+            raise ValueError(f"seq_shard_activations: the model axis ({nm}) does not divide "
+                             f"{name} ({n})")
 
 
 def _positions(b: int, l: int, device) -> torch.Tensor:
@@ -430,23 +448,30 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     """Encoder of enc-dec configs: ``frames`` [B, S, 1024] (frontend-stub
     embeddings) → memory [B, S, D]: ``w_frame``, then the ``n_enc_layers``
     blocks of non-causal self-attention and MLP (under the config's remat
-    when a gradient is needed), then the final norm."""
+    when a gradient is needed), then the final norm.  On local blocks the
+    projection (``w_frame`` replicated, as ``w_patch`` in :func:`_embed`)
+    is placed in the block boundary's layout, the blocks are
+    tensor-parallel and the memory leaves in that layout (S cut over the
+    model axis under ``seq_shard_activations``)."""
     ct = cfg.cdtype
-    x = frames.to(ct) @ params["w_frame"].to(ct)
+    x = frames.to(ct) @ use_param(params["w_frame"], "w_frame", (1024, cfg.d_model)).to(ct)
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
+    ctx = blocks_ctx()
+    if ctx is not None:
+        x = constrain_batch(x, src=(tuple(ctx.batch_axes),))
     enc = params["encoder"]
 
     def block(x, gp):
-        h = rms_norm(x, gp["ln1"], cfg.rms_eps)
+        h = rms_norm(x, _scale(gp, "ln1", cfg), cfg.rms_eps)
         x = x + attention.apply(gp["attn"], cfg, h, positions, causal=False)
-        h = rms_norm(x, gp["ln2"], cfg.rms_eps)
+        h = rms_norm(x, _scale(gp, "ln2", cfg), cfg.rms_eps)
         return x + mlp.apply(gp["mlp"], cfg, h)
 
     body = _remat(cfg, block) if _needs_grad(x, enc) else block
     for i in range(cfg.n_enc_layers):
         x = body(x, _index(enc["blocks"], i))
-    return rms_norm(x, enc["norm"], cfg.rms_eps)
+    return rms_norm(x, _scale(enc, "norm", cfg), cfg.rms_eps)
 
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -455,12 +480,11 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     """tokens [B, Lt] → (logits [B, L, Vp] fp32, aux), L = Lt + n_patches
     when ``patches`` are given; aux is the MoE load-balance loss summed over
     the layers, 0 for dense configs.  Enc-dec configs need ``frames``."""
-    ctx = blocks_ctx()
     memory = encode(params, cfg, frames) if cfg.enc_dec else None
     x = _embed(params, cfg, tokens, patches)
-    b, l, _ = x.shape
-    if ctx is not None:
-        l = tokens.shape[1]          # x may hold this rank's block of the sequence
+    b = x.shape[0]
+    # the whole sequence: x may hold this rank's block of it
+    l = tokens.shape[1] + (patches.shape[1] if cfg.n_patches and patches is not None else 0)
     x, aux, _ = _run_blocks(params, cfg, x, _positions(b, l, x.device), memory,
                             collect_kv=False)
     if not torch.is_tensor(aux):          # a dense config's 0.0

@@ -30,8 +30,9 @@ Two modes:
   a ``DeviceMesh``, they return their input.  The MoE layer takes its
   expert-parallel ``moe.apply_blocks`` here, combining through
   :func:`tp_output`.  The model code calls them
-  only where the layouts differ: the embedding's output (sequence-split
-  under ``seq_shard_activations``) and the heads hint before flash.  The
+  only where the layouts differ: the embedding's output and an enc-dec
+  encoder's frame projection (sequence-split under
+  ``seq_shard_activations``) and the heads hint before attention.  The
   residual stream stays in the block boundary's layout by construction
   (:func:`tp_output`), and the logits leave the vocab-split head in the
   reference's hinted layout.
@@ -144,9 +145,8 @@ class MeshCtx:
         return i
 
 
-#: where the ports of what the sharded train step does not run yet (the enc-dec
-#: encoder and cross-attention, the VLM patch prefix, an MoE layer whose experts
-#: the model axis does not divide) are queued
+#: where the ports of what the sharded train step does not run yet (an MoE
+#: layer whose experts the model axis does not divide) are queued
 SHARDED_TODO = "ROADMAP Queue 1 item 16"
 
 _CTX: contextvars.ContextVar[Optional[MeshCtx]] = contextvars.ContextVar(

@@ -15,10 +15,11 @@ input_shardings(ctx, batch)))``: each rank computes on its own blocks
 are the differentiable collectives of :mod:`repro_torch.parallel.mesh_ctx`,
 the gradients come back as the rank's blocks through the gathers'
 backwards, the global norm sums over the ranks, and AdamW updates each
-block where it lies.  The dense attention families, the MoE family
+block where it lies.  The dense attention families, the VLM with its
+patch prefix, the enc-dec encoder and cross-attention, the MoE family
 (expert parallel) and the recurrent ones (Mamba2's "ssm", RecurrentGemma's
-"rglru" with its local attention); enc-dec and the VLM patch prefix raise
-(:func:`repro_torch.models.lm.check_sharded`).
+"rglru" with its local attention); an MoE config whose experts the model
+axis does not divide raises (:func:`repro_torch.models.lm.check_sharded`).
 """
 
 from __future__ import annotations
@@ -122,7 +123,7 @@ def make_train_step(cfg: ModelConfig, *, lr: float = 3e-4, max_grad_norm: float 
 
     def sharded_step(state: TrainState, batch: Dict[str, torch.Tensor], ctx):
         lm.check_sharded(cfg, ctx, seq_len=batch["tokens"].shape[1],
-                         patches=batch.get("patches"))
+                         patches=batch.get("patches"), frames=batch.get("frames"))
         specs = tree_map(spec_of, state["params"])
         local = lambda t: t.to_local() if is_distributed(t) else t  # noqa: E731
         blocks = dataclasses.replace(ctx, local_blocks=True)

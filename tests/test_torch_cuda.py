@@ -866,7 +866,7 @@ def test_dry_run_predicts_a_smoke_prefill_peak(card, arch):
 
 
 # ==========================================================================
-# the sharded train step of the recurrent and MoE families: 4 gloo ranks
+# the sharded train step of the recurrent, MoE and multimodal families: 4 gloo ranks
 # sharing the card as a (2, 2) ("data", "model") mesh
 # ==========================================================================
 
@@ -874,9 +874,11 @@ def test_dry_run_predicts_a_smoke_prefill_peak(card, arch):
 @pytest.fixture(scope="module")
 def mesh_train_card(tmp_path_factory):
     """``tests/torch_mesh_train_worker.py``'s ``card`` task: the fp32
-    sharded steps of the mamba2-370m, recurrentgemma-9b and deepseek-moe-16b
-    (at ``no_drop``'s capacity, expert parallel) smoke configs on 4 ranks on
-    the card, through the scan kernels and their backwards and flash."""
+    sharded steps of the mamba2-370m, recurrentgemma-9b, deepseek-moe-16b
+    (at ``no_drop``'s capacity, expert parallel), phi-3-vision-4.2b (with
+    its patches) and seamless-m4t-medium (with its frames) smoke configs on
+    4 ranks on the card, through the scan kernels and their backwards and
+    flash."""
     import os
     import subprocess
     import sys
@@ -894,11 +896,13 @@ def mesh_train_card(tmp_path_factory):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b", "deepseek-moe-16b"])
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b", "deepseek-moe-16b",
+                                  "phi-3-vision-4.2b", "seamless-m4t-medium"])
 def test_mesh_train_step_on_card_ranks_matches_plain(mesh_train_card, card, arch):
     """Each rank's fp32 sharded steps (the scans at the rank's heads or
     width block; the MoE layers expert parallel, 4 of the 8 experts a rank,
-    where nothing drops) against the plain steps on the card in this process from
+    where nothing drops; the VLM with its patch prefix; the enc-dec encoder
+    and cross-attention, tensor parallel) against the plain steps on the card in this process from
     the same state and batches: losses and grad norms at 1e-4 relative, the
     gathered parameters at 1e-4 and the moments within 1e-4 of their leaf's
     largest, every rank launching each kernel as often as the plain step."""
@@ -918,7 +922,7 @@ def test_mesh_train_step_on_card_ranks_matches_plain(mesh_train_card, card, arch
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
     launches = [ops.launches[k] for k in sorted(ops.launches)]
-    if cfg.moe is None:
+    if set(cfg.layer_pattern) & {"ssm", "rglru"}:
         assert ops.launches["ssd_scan_bwd"] + ops.launches["rglru_scan_bwd"] > 0
     else:
         assert ops.launches["flash_attention"] > 0

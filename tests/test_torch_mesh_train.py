@@ -21,7 +21,12 @@ one kv head), in fp32 and in bf16 compute; the MoE family, expert
 parallel at the configs' own capacity factor: deepseek-moe-16b smoke on
 (2, 4) (shared experts wider than the flag ``d_ff``), with and without
 ``seq_shard_activations``, and dbrx-132b smoke on (2, 2, 2) with FSDP over
-``("pod", "data")``.  After 2 steps: each step's loss, MoE aux loss and
+``("pod", "data")``; the multimodal families: phi-3-vision-4.2b smoke on
+(2, 4) with its patch prefix (L 72), with and without
+``seq_shard_activations``, and seamless-m4t-medium smoke (encoder and
+cross-attention, 8 frames) on (2, 2, 2) with FSDP over ``("pod", "data")``,
+in fp32 and in bf16 compute, and on (2, 4) with
+``seq_shard_activations``.  After 2 steps: each step's loss, MoE aux loss and
 grad norm, and every gathered parameter and both moments, fp32 within the
 reference tests' 1e-4, the bf16 losses within 3e-2.  The same against the
 port's own single-process step, but for the MoE cases, whose sharded
@@ -30,8 +35,8 @@ does).  Also the twin of
 ``test_seq_shard_reduces_saved_activations``, each collective's backward
 against its adjoint (4 ranks, fp64), each rank's state bytes against the
 rule table's share, a sharded save restored sharded (and by the
-reference), the configs the sharded step refuses, and every full
-recurrent and MoE config's shapes at a rank against the kernels' domains.
+reference), what the sharded step refuses, and every full recurrent, MoE
+and multimodal config's shapes at a rank against the kernels' domains.
 
 The ranks run in ``tests/torch_mesh_train_worker.py`` (subprocesses with a
 timeout, so a hung collective fails these tests and not the suite), the
@@ -110,8 +115,8 @@ for name in names:
     ctx = make_ctx(make_mesh(shape, axes), **knobs)
     with mesh_context(ctx):
         st_sh = param_shardings(state, ctx)
-        batches = [{k: jnp.asarray(inp[f"batch/{name}/{s}/{k}"])
-                    for k in ("tokens", "labels", "mask")} for s in range(w.STEPS)]
+        batches = [{k: jnp.asarray(v) for k, v in w.batch_np(inp, name, s).items()}
+                   for s in range(w.STEPS)]
         fn = jax.jit(make_train_step(cfg),
                      in_shardings=(st_sh, input_shardings(ctx, batches[0])),
                      out_shardings=(st_sh, None))
@@ -133,7 +138,9 @@ print("JAX_STEPS_OK")
 
 def _inputs(d):
     """Each case's initial parameters from the reference's ``lm.init`` and
-    its batches (tokens, next-token labels, a random mask), from a seed."""
+    its batches (tokens, next-token labels, a random mask, and a VLM's
+    patches [B, n_patches, 1024] or an enc-dec's frames [B, FRAMES, 1024]),
+    from a seed."""
     inputs = {}
     for i, name in enumerate(worker.CASES):
         arch, _, b, l, over, _ = worker.CASES[name]
@@ -146,6 +153,12 @@ def _inputs(d):
             inputs[f"batch/{name}/{s}/tokens"] = toks[:, :-1]
             inputs[f"batch/{name}/{s}/labels"] = toks[:, 1:]
             inputs[f"batch/{name}/{s}/mask"] = (rng.random((b, l)) > 0.1).astype(np.float32)
+            if jcfg.n_patches:
+                inputs[f"batch/{name}/{s}/patches"] = rng.standard_normal(
+                    (b, jcfg.n_patches, 1024)).astype(np.float32)
+            if jcfg.enc_dec:
+                inputs[f"batch/{name}/{s}/frames"] = rng.standard_normal(
+                    (b, worker.FRAMES, 1024)).astype(np.float32)
     np.savez(d / "inputs.npz", **inputs)
     return inputs
 
@@ -159,9 +172,7 @@ def _single_process(inputs, name):
     step = make_train_step(cfg)
     losses, norms = [], []
     for s in range(worker.STEPS):
-        batch = {k: torch.from_numpy(inputs[f"batch/{name}/{s}/{k}"])
-                 for k in ("tokens", "labels", "mask")}
-        state, m = step(state, batch)
+        state, m = step(state, worker._batch(inputs, name, s))
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
     return {"loss": np.array(losses), "grad_norm": np.array(norms), "state": state}
@@ -288,6 +299,18 @@ def test_sharded_step_bf16_loss(run):
         np.testing.assert_allclose(out["yi-bf16/loss"], run["jax"]["yi-bf16/loss"],
                                    atol=BF16_LOSS_TOL)
         np.testing.assert_allclose(out["yi-bf16/loss"], run["single"]["yi-bf16"]["loss"],
+                                   atol=BF16_LOSS_TOL)
+
+
+def test_multimodal_sharded_step_bf16_loss(run):
+    """seamless-m4t-medium smoke in bf16 compute on (2, 2, 2) with FSDP over
+    ("pod", "data"): the encoder, the cross-attention and the decoder; the
+    loss of every step within 3e-2 of the reference's sharded step and of
+    the port's single-process step."""
+    for out in run["train"]:
+        np.testing.assert_allclose(out["m4t-bf16/loss"], run["jax"]["m4t-bf16/loss"],
+                                   atol=BF16_LOSS_TOL)
+        np.testing.assert_allclose(out["m4t-bf16/loss"], run["single"]["m4t-bf16"]["loss"],
                                    atol=BF16_LOSS_TOL)
 
 
@@ -440,15 +463,49 @@ def test_sharded_save_joins_a_piece_at_a_time(run):
         assert 0 < peak <= 2 * worker.SAVE_PIECE_BYTES < leaf, (peak, leaf)
 
 
-@pytest.mark.parametrize("arch", ["dbrx-132b", "seamless-m4t-medium",
-                                  "phi-3-vision-4.2b"])
+@pytest.mark.parametrize("arch", ["dbrx-132b"])
 def test_unported_configs_raise(run, arch):
     """dbrx-132b smoke's 4 experts on a model axis of 8 (the reference's
-    global-dispatch fallback), the enc-dec encoder, the VLM patch prefix."""
-    what = "does not divide the experts" if arch == "dbrx-132b" else "not ported"
+    global-dispatch fallback)."""
     for out in run["refuse"]:
         msg = str(out[f"refuse/{arch}"])
-        assert what in msg and str(out["refuse/todo"]) in msg, msg
+        assert msg.startswith("NotImplementedError") and "does not divide the experts" in msg
+        assert str(out["refuse/todo"]) in msg, msg
+
+
+@pytest.mark.parametrize("case,what", [("phi", "of 8 patches and 62 tokens (70)"),
+                                       ("m4t", "the frames (6)")], ids=["phi", "m4t"])
+def test_seq_shard_refuses_a_sequence_the_model_axis_does_not_divide(run, case, what):
+    """Under ``seq_shard_activations`` on (2, 4) the block boundary cuts the
+    VLM's whole sequence, its patches and tokens (8 + 62 = 70), and the
+    enc-dec encoder's frames (6): each raises ``ValueError`` before any
+    collective, on every rank."""
+    for out in run["refuse"]:
+        msg = str(out[f"refuse/seq/{case}"])
+        assert msg.startswith("ValueError") and what in msg, msg
+
+
+@pytest.mark.parametrize("model", [2, 4])
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "seamless-m4t-medium"])
+def test_full_multimodal_configs_shard_into_the_kernels_domains(arch, model):
+    """The sharded step admits each full multimodal config on the (2, model)
+    meshes with ``seq_shard_activations``, at the training length 2048
+    (phi-3-vision-4.2b: 576 patches and 1472 tokens; seamless-m4t-medium:
+    2048 tokens and 256 frames): the model axis divides the padded vocab,
+    ``d_ff`` and the heads, and a rank's flash call (its q heads and their
+    kv heads, MHA, bf16) takes the wgmma variant at the config's hd (96,
+    64).  The smoke configs' hd 16 cannot show a gap here."""
+    cfg = tconfigs.get(arch)
+    ctx = launch_mesh.make_ctx({"data": 2, "model": model}, seq_shard_activations=True)
+    meta = lambda *shape: torch.empty(shape, device="meta")  # noqa: E731
+    tlm.check_sharded(cfg, ctx, seq_len=2048 - cfg.n_patches,
+                      patches=meta(1, cfg.n_patches, 1024) if cfg.n_patches else None,
+                      frames=meta(1, 2048 // 8, 1024) if cfg.enc_dec else None)
+    want = {"phi-3-vision-4.2b": (32128, 96), "seamless-m4t-medium": (256256, 64)}[arch]
+    assert (cfg.padded_vocab, cfg.hd) == want
+    for n in (cfg.padded_vocab, cfg.d_ff, cfg.n_heads * cfg.hd, cfg.n_heads, cfg.n_kv_heads):
+        assert n % model == 0
+    assert cfg.n_heads == cfg.n_kv_heads and fa.variant(cfg.hd, torch.bfloat16) == "wgmma"
 
 
 @pytest.mark.parametrize("model", [2, 4])

@@ -23,8 +23,10 @@ starts ``world`` ranks (``spawn``), which meet through a file under
 * ``ckpt``: a sharded ``checkpoint.save`` of the yi case's first state,
   the bytes it allocates at its peak, and ``restore(shardings=...)`` of it;
 * ``refuse``: the sharded step on an MoE config whose experts the model
-  axis does not divide (dbrx-132b smoke, 4 experts, on a (1, 8) mesh), an
-  enc-dec config and a VLM batch with its patch prefix;
+  axis does not divide (dbrx-132b smoke, 4 experts, on a (1, 8) mesh), and
+  under ``seq_shard_activations`` on (2, 4) on sequences the model axis
+  does not divide: a VLM batch of 8 patches and 62 tokens (L 70), an
+  enc-dec batch of 6 frames;
 * ``adjoint`` (world 4, a (2, 2) mesh): each differentiable collective's
   backward against its adjoint, in fp64;
 * ``card`` (world 4, a (2, 2) mesh on the NVIDIA card, ranks sharing it):
@@ -65,7 +67,12 @@ MESH_18 = ((1, 8), ("data", "model"))
 #: "ds" sets the flag d_ff to 48, so that the shared experts' width (96)
 #: differs from it, as at the full config (2816 against 1408).  dbrx-132b
 #: smoke on (2, 2, 2): GQA 8/2, no shared experts, 2 of its 4 experts a
-#: rank.
+#: rank.  phi-3-vision-4.2b smoke on (2, 4): its 8 patches before 64 tokens
+#: (L 72, which the model axis divides under ``seq_shard_activations``),
+#: ``w_patch`` replicated, MHA 4 heads of 16, one a rank.  seamless-m4t-medium
+#: smoke: 2 encoder and 2 decoder layers, FRAMES frames, on (2, 2, 2) with
+#: FSDP over ("pod", "data") and on (2, 4) with ``seq_shard_activations``
+#: (the model axis cuts the frames' 8 too).
 CASES = {
     "yi": ("yi-9b", MESH_24, 8, 64, {}, {}),
     "yi-flash": ("yi-9b", MESH_24, 2, 2048, {}, {}),
@@ -83,14 +90,24 @@ CASES = {
     "ds": ("deepseek-moe-16b", MESH_24, 8, 64, {"d_ff": 48}, {}),
     "ds-seq": ("deepseek-moe-16b", MESH_24, 8, 64, {}, {"seq_shard_activations": True}),
     "dbrx": ("dbrx-132b", MESH_222, 8, 64, {}, {"fsdp_over_pod": True}),
+    "phi": ("phi-3-vision-4.2b", MESH_24, 8, 64, {}, {}),
+    "phi-seq": ("phi-3-vision-4.2b", MESH_24, 8, 64, {}, {"seq_shard_activations": True}),
+    "m4t": ("seamless-m4t-medium", MESH_222, 8, 64, {}, {"fsdp_over_pod": True}),
+    "m4t-seq": ("seamless-m4t-medium", MESH_24, 8, 64, {}, {"seq_shard_activations": True}),
+    "m4t-bf16": ("seamless-m4t-medium", MESH_222, 8, 64, {"compute_dtype": "bfloat16"},
+                 {"fsdp_over_pod": True}),
 }
+#: the frames of an enc-dec case: data/synthetic.make_batch's S = L / 8 at L 64
+FRAMES = 8
+#: a batch's keys: the text, and the modality stubs of a VLM or enc-dec case
+BATCH_KEYS = ("tokens", "labels", "mask", "patches", "frames")
 #: the MoE cases: their sharded step drops other assignments than the
 #: single-process step (a rank's capacity is rounded to 8 on its tokens, the
 #: plain one to 128 on all of them), so they are held against the
 #: reference's sharded step only
 MOE_CASES = ("ds", "ds-seq", "dbrx")
 #: the cases in bf16 compute (their losses are held at bf16's tolerance)
-BF16_CASES = ("yi-bf16", "rg-bf16")
+BF16_CASES = ("yi-bf16", "rg-bf16", "m4t-bf16")
 #: the pieces of the ``ckpt`` task's save: the yi-9b smoke state's largest
 #: dim-0 row (a layer of ``w_gate``, 64 × 128 fp32), a quarter of its largest
 #: leaf
@@ -101,7 +118,8 @@ MESH_22 = ((2, 2), ("data", "model"))
 #: the ``card`` task's configs (smoke, fp32; an MoE config at
 #: ``parallel.ref.no_drop``'s capacity, where the sharded and the plain steps
 #: compute the same function), their batch and length
-CARD_ARCHS = ("mamba2-370m", "recurrentgemma-9b", "deepseek-moe-16b")
+CARD_ARCHS = ("mamba2-370m", "recurrentgemma-9b", "deepseek-moe-16b", "phi-3-vision-4.2b",
+              "seamless-m4t-medium")
 CARD_BATCH, CARD_SEQ = 4, 64
 
 
@@ -168,9 +186,14 @@ def _state(params_np, ctx):
     return distribute_tree(state, param_shardings(state, ctx), ctx)
 
 
+def batch_np(inputs, name, s):
+    """Step ``s``'s batch of case ``name``: the arrays of BATCH_KEYS it has."""
+    return {k: inputs[f"batch/{name}/{s}/{k}"] for k in BATCH_KEYS
+            if f"batch/{name}/{s}/{k}" in inputs}
+
+
 def _batch(inputs, name, s):
-    return {k: torch.from_numpy(inputs[f"batch/{name}/{s}/{k}"])
-            for k in ("tokens", "labels", "mask")}
+    return {k: torch.from_numpy(v) for k, v in batch_np(inputs, name, s).items()}
 
 
 def _local_bytes(tree):
@@ -356,35 +379,39 @@ def _ckpt(inputs, meshes, out, rank, directory):
 
 
 def _refuse(inputs, meshes, out, rank):
-    """The sharded step on what it does not port: an MoE config whose
-    experts the model axis does not divide (the reference falls back to its
-    global dispatch there), an enc-dec config and a VLM batch with its
-    patch prefix.  Each raises before any collective, on every rank
-    alike."""
+    """The sharded step on what it does not run: an MoE config whose experts
+    the model axis does not divide (the reference falls back to its global
+    dispatch there), and under ``seq_shard_activations`` the VLM's whole
+    sequence (patches and tokens) and the enc-dec frames where the model
+    axis does not divide them.  Each raises before any collective, on
+    every rank alike."""
     from repro_torch import configs
     from repro_torch.launch.mesh import make_ctx, make_production_mesh
     from repro_torch.parallel.mesh_ctx import SHARDED_TODO, mesh_context
     from repro_torch.parallel.sharding import distribute_tree, param_shardings
     from repro_torch.train.step import make_train_step, train_state_init
 
-    for arch, mesh in (("dbrx-132b", MESH_18), ("seamless-m4t-medium", MESH_24),
-                       ("phi-3-vision-4.2b", MESH_24)):
-        ctx = make_ctx(meshes[mesh])
+    for key, arch, mesh, lt, frames, knobs in (
+            ("dbrx-132b", "dbrx-132b", MESH_18, 64, 0, {}),
+            ("seq/phi", "phi-3-vision-4.2b", MESH_24, 62, 0, {"seq_shard_activations": True}),
+            ("seq/m4t", "seamless-m4t-medium", MESH_24, 64, 6,
+             {"seq_shard_activations": True})):
+        ctx = make_ctx(meshes[mesh], **knobs)
         cfg = configs.get_smoke(arch).replace(compute_dtype="float32")
         state = train_state_init(torch.Generator().manual_seed(0), cfg, device="cpu")
         state = distribute_tree(state, param_shardings(state, ctx), ctx)
-        toks = torch.zeros((8, 64), dtype=torch.int64)
-        batch = {"tokens": toks, "labels": toks, "mask": torch.ones((8, 64))}
+        toks = torch.zeros((8, lt), dtype=torch.int64)
+        batch = {"tokens": toks, "labels": toks, "mask": torch.ones((8, lt))}
         if cfg.n_patches:
             batch["patches"] = torch.zeros((8, cfg.n_patches, 1024))
         if cfg.enc_dec:
-            batch["frames"] = torch.zeros((8, 8, 1024))
+            batch["frames"] = torch.zeros((8, frames, 1024))
         try:
             with mesh_context(ctx):
                 make_train_step(cfg)(state, batch)
-            out[f"refuse/{arch}"] = np.array("")
-        except NotImplementedError as e:
-            out[f"refuse/{arch}"] = np.array(str(e))
+            out[f"refuse/{key}"] = np.array("")
+        except (NotImplementedError, ValueError) as e:
+            out[f"refuse/{key}"] = np.array(f"{type(e).__name__}: {e}")
     out["refuse/todo"] = np.array(SHARDED_TODO)
     try:
         make_production_mesh(device_type="cpu")
