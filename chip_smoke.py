@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--skip-mesh]
 
-``--skip-mesh`` leaves out phases 3b, 6c, 6d, 6e and 6f, to read the
+``--skip-mesh`` leaves out phases 3b, 3c, 6c, 6d, 6e and 6f, to read the
 other phases without the four ranks' runs.  Phases, in order; any failure exits non-zero and no phase catches its own:
 
 1. build    — compile every CUDA kernel of the port (one nvcc per source,
@@ -93,6 +93,40 @@ other phases without the four ranks' runs.  Phases, in order; any failure exits 
               backend, each rank's peak memory, flash launches, step times
               of both decodes, the time in all-reduces and max|d|; a rank
               that fails or outlasts MESH_TIMEOUT fails the run.
+3c. mesh serve — prefill and decode on each rank's blocks: the parent
+              first runs the plain prefill and decode of each arch on the
+              card (and frees them), then MESH_RANKS ranks share the card as
+              the (2, 2) ("data", "model") gloo mesh; each rebuilds the
+              arch's weights from its seed (bf16 serving weights,
+              dryrun.serve_dtype; fp32 in the fp32 runs), keeps its blocks
+              by the rule table (FSDP over data, TP over model) and serves them
+              through serve/engine.make_prefill_step and make_decode_step
+              (DTensor parameters under the mesh context): batch 4 × 512,
+              4 decode steps, the cache placed by cache_shardings.  yi-9b at
+              full width, 4 of 48 layers, twice (its 4 kv heads over the
+              model axis; then with shard_kv_seq, its 516 slots),
+              phi-3-vision-4.2b at full width, 4 of 32 layers, with its
+              576-patch prefix (L 1088), and deepseek-moe-16b at full
+              width, 2 of 28 layers, at parallel.ref.no_drop's capacity
+              (expert parallel).  Each in bf16 fed the plain run's greedy
+              tokens (logits within 1e-1) and cut to one layer in fp32
+              greedy, 2 decode steps (logits within 1e-4, the tokens
+              equal), the greedy argmax over the whole padded vocab; the
+              MoE arch's logits where the step's token went to the same
+              experts as in the plain run (a bf16 near-tie of its router
+              may send a token elsewhere; none may in fp32), each of its
+              layer calls against moe.apply_ref on the same input (3e-2 in
+              bf16, 1e-5 in fp32); every rank's cache bytes
+              the rule table's share; every prefill one flash launch a
+              layer on its dtype's variant at the rank's shape (its batch
+              block, its q heads and their kv heads).  Prints each rank's
+              prefill ms, decode ms of each step, all-reduces, their bytes
+              and host seconds a pass (every collective timed after a
+              synchronise), peak memory and cache bytes; gloo moves every
+              byte through host memory, so the times describe the harness,
+              not a cluster.  Phase 2 holds and times flash at the rank's
+              shape q [2,512,16,128], k/v [2,512,2,128] for the flash row's
+              at_other_shapes.
 4. serve    — launch/serve at full width (random weights from a seed, fp32
               master weights on the card), batch 4, prompt 512, 32 generated
               tokens, for yi-9b, mamba2-370m, recurrentgemma-9b,
@@ -295,7 +329,7 @@ Phase 2 also holds the flash kernels' log-sum-exp (the backward's input)
 against the plain version on both variants and times the forward with it
 at the training shape and at a rank's shape in phase 6c, and holds and
 times every kernel at a rank's shape in phase 6d and flash at a rank's
-shape in phases 6e and 6f.
+shape in phases 3c, 6e and 6f.
 
 The line before the last is one JSON object with a row per kernel
 (flash_attention, ssd_scan, rglru_scan, ssd_scan_bwd, rglru_scan_bwd); the last
@@ -347,10 +381,10 @@ from repro_torch.parallel import mesh_ctx  # noqa: E402
 from repro_torch.parallel import ref as mesh_ref  # noqa: E402
 from repro_torch.parallel.mesh_ctx import mesh_context  # noqa: E402
 from repro_torch.parallel.sharding import (cache_shardings, distribute_tree,  # noqa: E402
-                                          local_slices, param_shardings, spec_of)
+                                          gather_rows, local_slices, param_shardings, spec_of)
 from repro_torch.serve import workflow  # noqa: E402
-from repro_torch.serve.engine import (greedy_generate, make_decode_step,  # noqa: E402
-                                      make_prefill_step)
+from repro_torch.serve.engine import (greedy_generate, greedy_token,  # noqa: E402
+                                      make_decode_step, make_prefill_step)
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
 from repro_torch.train.commit import CommittedTrainer, batch_to  # noqa: E402
 from repro_torch.train.step import make_train_step, train_state_init  # noqa: E402
@@ -393,6 +427,46 @@ MESH_MAX_LEN, MESH_DECODE = 544, 8
 MESH_DS = DS.replace(n_layers=2)
 MESH_DS_DECODE = 4
 MESH_TIMEOUT = 600
+
+# sharded serving (phase 3c): the MESH_RANKS ranks again as the (2, 2)
+# ("data", "model") mesh; each rank rebuilds an arch's weights from its seed
+# (bf16 serving weights, as the reference's sharded serving cells store
+# them: half the bytes of every gather) and keeps its blocks by the rule table,
+# then serves its blocks through make_prefill_step and make_decode_step:
+# batch 4 × 512 prompt tokens (phi-3-vision-4.2b with its 576 patches first)
+# and MESH_SERVE_DECODE decode steps (MESH_SERVE_FP32_DECODE in fp32).
+# yi-9b at full width, depth cut from 48 layers to 4, twice: its 4 kv heads
+# over the model axis, then with shard_kv_seq its ring's 516 slots;
+# phi-3-vision-4.2b at full width, depth cut from 32 layers to 4;
+# deepseek-moe-16b at full width, depth cut from 28 layers to 2, at
+# parallel.ref.no_drop's capacity (expert parallel; nothing drops, so the
+# ranks compute the plain layer's function).  Each against the parent's
+# plain prefill and decode on the same weights: bf16 fed the plain greedy
+# tokens (logits within MESH_SERVE_BF16_TOL), then one layer in fp32 greedy
+# (logits within MESH_SERVE_FP32_TOL, the tokens equal)
+MESH_SERVE = {"yi-9b": (YI.replace(n_layers=4), 20),
+              "phi-3-vision-4.2b": (PHI.replace(n_layers=4), 21),
+              "deepseek-moe-16b": (mesh_ref.no_drop(DS.replace(n_layers=2)), 22)}
+#: the cases: (arch, context knobs)
+MESH_SERVE_CASES = (("yi-9b", {}), ("yi-9b", {"shard_kv_seq": True}),
+                    ("phi-3-vision-4.2b", {}), ("deepseek-moe-16b", {}))
+#: decode steps after the prefill: bf16, and the one-layer fp32 runs (cut
+#: first: every step gathers the FSDP blocks through gloo)
+MESH_SERVE_DECODE, MESH_SERVE_FP32_DECODE = 4, 2
+MESH_SERVE_BF16_TOL, MESH_SERVE_FP32_TOL = 1e-1, 1e-4
+#: in bf16 the ranks' row-parallel sums round otherwise than the plain
+#: products, and a router's near-tie then sends a token to other experts
+#: (none may in fp32): an MoE arch's logits are held where the step's token
+#: went to the same experts, and each of its layer calls on the rank's
+#: blocks against moe.apply_ref on the same input (allclose at atol = rtol
+#: of phase 3b's tolerances)
+MESH_SERVE_LAYER_TOL = {"bfloat16": 3e-2, "float32": 1e-5}
+#: the parent's inputs and plain results, which it writes for the ranks
+MESH_SERVE_REFS = os.path.join(ROOT, "build", "mesh_serve_refs.pt")
+#: a rank's flash call in yi-9b's sharded prefill: its batch block and its
+#: 16 of the 32 q heads with their 2 of the 4 kv heads
+MESH_SERVE_FLASH = (SERVE_BATCH // MESH_SHAPE[0], SERVE_PROMPT, YI.n_heads // MESH_SHAPE[1],
+                    YI.n_kv_heads // MESH_SHAPE[1], YI.hd)
 
 # the sharded training phase: MESH_RANKS processes share the card as the
 # (2, 2) ("data", "model") mesh; each rank rebuilds phase 6's initial state
@@ -1307,10 +1381,11 @@ def phase_rank_shapes() -> dict:
     """Each kernel at a rank's shape in phase 6d's sharded steps
     (MESH_REC_SSD, MESH_REC_RGLRU, MESH_REC_FLASH: bf16, so the mma, vec4
     and wgmma variants), and flash at a rank's shape in phase 6e's
-    (MESH_MOE_FLASH) and in phase 6f's for each arch (MESH_MM_FLASH), held
-    against its plain version and timed as at its own shape; returns phase
-    (``6f <arch>`` for phase 6f) → kernel name → its entry at that shape
-    (the launches are the phase's, filled in after it)."""
+    (MESH_MOE_FLASH), in phase 6f's for each arch (MESH_MM_FLASH) and in
+    phase 3c's sharded yi-9b prefills (MESH_SERVE_FLASH), held against its
+    plain version and timed as at its own shape; returns phase (``6f
+    <arch>`` for phase 6f) → kernel name → its entry at that shape (the
+    launches are the phase's, filled in after it)."""
     bt, l, hl = MESH_REC_SSD
     rows = {"flash_attention": _flash_train_shape(MESH_REC_FLASH, seed=9, window=RG.window),
             "ssd_scan": _ssd_at(MAMBA.cdtype, bt, l, hl),
@@ -1335,6 +1410,12 @@ def phase_rank_shapes() -> dict:
         out[f"6f {arch}"] = {"flash_attention": {
             "at": f"a rank's shape in the sharded {arch} steps of phase 6f, (2, 2) mesh",
             **{k: row.get(k) for k in SHAPE_KEYS + ("lse_max_abs_err",)}}}
+    row = _flash_at(MESH_SERVE_FLASH, torch.bfloat16, seed=13)
+    if row["variant"] != "wgmma":
+        _fail(f"flash at a rank's shape {row['shape']} of phase 3c runs {row['variant']}")
+    out["3c"] = {"flash_attention": {
+        "at": "a rank's shape in the sharded yi-9b prefills of phase 3c, (2, 2) mesh",
+        **{k: row.get(k) for k in SHAPE_KEYS}}}
     _free()
     return out
 
@@ -1674,6 +1755,330 @@ def phase_mesh() -> tuple:
     launches = {**dict.fromkeys(ops.launches, 0), "flash_attention": sum(flash.values())}
     return launches, {"flash_attention": flash, "ssd_scan": dict.fromkeys(ssd.VARIANTS, 0),
                       "rglru_scan": dict.fromkeys(rg.VARIANTS, 0)}, ranks
+
+
+# ==========================================================================
+# 3c. mesh serve: prefill and decode on each rank's blocks, 4 gloo ranks
+# ==========================================================================
+
+
+def _mesh_serve_params(arch: str, cfg, gen: torch.Generator) -> dict:
+    """``arch``'s weights from its seed's generator ``gen``: bf16 serving
+    weights in bf16 compute (dryrun.serve_dtype, as the reference's sharded
+    serving cells store them), the fp32 masters in fp32."""
+    params = lm.init(gen, cfg, device="cuda")
+    return dryrun.serve_dtype(params) if cfg.cdtype == torch.bfloat16 else params
+
+
+def _mesh_serve_inputs(arch: str) -> tuple:
+    """(``arch``'s weights from its seed's generator, then its prompt and a
+    VLM's patches (bf16) from the same generator), as the parent draws
+    them; the ranks draw the same weights and load the inputs."""
+    cfg, seed = MESH_SERVE[arch]
+    gen = _gen(seed)
+    params = _mesh_serve_params(arch, cfg, gen)
+    inputs = {"tokens": torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT), generator=gen,
+                                      device="cuda")}
+    if cfg.n_patches:
+        inputs["patches"] = torch.randn((SERVE_BATCH, cfg.n_patches, 1024), generator=gen,
+                                        device="cuda").to(torch.bfloat16)
+    return params, inputs
+
+
+def _max_len(cfg, inputs: dict) -> int:
+    return inputs["tokens"].shape[1] + (inputs["patches"].shape[1] if "patches" in inputs
+                                        else 0) + MESH_SERVE_DECODE
+
+
+def _serve_run(params, cfg, inputs: dict, feed=None) -> dict:
+    """make_prefill_step, then MESH_SERVE_DECODE make_decode_step steps
+    (MESH_SERVE_FP32_DECODE in fp32) under
+    the ambient context, each fed ``feed``'s next column (the plain run's
+    tokens) or, without it, its own greedy token.  Returns the logits of
+    every step [steps + 1, B, Vp] fp32 on the host (joined over the ranks),
+    the greedy tokens [B, steps + 1], host ms of the prefill and of each
+    decode step (each ended by a synchronise), the flash calls of the
+    prefill (q and k shapes), the collectives (calls, bytes, host seconds)
+    of the prefill and of each step, the expert ids each MoE layer routed
+    its tokens to (sorted, on the host, in call order), and the final
+    cache."""
+    calls, flash, routes, route = [], ops.flash_attention, [], moe.route
+
+    def recorded(q, k, v, **kw):
+        calls.append([list(q.shape), list(k.shape)])
+        return flash(q, k, v, **kw)
+
+    def routed(*a, **kw):
+        ids, weights = route(*a, **kw)
+        routes.append(torch.sort(ids, dim=-1).values.cpu())
+        return ids, weights
+
+    prefill = make_prefill_step(cfg, max_len=_max_len(cfg, inputs))
+    decode = make_decode_step(cfg)
+    steps = MESH_SERVE_DECODE if cfg.cdtype == torch.bfloat16 else MESH_SERVE_FP32_DECODE
+    logits, toks, ms, coll = [], [], [], []
+
+    def step(fn):
+        mesh_ctx.reset_collective_stats(timed=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        coll.append({k: mesh_ctx.collective_stats[k] for k in ("calls", "bytes", "seconds")})
+        return out
+
+    with torch.inference_mode(), mock.patch.object(moe, "route", routed):
+        with mock.patch.object(ops, "flash_attention", recorded):
+            cache, lg = step(lambda: prefill(params, inputs))
+        for i in range(steps + 1):
+            tok = greedy_token(lg)
+            logits.append((gather_rows(lg) if mesh_ctx.is_distributed(lg) else lg).float().cpu())
+            toks.append(tok.cpu())
+            if i == steps:
+                break
+            nxt = tok if feed is None else feed[:, i:i + 1].to(tok.device)
+            lg, cache = step(lambda: decode(params, nxt, cache))
+    mesh_ctx.reset_collective_stats()
+    return {"logits": torch.stack(logits), "tokens": torch.cat(toks, dim=1),
+            "prefill_ms": ms[0], "decode_ms": ms[1:], "flash_calls": calls,
+            "prefill_collectives": coll[0], "decode_collectives": coll[1:], "cache": cache,
+            "routes": routes}
+
+
+def _mesh_serve_refs() -> None:
+    """The plain prefill and decode each case is held against, on the card
+    before the ranks start: per arch, the bf16 run (its own greedy tokens)
+    and the one-layer fp32 run, on the weights and inputs every rank draws
+    from the seed.  Writes the inputs, tokens and logits for the ranks."""
+    refs = {}
+    for arch, (cfg, _) in MESH_SERVE.items():
+        _free()
+        params, inputs = _mesh_serve_inputs(arch)
+        bf16 = _serve_run(params, cfg, inputs)
+        del params
+        _free()
+        f32 = cfg.replace(n_layers=1, compute_dtype="float32")
+        params = _mesh_serve_params(arch, f32, _gen(MESH_SERVE[arch][1]))
+        fp32 = _serve_run(params, f32, inputs)
+        del params
+        _free()
+        refs[arch] = {"inputs": {k: v.cpu() for k, v in inputs.items()},
+                      **{d: {"logits": r["logits"], "tokens": r["tokens"],
+                             "routes": r["routes"], "prefill_ms": r["prefill_ms"],
+                             "decode_ms": r["decode_ms"]}
+                         for d, r in (("bfloat16", bf16), ("float32", fp32))}}
+        _log(f"[mesh-serve] plain references, {arch}: width {cfg.d_model}, {cfg.n_layers} "
+             f"layers, inputs { {k: list(v.shape) for k, v in inputs.items()} }: bf16 prefill "
+             f"{bf16['prefill_ms']:.1f} ms, decode ms {_ms_list(bf16['decode_ms'])}; fp32 "
+             f"1-layer prefill {fp32['prefill_ms']:.1f} ms")
+    torch.save(refs, MESH_SERVE_REFS)
+
+
+def _rank_flash_shape(cfg) -> list:
+    """[q shape, k shape] of a rank's flash call in a sharded prefill of
+    phase 3c: its batch block, the prompt (a VLM's patches first) padded to
+    a multiple of attention.FLASH_BLOCK, its q heads and the kv heads they
+    read (its block of them: the model axis divides each config's kv
+    heads)."""
+    b, m = SERVE_BATCH // MESH_SHAPE[0], MESH_SHAPE[1]
+    lp = -(-(SERVE_PROMPT + cfg.n_patches) // attention.FLASH_BLOCK) * attention.FLASH_BLOCK
+    return [[b, lp, cfg.n_heads // m, cfg.hd], [b, lp, cfg.n_kv_heads // m, cfg.hd]]
+
+
+def _cache_share(cache, ctx) -> tuple:
+    """(this rank's cache bytes, the rule table's share of the global
+    cache: each ring's global bytes over the sizes of the axes its spec
+    shards it on)."""
+    rings = [t for t in tree_leaves({k: v for k, v in cache.items() if k != "pos"})]
+    local = sum(t.to_local().numel() * t.to_local().element_size() for t in rings)
+    share = 0
+    for t in rings:
+        n = 1
+        for e in spec_of(t):
+            n *= mesh_ctx.axes_size(ctx, e)
+        share += t.numel() * t.element_size() // n
+    return local, share
+
+
+def _route_agreement(mine: list, plain: list, n_layers: int, rows: slice) -> tuple:
+    """The MoE layers' routing on this rank (its batch block ``rows`` of
+    each call's tokens) against the plain run's: per step and batch row,
+    whether the step's token (the prefill's last position, a decode step's
+    token) went to the same experts in every layer [steps, B_loc]; and the
+    rank's tokens routed to another set of experts in any layer call, of
+    all it routed."""
+    agree, moved, total = [], 0, 0
+    for step in range(len(mine) // n_layers):
+        ok = None
+        for layer in range(n_layers):
+            a = mine[step * n_layers + layer]
+            a = a.reshape(rows.stop - rows.start, -1, a.shape[-1])
+            b = plain[step * n_layers + layer].reshape(-1, a.shape[1], a.shape[-1])[rows]
+            other = (a != b).any(dim=-1)                      # [B_loc, tokens]
+            moved, total = moved + int(other.sum()), total + other.numel()
+            ok = ~other[:, -1] if ok is None else ok & ~other[:, -1]
+        agree.append(ok)
+    return torch.stack(agree), moved, total
+
+
+def _mesh_serve_case(mesh, arch: str, knobs: dict, refs: dict) -> dict:
+    """One case of phase 3c on this rank: the arch's weights from its seed
+    placed by the rule table (this rank's blocks kept), the bf16 run fed the
+    plain tokens, then the one-layer fp32 run greedy, each against the
+    parent's plain run.  An MoE arch's logits are held where the step's
+    token went to the same experts as in the plain run, and every call of
+    its layers on the rank's blocks against moe.apply_ref on the same input
+    with the global weights, which the rank keeps for it."""
+    cfg, seed = MESH_SERVE[arch]
+    ctx = launch_mesh.make_ctx(mesh, **knobs)
+    inputs = tree_to(refs[arch]["inputs"], "cuda")
+    out = {}
+    for dtype, c in (("bfloat16", cfg), ("float32", cfg.replace(n_layers=1,
+                                                                compute_dtype="float32"))):
+        params = _mesh_serve_params(arch, c, _gen(seed))
+        layers, calls, blocks = [], [], moe.apply_blocks
+        if c.moe is not None:       # one stacked slot of attention layers, as deepseek-moe-16b
+            layers = [lm._index(params["blocks"]["s0"]["moe"], i) for i in range(c.n_layers)]
+
+        def recorded(p, cf, x, cx):
+            y = blocks(p, cf, x, cx)
+            calls.append((x, y))
+            return y
+
+        params = distribute_tree(params, param_shardings(params, ctx), ctx)
+        _free()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        want = refs[arch][dtype]
+        n0, v0 = ops.launches["flash_attention"], dict(ops.flash_variant_launches)
+        with mesh_context(ctx), mock.patch.object(moe, "apply_blocks", recorded):
+            r = _serve_run(params, c, inputs, want["tokens"] if dtype == "bfloat16" else None)
+        variants = {v: ops.flash_variant_launches[v] - v0[v] for v in v0}
+        ltol, layer_err, layer_close = MESH_SERVE_LAYER_TOL[dtype], 0.0, True
+        with torch.inference_mode():
+            for i, (x, y) in enumerate(calls):
+                y_ref = moe.apply_ref(layers[i % c.n_layers], c, x)
+                layer_err = max(layer_err, _max_err(y, y_ref))
+                layer_close &= torch.allclose(y.float(), y_ref.float(), atol=ltol, rtol=ltol)
+        del layers, calls
+        local, share = _cache_share(r.pop("cache"), ctx)
+        got = r.pop("logits")
+        err = (got - want["logits"]).abs().amax(dim=-1)              # [steps, B]
+        route = {}
+        if c.moe is not None:
+            b_loc = SERVE_BATCH // ctx.batch_size
+            b0 = ctx.linear_coord(tuple(ctx.batch_axes)) * b_loc
+            rows = slice(b0, b0 + b_loc)
+            agree, moved, total = _route_agreement(r["routes"], want["routes"], c.n_layers,
+                                                   rows)
+            err = err[:, rows]
+            route = {"rerouted_tokens": moved, "routed_tokens": total,
+                     "rows_rerouted": int((~agree).sum()), "layer_max_abs_err": layer_err,
+                     "layer_allclose": layer_close,
+                     "max_abs_err_rerouted": float(err[~agree].max()) if (~agree).any()
+                     else 0.0}
+            err = err[agree]
+        r.pop("routes")
+        out[dtype] = {**{k: v for k, v in r.items() if k != "tokens"}, **route,
+                      "max_abs_err": float(err.max()) if err.numel() else 0.0,
+                      "tokens_equal": bool(torch.equal(r["tokens"], want["tokens"])),
+                      "finite": bool(torch.isfinite(got).all()),
+                      "flash_launches": ops.launches["flash_attention"] - n0,
+                      "flash_by_variant": variants, "cache_bytes": local,
+                      "cache_share": share, "n_layers": c.n_layers,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "local_wq": list(params["blocks"]["s0"]["attn"]["wq"].to_local().shape)}
+        del params
+        _free()
+    return out
+
+
+def _mesh_serve_rank(rank: int, world: int, directory: str) -> None:
+    """One rank of phase 3c: every case of MESH_SERVE_CASES.  Writes
+    ``<directory>/rank<r>.json``."""
+    mesh, r = _rank_mesh(rank, world, directory)
+    refs = torch.load(MESH_SERVE_REFS)
+    r["cases"] = [_mesh_serve_case(mesh, arch, knobs, refs) for arch, knobs in MESH_SERVE_CASES]
+    with open(os.path.join(directory, f"rank{rank}.json"), "w") as f:
+        json.dump(r, f)
+    dist.destroy_process_group()
+
+
+def phase_mesh_serve() -> tuple:
+    """Phase 3c: the parent's plain references (:func:`_mesh_serve_refs`),
+    then the MESH_RANKS ranks; fails unless every case's bf16 logits are
+    within MESH_SERVE_BF16_TOL and its fp32 logits within MESH_SERVE_FP32_TOL
+    of the plain run's with equal greedy tokens, every rank's cache bytes
+    are the rule table's share, and every prefill launched flash once a
+    layer on the variant of its dtype at the rank's shape (its batch block,
+    its q heads and the kv heads they read).  Returns (the ranks' launches
+    as a path's, by variant, the flash launches at MESH_SERVE_FLASH, the
+    ranks' records)."""
+    t0 = time.perf_counter()
+    _mesh_serve_refs()
+    ranks, seconds = _spawn_ranks(_mesh_serve_rank, MESH_TIMEOUT)
+    os.remove(MESH_SERVE_REFS)
+    _log(f"[mesh-serve] {MESH_RANKS} ranks in {seconds:.1f}s: mesh "
+         f"{dict(zip(MESH_AXES, MESH_SHAPE))}, batch {SERVE_BATCH} x {SERVE_PROMPT}, "
+         f"{MESH_SERVE_DECODE} decode steps ({MESH_SERVE_FP32_DECODE} in fp32); gloo moves "
+         f"every gather and sum through host memory, so these times describe this harness, "
+         f"not a cluster")
+    flash = dict.fromkeys(fa.VARIANTS, 0)
+    at_rank = 0
+    for r in ranks:
+        for (arch, knobs), case in zip(MESH_SERVE_CASES, r["cases"], strict=True):
+            cfg = MESH_SERVE[arch][0]
+            who = f"rank {r['rank']} {r['coord']} {arch}" + (f" {knobs}" if knobs else "")
+            for dtype, a in case.items():
+                tol = MESH_SERVE_BF16_TOL if dtype == "bfloat16" else MESH_SERVE_FP32_TOL
+                pre, dec = a["prefill_collectives"], a["decode_collectives"]
+                _log(f"[mesh-serve] {who} {dtype} ({a['n_layers']} layers, wq block "
+                     f"{a['local_wq']}): max|d| {a['max_abs_err']:.3e} vs plain (tol {tol}), "
+                     f"tokens equal {a['tokens_equal']}; prefill {a['prefill_ms']:.1f} ms "
+                     f"({pre['calls']} all-reduces, {pre['bytes'] / 1e9:.3f} GB, "
+                     f"{pre['seconds']:.3f} s), decode ms {_ms_list(a['decode_ms'])} "
+                     f"({dec[-1]['calls']} all-reduces a step, {dec[-1]['bytes'] / 1e9:.3f} GB, "
+                     f"{_ms_list([d['seconds'] * 1e3 for d in dec])} ms in them); cache "
+                     f"{a['cache_bytes']} B (the rule table's share {a['cache_share']} B); "
+                     f"peak {a['peak_mem_gb']:.2f} GB; flash {a['flash_by_variant']} at "
+                     f"{sorted({str(c) for c in map(tuple, map(tuple, a['flash_calls']))})}")
+                if "routed_tokens" in a:
+                    ltol = MESH_SERVE_LAYER_TOL[dtype]
+                    _log(f"[mesh-serve] {who} {dtype} MoE: every layer call on the rank's "
+                         f"blocks against moe.apply_ref on its input, max|d| "
+                         f"{a['layer_max_abs_err']:.3e} (allclose at atol = rtol = {ltol}: "
+                         f"{a['layer_allclose']}); {a['rerouted_tokens']} of "
+                         f"the rank's {a['routed_tokens']} tokens went to other experts than in "
+                         f"the plain run, {a['rows_rerouted']} (step, row) logits whose own "
+                         f"token did are not held (max|d| there "
+                         f"{a['max_abs_err_rerouted']:.3e})")
+                    if not a["layer_allclose"] or (dtype == "float32" and a["rerouted_tokens"]):
+                        _fail(f"{who} {dtype}: MoE layers {a['layer_max_abs_err']} from "
+                              f"apply_ref, {a['rerouted_tokens']} tokens routed otherwise")
+                if not (a["max_abs_err"] <= tol and a["finite"]) or (
+                        dtype == "float32" and not a["tokens_equal"]):
+                    _fail(f"{who} sharded serving {dtype}: {a}")
+                if a["cache_bytes"] != a["cache_share"]:
+                    _fail(f"{who} {dtype}: cache bytes {a['cache_bytes']}, not the rule "
+                          f"table's share {a['cache_share']}")
+                c = cfg if dtype == "bfloat16" else cfg.replace(n_layers=1,
+                                                                compute_dtype="float32")
+                variant = fa.variant(c.hd, c.cdtype)
+                want = _rank_flash_shape(c)
+                if a["flash_by_variant"] != {**dict.fromkeys(fa.VARIANTS, 0),
+                                             variant: c.n_layers} or \
+                        a["flash_calls"] != [want] * c.n_layers:
+                    _fail(f"{who} {dtype}: the prefill launched flash {a['flash_by_variant']} "
+                          f"at {a['flash_calls']}, not {c.n_layers} {variant} at {want}")
+                for v, n in a["flash_by_variant"].items():
+                    flash[v] += n
+                if dtype == "bfloat16" and arch == "yi-9b":
+                    at_rank += a["flash_launches"]
+    _log(f"[mesh-serve] phase took {time.perf_counter() - t0:.1f}s")
+    launches = {**dict.fromkeys(ops.launches, 0), "flash_attention": sum(flash.values())}
+    return launches, {"flash_attention": flash, "ssd_scan": dict.fromkeys(ssd.VARIANTS, 0),
+                      "rglru_scan": dict.fromkeys(rg.VARIANTS, 0)}, at_rank, ranks
 
 
 def _clone_tree(tree):
@@ -3062,9 +3467,13 @@ def main(argv=None) -> int:
     by_path, by_variant = {}, {}
     mesh_path = (f"mesh: {MESH_RANKS} ranks, yi-9b {MESH_YI.n_layers}L and deepseek-moe-16b "
                  f"{MESH_DS.n_layers}L prefills")
-    mesh = None
+    mesh, mesh_serve, serve_at_rank = None, None, 0
     if argv != ["--skip-mesh"]:
         by_path[mesh_path], by_variant[mesh_path], mesh = phase_mesh()
+        serve_path = f"mesh serve: {MESH_RANKS} ranks, " + ", ".join(
+            f"{arch} {cfg.n_layers}L" for arch, (cfg, _) in MESH_SERVE.items())
+        by_path[serve_path], by_variant[serve_path], serve_at_rank, mesh_serve = \
+            phase_mesh_serve()
     by_path["yi-9b"], by_variant["yi-9b"] = phase_serve("yi-9b")
     phase_workflow("yi-9b")
     by_path["mamba2-370m"], by_variant["mamba2-370m"] = phase_serve("mamba2-370m")
@@ -3104,6 +3513,7 @@ def main(argv=None) -> int:
                 row["launches_by_variant"][v] += n
     mesh_rec, mesh_moe, mesh_mm, extra_variants = None, None, None, []
     at_rank_shape = {p: dict.fromkeys(ops.launches, 0) for p in rank_rows}
+    at_rank_shape["3c"]["flash_attention"] = serve_at_rank
     if argv != ["--skip-mesh"]:
         def train_paths(phase: str, what: str) -> tuple:
             """A phase of MESH_ARCH_PHASES: its plain and sharded steps as
@@ -3174,8 +3584,9 @@ def main(argv=None) -> int:
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_kernels.json"), "w") as f:
         json.dump({"card": smi, **kernels, "train": train, "train_recurrent": recurrent,
                    "train_grads_max_err": grads, "commit": commit, "vlm_prefix": prefix,
-                   "mesh": mesh, "mesh_train": mesh_train, "mesh_train_recurrent": mesh_rec,
-                   "mesh_train_moe": mesh_moe, "mesh_train_multimodal": mesh_mm,
+                   "mesh": mesh, "mesh_serve": mesh_serve, "mesh_train": mesh_train,
+                   "mesh_train_recurrent": mesh_rec, "mesh_train_moe": mesh_moe,
+                   "mesh_train_multimodal": mesh_mm,
                    "dryrun": dry_cells},
                   f, indent=1)
     print(json.dumps(kernels))

@@ -19,11 +19,14 @@ The port of :mod:`repro.models.attention`:
     with its slots over the model axis decodes through the flash-decoding
     :func:`_decode_seqshard`, a two-phase softmax over the ranks' slot
     blocks;
-  * on local blocks (the sharded train step), every attention
-    (:func:`_tp_attend`: causal, non-causal and cross) is Megatron's
-    tensor-parallel attention: q/k/v column-parallel, the reference's heads
-    hint before the attention, ``wo`` row-parallel.  Off local blocks the
-    parameter reads and the tensor-parallel entry and exit are identities.
+  * on local blocks (the sharded train step, sharded serving), every
+    attention (:func:`_tp_attend`: causal, non-causal and cross) is
+    Megatron's tensor-parallel attention: q/k/v column-parallel, the
+    reference's heads hint before the attention, ``wo`` row-parallel; a
+    decode step attends the rank's block of the KV ring in whichever
+    layout ``cache_shardings`` gave it (:func:`_decode_ring_blocks`).  Off
+    local blocks the parameter reads and the tensor-parallel entry and
+    exit are identities.
 """
 
 from __future__ import annotations
@@ -40,8 +43,8 @@ from repro_torch.models import flash
 from repro_torch.models.common import (ModelConfig, apply_rope, dense_init,
                                        rope_angles, softcap)
 from repro_torch.parallel.mesh_ctx import (all_reduce, blocks_ctx, constrain,
-                                           current_ctx, gather_dim0, is_distributed, spec_axes,
-                                           tp_input, tp_output)
+                                           current_ctx, gather_block, gather_dim0,
+                                           is_distributed, spec_axes, tp_input, tp_output)
 from repro_torch.parallel.sharding import local_slices, param_spec, spec_of, use_param
 
 NEG_INF = -2.3819763e38   # keep finite (matches the flash kernel's masking)
@@ -219,10 +222,10 @@ def _tp_attend(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
     kv head, or does not divide ``n_kv_heads·hd`` at all), k/v are whole on
     every rank and each rank takes the kv heads its q heads read.  RoPE
     follows the hint, on whole heads.  ``wo`` is (model, fsdp): the
-    row-parallel product's partial sum leaves through ``tp_output``.  A
-    rank whose q heads were gathered (the model axis does not divide
-    ``n_heads``) keeps its block of the output's columns, the rows of its
-    ``wo`` block.  The (k, v) returned are then this rank's."""
+    row-parallel product's partial sum leaves through ``tp_output``
+    (:func:`_out_proj`).  The (k, v) returned are in the heads hint's
+    layout: this rank's kv heads where the hint splits them, else all of
+    them (a prefill cuts its cache block from them)."""
     hd, ct = cfg.hd, cfg.cdtype
     x = tp_input(x)
     b, l, _ = x.shape
@@ -235,15 +238,25 @@ def _tp_attend(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
         q = _project(params, cfg, x, "q", cfg.n_heads)
         k, v = kv
     ctx, hl = blocks_ctx(), q.shape[2]
+    kv = (k, v)
     if hl < cfg.n_heads and k.shape[2] == cfg.n_kv_heads:    # this rank's q heads only
         h0 = ctx.coord(ctx.model_axis) * hl
         k, v = _local_kv(k, cfg, h0, hl), _local_kv(v, cfg, h0, hl)
-    out = attend(q, k, v).reshape(b, l, hl * hd)
-    if ctx is not None and hl == cfg.n_heads and ctx.model_size > 1:    # gathered heads
-        c = hl * hd // ctx.model_size
+    return _out_proj(params, cfg, attend(q, k, v).reshape(b, l, hl * hd)), kv
+
+
+def _out_proj(params: Dict[str, Any], cfg: ModelConfig, out: torch.Tensor) -> torch.Tensor:
+    """The attention output [B, L, heads·hd] through ``wo`` → [B, L, D].  On
+    local blocks ``wo`` is (model, fsdp), row-parallel: a rank that holds
+    every head (its q heads were gathered) keeps its block of the columns,
+    the rows of its ``wo`` block, and the partial sum leaves through
+    ``tp_output``."""
+    ctx, n = blocks_ctx(), cfg.n_heads * cfg.hd
+    if ctx is not None and out.shape[-1] == n and ctx.model_size > 1:    # every head
+        c = n // ctx.model_size
         out = out.narrow(-1, ctx.coord(ctx.model_axis) * c, c)
-    wo = use_param(params["wo"], "wo", (cfg.n_heads * hd, cfg.d_model), model_partial=True)
-    return tp_output(out @ wo.to(ct)), (k, v)
+    wo = use_param(params["wo"], "wo", (n, cfg.d_model), model_partial=True)
+    return tp_output(out @ wo.to(cfg.cdtype))
 
 
 def _heads_constraint(y: torch.Tensor, name: str, n: int, cfg: ModelConfig
@@ -307,30 +320,38 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, window: int = 0,
 
 
 def decode_step(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
-                cache: Dict[str, torch.Tensor], pos: int, *, window: int = 0
-                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                cache: Dict[str, torch.Tensor], pos: int, *, window: int = 0,
+                ring_spec=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: [B,1,D]; pos: absolute position. Returns (out [B,1,D], cache).
 
     The new k/v row is written into the ring in place (JAX returns a fresh
-    cache), so the cache passed in is the cache returned.  Under a mesh
-    context with ``shard_kv_seq``, a cache of DTensors whose slots the model
-    axis divides takes :func:`_decode_seqshard`; a plain-tensor cache takes
-    the plain path.
+    cache), so the cache passed in is the cache returned.  On local blocks
+    (sharded serving) ``cache`` holds this rank's blocks of the ring, laid
+    out by ``ring_spec`` (``cache_shardings``' spec of [B, S, Hkv, hd]), and
+    :func:`_decode_ring_blocks` attends them.  Under a mesh context with
+    ``shard_kv_seq``, a cache of DTensors whose slots the model axis divides
+    takes :func:`_decode_seqshard` (global values); a plain-tensor cache
+    takes the plain path.
     """
     b, l, _ = x.shape
     hd, ct = cfg.hd, cfg.cdtype
-    q, k, v = _project_qkv(params, cfg, x)
+    q, k, v = _project_qkv(params, cfg, tp_input(x))
     cos, sin = rope_angles(torch.full((1,), pos, device=x.device), hd, cfg.rope_theta)
     q = apply_rope(q, cos[None], sin[None])
     k = apply_rope(k, cos[None], sin[None])
+
+    blocks = blocks_ctx()
+    if blocks is not None:
+        out, ck, cv = _decode_ring_blocks(cfg, q, k, v, cache["k"], cache["v"], pos, window,
+                                          ring_spec, blocks)
+        return _out_proj(params, cfg, out.reshape(b, l, -1)), {"k": ck, "v": cv}
 
     ctx = current_ctx()
     if (ctx is not None and ctx.shard_kv_seq and is_distributed(cache["k"])
             and cache["k"].shape[1] % ctx.model_size == 0):
         out, ck, cv = _decode_seqshard(cfg, q, k, v, cache["k"], cache["v"], pos, window,
                                        ctx)
-        out = out.reshape(b, l, cfg.n_heads * hd) @ params["wo"].to(ct)
-        return out, {"k": ck, "v": cv}
+        return _out_proj(params, cfg, out.reshape(b, l, cfg.n_heads * hd)), {"k": ck, "v": cv}
 
     ck, cv = cache["k"], cache["v"]
     slots = ck.shape[1]
@@ -347,8 +368,7 @@ def decode_step(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
         valid &= age < window
     mask = torch.broadcast_to(valid[None, None, :], (b, 1, slots))
     out = _sdpa(q, ck.to(ct), cv.to(ct), mask, cfg.attn_softcap)
-    out = out.reshape(b, l, cfg.n_heads * hd) @ params["wo"].to(ct)
-    return out, {"k": ck, "v": cv}
+    return _out_proj(params, cfg, out.reshape(b, l, cfg.n_heads * hd)), {"k": ck, "v": cv}
 
 
 def _slot_position(idx: torch.Tensor, cur_slot: int, slots: int,
@@ -378,43 +398,115 @@ def _decode_seqshard(cfg: ModelConfig, q, k_new, v_new, cache_k, cache_v, pos: i
     the numerator [B,Hkv,G,1,hd] are all-reduced by SUM.  Returns (out
     [B, 1, H, hd] global on every rank, cache_k, cache_v).
     """
-    b, l, h, hd = q.shape
-    hkv = cfg.n_kv_heads
-    g = h // hkv
-    slots = cache_k.shape[1]
+    b, slots = q.shape[0], cache_k.shape[1]
     spec = spec_of(cache_k)
     if spec[1] != ctx.model_axis or spec_of(cache_v) != spec:
         raise ValueError(f"the KV ring's layout {spec} does not shard its slots over "
                          f"the model axis {ctx.model_axis!r} alone")
     rows, cols = local_slices(tuple(cache_k.shape), spec, ctx)[:2]
     ck, cv = cache_k.to_local(), cache_v.to_local()
-    s_loc = cols.stop - cols.start
     gslot = pos % slots
     if cols.start <= gslot < cols.stop:                  # the owner writes the row
         ck[:, gslot - cols.start] = k_new[rows, 0].to(ck.dtype)
         cv[:, gslot - cols.start] = v_new[rows, 0].to(cv.dtype)
+    out = _seqshard_attend(cfg, q[rows], ck, cv, cols.start, slots, pos, window,
+                           ctx.group(ctx.model_axis))
+    return gather_dim0(out, b, ctx, spec[0]), cache_k, cache_v
 
-    # ring validity of this rank's slots at absolute position ``pos``
-    idx = cols.start + torch.arange(s_loc, device=q.device)     # global slots
-    kpos = pos - (gslot - idx) % slots
+
+def _ring_valid(idx: torch.Tensor, pos: int, slots: int, window: int) -> torch.Tensor:
+    """Whether the ring slots ``idx`` (global indices) hold a position in
+    [pos − window + 1, pos] (window 0: [0, pos]) right after ``pos`` was
+    written: position p lives in slot p % slots, unwritten slots mask out."""
+    kpos = pos - (pos % slots - idx) % slots
     valid = (kpos >= 0) & (kpos <= pos)
     if window:
         valid &= kpos > pos - window
+    return valid
 
-    qs = q[rows]
-    bl = qs.shape[0]
-    qg = qs.reshape(bl, l, hkv, g, hd)
-    logits = torch.einsum("blkgd,bskd->bkgls", qg.float(), ck.to(qs.dtype).float())
+
+def _seqshard_attend(cfg: ModelConfig, q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                     s0: int, slots: int, pos: int, window: int, group) -> torch.Tensor:
+    """q [b, l, H, hd] (every head) against a rank's slot block ck, cv [b,
+    S_loc, Hkv, hd], which starts at global slot ``s0`` of a ring of
+    ``slots``: the two-phase softmax over the ranks of ``group``, whose
+    blocks make the ring.  The local max is all-reduced by MAX, then the
+    denominator [b,Hkv,G,1] and the numerator [b,Hkv,G,1,hd] by SUM.
+    Returns out [b, l, H, hd] in q's dtype, the same on every rank."""
+    b, l, h, hd = q.shape
+    hkv = cfg.n_kv_heads
+    valid = _ring_valid(s0 + torch.arange(ck.shape[1], device=q.device), pos, slots, window)
+    qg = q.reshape(b, l, hkv, h // hkv, hd)
+    logits = torch.einsum("blkgd,bskd->bkgls", qg.float(), ck.to(q.dtype).float())
     logits = logits / torch.tensor(math.sqrt(hd), dtype=torch.float32)
     logits = softcap(logits, cfg.attn_softcap)
     logits = torch.where(valid, logits, torch.full((), NEG_INF, dtype=torch.float32,
                                                   device=logits.device))
-    group = ctx.group(ctx.model_axis)
     m = all_reduce(logits.amax(dim=-1), group, "max")            # [B,Hkv,G,1]
     p = torch.exp(logits - m[..., None])
     den = all_reduce(p.sum(dim=-1), group)                       # [B,Hkv,G,1]
     num = all_reduce(torch.einsum("bkgls,bskd->bkgld", p.to(cv.dtype).float(),
                                   cv.float()), group)            # [B,Hkv,G,1,hd]
-    out = (num / den[..., None]).to(qs.dtype)
-    out = torch.movedim(out, 3, 1).reshape(bl, l, h, hd)
-    return gather_dim0(out, b, ctx, spec[0]), cache_k, cache_v
+    out = (num / den[..., None]).to(q.dtype)
+    return torch.movedim(out, 3, 1).reshape(b, l, h, hd)
+
+
+def _decode_ring_blocks(cfg: ModelConfig, q, k_new, v_new, ck, cv, pos: int, window: int,
+                        spec, ctx):
+    """One token on local blocks: q, k_new, v_new [B_loc, 1, ·, hd] in the
+    heads hint's layout against this rank's block ck, cv of a KV ring laid
+    out by ``spec`` ([B, S, Hkv, hd]: the batch over the batch axes, the
+    model axis over the slots, the kv heads, the head_dim or none of them).
+    The new row is written into the rank's block in place.  Returns (out
+    [B_loc, 1, ·, hd], ck, cv): the rank's q heads where the ring's kv heads
+    are split, every head otherwise.  No ring moves between ranks:
+      * kv heads: the rank's q heads read exactly its kv heads;
+      * slots: the two-phase softmax of :func:`_seqshard_attend` on every
+        head, q and the new row gathered (a token's worth), the row written
+        by the rank that owns its slot;
+      * head_dim: every head's partial scores [B_loc, H, 1, S] over the
+        rank's hd block, summed over the model axis, then softcap, mask and
+        softmax in full, P·V on the rank's hd block of v, and the output's
+        hd blocks gathered;
+      * none (the ring whole on every model rank): the plain attention of
+        every head."""
+    m, ct = ctx.model_axis, cfg.cdtype
+    where = next((d for d, e in enumerate(spec) if m in spec_axes(e)), None)
+    if where == 2:
+        slots = ck.shape[1]
+        ck[:, pos % slots] = k_new[:, 0].to(ck.dtype)
+        cv[:, pos % slots] = v_new[:, 0].to(cv.dtype)
+        valid = _ring_valid(torch.arange(slots, device=q.device), pos, slots, window)
+        return _sdpa(q, ck.to(ct), cv.to(ct), valid[None, None, :], cfg.attn_softcap), ck, cv
+    q, k_new, v_new = (t if t.shape[2] == n else gather_block(t, 2, ctx, m)
+                       for t, n in ((q, cfg.n_heads), (k_new, cfg.n_kv_heads),
+                                    (v_new, cfg.n_kv_heads)))
+    group, i = ctx.group(m), ctx.coord(m)
+    if where == 1:
+        s_loc = ck.shape[1]
+        slots, s0 = s_loc * ctx.model_size, i * s_loc
+        if s0 <= pos % slots < s0 + s_loc:                   # the owner writes the row
+            ck[:, pos % slots - s0] = k_new[:, 0].to(ck.dtype)
+            cv[:, pos % slots - s0] = v_new[:, 0].to(cv.dtype)
+        return _seqshard_attend(cfg, q, ck, cv, s0, slots, pos, window, group), ck, cv
+    slots = ck.shape[1]
+    valid = _ring_valid(torch.arange(slots, device=q.device), pos, slots, window)
+    if where is None:
+        ck[:, pos % slots] = k_new[:, 0].to(ck.dtype)
+        cv[:, pos % slots] = v_new[:, 0].to(cv.dtype)
+        return _sdpa(q, ck.to(ct), cv.to(ct), valid[None, None, :], cfg.attn_softcap), ck, cv
+    b, l, h, hd = q.shape
+    hkv, hdl = cfg.n_kv_heads, ck.shape[3]
+    d = slice(i * hdl, (i + 1) * hdl)
+    ck[:, pos % slots] = k_new[:, 0, :, d].to(ck.dtype)
+    cv[:, pos % slots] = v_new[:, 0, :, d].to(cv.dtype)
+    qg = q[..., d].reshape(b, l, hkv, h // hkv, hdl)
+    logits = torch.einsum("blkgd,bskd->bkgls", qg.float(), ck.to(ct).float())
+    logits = all_reduce(logits, group)                   # the scores over the whole hd
+    logits = softcap(logits / torch.tensor(math.sqrt(hd), dtype=torch.float32),
+                     cfg.attn_softcap)
+    logits = torch.where(valid, logits, torch.full((), NEG_INF, dtype=torch.float32,
+                                                  device=logits.device))
+    probs = torch.softmax(logits, dim=-1).to(ct)
+    out = torch.einsum("bkgls,bskd->blkgd", probs, cv.to(ct)).reshape(b, l, h, hdl)
+    return gather_block(out, 3, ctx, m), ck, cv

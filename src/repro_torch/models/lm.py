@@ -69,11 +69,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch import resolve_device
 from repro_torch.models import attention, mlp, moe, rglru, ssm
 from repro_torch.models.common import (ModelConfig, dense_init, embed_init,
-                                       rms_norm, softcap, tree_leaves)
+                                       rms_norm, softcap, tree_leaves, tree_map)
 from repro_torch.parallel.mesh_ctx import (SHARDED_TODO, all_reduce, blocks_ctx,
                                            constrain_batch, current_ctx, mesh_context, reduce,
-                                           tp_input)
-from repro_torch.parallel.sharding import use_param
+                                           relayout, tp_input)
+from repro_torch.parallel.sharding import cache_shardings, spec_of, use_param
 
 
 # ==========================================================================
@@ -230,7 +230,8 @@ def _block_apply(cfg: ModelConfig, kind: str, p: Dict[str, Any], x: torch.Tensor
         h = rms_norm(x, _scale(p, "ln2", cfg), cfg.rms_eps)
         if cfg.moe is not None:
             f = moe.apply(p["moe"], cfg, h)
-            aux = moe.aux_loss(p["moe"], cfg, h)
+            if not collect_kv:               # a prefill has no use for the aux loss
+                aux = moe.aux_loss(p["moe"], cfg, h)
         else:
             f = mlp.apply(p["mlp"], cfg, h)
         if cfg.post_norms:
@@ -387,32 +388,40 @@ def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def check_sharded(cfg: ModelConfig, ctx, *, seq_len: Optional[int] = None,
                   patches: Optional[torch.Tensor] = None,
-                  frames: Optional[torch.Tensor] = None) -> None:
-    """Raise unless the sharded step runs ``cfg`` on ``ctx``'s mesh: the
-    dense attention families ("attn" and "local" layers, a dense MLP, q/k/v
-    biases, tied embeddings, both softcaps), the VLM with its patch prefix,
-    the enc-dec encoder and cross-attention, the MoE family (expert
-    parallel, :func:`repro_torch.models.moe.apply_blocks`) and the
-    recurrent ones ("ssm" and "rglru" layers), with the model axis dividing
-    what it splits: the fused q heads, ``d_ff`` of a dense MLP, the experts
-    and the shared experts' width, the SSM's heads and inner width, the
-    RG-LRU width and the padded vocab (``NotImplementedError``), and under
-    ``seq_shard_activations`` the sequences cut at a block boundary
-    (``ValueError``): the decoder's whole ``seq_len`` tokens plus the
-    ``patches``' prefix, and the ``frames``' length.  Where the model axis
-    does not divide a split dim, the rule table's guard would drop the
-    model axis from a leaf and its rank would compute more than its block
-    (the reference's MoE falls back to a global dispatch, which the port
-    does not run)."""
+                  frames: Optional[torch.Tensor] = None, serving: bool = False) -> None:
+    """Raise unless the sharded step (or, with ``serving``, the sharded
+    prefill and decode) runs ``cfg`` on ``ctx``'s mesh: the dense attention
+    families ("attn" and "local" layers, a dense MLP, q/k/v biases, tied
+    embeddings, both softcaps), the VLM with its patch prefix, the MoE
+    family (expert parallel, :func:`repro_torch.models.moe.apply_blocks`,
+    or where the model axis does not divide the experts the reference's
+    global dispatch on the gathered tokens,
+    :func:`repro_torch.models.moe.apply_gathered`), and in the train step
+    also the enc-dec encoder and cross-attention and the recurrent families
+    ("ssm" and "rglru" layers; serving on their blocks raises
+    ``NotImplementedError``), with the model axis dividing what it splits:
+    the fused q heads, ``d_ff`` of a dense MLP, the shared experts' width,
+    the SSM's heads and inner width, the RG-LRU width and the padded vocab
+    (``NotImplementedError``), and under ``seq_shard_activations`` the
+    sequences cut at a block boundary (``ValueError``): the decoder's whole
+    ``seq_len`` tokens plus the ``patches``' prefix, and the ``frames``'
+    length.  Where the model axis does not divide a split dim, the rule
+    table's guard would drop the model axis from a leaf and its rank would
+    compute more than its block."""
     kinds = set(cfg.layer_pattern)
     nm = ctx.model_size
+    if serving:
+        todo = [f"its {k!r} layers" for k in ("ssm", "rglru") if k in kinds]
+        todo += ["its encoder and cross-attention"] if cfg.enc_dec else []
+        if todo:
+            raise NotImplementedError(
+                f"serving {cfg.name} on sharded parameters: the port does not yet decode "
+                f"{' and '.join(todo)} on a rank's blocks ({SHARDED_TODO})")
     split = [("the padded vocab", cfg.padded_vocab)]
     if cfg.moe is None:
         split.append(("d_ff", cfg.d_ff))
-    else:
-        split.append(("the experts", cfg.moe.num_experts))
-        if cfg.moe.num_shared:
-            split.append(("the shared experts' width", moe.shared_width(cfg)))
+    elif cfg.moe.num_shared:
+        split.append(("the shared experts' width", moe.shared_width(cfg)))
     if kinds & {"attn", "local"}:
         split.append(("n_heads * head_dim", cfg.n_heads * cfg.hd))
     if "ssm" in kinds:
@@ -424,7 +433,7 @@ def check_sharded(cfg: ModelConfig, ctx, *, seq_len: Optional[int] = None,
         if n % nm:
             raise NotImplementedError(
                 f"the model axis ({nm}) does not divide {name} ({n}) of {cfg.name}: the "
-                f"sharded step splits it over the model axis ({SHARDED_TODO})")
+                f"sharded paths split it over the model axis")
     if not ctx.seq_shard_activations:
         return
     seqs = []
@@ -578,14 +587,25 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: int,
     their state dicts through.  The patch prefix counts in the cache's
     ``pos``; enc-dec blocks keep their projected memory ``mk``/``mv``, sized
     by the frames' own length.
+
+    On local blocks (sharded serving: the dense attention families, the VLM
+    and MoE) the tokens are this rank's batch block, each ring is this
+    rank's block of it as :func:`cache_specs` lays it out
+    (:func:`_ring_block`), and the logits are the rank's vocab block of its
+    batch block's last position (under ``seq_shard_activations`` the last
+    rank's sequence block holds it).
     """
     memory = encode(params, cfg, frames) if cfg.enc_dec else None
     x = _embed(params, cfg, tokens, patches)
-    b, l, _ = x.shape
+    b = x.shape[0]
+    # the whole sequence: x may hold this rank's block of it
+    l = tokens.shape[1] + (patches.shape[1] if cfg.n_patches and patches is not None else 0)
     x, _, raw = _run_blocks(params, cfg, x, _positions(b, l, x.device), memory,
                             collect_kv=True)
     pattern = cfg.layer_pattern
     g, _ = groups_of(cfg)
+    ctx = blocks_ctx()
+    specs = None if ctx is None else cache_specs(cfg, b * ctx.batch_size, max_len, ctx)
     cache: Dict[str, Any] = {"blocks": {}, "rem": {}}
     for name, kv in raw.items():
         if name[0] == "s":
@@ -596,15 +616,48 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: int,
             cache[group][name] = kv
             continue
         slots = _attn_slots(cfg, kind, max_len)
-        cache[group][name] = {"k": _ring_from_prefill(kv["k"], slots),
-                              "v": _ring_from_prefill(kv["v"], slots)}
+        if ctx is None:
+            ring = functools.partial(_ring_from_prefill, slots=slots)
+        else:
+            ring = functools.partial(_ring_block, cfg=cfg, slots=slots,
+                                     spec=specs[group][name]["k"], ctx=ctx)
+        cache[group][name] = {"k": ring(kv["k"]), "v": ring(kv["v"])}
         if "mk" in kv:
             cache[group][name]["mk"], cache[group][name]["mv"] = kv["mk"], kv["mv"]
     if not cache["rem"]:
         del cache["rem"]
     cache["pos"] = l
-    logits = _logits(params, cfg, x[:, -1:, :])[:, 0, :]
+    # the last position is the last row of the last sequence block: _logits
+    # gathers the rows of every block under seq_shard_activations
+    logits = _logits(params, cfg, x[:, -1:, :])[:, -1, :]
     return cache, logits
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int, ctx) -> Dict[str, Any]:
+    """``cache_shardings``' specs of the decode cache of a global ``batch``
+    and ``max_len`` (:func:`init_cache`'s tree, on the ``meta`` device): the
+    layout of every rank's block of a sharded prefill's cache."""
+    return cache_shardings(init_cache(cfg, batch, max_len, device="meta"), ctx)
+
+
+def _ring_block(kv: torch.Tensor, *, cfg: ModelConfig, slots: int, spec, ctx) -> torch.Tensor:
+    """A prefill's k or v on local blocks, [(G,) B_loc, L, ·, hd] in the
+    heads hint's layout (this rank's kv heads where the model axis divides
+    ``n_kv_heads``, else all of them), → this rank's block of its ring
+    [(G,) B_loc, ·, ·, ·] laid out by ``spec``: moved to the ring's layout
+    but for the slots (the kv heads gathered where the ring does not split
+    them, the head_dim block taken where it splits that: the column split
+    of ``wk``/``wv`` can cut a kv head, so this is a relayout of whole
+    heads, not a cut of the projection's columns), the ring built, then
+    the slot block taken where it splits the slots."""
+    m, lead = ctx.model_axis, kv.ndim - 4
+    src = [None] * kv.ndim
+    src[lead] = tuple(ctx.batch_axes)
+    src[lead + 2] = m if kv.shape[-2] < cfg.n_kv_heads else None
+    mid = list(spec)
+    mid[lead + 1] = None
+    ring = _ring_from_prefill(relayout(kv, src, mid, ctx), slots)
+    return relayout(ring, mid, spec, ctx)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -647,10 +700,11 @@ def _write_back(gc: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]) -> No
         gc[key].copy_(t)
 
 
-def _block_decode(cfg: ModelConfig, kind: str, p, x, gc, pos: int):
+def _block_decode(cfg: ModelConfig, kind: str, p, x, gc, pos: int, ring_spec=None):
     """One block, one token. x: [B,1,D] → x (gc updated in place: k/v rings
-    of attention layers, the state of recurrent ones)."""
-    h = rms_norm(x, p["ln1"], cfg.rms_eps)
+    of attention layers, the state of recurrent ones).  On local blocks
+    ``ring_spec`` is the layout of the rank's k/v ring blocks."""
+    h = rms_norm(x, _scale(p, "ln1", cfg), cfg.rms_eps)
     if kind == "ssm":
         y, st = ssm.decode_step(p["ssm"], cfg, h, gc)
         _write_back(gc, st)
@@ -663,19 +717,20 @@ def _block_decode(cfg: ModelConfig, kind: str, p, x, gc, pos: int):
             x = x + mlp.apply(p["mlp"], cfg, rms_norm(x, p["ln2"], cfg.rms_eps))
         return x
     window = cfg.window if kind == "local" else 0
-    a, _ = attention.decode_step(p["attn"], cfg, h, gc, pos, window=window)
+    a, _ = attention.decode_step(p["attn"], cfg, h, gc, pos, window=window,
+                                 ring_spec=ring_spec)
     if cfg.post_norms:
-        a = rms_norm(a, p["ln1b"], cfg.rms_eps)
+        a = rms_norm(a, _scale(p, "ln1b", cfg), cfg.rms_eps)
     x = x + a
     if "xattn" in p:
         h = rms_norm(x, p["lnx"], cfg.rms_eps)
         x = x + attention.apply(p["xattn"], cfg, h, None, kv_override=(gc["mk"], gc["mv"]),
                                 causal=False)
     if cfg.d_ff:
-        h = rms_norm(x, p["ln2"], cfg.rms_eps)
+        h = rms_norm(x, _scale(p, "ln2", cfg), cfg.rms_eps)
         f = moe.apply(p["moe"], cfg, h) if cfg.moe is not None else mlp.apply(p["mlp"], cfg, h)
         if cfg.post_norms:
-            f = rms_norm(f, p["ln2b"], cfg.rms_eps)
+            f = rms_norm(f, _scale(p, "ln2b", cfg), cfg.rms_eps)
         x = x + f
     return x
 
@@ -685,20 +740,37 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: Dict[str, 
     """One decode step for the whole batch.  token: [B,1] → logits [B, Vp].
 
     The KV rings and recurrent states are updated in place; the returned
-    cache shares them with the one passed in and carries ``pos + 1``.
+    cache shares them with the one passed in and carries ``pos + 1``.  On
+    local blocks (sharded serving) the rings are DTensors placed by
+    :func:`cache_specs`: each layer decodes on this rank's block of its
+    ring in the ring's layout, the token is the rank's batch block and the
+    logits its vocab block.
     """
     pos = cache["pos"]
+    rings = {grp: cache.get(grp, {}) for grp in ("blocks", "rem")}
+    on_blocks = blocks_ctx() is not None
+
+    def ring_spec(grp: str, name: str):
+        """The layout of a layer's ring (its lead [G] dim dropped) on local
+        blocks, else None."""
+        if not on_blocks:
+            return None
+        spec = spec_of(cache[grp][name]["k"])
+        return spec[1:] if grp == "blocks" else spec
+
+    if on_blocks:
+        rings = tree_map(lambda t: t.to_local(), rings)
     x = _embed(params, cfg, token)
     pattern = cfg.layer_pattern
     g, _ = groups_of(cfg)
     for gi in range(g):
         gp = _index(params["blocks"], gi)
         for i, kind in enumerate(pattern):
-            gc = _index(cache["blocks"][f"s{i}"], gi)
-            x = _block_decode(cfg, kind, gp[f"s{i}"], x, gc, pos)
+            gc = _index(rings["blocks"][f"s{i}"], gi)
+            x = _block_decode(cfg, kind, gp[f"s{i}"], x, gc, pos, ring_spec("blocks", f"s{i}"))
     for i, (name, rp) in enumerate(sorted(params.get("rem", {}).items())):
         kind = cfg.pattern_of(g * len(pattern) + i)
-        x = _block_decode(cfg, kind, rp, x, cache["rem"][name], pos)
+        x = _block_decode(cfg, kind, rp, x, rings["rem"][name], pos, ring_spec("rem", name))
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1
     logits = _logits(params, cfg, x)[:, 0, :]

@@ -13,10 +13,13 @@ The port of :mod:`repro.models.moe`, same design:
   * Expert parallel, under a mesh context whose model axis divides the
     experts: each rank routes its token block to its own experts, with the
     capacity on its local token count, and a sum over the model axis
-    combines the ranks' partial outputs.  Serving (:func:`apply_ep`) takes
-    the blocks from global values and combines with an all-reduce; the
-    sharded train step (:func:`apply_blocks`, on local blocks) holds them
-    and combines with the differentiable ``tp_output``.
+    combines the ranks' partial outputs.  Serving on global values
+    (:func:`apply_ep`) takes the blocks from them and combines with an
+    all-reduce; on local blocks (the sharded train step, sharded serving:
+    :func:`apply_blocks`) each rank holds its blocks and combines with the
+    differentiable ``tp_output``.  On local blocks whose model axis does not
+    divide the experts, every rank runs the reference's global dispatch on
+    the gathered tokens (:func:`apply_gathered`).
 
 ``jax.numpy``'s ``.at[...].set(mode="drop")`` drops out-of-range updates;
 ``index_put`` raises on them instead.  So the buffer has one more expert
@@ -40,8 +43,8 @@ from torch.profiler import record_function
 
 from repro_torch.models import mlp
 from repro_torch.models.common import ModelConfig, dense_init
-from repro_torch.parallel.mesh_ctx import (all_reduce, blocks_ctx, current_ctx, gather_dim0,
-                                           reduce, tp_input, tp_output)
+from repro_torch.parallel.mesh_ctx import (all_reduce, blocks_ctx, current_ctx, gather,
+                                           gather_dim0, reduce, tp_input, tp_output)
 from repro_torch.parallel.sharding import use_param
 
 #: the ``record_function`` ranges of one MoE layer
@@ -132,18 +135,22 @@ def dispatch(ids: torch.Tensor, num_experts: int, cap: int
 
 
 def apply(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """x: [B, L, D] → [B, L, D].  On local blocks (the sharded train step)
-    the expert-parallel :func:`apply_blocks`; under a mesh context of ranks
-    whose model axis divides the experts, on global values (serving), the
-    expert-parallel :func:`apply_ep`, whose all-reduce refuses a tensor
-    that needs a gradient; otherwise (no context, or a context of axis
-    sizes alone, which has no ranks) the single-device :func:`apply_ref`,
-    which doubles as the oracle."""
+    """x: [B, L, D] → [B, L, D].  On local blocks (the sharded train step,
+    sharded serving) the expert-parallel :func:`apply_blocks` where the
+    model axis divides the experts, else :func:`apply_gathered`, the
+    reference's global dispatch on every rank's tokens; under a mesh
+    context of ranks whose model axis divides the experts, on global values
+    (serving), the expert-parallel :func:`apply_ep`, whose all-reduce
+    refuses a tensor that needs a gradient; otherwise (no context, or a
+    context of axis sizes alone, which has no ranks) the single-device
+    :func:`apply_ref`, which doubles as the oracle."""
     ctx = current_ctx()
     m = cfg.moe
     assert m is not None
     if blocks_ctx() is not None:
-        return apply_blocks(params, cfg, x, ctx)
+        if m.num_experts % ctx.model_size == 0:
+            return apply_blocks(params, cfg, x, ctx)
+        return apply_gathered(params, cfg, x, ctx)
     if ctx is not None and ctx.on_ranks and m.num_experts % ctx.model_size == 0:
         return apply_ep(params, cfg, x, ctx)
     return apply_ref(params, cfg, x)
@@ -151,12 +158,24 @@ def apply(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor) -> torch.Te
 
 def apply_ref(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Single-device reference: global sort-based dispatch."""
+    b, l, d = x.shape
+    x2d = x.reshape(b * l, d)
+    y = routed(params, cfg, x2d)
+    if cfg.moe.num_shared:
+        y = y + mlp.apply(params["shared"], cfg, x2d, d_ff=shared_width(cfg))
+    return y.reshape(b, l, d)
+
+
+def routed(params: Dict[str, Any], cfg: ModelConfig, x2d: torch.Tensor) -> torch.Tensor:
+    """The routed experts' output [T, D] of every token of x2d [T, D] (the
+    MoE layer without its shared experts), at :func:`capacity` of T: the
+    router ``params["router"]`` and the experts ``w_gate``, ``w_up``,
+    ``w_down``, all E of them."""
     m = cfg.moe
     assert m is not None
-    b, l, d = x.shape
-    t, k, e = b * l, m.top_k, m.num_experts
+    t, d = x2d.shape
+    k, e = m.top_k, m.num_experts
     ct = cfg.cdtype
-    x2d = x.reshape(t, d)
     cap = capacity(t, cfg)
 
     with _scope("moe.route"):
@@ -165,7 +184,7 @@ def apply_ref(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor) -> torc
         s = dispatch(ids, e, cap)
         src = x2d[s["order"] // k].to(ct)                        # [A, D]
         slot = torch.where(s["kept"], s["pos"], 0)
-        buf = torch.zeros((e + 1, cap, d), dtype=ct, device=x.device)
+        buf = torch.zeros((e + 1, cap, d), dtype=ct, device=x2d.device)
         buf = buf.index_put((s["row"], slot), src)[:e]           # row e: dropped
 
     # batched products have a batch dim: remat "dots" recomputes them, as the
@@ -181,11 +200,7 @@ def apply_ref(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor) -> torc
         unsort = torch.argsort(s["order"])                       # inverse permutation
         per_assign = gathered[unsort].reshape(t, k, d)
         # one contraction over k with one rounding, as the reference's einsum
-        y = torch.bmm(weights.to(ct)[:, None, :], per_assign)[:, 0, :]
-
-    if m.num_shared:
-        y = y + mlp.apply(params["shared"], cfg, x2d, d_ff=shared_width(cfg))
-    return y.reshape(b, l, d)
+        return torch.bmm(weights.to(ct)[:, None, :], per_assign)[:, 0, :]
 
 
 # ==========================================================================
@@ -294,10 +309,22 @@ def apply_ep(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor, ctx) -> 
     return y.reshape(b, l, d)
 
 
+def _read_experts(params: Dict[str, Any], cfg: ModelConfig, model_partial) -> Dict[str, Any]:
+    """The router and the experts as this rank's computation on local
+    blocks reads them (:func:`~repro_torch.parallel.sharding.use_param` by
+    the rule table); ``model_partial(name)``: whether that leaf's gradient
+    is summed over the model axis."""
+    m = cfg.moe
+    d, f, e = cfg.d_model, m.d_expert, m.num_experts
+    shapes = {"router": (d, e), "w_gate": (e, d, f), "w_up": (e, d, f), "w_down": (e, f, d)}
+    return {n: use_param(params[n], ("moe", n), shape, model_partial=model_partial(n))
+            for n, shape in shapes.items()}
+
+
 def apply_blocks(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
                  ctx) -> torch.Tensor:
-    """Expert-parallel MoE on this rank's blocks (the sharded train step):
-    x [B_loc, L, D] (or [B_loc, L/model, D] with ``seq_shard_activations``)
+    """Expert-parallel MoE on this rank's blocks (the sharded train step,
+    sharded serving): x [B_loc, L, D] (or [B_loc, L/model, D] with ``seq_shard_activations``)
     → the same block of the output.
 
     The counterpart of the reference's ``shard_map`` body, differentiable.
@@ -312,17 +339,52 @@ def apply_blocks(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
     meet only its own experts' outputs.  The shared experts are the
     tensor-parallel MLP on the same block.  The model axis must divide the
     experts (``lm.check_sharded``)."""
-    m = cfg.moe
-    d, f, e = cfg.d_model, m.d_expert, m.num_experts
-    shapes = {"router": (d, e), "w_gate": (e, d, f), "w_up": (e, d, f), "w_down": (e, f, d)}
-    w = {n: use_param(params[n], ("moe", n), shape, model_partial=n == "router")
-         for n, shape in shapes.items()}
+    m, d = cfg.moe, cfg.d_model
+    w = _read_experts(params, cfg, lambda n: n == "router")
     xin = tp_input(x)
     b, l, _ = xin.shape
     lo = ctx.coord(ctx.model_axis) * w["w_gate"].shape[0]
     y = ep_partial(w, cfg, xin.reshape(b * l, d), lo).to(cfg.cdtype)
     with _scope("moe.combine"):
         y = tp_output(y.reshape(b, l, d))
+    if m.num_shared:
+        y = y + mlp.apply(params["shared"], cfg, x, d_ff=shared_width(cfg))
+    return y
+
+
+def apply_gathered(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
+                   ctx) -> torch.Tensor:
+    """The MoE layer on this rank's blocks where the model axis does not
+    divide the experts: the counterpart of the reference's :func:`apply_ref`
+    under GSPMD, which it falls back to there.  x [B_loc, L, D] (or [B_loc,
+    L/model, D] with ``seq_shard_activations``) → the same block of the
+    output.
+
+    Every rank gathers the tokens of all ranks in the reference's global
+    ``x2d`` row order (its batch block over the batch axes, its sequence
+    block over the model axis under ``seq_shard_activations``), reads the
+    router and all E experts (the rule table's guard keeps E whole; D is
+    gathered over the FSDP axes), runs the global dispatch at
+    :func:`capacity` of the global token count and keeps its own rows.
+    The gather's backward sums the ranks' partial input gradients and cuts
+    the rank's block.  Each rank's experts and router meet only its own
+    rows' output gradients, so their gradients are summed over the axes
+    whose ranks hold other rows: the batch axes, and the model axis only
+    under ``seq_shard_activations`` (otherwise the model axis's ranks hold
+    the same rows, each with their whole gradient).  The shared experts
+    are the tensor-parallel MLP on the rank's block."""
+    m, d = cfg.moe, cfg.d_model
+    seq = ctx.seq_shard_activations
+    w = _read_experts(params, cfg, lambda n: seq)
+    b, l, _ = x.shape
+    xg = gather(x, 0, ctx.batch_axes, ctx)
+    if seq:
+        xg = gather(xg, 1, ctx.model_axis, ctx)
+    y = routed(w, cfg, xg.reshape(-1, d)).reshape(xg.shape)
+    with _scope("moe.combine"):
+        y = y.narrow(0, ctx.linear_coord(tuple(ctx.batch_axes)) * b, b)
+        if seq:
+            y = y.narrow(1, ctx.coord(ctx.model_axis) * l, l)
     if m.num_shared:
         y = y + mlp.apply(params["shared"], cfg, x, d_ff=shared_width(cfg))
     return y

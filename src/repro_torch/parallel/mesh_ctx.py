@@ -13,15 +13,16 @@ groups (gloo runs ``all_reduce`` on CUDA tensors as well as CPU ones; its
 ``all_gather`` and DTensor's redistributions run on CPU tensors only).
 Two modes:
 
-* global values (serving).  A rank holds the global value of every plain
-  tensor, which is what the reference's jit sees.  The two ``shard_map``
+* global values (serving on global parameters).  A rank holds the global
+  value of every plain tensor, which is what the reference's jit sees.  The two ``shard_map``
   bodies (``moe.apply_ep`` and ``attention._decode_seqshard``) are plain
   functions on the rank's own block, taken by its mesh coordinate, that
   return the global result on every rank.  Only a decode cache placed as
   DTensors takes ``_decode_seqshard``.  :func:`all_reduce` is not
   differentiable and refuses a tensor that needs a gradient.
 * local blocks (``MeshCtx.local_blocks``, set by the sharded train step,
-  :mod:`repro_torch.train.step`).  A rank holds its own block of every
+  :mod:`repro_torch.train.step`, and by serving on parameters placed as
+  DTensors, :mod:`repro_torch.serve.engine`).  A rank holds its own block of every
   parameter (placed by the rule table) and of every activation, and the
   layout changes are the differentiable collectives below (:func:`gather`,
   :func:`scatter`, :func:`reduce`, :func:`replicate`).  The layout hints
@@ -86,7 +87,8 @@ class MeshCtx:
     its slot dim over the model axis decodes through
     ``attention._decode_seqshard``.
     ``local_blocks`` — the model code runs on this rank's blocks of the
-    parameters and activations (the sharded train step sets it).
+    parameters and activations (the sharded train step and sharded serving
+    set it).
     """
 
     mesh: Any
@@ -145,8 +147,8 @@ class MeshCtx:
         return i
 
 
-#: where the ports of what the sharded train step does not run yet (an MoE
-#: layer whose experts the model axis does not divide) are queued
+#: where the ports of what the sharded paths do not run yet (serving on the
+#: blocks of the recurrent and enc-dec families) are queued
 SHARDED_TODO = "ROADMAP Queue 1 item 16"
 
 _CTX: contextvars.ContextVar[Optional[MeshCtx]] = contextvars.ContextVar(
@@ -185,15 +187,17 @@ def is_distributed(x: Any) -> bool:
 # ==========================================================================
 
 #: the collectives of the distributed branches since the last
-#: :func:`reset_collective_stats`: calls, and host seconds when ``timed``
-collective_stats: Dict[str, Any] = {"calls": 0, "seconds": 0.0, "timed": False}
+#: :func:`reset_collective_stats`: calls, the bytes of the tensors they
+#: reduced, the largest of those, and host seconds when ``timed``
+collective_stats: Dict[str, Any] = {"calls": 0, "bytes": 0, "largest": 0, "seconds": 0.0,
+                                    "timed": False}
 
 
 def reset_collective_stats(*, timed: bool = False) -> None:
     """Zero the counts.  With ``timed`` every collective is timed on the
     host clock, after a synchronise of the card so that the time is the
     collective's own (this serialises the card's work with the host)."""
-    collective_stats.update(calls=0, seconds=0.0, timed=timed)
+    collective_stats.update(calls=0, bytes=0, largest=0, seconds=0.0, timed=timed)
 
 
 def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
@@ -209,7 +213,10 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
             "differentiate their all-reduces: run them under torch.no_grad(), or train on "
             "local blocks (the sharded train step: moe.apply_blocks)")
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    nbytes = x.numel() * x.element_size()
     collective_stats["calls"] += 1
+    collective_stats["bytes"] += nbytes
+    collective_stats["largest"] = max(collective_stats["largest"], nbytes)
     if not collective_stats["timed"]:
         dist.all_reduce(x, op=red, group=group)
         return x

@@ -263,13 +263,23 @@ def local_slices(shape: Sequence[int], spec: Spec, ctx: MeshCtx) -> Tuple[slice,
     return tuple(out)
 
 
+def local_block(t: Any) -> Any:
+    """This rank's block of a DTensor; any other value as it is."""
+    return t.to_local() if is_distributed(t) else t
+
+
+def from_block(local: torch.Tensor, spec: Spec, ctx: MeshCtx) -> DTensor:
+    """The DTensor laid out by ``spec`` whose block on this rank is
+    ``local`` (every rank passes its own block).  No collective runs."""
+    return DTensor.from_local(local, ctx.mesh, placements(spec, ctx.mesh), run_check=False)
+
+
 def distribute(x: torch.Tensor, spec: Spec, ctx: MeshCtx) -> DTensor:
     """A DTensor from the global value ``x`` that every rank holds: each
     rank keeps (a copy of) its own block.  No collective runs."""
     local = x[local_slices(tuple(x.shape), spec, ctx)].clone(
         memory_format=torch.contiguous_format)
-    return DTensor.from_local(local, ctx.mesh, placements(spec, ctx.mesh),
-                              run_check=False)
+    return from_block(local, spec, ctx)
 
 
 def distribute_tree(tree: Any, specs: Any, ctx: MeshCtx) -> Any:

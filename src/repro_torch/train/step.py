@@ -17,9 +17,11 @@ the gradients come back as the rank's blocks through the gathers'
 backwards, the global norm sums over the ranks, and AdamW updates each
 block where it lies.  The dense attention families, the VLM with its
 patch prefix, the enc-dec encoder and cross-attention, the MoE family
-(expert parallel) and the recurrent ones (Mamba2's "ssm", RecurrentGemma's
-"rglru" with its local attention); an MoE config whose experts the model
-axis does not divide raises (:func:`repro_torch.models.lm.check_sharded`).
+(expert parallel, or, where the model axis does not divide the experts,
+the reference's global dispatch on the gathered tokens:
+:func:`repro_torch.models.moe.apply_gathered`) and the recurrent ones
+(Mamba2's "ssm", RecurrentGemma's "rglru" with its local attention), as
+:func:`repro_torch.models.lm.check_sharded` admits them.
 """
 
 from __future__ import annotations
@@ -28,14 +30,13 @@ import dataclasses
 from typing import Any, Dict, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor
 
 from repro_torch import resolve_device
 from repro_torch.models import lm
 from repro_torch.models.common import (ModelConfig, cast_tree, torch_dtype, tree_leaves,
                                        tree_map)
 from repro_torch.parallel.mesh_ctx import current_ctx, is_distributed, mesh_context
-from repro_torch.parallel.sharding import local_batch, placements, spec_of
+from repro_torch.parallel.sharding import from_block, local_batch, local_block, spec_of
 from repro_torch.train import optim
 
 TrainState = Dict[str, Any]     # {"params", "opt": {"m","v"}, "step"}
@@ -125,19 +126,17 @@ def make_train_step(cfg: ModelConfig, *, lr: float = 3e-4, max_grad_norm: float 
         lm.check_sharded(cfg, ctx, seq_len=batch["tokens"].shape[1],
                          patches=batch.get("patches"), frames=batch.get("frames"))
         specs = tree_map(spec_of, state["params"])
-        local = lambda t: t.to_local() if is_distributed(t) else t  # noqa: E731
         blocks = dataclasses.replace(ctx, local_blocks=True)
         with mesh_context(blocks):
             params, opt, metrics = update(
-                tree_map(local, state["params"]), tree_map(local, state["opt"]),
-                local(state["step"]), local_batch(batch, blocks), specs, blocks)
+                tree_map(local_block, state["params"]), tree_map(local_block, state["opt"]),
+                local_block(state["step"]), local_batch(batch, blocks), specs, blocks)
 
         def place(t, spec):
-            return DTensor.from_local(t, ctx.mesh, placements(spec, ctx.mesh),
-                                      run_check=False)
+            return from_block(t, spec, ctx)
 
         step = state["step"]
-        step = place(local(step) + 1, ()) if is_distributed(step) else step + 1
+        step = place(local_block(step) + 1, ()) if is_distributed(step) else step + 1
         return {"params": tree_map(place, params, specs),
                 "opt": {k: tree_map(place, opt[k], specs) for k in ("m", "v")},
                 "step": step}, metrics

@@ -940,3 +940,69 @@ def test_mesh_train_step_on_card_ranks_matches_plain(mesh_train_card, card, arch
                                        err_msg=key)
         else:
             np.testing.assert_allclose(a, b, atol=1e-4, err_msg=key)
+
+
+# ==========================================================================
+# serving on sharded parameters: gloo ranks sharing the card
+# ==========================================================================
+
+
+def _serve_worker(tmp_path_factory, world: int, task: str) -> list:
+    """Run ``tests/torch_mesh_serve_worker.py``'s ``task`` on ``world``
+    ranks on the card; each rank's record."""
+    import os
+    import subprocess
+    import sys
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the ranks place their tensors on it")
+    d = tmp_path_factory.mktemp(f"mesh_serve_{task}")
+    here = os.path.dirname(os.path.abspath(__file__))
+    r = subprocess.run([sys.executable, os.path.join(here, "torch_mesh_serve_worker.py"),
+                        str(d), str(world), task],
+                       env=dict(os.environ, PYTHONPATH=os.path.join(here, "..", "src")),
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-4000:]
+    return [dict(np.load(d / f"{task}-rank{i}.npz")) for i in range(world)]
+
+
+@pytest.fixture(scope="module")
+def mesh_serve_card(tmp_path_factory):
+    """The serve worker's ``card`` task: 4 ranks as the (2, 2) mesh."""
+    return _serve_worker(tmp_path_factory, 4, "card")
+
+
+@pytest.fixture(scope="module")
+def mesh_serve_card8(tmp_path_factory):
+    """The serve worker's ``card8`` task: 8 ranks as the (1, 8) mesh."""
+    return _serve_worker(tmp_path_factory, 8, "card8")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["yi-9b", "gemma2-27b", "phi-3-vision-4.2b",
+                                  "deepseek-moe-16b"])
+def test_mesh_serve_on_card_ranks_matches_plain(mesh_serve_card, arch):
+    """Each rank's fp32 sharded prefill and 3 greedy decode steps of the
+    smoke config (make_prefill_step / make_decode_step on DTensor
+    parameters: yi-9b's ring over its head_dim, the others' over their kv
+    heads; deepseek-moe-16b expert parallel at no_drop's capacity) against
+    its plain ones on the card: logits within 1e-4, the tokens equal, flash
+    launched once a layer in the prefill."""
+    for i, out in enumerate(mesh_serve_card):
+        assert float(out[f"{arch}/max_abs_err"]) <= 1e-4, (i, float(out[f"{arch}/max_abs_err"]))
+        assert bool(out[f"{arch}/tokens_equal"]), i
+        assert int(out[f"{arch}/launches"]) == configs.get_smoke(arch).n_layers, i
+
+
+@pytest.mark.cuda
+def test_mesh_global_dispatch_on_8_card_ranks_matches_plain(mesh_serve_card8):
+    """dbrx-132b smoke on 8 ranks as the (1, 8) mesh on the card, its 4
+    experts on every rank (the global dispatch on the gathered tokens):
+    the sharded prefill and decode within 1e-4 of the plain ones with equal
+    tokens, and 2 sharded train steps' loss and grad norm within 1e-4
+    relative of the plain steps'."""
+    for i, out in enumerate(mesh_serve_card8):
+        assert float(out["serve/max_abs_err"]) <= 1e-4, (i, float(out["serve/max_abs_err"]))
+        assert bool(out["serve/tokens_equal"]), i
+        np.testing.assert_allclose(out["train/sharded"], out["train/plain"], rtol=1e-4,
+                                   err_msg=f"rank {i}")

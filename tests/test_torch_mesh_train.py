@@ -21,7 +21,10 @@ one kv head), in fp32 and in bf16 compute; the MoE family, expert
 parallel at the configs' own capacity factor: deepseek-moe-16b smoke on
 (2, 4) (shared experts wider than the flag ``d_ff``), with and without
 ``seq_shard_activations``, and dbrx-132b smoke on (2, 2, 2) with FSDP over
-``("pod", "data")``; the multimodal families: phi-3-vision-4.2b smoke on
+``("pod", "data")``, and dbrx-132b smoke on (1, 8), whose 4 experts the
+model axis does not divide (the global dispatch on the gathered tokens),
+with and without ``seq_shard_activations``; the multimodal families:
+phi-3-vision-4.2b smoke on
 (2, 4) with its patch prefix (L 72), with and without
 ``seq_shard_activations``, and seamless-m4t-medium smoke (encoder and
 cross-attention, 8 frames) on (2, 2, 2) with FSDP over ``("pod", "data")``,
@@ -29,14 +32,16 @@ in fp32 and in bf16 compute, and on (2, 4) with
 ``seq_shard_activations``.  After 2 steps: each step's loss, MoE aux loss and
 grad norm, and every gathered parameter and both moments, fp32 within the
 reference tests' 1e-4, the bf16 losses within 3e-2.  The same against the
-port's own single-process step, but for the MoE cases, whose sharded
-step drops other assignments than the plain one (as the reference's
-does).  Also the twin of
+port's own single-process step, but for the expert-parallel MoE cases,
+whose sharded step drops other assignments than the plain one (as the
+reference's does), and ``worker.REFERENCE_ONLY``'s "dbrx-global-seq".
+Also the twin of
 ``test_seq_shard_reduces_saved_activations``, each collective's backward
 against its adjoint (4 ranks, fp64), each rank's state bytes against the
 rule table's share, a sharded save restored sharded (and by the
-reference), what the sharded step refuses, and every full recurrent, MoE
-and multimodal config's shapes at a rank against the kernels' domains.
+reference), what the sharded step and sharded serving refuse, and every
+full recurrent, MoE and multimodal config's shapes at a rank against the
+kernels' domains.
 
 The ranks run in ``tests/torch_mesh_train_worker.py`` (subprocesses with a
 timeout, so a hung collective fails these tests and not the suite), the
@@ -282,7 +287,7 @@ def test_sharded_step_matches_jax_sharded_step(run, case):
     _hold_state(ranks[0], want, case)
 
 
-@pytest.mark.parametrize("case", [c for c in FP32_CASES if c not in worker.MOE_CASES])
+@pytest.mark.parametrize("case", [c for c in FP32_CASES if c not in worker.REFERENCE_ONLY])
 def test_sharded_step_matches_single_process_step(run, case):
     single, out = run["single"][case], run["train"][0]
     np.testing.assert_allclose(out[f"{case}/loss"], single["loss"], rtol=TOL)
@@ -463,13 +468,15 @@ def test_sharded_save_joins_a_piece_at_a_time(run):
         assert 0 < peak <= 2 * worker.SAVE_PIECE_BYTES < leaf, (peak, leaf)
 
 
-@pytest.mark.parametrize("arch", ["dbrx-132b"])
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b", "seamless-m4t-medium"])
 def test_unported_configs_raise(run, arch):
-    """dbrx-132b smoke's 4 experts on a model axis of 8 (the reference's
-    global-dispatch fallback)."""
+    """Serving on the blocks of the recurrent and enc-dec families (their
+    decode states and the memory's ``mk``/``mv`` on blocks are not ported
+    yet): ``make_prefill_step`` on their DTensor parameters raises
+    ``NotImplementedError`` naming ``SHARDED_TODO``, on every rank."""
     for out in run["refuse"]:
-        msg = str(out[f"refuse/{arch}"])
-        assert msg.startswith("NotImplementedError") and "does not divide the experts" in msg
+        msg = str(out[f"refuse/serve/{arch}"])
+        assert msg.startswith("NotImplementedError") and "sharded parameters" in msg, msg
         assert str(out["refuse/todo"]) in msg, msg
 
 
