@@ -73,7 +73,7 @@ other phases without the four ranks' runs.  Phases, in order; any failure exits 
               4.9 GB of fp32 a rank): prefill of [4, 512] under the mesh
               context (4 flash launches a rank, wgmma in bf16), the cache
               placed by cache_shardings with shard_kv_seq (a ring of 544
-              slots, 272 a model rank), then 8 decode steps through
+              slots, 272 a model rank), then 4 decode steps through
               attention._decode_seqshard against the same rank's plain
               decode on the unsharded cache: bf16 with the same tokens fed
               to both, logits within 1e-1; fp32 greedy, logits within 1e-4
@@ -103,30 +103,48 @@ other phases without the four ranks' runs.  Phases, in order; any failure exits 
               through serve/engine.make_prefill_step and make_decode_step
               (DTensor parameters under the mesh context): batch 4 × 512,
               4 decode steps, the cache placed by cache_shardings.  yi-9b at
-              full width, 4 of 48 layers, twice (its 4 kv heads over the
-              model axis; then with shard_kv_seq, its 516 slots),
-              phi-3-vision-4.2b at full width, 4 of 32 layers, with its
-              576-patch prefix (L 1088), and deepseek-moe-16b at full
+              full width, 4 of 48 layers (its 4 kv heads over the model
+              axis), phi-3-vision-4.2b at full width, 4 of 32 layers, with
+              its 576-patch prefix (L 1088), deepseek-moe-16b at full
               width, 2 of 28 layers, at parallel.ref.no_drop's capacity
-              (expert parallel).  Each in bf16 fed the plain run's greedy
-              tokens (logits within 1e-1) and cut to one layer in fp32
-              greedy, 2 decode steps (logits within 1e-4, the tokens
-              equal), the greedy argmax over the whole padded vocab; the
+              (expert parallel), mamba2-370m at full width, 12 of 48
+              layers in bf16 and all 48 in fp32 (the SSM state over the
+              heads, the B/C conv tails over N; bf16's own drift passes
+              1e-1 at 48 layers, see MESH_SERVE), recurrentgemma-9b at full
+              width, one (rglru, rglru,
+              local) group of its 38 layers (the RG-LRU state over the
+              width; the local ring over its one kv head's head_dim), and
+              seamless-m4t-medium at full width, 4 + 4 of 12 + 12 layers,
+              64 frames, with shard_kv_seq (the rings' 516 slots and the
+              projected memory's 64 rows over the model axis: the
+              cross-attention's split softmax).  Each in bf16 fed the plain
+              run's greedy tokens (logits within 1e-1) and cut to its first
+              layer in fp32 (recurrentgemma-9b: its first group;
+              seamless-m4t-medium: 1 + 1; mamba2-370m: all 48) greedy, 2
+              decode steps (logits
+              within 1e-4, the tokens equal), the greedy argmax over the
+              whole padded vocab; the
               MoE arch's logits where the step's token went to the same
               experts as in the plain run (a bf16 near-tie of its router
               may send a token elsewhere; none may in fp32), each of its
               layer calls against moe.apply_ref on the same input (3e-2 in
               bf16, 1e-5 in fp32); every rank's cache bytes
-              the rule table's share; every prefill one flash launch a
-              layer on its dtype's variant at the rank's shape (its batch
-              block, its q heads and their kv heads).  Prints each rank's
+              the rule table's share; every prefill one kernel launch a
+              layer on its dtype's variant at the rank's shape (flash a
+              causal self-attention layer: its batch block, its q heads and
+              their kv heads; the SSD scan an SSM layer: its heads; the
+              RG-LRU scan an RG-LRU layer: its width).  Prints each rank's
               prefill ms, decode ms of each step, all-reduces, their bytes
               and host seconds a pass (every collective timed after a
               synchronise), peak memory and cache bytes; gloo moves every
               byte through host memory, so the times describe the harness,
-              not a cluster.  Phase 2 holds and times flash at the rank's
-              shape q [2,512,16,128], k/v [2,512,2,128] for the flash row's
-              at_other_shapes.
+              not a cluster.  Phase 2 holds and times each kernel at the
+              rank's shapes of the bf16 prefills for its row's
+              at_other_shapes: flash at yi-9b's q [2,512,16,128], k/v
+              [2,512,2,128], recurrentgemma-9b's q [2,512,8,256], k/v
+              [2,512,1,256] (window 2048) and seamless-m4t-medium's q/k/v
+              [2,512,8,64]; the SSD scan at x [2,512,16,64], B/C
+              [2,512,128]; the RG-LRU scan at [2,512,2048].
 4. serve    — launch/serve at full width (random weights from a seed, fp32
               master weights on the card), batch 4, prompt 512, 32 generated
               tokens, for yi-9b, mamba2-370m, recurrentgemma-9b,
@@ -209,9 +227,9 @@ other phases without the four ranks' runs.  Phases, in order; any failure exits 
               phase 6's plain step on the same state and batch (the
               bf16-gathered one against a plain bf16-gathered step from
               phase 6's state), parameters bf16 after the bf16-gathered
-              step, 8 wgmma flash launches a step on every rank; a timed
-              pass (step 3 again, every collective timed on the host clock
-              after a synchronise); then one fp32 step of the same width cut
+              step, 8 wgmma flash launches a step on every rank, step 3
+              with every collective timed on the host clock after a
+              synchronise; then one fp32 step of the same width cut
               to one layer (flash fma, 2 launches) within 1e-4 relative of
               the plain fp32 step's loss and grad norm, and every rank's
               block of every updated parameter within 1e-4 of the plain
@@ -219,7 +237,7 @@ other phases without the four ranks' runs.  Phases, in order; any failure exits 
               within 1e-4 of its largest (the loss alone cannot tell the
               ranks apart: the loss reduces over every axis).
               Prints each rank's step ms, collectives, their seconds in the
-              timed pass and its peak memory beside phase 6's.
+              timed step and its peak memory beside phase 6's.
 6d. mesh train recurrent — the sharded train step of the recurrent
               families on the MESH_RANKS ranks, spawned again as the (2, 2)
               ("data", "model") gloo mesh on the card, remat "dots", bf16
@@ -238,8 +256,8 @@ other phases without the four ranks' runs.  Phases, in order; any failure exits 
               relative of the plain step's, its launches exactly the scan
               forwards twice and each scan backward once a scan layer and
               flash twice a local layer, all on the bf16 variants (mma,
-              vec4, wgmma); a timed pass (a fourth step on the first batch,
-              every collective timed); then one fp32 step (mamba2-370m cut
+              vec4, wgmma), the third with every collective timed; then one
+              fp32 step (mamba2-370m cut
               to one layer, on the fma scans; recurrentgemma-9b's group, on
               flash's fma) within 1e-4 relative of the plain step's loss
               and grad norm, every rank's block of every updated parameter
@@ -247,10 +265,10 @@ other phases without the four ranks' runs.  Phases, in order; any failure exits 
               over the model axis, included) within 1e-4 of the plain
               step's and of every first moment within 1e-4 of its largest.
               Prints each rank's step ms, collectives a step, their seconds
-              in the timed pass and its peak memory.  Phase 2 holds and
+              in the timed step and its peak memory.  Phase 2 holds and
               times each kernel at a rank's shape here; every row of the
               kernel line gets that entry under at_other_shapes with these
-              launches (all ranks, the bf16 steps and timed passes).
+              launches (all ranks, the bf16 steps).
 6e. mesh train MoE — the sharded train step of the MoE family on the
               MESH_RANKS ranks, spawned again as the (2, 2) ("data",
               "model") gloo mesh on the card, after the parent has run and
@@ -266,7 +284,7 @@ other phases without the four ranks' runs.  Phases, in order; any failure exits 
               flash launches exact on wgmma); each rank rebuilds the state
               from the seed and keeps its blocks: 3 steps, each step's loss
               within 3e-2 and grad norm within 5e-2 relative of the plain
-              step's, a timed pass (every collective timed), one step at
+              step's, the third with every collective timed, one step at
               the config's own capacity factor 1.25 (the assignments each
               rank's experts drop, and the loss, finite and the same on
               every rank; not held against the plain step, which drops
@@ -277,7 +295,7 @@ other phases without the four ranks' runs.  Phases, in order; any failure exits 
               experts, shared experts included) within 1e-4 of the plain
               step's and of every first moment within 1e-4 of its largest.
               Prints each rank's step ms, collectives a step, their seconds
-              in the timed pass, peak memory and state bytes.  Phase 2
+              in the timed step, peak memory and state bytes.  Phase 2
               holds and times flash at this rank's shape: the flash row
               gets that entry under at_other_shapes with these launches.
 6f. mesh train multimodal — the sharded train step of the VLM and
@@ -297,8 +315,8 @@ other phases without the four ranks' runs.  Phases, in order; any failure exits 
               positions/s, peak memory, flash launches exact on wgmma);
               each rank rebuilds the state from the seed and keeps its
               blocks: 3 steps, each step's loss within 3e-2 and grad norm
-              within 5e-2 relative of the plain step's, a timed pass (every
-              collective timed), one step from the initial state with
+              within 5e-2 relative of the plain step's, the third with
+              every collective timed, one step from the initial state with
               seq_shard_activations against the plain step 1 likewise, flash
               exactly twice a decoder layer on wgmma in each (8 a step);
               then one fp32 step (phi-3-vision-4.2b cut to one layer,
@@ -308,7 +326,7 @@ other phases without the four ranks' runs.  Phases, in order; any failure exits 
               and the cross-attention included) within 1e-4 of the plain
               step's and of every first moment within 1e-4 of its largest.
               Prints each rank's step ms, collectives a step, their seconds
-              in the timed pass, peak memory and state bytes.  Phase 2
+              in the timed step, peak memory and state bytes.  Phase 2
               holds and times flash at each arch's rank shape: the flash
               row gets those entries under at_other_shapes with these
               launches.
@@ -325,11 +343,20 @@ other phases without the four ranks' runs.  Phases, in order; any failure exits 
               mamba2-370m and recurrentgemma-9b smoke configs on the card
               runs through each scan's backward kernel.
 
+Every phase's seconds are logged as it ends (``[time]``).  The script
+must end within its 1200 s, so the serving of the recurrent and enc-dec
+families on the ranks (phase 3c) was paid for by cuts: phase 3c's second
+yi-9b case (``shard_kv_seq``; seamless-m4t-medium runs the slot layout
+now), phase 3b (a)'s decode steps (8 → 4), and the timed pass of phases
+6c, 6d, 6e and 6f (a further step run only to time its collectives: the
+last held step is timed instead).
+
 Phase 2 also holds the flash kernels' log-sum-exp (the backward's input)
 against the plain version on both variants and times the forward with it
 at the training shape and at a rank's shape in phase 6c, and holds and
-times every kernel at a rank's shape in phase 6d and flash at a rank's
-shape in phases 3c, 6e and 6f.
+times every kernel at a rank's shape in phase 6d, flash at a rank's shape
+in phases 6e and 6f, and each forward kernel at the rank's shapes of phase
+3c.
 
 The line before the last is one JSON object with a row per kernel
 (flash_attention, ssd_scan, rglru_scan, ssd_scan_bwd, rglru_scan_bwd); the last
@@ -423,7 +450,7 @@ TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, YI.n_heads, YI.n_kv_heads, YI.hd)
 # decode steps
 MESH_RANKS, MESH_SHAPE, MESH_AXES = 4, (2, 2), ("data", "model")
 MESH_YI = YI.replace(n_layers=4)
-MESH_MAX_LEN, MESH_DECODE = 544, 8
+MESH_MAX_LEN, MESH_DECODE = 544, 4
 MESH_DS = DS.replace(n_layers=2)
 MESH_DS_DECODE = 4
 MESH_TIMEOUT = 600
@@ -433,23 +460,49 @@ MESH_TIMEOUT = 600
 # (bf16 serving weights, as the reference's sharded serving cells store
 # them: half the bytes of every gather) and keeps its blocks by the rule table,
 # then serves its blocks through make_prefill_step and make_decode_step:
-# batch 4 × 512 prompt tokens (phi-3-vision-4.2b with its 576 patches first)
-# and MESH_SERVE_DECODE decode steps (MESH_SERVE_FP32_DECODE in fp32).
-# yi-9b at full width, depth cut from 48 layers to 4, twice: its 4 kv heads
-# over the model axis, then with shard_kv_seq its ring's 516 slots;
+# batch 4 × 512 prompt tokens (phi-3-vision-4.2b with its 576 patches first,
+# seamless-m4t-medium with 512 // 8 = 64 frames) and MESH_SERVE_DECODE decode
+# steps (MESH_SERVE_FP32_DECODE in fp32).  yi-9b at full width, depth cut
+# from 48 layers to 4 (its 4 kv heads over the model axis);
 # phi-3-vision-4.2b at full width, depth cut from 32 layers to 4;
 # deepseek-moe-16b at full width, depth cut from 28 layers to 2, at
 # parallel.ref.no_drop's capacity (expert parallel; nothing drops, so the
-# ranks compute the plain layer's function).  Each against the parent's
-# plain prefill and decode on the same weights: bf16 fed the plain greedy
-# tokens (logits within MESH_SERVE_BF16_TOL), then one layer in fp32 greedy
-# (logits within MESH_SERVE_FP32_TOL, the tokens equal)
+# ranks compute the plain layer's function); mamba2-370m at full width, its
+# depth cut from 48 layers to 12 in bf16 (the SSM state over the heads, the
+# B/C conv tails over N); recurrentgemma-9b at full width, one (rglru,
+# rglru, local) group of 38 layers (the RG-LRU state over the width, the
+# local ring over its one kv head's head_dim); seamless-m4t-medium at full
+# width, depth cut to 4 + 4 of 12 + 12 layers, with shard_kv_seq (the rings'
+# 516 slots and the projected memory's 64 rows over the model axis).  Each
+# against the parent's plain prefill and decode on the same weights: bf16
+# fed the plain greedy tokens (logits within MESH_SERVE_BF16_TOL), then in
+# fp32 greedy (MESH_SERVE_FP32: logits within MESH_SERVE_FP32_TOL, the
+# tokens equal).  mamba2-370m's bf16 depth is bf16's own drift: at all 48
+# layers the ranks' bf16 logits lie 1.84e-1 from the plain bf16 run's, as
+# far as the plain bf16 run lies from the plain fp32 one (1.98e-1), while
+# the fp32 runs agree within 1.55e-5 (12 layers: 7.5e-2; on an H100, PERF.md §6),
+# so its fp32 run keeps all 48
 MESH_SERVE = {"yi-9b": (YI.replace(n_layers=4), 20),
               "phi-3-vision-4.2b": (PHI.replace(n_layers=4), 21),
-              "deepseek-moe-16b": (mesh_ref.no_drop(DS.replace(n_layers=2)), 22)}
+              "deepseek-moe-16b": (mesh_ref.no_drop(DS.replace(n_layers=2)), 22),
+              "mamba2-370m": (MAMBA.replace(n_layers=12), 23),
+              "recurrentgemma-9b": (RG.replace(n_layers=3), 24),
+              "seamless-m4t-medium": (configs.get("seamless-m4t-medium").replace(
+                  n_layers=4, n_enc_layers=4), 25)}
+#: each case's fp32 run: cut to its first layer (recurrentgemma-9b to its
+#: first group, so that the local layer is in it; seamless-m4t-medium to 1 +
+#: 1), but mamba2-370m at all 48 layers
+MESH_SERVE_FP32 = {
+    **{arch: cfg.replace(n_layers=1, compute_dtype="float32")
+       for arch, (cfg, _) in MESH_SERVE.items()},
+    "mamba2-370m": MAMBA.replace(compute_dtype="float32"),
+    "recurrentgemma-9b": MESH_SERVE["recurrentgemma-9b"][0].replace(compute_dtype="float32"),
+    "seamless-m4t-medium": MESH_SERVE["seamless-m4t-medium"][0].replace(
+        n_layers=1, n_enc_layers=1, compute_dtype="float32")}
 #: the cases: (arch, context knobs)
-MESH_SERVE_CASES = (("yi-9b", {}), ("yi-9b", {"shard_kv_seq": True}),
-                    ("phi-3-vision-4.2b", {}), ("deepseek-moe-16b", {}))
+MESH_SERVE_CASES = (("yi-9b", {}), ("phi-3-vision-4.2b", {}), ("deepseek-moe-16b", {}),
+                    ("mamba2-370m", {}), ("recurrentgemma-9b", {}),
+                    ("seamless-m4t-medium", {"shard_kv_seq": True}))
 #: decode steps after the prefill: bf16, and the one-layer fp32 runs (cut
 #: first: every step gathers the FSDP blocks through gloo)
 MESH_SERVE_DECODE, MESH_SERVE_FP32_DECODE = 4, 2
@@ -463,10 +516,22 @@ MESH_SERVE_BF16_TOL, MESH_SERVE_FP32_TOL = 1e-1, 1e-4
 MESH_SERVE_LAYER_TOL = {"bfloat16": 3e-2, "float32": 1e-5}
 #: the parent's inputs and plain results, which it writes for the ranks
 MESH_SERVE_REFS = os.path.join(ROOT, "build", "mesh_serve_refs.pt")
-#: a rank's flash call in yi-9b's sharded prefill: its batch block and its
-#: 16 of the 32 q heads with their 2 of the 4 kv heads
-MESH_SERVE_FLASH = (SERVE_BATCH // MESH_SHAPE[0], SERVE_PROMPT, YI.n_heads // MESH_SHAPE[1],
+#: a rank's kernel calls in the sharded bf16 prefills of phase 3c: its batch
+#: block of 2 × 512 and its half of the heads or the width: yi-9b's flash
+#: (16 of 32 q heads with their 2 of 4 kv heads), recurrentgemma-9b's local
+#: flash (8 of 16 q heads on the one kv head, window 2048) and RG-LRU scan
+#: (2048 of 4096 lanes), seamless-m4t-medium's decoder flash (8 of 16 heads)
+#: and mamba2-370m's SSD scan (16 of 32 heads)
+MESH_SERVE_BT = SERVE_BATCH // MESH_SHAPE[0]
+MESH_SERVE_FLASH = (MESH_SERVE_BT, SERVE_PROMPT, YI.n_heads // MESH_SHAPE[1],
                     YI.n_kv_heads // MESH_SHAPE[1], YI.hd)
+MESH_SERVE_RG_FLASH = (MESH_SERVE_BT, SERVE_PROMPT, RG.n_heads // MESH_SHAPE[1], RG.n_kv_heads,
+                       RG.hd)
+MESH_SERVE_RGLRU = (MESH_SERVE_BT, SERVE_PROMPT, rglru.width(RG) // MESH_SHAPE[1])
+MESH_SERVE_M4T_FLASH = (MESH_SERVE_BT, SERVE_PROMPT, MESH_SERVE["seamless-m4t-medium"][0].n_heads
+                        // MESH_SHAPE[1], MESH_SERVE["seamless-m4t-medium"][0].n_kv_heads
+                        // MESH_SHAPE[1], MESH_SERVE["seamless-m4t-medium"][0].hd)
+MESH_SERVE_SSD = (MESH_SERVE_BT, SERVE_PROMPT, ssm.dims(MAMBA)[1] // MESH_SHAPE[1])
 
 # the sharded training phase: MESH_RANKS processes share the card as the
 # (2, 2) ("data", "model") mesh; each rank rebuilds phase 6's initial state
@@ -556,12 +621,12 @@ MESH_REC_FLASH = (MESH_REC_BT, TRAIN_SEQ, RG.n_heads // MESH_SHAPE[1], RG.n_kv_h
 # parallel.ref.no_drop's capacity factor E/k, where nothing drops and the
 # rank's expert-parallel layer computes the plain one's function: TRAIN_STEPS
 # steps held against the plain steps (MESH_TRAIN_LOSS_TOL,
-# MESH_TRAIN_GNORM_RTOL), a timed pass, one fp32 step cut to one layer
-# (MESH_TRAIN_FP32_RTOL, MESH_TRAIN_PARAM_ATOL), then one bf16 step at the
-# config's own capacity factor 1.25 (MESH_MOE_CF): the share each rank drops,
-# and the loss, finite and the same on every rank (the plain step drops other
-# assignments: its capacity is rounded to 128 on all the tokens, a rank's to
-# 8 on its own)
+# MESH_TRAIN_GNORM_RTOL), the last with every collective timed, one fp32
+# step cut to one layer (MESH_TRAIN_FP32_RTOL, MESH_TRAIN_PARAM_ATOL), then
+# one bf16 step at the config's own capacity factor 1.25 (MESH_MOE_CF): the
+# share each rank drops, and the loss, finite and the same on every rank (the
+# plain step drops other assignments: its capacity is rounded to 128 on all
+# the tokens, a rank's to 8 on its own)
 MESH_MOE_CF = DS.replace(n_layers=2, remat="dots")
 MESH_MOE = mesh_ref.no_drop(MESH_MOE_CF)
 MESH_MOE_FP32 = MESH_MOE.replace(n_layers=1, compute_dtype="float32")
@@ -629,6 +694,17 @@ KERNELS = {
                        "no TPU kernel: counterpart of JAX autodiff of "
                        "src/repro/models/rglru.py:62"),
 }
+
+
+#: the clock of the last :func:`_lap`
+_LAP = [0.0]
+
+
+def _lap(what: str) -> None:
+    """Log the seconds since the last lap: the phases ``what`` just ended."""
+    now = time.perf_counter()
+    _log(f"[time] {what}: {now - _LAP[0]:.1f}s")
+    _LAP[0] = now
 
 
 def _log(msg: str) -> None:
@@ -874,31 +950,37 @@ def _flash_window_case(b, l, h, hkv, hd, window, dtype_name, tol) -> None:
            f"window={window} {dtype_name}", out, expect, tol, tol)
 
 
-def _flash_at(shape, dtype, seed) -> dict:
-    """flash attention at a serving prefill shape, timed against its plain
-    version and the library call; the work is the unmasked causal pairs."""
+def _flash_at(shape, dtype, seed, window: int = 0) -> dict:
+    """flash attention at a serving prefill shape (``window`` as a local
+    layer passes it), timed against its plain version and the library call
+    (causal: a window of at least L does not bind); the work is the
+    unmasked causal pairs."""
     b, l, h, hkv, hd = shape
+    if window and window < l:
+        _fail(f"the library call computes no window: {window} binds at L {l}")
     want = fa.variant(hd, dtype)
     q, k, v = _qkv(b, l, h, hkv, hd, dtype, seed=seed)
     n0 = dict(ops.flash_variant_launches)
-    out = ops.flash_attention(q, k, v, causal=True, block_q=attention.FLASH_BLOCK,
-                              block_k=attention.FLASH_BLOCK)
+    out = ops.flash_attention(q, k, v, causal=True, window=window,
+                              block_q=attention.FLASH_BLOCK, block_k=attention.FLASH_BLOCK)
     if ops.flash_variant_launches != {**n0, want: n0[want] + 1}:
         _fail(f"flash at {shape} {dtype} did not run the {want} variant")
-    expect = ref.flash_attention_ref(q, k, v, causal=True)
+    expect = ref.flash_attention_ref(q, k, v, causal=True, window=window)
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     err = _check(f"flash ({want}) at {shape} {str(dtype)[6:]}", out, expect, tol, tol)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     row = _row("flash_attention", err,
-               lambda: ops.flash_attention(q, k, v, causal=True, block_q=attention.FLASH_BLOCK,
+               lambda: ops.flash_attention(q, k, v, causal=True, window=window,
+                                           block_q=attention.FLASH_BLOCK,
                                            block_k=attention.FLASH_BLOCK),
-               lambda: ref.flash_attention_ref(q, k, v, causal=True),
+               lambda: ref.flash_attention_ref(q, k, v, causal=True, window=window),
                _nbytes(q, k, v, out), fa.flops(b, l, l, h, hd), dtype,
                lambda: torch.nn.functional.scaled_dot_product_attention(
                    qt, kt, vt, is_causal=True, enable_gqa=True),
-               f"q {list(q.shape)}, k/v {list(k.shape)} {str(dtype)[6:]}",
-               op=lambda: fa.OP(q, k, v, True, 0, 0.0, False),
-               launch=lambda: fa._launch(q, k, v, True, 0, 0.0, False))
+               f"q {list(q.shape)}, k/v {list(k.shape)} {str(dtype)[6:]}"
+               + (f", window {window}" if window else ""),
+               op=lambda: fa.OP(q, k, v, True, window, 0.0, False),
+               launch=lambda: fa._launch(q, k, v, True, window, 0.0, False))
     row["variant"], row["source"] = want, FLASH_SOURCES[want]
     return row
 
@@ -1381,11 +1463,14 @@ def phase_rank_shapes() -> dict:
     """Each kernel at a rank's shape in phase 6d's sharded steps
     (MESH_REC_SSD, MESH_REC_RGLRU, MESH_REC_FLASH: bf16, so the mma, vec4
     and wgmma variants), and flash at a rank's shape in phase 6e's
-    (MESH_MOE_FLASH), in phase 6f's for each arch (MESH_MM_FLASH) and in
-    phase 3c's sharded yi-9b prefills (MESH_SERVE_FLASH), held against its
-    plain version and timed as at its own shape; returns phase (``6f
-    <arch>`` for phase 6f) → kernel name → its entry at that shape (the
-    launches are the phase's, filled in after it)."""
+    (MESH_MOE_FLASH), in phase 6f's for each arch (MESH_MM_FLASH), and each
+    kernel at a rank's shape in phase 3c's sharded bf16 prefills (yi-9b's,
+    recurrentgemma-9b's and seamless-m4t-medium's flash, mamba2-370m's SSD
+    scan, recurrentgemma-9b's RG-LRU scan), held against its plain version
+    and timed as at its own shape; returns phase (``6f <arch>`` for phase
+    6f, ``3c <arch>`` for phase 3c but yi-9b's ``3c``) → kernel name → its
+    entry at that shape (the launches are the phase's, filled in after
+    it)."""
     bt, l, hl = MESH_REC_SSD
     rows = {"flash_attention": _flash_train_shape(MESH_REC_FLASH, seed=9, window=RG.window),
             "ssd_scan": _ssd_at(MAMBA.cdtype, bt, l, hl),
@@ -1410,12 +1495,23 @@ def phase_rank_shapes() -> dict:
         out[f"6f {arch}"] = {"flash_attention": {
             "at": f"a rank's shape in the sharded {arch} steps of phase 6f, (2, 2) mesh",
             **{k: row.get(k) for k in SHAPE_KEYS + ("lse_max_abs_err",)}}}
-    row = _flash_at(MESH_SERVE_FLASH, torch.bfloat16, seed=13)
-    if row["variant"] != "wgmma":
-        _fail(f"flash at a rank's shape {row['shape']} of phase 3c runs {row['variant']}")
-    out["3c"] = {"flash_attention": {
-        "at": "a rank's shape in the sharded yi-9b prefills of phase 3c, (2, 2) mesh",
-        **{k: row.get(k) for k in SHAPE_KEYS}}}
+    serve = {"3c": {"flash_attention": _flash_at(MESH_SERVE_FLASH, torch.bfloat16, seed=13)},
+             "3c mamba2-370m": {"ssd_scan": _ssd_at(MAMBA.cdtype, *MESH_SERVE_SSD)},
+             "3c recurrentgemma-9b": {
+                 "flash_attention": _flash_at(MESH_SERVE_RG_FLASH, torch.bfloat16, seed=14,
+                                              window=RG.window),
+                 "rglru_scan": _rglru_at(*MESH_SERVE_RGLRU)},
+             "3c seamless-m4t-medium": {
+                 "flash_attention": _flash_at(MESH_SERVE_M4T_FLASH, torch.bfloat16, seed=15)}}
+    for phase, entries in serve.items():
+        arch = phase[3:] or "yi-9b"
+        for name, row in entries.items():
+            if row["variant"] != BF16_VARIANTS[name]:
+                _fail(f"{name} at a rank's shape {row['shape']} of phase 3c runs "
+                      f"{row['variant']}, not {BF16_VARIANTS[name]}")
+            out.setdefault(phase, {})[name] = {
+                "at": f"a rank's shape in the sharded {arch} prefills of phase 3c, (2, 2) mesh",
+                **{k: row.get(k) for k in SHAPE_KEYS}}
     _free()
     return out
 
@@ -1772,16 +1868,18 @@ def _mesh_serve_params(arch: str, cfg, gen: torch.Generator) -> dict:
 
 def _mesh_serve_inputs(arch: str) -> tuple:
     """(``arch``'s weights from its seed's generator, then its prompt and a
-    VLM's patches (bf16) from the same generator), as the parent draws
-    them; the ranks draw the same weights and load the inputs."""
+    VLM's patches or an enc-dec config's SERVE_PROMPT // 8 frames (bf16)
+    from the same generator), as the parent draws them; the ranks draw the
+    same weights and load the inputs."""
     cfg, seed = MESH_SERVE[arch]
     gen = _gen(seed)
     params = _mesh_serve_params(arch, cfg, gen)
     inputs = {"tokens": torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT), generator=gen,
                                       device="cuda")}
-    if cfg.n_patches:
-        inputs["patches"] = torch.randn((SERVE_BATCH, cfg.n_patches, 1024), generator=gen,
-                                        device="cuda").to(torch.bfloat16)
+    for key, n in (("patches", cfg.n_patches), ("frames", SERVE_PROMPT // 8 * cfg.enc_dec)):
+        if n:
+            inputs[key] = torch.randn((SERVE_BATCH, n, 1024), generator=gen,
+                                      device="cuda").to(torch.bfloat16)
     return params, inputs
 
 
@@ -1797,16 +1895,21 @@ def _serve_run(params, cfg, inputs: dict, feed=None) -> dict:
     tokens) or, without it, its own greedy token.  Returns the logits of
     every step [steps + 1, B, Vp] fp32 on the host (joined over the ranks),
     the greedy tokens [B, steps + 1], host ms of the prefill and of each
-    decode step (each ended by a synchronise), the flash calls of the
-    prefill (q and k shapes), the collectives (calls, bytes, host seconds)
-    of the prefill and of each step, the expert ids each MoE layer routed
-    its tokens to (sorted, on the host, in call order), and the final
-    cache."""
-    calls, flash, routes, route = [], ops.flash_attention, [], moe.route
+    decode step (each ended by a synchronise), the prefill's kernel calls
+    (flash: q and k shapes; the scans: x's and log_a's), the collectives
+    (calls, bytes, host seconds) of the prefill and of each step, the
+    expert ids each MoE layer routed its tokens to (sorted, on the host, in
+    call order), and the final cache."""
+    calls = {"flash_attention": [], "ssd_scan": [], "rglru_scan": []}
+    routes, route = [], moe.route
 
-    def recorded(q, k, v, **kw):
-        calls.append([list(q.shape), list(k.shape)])
-        return flash(q, k, v, **kw)
+    def recorded(name, shapes):
+        kernel = getattr(ops, name)
+
+        def call(*a, **kw):
+            calls[name].append(shapes(*a))
+            return kernel(*a, **kw)
+        return call
 
     def routed(*a, **kw):
         ids, weights = route(*a, **kw)
@@ -1829,7 +1932,12 @@ def _serve_run(params, cfg, inputs: dict, feed=None) -> dict:
         return out
 
     with torch.inference_mode(), mock.patch.object(moe, "route", routed):
-        with mock.patch.object(ops, "flash_attention", recorded):
+        with mock.patch.object(ops, "flash_attention", recorded(
+                "flash_attention", lambda q, k, *_: [list(q.shape), list(k.shape)])), \
+                mock.patch.object(ops, "ssd_scan", recorded("ssd_scan",
+                                                            lambda x, *_: list(x.shape))), \
+                mock.patch.object(ops, "rglru_scan", recorded("rglru_scan",
+                                                              lambda a, *_: list(a.shape))):
             cache, lg = step(lambda: prefill(params, inputs))
         for i in range(steps + 1):
             tok = greedy_token(lg)
@@ -1841,7 +1949,7 @@ def _serve_run(params, cfg, inputs: dict, feed=None) -> dict:
             lg, cache = step(lambda: decode(params, nxt, cache))
     mesh_ctx.reset_collective_stats()
     return {"logits": torch.stack(logits), "tokens": torch.cat(toks, dim=1),
-            "prefill_ms": ms[0], "decode_ms": ms[1:], "flash_calls": calls,
+            "prefill_ms": ms[0], "decode_ms": ms[1:], "kernel_calls": calls,
             "prefill_collectives": coll[0], "decode_collectives": coll[1:], "cache": cache,
             "routes": routes}
 
@@ -1858,7 +1966,7 @@ def _mesh_serve_refs() -> None:
         bf16 = _serve_run(params, cfg, inputs)
         del params
         _free()
-        f32 = cfg.replace(n_layers=1, compute_dtype="float32")
+        f32 = MESH_SERVE_FP32[arch]
         params = _mesh_serve_params(arch, f32, _gen(MESH_SERVE[arch][1]))
         fp32 = _serve_run(params, f32, inputs)
         del params
@@ -1871,19 +1979,33 @@ def _mesh_serve_refs() -> None:
         _log(f"[mesh-serve] plain references, {arch}: width {cfg.d_model}, {cfg.n_layers} "
              f"layers, inputs { {k: list(v.shape) for k, v in inputs.items()} }: bf16 prefill "
              f"{bf16['prefill_ms']:.1f} ms, decode ms {_ms_list(bf16['decode_ms'])}; fp32 "
-             f"1-layer prefill {fp32['prefill_ms']:.1f} ms")
+             f"{f32.n_layers}-layer prefill {fp32['prefill_ms']:.1f} ms")
     torch.save(refs, MESH_SERVE_REFS)
 
 
-def _rank_flash_shape(cfg) -> list:
-    """[q shape, k shape] of a rank's flash call in a sharded prefill of
-    phase 3c: its batch block, the prompt (a VLM's patches first) padded to
-    a multiple of attention.FLASH_BLOCK, its q heads and the kv heads they
-    read (its block of them: the model axis divides each config's kv
-    heads)."""
+def _rank_kernel_calls(cfg) -> dict:
+    """Each kernel's calls in a sharded prefill of phase 3c on a rank, as
+    :func:`_serve_run` records them: flash [q shape, k shape] a causal
+    self-attention layer (its batch block, the prompt (a VLM's patches
+    first) padded to a multiple of attention.FLASH_BLOCK, its q heads and
+    the kv heads they read: its block of them where the model axis divides
+    them, else the one a GQA group of its q heads reads), the SSD scan's x
+    [B_loc, L, H/model, P] an SSM layer, the RG-LRU scan's log_a [B_loc, L,
+    W/model] an RG-LRU layer."""
     b, m = SERVE_BATCH // MESH_SHAPE[0], MESH_SHAPE[1]
     lp = -(-(SERVE_PROMPT + cfg.n_patches) // attention.FLASH_BLOCK) * attention.FLASH_BLOCK
-    return [[b, lp, cfg.n_heads // m, cfg.hd], [b, lp, cfg.n_kv_heads // m, cfg.hd]]
+    kinds = [cfg.pattern_of(i) for i in range(cfg.n_layers)]
+    hl = cfg.n_heads // m
+    kv = (cfg.n_kv_heads // m if cfg.n_kv_heads % m == 0
+          else max(1, hl // (cfg.n_heads // cfg.n_kv_heads)))
+    out = {"flash_attention": [[[b, lp, hl, cfg.hd], [b, lp, kv, cfg.hd]]] * sum(
+        k in ("attn", "local") for k in kinds), "ssd_scan": [], "rglru_scan": []}
+    if cfg.ssm is not None:
+        _, nh, p, _ = ssm.dims(cfg)
+        out["ssd_scan"] = [[b, SERVE_PROMPT, nh // m, p]] * kinds.count("ssm")
+    if cfg.rglru is not None:
+        out["rglru_scan"] = [[b, SERVE_PROMPT, rglru.width(cfg) // m]] * kinds.count("rglru")
+    return out
 
 
 def _cache_share(cache, ctx) -> tuple:
@@ -1934,8 +2056,7 @@ def _mesh_serve_case(mesh, arch: str, knobs: dict, refs: dict) -> dict:
     ctx = launch_mesh.make_ctx(mesh, **knobs)
     inputs = tree_to(refs[arch]["inputs"], "cuda")
     out = {}
-    for dtype, c in (("bfloat16", cfg), ("float32", cfg.replace(n_layers=1,
-                                                                compute_dtype="float32"))):
+    for dtype, c in (("bfloat16", cfg), ("float32", MESH_SERVE_FP32[arch])):
         params = _mesh_serve_params(arch, c, _gen(seed))
         layers, calls, blocks = [], [], moe.apply_blocks
         if c.moe is not None:       # one stacked slot of attention layers, as deepseek-moe-16b
@@ -1951,10 +2072,11 @@ def _mesh_serve_case(mesh, arch: str, knobs: dict, refs: dict) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         want = refs[arch][dtype]
-        n0, v0 = ops.launches["flash_attention"], dict(ops.flash_variant_launches)
+        v0 = _variant_launches()
         with mesh_context(ctx), mock.patch.object(moe, "apply_blocks", recorded):
             r = _serve_run(params, c, inputs, want["tokens"] if dtype == "bfloat16" else None)
-        variants = {v: ops.flash_variant_launches[v] - v0[v] for v in v0}
+        variants = {k: {v: n - v0[k][v] for v, n in counts.items()}
+                    for k, counts in _variant_launches().items() if k in r["kernel_calls"]}
         ltol, layer_err, layer_close = MESH_SERVE_LAYER_TOL[dtype], 0.0, True
         with torch.inference_mode():
             for i, (x, y) in enumerate(calls):
@@ -1984,11 +2106,9 @@ def _mesh_serve_case(mesh, arch: str, knobs: dict, refs: dict) -> dict:
                       "max_abs_err": float(err.max()) if err.numel() else 0.0,
                       "tokens_equal": bool(torch.equal(r["tokens"], want["tokens"])),
                       "finite": bool(torch.isfinite(got).all()),
-                      "flash_launches": ops.launches["flash_attention"] - n0,
-                      "flash_by_variant": variants, "cache_bytes": local,
+                      "by_variant": variants, "cache_bytes": local,
                       "cache_share": share, "n_layers": c.n_layers,
-                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-                      "local_wq": list(params["blocks"]["s0"]["attn"]["wq"].to_local().shape)}
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
         del params
         _free()
     return out
@@ -2010,10 +2130,12 @@ def phase_mesh_serve() -> tuple:
     then the MESH_RANKS ranks; fails unless every case's bf16 logits are
     within MESH_SERVE_BF16_TOL and its fp32 logits within MESH_SERVE_FP32_TOL
     of the plain run's with equal greedy tokens, every rank's cache bytes
-    are the rule table's share, and every prefill launched flash once a
-    layer on the variant of its dtype at the rank's shape (its batch block,
-    its q heads and the kv heads they read).  Returns (the ranks' launches
-    as a path's, by variant, the flash launches at MESH_SERVE_FLASH, the
+    are the rule table's share, and every prefill launched each kernel once
+    a layer of its kind (flash a causal self-attention layer, the SSD scan
+    an SSM layer, the RG-LRU scan an RG-LRU layer) on the variant of its
+    dtype at the rank's shape (:func:`_rank_kernel_calls`).  Returns (the
+    ranks' launches as a path's, by variant, the launches of each bf16
+    arch at its rank shapes, keyed as phase_rank_shapes keys them, the
     ranks' records)."""
     t0 = time.perf_counter()
     _mesh_serve_refs()
@@ -2024,8 +2146,9 @@ def phase_mesh_serve() -> tuple:
          f"{MESH_SERVE_DECODE} decode steps ({MESH_SERVE_FP32_DECODE} in fp32); gloo moves "
          f"every gather and sum through host memory, so these times describe this harness, "
          f"not a cluster")
-    flash = dict.fromkeys(fa.VARIANTS, 0)
-    at_rank = 0
+    kernels = ("flash_attention", "ssd_scan", "rglru_scan")
+    by_variant = {k: dict.fromkeys(v, 0) for k, v in _variant_launches().items()}
+    at_rank = {}
     for r in ranks:
         for (arch, knobs), case in zip(MESH_SERVE_CASES, r["cases"], strict=True):
             cfg = MESH_SERVE[arch][0]
@@ -2033,16 +2156,17 @@ def phase_mesh_serve() -> tuple:
             for dtype, a in case.items():
                 tol = MESH_SERVE_BF16_TOL if dtype == "bfloat16" else MESH_SERVE_FP32_TOL
                 pre, dec = a["prefill_collectives"], a["decode_collectives"]
-                _log(f"[mesh-serve] {who} {dtype} ({a['n_layers']} layers, wq block "
-                     f"{a['local_wq']}): max|d| {a['max_abs_err']:.3e} vs plain (tol {tol}), "
+                calls = {k: sorted({str(c) for c in v}) for k, v in a["kernel_calls"].items()
+                         if v}
+                _log(f"[mesh-serve] {who} {dtype} ({a['n_layers']} layers): max|d| "
+                     f"{a['max_abs_err']:.3e} vs plain (tol {tol}), "
                      f"tokens equal {a['tokens_equal']}; prefill {a['prefill_ms']:.1f} ms "
                      f"({pre['calls']} all-reduces, {pre['bytes'] / 1e9:.3f} GB, "
                      f"{pre['seconds']:.3f} s), decode ms {_ms_list(a['decode_ms'])} "
                      f"({dec[-1]['calls']} all-reduces a step, {dec[-1]['bytes'] / 1e9:.3f} GB, "
                      f"{_ms_list([d['seconds'] * 1e3 for d in dec])} ms in them); cache "
                      f"{a['cache_bytes']} B (the rule table's share {a['cache_share']} B); "
-                     f"peak {a['peak_mem_gb']:.2f} GB; flash {a['flash_by_variant']} at "
-                     f"{sorted({str(c) for c in map(tuple, map(tuple, a['flash_calls']))})}")
+                     f"peak {a['peak_mem_gb']:.2f} GB; kernels {a['by_variant']} at {calls}")
                 if "routed_tokens" in a:
                     ltol = MESH_SERVE_LAYER_TOL[dtype]
                     _log(f"[mesh-serve] {who} {dtype} MoE: every layer call on the rank's "
@@ -2062,23 +2186,25 @@ def phase_mesh_serve() -> tuple:
                 if a["cache_bytes"] != a["cache_share"]:
                     _fail(f"{who} {dtype}: cache bytes {a['cache_bytes']}, not the rule "
                           f"table's share {a['cache_share']}")
-                c = cfg if dtype == "bfloat16" else cfg.replace(n_layers=1,
-                                                                compute_dtype="float32")
-                variant = fa.variant(c.hd, c.cdtype)
-                want = _rank_flash_shape(c)
-                if a["flash_by_variant"] != {**dict.fromkeys(fa.VARIANTS, 0),
-                                             variant: c.n_layers} or \
-                        a["flash_calls"] != [want] * c.n_layers:
-                    _fail(f"{who} {dtype}: the prefill launched flash {a['flash_by_variant']} "
-                          f"at {a['flash_calls']}, not {c.n_layers} {variant} at {want}")
-                for v, n in a["flash_by_variant"].items():
-                    flash[v] += n
-                if dtype == "bfloat16" and arch == "yi-9b":
-                    at_rank += a["flash_launches"]
+                c = cfg if dtype == "bfloat16" else MESH_SERVE_FP32[arch]
+                named = BF16_VARIANTS if dtype == "bfloat16" else FP32_VARIANTS
+                launches = _expected_launches(c)
+                want = {k: {**dict.fromkeys(by_variant[k], 0), named[k]: launches[k]}
+                        for k in kernels}
+                if a["by_variant"] != want or a["kernel_calls"] != _rank_kernel_calls(c):
+                    _fail(f"{who} {dtype}: the prefill launched {a['by_variant']} at "
+                          f"{a['kernel_calls']}, not {want} at {_rank_kernel_calls(c)}")
+                for k, counts in a["by_variant"].items():
+                    for v, n in counts.items():
+                        by_variant[k][v] += n
+                if dtype == "bfloat16":
+                    key = "3c" if arch == "yi-9b" else f"3c {arch}"
+                    for k in kernels:
+                        at_rank.setdefault(key, dict.fromkeys(ops.launches, 0))[k] += \
+                            launches[k]
     _log(f"[mesh-serve] phase took {time.perf_counter() - t0:.1f}s")
-    launches = {**dict.fromkeys(ops.launches, 0), "flash_attention": sum(flash.values())}
-    return launches, {"flash_attention": flash, "ssd_scan": dict.fromkeys(ssd.VARIANTS, 0),
-                      "rglru_scan": dict.fromkeys(rg.VARIANTS, 0)}, at_rank, ranks
+    launches = {k: sum(v.values()) for k, v in by_variant.items()}
+    return launches, by_variant, at_rank, ranks
 
 
 def _clone_tree(tree):
@@ -2586,6 +2712,20 @@ def _sharded_step(step_fn, state, batch) -> tuple:
                    "collectives": mesh_ctx.collective_stats["calls"] - c0}
 
 
+def _timing(recs: list) -> dict:
+    """The timing of the last of the steps ``recs``, run after
+    ``reset_collective_stats(timed=True)``: its ms, collectives, their
+    seconds on the host clock (each after a synchronise) and its loss; the
+    counts are reset untimed.  (The callers loop over their steps
+    themselves: a helper that took the state would keep the caller's first
+    state alive through every step.)"""
+    timing = {"step_ms": recs[-1]["step_ms"], "collectives": recs[-1]["collectives"],
+              "collective_s": mesh_ctx.collective_stats["seconds"], "loss": recs[-1]["loss"],
+              "step": len(recs)}
+    mesh_ctx.reset_collective_stats()
+    return timing
+
+
 def _against_plain(tree, leaves, ctx, relative: bool) -> list:
     """Each rank's block of every leaf of ``tree`` (DTensors) against the
     same block of the plain step's leaf (``leaves``, global, on the host):
@@ -2607,9 +2747,9 @@ def _leaf_paths(tree, prefix: str = "") -> list:
 
 def _mesh_train_rank(rank: int, world: int, directory: str) -> None:
     """One rank of the sharded training phase: phase 6's state and batches
-    on this rank's blocks, TRAIN_STEPS steps, the bf16-gathered step, a
-    timed pass (step TRAIN_STEPS again, every collective timed), then the
-    one-layer fp32 step.  Writes ``<directory>/rank<r>.json``."""
+    on this rank's blocks, TRAIN_STEPS steps (the last with every
+    collective timed), the bf16-gathered step, then the one-layer fp32
+    step.  Writes ``<directory>/rank<r>.json``."""
     mesh, r = _rank_mesh(rank, world, directory)
     ctx = launch_mesh.make_ctx(mesh)
     cfg = YI_TRAIN
@@ -2623,24 +2763,17 @@ def _mesh_train_rank(rank: int, world: int, directory: str) -> None:
     torch.cuda.reset_peak_memory_stats()
     step_fn = make_train_step(cfg, lr=3e-4)
     ops.reset_launches()
-    mesh_ctx.reset_collective_stats()
     r["steps"] = []
     with mesh_context(ctx):
         for s in range(TRAIN_STEPS):
-            before = state
+            mesh_ctx.reset_collective_stats(timed=s == TRAIN_STEPS - 1)
             state, rec = _sharded_step(step_fn, state, batches[s])
             r["steps"].append(rec)
+        r["timed"] = _timing(r["steps"])
         gather_fn = make_train_step(cfg.replace(gather_dtype="bfloat16"), lr=3e-4)
         after, r["gather_step"] = _sharded_step(gather_fn, state, batches[TRAIN_STEPS])
         r["gather_dtypes"] = sorted({str(t.dtype)[6:] for t in tree_leaves(after["params"])})
         del after, state
-        _free()
-        mesh_ctx.reset_collective_stats(timed=True)
-        _, timed = _sharded_step(step_fn, before, batches[TRAIN_STEPS - 1])
-        timed["collective_s"] = mesh_ctx.collective_stats["seconds"]
-        r["timed"] = timed
-        mesh_ctx.reset_collective_stats()
-        del before
         _free()
     r["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     state = _sharded_state(MESH_TRAIN_FP32, _gen(0), ctx)
@@ -2700,7 +2833,7 @@ def phase_mesh_train(plain: dict, fp32_ref: dict) -> tuple:
             _fail(f"rank {r['rank']}: parameters after the bf16-gathered step are "
                   f"{r['gather_dtypes']}")
         t, f32, want = r["timed"], r["fp32_step"], plain["fp32_step"]
-        _log(f"[mesh-train] rank {r['rank']} timed pass (step {TRAIN_STEPS} again): "
+        _log(f"[mesh-train] rank {r['rank']} step {t['step']} timed: "
              f"{t['collectives']} collectives, {t['collective_s']:.3f} s of {t['step_ms']:.1f} ms "
              f"in them (host clock, each after a synchronise), loss {t['loss']:.6f}")
         df = abs(f32["loss"] - want["loss"]) / abs(want["loss"])
@@ -2723,7 +2856,7 @@ def phase_mesh_train(plain: dict, fp32_ref: dict) -> tuple:
             _fail(f"rank {r['rank']} fp32 sharded step: flash {f32['flash_by_variant']}")
         _log(f"[mesh-train] rank {r['rank']}: peak memory {r['peak_mem_gb']:.2f} GB over the "
              f"bf16 steps (phase 6's single process: {plain['peak_mem_gb']:.2f} GB)")
-        for rec in r["steps"] + [r["gather_step"], r["timed"], r["fp32_step"]]:
+        for rec in r["steps"] + [r["gather_step"], r["fp32_step"]]:
             for v, n in rec["flash_by_variant"].items():
                 flash[v] += n
     launches = {**dict.fromkeys(ops.launches, 0), "flash_attention": sum(flash.values())}
@@ -2829,11 +2962,10 @@ def _plain_references(phase: str) -> dict:
 def _mesh_arch(phase: str, arch: str, mesh, batches: list) -> dict:
     """One arch of a phase of MESH_ARCH_PHASES on this rank: its state
     rebuilt from _gen(0) with this rank's blocks kept, TRAIN_STEPS sharded
-    steps, a timed pass (a further step on the first batch, every
-    collective timed on the host clock after a synchronise), where the
-    phase asks for it one step from the initial state on the first batch
-    with seq_shard_activations, then the fp32 step with its blocks against
-    the plain step's."""
+    steps (the last with every collective timed on the host clock after a
+    synchronise), where the phase asks for it one step from the initial
+    state on the first batch with seq_shard_activations, then the fp32 step
+    with its blocks against the plain step's."""
     p = MESH_ARCH_PHASES[phase]
     cfg, f32 = p["cfgs"][arch], p["fp32"][arch]
     ctx = launch_mesh.make_ctx(mesh)
@@ -2844,17 +2976,13 @@ def _mesh_arch(phase: str, arch: str, mesh, batches: list) -> dict:
     torch.cuda.reset_peak_memory_stats()
     step_fn = make_train_step(cfg, lr=3e-4)
     ops.reset_launches()
-    mesh_ctx.reset_collective_stats()
     r["steps"] = []
     with mesh_context(ctx):
-        for b in batches:
+        for i, b in enumerate(batches):
+            mesh_ctx.reset_collective_stats(timed=i == len(batches) - 1)
             state, rec = _sharded_step(step_fn, state, b)
             r["steps"].append(rec)
-        mesh_ctx.reset_collective_stats(timed=True)
-        state, timed = _sharded_step(step_fn, state, batches[0])
-        timed["collective_s"] = mesh_ctx.collective_stats["seconds"]
-        r["timed"] = timed
-        mesh_ctx.reset_collective_stats()
+        r["timed"] = _timing(r["steps"])
     del state
     _free()
     if p["seq_step"]:
@@ -2897,8 +3025,8 @@ def _check_sharded(tag: str, who: str, a: dict, cfg, f32, plain: dict, focus: tu
     step's loss is within MESH_TRAIN_LOSS_TOL and its grad norm within
     MESH_TRAIN_GNORM_RTOL (a ``seq_step`` under seq_shard_activations,
     where the record has one, against the plain step 1), every bf16 step
-    (the timed pass, and a capacity-factor step ``cf_step`` where the
-    record has one, included)
+    (a capacity-factor step ``cf_step``, where the record has one,
+    included)
     launches exactly _train_launches on the bf16 variants, the fp32 step's
     loss and grad norm are within MESH_TRAIN_FP32_RTOL with its launches on
     the fp32 variants, and the rank's block of every updated parameter is
@@ -2912,7 +3040,6 @@ def _check_sharded(tag: str, who: str, a: dict, cfg, f32, plain: dict, focus: tu
     if "seq_step" in a:
         recs.append(("seq_shard_activations step (step 1's state and batch)", a["seq_step"],
                      plain["steps"][0]))
-    recs.append(("timed pass (step 1's batch)", a["timed"], None))
     if "cf_step" in a:
         recs.append((f"capacity factor {a['cf_step']['capacity_factor']} step (step 1's "
                      f"batch)", a["cf_step"], None))
@@ -2925,9 +3052,6 @@ def _check_sharded(tag: str, who: str, a: dict, cfg, f32, plain: dict, focus: tu
                      f"{got['grad_norm']:.6f} (plain {want['grad_norm']:.6f}, rel {dg:.3e})")
             if not (dl <= MESH_TRAIN_LOSS_TOL and dg <= MESH_TRAIN_GNORM_RTOL):
                 _fail(f"{who} sharded {what}: {got} against plain {want}")
-        elif "collective_s" in got:
-            line += (f", {got['collective_s']:.3f} s of {got['step_ms']:.1f} ms in its "
-                     f"collectives (host clock, each after a synchronise)")
         else:
             line += (f", grad norm {got['grad_norm']:.6f}; this rank's experts took "
                      f"{got['routed']} assignments over {got['layers']} layers at capacity "
@@ -2984,9 +3108,8 @@ def phase_mesh_train_archs(phase: str) -> tuple:
     (:func:`_check_sharded`); fails unless each arch's sharded steps
     launched every kernel its config launches.  Returns (the plain steps'
     records, their launches, by variant; the ranks' launches, by variant,
-    per arch the launches at a rank's shape of the bf16 steps, the
-    seq_shard_activations steps and the timed passes on all ranks; the
-    ranks' records)."""
+    per arch the launches at a rank's shape of the bf16 steps and the
+    seq_shard_activations steps on all ranks; the ranks' records)."""
     p = MESH_ARCH_PHASES[phase]
     tag, cfgs = p["tag"], p["cfgs"]
     t0 = time.perf_counter()
@@ -3015,7 +3138,7 @@ def phase_mesh_train_archs(phase: str) -> tuple:
             a = r[arch]
             _check_sharded(tag, f"rank {r['rank']} {r['coord']} {arch}", a, cfgs[arch],
                            p["fp32"][arch], plain[arch], p["focus"])
-            bf16 = a["steps"] + [a[k] for k in ("seq_step",) if k in a] + [a["timed"]]
+            bf16 = a["steps"] + [a[k] for k in ("seq_step",) if k in a]
             _add_launches(launches, variants, bf16 + [a["fp32_step"]])
             _add_launches(at_rank_shape[arch], zeros()[1], bf16)
             steps = a["steps"]
@@ -3024,8 +3147,9 @@ def phase_mesh_train_archs(phase: str) -> tuple:
                  + (f", seq_shard_activations step {a['seq_step']['step_ms']:.1f} ms "
                     f"({a['seq_step']['collectives']} collectives)" if "seq_step" in a else "")
                  + f", {steps[-1]['collectives']} collectives a step, "
-                 f"{a['timed']['collective_s']:.3f} s of them in the timed pass's "
-                 f"{a['timed']['step_ms']:.1f} ms; peak memory {a['peak_mem_gb']:.2f} GB (the "
+                 f"{a['timed']['collective_s']:.3f} s of them in step {a['timed']['step']}'s "
+                 f"{a['timed']['step_ms']:.1f} ms (timed); peak memory "
+                 f"{a['peak_mem_gb']:.2f} GB (the "
                  f"plain single process: {plain[arch]['peak_mem_gb']:.2f} GB), state "
                  f"{a['state_gb']:.3f} GB")
     for arch, cfg in cfgs.items():
@@ -3147,9 +3271,9 @@ def _rank_drops(record: list, cfg) -> dict:
 
 def _mesh_moe_rank(rank: int, world: int, directory: str) -> None:
     """One rank of phase 6e: MESH_MOE's state rebuilt from _gen(0) with this
-    rank's blocks kept, TRAIN_STEPS sharded steps on the parent's batches, a
-    timed pass (a further step on the first batch, every collective timed
-    on the host clock after a synchronise), one step of MESH_MOE_CF (the
+    rank's blocks kept, TRAIN_STEPS sharded steps on the parent's batches
+    (the last with every collective timed on the host clock after a
+    synchronise), one step of MESH_MOE_CF (the
     config's capacity factor) with the assignments this rank drops, then
     the fp32 step of MESH_MOE_FP32 with its blocks against the plain
     step's.  Writes ``<directory>/rank<r>.json``."""
@@ -3165,18 +3289,14 @@ def _mesh_moe_rank(rank: int, world: int, directory: str) -> None:
     torch.cuda.reset_peak_memory_stats()
     step_fn = make_train_step(cfg, lr=3e-4)
     ops.reset_launches()
-    mesh_ctx.reset_collective_stats()
     r["steps"] = []
     record = []
     with mesh_context(ctx):
-        for b in batches:
+        for i, b in enumerate(batches):
+            mesh_ctx.reset_collective_stats(timed=i == len(batches) - 1)
             state, rec = _sharded_step(step_fn, state, b)
             r["steps"].append(rec)
-        mesh_ctx.reset_collective_stats(timed=True)
-        state, timed = _sharded_step(step_fn, state, batches[0])
-        timed["collective_s"] = mesh_ctx.collective_stats["seconds"]
-        r["timed"] = timed
-        mesh_ctx.reset_collective_stats()
+        r["timed"] = _timing(r["steps"])
         with mock.patch.object(moe, "ep_partial", _drop_recorder(record, cfg.n_layers)):
             state, r["cf_step"] = _sharded_step(make_train_step(MESH_MOE_CF, lr=3e-4), state,
                                                 batches[0])
@@ -3207,8 +3327,8 @@ def phase_mesh_train_moe() -> tuple:
     (:func:`_check_sharded`), and the capacity-factor step's loss the same
     on every rank.  Returns (the plain steps' record, their launches, by
     variant; the ranks' launches, by variant, the launches at a rank's
-    shape of the bf16 steps, timed passes and capacity-factor steps on all
-    ranks; the ranks' records)."""
+    shape of the bf16 steps and capacity-factor steps on all ranks; the
+    ranks' records)."""
     t0 = time.perf_counter()
     plain, plain_launches, plain_variants = _mesh_moe_references()
     ranks, seconds = _spawn_ranks(_mesh_moe_rank, MESH_TRAIN_TIMEOUT)
@@ -3224,19 +3344,20 @@ def phase_mesh_train_moe() -> tuple:
     for r in ranks:
         _check_sharded("mesh-moe", f"rank {r['rank']} {r['coord']}", r, MESH_MOE,
                        MESH_MOE_FP32, plain, ("the MoE leaves", lambda n: "/moe/" in n))
-        for rec in r["steps"] + [r["timed"], r["cf_step"], r["fp32_step"]]:
+        for rec in r["steps"] + [r["cf_step"], r["fp32_step"]]:
             for k, n in rec["launches"].items():
                 launches[k] += n
             for k, by in rec["variants"].items():
                 for v, n in by.items():
                     variants[k][v] += n
-        for rec in r["steps"] + [r["timed"], r["cf_step"]]:
+        for rec in r["steps"] + [r["cf_step"]]:
             for k, n in rec["launches"].items():
                 at_rank_shape[k] += n
         steps = r["steps"]
         _log(f"[mesh-moe] rank {r['rank']}: step ms {_ms_list([s['step_ms'] for s in steps])}, "
              f"{steps[-1]['collectives']} collectives a step, {r['timed']['collective_s']:.3f} s "
-             f"of them in the timed pass's {r['timed']['step_ms']:.1f} ms; peak memory "
+             f"of them in step {r['timed']['step']}'s {r['timed']['step_ms']:.1f} ms (timed); "
+             f"peak memory "
              f"{r['peak_mem_gb']:.2f} GB (the plain single process: "
              f"{plain['peak_mem_gb']:.2f} GB), state {r['state_gb']:.3f} GB")
     cf = [r["cf_step"]["loss"] for r in ranks]
@@ -3458,22 +3579,30 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     _log(f"[chip_smoke] torch {torch.__version__} cuda {torch.version.cuda} "
          f"device {torch.cuda.get_device_name(0)}")
+    _LAP[0] = t_start
     built = phase_build()
+    _lap("1 build")
     rows = {"flash_attention": phase_flash(), "ssd_scan": phase_ssd(),
             "rglru_scan": phase_rglru()}
+    _lap("2 kernels")
     bwd_rows = phase_scan_bwd()
+    _lap("2 scan backwards")
     rank_rows = phase_rank_shapes()
+    _lap("2 rank shapes")
     phase_model()
+    _lap("3 model")
     by_path, by_variant = {}, {}
     mesh_path = (f"mesh: {MESH_RANKS} ranks, yi-9b {MESH_YI.n_layers}L and deepseek-moe-16b "
                  f"{MESH_DS.n_layers}L prefills")
-    mesh, mesh_serve, serve_at_rank = None, None, 0
+    mesh, mesh_serve, serve_at_rank = None, None, {}
     if argv != ["--skip-mesh"]:
         by_path[mesh_path], by_variant[mesh_path], mesh = phase_mesh()
+        _lap("3b mesh")
         serve_path = f"mesh serve: {MESH_RANKS} ranks, " + ", ".join(
             f"{arch} {cfg.n_layers}L" for arch, (cfg, _) in MESH_SERVE.items())
         by_path[serve_path], by_variant[serve_path], serve_at_rank, mesh_serve = \
             phase_mesh_serve()
+        _lap("3c mesh serve")
     by_path["yi-9b"], by_variant["yi-9b"] = phase_serve("yi-9b")
     phase_workflow("yi-9b")
     by_path["mamba2-370m"], by_variant["mamba2-370m"] = phase_serve("mamba2-370m")
@@ -3485,7 +3614,9 @@ def main(argv=None) -> int:
     for arch in ("phi-3-vision-4.2b", "seamless-m4t-medium"):
         by_path[arch], by_variant[arch] = phase_serve(arch)
     prefix_path = "phi-3-vision-4.2b with the 576-patch prefix"
+    _lap("4 serve, 5 workflow")
     by_path[prefix_path], by_variant[prefix_path], prefix = phase_vlm_prefix()
+    _lap("4b prefix")
     for name in rows:
         rows[name]["launches_by_variant"] = {
             v: sum(n[name][v] for n in by_variant.values())
@@ -3494,18 +3625,22 @@ def main(argv=None) -> int:
     dry_cells, dry_kernels, dry_paths = phase_dryrun()
     _log(f"[dryrun] phase took {time.perf_counter() - t_dry:.1f}s")
     by_path.update(dry_paths)
+    _lap("5b dryrun")
     train = phase_train()
+    _lap("6 train")
     fp32_ref = train.pop("fp32_ref")
     by_path[f"yi-9b train ({YI_TRAIN.n_layers} layers, {TRAIN_STEPS} steps)"] = train["launches"]
     mesh_train, mesh_train_flash = None, dict.fromkeys(fa.VARIANTS, 0)
     if argv != ["--skip-mesh"]:
         by_path[f"mesh train: {MESH_RANKS} ranks, yi-9b {YI_TRAIN.n_layers}L"], \
             mesh_train_flash, mesh_train = phase_mesh_train(train, fp32_ref)
+        _lap("6c mesh train")
     del fp32_ref
     recurrent = {}
     for name, cfg, batch, seq in (("mamba2-370m", MAMBA_TRAIN, MAMBA_TRAIN_BATCH, TRAIN_SEQ),
                                   ("recurrentgemma-9b", RG_TRAIN, RG_TRAIN_BATCH, RG_TRAIN_SEQ)):
         r = phase_train_recurrent(name, cfg, batch, seq, _train_launches(cfg))
+        _lap(f"6b {name} train")
         recurrent[name] = r
         by_path[f"{name} train ({cfg.n_layers} layers, {TRAIN_STEPS} steps)"] = r["launches"]
         for k, row in rows.items():
@@ -3513,7 +3648,7 @@ def main(argv=None) -> int:
                 row["launches_by_variant"][v] += n
     mesh_rec, mesh_moe, mesh_mm, extra_variants = None, None, None, []
     at_rank_shape = {p: dict.fromkeys(ops.launches, 0) for p in rank_rows}
-    at_rank_shape["3c"]["flash_attention"] = serve_at_rank
+    at_rank_shape.update(serve_at_rank)
     if argv != ["--skip-mesh"]:
         def train_paths(phase: str, what: str) -> tuple:
             """A phase of MESH_ARCH_PHASES: its plain and sharded steps as
@@ -3530,6 +3665,7 @@ def main(argv=None) -> int:
             return at_rank, {"plain": plain, "ranks": ranks}, [plain_variants, variants]
 
         rec_at_rank, mesh_rec, rec_variants = train_paths("6d", "recurrent")
+        _lap("6d mesh train recurrent")
         at_rank_shape["6d"] = {k: sum(n[k] for n in rec_at_rank.values()) for k in ops.launches}
         plain_moe, plain_path, plain_variants, moe_path, moe_variants, at_rank_shape["6e"], \
             moe_ranks = phase_mesh_train_moe()
@@ -3538,7 +3674,9 @@ def main(argv=None) -> int:
         by_path[f"mesh train MoE: {MESH_RANKS} ranks, deepseek-moe-16b "
                 f"{MESH_MOE.n_layers}L"] = moe_path
         mesh_moe = {"plain": plain_moe, "ranks": moe_ranks}
+        _lap("6e mesh train MoE")
         mm_at_rank, mesh_mm, mm_variants = train_paths("6f", "multimodal")
+        _lap("6f mesh train multimodal")
         for arch, n in mm_at_rank.items():
             at_rank_shape[f"6f {arch}"] = n
         extra_variants = rec_variants + [plain_variants, moe_variants] + mm_variants
@@ -3574,6 +3712,7 @@ def main(argv=None) -> int:
     grads = phase_train_grads()
     commit = phase_commit()
     phase_refuse()
+    _lap("7 grads, 8 commit, 9 refuse")
     _log(f"[chip_smoke] all phases passed in {time.perf_counter() - t_start:.1f}s")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

@@ -24,9 +24,10 @@ The port of :mod:`repro.models.attention`:
     Megatron's tensor-parallel attention: q/k/v column-parallel, the
     reference's heads hint before the attention, ``wo`` row-parallel; a
     decode step attends the rank's block of the KV ring in whichever
-    layout ``cache_shardings`` gave it (:func:`_decode_ring_blocks`).  Off
-    local blocks the parameter reads and the tensor-parallel entry and
-    exit are identities.
+    layout ``cache_shardings`` gave it (:func:`_decode_ring_blocks`), and
+    the rank's block of the projected memory likewise
+    (:func:`decode_cross`).  Off local blocks the parameter reads and the
+    tensor-parallel entry and exit are identities.
 """
 
 from __future__ import annotations
@@ -409,8 +410,9 @@ def _decode_seqshard(cfg: ModelConfig, q, k_new, v_new, cache_k, cache_v, pos: i
     if cols.start <= gslot < cols.stop:                  # the owner writes the row
         ck[:, gslot - cols.start] = k_new[rows, 0].to(ck.dtype)
         cv[:, gslot - cols.start] = v_new[rows, 0].to(cv.dtype)
-    out = _seqshard_attend(cfg, q[rows], ck, cv, cols.start, slots, pos, window,
-                           ctx.group(ctx.model_axis))
+    valid = _ring_valid(cols.start + torch.arange(ck.shape[1], device=q.device), pos, slots,
+                        window)
+    out = _seqshard_attend(cfg, q[rows], ck, cv, valid, ctx.group(ctx.model_axis))
     return gather_dim0(out, b, ctx, spec[0]), cache_k, cache_v
 
 
@@ -426,22 +428,23 @@ def _ring_valid(idx: torch.Tensor, pos: int, slots: int, window: int) -> torch.T
 
 
 def _seqshard_attend(cfg: ModelConfig, q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
-                     s0: int, slots: int, pos: int, window: int, group) -> torch.Tensor:
-    """q [b, l, H, hd] (every head) against a rank's slot block ck, cv [b,
-    S_loc, Hkv, hd], which starts at global slot ``s0`` of a ring of
-    ``slots``: the two-phase softmax over the ranks of ``group``, whose
-    blocks make the ring.  The local max is all-reduced by MAX, then the
-    denominator [b,Hkv,G,1] and the numerator [b,Hkv,G,1,hd] by SUM.
-    Returns out [b, l, H, hd] in q's dtype, the same on every rank."""
+                     valid: Optional[torch.Tensor], group) -> torch.Tensor:
+    """q [b, l, H, hd] (every head) against a rank's block of rows ck, cv
+    [b, S_loc, Hkv, hd] (a ring's slots, or the projected memory's rows) of
+    which ``valid`` [S_loc] marks those attended (None: all): the two-phase
+    softmax over the ranks of ``group``, whose blocks make the rows.  The
+    local max is all-reduced by MAX, then the denominator [b,Hkv,G,1] and
+    the numerator [b,Hkv,G,1,hd] by SUM.  Returns out [b, l, H, hd] in q's
+    dtype, the same on every rank."""
     b, l, h, hd = q.shape
     hkv = cfg.n_kv_heads
-    valid = _ring_valid(s0 + torch.arange(ck.shape[1], device=q.device), pos, slots, window)
     qg = q.reshape(b, l, hkv, h // hkv, hd)
     logits = torch.einsum("blkgd,bskd->bkgls", qg.float(), ck.to(q.dtype).float())
     logits = logits / torch.tensor(math.sqrt(hd), dtype=torch.float32)
     logits = softcap(logits, cfg.attn_softcap)
-    logits = torch.where(valid, logits, torch.full((), NEG_INF, dtype=torch.float32,
-                                                  device=logits.device))
+    if valid is not None:
+        logits = torch.where(valid, logits, torch.full((), NEG_INF, dtype=torch.float32,
+                                                      device=logits.device))
     m = all_reduce(logits.amax(dim=-1), group, "max")            # [B,Hkv,G,1]
     p = torch.exp(logits - m[..., None])
     den = all_reduce(p.sum(dim=-1), group)                       # [B,Hkv,G,1]
@@ -449,6 +452,12 @@ def _seqshard_attend(cfg: ModelConfig, q: torch.Tensor, ck: torch.Tensor, cv: to
                                   cv.float()), group)            # [B,Hkv,G,1,hd]
     out = (num / den[..., None]).to(q.dtype)
     return torch.movedim(out, 3, 1).reshape(b, l, h, hd)
+
+
+def _model_dim(spec, ctx) -> Optional[int]:
+    """The dim of [B, S, Hkv, hd] that ``spec`` splits over the model axis
+    (1 the slots or rows, 2 the kv heads, 3 the head_dim), or None."""
+    return next((d for d, e in enumerate(spec) if ctx.model_axis in spec_axes(e)), None)
 
 
 def _decode_ring_blocks(cfg: ModelConfig, q, k_new, v_new, ck, cv, pos: int, window: int,
@@ -464,14 +473,12 @@ def _decode_ring_blocks(cfg: ModelConfig, q, k_new, v_new, ck, cv, pos: int, win
       * slots: the two-phase softmax of :func:`_seqshard_attend` on every
         head, q and the new row gathered (a token's worth), the row written
         by the rank that owns its slot;
-      * head_dim: every head's partial scores [B_loc, H, 1, S] over the
-        rank's hd block, summed over the model axis, then softcap, mask and
-        softmax in full, P·V on the rank's hd block of v, and the output's
-        hd blocks gathered;
+      * head_dim: every head's partial scores [B_loc, H, 1, S] summed over
+        the model axis (:func:`_head_dim_attend`);
       * none (the ring whole on every model rank): the plain attention of
         every head."""
     m, ct = ctx.model_axis, cfg.cdtype
-    where = next((d for d, e in enumerate(spec) if m in spec_axes(e)), None)
+    where = _model_dim(spec, ctx)
     if where == 2:
         slots = ck.shape[1]
         ck[:, pos % slots] = k_new[:, 0].to(ck.dtype)
@@ -488,25 +495,70 @@ def _decode_ring_blocks(cfg: ModelConfig, q, k_new, v_new, ck, cv, pos: int, win
         if s0 <= pos % slots < s0 + s_loc:                   # the owner writes the row
             ck[:, pos % slots - s0] = k_new[:, 0].to(ck.dtype)
             cv[:, pos % slots - s0] = v_new[:, 0].to(cv.dtype)
-        return _seqshard_attend(cfg, q, ck, cv, s0, slots, pos, window, group), ck, cv
+        valid = _ring_valid(s0 + torch.arange(s_loc, device=q.device), pos, slots, window)
+        return _seqshard_attend(cfg, q, ck, cv, valid, group), ck, cv
     slots = ck.shape[1]
     valid = _ring_valid(torch.arange(slots, device=q.device), pos, slots, window)
     if where is None:
         ck[:, pos % slots] = k_new[:, 0].to(ck.dtype)
         cv[:, pos % slots] = v_new[:, 0].to(cv.dtype)
         return _sdpa(q, ck.to(ct), cv.to(ct), valid[None, None, :], cfg.attn_softcap), ck, cv
-    b, l, h, hd = q.shape
-    hkv, hdl = cfg.n_kv_heads, ck.shape[3]
+    hdl = ck.shape[3]
     d = slice(i * hdl, (i + 1) * hdl)
     ck[:, pos % slots] = k_new[:, 0, :, d].to(ck.dtype)
     cv[:, pos % slots] = v_new[:, 0, :, d].to(cv.dtype)
-    qg = q[..., d].reshape(b, l, hkv, h // hkv, hdl)
+    return _head_dim_attend(cfg, q, ck, cv, valid, ctx), ck, cv
+
+
+def _head_dim_attend(cfg: ModelConfig, q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                     valid: Optional[torch.Tensor], ctx) -> torch.Tensor:
+    """q [b, l, H, hd] (every head) against this rank's head_dim block ck,
+    cv [b, S, Hkv, hd/model] of rows of which ``valid`` [S] marks those
+    attended (None: all): every head's partial scores over the rank's hd
+    block, summed over the model axis, then softcap, mask and softmax in
+    full, P·V on the rank's hd block of v, and the output's hd blocks
+    gathered.  Returns out [b, l, H, hd] in the compute dtype, the same on
+    every rank of the model axis."""
+    m, ct = ctx.model_axis, cfg.cdtype
+    b, l, h, hd = q.shape
+    hkv, hdl = cfg.n_kv_heads, ck.shape[3]
+    i = ctx.coord(m)
+    qg = q[..., i * hdl:(i + 1) * hdl].reshape(b, l, hkv, h // hkv, hdl)
     logits = torch.einsum("blkgd,bskd->bkgls", qg.float(), ck.to(ct).float())
-    logits = all_reduce(logits, group)                   # the scores over the whole hd
+    logits = all_reduce(logits, ctx.group(m))            # the scores over the whole hd
     logits = softcap(logits / torch.tensor(math.sqrt(hd), dtype=torch.float32),
                      cfg.attn_softcap)
-    logits = torch.where(valid, logits, torch.full((), NEG_INF, dtype=torch.float32,
-                                                  device=logits.device))
+    if valid is not None:
+        logits = torch.where(valid, logits, torch.full((), NEG_INF, dtype=torch.float32,
+                                                      device=logits.device))
     probs = torch.softmax(logits, dim=-1).to(ct)
     out = torch.einsum("bkgls,bskd->blkgd", probs, cv.to(ct)).reshape(b, l, h, hdl)
-    return gather_block(out, 3, ctx, m), ck, cv
+    return gather_block(out, 3, ctx, m)
+
+
+def decode_cross(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
+                 mk: torch.Tensor, mv: torch.Tensor, spec=None) -> torch.Tensor:
+    """One token's cross-attention, x [B, 1, D] against the decode cache's
+    projected memory (mk, mv) [B, S, Hkv, hd] → [B, 1, D]: :func:`apply`'s
+    dense cross-attention.  On local blocks (sharded serving) mk, mv are
+    this rank's block of the memory laid out by ``spec`` (``cache_shardings``'
+    spec of [B, S, Hkv, hd]), and no memory moves between ranks: where it
+    splits the kv heads (or none of them) :func:`_tp_attend` attends as in
+    the prefill; where it splits the memory's rows (``shard_kv_seq``), q's
+    heads are gathered and :func:`_seqshard_attend`'s two-phase softmax
+    runs over the ranks' rows; where it splits the head_dim,
+    :func:`_head_dim_attend` sums the partial scores.  The output of every
+    head leaves through ``wo``'s rows of the rank (:func:`_out_proj`)."""
+    ctx = blocks_ctx()
+    where = None if ctx is None else _model_dim(spec, ctx)
+    if where not in (1, 3):
+        return apply(params, cfg, x, None, kv_override=(mk, mv), causal=False)
+    b, l, _ = x.shape
+    q = _project(params, cfg, tp_input(x), "q", cfg.n_heads)
+    if q.shape[2] != cfg.n_heads:
+        q = gather_block(q, 2, ctx, ctx.model_axis)
+    if where == 1:
+        out = _seqshard_attend(cfg, q, mk, mv, None, ctx.group(ctx.model_axis))
+    else:
+        out = _head_dim_attend(cfg, q, mk, mv, None, ctx)
+    return _out_proj(params, cfg, out.reshape(b, l, -1))

@@ -30,10 +30,10 @@ enc-dec config (``cfg.enc_dec``) encodes stub frame embeddings ``[B, S,
 memory that a cross-attention in every decoder block reads, and the decode
 cache keeps its projected ``mk``/``mv``.
 
-Sharded training (``MeshCtx.local_blocks``, set by the sharded train step
-for the dense attention families, the VLM with its patch prefix, the
-enc-dec encoder and cross-attention, the MoE family and the recurrent
-ones, :func:`check_sharded`): every function runs on this rank's blocks,
+Sharded training and serving (``MeshCtx.local_blocks``, set by the
+sharded train step and by the engine's sharded prefill and decode for
+every family, :func:`check_sharded`): every function runs on this rank's
+blocks,
 the stacked groups, the remainder layers and the encoder's blocks alike;
 attention (causal, the encoder's non-causal and the cross-attention) and
 the MLPs are tensor-parallel over the heads and ``d_ff``, the "ssm" and
@@ -53,7 +53,9 @@ stays in that layout: each row-parallel product leaves through
 has nothing to move and is not called.  The logits leave ``_logits``
 split on the vocab over the model axis, and :func:`loss_fn` reduces the
 max, the sum of exps and the label's logit over it without gathering the
-logits.
+logits.  In serving, every leaf of the decode cache is the rank's block as
+``cache_shardings`` places it (:func:`cache_specs`), and each decode step
+reads and writes the blocks where they lie.
 """
 
 from __future__ import annotations
@@ -70,9 +72,9 @@ from repro_torch import resolve_device
 from repro_torch.models import attention, mlp, moe, rglru, ssm
 from repro_torch.models.common import (ModelConfig, dense_init, embed_init,
                                        rms_norm, softcap, tree_leaves, tree_map)
-from repro_torch.parallel.mesh_ctx import (SHARDED_TODO, all_reduce, blocks_ctx,
-                                           constrain_batch, current_ctx, mesh_context, reduce,
-                                           relayout, tp_input)
+from repro_torch.parallel.mesh_ctx import (all_reduce, blocks_ctx, constrain_batch,
+                                           current_ctx, mesh_context, reduce, relayout,
+                                           tp_input)
 from repro_torch.parallel.sharding import cache_shardings, spec_of, use_param
 
 
@@ -388,35 +390,29 @@ def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def check_sharded(cfg: ModelConfig, ctx, *, seq_len: Optional[int] = None,
                   patches: Optional[torch.Tensor] = None,
-                  frames: Optional[torch.Tensor] = None, serving: bool = False) -> None:
-    """Raise unless the sharded step (or, with ``serving``, the sharded
-    prefill and decode) runs ``cfg`` on ``ctx``'s mesh: the dense attention
-    families ("attn" and "local" layers, a dense MLP, q/k/v biases, tied
-    embeddings, both softcaps), the VLM with its patch prefix, the MoE
-    family (expert parallel, :func:`repro_torch.models.moe.apply_blocks`,
-    or where the model axis does not divide the experts the reference's
-    global dispatch on the gathered tokens,
-    :func:`repro_torch.models.moe.apply_gathered`), and in the train step
-    also the enc-dec encoder and cross-attention and the recurrent families
-    ("ssm" and "rglru" layers; serving on their blocks raises
-    ``NotImplementedError``), with the model axis dividing what it splits:
-    the fused q heads, ``d_ff`` of a dense MLP, the shared experts' width,
-    the SSM's heads and inner width, the RG-LRU width and the padded vocab
-    (``NotImplementedError``), and under ``seq_shard_activations`` the
-    sequences cut at a block boundary (``ValueError``): the decoder's whole
-    ``seq_len`` tokens plus the ``patches``' prefix, and the ``frames``'
-    length.  Where the model axis does not divide a split dim, the rule
-    table's guard would drop the model axis from a leaf and its rank would
-    compute more than its block."""
+                  frames: Optional[torch.Tensor] = None) -> None:
+    """Raise unless the sharded train step and the sharded prefill and
+    decode run ``cfg`` on ``ctx``'s mesh.  They run every family on a
+    rank's blocks: the dense attention families ("attn" and
+    "local" layers, a dense MLP, q/k/v biases, tied embeddings, both
+    softcaps), the VLM with its patch prefix, the enc-dec encoder and
+    cross-attention, the recurrent families ("ssm" and "rglru" layers, and
+    in serving their decode states on the rank's heads, channels and
+    width), and the MoE family (expert parallel,
+    :func:`repro_torch.models.moe.apply_blocks`, or where the model axis
+    does not divide the experts the reference's global dispatch on the
+    gathered tokens, :func:`repro_torch.models.moe.apply_gathered`).  The
+    model axis must divide what they split: the fused q heads, ``d_ff`` of
+    a dense MLP, the shared experts' width, the SSM's heads and inner
+    width, the RG-LRU width and the padded vocab (``NotImplementedError``),
+    and under ``seq_shard_activations`` the sequences cut at a block
+    boundary (``ValueError``): the decoder's whole ``seq_len`` tokens plus
+    the ``patches``' prefix, and the ``frames``' length.  Where the model
+    axis does not divide a split dim, the rule table's guard would drop the
+    model axis from a leaf and its rank would compute more than its
+    block."""
     kinds = set(cfg.layer_pattern)
     nm = ctx.model_size
-    if serving:
-        todo = [f"its {k!r} layers" for k in ("ssm", "rglru") if k in kinds]
-        todo += ["its encoder and cross-attention"] if cfg.enc_dec else []
-        if todo:
-            raise NotImplementedError(
-                f"serving {cfg.name} on sharded parameters: the port does not yet decode "
-                f"{' and '.join(todo)} on a rank's blocks ({SHARDED_TODO})")
     split = [("the padded vocab", cfg.padded_vocab)]
     if cfg.moe is None:
         split.append(("d_ff", cfg.d_ff))
@@ -588,12 +584,14 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: int,
     ``pos``; enc-dec blocks keep their projected memory ``mk``/``mv``, sized
     by the frames' own length.
 
-    On local blocks (sharded serving: the dense attention families, the VLM
-    and MoE) the tokens are this rank's batch block, each ring is this
-    rank's block of it as :func:`cache_specs` lays it out
-    (:func:`_ring_block`), and the logits are the rank's vocab block of its
-    batch block's last position (under ``seq_shard_activations`` the last
-    rank's sequence block holds it).
+    On local blocks (sharded serving) the tokens and frames are this rank's
+    batch block, and every leaf of the cache is this rank's block of it as
+    :func:`cache_specs` lays it out: each ring (:func:`_ring_block`), the
+    projected memory moved from the heads hint's layout, and the recurrent
+    states as their modules compute them (the rank's SSM heads and
+    channels, its RG-LRU width).  The logits are the rank's vocab block of
+    its batch block's last position (under ``seq_shard_activations`` the
+    last rank's sequence block holds it).
     """
     memory = encode(params, cfg, frames) if cfg.enc_dec else None
     x = _embed(params, cfg, tokens, patches)
@@ -605,7 +603,9 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: int,
     pattern = cfg.layer_pattern
     g, _ = groups_of(cfg)
     ctx = blocks_ctx()
-    specs = None if ctx is None else cache_specs(cfg, b * ctx.batch_size, max_len, ctx)
+    specs = None if ctx is None else cache_specs(
+        cfg, b * ctx.batch_size, max_len, ctx,
+        memory=frames.shape[1] if cfg.enc_dec else None)
     cache: Dict[str, Any] = {"blocks": {}, "rem": {}}
     for name, kv in raw.items():
         if name[0] == "s":
@@ -622,8 +622,9 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: int,
             ring = functools.partial(_ring_block, cfg=cfg, slots=slots,
                                      spec=specs[group][name]["k"], ctx=ctx)
         cache[group][name] = {"k": ring(kv["k"]), "v": ring(kv["v"])}
-        if "mk" in kv:
-            cache[group][name]["mk"], cache[group][name]["mv"] = kv["mk"], kv["mv"]
+        for key in ("mk", "mv") if "mk" in kv else ():
+            cache[group][name][key] = kv[key] if ctx is None else relayout(
+                kv[key], _hint_layout(kv[key], cfg, ctx), specs[group][name][key], ctx)
     if not cache["rem"]:
         del cache["rem"]
     cache["pos"] = l
@@ -633,11 +634,25 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: int,
     return cache, logits
 
 
-def cache_specs(cfg: ModelConfig, batch: int, max_len: int, ctx) -> Dict[str, Any]:
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int, ctx, *,
+                memory: Optional[int] = None) -> Dict[str, Any]:
     """``cache_shardings``' specs of the decode cache of a global ``batch``
-    and ``max_len`` (:func:`init_cache`'s tree, on the ``meta`` device): the
-    layout of every rank's block of a sharded prefill's cache."""
-    return cache_shardings(init_cache(cfg, batch, max_len, device="meta"), ctx)
+    and ``max_len`` (:func:`init_cache`'s tree, on the ``meta`` device),
+    with an enc-dec config's ``memory`` rows (the frames' length; the
+    reference lays out the cache its prefill returns): the layout of every
+    rank's block of a sharded prefill's cache."""
+    return cache_shardings(init_cache(cfg, batch, max_len, device="meta", memory=memory), ctx)
+
+
+def _hint_layout(kv: torch.Tensor, cfg: ModelConfig, ctx) -> list:
+    """The layout of a prefill's k, v, mk or mv on local blocks, [(G,)
+    B_loc, L, ·, hd]: the batch over the batch axes and, where the heads
+    hint splits them, the kv heads over the model axis."""
+    lead = kv.ndim - 4
+    src = [None] * kv.ndim
+    src[lead] = tuple(ctx.batch_axes)
+    src[lead + 2] = ctx.model_axis if kv.shape[-2] < cfg.n_kv_heads else None
+    return src
 
 
 def _ring_block(kv: torch.Tensor, *, cfg: ModelConfig, slots: int, spec, ctx) -> torch.Tensor:
@@ -650,21 +665,17 @@ def _ring_block(kv: torch.Tensor, *, cfg: ModelConfig, slots: int, spec, ctx) ->
     of ``wk``/``wv`` can cut a kv head, so this is a relayout of whole
     heads, not a cut of the projection's columns), the ring built, then
     the slot block taken where it splits the slots."""
-    m, lead = ctx.model_axis, kv.ndim - 4
-    src = [None] * kv.ndim
-    src[lead] = tuple(ctx.batch_axes)
-    src[lead + 2] = m if kv.shape[-2] < cfg.n_kv_heads else None
     mid = list(spec)
-    mid[lead + 1] = None
-    ring = _ring_from_prefill(relayout(kv, src, mid, ctx), slots)
+    mid[kv.ndim - 3] = None
+    ring = _ring_from_prefill(relayout(kv, _hint_layout(kv, cfg, ctx), mid, ctx), slots)
     return relayout(ring, mid, spec, ctx)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               device="cuda") -> Dict[str, Any]:
+               device="cuda", memory: Optional[int] = None) -> Dict[str, Any]:
     """Empty decode cache (zeros; ``pos`` at the last slot, as in JAX).  An
-    enc-dec config's ``mk``/``mv`` hold ``max(1, max_len // 8)`` memory
-    rows, as the reference's."""
+    enc-dec config's ``mk``/``mv`` hold ``memory`` rows, by default
+    ``max(1, max_len // 8)`` as the reference's."""
     dev = resolve_device(device)
     g, rem = groups_of(cfg)
     ct = cfg.cdtype
@@ -679,7 +690,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
         c = {"k": torch.zeros(shape, dtype=ct, device=dev),
              "v": torch.zeros(shape, dtype=ct, device=dev)}
         if cfg.enc_dec:
-            mem = tuple(lead) + (batch, max(1, max_len // 8), cfg.n_kv_heads, cfg.hd)
+            rows = max(1, max_len // 8) if memory is None else memory
+            mem = tuple(lead) + (batch, rows, cfg.n_kv_heads, cfg.hd)
             c["mk"] = torch.zeros(mem, dtype=ct, device=dev)
             c["mv"] = torch.zeros(mem, dtype=ct, device=dev)
         return c
@@ -700,10 +712,12 @@ def _write_back(gc: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]) -> No
         gc[key].copy_(t)
 
 
-def _block_decode(cfg: ModelConfig, kind: str, p, x, gc, pos: int, ring_spec=None):
+def _block_decode(cfg: ModelConfig, kind: str, p, x, gc, pos: int, layout=None):
     """One block, one token. x: [B,1,D] → x (gc updated in place: k/v rings
     of attention layers, the state of recurrent ones).  On local blocks
-    ``ring_spec`` is the layout of the rank's k/v ring blocks."""
+    ``gc`` holds this rank's blocks and ``layout`` the spec of each of them
+    (the rings', the projected memory's; a recurrent state lies as its
+    module's docstring says)."""
     h = rms_norm(x, _scale(p, "ln1", cfg), cfg.rms_eps)
     if kind == "ssm":
         y, st = ssm.decode_step(p["ssm"], cfg, h, gc)
@@ -714,18 +728,18 @@ def _block_decode(cfg: ModelConfig, kind: str, p, x, gc, pos: int, ring_spec=Non
         _write_back(gc, st)
         x = x + y
         if cfg.d_ff:
-            x = x + mlp.apply(p["mlp"], cfg, rms_norm(x, p["ln2"], cfg.rms_eps))
+            x = x + mlp.apply(p["mlp"], cfg, rms_norm(x, _scale(p, "ln2", cfg), cfg.rms_eps))
         return x
     window = cfg.window if kind == "local" else 0
     a, _ = attention.decode_step(p["attn"], cfg, h, gc, pos, window=window,
-                                 ring_spec=ring_spec)
+                                 ring_spec=layout and layout["k"])
     if cfg.post_norms:
         a = rms_norm(a, _scale(p, "ln1b", cfg), cfg.rms_eps)
     x = x + a
     if "xattn" in p:
-        h = rms_norm(x, p["lnx"], cfg.rms_eps)
-        x = x + attention.apply(p["xattn"], cfg, h, None, kv_override=(gc["mk"], gc["mv"]),
-                                causal=False)
+        h = rms_norm(x, _scale(p, "lnx", cfg), cfg.rms_eps)
+        x = x + attention.decode_cross(p["xattn"], cfg, h, gc["mk"], gc["mv"],
+                                       layout and layout["mk"])
     if cfg.d_ff:
         h = rms_norm(x, _scale(p, "ln2", cfg), cfg.rms_eps)
         f = moe.apply(p["moe"], cfg, h) if cfg.moe is not None else mlp.apply(p["mlp"], cfg, h)
@@ -750,13 +764,13 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: Dict[str, 
     rings = {grp: cache.get(grp, {}) for grp in ("blocks", "rem")}
     on_blocks = blocks_ctx() is not None
 
-    def ring_spec(grp: str, name: str):
-        """The layout of a layer's ring (its lead [G] dim dropped) on local
-        blocks, else None."""
+    def layout(grp: str, name: str):
+        """The layout of each leaf of a layer's cache (its lead [G] dim
+        dropped) on local blocks, else None."""
         if not on_blocks:
             return None
-        spec = spec_of(cache[grp][name]["k"])
-        return spec[1:] if grp == "blocks" else spec
+        return {key: spec_of(t)[1:] if grp == "blocks" else spec_of(t)
+                for key, t in cache[grp][name].items()}
 
     if on_blocks:
         rings = tree_map(lambda t: t.to_local(), rings)
@@ -767,10 +781,10 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: Dict[str, 
         gp = _index(params["blocks"], gi)
         for i, kind in enumerate(pattern):
             gc = _index(rings["blocks"][f"s{i}"], gi)
-            x = _block_decode(cfg, kind, gp[f"s{i}"], x, gc, pos, ring_spec("blocks", f"s{i}"))
+            x = _block_decode(cfg, kind, gp[f"s{i}"], x, gc, pos, layout("blocks", f"s{i}"))
     for i, (name, rp) in enumerate(sorted(params.get("rem", {}).items())):
         kind = cfg.pattern_of(g * len(pattern) + i)
-        x = _block_decode(cfg, kind, rp, x, rings["rem"][name], pos, ring_spec("rem", name))
+        x = _block_decode(cfg, kind, rp, x, rings["rem"][name], pos, layout("rem", name))
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1
     logits = _logits(params, cfg, x)[:, 0, :]

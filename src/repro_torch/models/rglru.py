@@ -13,16 +13,18 @@ Prefill runs the recurrence through :func:`repro_torch.kernels.ops.rglru_scan`
 — the hand-written CUDA kernel on the card, the log-depth plain version on
 the CPU.  Decode carries an O(1) [B,W] state in plain PyTorch.
 
-On local blocks (the sharded train step) the block is tensor-parallel over
-the lru width W: the input enters through ``tp_input``; ``w_x`` and
-``w_gate`` are column-parallel (the rank's W block), the causal conv and Λ
-are the rank's channels, and the scan runs on ``[B/batch, L, W/model]``.
-The gate products ``w_r``/``w_i`` are (None, model) by the rule table: they
-contract the whole width, so ξ is gathered over the model axis (backward: a
+On local blocks (the sharded train step, and sharded serving's prefill
+and decode) the block is tensor-parallel over the lru width W: the input
+enters through ``tp_input``; ``w_x`` and ``w_gate`` are column-parallel
+(the rank's W block), the causal conv and Λ are the rank's channels, and
+the scan runs on ``[B/batch, L, W/model]``.  The gate products
+``w_r``/``w_i`` are (None, model) by the rule table: they contract the
+whole width, so ξ is gathered over the model axis (backward: a
 reduce-scatter) before their fp32 products; gathering ξ in the compute
 dtype and then casting is the same as casting first.  ``w_out`` is
-row-parallel and its partial sum leaves through ``tp_output``.  Off local
-blocks these are identities.
+row-parallel and its partial sum leaves through ``tp_output``.  The decode
+state, ``h`` [B, W] and the conv tail [B, K-1, W], is the rank's W block,
+as ``cache_shardings`` places it.  Off local blocks these are identities.
 """
 
 from __future__ import annotations
@@ -190,13 +192,17 @@ def decode_step(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
                 state: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: [B,1,D] → ([B,1,D], new state).  The state passed in is not
-    modified; the returned tensors are new."""
+    modified; the returned tensors are new.  On local blocks ``state`` is
+    this rank's W block (the module's docstring)."""
     ct = cfg.cdtype
-    xi = x[:, 0, :] @ params["w_x"].to(ct)                        # [B,W]
+    d, w, k = cfg.d_model, width(cfg), cfg.rglru.conv_kernel
+    x0 = tp_input(x)[:, 0, :]
+    xi = x0 @ _param(params, "w_x", (d, w)).to(ct)                 # [B,W]
     hist = torch.cat([state["conv"], xi[:, None, :]], dim=1)
-    xi = torch.einsum("bkc,kc->bc", hist, params["conv_w"].to(ct)) + params["conv_b"].to(ct)
+    xi = torch.einsum("bkc,kc->bc", hist, _param(params, "conv_w", (k, w)).to(ct)) \
+        + _param(params, "conv_b", (w,)).to(ct)
     log_a, b = _gates(params, cfg, xi)
     h = torch.exp(log_a) * state["h"] + b
-    gate = gelu(x[:, 0, :] @ params["w_gate"].to(ct))
-    out = ((h.to(ct) * gate) @ params["w_out"].to(ct))[:, None, :]
+    gate = gelu(x0 @ _param(params, "w_gate", (d, w)).to(ct))
+    out = tp_output(((h.to(ct) * gate) @ _param(params, "w_out", (w, d)).to(ct))[:, None, :])
     return out, {"h": h, "conv": hist[:, 1:, :]}

@@ -12,21 +12,27 @@ card, its plain version (:func:`repro_torch.kernels.ref.ssd_chunked`) on the
 CPU — which also returns the final state that seeds decode.  Decode is plain
 PyTorch: the reference has no decode kernel.
 
-On local blocks (the sharded train step) the block is tensor-parallel over
-the heads: the input enters through ``tp_input``; ``wz``, ``wx`` and
-``wdt`` are column-parallel (the rank's heads), ``conv_x_*`` the rank's
-channels, and ``A_log``, ``D`` and ``dt_bias``, which the rule table
-replicates, are cut to the rank's heads by ``use_param_block``.  ``wb``,
-``wc`` and ``conv_b_*``/``conv_c_*`` are whole over the model axis, and B
-and C feed only the rank's heads, so their gradients are partial sums,
-summed over the model axis by ``use_param(..., model_partial=True)``.  The
-scan runs on ``[B/batch, L, H/model, P]``; ``w_out`` is row-parallel and
-its partial sum leaves through ``tp_output``.  The reference's layout
-hints (``_constrain``, ``_batch_model``) move nothing there: the
-column-parallel outputs are already (batch, ·, model), and ``tp_input``
-has gathered the sequence under ``seq_shard_activations``; they are not
-called.  Off local blocks the parameter reads and the tensor-parallel
-entry and exit are identities.
+On local blocks (the sharded train step, and sharded serving's prefill
+and decode) the block is tensor-parallel over the heads: the input enters
+through ``tp_input``; ``wz``, ``wx`` and ``wdt`` are column-parallel (the
+rank's heads), ``conv_x_*`` the rank's channels, and ``A_log``, ``D`` and
+``dt_bias``, which the rule table replicates, are cut to the rank's heads
+by ``use_param_block``.  ``wb``, ``wc`` and ``conv_b_*``/``conv_c_*`` are
+whole over the model axis, and B and C feed only the rank's heads, so
+their gradients are partial sums, summed over the model axis by
+``use_param(..., model_partial=True)``.  The scan runs on ``[B/batch, L,
+H/model, P]``; ``w_out`` is row-parallel and its partial sum leaves
+through ``tp_output``.  The reference's layout hints (``_constrain``,
+``_batch_model``) move nothing there: the column-parallel outputs are
+already (batch, ·, model), and ``tp_input`` has gathered the sequence
+under ``seq_shard_activations``; they are not called.  The decode state
+lies as ``cache_shardings`` places it: ``h`` the rank's heads,
+``conv_x`` its channels, and ``conv_b``/``conv_c`` its block of the N
+channels where the model axis divides N (every rank computes B and C
+whole, so the prefill cuts their tails, and a decode step convolves the
+rank's channels and joins the N channels' outputs over the model axis,
+one all-reduce for both).  Off local blocks the parameter reads and the
+tensor-parallel entry and exit are identities.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models.common import ModelConfig, dense_init, softplus
 from repro_torch.models.mlp import silu
-from repro_torch.parallel.mesh_ctx import tp_input, tp_output
+from repro_torch.parallel.mesh_ctx import blocks_ctx, gather, tp_input, tp_output
 from repro_torch.parallel.sharding import use_param, use_param_block
 
 
@@ -113,19 +119,39 @@ def apply_with_state(params: Dict[str, Any], cfg: ModelConfig, xin: torch.Tensor
     return _apply_impl(params, cfg, xin, collect_state=True)
 
 
+def _readers(params: Dict[str, Any], cfg: ModelConfig):
+    """(w, heads): a parameter as this rank's computation uses it, in the
+    compute dtype, and a per-head vector cut to the rank's heads; whole off
+    local blocks."""
+    nh = dims(cfg)[1]
+
+    def w(name, shape):
+        return use_param(params[name], name, shape, model_partial=True).to(cfg.cdtype)
+
+    def heads(name):
+        return use_param_block(params[name], name, (nh,), 0)
+
+    return w, heads
+
+
+def _channels(n: int) -> slice:
+    """The N channels of B and C that this rank's decode state holds: its
+    block over the model axis where the model axis divides N (the rule of
+    ``cache_shardings``), else all of them."""
+    ctx = blocks_ctx()
+    if ctx is None or n % ctx.model_size:
+        return slice(0, n)
+    nl = n // ctx.model_size
+    return slice(ctx.coord(ctx.model_axis) * nl, (ctx.coord(ctx.model_axis) + 1) * nl)
+
+
 def _apply_impl(params: Dict[str, Any], cfg: ModelConfig, xin: torch.Tensor,
                 collect_state: bool):
     s = cfg.ssm
     di, nh, p, n = dims(cfg)
     ct = cfg.cdtype
     d, k = cfg.d_model, s.d_conv
-
-    def w(name, shape):
-        return use_param(params[name], name, shape, model_partial=True).to(ct)
-
-    def heads(name):
-        return use_param_block(params[name], name, (nh,), 0)
-
+    w, heads = _readers(params, cfg)
     xin = tp_input(xin)
     bt, l, _ = xin.shape
     z = xin @ w("wz", (d, di))                                     # [B,L,di]
@@ -163,10 +189,11 @@ def _apply_impl(params: Dict[str, Any], cfg: ModelConfig, xin: torch.Tensor,
         t = a[:, -(s.d_conv - 1):, :]
         return F.pad(t, (0, 0, s.d_conv - 1 - t.shape[1], 0)).clone()
 
+    ch = _channels(n)
     return out, {"h": h_last,
                  "conv_x": tail(x_raw).to(ct),
-                 "conv_b": tail(b_raw).to(ct),
-                 "conv_c": tail(c_raw).to(ct)}
+                 "conv_b": tail(b_raw[..., ch]).to(ct),
+                 "conv_c": tail(c_raw[..., ch]).to(ct)}
 
 
 # ==========================================================================
@@ -203,34 +230,42 @@ def decode_step(params: Dict[str, Any], cfg: ModelConfig, xin: torch.Tensor,
                 state: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """xin: [B,1,D] → ([B,1,D], new state).  The state passed in is not
-    modified; the returned tensors are new."""
-    di, nh, p, _ = dims(cfg)
+    modified; the returned tensors are new.  On local blocks ``state`` is
+    this rank's block of the cache's (the module's docstring)."""
+    s = cfg.ssm
+    di, nh, p, n = dims(cfg)
     ct = cfg.cdtype
     f32 = torch.float32
-    bt = xin.shape[0]
-    x0 = xin[:, 0, :]
-    z = x0 @ params["wz"].to(ct)
-    x_raw = x0 @ params["wx"].to(ct)
-    b_raw = x0 @ params["wb"].to(ct)
-    c_raw = x0 @ params["wc"].to(ct)
-    dt_raw = x0 @ params["wdt"].to(ct)
+    d, k = cfg.d_model, s.d_conv
+    w, heads = _readers(params, cfg)
+    x0 = tp_input(xin)[:, 0, :]
+    bt = x0.shape[0]
+    z = x0 @ w("wz", (d, di))
+    x_raw = x0 @ w("wx", (d, di))
+    b_raw = x0 @ w("wb", (d, n))
+    c_raw = x0 @ w("wc", (d, n))
+    dt_raw = x0 @ w("wdt", (d, nh))
 
-    x, cx = _conv_step(state["conv_x"], x_raw, params["conv_x_w"].to(ct),
-                       params["conv_x_b"].to(ct))
-    b, cb = _conv_step(state["conv_b"], b_raw, params["conv_b_w"].to(ct),
-                       params["conv_b_b"].to(ct))
-    c, cc = _conv_step(state["conv_c"], c_raw, params["conv_c_w"].to(ct),
-                       params["conv_c_b"].to(ct))
+    x, cx = _conv_step(state["conv_x"], x_raw, w("conv_x_w", (k, di)), w("conv_x_b", (di,)))
+    ch = _channels(n)
+    b, cb = _conv_step(state["conv_b"], b_raw[:, ch], w("conv_b_w", (k, n))[:, ch],
+                       w("conv_b_b", (n,))[ch])
+    c, cc = _conv_step(state["conv_c"], c_raw[:, ch], w("conv_c_w", (k, n))[:, ch],
+                       w("conv_c_b", (n,))[ch])
+    if ch.stop - ch.start < n:                 # the rank's channels: join all N
+        ctx = blocks_ctx()
+        b, c = gather(torch.stack([b, c]), -1, ctx.model_axis, ctx)
     x, b, c = silu(x), silu(b), silu(c)
 
-    dt = softplus(dt_raw.float() + params["dt_bias"].float())     # [B,H]
-    A = -torch.exp(params["A_log"].float())
-    xh = x.reshape(bt, nh, p).to(f32)
+    dt = softplus(dt_raw.float() + heads("dt_bias").float())      # [B,H]
+    A = -torch.exp(heads("A_log").float())
+    hl = dt.shape[-1]                                              # this rank's heads
+    xh = x.reshape(bt, hl, p).to(f32)
     dA = torch.exp(dt * A)                                         # [B,H]
     h = state["h"] * dA[:, :, None, None] \
         + torch.einsum("bh,bn,bhp->bhpn", dt, b.to(f32), xh)
     y = torch.einsum("bn,bhpn->bhp", c.to(f32), h)
-    y = y + xh * params["D"].to(f32)[None, :, None]
-    y = y.reshape(bt, di).to(ct) * silu(z)
-    out = (y @ params["w_out"].to(ct))[:, None, :]
+    y = y + xh * heads("D").to(f32)[None, :, None]
+    y = y.reshape(bt, hl * p).to(ct) * silu(z)
+    out = tp_output((y @ w("w_out", (di, d)))[:, None, :])
     return out, {"h": h, "conv_x": cx, "conv_b": cb, "conv_c": cc}

@@ -147,10 +147,6 @@ class MeshCtx:
         return i
 
 
-#: where the ports of what the sharded paths do not run yet (serving on the
-#: blocks of the recurrent and enc-dec families) are queued
-SHARDED_TODO = "ROADMAP Queue 1 item 16"
-
 _CTX: contextvars.ContextVar[Optional[MeshCtx]] = contextvars.ContextVar(
     "repro_torch_mesh_ctx", default=None)
 
@@ -394,17 +390,20 @@ def blocks_ctx() -> Optional[MeshCtx]:
 def relayout(x: torch.Tensor, src, dst, ctx: MeshCtx) -> torch.Tensor:
     """Move a local block from layout ``src`` to ``dst`` (specs with one
     entry per dim): a dim sharded in ``src`` and not in ``dst`` is gathered,
-    one sharded in ``dst`` and not in ``src`` is scattered."""
-    for dim, (a, b) in enumerate(zip(src, dst)):
-        a, b = spec_axes(a), spec_axes(b)
-        if a == b:
-            continue
+    then one sharded in ``dst`` and not in ``src`` is scattered.  Gathers go
+    first: an axis that moves from one dim to another (the kv heads' model
+    axis to the memory's rows) must join the blocks while every rank still
+    holds the same rows of the other dim."""
+    moves = [(dim, spec_axes(a), spec_axes(b)) for dim, (a, b) in enumerate(zip(src, dst))]
+    for dim, a, b in moves:
+        if a != b and a and b:
+            raise ValueError(f"dim {dim}: no move from {a} to {b}")
+    for dim, a, b in moves:
         if a and not b:
             x = gather(x, dim, a, ctx)
-        elif b and not a:
+    for dim, a, b in moves:
+        if b and not a:
             x = scatter(x, dim, b, ctx)
-        else:
-            raise ValueError(f"dim {dim}: no move from {a} to {b}")
     return x
 
 

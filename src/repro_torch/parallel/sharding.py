@@ -292,14 +292,16 @@ def distribute_tree(tree: Any, specs: Any, ctx: MeshCtx) -> Any:
     return distribute(tree, specs, ctx)
 
 
-def gather_rows(t: DTensor, start: int = 0, stop: Optional[int] = None) -> torch.Tensor:
+def gather_rows(t: DTensor, start: int = 0, stop: Optional[int] = None,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Rows ``start:stop`` (all by default) of dim 0 of the global value of
     the DTensor ``t``, on every rank of its mesh: a collective, every rank
     calls it with the same rows.  Joined with ``all_reduce`` alone (gloo has
     no ``all_gather`` for CUDA tensors): a zero-filled buffer of those rows
-    only, the part of this rank's block that falls in them written in,
-    summed over the axes that split ``t`` (adding zeros is exact).  A 0-d
-    ``t`` is replicated: its value."""
+    only (``out``, of their shape and ``t``'s dtype, when given), the part
+    of this rank's block that falls in them written in, summed over the
+    axes that split ``t`` (adding zeros is exact).  A 0-d ``t`` is
+    replicated: its value."""
     local = t.to_local()
     if t.ndim == 0:
         return local
@@ -307,7 +309,10 @@ def gather_rows(t: DTensor, start: int = 0, stop: Optional[int] = None) -> torch
     ctx = MeshCtx(t.device_mesh)
     stop = shape[0] if stop is None else stop
     block = local_slices(shape, spec, ctx)
-    out = local.new_zeros((stop - start,) + shape[1:])
+    if out is None:
+        out = local.new_zeros((stop - start,) + shape[1:])
+    else:
+        out.zero_()
     lo, hi = max(start, block[0].start), min(stop, block[0].stop)
     if lo < hi:
         out[(slice(lo - start, hi - start),) + block[1:]] = \

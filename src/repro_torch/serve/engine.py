@@ -11,9 +11,11 @@ on its blocks of the parameters and its batch block of the inputs
 (``MeshCtx.local_blocks``), and the cache and the logits come back as
 DTensors, the rings in ``cache_shardings``' layout (their slots under
 ``shard_kv_seq``, else their kv heads, else their head_dim over the model
-axis), the logits over (the batch axes, the model axis).  The dense
-attention families, the VLM and the MoE family
-(:func:`repro_torch.models.lm.check_sharded` with ``serving``).
+axis), the recurrent states over the SSM's heads and channels and the
+RG-LRU's width, the enc-dec memory's ``mk``/``mv`` as the rings (its rows
+under ``shard_kv_seq``), the logits over (the batch axes, the model
+axis).  Every family, where the model axis divides what the blocks split
+(:func:`repro_torch.models.lm.check_sharded`).
 """
 
 from __future__ import annotations
@@ -59,15 +61,17 @@ def make_prefill_step(cfg: ModelConfig, *, max_len: int):
         if ctx is None:
             return lm.prefill(params, cfg, inputs["tokens"], max_len=max_len,
                               patches=inputs.get("patches"), frames=inputs.get("frames"))
+        frames = inputs.get("frames")
         lm.check_sharded(cfg, ctx, seq_len=inputs["tokens"].shape[1],
-                         patches=inputs.get("patches"), frames=inputs.get("frames"),
-                         serving=True)
+                         patches=inputs.get("patches"), frames=frames)
         blocks = dataclasses.replace(ctx, local_blocks=True)
         inp = local_batch(inputs, blocks)
         with mesh_context(blocks):
             cache, logits = lm.prefill(tree_map(local_block, params), cfg, inp["tokens"],
-                                       max_len=max_len, patches=inp.get("patches"))
-        specs = lm.cache_specs(cfg, inputs["tokens"].shape[0], max_len, ctx)
+                                       max_len=max_len, patches=inp.get("patches"),
+                                       frames=inp.get("frames"))
+        specs = lm.cache_specs(cfg, inputs["tokens"].shape[0], max_len, ctx,
+                               memory=None if frames is None else frames.shape[1])
         for grp in ("blocks", "rem"):
             if grp in cache:
                 cache[grp] = tree_map(lambda t, spec: from_block(t, spec, ctx), cache[grp],
@@ -87,7 +91,7 @@ def make_decode_step(cfg: ModelConfig):
         ctx = _sharded_ctx(params)
         if ctx is None:
             return lm.decode_step(params, cfg, token, cache)
-        lm.check_sharded(cfg, ctx, serving=True)
+        lm.check_sharded(cfg, ctx)
         blocks = dataclasses.replace(ctx, local_blocks=True, seq_shard_activations=False)
         tok = local_batch({"token": token}, blocks)["token"]
         with mesh_context(blocks):

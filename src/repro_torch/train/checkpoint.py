@@ -15,9 +15,9 @@ failover path): every rank reads the file and keeps its own block of each
 leaf as a DTensor.  :func:`save` of a state of DTensors (the sharded train
 step's) writes the same file as an unsharded save, so either package
 restores it sharded or whole: it joins each leaf a piece of whole dim-0
-rows at a time (:data:`SAVE_PIECE_BYTES`), so no rank ever holds a leaf's
-global value, let alone the state's, and rank 0 streams each piece into
-the file as it comes.
+rows at a time (:data:`SAVE_PIECE_BYTES`) into one buffer that the whole
+save reuses, so no rank ever holds a leaf's global value, let alone the
+state's, and rank 0 streams each piece into the file as it comes.
 """
 
 from __future__ import annotations
@@ -56,18 +56,44 @@ def _leaves(tree, prefix: str = "") -> Iterator[Tuple[str, torch.Tensor]]:
         yield prefix, tree
 
 
-def _pieces(t: torch.Tensor) -> Iterator[np.ndarray]:
+def _piece_rows(t: torch.Tensor) -> int:
+    """The dim-0 rows of a piece of the DTensor leaf ``t``: at most
+    :data:`SAVE_PIECE_BYTES`, at least one row."""
+    return max(1, SAVE_PIECE_BYTES // max(1, math.prod(t.shape[1:]) * t.element_size()))
+
+
+def _piece_buffer(state) -> Optional[torch.Tensor]:
+    """The one buffer of bytes that a sharded save joins every piece into:
+    as large as its largest piece, on the leaves' device; None without a
+    DTensor leaf of rows."""
+    sizes = [min(_piece_rows(t), t.shape[0]) * math.prod(t.shape[1:]) * t.element_size()
+             for _, t in _leaves(state) if is_distributed(t) and t.ndim]
+    if not sizes:
+        return None
+    device = next(t.to_local().device for t in tree_leaves(state) if is_distributed(t))
+    return torch.empty(max(sizes), dtype=torch.uint8, device=device)
+
+
+def _pieces(t: torch.Tensor, buffer: Optional[torch.Tensor] = None) -> Iterator[np.ndarray]:
     """The global value of leaf ``t`` on the host, in order: a plain tensor
-    whole, a DTensor in pieces of whole dim-0 rows of at most
-    :data:`SAVE_PIECE_BYTES` (at least one row), each joined on every rank
-    (:func:`~repro_torch.parallel.sharding.gather_rows`).  A bf16 leaf
-    comes out as fp32 (numpy has no bfloat16)."""
+    whole, a DTensor in pieces of whole dim-0 rows (:func:`_piece_rows`),
+    each joined on every rank (:func:`~repro_torch.parallel.sharding.gather_rows`)
+    into ``buffer`` (:func:`_piece_buffer`).  A piece is valid until the
+    next is asked for: the save writes each before it joins the next, so it
+    allocates one piece's bytes, however late gloo's worker thread lets go
+    of the pieces it reduced.  A bf16 leaf comes out as fp32 (numpy has no
+    bfloat16)."""
     if not is_distributed(t) or t.ndim == 0:
         pieces = iter([gather_rows(t) if is_distributed(t) else t])
     else:
-        n = t.shape[0]
-        rows = max(1, SAVE_PIECE_BYTES // max(1, math.prod(t.shape[1:]) * t.element_size()))
-        pieces = (gather_rows(t, r, min(r + rows, n)) for r in range(0, max(n, 1), rows))
+        n, rows = t.shape[0], _piece_rows(t)
+
+        def piece(r):
+            shape = (min(r + rows, n) - r,) + tuple(t.shape[1:])
+            out = buffer[:math.prod(shape) * t.element_size()].view(t.dtype).view(shape)
+            return gather_rows(t, r, r + shape[0], out=out)
+
+        pieces = (piece(r) for r in range(0, max(n, 1), rows))
     for p in pieces:
         p = p.detach().cpu()
         yield (p.float() if p.dtype == torch.bfloat16 else p).numpy()
@@ -99,26 +125,29 @@ def save(state, directory: str, step: int, *, keep: int = 3) -> str:
     path = os.path.join(directory, f"ckpt_{step:08d}.npz")
     if not any(is_distributed(t) for t in tree_leaves(state)):
         return _write(state, directory, path, keep)
+    buffer = _piece_buffer(state)
     if dist.get_rank() == 0:
-        _write(state, directory, path, keep)
+        _write(state, directory, path, keep, buffer)
     else:
         for _, t in _leaves(state):
-            for _ in _pieces(t):
+            for _ in _pieces(t, buffer):
                 pass
     dist.barrier()
     return path
 
 
-def _write(state, directory: str, path: str, keep: int) -> str:
+def _write(state, directory: str, path: str, keep: int,
+           buffer: Optional[torch.Tensor] = None) -> str:
     """Write ``state`` as ``np.savez`` does (one ``<key>.npy`` member a leaf
-    in an uncompressed zip), a leaf's pieces streamed into its member."""
+    in an uncompressed zip), a leaf's pieces (joined into ``buffer``)
+    streamed into its member."""
     os.makedirs(directory, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
     with os.fdopen(fd, "wb") as f, zipfile.ZipFile(f, "w", zipfile.ZIP_STORED,
                                                    allowZip64=True) as zf:
         for key, t in _leaves(state):
             with zf.open(key + ".npy", "w", force_zip64=True) as member:
-                for i, a in enumerate(_pieces(t)):
+                for i, a in enumerate(_pieces(t, buffer)):
                     if i == 0:
                         np.lib.format.write_array_header_1_0(member, {
                             "descr": np.lib.format.dtype_to_descr(a.dtype),

@@ -980,18 +980,28 @@ def mesh_serve_card8(tmp_path_factory):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["yi-9b", "gemma2-27b", "phi-3-vision-4.2b",
-                                  "deepseek-moe-16b"])
+                                  "deepseek-moe-16b", "mamba2-370m", "recurrentgemma-9b",
+                                  "seamless-m4t-medium"])
 def test_mesh_serve_on_card_ranks_matches_plain(mesh_serve_card, arch):
     """Each rank's fp32 sharded prefill and 3 greedy decode steps of the
     smoke config (make_prefill_step / make_decode_step on DTensor
-    parameters: yi-9b's ring over its head_dim, the others' over their kv
-    heads; deepseek-moe-16b expert parallel at no_drop's capacity) against
-    its plain ones on the card: logits within 1e-4, the tokens equal, flash
-    launched once a layer in the prefill."""
+    parameters: yi-9b's and recurrentgemma-9b's rings over their head_dim,
+    the others' over their kv heads; deepseek-moe-16b expert parallel at
+    no_drop's capacity; mamba2-370m's SSM state and recurrentgemma-9b's
+    RG-LRU state on the rank's heads and width; seamless-m4t-medium's
+    projected memory over its kv heads) against its plain ones on the card:
+    logits within 1e-4, the tokens equal, in the prefill flash launched
+    once a causal self-attention layer, the SSD scan once an SSM layer and
+    the RG-LRU scan once an RG-LRU layer."""
+    cfg = configs.get_smoke(arch)
+    kinds = [cfg.pattern_of(i) for i in range(cfg.n_layers)]
+    want = {"flash_attention": sum(k in ("attn", "local") for k in kinds),
+            "ssd_scan": kinds.count("ssm"), "rglru_scan": kinds.count("rglru")}
     for i, out in enumerate(mesh_serve_card):
         assert float(out[f"{arch}/max_abs_err"]) <= 1e-4, (i, float(out[f"{arch}/max_abs_err"]))
         assert bool(out[f"{arch}/tokens_equal"]), i
-        assert int(out[f"{arch}/launches"]) == configs.get_smoke(arch).n_layers, i
+        for kernel, n in want.items():
+            assert int(out[f"{arch}/launches/{kernel}"]) == n, (i, kernel)
 
 
 @pytest.mark.cuda

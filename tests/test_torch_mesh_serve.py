@@ -32,7 +32,9 @@ together.
 """
 
 import ast
+import dataclasses
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -48,9 +50,13 @@ from repro.models import lm as jlm  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.convert import to_torch  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import rglru_scan as rg  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.launch import mesh as launch_mesh  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
+from repro_torch.models import rglru as trglru  # noqa: E402
+from repro_torch.models import ssm as tssm  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
@@ -64,8 +70,6 @@ TIMEOUT = 300
 TOL = 1e-4           # the reference's serving tests, fp32
 BF16_TOL = 3e-2
 FP32_CASES = [c for c in worker.CASES if c not in worker.BF16_CASES]
-#: the reference's cases in two processes of 8 host devices each, run together
-JAX_PARTS = [FP32_CASES[i::2] for i in range(2)]
 
 _JAX_SERVE = """
 import sys, numpy as np, jax, jax.numpy as jnp
@@ -87,7 +91,7 @@ def flat(tree):
 
 
 for name in names:
-    arch, (shape, axes), over, knobs = w.CASES[name]
+    arch, (shape, axes), over, knobs = w.ALL_CASES[name]
     cfg = configs.get_smoke(arch).replace(**{**w.FP32_OVERRIDES, **over})
     params = jax.tree.map(jnp.asarray, w.unflatten(inp, "params/" + name))
     inputs = {k: jnp.asarray(v) for k, v in w.inputs_np(inp, name).items()}
@@ -128,26 +132,30 @@ print("JAX_SERVE_OK")
 """
 
 
-def _inputs(d):
+def _inputs(d, cases, seed):
     """Each case's parameters from the reference's ``lm.init`` and its
-    prompt (and a VLM's patches [B, n_patches, 1024]), from a seed."""
+    prompt (a VLM's patches [B, n_patches, 1024], an enc-dec config's
+    frames [B, FRAMES, 1024]), from a seed, the i-th case's ``seed + i``."""
     inputs = {}
-    for i, name in enumerate(worker.CASES):
-        arch, _, over, _ = worker.CASES[name]
+    for i, name in enumerate(cases):
+        arch, _, over, _ = worker.ALL_CASES[name]
         jcfg = jconfigs.get_smoke(arch).replace(**{**worker.FP32_OVERRIDES, **over})
-        params = jax.tree.map(np.asarray, jlm.init(jax.random.PRNGKey(20 + i), jcfg))
+        params = jax.tree.map(np.asarray, jlm.init(jax.random.PRNGKey(seed + i), jcfg))
         inputs.update({f"params/{name}/{k}": v for k, v in worker.flatten(params).items()})
-        rng = np.random.default_rng(20 + i)
+        rng = np.random.default_rng(seed + i)
         inputs[f"inputs/{name}/tokens"] = rng.integers(
             0, jcfg.vocab, (worker.BATCH, worker.PROMPT)).astype(np.int32)
         if jcfg.n_patches:
             inputs[f"inputs/{name}/patches"] = rng.standard_normal(
                 (worker.BATCH, jcfg.n_patches, 1024)).astype(np.float32)
+        if jcfg.enc_dec:
+            inputs[f"inputs/{name}/frames"] = rng.standard_normal(
+                (worker.BATCH, worker.FRAMES, 1024)).astype(np.float32)
     np.savez(d / "inputs.npz", **inputs)
     return inputs
 
 
-def _single_process(inputs, name, tokens):
+def single_process(inputs, name, tokens):
     """The port's plain prefill and decode in this process on the same
     weights and prompt, each decode step fed ``tokens`` (the ranks' greedy
     tokens): the logits of every step."""
@@ -156,7 +164,7 @@ def _single_process(inputs, name, tokens):
     inp = {k: torch.from_numpy(v) for k, v in worker.inputs_np(inputs, name).items()}
     with torch.inference_mode():
         cache, logits = tlm.prefill(params, cfg, inp["tokens"], max_len=worker.MAX_LEN,
-                                    patches=inp.get("patches"))
+                                    patches=inp.get("patches"), frames=inp.get("frames"))
         out = [logits]
         for s in range(worker.DECODE):
             logits, cache = tlm.decode_step(params, cfg,
@@ -165,10 +173,14 @@ def _single_process(inputs, name, tokens):
     return np.stack([x.float().numpy() for x in out])
 
 
-@pytest.fixture(scope="module")
-def run(tmp_path_factory):
-    d = tmp_path_factory.mktemp("mesh_serve")
-    inputs = _inputs(d)
+def serve_run(d, cases, seed):
+    """The ranks' ``serve`` task on ``cases`` beside the reference's jitted
+    sharded steps on their fp32 cases (two processes of 8 host devices),
+    all started together, in directory ``d``: the inputs, the reference's
+    record and each rank's."""
+    inputs = _inputs(d, cases, seed)
+    fp32 = [c for c in cases if c not in worker.BF16_CASES]
+    parts = [fp32[i::2] for i in range(2)]
     env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
     jax_env = dict(env, XLA_FLAGS="--xla_force_host_platform_device_count=8",
                    JAX_PLATFORMS="cpu")
@@ -178,9 +190,9 @@ def run(tmp_path_factory):
                                 stderr=subprocess.PIPE, text=True)
 
     procs = [start(["-c", textwrap.dedent(_JAX_SERVE), str(d), HERE, ",".join(part)], jax_env)
-             for part in JAX_PARTS]
+             for part in parts]
     procs.append(start([os.path.join(HERE, "torch_mesh_serve_worker.py"), str(d), "8",
-                        "serve"], env))
+                        "serve", ",".join(cases)], env))
     logs = []
     for proc in procs:
         try:
@@ -193,10 +205,15 @@ def run(tmp_path_factory):
     for rc, log in logs:
         assert rc == 0, log
     jax_out = {}
-    for part in JAX_PARTS:
+    for part in parts:
         jax_out.update(np.load(d / f"jax_serve-{part[0]}.npz"))
     ranks = [dict(np.load(d / f"serve-rank{r}.npz")) for r in range(8)]
     return {"inputs": inputs, "jax": jax_out, "ranks": ranks}
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    return serve_run(tmp_path_factory.mktemp("mesh_serve"), list(worker.CASES), 20)
 
 
 def _leaves(out, case, key):
@@ -210,8 +227,7 @@ def _leaves(out, case, key):
 # ==========================================================================
 
 
-@pytest.mark.parametrize("case", FP32_CASES)
-def test_sharded_serving_logits_and_tokens_match_jax(run, case):
+def check_logits_and_tokens(run, case):
     """The logits of the prefill and of every decode step within 1e-4, the
     greedy tokens equal, on every rank; the logits placed as the
     reference's out_shardings."""
@@ -223,9 +239,7 @@ def test_sharded_serving_logits_and_tokens_match_jax(run, case):
         assert str(out[f"{case}/logits_spec"]) == str(want[f"{case}/logits_spec"])
 
 
-@pytest.mark.parametrize("key", ["prefill", "decode"])
-@pytest.mark.parametrize("case", FP32_CASES)
-def test_each_ranks_cache_block_matches_jax(run, case, key):
+def check_cache_blocks(run, case, key):
     """Every rank's block of every cache leaf, after the prefill and after
     the last decode step, against the reference's global array cut by the
     rank's slices, within 1e-4; each leaf laid out as the reference's
@@ -242,56 +256,85 @@ def test_each_ranks_cache_block_matches_jax(run, case, key):
             np.testing.assert_allclose(out[f"{case}/{key}/block/{path}"],
                                        want[f"{case}/{key}/{path}"][cut], atol=TOL, rtol=0,
                                        err_msg=f"rank {r} {path}")
-    pos = worker.PROMPT + tconfigs.get_smoke(worker.CASES[case][0]).n_patches
+    pos = worker.PROMPT + tconfigs.get_smoke(worker.ALL_CASES[case][0]).n_patches
     assert int(run["ranks"][0][f"{case}/prefill/pos"]) == pos
     assert int(run["ranks"][0][f"{case}/decode/pos"]) == int(want[f"{case}/pos"]) == \
         pos + worker.DECODE
 
 
-@pytest.mark.parametrize("case", list(worker.CASES))
-def test_each_rank_holds_the_rule_tables_share_of_the_cache(run, case):
-    """A rank's cache bytes: each ring's global bytes over the sizes of the
-    axes its spec shards it on (the reference's layout, the fp32 global
-    shapes; a bf16 case's rings at 2 bytes)."""
-    _, (shape, axes), _, knobs = worker.CASES[case]
+def check_cache_bytes(run, case, ref):
+    """A rank's cache bytes: each leaf's global bytes over the sizes of the
+    axes its spec shards it on (the reference's layout; the global shapes
+    of the fp32 case ``ref``, a bf16 case's compute-dtype leaves at 2
+    bytes)."""
+    _, (shape, axes), _, _ = worker.ALL_CASES[case]
     sizes = dict(zip(axes, shape))
-    ref = case if case not in worker.BF16_CASES else "yi"
     out0 = run["ranks"][0]
-    itemsize = 2 if case in worker.BF16_CASES else 4
+    bf16 = case in worker.BF16_CASES
     want = 0
     for path in _leaves(out0, case, "decode"):
         n = 1
         for axes_of_dim in ast.literal_eval(str(out0[f"{case}/decode/spec/{path}"])):
             for a in axes_of_dim:
                 n *= sizes[a]
+        itemsize = 2 if bf16 and path.split("/")[-1] != "h" else 4
         want += run["jax"][f"{ref}/decode/{path}"].size * itemsize // n
     assert want > 0
     for out in run["ranks"]:
         assert int(out[f"{case}/cache_bytes"]) == want
 
 
+def check_single_process(run, case):
+    """The ranks' logits against the port's own plain prefill and decode
+    on the same weights and tokens, within 1e-4."""
+    out = run["ranks"][0]
+    got = single_process(run["inputs"], case, out[f"{case}/tokens"])
+    np.testing.assert_allclose(out[f"{case}/logits"], got, atol=TOL, rtol=0)
+
+
+def check_bf16_single_process(run, case):
+    """Every step's logits of a bf16 case within 3e-2 of their largest
+    magnitude of the port's own plain steps fed the same tokens, on every
+    rank (the row-parallel products sum bf16 partials over the model axis,
+    as the reference's do, where the plain product rounds once: a few bf16
+    ulps apart)."""
+    for out in run["ranks"]:
+        got = single_process(run["inputs"], case, out[f"{case}/tokens"])
+        scale = float(np.abs(got).max())
+        np.testing.assert_allclose(out[f"{case}/logits"], got, atol=BF16_TOL * scale, rtol=0)
+
+
+@pytest.mark.parametrize("case", FP32_CASES)
+def test_sharded_serving_logits_and_tokens_match_jax(run, case):
+    """:func:`check_logits_and_tokens`."""
+    check_logits_and_tokens(run, case)
+
+
+@pytest.mark.parametrize("key", ["prefill", "decode"])
+@pytest.mark.parametrize("case", FP32_CASES)
+def test_each_ranks_cache_block_matches_jax(run, case, key):
+    """:func:`check_cache_blocks`."""
+    check_cache_blocks(run, case, key)
+
+
+@pytest.mark.parametrize("case", list(worker.CASES))
+def test_each_rank_holds_the_rule_tables_share_of_the_cache(run, case):
+    """:func:`check_cache_bytes` (yi-bf16's global shapes are yi's)."""
+    check_cache_bytes(run, case, case if case not in worker.BF16_CASES else "yi")
+
+
 @pytest.mark.parametrize("case", [c for c in FP32_CASES if c != "ds"])
 def test_sharded_serving_matches_single_process(run, case):
-    """The ranks' logits against the port's own plain prefill and decode on
-    the same weights and tokens, within 1e-4 (not "ds": its expert-parallel
-    capacity is a rank's, and it drops other assignments than the plain
-    layer, as the reference's does)."""
-    out = run["ranks"][0]
-    got = _single_process(run["inputs"], case, out[f"{case}/tokens"])
-    np.testing.assert_allclose(out[f"{case}/logits"], got, atol=TOL, rtol=0)
+    """:func:`check_single_process` (not "ds": its expert-parallel capacity
+    is a rank's, and it drops other assignments than the plain layer, as
+    the reference's does)."""
+    check_single_process(run, case)
 
 
 def test_sharded_serving_bf16_matches_single_process(run):
     """yi-9b smoke in bf16 compute on (2, 4), the ring's head_dim over the
-    model axis: every step's logits within 3e-2 of their largest magnitude
-    of the port's own plain steps fed the same tokens, on every rank (the
-    row-parallel products sum bf16 partials over the model axis, as the
-    reference's do, where the plain product rounds once: a few bf16 ulps
-    apart)."""
-    for out in run["ranks"]:
-        got = _single_process(run["inputs"], "yi-bf16", out["yi-bf16/tokens"])
-        scale = float(np.abs(got).max())
-        np.testing.assert_allclose(out["yi-bf16/logits"], got, atol=BF16_TOL * scale, rtol=0)
+    model axis: :func:`check_bf16_single_process`."""
+    check_bf16_single_process(run, "yi-bf16")
 
 
 def test_head_dim_decode_moves_scores_not_the_ring(run):
@@ -314,35 +357,51 @@ def test_head_dim_decode_moves_scores_not_the_ring(run):
 
 
 # ==========================================================================
-# refusals and the full configs
+# the families admitted, and the full configs
 # ==========================================================================
 
 
-def test_check_sharded_refuses_serving_what_it_does_not_decode_on_blocks():
-    """Serving on blocks refuses the recurrent and enc-dec families
-    (``NotImplementedError`` naming ``SHARDED_TODO``), which the train step
-    admits; a context of sizes is enough to ask."""
-    from repro_torch.parallel.mesh_ctx import SHARDED_TODO
+@pytest.mark.parametrize("arch", tconfigs.ARCHS)
+def test_check_sharded_admits_every_family_to_serve(arch):
+    """Sharded serving admits each of the 10 smoke configs (every family:
+    dense, VLM, MoE, the recurrent ones, enc-dec) on a (2, 2) context of
+    sizes, as the train step does."""
+    tlm.check_sharded(tconfigs.get_smoke(arch), launch_mesh.make_ctx({"data": 2, "model": 2}))
 
-    ctx = launch_mesh.make_ctx({"data": 2, "model": 2})
-    for arch in ("mamba2-370m", "recurrentgemma-9b", "seamless-m4t-medium"):
-        cfg = tconfigs.get_smoke(arch)
+
+@pytest.mark.parametrize("arch,lru_width,model,what", [
+    ("mamba2-370m", None, 16, "the SSM heads (8)"),
+    ("recurrentgemma-9b", 68, 8, "the RG-LRU width (68)"),
+    ("seamless-m4t-medium", None, 3, "the padded vocab (512)"),
+], ids=["ssm-heads", "rglru-width", "vocab"])
+def test_check_sharded_refuses_what_the_model_axis_does_not_divide(arch, lru_width, model,
+                                                                    what):
+    """A model axis that does not divide a split dim of the recurrent or
+    enc-dec families (the SSM's heads, the RG-LRU width, the padded vocab)
+    is refused with ``NotImplementedError`` naming it: the rule table's
+    guard would leave the dim whole and a rank would compute more than its
+    block.  (recurrentgemma-9b smoke with an RG-LRU width of 68, where the
+    model axis of 8 divides every other split dim.)"""
+    cfg = tconfigs.get_smoke(arch)
+    if lru_width:
+        cfg = cfg.replace(rglru=dataclasses.replace(cfg.rglru, lru_width=lru_width))
+    ctx = launch_mesh.make_ctx({"data": 2, "model": model})
+    with pytest.raises(NotImplementedError, match=re.escape(what)):
         tlm.check_sharded(cfg, ctx)
-        with pytest.raises(NotImplementedError, match=SHARDED_TODO):
-            tlm.check_sharded(cfg, ctx, serving=True)
 
 
-#: the dense attention, VLM and MoE full configs that serve sharded
+#: the full configs that serve sharded: every family
 SERVED = ("yi-9b", "mistral-large-123b", "qwen1.5-110b", "gemma2-27b", "phi-3-vision-4.2b",
-          "deepseek-moe-16b", "dbrx-132b")
+          "deepseek-moe-16b", "dbrx-132b", "mamba2-370m", "recurrentgemma-9b",
+          "seamless-m4t-medium")
 
 
 @pytest.mark.parametrize("model", [2, 4, 8])
 @pytest.mark.parametrize("arch", SERVED)
 def test_full_configs_serve_sharded_into_the_flash_domain(arch, model):
-    """The sharded prefill admits each full dense, VLM and MoE config on
-    the (2, model) meshes, and a rank's flash call lies in the kernel's
-    domain: its q heads (the model axis's block where it divides
+    """The sharded prefill admits each full config on the (2, model) meshes,
+    and where it has causal self-attention a rank's flash call lies in the
+    kernel's domain: its q heads (the model axis's block where it divides
     ``n_heads``), the kv heads they read (the rank's block of them where
     the model axis divides ``n_kv_heads``, else those ``_local_kv`` picks),
     so many q heads to a kv head, at an instantiated head dim on the wgmma
@@ -350,7 +409,9 @@ def test_full_configs_serve_sharded_into_the_flash_domain(arch, model):
     here."""
     cfg = tconfigs.get(arch)
     ctx = launch_mesh.make_ctx({"data": 2, "model": model})
-    tlm.check_sharded(cfg, ctx, seq_len=2048, serving=True)
+    tlm.check_sharded(cfg, ctx, seq_len=2048)
+    if not set(cfg.layer_pattern) & {"attn", "local"}:
+        return
     g = cfg.n_heads // cfg.n_kv_heads
     hl = cfg.n_heads // model if cfg.n_heads % model == 0 else cfg.n_heads
     if cfg.n_kv_heads % model == 0:
@@ -362,3 +423,27 @@ def test_full_configs_serve_sharded_into_the_flash_domain(arch, model):
     assert cfg.hd in fa.HEAD_DIMS and fa.variant(cfg.hd, torch.bfloat16) == "wgmma"
     if cfg.moe is not None:
         assert cfg.moe.num_experts % model == 0 or tmoe.capacity(2048, cfg) % 128 == 0
+
+
+@pytest.mark.parametrize("model", [2, 4, 8])
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b"])
+def test_full_recurrent_configs_serve_sharded_into_the_scan_domains(arch, model):
+    """A rank's scans in the sharded prefill of each full recurrent config
+    on the (2, model) meshes lie in the card's fast variants: the SSD scan
+    on the rank's heads takes the mma variant at P, N and the chunk in bf16
+    and tiles the serving lengths; the RG-LRU scan's width block is the
+    vec4 variant's and tiles them too."""
+    cfg = tconfigs.get(arch)
+    tlm.check_sharded(cfg, launch_mesh.make_ctx({"data": 2, "model": model}), seq_len=512)
+    if cfg.ssm is not None:
+        di, nh, p, n = tssm.dims(cfg)
+        hl, q = nh // model, cfg.ssm.chunk
+        assert hl * model == nh and (di // model) == hl * p
+        assert ssd.variant(p, n, q, torch.bfloat16) == "mma"
+        for l in (512, 2048):
+            assert ssd.check_chunk(l, q) == q
+    if cfg.rglru is not None:
+        wl = trglru.width(cfg) // model
+        assert wl * model == trglru.width(cfg) and rg.variant(wl) == "vec4"
+        for l in (512, 2048):
+            rg.check_tiles(l, wl, trglru.SCAN_BLOCK, trglru.SCAN_BLOCK)

@@ -39,7 +39,7 @@ Also the twin of
 ``test_seq_shard_reduces_saved_activations``, each collective's backward
 against its adjoint (4 ranks, fp64), each rank's state bytes against the
 rule table's share, a sharded save restored sharded (and by the
-reference), what the sharded step and sharded serving refuse, and every
+reference), what the sharded step refuses, and every
 full recurrent, MoE and multimodal config's shapes at a rank against the
 kernels' domains.
 
@@ -466,18 +466,6 @@ def test_sharded_save_joins_a_piece_at_a_time(run):
     for out in run["ckpt"]:
         peak, leaf = int(out["ckpt/peak_bytes"]), int(out["ckpt/leaf_bytes"])
         assert 0 < peak <= 2 * worker.SAVE_PIECE_BYTES < leaf, (peak, leaf)
-
-
-@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b", "seamless-m4t-medium"])
-def test_unported_configs_raise(run, arch):
-    """Serving on the blocks of the recurrent and enc-dec families (their
-    decode states and the memory's ``mk``/``mv`` on blocks are not ported
-    yet): ``make_prefill_step`` on their DTensor parameters raises
-    ``NotImplementedError`` naming ``SHARDED_TODO``, on every rank."""
-    for out in run["refuse"]:
-        msg = str(out[f"refuse/serve/{arch}"])
-        assert msg.startswith("NotImplementedError") and "sharded parameters" in msg, msg
-        assert str(out["refuse/todo"]) in msg, msg
 
 
 @pytest.mark.parametrize("case,what", [("phi", "of 8 patches and 62 tokens (70)"),

@@ -8,18 +8,20 @@ starts ``world`` ranks (``spawn``), which meet through a file under
 ``<dir>`` and run the comma-separated ``tasks``:
 
 * ``serve`` (world 8): every case of :data:`CASES` (or the comma-separated
-  ``cases``): the parameters of ``<dir>/inputs.npz`` placed by the rule
-  table on the case's mesh, ``make_prefill_step`` on the case's prompt,
-  then :data:`DECODE` greedy ``make_decode_step`` steps under the mesh
-  context; the logits of every step joined (``greedy_token``'s argmax
-  feeds the next), the greedy tokens, this rank's block of every cache
-  leaf after the prefill and after the last step with its spec and its
-  slices of the global array, the logits' spec, and the collectives of
-  each decode step and of its attention on the ring's blocks
-  (``attention._decode_ring_blocks``);
+  ``cases``, of :data:`CASES` or :data:`RECURRENT_CASES`): the parameters
+  of ``<dir>/inputs.npz`` placed by the rule table on the case's mesh,
+  ``make_prefill_step`` on the case's prompt (and frames), then
+  :data:`DECODE` greedy ``make_decode_step`` steps under the mesh context;
+  the logits of every step joined (``greedy_token``'s argmax feeds the
+  next), the greedy tokens, this rank's block of every cache leaf after the
+  prefill and after the last step with its spec and its slices of the
+  global array, the logits' spec, and the collectives of each decode step
+  and of each call in it of :data:`COUNTED` (the attention on the ring's
+  blocks, the SSM's decode step, the cross-attention's);
 * ``card`` (world 4, a (2, 2) mesh on the NVIDIA card, ranks sharing it):
   :data:`CARD_ARCHS`' smoke configs in fp32 from the seed, sharded against
-  the same rank's plain prefill and decode on the global parameters;
+  the same rank's plain prefill and decode on the global parameters, and
+  each kernel's launches in the sharded prefill;
 * ``card8`` (world 8, the (1, 8) mesh on the card): dbrx-132b smoke, whose
   4 experts the model axis does not divide (the global dispatch), in fp32:
   sharded prefill and decode, and :data:`CARD_STEPS` sharded train steps,
@@ -28,6 +30,7 @@ starts ``world`` ranks (``spawn``), which meet through a file under
 Each rank writes ``<dir>/<task>-rank<r>.npz``.  Imports no JAX.
 """
 
+import contextlib
 import os
 import sys
 from unittest import mock
@@ -69,18 +72,49 @@ CASES = {
     "dbrx-global": ("dbrx-132b", MESH_18, {}, {}),
     "yi-bf16": ("yi-9b", MESH_24, {"compute_dtype": "bfloat16"}, {}),
 }
+#: the recurrent and enc-dec cases (``test_torch_mesh_serve_recurrent.py``),
+#: as :data:`CASES`.  mamba2-370m smoke on (2, 4): 2 of its 8 SSM heads a
+#: rank, its inner width 128 and its N 16 over the model axis (the B/C conv
+#: tails the rank's 4 channels), with and without
+#: ``seq_shard_activations``, and in bf16 compute.  recurrentgemma-9b smoke
+#: on (2, 4): the RG-LRU width 64 over the model axis, one (rglru, rglru,
+#: local) group and 2 remainder rglru layers, the local layer's ring of its
+#: window 16 (the 32-token prompt rolls it) over its one kv head's head_dim,
+#: or with ``shard_kv_seq`` over its slots.  seamless-m4t-medium smoke with
+#: :data:`FRAMES` frames: on (2, 2, 2) with FSDP over ("pod", "data") (its 4
+#: kv heads over the model axis, the memory's too), on (2, 4) with
+#: ``shard_kv_seq`` (the memory's 4 rows over the model axis) and with
+#: ``seq_shard_activations``.
+RECURRENT_CASES = {
+    "mamba2": ("mamba2-370m", MESH_24, {}, {}),
+    "mamba2-seq": ("mamba2-370m", MESH_24, {}, {"seq_shard_activations": True}),
+    "rg": ("recurrentgemma-9b", MESH_24, {}, {}),
+    "rg-kvseq": ("recurrentgemma-9b", MESH_24, {}, {"shard_kv_seq": True}),
+    "m4t": ("seamless-m4t-medium", MESH_222, {}, {"fsdp_over_pod": True}),
+    "m4t-kvseq": ("seamless-m4t-medium", MESH_24, {}, {"shard_kv_seq": True}),
+    "m4t-seq": ("seamless-m4t-medium", MESH_24, {}, {"seq_shard_activations": True}),
+    "mamba2-bf16": ("mamba2-370m", MESH_24, {"compute_dtype": "bfloat16"}, {}),
+}
+ALL_CASES = {**CASES, **RECURRENT_CASES}
 #: the cases in bf16 compute: held against the port's own single-process
 #: steps, not the reference's
-BF16_CASES = ("yi-bf16",)
+BF16_CASES = ("yi-bf16", "mamba2-bf16")
 #: the batch, the prompt (patches not counted), the rings' length and the
 #: decode steps after the prefill
 BATCH, PROMPT, MAX_LEN, DECODE = 8, 32, 40, 3
+#: an enc-dec case's frames: the reference's prefill input at the prompt's
+#: length (``configs.input_specs``: L // 8)
+FRAMES = PROMPT // 8
+#: the functions whose collectives the ``serve`` task counts a call
+COUNTED = (("ring", "attention", "_decode_ring_blocks"), ("ssm", "ssm", "decode_step"),
+           ("cross", "attention", "decode_cross"))
 #: every case but those of BF16_CASES runs fp32 compute
 FP32_OVERRIDES = {"compute_dtype": "float32"}
 #: the ``card`` task's smoke configs (fp32; an MoE config at
 #: ``parallel.ref.no_drop``'s capacity, where the sharded and the plain
 #: dispatch compute the same function)
-CARD_ARCHS = ("yi-9b", "gemma2-27b", "phi-3-vision-4.2b", "deepseek-moe-16b")
+CARD_ARCHS = ("yi-9b", "gemma2-27b", "phi-3-vision-4.2b", "deepseek-moe-16b", "mamba2-370m",
+              "recurrentgemma-9b", "seamless-m4t-medium")
 CARD_BATCH, CARD_PROMPT, CARD_MAX_LEN = 4, 24, 32
 #: the ``card8`` task's train steps (batch CARD_BATCH × CARD_PROMPT)
 CARD_STEPS = 2
@@ -89,7 +123,7 @@ CARD_STEPS = 2
 def case_config(name):
     from repro_torch import configs
 
-    arch, _, over, _ = CASES[name]
+    arch, _, over, _ = ALL_CASES[name]
     return configs.get_smoke(arch).replace(**{**FP32_OVERRIDES, **over})
 
 
@@ -116,8 +150,8 @@ def unflatten(flat, prefix):
 
 def inputs_np(inputs, name):
     """The prefill's inputs of case ``name``: ``tokens`` and, for a VLM,
-    ``patches``."""
-    return {k: inputs[f"inputs/{name}/{k}"] for k in ("tokens", "patches")
+    ``patches``, for an enc-dec config ``frames``."""
+    return {k: inputs[f"inputs/{name}/{k}"] for k in ("tokens", "patches", "frames")
             if f"inputs/{name}/{k}" in inputs}
 
 
@@ -150,41 +184,48 @@ def _cache_record(cache, ctx, out, key):
 
 
 def _serve(inputs, meshes, out, rank, names):
+    import importlib
+
     from repro_torch.convert import to_torch
     from repro_torch.launch.mesh import make_ctx
-    from repro_torch.models import attention
     from repro_torch.models.common import tree_leaves
     from repro_torch.parallel import mesh_ctx as mc
     from repro_torch.parallel.sharding import (distribute_tree, gather_rows, param_shardings,
                                                spec_of)
     from repro_torch.serve.engine import greedy_token, make_decode_step, make_prefill_step
 
-    core = attention._decode_ring_blocks
-    seen = []
+    seen = {key: [] for key, _, _ in COUNTED}
 
-    def counted(*a, **kw):
-        """The ring attention's own collectives, apart from the step's."""
-        before = {k: mc.collective_stats[k] for k in ("calls", "bytes", "largest")}
-        mc.reset_collective_stats()
-        r = core(*a, **kw)
-        now = {k: mc.collective_stats[k] for k in ("calls", "bytes", "largest")}
-        seen.append([now["calls"], now["bytes"], now["largest"]])
-        mc.collective_stats.update(calls=before["calls"] + now["calls"],
-                                   bytes=before["bytes"] + now["bytes"],
-                                   largest=max(before["largest"], now["largest"]))
-        return r
+    def counted(key, core):
+        def run(*a, **kw):
+            """The function's own collectives, apart from the step's."""
+            before = {k: mc.collective_stats[k] for k in ("calls", "bytes", "largest")}
+            mc.reset_collective_stats()
+            r = core(*a, **kw)
+            now = {k: mc.collective_stats[k] for k in ("calls", "bytes", "largest")}
+            seen[key].append([now["calls"], now["bytes"], now["largest"]])
+            mc.collective_stats.update(calls=before["calls"] + now["calls"],
+                                       bytes=before["bytes"] + now["bytes"],
+                                       largest=max(before["largest"], now["largest"]))
+            return r
+        return run
 
+    patches = []
+    for key, module, fn in COUNTED:
+        mod = importlib.import_module(f"repro_torch.models.{module}")
+        patches.append(mock.patch.object(mod, fn, counted(key, getattr(mod, fn))))
     for name in names:
-        _, mesh, _, knobs = CASES[name]
+        _, mesh, _, knobs = ALL_CASES[name]
         ctx = make_ctx(meshes[mesh], **knobs)
         cfg = case_config(name)
         params = to_torch(unflatten(inputs, f"params/{name}"), device="cpu")
         params = distribute_tree(params, param_shardings(params, ctx), ctx)
         inp = {k: torch.from_numpy(v) for k, v in inputs_np(inputs, name).items()}
         prefill, decode = make_prefill_step(cfg, max_len=MAX_LEN), make_decode_step(cfg)
-        logits_all, steps, rings = [], [], []
-        with torch.inference_mode(), mc.mesh_context(ctx), \
-                mock.patch.object(attention, "_decode_ring_blocks", counted):
+        logits_all, steps, calls = [], [], {key: [] for key in seen}
+        with torch.inference_mode(), mc.mesh_context(ctx), contextlib.ExitStack() as stack:
+            for p in patches:
+                stack.enter_context(p)
             mc.reset_collective_stats()
             cache, logits = prefill(params, inp)
             out[f"{name}/prefill_collectives"] = np.array(mc.collective_stats["calls"])
@@ -194,17 +235,20 @@ def _serve(inputs, meshes, out, rank, names):
             logits_all.append(logits)
             for _ in range(DECODE):
                 mc.reset_collective_stats()
-                seen.clear()
+                for key in seen:
+                    seen[key].clear()
                 logits, cache = decode(params, toks[-1], cache)
                 steps.append([mc.collective_stats["calls"], mc.collective_stats["bytes"],
                               mc.collective_stats["largest"]])
-                rings.append(list(seen))
+                for key in seen:
+                    calls[key].append(list(seen[key]))
                 logits_all.append(logits)
                 toks.append(greedy_token(logits))
             out[f"{name}/logits"] = np.stack([_np(gather_rows(lg)) for lg in logits_all])
         out[f"{name}/tokens"] = _np(torch.cat(toks, dim=1))
         out[f"{name}/decode_collectives"] = np.array(steps)
-        out[f"{name}/ring_collectives"] = np.array(rings)
+        for key, per_step in calls.items():
+            out[f"{name}/{key}_collectives"] = np.array(per_step).reshape(DECODE, -1, 3)
         _cache_record(cache, ctx, out, f"{name}/decode")
         out[f"{name}/cache_bytes"] = np.array(sum(
             t.to_local().numel() * t.to_local().element_size()
@@ -214,7 +258,8 @@ def _serve(inputs, meshes, out, rank, names):
 def _card(meshes, out, rank):
     """The ``card`` task: each arch's smoke config in fp32 from the seed on
     the (2, 2) mesh of ranks on the card, sharded prefill and decode against
-    the same rank's plain ones on the global parameters."""
+    the same rank's plain ones on the global parameters, and each forward
+    kernel's launches in the sharded prefill."""
     from repro_torch import configs
     from repro_torch.convert import tree_to
     from repro_torch.kernels import ops
@@ -235,12 +280,14 @@ def _card(meshes, out, rank):
         inp = {"tokens": torch.randint(0, cfg.vocab, (CARD_BATCH, CARD_PROMPT), generator=g)}
         if cfg.n_patches:
             inp["patches"] = torch.randn((CARD_BATCH, cfg.n_patches, 1024), generator=g)
+        if cfg.enc_dec:
+            inp["frames"] = torch.randn((CARD_BATCH, CARD_PROMPT // 8, 1024), generator=g)
         inp = tree_to(inp, "cuda")
         dparams = distribute_tree(params, param_shardings(params, ctx), ctx)
         got, want = [], []
         with torch.inference_mode():
             cache, logits = lm.prefill(params, cfg, inp["tokens"], max_len=CARD_MAX_LEN,
-                                       patches=inp.get("patches"))
+                                       patches=inp.get("patches"), frames=inp.get("frames"))
             want.append(logits)
             for _ in range(DECODE):
                 logits, cache = lm.decode_step(params, cfg, greedy_token(logits), cache)
@@ -248,11 +295,12 @@ def _card(meshes, out, rank):
             ops.reset_launches()
             with mesh_context(ctx):
                 cache, logits = make_prefill_step(cfg, max_len=CARD_MAX_LEN)(dparams, inp)
+                for kernel in ("flash_attention", "ssd_scan", "rglru_scan"):
+                    out[f"{arch}/launches/{kernel}"] = np.array(ops.launches[kernel])
                 got.append(gather_rows(logits))
                 for _ in range(DECODE):
                     logits, cache = make_decode_step(cfg)(dparams, greedy_token(logits), cache)
                     got.append(gather_rows(logits))
-        out[f"{arch}/launches"] = np.array(ops.launches["flash_attention"])
         out[f"{arch}/max_abs_err"] = np.array(max(float((a - b).abs().max())
                                                   for a, b in zip(got, want)))
         out[f"{arch}/tokens_equal"] = np.array(all(

@@ -22,11 +22,10 @@ starts ``world`` ranks (``spawn``), which meet through a file under
   does so on the card), against the backward on the calling thread;
 * ``ckpt``: a sharded ``checkpoint.save`` of the yi case's first state,
   the bytes it allocates at its peak, and ``restore(shardings=...)`` of it;
-* ``refuse``: the sharded prefill on the families that serving on blocks
-  does not run yet (mamba2-370m, recurrentgemma-9b and seamless-m4t-medium
-  smoke on (2, 4)), and the sharded step under ``seq_shard_activations`` on
-  (2, 4) on sequences the model axis does not divide: a VLM batch of 8
-  patches and 62 tokens (L 70), an enc-dec batch of 6 frames;
+* ``refuse``: the sharded step under ``seq_shard_activations`` on (2, 4)
+  on sequences the model axis does not divide (a VLM batch of 8 patches
+  and 62 tokens, L 70; an enc-dec batch of 6 frames), and the production
+  mesh on 8 ranks;
 * ``adjoint`` (world 4, a (2, 2) mesh): each differentiable collective's
   backward against its adjoint, in fp64;
 * ``card`` (world 4, a (2, 2) mesh on the NVIDIA card, ranks sharing it):
@@ -39,11 +38,11 @@ Each rank writes ``<dir>/<task>-rank<r>.npz``.  Imports no JAX.
 
 import os
 import sys
-import weakref
 
 import numpy as np
 import torch
 import torch.multiprocessing as mp
+from torch.multiprocessing.reductions import StorageWeakRef
 from torch.utils._python_dispatch import TorchDispatchMode
 import torch.utils._pytree as pytree
 
@@ -332,33 +331,29 @@ def _thread(inputs, meshes, out, rank):
 class _PeakBytes(TorchDispatchMode):
     """The most bytes of tensor storage that ops under the mode allocated
     and that were alive at once; storages in ``known`` (the state's blocks)
-    are not counted."""
+    are not counted.  A storage counts from the op that returned it until
+    it is freed, which every op checks (a weak reference to the storage
+    itself) before it counts its own: no Python finalizer of a tensor
+    decides the count, so it does not depend on when another thread (gloo's
+    worker, which drops its reference to an all-reduced tensor after the
+    wait returns) lets a tensor go."""
 
     def __init__(self, known):
         super().__init__()
-        self.known, self.refs, self.now, self.peak = set(known), {}, 0, 0
-
-    def _drop(self, ptr, n):
-        self.refs[ptr] -= 1
-        if not self.refs[ptr]:
-            del self.refs[ptr]
-            self.now -= n
+        self.known, self.live, self.peak = set(known), {}, 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
+        self.live = {k: v for k, v in self.live.items() if not v[0].expired()}
         for t in pytree.tree_leaves(out):
             if not isinstance(t, torch.Tensor):
                 continue
             st = t.untyped_storage()
-            ptr, n = st.data_ptr(), st.nbytes()
-            if ptr in self.known:
+            if st.data_ptr() in self.known:
                 continue
-            if ptr not in self.refs:
-                self.refs[ptr] = 0
-                self.now += n
-                self.peak = max(self.peak, self.now)
-            self.refs[ptr] += 1
-            weakref.finalize(t, self._drop, ptr, n)
+            ref = StorageWeakRef(st)
+            self.live.setdefault(ref.cdata, (ref, st.nbytes()))
+        self.peak = max(self.peak, sum(n for _, n in self.live.values()))
         return out
 
 
@@ -391,32 +386,17 @@ def _ckpt(inputs, meshes, out, rank, directory):
 
 
 def _refuse(inputs, meshes, out, rank):
-    """What the sharded paths do not run: the prefill on the blocks of the
-    recurrent and enc-dec families, and the train step under
-    ``seq_shard_activations`` on the VLM's whole sequence (patches and
+    """What the sharded train step does not run: under
+    ``seq_shard_activations``, the VLM's whole sequence (patches and
     tokens) and the enc-dec frames where the model axis does not divide
-    them.  Each raises before any collective, on every rank alike."""
+    them.  Each raises before any collective, on every rank alike.  And
+    the production mesh on fewer ranks than its 256."""
     from repro_torch import configs
     from repro_torch.launch.mesh import make_ctx, make_production_mesh
-    from repro_torch.parallel.mesh_ctx import SHARDED_TODO, mesh_context
+    from repro_torch.parallel.mesh_ctx import mesh_context
     from repro_torch.parallel.sharding import distribute_tree, param_shardings
-    from repro_torch.serve.engine import make_prefill_step
     from repro_torch.train.step import make_train_step, train_state_init
 
-    ctx = make_ctx(meshes[MESH_24])
-    for arch in ("mamba2-370m", "recurrentgemma-9b", "seamless-m4t-medium"):
-        cfg = configs.get_smoke(arch).replace(compute_dtype="float32")
-        params = train_state_init(torch.Generator().manual_seed(0), cfg, device="cpu")["params"]
-        params = distribute_tree(params, param_shardings(params, ctx), ctx)
-        inp = {"tokens": torch.zeros((8, 16), dtype=torch.int64)}
-        if cfg.enc_dec:
-            inp["frames"] = torch.zeros((8, 2, 1024))
-        try:
-            with mesh_context(ctx), torch.inference_mode():
-                make_prefill_step(cfg, max_len=24)(params, inp)
-            out[f"refuse/serve/{arch}"] = np.array("")
-        except NotImplementedError as e:
-            out[f"refuse/serve/{arch}"] = np.array(f"{type(e).__name__}: {e}")
     for key, arch, mesh, lt, frames, knobs in (
             ("seq/phi", "phi-3-vision-4.2b", MESH_24, 62, 0, {"seq_shard_activations": True}),
             ("seq/m4t", "seamless-m4t-medium", MESH_24, 64, 6,
@@ -437,7 +417,6 @@ def _refuse(inputs, meshes, out, rank):
             out[f"refuse/{key}"] = np.array("")
         except (NotImplementedError, ValueError) as e:
             out[f"refuse/{key}"] = np.array(f"{type(e).__name__}: {e}")
-    out["refuse/todo"] = np.array(SHARDED_TODO)
     try:
         make_production_mesh(device_type="cpu")
         out["refuse/production"] = np.array("")
