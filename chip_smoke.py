@@ -144,7 +144,19 @@ other phases without the four ranks' runs.  Phases, in order; any failure exits 
               [2,512,2,128], recurrentgemma-9b's q [2,512,8,256], k/v
               [2,512,1,256] (window 2048) and seamless-m4t-medium's q/k/v
               [2,512,8,64]; the SSD scan at x [2,512,16,64], B/C
-              [2,512,128]; the RG-LRU scan at [2,512,2048].
+              [2,512,128]; the RG-LRU scan at [2,512,2048].  yi-9b's bf16
+              prefill and first decode step on every rank are held against
+              the dry run of the same cells on one traced rank of mesh 2x2
+              (launch/dryrun.run_cell in a subprocess, beside the parent's
+              references, so that the parent never holds a process group):
+              gloo's all-reduce calls and bytes equal, each kernel's
+              launches equal to its operator calls, the rank's argument
+              blocks (tokens int32, as the dry run's) equal to the
+              predicted argument bytes, and the peak within 5 % of
+              max_memory_allocated over the step (the cuBLAS workspace
+              released before it, what stays resident beside the
+              arguments taken off); the predicted wire bytes are printed
+              beside gloo's bytes.
 4. serve    — launch/serve at full width (random weights from a seed, fp32
               master weights on the card), batch 4, prompt 512, 32 generated
               tokens, for yi-9b, mamba2-370m, recurrentgemma-9b,
@@ -237,7 +249,10 @@ other phases without the four ranks' runs.  Phases, in order; any failure exits 
               within 1e-4 of its largest (the loss alone cannot tell the
               ranks apart: the loss reduces over every axis).
               Prints each rank's step ms, collectives, their seconds in the
-              timed step and its peak memory beside phase 6's.
+              timed step and its peak memory beside phase 6's.  Every
+              rank's first step is held against the dry run of the same
+              cell on one traced rank of mesh 2x2, as phase 3c holds its
+              prefill and decode step.
 6d. mesh train recurrent — the sharded train step of the recurrent
               families on the MESH_RANKS ranks, spawned again as the (2, 2)
               ("data", "model") gloo mesh on the card, remat "dots", bf16
@@ -408,7 +423,8 @@ from repro_torch.parallel import mesh_ctx  # noqa: E402
 from repro_torch.parallel import ref as mesh_ref  # noqa: E402
 from repro_torch.parallel.mesh_ctx import mesh_context  # noqa: E402
 from repro_torch.parallel.sharding import (cache_shardings, distribute_tree,  # noqa: E402
-                                          gather_rows, local_slices, param_shardings, spec_of)
+                                          gather_rows, local_batch, local_slices,
+                                          param_shardings, spec_of)
 from repro_torch.serve import workflow  # noqa: E402
 from repro_torch.serve.engine import (greedy_generate, greedy_token,  # noqa: E402
                                       make_decode_step, make_prefill_step)
@@ -554,6 +570,22 @@ MESH_TRAIN_TIMEOUT = 900
 #: a rank's flash call in the sharded step: its batch block and its heads
 MESH_TRAIN_SHAPE = (TRAIN_BATCH // MESH_SHAPE[0], TRAIN_SEQ, YI.n_heads // MESH_SHAPE[1],
                     YI.n_kv_heads // MESH_SHAPE[1], YI.hd)
+
+# the cells phases 3c and 6c hold against the dry run of one traced rank of
+# their (2, 2) mesh (launch/dryrun.run_cell at mesh "2x2", in a process of
+# its own): yi-9b's sharded prefill and its first decode step (3c: 4 layers,
+# bf16 serving weights, a rank's block 2 × 512; the decode cache of
+# SERVE_PROMPT + MESH_SERVE_DECODE slots, as the prefill writes it) and its
+# first sharded training step (6c: 4 layers, a rank's block 1 × 2048).  The
+# rank's prefill writes a ring of those slots where the dry run's writes
+# SERVE_PROMPT: its outputs are that much larger
+MESH_DRYRUN = {
+    "serve": {"prefill": (MESH_SERVE["yi-9b"][0], ShapeSpec(
+                  "chip_mesh_prefill", SERVE_PROMPT, SERVE_BATCH, "prefill")),
+              "decode": (MESH_SERVE["yi-9b"][0], ShapeSpec(
+                  "chip_mesh_decode", SERVE_PROMPT + MESH_SERVE_DECODE, SERVE_BATCH, "decode"))},
+    "train": {"train": (YI_TRAIN, ShapeSpec("chip_mesh_train", TRAIN_SEQ, TRAIN_BATCH, "train"))}}
+MESH_DRYRUN_TIMEOUT = 300
 
 # H100 SXM5 80GB HBM3 published peaks (launch/hlo_analysis.py): bytes/s and FLOP/s
 HBM_BYTES_S = ha.HBM_BW
@@ -1854,6 +1886,118 @@ def phase_mesh() -> tuple:
 
 
 # ==========================================================================
+# 3c, 6c: the dry run's traced rank against the ranks' held steps
+# ==========================================================================
+
+
+def mesh_dryrun_cells(which: str, out: str) -> None:
+    """Dry-run the cells of ``MESH_DRYRUN[which]`` on one traced rank of the
+    (2, 2) mesh and write their records to ``out`` (JSON).  Runs in a
+    process of its own (:func:`_start_mesh_dryrun`): the traced mesh owns
+    that process's default process group while it traces."""
+    mesh = "x".join(map(str, MESH_SHAPE))
+    recs = {name: dryrun.run_cell(cfg, spec, mesh=mesh, verbose=False)
+            for name, (cfg, spec) in MESH_DRYRUN[which].items()}
+    if dist.is_initialized():
+        _fail("a traced mesh left its process group behind")
+    with open(out, "w") as f:
+        json.dump(recs, f)
+
+
+def _start_mesh_dryrun(which: str) -> tuple:
+    """Start :func:`mesh_dryrun_cells` in a subprocess beside the ranks:
+    (the process, its output file)."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    out = os.path.join(ROOT, "build", f"mesh_dryrun_{which}.json")
+    code = f"import chip_smoke; chip_smoke.mesh_dryrun_cells({which!r}, {out!r})"
+    return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True), out
+
+
+def _mesh_dryrun_records(proc, out: str) -> dict:
+    """The records of a :func:`_start_mesh_dryrun` process, once it ends."""
+    try:
+        _, err = proc.communicate(timeout=MESH_DRYRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        _fail(f"the mesh dry run outlasted {MESH_DRYRUN_TIMEOUT} s")
+    if proc.returncode:
+        _fail(f"the mesh dry run exited {proc.returncode}: {err[-3000:]}")
+    with open(out) as f:
+        recs = json.load(f)
+    os.remove(out)
+    if dist.is_initialized():
+        _fail("the parent has a default process group after the mesh dry run")
+    return recs
+
+
+def _rank_blocks(tree, inputs: dict) -> int:
+    """A rank's bytes of a step's arguments as the dry run places them: the
+    local blocks of ``tree``'s tensors (parameters, state, cache) and this
+    rank's block of each global input of ``inputs`` (the ambient context's
+    batch split)."""
+    local = local_batch(inputs, mesh_ctx.current_ctx())
+    return (sum(op_cost.storages(tree).values())
+            + sum(t.numel() * t.element_size() for t in local.values()))
+
+
+def _step_memory_start(args, blocks) -> dict:
+    """Before a step held against the dry run: the cuBLAS workspaces
+    released (the prediction counts the step allocating them), the peak
+    reset, and the bytes resident beside the step's arguments ``args``
+    (``other``: taken off the measured peak, as :func:`_dryrun_cell` does).
+    ``blocks``: :func:`_rank_blocks` of the arguments, or None."""
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.synchronize()
+    other = torch.cuda.memory_allocated() - sum(op_cost.storages(args).values())
+    torch.cuda.reset_peak_memory_stats()
+    return {"blocks": blocks, "other": other}
+
+
+def _step_memory_end(mem: dict) -> dict:
+    torch.cuda.synchronize()
+    mem["peak"] = torch.cuda.max_memory_allocated() - mem["other"]
+    return mem
+
+
+def _hold_against_dryrun(who: str, rec: dict, gloo: dict, launches: dict, mem: dict) -> dict:
+    """A rank's held step against the traced rank's record ``rec``: gloo's
+    all-reduce calls and bytes equal, each kernel's launches equal to its
+    operator calls in the trace, the rank's argument blocks equal to the
+    predicted argument bytes, and its peak within DRYRUN_RTOL of the
+    predicted one.  Logs the predicted wire bytes beside gloo's bytes."""
+    c, m = rec["cost"], rec["memory"]
+    calls = {k: rec["kernels"].get(op, {}).get("calls", 0) for k, op in DRYRUN_OPS.items()}
+    launches = {k: launches.get(k, 0) for k in DRYRUN_OPS}
+    rel = (m["peak_bytes"] - mem["peak"]) / mem["peak"]
+    out = {"gloo_calls": gloo["calls"], "gloo_bytes": gloo["bytes"],
+           "predicted_gloo_calls": c["gloo_calls"], "predicted_gloo_bytes": c["gloo_bytes"],
+           "predicted_wire_bytes": c["wire_bytes"], "collective_ops": c["collective_ops"],
+           "launches": launches, "operator_calls": calls, "argument_blocks": mem["blocks"],
+           "predicted_argument_bytes": m["argument_bytes"], "measured_peak_bytes": mem["peak"],
+           "predicted_peak_bytes": m["peak_bytes"], "other_resident_bytes": mem["other"],
+           "rel_err": rel, "trace_s": rec["trace_s"]}
+    _log(f"[mesh-dryrun] {who}: gloo {gloo['calls']} all-reduces, {gloo['bytes']} B "
+         f"(traced rank: {c['gloo_calls']}, {c['gloo_bytes']} B; as collectives "
+         f"{c['collective_ops']}, {c['wire_bytes']:.0f} wire bytes by the ring model); "
+         f"launches {launches} (operator calls {calls}); argument blocks {mem['blocks']} B "
+         f"(predicted {m['argument_bytes']} B); peak {mem['peak']} B measured, "
+         f"{m['peak_bytes']} B predicted (rel {rel:+.5f}, limit {DRYRUN_RTOL}; {mem['other']} B "
+         f"resident beside the arguments taken off); trace {rec['trace_s']:.2f}s")
+    if (gloo["calls"], gloo["bytes"]) != (c["gloo_calls"], c["gloo_bytes"]):
+        _fail(f"{who}: gloo {gloo}, the traced rank {c['gloo_calls']} calls, "
+              f"{c['gloo_bytes']} B")
+    if launches != calls:
+        _fail(f"{who}: launches {launches}, the traced rank's operator calls {calls}")
+    if mem["blocks"] != m["argument_bytes"]:
+        _fail(f"{who}: argument blocks {mem['blocks']} B, predicted {m['argument_bytes']} B")
+    if not abs(rel) <= DRYRUN_RTOL:
+        _fail(f"{who}: peak {mem['peak']} B, predicted {m['peak_bytes']} B")
+    return out
+
+
+# ==========================================================================
 # 3c. mesh serve: prefill and decode on each rank's blocks, 4 gloo ranks
 # ==========================================================================
 
@@ -1875,7 +2019,7 @@ def _mesh_serve_inputs(arch: str) -> tuple:
     gen = _gen(seed)
     params = _mesh_serve_params(arch, cfg, gen)
     inputs = {"tokens": torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT), generator=gen,
-                                      device="cuda")}
+                                      device="cuda", dtype=torch.int32)}
     for key, n in (("patches", cfg.n_patches), ("frames", SERVE_PROMPT // 8 * cfg.enc_dec)):
         if n:
             inputs[key] = torch.randn((SERVE_BATCH, n, 1024), generator=gen,
@@ -1897,9 +2041,11 @@ def _serve_run(params, cfg, inputs: dict, feed=None) -> dict:
     the greedy tokens [B, steps + 1], host ms of the prefill and of each
     decode step (each ended by a synchronise), the prefill's kernel calls
     (flash: q and k shapes; the scans: x's and log_a's), the collectives
-    (calls, bytes, host seconds) of the prefill and of each step, the
-    expert ids each MoE layer routed its tokens to (sorted, on the host, in
-    call order), and the final cache."""
+    (calls, bytes, host seconds) of the prefill and of each step, each
+    step's launches and memory (:func:`_step_memory_start`; on a rank also
+    its argument blocks), the expert ids each MoE layer routed its tokens
+    to (sorted, on the host, in call order), and the final cache.  Tokens
+    are int32, as the dry run's."""
     calls = {"flash_attention": [], "ssd_scan": [], "rglru_scan": []}
     routes, route = [], moe.route
 
@@ -1919,15 +2065,19 @@ def _serve_run(params, cfg, inputs: dict, feed=None) -> dict:
     prefill = make_prefill_step(cfg, max_len=_max_len(cfg, inputs))
     decode = make_decode_step(cfg)
     steps = MESH_SERVE_DECODE if cfg.cdtype == torch.bfloat16 else MESH_SERVE_FP32_DECODE
-    logits, toks, ms, coll = [], [], [], []
+    logits, toks, ms, coll, mem, launched = [], [], [], [], [], []
 
-    def step(fn):
+    def step(fn, args, tree, step_inputs):
         mesh_ctx.reset_collective_stats(timed=True)
-        torch.cuda.synchronize()
+        on_rank = mesh_ctx.current_ctx() is not None
+        m = _step_memory_start(args, _rank_blocks(tree, step_inputs) if on_rank else None)
+        n0 = dict(ops.launches)
         t0 = time.perf_counter()
-        out = fn()
+        out = fn(*args)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
+        mem.append(_step_memory_end(m))
+        launched.append({k: n - n0[k] for k, n in ops.launches.items()})
         coll.append({k: mesh_ctx.collective_stats[k] for k in ("calls", "bytes", "seconds")})
         return out
 
@@ -1938,20 +2088,20 @@ def _serve_run(params, cfg, inputs: dict, feed=None) -> dict:
                                                             lambda x, *_: list(x.shape))), \
                 mock.patch.object(ops, "rglru_scan", recorded("rglru_scan",
                                                               lambda a, *_: list(a.shape))):
-            cache, lg = step(lambda: prefill(params, inputs))
+            cache, lg = step(prefill, (params, inputs), params, inputs)
         for i in range(steps + 1):
             tok = greedy_token(lg)
             logits.append((gather_rows(lg) if mesh_ctx.is_distributed(lg) else lg).float().cpu())
             toks.append(tok.cpu())
             if i == steps:
                 break
-            nxt = tok if feed is None else feed[:, i:i + 1].to(tok.device)
-            lg, cache = step(lambda: decode(params, nxt, cache))
+            nxt = (tok if feed is None else feed[:, i:i + 1].to(tok.device)).to(torch.int32)
+            lg, cache = step(decode, (params, nxt, cache), (params, cache), {"token": nxt})
     mesh_ctx.reset_collective_stats()
     return {"logits": torch.stack(logits), "tokens": torch.cat(toks, dim=1),
             "prefill_ms": ms[0], "decode_ms": ms[1:], "kernel_calls": calls,
             "prefill_collectives": coll[0], "decode_collectives": coll[1:], "cache": cache,
-            "routes": routes}
+            "routes": routes, "memory": mem, "step_launches": launched}
 
 
 def _mesh_serve_refs() -> None:
@@ -2133,14 +2283,19 @@ def phase_mesh_serve() -> tuple:
     are the rule table's share, and every prefill launched each kernel once
     a layer of its kind (flash a causal self-attention layer, the SSD scan
     an SSM layer, the RG-LRU scan an RG-LRU layer) on the variant of its
-    dtype at the rank's shape (:func:`_rank_kernel_calls`).  Returns (the
-    ranks' launches as a path's, by variant, the launches of each bf16
+    dtype at the rank's shape (:func:`_rank_kernel_calls`), and yi-9b's
+    bf16 prefill and first decode step on every rank match the dry run of
+    one traced rank of the mesh (:func:`_hold_against_dryrun`).  Returns
+    (the ranks' launches as a path's, by variant, the launches of each bf16
     arch at its rank shapes, keyed as phase_rank_shapes keys them, the
-    ranks' records)."""
+    ranks' records, each held step against the dry run)."""
     t0 = time.perf_counter()
+    dry = _start_mesh_dryrun("serve")
     _mesh_serve_refs()
     ranks, seconds = _spawn_ranks(_mesh_serve_rank, MESH_TIMEOUT)
     os.remove(MESH_SERVE_REFS)
+    traced = _mesh_dryrun_records(*dry)
+    held = {}
     _log(f"[mesh-serve] {MESH_RANKS} ranks in {seconds:.1f}s: mesh "
          f"{dict(zip(MESH_AXES, MESH_SHAPE))}, batch {SERVE_BATCH} x {SERVE_PROMPT}, "
          f"{MESH_SERVE_DECODE} decode steps ({MESH_SERVE_FP32_DECODE} in fp32); gloo moves "
@@ -2167,6 +2322,12 @@ def phase_mesh_serve() -> tuple:
                      f"{_ms_list([d['seconds'] * 1e3 for d in dec])} ms in them); cache "
                      f"{a['cache_bytes']} B (the rule table's share {a['cache_share']} B); "
                      f"peak {a['peak_mem_gb']:.2f} GB; kernels {a['by_variant']} at {calls}")
+                if (arch, knobs, dtype) == ("yi-9b", {}, "bfloat16"):
+                    for i, (name, gloo) in enumerate((("prefill", a["prefill_collectives"]),
+                                                      ("decode", a["decode_collectives"][0]))):
+                        held[f"rank {r['rank']} {name}"] = _hold_against_dryrun(
+                            f"{who} {dtype} {name}", traced[name], gloo,
+                            a["step_launches"][i], a["memory"][i])
                 if "routed_tokens" in a:
                     ltol = MESH_SERVE_LAYER_TOL[dtype]
                     _log(f"[mesh-serve] {who} {dtype} MoE: every layer call on the rank's "
@@ -2202,9 +2363,11 @@ def phase_mesh_serve() -> tuple:
                     for k in kernels:
                         at_rank.setdefault(key, dict.fromkeys(ops.launches, 0))[k] += \
                             launches[k]
+    if len(held) != 2 * MESH_RANKS:
+        _fail(f"held {sorted(held)} against the dry run, not every rank's prefill and decode")
     _log(f"[mesh-serve] phase took {time.perf_counter() - t0:.1f}s")
     launches = {k: sum(v.values()) for k, v in by_variant.items()}
-    return launches, by_variant, at_rank, ranks
+    return launches, by_variant, at_rank, ranks, held
 
 
 def _clone_tree(tree):
@@ -2697,7 +2860,7 @@ def _sharded_step(step_fn, state, batch) -> tuple:
     launches by variant (flash's also as flash_launches, flash_by_variant),
     collectives)."""
     n0, v0 = dict(ops.launches), _variant_launches()
-    c0 = mesh_ctx.collective_stats["calls"]
+    c0, b0 = mesh_ctx.collective_stats["calls"], mesh_ctx.collective_stats["bytes"]
     t0 = time.perf_counter()
     state, m = step_fn(state, batch)
     torch.cuda.synchronize()
@@ -2709,7 +2872,8 @@ def _sharded_step(step_fn, state, batch) -> tuple:
                    "variants": variants,
                    "flash_launches": ops.launches["flash_attention"] - n0["flash_attention"],
                    "flash_by_variant": variants["flash_attention"],
-                   "collectives": mesh_ctx.collective_stats["calls"] - c0}
+                   "collectives": mesh_ctx.collective_stats["calls"] - c0,
+                   "collective_bytes": mesh_ctx.collective_stats["bytes"] - b0}
 
 
 def _timing(recs: list) -> dict:
@@ -2767,7 +2931,11 @@ def _mesh_train_rank(rank: int, world: int, directory: str) -> None:
     with mesh_context(ctx):
         for s in range(TRAIN_STEPS):
             mesh_ctx.reset_collective_stats(timed=s == TRAIN_STEPS - 1)
+            mem = _step_memory_start((state, batches[s]), _rank_blocks(state, batches[s])) \
+                if s == 0 else None          # the step held against the dry run
             state, rec = _sharded_step(step_fn, state, batches[s])
+            if mem is not None:
+                rec["memory"] = _step_memory_end(mem)
             r["steps"].append(rec)
         r["timed"] = _timing(r["steps"])
         gather_fn = make_train_step(cfg.replace(gather_dtype="bfloat16"), lr=3e-4)
@@ -2800,12 +2968,20 @@ def phase_mesh_train(plain: dict, fp32_ref: dict) -> tuple:
     of every updated parameter within MESH_TRAIN_PARAM_ATOL and of every
     first moment within MESH_TRAIN_FP32_RTOL of its largest, and each
     rank launched flash (wgmma, 2 a layer a step under remat dots; fma in
-    fp32).  Returns (the phase's flash launches as a path's launches, by
-    variant, the ranks)."""
+    fp32), and every rank's first step matches the dry run of one traced
+    rank of the mesh (:func:`_hold_against_dryrun`).  Returns (the phase's
+    flash launches as a path's launches, by variant, the ranks, each held
+    step against the dry run)."""
     os.makedirs(os.path.dirname(MESH_TRAIN_FP32_REF), exist_ok=True)
     torch.save(fp32_ref, MESH_TRAIN_FP32_REF)
+    dry = _start_mesh_dryrun("train")
     ranks, seconds = _spawn_ranks(_mesh_train_rank, MESH_TRAIN_TIMEOUT)
     os.remove(MESH_TRAIN_FP32_REF)
+    traced = _mesh_dryrun_records(*dry)["train"]
+    held = {f"rank {r['rank']} train": _hold_against_dryrun(
+        f"rank {r['rank']} {r['coord']} yi-9b train step 1", traced,
+        {"calls": r["steps"][0]["collectives"], "bytes": r["steps"][0]["collective_bytes"]},
+        r["steps"][0]["launches"], r["steps"][0]["memory"]) for r in ranks}
     _log(f"[mesh-train] {MESH_RANKS} ranks in {seconds:.1f}s: mesh "
          f"{dict(zip(MESH_AXES, MESH_SHAPE))}, yi-9b width, {YI_TRAIN.n_layers} layers, batch "
          f"{TRAIN_BATCH} x {TRAIN_SEQ}; a rank's wq block {ranks[0]['local_wq']}, its state "
@@ -2860,7 +3036,7 @@ def phase_mesh_train(plain: dict, fp32_ref: dict) -> tuple:
             for v, n in rec["flash_by_variant"].items():
                 flash[v] += n
     launches = {**dict.fromkeys(ops.launches, 0), "flash_attention": sum(flash.values())}
-    return launches, flash, ranks
+    return launches, flash, ranks, held
 
 
 # ==========================================================================
@@ -3594,14 +3770,14 @@ def main(argv=None) -> int:
     by_path, by_variant = {}, {}
     mesh_path = (f"mesh: {MESH_RANKS} ranks, yi-9b {MESH_YI.n_layers}L and deepseek-moe-16b "
                  f"{MESH_DS.n_layers}L prefills")
-    mesh, mesh_serve, serve_at_rank = None, None, {}
+    mesh, mesh_serve, serve_at_rank, mesh_dry = None, None, {}, {}
     if argv != ["--skip-mesh"]:
         by_path[mesh_path], by_variant[mesh_path], mesh = phase_mesh()
         _lap("3b mesh")
         serve_path = f"mesh serve: {MESH_RANKS} ranks, " + ", ".join(
             f"{arch} {cfg.n_layers}L" for arch, (cfg, _) in MESH_SERVE.items())
-        by_path[serve_path], by_variant[serve_path], serve_at_rank, mesh_serve = \
-            phase_mesh_serve()
+        by_path[serve_path], by_variant[serve_path], serve_at_rank, mesh_serve, \
+            mesh_dry["serve"] = phase_mesh_serve()
         _lap("3c mesh serve")
     by_path["yi-9b"], by_variant["yi-9b"] = phase_serve("yi-9b")
     phase_workflow("yi-9b")
@@ -3633,7 +3809,7 @@ def main(argv=None) -> int:
     mesh_train, mesh_train_flash = None, dict.fromkeys(fa.VARIANTS, 0)
     if argv != ["--skip-mesh"]:
         by_path[f"mesh train: {MESH_RANKS} ranks, yi-9b {YI_TRAIN.n_layers}L"], \
-            mesh_train_flash, mesh_train = phase_mesh_train(train, fp32_ref)
+            mesh_train_flash, mesh_train, mesh_dry["train"] = phase_mesh_train(train, fp32_ref)
         _lap("6c mesh train")
     del fp32_ref
     recurrent = {}
@@ -3726,7 +3902,7 @@ def main(argv=None) -> int:
                    "mesh": mesh, "mesh_serve": mesh_serve, "mesh_train": mesh_train,
                    "mesh_train_recurrent": mesh_rec, "mesh_train_moe": mesh_moe,
                    "mesh_train_multimodal": mesh_mm,
-                   "dryrun": dry_cells},
+                   "dryrun": dry_cells, "mesh_dryrun": mesh_dry},
                   f, indent=1)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

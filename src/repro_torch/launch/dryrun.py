@@ -26,23 +26,40 @@ cannot run; there the fake tensors live on the ``meta`` device, which the
 kernel wrappers take as the card's (:func:`repro_torch.kernels.library.on_card`).
 
 At a multi-device mesh (``16x16``, ``2x16x16`` or a reduced one such as
-``2x2x2``) the record carries each device's argument bytes under the rule
-table (:mod:`repro_torch.parallel.sharding`, from each leaf's local shape)
-and ``model_flops / devices``, but no trace: the port keeps parameters
-replicated (they are not yet placed as DTensors), so a rank's trace would
-measure a placement nobody deploys.
+``2x2x2``) the cell traces one rank, rank 0, of that mesh.  The process
+owns, for the length of the call, a fake process group of the mesh's world
+size (:func:`repro_torch.launch.mesh.traced_mesh`: its collectives move
+nothing).  The state or parameters, the inputs and a decode cache are
+placed by the rule table (``param_shardings``, ``input_shardings``,
+``cache_shardings``) as DTensors whose blocks are fake tensors of the
+rank's local shapes, and the same steps run their sharded paths on them,
+as on the ranks of a real mesh.  The record holds what a one-card record
+holds, for one device, and each collective by its logical kind
+(all-gather, reduce-scatter, all-reduce) with its wire bytes by the ring
+model, the ``collective`` roofline term at ``NVLINK_BW``, the gloo
+all-reduces that emulate the collectives on the port's ranks, and
+``model_flops / devices``.  ``--fsdp-over-pod``, ``--seq-shard`` and
+``--shard-kv-seq`` set the mesh context's knobs, as the reference's do.
+A cell that :func:`repro_torch.models.lm.check_sharded` refuses is a record
+with ``ok`` False and the ``error``.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch yi-9b --shape prefill_32k --mesh 1
-    python -m repro_torch.launch.dryrun --arch yi-9b --shape train_4k --mesh 16x16
+    python -m repro_torch.launch.dryrun --arch yi-9b --shape train_4k --mesh 16x16 [--seq-shard]
+    python -m repro_torch.launch.dryrun --arch yi-9b --shape decode_32k --multi-pod \
+        [--fsdp-over-pod] [--shard-kv-seq]
     python -m repro_torch.launch.dryrun --all [--mesh 1] [--out results/dryrun_torch.json]
     (variants: --remat full --gather-dtype bfloat16 --microbatches 4)
+    python -m repro_torch.launch.dryrun --report 16x16 2x16x16 --out results/dryrun_torch.json
+    (a markdown table of the records at those meshes: peak, fits, FLOPs
+    against model_flops, wire bytes, the dominant term, trace seconds)
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -57,20 +74,19 @@ from repro_torch import configs
 from repro_torch.configs.shapes import SHAPES, ShapeSpec
 from repro_torch.launch import hlo_analysis as ha
 from repro_torch.launch import op_cost
-from repro_torch.launch.mesh import make_ctx
+from repro_torch.launch.mesh import make_ctx, traced_mesh
 from repro_torch.models import lm
 from repro_torch.models.common import ModelConfig, tree_map
-from repro_torch.parallel.sharding import cache_shardings, input_shardings, param_shardings
+from repro_torch.parallel.mesh_ctx import MeshCtx, mesh_context
+from repro_torch.parallel.sharding import (cache_shardings, empty_blocks, input_shardings,
+                                           param_shardings)
 from repro_torch.serve.engine import make_decode_step, make_prefill_step
 from repro_torch.train.step import make_train_step, train_state_shapes
 
 DEFAULT_OUT = "results/dryrun_torch.json"
 
-#: knobs the reference's dry run takes that need parameters or activations
-#: placed as DTensors, which the port does not do yet
-NOT_TRACED = ("parameters are not yet placed as DTensors (FSDP/TP placement is still to "
-              "come), so a rank's trace would measure a placement nobody deploys")
-_REFUSED = ("fsdp_over_pod", "seq_shard", "shard_kv_seq")
+#: the knobs of the mesh context, which only a multi-device mesh reads
+MESH_KNOBS = ("fsdp_over_pod", "seq_shard", "shard_kv_seq")
 
 
 def fake_device() -> str:
@@ -123,7 +139,8 @@ def mesh_sizes(mesh: str) -> Dict[str, int]:
 
 def local_bytes(tree, specs, sizes: Dict[str, int]) -> int:
     """One device's bytes of ``tree`` laid out by ``specs``: each leaf's
-    local shape, every sharded dim divided by the product of its axes."""
+    local shape, every sharded dim divided by the product of its axes.  The
+    rule table's count, which a traced rank's argument bytes equal."""
     if isinstance(tree, dict):
         return sum(local_bytes(v, specs[k], sizes) for k, v in tree.items())
     if not isinstance(tree, torch.Tensor):
@@ -155,30 +172,45 @@ def _template(cfg: ModelConfig, shape: ShapeSpec):
     return serve_dtype(lm.init_shapes(cfg))
 
 
-def _step(cfg: ModelConfig, shape: ShapeSpec, template, device, overrides: Dict[str, Any]):
-    """(the step function, its arguments) on ``device``, from the template."""
-    first = materialize(template, device)
+def _step(cfg: ModelConfig, shape: ShapeSpec, template, device, overrides: Dict[str, Any],
+          ctx: Optional[MeshCtx] = None):
+    """(the step function, its arguments) on ``device``, from the template:
+    whole tensors, or under ``ctx`` the rank's blocks as DTensors placed by
+    the rule table."""
+    def place(tree, rule):
+        if ctx is None:
+            return materialize(tree, device)
+        return empty_blocks(tree, rule(tree, ctx), ctx, device)
+
+    def by_batch(tree, ctx):
+        return input_shardings(ctx, tree)
+
+    params = place(template, param_shardings)
     inputs = configs.input_specs(cfg, shape, device=device)
     if shape.kind == "train":
         step = make_train_step(cfg, microbatches=int(overrides.get("microbatches") or 1))
-        return step, (first, inputs)
+        return step, (params, place(inputs, by_batch))
     if shape.kind == "prefill":
-        return make_prefill_step(cfg, max_len=shape.seq_len), (first, inputs)
-    return make_decode_step(cfg), (first, inputs["token"], serve_dtype(inputs["cache"]))
+        return make_prefill_step(cfg, max_len=shape.seq_len), (params, place(inputs, by_batch))
+    cache = place(serve_dtype(inputs["cache"]), cache_shardings)
+    return make_decode_step(cfg), (params, place(inputs["token"], by_batch), cache)
 
 
 def trace(cfg: ModelConfig, shape: ShapeSpec, *, overrides: Optional[Dict[str, Any]] = None,
-          device: Optional[str] = None) -> Dict[str, Any]:
+          device: Optional[str] = None, ctx: Optional[MeshCtx] = None) -> Dict[str, Any]:
     """One step of ``cfg`` at ``shape`` on fake tensors: the memory, cost
-    and roofline parts of a record."""
+    and roofline parts of a record.  Under ``ctx`` (a context on a
+    :func:`~repro_torch.launch.mesh.traced_mesh`), one rank's step on its
+    blocks, per device."""
     overrides = overrides or {}
     device = device or fake_device()
     t0 = time.perf_counter()
     template = _template(cfg, shape)
     with FakeTensorMode():
-        fn, args = _step(cfg, shape, template, device, overrides)
+        fn, args = _step(cfg, shape, template, device, overrides, ctx)
         ins = op_cost.storages(args)
-        out, cost = op_cost.count(fn, *args)
+        with mesh_context(ctx):
+            out, cost = op_cost.count(fn, *args)
         outs = op_cost.storages(out)
         del out, args, fn
     arg_bytes, out_bytes = sum(ins.values()), sum(outs.values())
@@ -189,41 +221,25 @@ def trace(cfg: ModelConfig, shape: ShapeSpec, *, overrides: Optional[Dict[str, A
     mem["peak_bytes"] = (mem["argument_bytes"] + mem["output_bytes"] + mem["temp_bytes"]
                          - mem["alias_bytes"] + mem["workspace_bytes"])
     mf = ha.model_flops(cfg, shape.kind, shape.seq_len, shape.global_batch)
+    n_dev = 1 if ctx is None else math.prod(ctx.shape.values())
     rl = ha.roofline_terms({"flops": cost.flops, "bytes accessed": cost.bytes_accessed},
-                           model_flops_per_device=mf)
+                           wire_bytes=cost.wire_bytes, model_flops_per_device=mf / n_dev)
     kernels = {name: c for name, c in cost.by_op.items() if name.startswith("repro_torch.")}
-    return {"device": device, "memory": mem, "cost": cost.as_dict(), "ops": cost.ops,
-            "ops_by_name": {name: c["calls"] for name, c in cost.by_op.items()}, "kernels": kernels, "trace_s": time.perf_counter() - t0, "model_flops": mf,
-            "roofline": rl.as_dict(), "fits": mem["peak_bytes"] <= ha.HBM_BYTES,
-            "hbm_bytes": ha.HBM_BYTES}
+    return {"device": device, "devices": n_dev, "memory": mem, "cost": cost.as_dict(),
+            "ops": cost.ops, "ops_by_name": {name: c["calls"] for name, c in cost.by_op.items()},
+            "kernels": kernels, "trace_s": time.perf_counter() - t0, "model_flops": mf,
+            "model_flops_per_device": mf / n_dev, "roofline": rl.as_dict(),
+            "fits": mem["peak_bytes"] <= ha.HBM_BYTES, "hbm_bytes": ha.HBM_BYTES}
 
 
-def sharded(cfg: ModelConfig, shape: ShapeSpec, mesh: str) -> Dict[str, Any]:
-    """A multi-device cell: each device's argument bytes under the rule
-    table and its share of ``model_flops``; no trace (:data:`NOT_TRACED`)."""
-    sizes = mesh_sizes(mesh)
-    ctx = make_ctx(sizes)
-    n_dev = 1
-    for n in sizes.values():
-        n_dev *= n
-    if shape.kind == "train":
-        state = train_state_shapes(cfg)
-        batch = configs.input_specs(cfg, shape, device="meta")
-        arg = (local_bytes(state, param_shardings(state, ctx), sizes)
-               + local_bytes(batch, input_shardings(ctx, batch), sizes))
-    else:
-        params = serve_dtype(lm.init_shapes(cfg))
-        inputs = configs.input_specs(cfg, shape, device="meta")
-        arg = local_bytes(params, param_shardings(params, ctx), sizes)
-        if shape.kind == "prefill":
-            arg += local_bytes(inputs, input_shardings(ctx, inputs), sizes)
-        else:
-            cache = serve_dtype(inputs["cache"])
-            arg += (local_bytes(inputs["token"], input_shardings(ctx, inputs["token"]), sizes)
-                    + local_bytes(cache, cache_shardings(cache, ctx), sizes))
-    mf = ha.model_flops(cfg, shape.kind, shape.seq_len, shape.global_batch)
-    return {"devices": n_dev, "memory": {"argument_bytes": arg},
-            "model_flops_per_device": mf / n_dev, "trace": None, "skip": NOT_TRACED}
+def _check_sharded(cfg: ModelConfig, shape: ShapeSpec, ctx: MeshCtx) -> None:
+    """``lm.check_sharded`` as the cell's step calls it."""
+    if shape.kind == "decode":
+        lm.check_sharded(cfg, ctx)
+        return
+    inputs = configs.input_specs(cfg, shape, device="meta")
+    lm.check_sharded(cfg, ctx, seq_len=shape.seq_len, patches=inputs.get("patches"),
+                     frames=inputs.get("frames"))
 
 
 def run_cell(arch_or_cfg: Union[str, ModelConfig], shape_or_spec: Union[str, ShapeSpec], *,
@@ -232,9 +248,9 @@ def run_cell(arch_or_cfg: Union[str, ModelConfig], shape_or_spec: Union[str, Sha
     """One cell's record.  ``arch_or_cfg`` is an arch of the registry or a
     ``ModelConfig``; ``shape_or_spec`` a shape name or a ``ShapeSpec``."""
     overrides = overrides or {}
-    refused = [k for k in _REFUSED if overrides.get(k)]
-    if refused:
-        raise ValueError(f"{refused}: {NOT_TRACED}")
+    knobs = [k for k in MESH_KNOBS if overrides.get(k)]
+    if knobs and mesh == "1":
+        raise ValueError(f"{knobs} set a multi-device mesh's context: give a mesh other than 1")
     cfg, shape, skip = _cell(arch_or_cfg, shape_or_spec)
     cfg = _apply_overrides(cfg, overrides)
     rec: Dict[str, Any] = {
@@ -243,16 +259,25 @@ def run_cell(arch_or_cfg: Union[str, ModelConfig], shape_or_spec: Union[str, Sha
         "variant": variant_key(overrides), "skip": skip}
     if skip:
         return rec
-    if mesh != "1":
-        rec.update(sharded(cfg, shape, mesh))
-        return rec
-    rec["devices"] = 1
-    rec.update(trace(cfg, shape, overrides=overrides))
+    if mesh == "1":
+        rec.update(trace(cfg, shape, overrides=overrides))
+    else:
+        with traced_mesh(mesh_sizes(mesh)) as dmesh:
+            ctx = make_ctx(dmesh, fsdp_over_pod=bool(overrides.get("fsdp_over_pod")),
+                           seq_shard_activations=bool(overrides.get("seq_shard")),
+                           shard_kv_seq=bool(overrides.get("shard_kv_seq")))
+            try:
+                _check_sharded(cfg, shape, ctx)
+            except (NotImplementedError, ValueError) as e:
+                rec.update(devices=dmesh.size(), ok=False, error=f"{type(e).__name__}: {e}")
+                return rec
+            rec.update(trace(cfg, shape, overrides=overrides, ctx=ctx))
     rec["ok"] = True
     if verbose:
         m, c = rec["memory"], rec["cost"]
         print(f"[dryrun] memory {m}; flops {c['flops']:.4e}, bytes {c['bytes_accessed']:.4e}, "
-              f"ops {c['ops']}; trace {rec['trace_s']:.2f}s")
+              f"wire {c['wire_bytes']:.4e} ({c['collective_ops']}), ops {c['ops']}; "
+              f"trace {rec['trace_s']:.2f}s")
     return rec
 
 
@@ -293,17 +318,19 @@ def _parser():
     p.add_argument("--multi-pod", action="store_true", help="the same as --mesh 2x16x16")
     p.add_argument("--all", action="store_true",
                    help="sweep every (arch × shape) as subprocesses")
+    p.add_argument("--report", nargs="+", metavar="MESH",
+                   help="print the records of --out at these meshes as a markdown table")
     p.add_argument("--out", default=DEFAULT_OUT)
     p.add_argument("--timeout", type=int, default=3000)
     p.add_argument("--remat", choices=["none", "dots", "full"])
     p.add_argument("--gather-dtype", dest="gather_dtype", choices=["bfloat16"])
     p.add_argument("--microbatches", type=int)
     p.add_argument("--fsdp-over-pod", dest="fsdp_over_pod", action="store_true",
-                   help="refused: " + NOT_TRACED)
+                   help="parameters FSDP-sharded over pod and data (a mesh with a pod axis)")
     p.add_argument("--seq-shard", dest="seq_shard", action="store_true",
-                   help="refused: " + NOT_TRACED)
+                   help="sequence-shard block-boundary activations over model")
     p.add_argument("--shard-kv-seq", dest="shard_kv_seq", action="store_true",
-                   help="refused: " + NOT_TRACED)
+                   help="flash-decoding: shard KV rings over model on S")
     return p
 
 
@@ -317,6 +344,55 @@ def _mesh(args) -> str:
     return "2x16x16" if args.multi_pod else args.mesh
 
 
+def _cell_cmd(args, arch: str, shape: str) -> list:
+    """The command that runs one cell of ``--all`` with the sweep's mesh,
+    variants and knobs."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+           "--arch", arch, "--shape", shape, "--out", args.out, "--mesh", _mesh(args)]
+    for flag, val in (("--remat", args.remat),
+                      ("--gather-dtype", args.gather_dtype),
+                      ("--microbatches", args.microbatches)):
+        if val:
+            cmd += [flag, str(val)]
+    return cmd + ["--" + k.replace("_", "-") for k in MESH_KNOBS if getattr(args, k)]
+
+
+def report(path: str, meshes, variant: str = "baseline") -> str:
+    """A markdown table of the records of ``path``, a row a cell and a group
+    of columns a mesh of ``meshes``: the peak (GB a device), whether it
+    fits, the FLOPs over ``model_flops`` a device, the wire bytes (GB), the
+    dominant roofline term and the trace's seconds; a refused or missing
+    record says so, and the cells skipped at every mesh are listed below."""
+    with open(path) as f:
+        data = json.load(f)
+    cols = "peak GB | fits | FLOPs / model_flops | wire GB | dominant | trace s"
+    rows = ["| arch | shape | " + " | ".join(f"{m}: {cols}" for m in meshes) + " |",
+            "|---|---|" + "---|" * 6 * len(meshes)]
+    skipped = []
+    for arch, shape in configs.all_cells():
+        recs = [data.get(f"{arch}|{shape}|{m}|{variant}") for m in meshes]
+        if all(r is not None and r.get("skip") for r in recs):
+            skipped.append(f"{arch} × {shape}")
+            continue
+        cells = []
+        for r in recs:
+            if r is None or r.get("skip") or not r.get("ok"):
+                why = ("not run" if r is None else "skipped" if r.get("skip")
+                       else f"refused: {r['error']}")
+                cells.append(why + " |" * 5)
+                continue
+            rl = r["roofline"]
+            cells.append(f"{r['memory']['peak_bytes'] / 1e9:.2f} | {r['fits']} | "
+                         f"{rl['flops'] / rl['model_flops_per_device']:.3f} | "
+                         f"{rl['wire_bytes'] / 1e9:.2f} | {rl['dominant']} | "
+                         f"{r['trace_s']:.1f}")
+        rows.append(f"| {arch} | {shape} | " + " | ".join(cells) + " |")
+    if skipped:
+        rows.append("")
+        rows.append("Skipped at every mesh: " + ", ".join(skipped) + ".")
+    return "\n".join(rows)
+
+
 def sweep(args) -> int:
     failures = 0
     mesh = _mesh(args)
@@ -327,15 +403,9 @@ def sweep(args) -> int:
                          "skip": configs.skip_reason(arch, shape)}, args.out)
             print(f"[skip] {arch} × {shape}: {configs.skip_reason(arch, shape)}")
             continue
-        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
-               "--arch", arch, "--shape", shape, "--out", args.out, "--mesh", mesh]
-        for flag, val in (("--remat", args.remat),
-                          ("--gather-dtype", args.gather_dtype),
-                          ("--microbatches", args.microbatches)):
-            if val:
-                cmd += [flag, str(val)]
         t0 = time.time()
-        r = subprocess.run(cmd, capture_output=True, text=True, timeout=args.timeout)
+        r = subprocess.run(_cell_cmd(args, arch, shape), capture_output=True, text=True,
+                           timeout=args.timeout)
         ok = r.returncode == 0
         failures += (not ok)
         print(f"[{'ok' if ok else 'FAIL'}] {arch} × {shape} ({time.time()-t0:.0f}s)")
@@ -348,10 +418,13 @@ def sweep(args) -> int:
 def main() -> int:
     parser = _parser()
     args = parser.parse_args()
-    refused = [k for k in _REFUSED if getattr(args, k)]
-    if refused:
-        parser.error(f"{', '.join('--' + k.replace('_', '-') for k in refused)} refused: "
-                     f"{NOT_TRACED}")
+    knobs = [k for k in MESH_KNOBS if getattr(args, k)]
+    if knobs and _mesh(args) == "1":
+        parser.error(f"{', '.join('--' + k.replace('_', '-') for k in knobs)} set a "
+                     f"multi-device mesh's context: give --mesh AxB or AxBxC, or --multi-pod")
+    if args.report:
+        print(report(args.out, args.report))
+        return 0
     if args.all:
         return sweep(args)
     if not (args.arch and args.shape):
@@ -367,17 +440,18 @@ def main() -> int:
         print(rec["error"])
         return 1
     save_record(rec, args.out)
-    if rec.get("trace", True) is None:
-        print(f"{args.arch} × {args.shape} on {mesh}: {rec['devices']} devices, "
-              f"{rec['memory']['argument_bytes'] / 2**30:.2f} GiB of arguments a device, "
-              f"model FLOPs a device {rec['model_flops_per_device']:.4e}; not traced: "
-              f"{NOT_TRACED}")
-    elif rec.get("skip"):
+    if rec.get("skip"):
         print(f"skipped: {rec['skip']}")
+    elif not rec["ok"]:
+        print(f"{args.arch} × {args.shape} on {mesh}: refused: {rec['error']}")
+        return 1
     else:
         rl = rec["roofline"]
-        print(f"{args.arch} × {args.shape} on one card [{rec['variant']}]: "
-              f"compute {rl['compute_s']*1e3:.2f}ms | memory {rl['memory_s']*1e3:.2f}ms "
+        where = ("one card" if mesh == "1" else
+                 f"one rank of {mesh} ({rec['devices']} devices)")
+        print(f"{args.arch} × {args.shape} on {where} [{rec['variant']}]: "
+              f"compute {rl['compute_s']*1e3:.2f}ms | memory {rl['memory_s']*1e3:.2f}ms | "
+              f"collective {rl['collective_s']*1e3:.2f}ms ({rl['wire_bytes']:.4e} wire bytes) "
               f"→ {rl['dominant']}-bound; peak {rec['memory']['peak_bytes']/2**30:.2f} GiB "
               f"(fits {rec['fits']}); {rec['ops']} ops; roofline fraction "
               f"{rl['roofline_fraction']:.3f}")

@@ -3,8 +3,9 @@
 The counterpart of :mod:`repro.launch.hlo_analysis`, under its name so a
 reader finds it.  There is no HLO on this side: the FLOPs and bytes come
 from :mod:`repro_torch.launch.op_cost`, which tallies the step's ops as
-they run on fake tensors, and a single card runs no collective.  The ring
-model of wire bytes is kept as :func:`wire_bytes`:
+they run on fake tensors, and, for one rank of a traced mesh, its
+collectives by kind, whose wire bytes follow the ring model,
+:func:`wire_bytes`:
 
     all-gather          in_bytes · (n-1)          (out = in·n; out·(n-1)/n)
     reduce-scatter      in_bytes · (n-1)/n

@@ -12,11 +12,17 @@ and raise without a card unless given ``"cpu"``.  The default backend is
 gloo: it runs on CPU and CUDA tensors alike, and several ranks may share
 one card (NCCL refuses two ranks on one device).  The distributed branches
 use only its ``all_reduce``.
+
+:func:`traced_mesh` is the dry run's mesh: one rank of a mesh of any size
+over torch's fake process group, whose collectives return at once and move
+nothing (``repro_torch.launch.dryrun`` traces that rank's step on fake
+tensors).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+from typing import Dict, Iterator, Tuple
 
 import torch
 import torch.distributed as dist
@@ -79,3 +85,32 @@ def make_ctx(mesh, *, fsdp_over_pod: bool = False, **knobs) -> MeshCtx:
     fsdp = batch if (fsdp_over_pod and "pod" in names) else ("data",)
     return MeshCtx(mesh, batch_axes=batch, fsdp_axes=fsdp, **knobs)
 
+
+
+@contextlib.contextmanager
+def traced_mesh(sizes: Dict[str, int]) -> Iterator[DeviceMesh]:
+    """A ``DeviceMesh`` of ``sizes`` (axis name → size, major first) in
+    which this process is rank 0, over a fake process group of the mesh's
+    world size (torch's ``fake`` backend): every collective returns at once
+    and moves no data, so one process can trace one rank of a 16x16 or
+    2x16x16 mesh.
+
+    The group is this process's default group for the length of the block
+    and is destroyed on leaving it.  A process that already has a default
+    group is refused: its ranks would meet fakes.  The mesh's device type
+    is ``cuda`` where torch is built with CUDA, else ``cpu``; the fake group
+    moves nothing on either."""
+    if dist.is_initialized():
+        raise RuntimeError("a default process group exists: a traced mesh needs a process "
+                           "with none")
+    from torch.testing._internal.distributed.fake_pg import FakeStore   # registers "fake"
+    shape = tuple(sizes.values())
+    world = 1
+    for n in shape:
+        world *= n
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+    try:
+        yield init_device_mesh("cuda" if torch.backends.cuda.is_built() else "cpu", shape,
+                               mesh_dim_names=tuple(sizes))
+    finally:
+        dist.destroy_process_group()

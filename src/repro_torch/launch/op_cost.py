@@ -20,14 +20,21 @@ run inside ``FlopCounterMode``, tallies a step as it runs on fake tensors
   allocator does, and freed when it dies (``weakref.finalize`` on the
   storage).  What an operator's implementation allocates inside itself
   (the kernels' scratch) reaches no dispatch mode; a fake implementation
-  reports it through :data:`repro_torch.kernels.library.allocation_hooks`.
+  reports it through :data:`repro_torch.kernels.library.allocation_hooks`;
+* the collectives of a rank traced on a fake process group
+  (:func:`repro_torch.launch.mesh.traced_mesh`), from
+  :data:`repro_torch.parallel.mesh_ctx.collective_tallies`: each logical
+  collective's calls and operand bytes by kind, and its wire bytes by the
+  ring model (:func:`repro_torch.launch.hlo_analysis.wire_bytes`); and the
+  gloo all-reduces that emulate them (``gloo_calls``, ``gloo_bytes``, as
+  ``mesh_ctx.collective_stats`` counts them on the ranks).
 
 The reference's ``Cost.as_dict()`` fields, mapped onto :meth:`Cost.as_dict`:
 ``flops`` → ``flops``; ``transcendentals`` → none (``FlopCounterMode``
 counts products only); ``bytes_accessed`` → ``bytes_accessed`` (read +
 written); ``bytes_fused`` → ``bytes_accessed`` (nothing fuses);
-``wire_bytes``, ``collective_ops``, ``collective_bytes`` → none (one card
-runs no collective).
+``wire_bytes``, ``collective_ops``, ``collective_bytes`` → the same names
+(0 and empty on one card).
 """
 
 from __future__ import annotations
@@ -38,11 +45,14 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Iterable, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.kernels import library
+from repro_torch.launch.hlo_analysis import wire_bytes
+from repro_torch.parallel import mesh_ctx
 
 #: the caching allocator's rounding of a block
 BLOCK = 512
@@ -60,7 +70,12 @@ def rounded(nbytes: int) -> int:
 
 
 def tensors(tree: Any) -> list:
-    return [t for t in pytree.tree_leaves(tree) if isinstance(t, torch.Tensor)]
+    """The tensors of ``tree``, a DTensor as its local block."""
+    out = [t for t in pytree.tree_leaves(tree) if isinstance(t, torch.Tensor)]
+    if not any(isinstance(t, DTensor) for t in out):
+        return out
+    with torch.no_grad():
+        return [t.to_local() if isinstance(t, DTensor) else t for t in out]
 
 
 def storage_key(t: torch.Tensor) -> int:
@@ -68,9 +83,10 @@ def storage_key(t: torch.Tensor) -> int:
 
 
 def storages(tree: Any) -> Dict[int, int]:
-    """The distinct storages of the tensors of ``tree``: key → bytes, each
-    rounded as the allocator rounds it."""
-    return {storage_key(t): rounded(t.untyped_storage().nbytes()) for t in tensors(tree)}
+    """The distinct storages of the tensors of ``tree`` (a DTensor's local
+    block): key → bytes, unrounded, as the reference's
+    ``memory_analysis()`` counts its arguments and outputs."""
+    return {storage_key(t): t.untyped_storage().nbytes() for t in tensors(tree)}
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -87,15 +103,33 @@ class Cost:
     ops: int = 0
     peak_bytes: int = 0                      # beyond the arguments
     by_op: Dict[str, dict] = field(default_factory=dict)
+    #: (kind, group size) → [calls, operand bytes a rank]
+    collectives: Dict[Tuple[str, int], list] = field(default_factory=dict)
+    gloo_calls: int = 0
+    gloo_bytes: int = 0
 
     @property
     def bytes_accessed(self) -> int:
         return self.bytes_read + self.bytes_written
 
+    @property
+    def wire_bytes(self) -> float:
+        return sum(wire_bytes(kind, nbytes, n) for (kind, n), (_, nbytes)
+                   in self.collectives.items())
+
+    def _by_kind(self, i: int) -> Dict[str, int]:
+        out: Counter = Counter()
+        for (kind, _), c in self.collectives.items():
+            out[kind] += c[i]
+        return dict(out)
+
     def as_dict(self) -> dict:
         return {"flops": self.flops, "bytes_accessed": self.bytes_accessed,
                 "bytes_read": self.bytes_read, "bytes_written": self.bytes_written,
-                "ops": self.ops, "peak_bytes": self.peak_bytes}
+                "ops": self.ops, "peak_bytes": self.peak_bytes,
+                "wire_bytes": self.wire_bytes, "collective_ops": self._by_kind(0),
+                "collective_bytes": self._by_kind(1), "gloo_calls": self.gloo_calls,
+                "gloo_bytes": self.gloo_bytes}
 
 
 class OpCounter(TorchDispatchMode):
@@ -160,14 +194,27 @@ class OpCounter(TorchDispatchMode):
 
 def count(fn: Callable, *args) -> Tuple[Any, Cost]:
     """Run ``fn(*args)`` (under an active ``FakeTensorMode``, so nothing runs
-    on a device) and tally it; returns (its output, the :class:`Cost`)."""
+    on a device) and tally it; returns (its output, the :class:`Cost`).
+    Collectives are never timed while it runs: timing synchronises the
+    card."""
     flop_counter = FlopCounterMode(display=False)
     counter = OpCounter(storages(args))
-    with flop_counter, counter:
-        out = fn(*args)
+    stats = mesh_ctx.collective_stats
+    timed, calls, nbytes = stats["timed"], stats["calls"], stats["bytes"]
+    tally: Dict[Tuple[str, int], list] = {}
+    stats["timed"] = False
+    mesh_ctx.collective_tallies.append(tally)
+    try:
+        with flop_counter, counter:
+            out = fn(*args)
+    finally:
+        mesh_ctx.collective_tallies.remove(tally)
+        stats["timed"] = timed
     flops_by_op = {str(op): n for op, n in flop_counter.get_flop_counts()["Global"].items()}
     by_op = {name: {"calls": counter.calls[name], "bytes": counter.op_bytes[name],
                     "flops": flops_by_op.get(name, 0)} for name in counter.calls}
     return out, Cost(flops=float(flop_counter.get_total_flops()),
                      bytes_read=counter.bytes_read, bytes_written=counter.bytes_written,
-                     ops=counter.ops, peak_bytes=counter.peak, by_op=by_op)
+                     ops=counter.ops, peak_bytes=counter.peak, by_op=by_op,
+                     collectives=tally, gloo_calls=stats["calls"] - calls,
+                     gloo_bytes=stats["bytes"] - nbytes)

@@ -281,12 +281,13 @@ def _heads_constraint(y: torch.Tensor, name: str, n: int, cfg: ModelConfig
 def _local_kv(t: torch.Tensor, cfg: ModelConfig, h0: int, hl: int) -> torch.Tensor:
     """The kv heads [B, L, ·, hd] that q heads ``h0 … h0+hl-1`` read, from
     all ``n_kv_heads`` of ``t``, as a GQA layout the flash kernel takes
-    (its kv head of q head j is ``j // (hl / kv heads)``)."""
+    (its kv head of q head j is ``j // (hl / kv heads)``), contiguous as
+    the kernel needs it."""
     g = cfg.n_heads // cfg.n_kv_heads
     if hl % g == 0:
-        return t[:, :, h0 // g:(h0 + hl) // g]
+        return t[:, :, h0 // g:(h0 + hl) // g].contiguous()
     if g % hl == 0:
-        return t[:, :, h0 // g:h0 // g + 1]
+        return t[:, :, h0 // g:h0 // g + 1].contiguous()
     idx = torch.arange(h0, h0 + hl, device=t.device) // g
     return t.index_select(2, idx)
 

@@ -65,6 +65,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import _disable_current_modes
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -640,8 +641,13 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int, ctx, *,
     and ``max_len`` (:func:`init_cache`'s tree, on the ``meta`` device),
     with an enc-dec config's ``memory`` rows (the frames' length; the
     reference lays out the cache its prefill returns): the layout of every
-    rank's block of a sharded prefill's cache."""
-    return cache_shardings(init_cache(cfg, batch, max_len, device="meta", memory=memory), ctx)
+    rank's block of a sharded prefill's cache.  The template only carries
+    shapes, so it is built outside any dispatch mode: under a dry run's
+    ``FakeTensorMode`` and op walker the global cache would count as an
+    allocation of the rank."""
+    with _disable_current_modes():
+        template = init_cache(cfg, batch, max_len, device="meta", memory=memory)
+    return cache_shardings(template, ctx)
 
 
 def _hint_layout(kv: torch.Tensor, cfg: ModelConfig, ctx) -> list:

@@ -56,7 +56,7 @@ import contextlib
 import contextvars
 import time
 from dataclasses import dataclass
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -188,6 +188,26 @@ def is_distributed(x: Any) -> bool:
 collective_stats: Dict[str, Any] = {"calls": 0, "bytes": 0, "largest": 0, "seconds": 0.0,
                                     "timed": False}
 
+#: the open tallies of collectives by their logical kind (the dry run's
+#: :func:`repro_torch.launch.op_cost.count` opens one while it traces):
+#: each maps (kind, group size) to [calls, the operand's bytes on one
+#: device], where kind is ``"all-gather"`` (:func:`gather_block`, the
+#: forward of :func:`gather` and the backward of :func:`scatter`),
+#: ``"reduce-scatter"`` (the backward of :func:`gather`) or
+#: ``"all-reduce"`` (every other :func:`all_reduce`).  Each is one
+#: collective of the reference's HLO, however many gloo all-reduces
+#: emulate it.
+collective_tallies: List[Dict[Tuple[str, int], List[int]]] = []
+
+
+def tally_collective(kind: str, n: int, nbytes: int) -> None:
+    """One collective of ``kind`` over a group of ``n`` ranks on an operand
+    of ``nbytes`` bytes a rank, into every open tally."""
+    for t in collective_tallies:
+        c = t.setdefault((kind, n), [0, 0])
+        c[0] += 1
+        c[1] += nbytes
+
 
 def reset_collective_stats(*, timed: bool = False) -> None:
     """Zero the counts.  With ``timed`` every collective is timed on the
@@ -196,13 +216,16 @@ def reset_collective_stats(*, timed: bool = False) -> None:
     collective_stats.update(calls=0, bytes=0, largest=0, seconds=0.0, timed=timed)
 
 
-def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+def all_reduce(x: torch.Tensor, group, op: str = "sum", *,
+               kind: Optional[str] = "all-reduce") -> torch.Tensor:
     """In-place all-reduce of ``x`` over ``group`` (``op`` "sum" or "max").
     Uses only ``all_reduce``, which gloo implements for CUDA tensors as
     well as CPU ones.  Autograd does not see it, so a tensor that would
     carry a gradient is refused: the serving branches call it directly, and
     the local-blocks paths (the sharded train step, ``moe.apply_blocks``
-    included) through the differentiable collectives below."""
+    included) through the differentiable collectives below.  ``kind``: the
+    logical collective it is tallied as (:data:`collective_tallies`), or
+    None where its caller tallies the collective it emulates."""
     if torch.is_grad_enabled() and x.requires_grad:
         raise NotImplementedError(
             "the serving branches (moe.apply_ep, attention._decode_seqshard) do not "
@@ -210,6 +233,8 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
             "local blocks (the sharded train step: moe.apply_blocks)")
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     nbytes = x.numel() * x.element_size()
+    if kind is not None:
+        tally_collective(kind, dist.get_world_size(group), nbytes)
     collective_stats["calls"] += 1
     collective_stats["bytes"] += nbytes
     collective_stats["largest"] = max(collective_stats["largest"], nbytes)
@@ -221,6 +246,18 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     t0 = time.perf_counter()
     dist.all_reduce(x, op=red, group=group)
     collective_stats["seconds"] += time.perf_counter() - t0
+    return x
+
+
+def all_reduce_axes(x: torch.Tensor, axes, ctx: MeshCtx) -> torch.Tensor:
+    """In-place sum of ``x`` over the ranks of ``axes`` (an axis name or a
+    tuple of them): one all-reduce over each axis's group in turn, tallied
+    as one all-reduce over them all."""
+    axes = spec_axes(axes)
+    if axes:
+        tally_collective("all-reduce", axes_size(ctx, axes), x.numel() * x.element_size())
+    for a in axes:
+        all_reduce(x, ctx.group(a), kind=None)
     return x
 
 
@@ -249,8 +286,9 @@ def gather_block(local: torch.Tensor, dim: int, ctx: MeshCtx, entry) -> torch.Te
     full = local.new_zeros(shape)
     i = ctx.linear_coord(axes)
     full.narrow(dim, i * rows, rows).copy_(local)
+    tally_collective("all-gather", axes_size(ctx, axes), local.numel() * local.element_size())
     for a in axes:
-        all_reduce(full, ctx.group(a))
+        all_reduce(full, ctx.group(a), kind=None)
     return full
 
 
@@ -291,8 +329,10 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(fctx, g):
         g = g.contiguous().clone()
+        tally_collective("reduce-scatter", axes_size(fctx.ctx, fctx.axes),
+                         g.numel() * g.element_size())
         for a in fctx.axes:
-            all_reduce(g, fctx.ctx.group(a))
+            all_reduce(g, fctx.ctx.group(a), kind=None)
         return _my_block(g, fctx.dim, fctx.ctx, fctx.axes), None, None, None
 
 
@@ -310,10 +350,7 @@ class _Scatter(torch.autograd.Function):
 class _Reduce(torch.autograd.Function):
     @staticmethod
     def forward(fctx, x, axes, ctx):
-        y = x.contiguous().clone()
-        for a in axes:
-            all_reduce(y, ctx.group(a))
-        return y
+        return all_reduce_axes(x.contiguous().clone(), axes, ctx)
 
     @staticmethod
     def backward(fctx, g):
@@ -328,10 +365,7 @@ class _Replicate(torch.autograd.Function):
 
     @staticmethod
     def backward(fctx, g):
-        g = g.contiguous().clone()
-        for a in fctx.axes:
-            all_reduce(g, fctx.ctx.group(a))
-        return g, None, None
+        return all_reduce_axes(g.contiguous().clone(), fctx.axes, fctx.ctx), None, None
 
 
 def gather(x: torch.Tensor, dim: int, axes, ctx: Optional[MeshCtx] = None) -> torch.Tensor:

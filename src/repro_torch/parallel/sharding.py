@@ -37,7 +37,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.parallel.mesh_ctx import (MeshCtx, all_reduce, axes_size, blocks_ctx,
                                            gather, is_distributed, mesh_shape, replicate,
-                                           scatter, spec_axes)
+                                           scatter, spec_axes, tally_collective)
 
 Spec = Tuple[Any, ...]
 
@@ -274,6 +274,20 @@ def from_block(local: torch.Tensor, spec: Spec, ctx: MeshCtx) -> DTensor:
     return DTensor.from_local(local, ctx.mesh, placements(spec, ctx.mesh), run_check=False)
 
 
+def empty_blocks(tree: Any, specs: Any, ctx: MeshCtx, device) -> Any:
+    """Every tensor of ``tree`` (its leaves give global shapes and dtypes,
+    as a ``meta`` template does) as the DTensor laid out by the matching
+    spec of ``specs`` whose block on this rank is an empty tensor on
+    ``device``: inside a ``FakeTensorMode``, a rank's fake blocks, which the
+    dry run traces.  Leaves that are not tensors pass through."""
+    if isinstance(tree, dict):
+        return {k: empty_blocks(v, specs[k], ctx, device) for k, v in tree.items()}
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    block = [s.stop - s.start for s in local_slices(tuple(tree.shape), specs, ctx)]
+    return from_block(torch.empty(block, dtype=tree.dtype, device=device), specs, ctx)
+
+
 def distribute(x: torch.Tensor, spec: Spec, ctx: MeshCtx) -> DTensor:
     """A DTensor from the global value ``x`` that every rank holds: each
     rank keeps (a copy of) its own block.  No collective runs."""
@@ -317,9 +331,12 @@ def gather_rows(t: DTensor, start: int = 0, stop: Optional[int] = None,
     if lo < hi:
         out[(slice(lo - start, hi - start),) + block[1:]] = \
             local[lo - block[0].start:hi - block[0].start]
-    for entry in spec:
-        for axis in spec_axes(entry):
-            all_reduce(out, ctx.group(axis))
+    axes = tuple(a for entry in spec for a in spec_axes(entry))
+    if axes:
+        n = axes_size(ctx, axes)
+        tally_collective("all-gather", n, out.numel() * out.element_size() // n)
+    for axis in axes:
+        all_reduce(out, ctx.group(axis), kind=None)
     return out
 
 

@@ -19,7 +19,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.models.common import tree_leaves, tree_map
-from repro_torch.parallel.mesh_ctx import all_reduce, spec_axes
+from repro_torch.parallel.mesh_ctx import all_reduce_axes, spec_axes
 
 _F32 = torch.float32
 
@@ -45,8 +45,7 @@ def global_norm(tree, specs=None, ctx=None) -> torch.Tensor:
         axes = tuple(a for a in names if any(a in spec_axes(e) for e in spec))
         by_axes[axes] = by_axes[axes] + sq(x) if axes in by_axes else sq(x)
     for axes, s in by_axes.items():
-        for a in axes:
-            all_reduce(s, ctx.group(a))
+        all_reduce_axes(s, axes, ctx)
     return torch.sqrt(sum(by_axes.values()))
 
 

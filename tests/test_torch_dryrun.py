@@ -6,7 +6,8 @@ the H100's constants; each kernel operator's fake implementation and FLOP
 formula against the plain version; the op walker's byte accounting; every
 smoke arch's train, prefill and decode steps traced (nothing launched); and
 the rule table's per-device argument bytes against the reference's
-compiled ``memory_analysis`` on a reduced mesh.
+compiled ``memory_analysis`` on a reduced mesh; a 16x16 cell traced on one
+rank (more in ``test_torch_dryrun_mesh.py``).
 
 A torch built without CUDA has no CUDA device guard, so autograd on a fake
 CUDA tensor cannot run here: the fake tensors live on ``meta``
@@ -480,19 +481,26 @@ def test_reduced_mesh_argument_bytes_match_the_reference():
     assert {k: got[k] + named[k] for k in got} == want
 
 
-def test_mesh_cell_records_bytes_and_refuses_knobs():
-    """A multi-device cell carries each device's argument bytes and its
-    share of model_flops, and no trace; the knobs that need DTensor
-    placement are refused with the reason."""
-    rec = dryrun.run_cell("yi-9b", "train_4k", mesh="16x16")
-    assert rec["trace"] is None and rec["skip"] == dryrun.NOT_TRACED
-    assert rec["devices"] == 256
-    assert rec["model_flops_per_device"] == ha.model_flops(
-        configs.get("yi-9b"), "train", 4096, 256) / 256
-    assert 0 < rec["memory"]["argument_bytes"]
-    for knob in ("fsdp_over_pod", "seq_shard", "shard_kv_seq"):
-        with pytest.raises(ValueError, match="DTensors"):
-            dryrun.run_cell("yi-9b", "train_4k", mesh="16x16", overrides={knob: True})
+def test_mesh_cell_is_traced():
+    """A 16x16 cell traces one rank on fake blocks: 256 devices, its share
+    of model_flops, the rule table's argument bytes, collectives and the
+    collective roofline term; no process group is left behind."""
+    rec = dryrun.run_cell("yi-9b", "decode_32k", mesh="16x16",
+                          overrides={"shard_kv_seq": True}, verbose=False)
+    assert rec["ok"] and rec["devices"] == 256 and not torch.distributed.is_initialized()
+    cfg = configs.get("yi-9b")
+    assert rec["model_flops_per_device"] == ha.model_flops(cfg, "decode", 32768, 128) / 256
+    sizes = dryrun.mesh_sizes("16x16")
+    ctx = make_ctx(sizes, shard_kv_seq=True)
+    params = dryrun.serve_dtype(lm.init_shapes(cfg))
+    inputs = configs.input_specs(cfg, SHAPES["decode_32k"], device="meta")
+    cache = dryrun.serve_dtype(inputs["cache"])
+    assert rec["memory"]["argument_bytes"] == (
+        dryrun.local_bytes(params, param_shardings(params, ctx), sizes)
+        + dryrun.local_bytes(inputs["token"], input_shardings(ctx, inputs["token"]), sizes)
+        + dryrun.local_bytes(cache, cache_shardings(cache, ctx), sizes))
+    rl = rec["roofline"]
+    assert rl["wire_bytes"] > 0 and rl["collective_s"] > 0 and rec["fits"]
     skipped = dryrun.run_cell("yi-9b", "long_500k")
     assert skipped["skip"] == configs.skip_reason("yi-9b", "long_500k")
 
