@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py [--skip-mesh]
 
-``--skip-mesh`` leaves out phases 3b, 3c, 6c, 6d, 6e and 6f, to read the
-other phases without the four ranks' runs.  Phases, in order; any failure exits non-zero and no phase catches its own:
+``--skip-mesh`` leaves out phases 3b, 3c, 3d, 6c, 6d, 6e, 6f and 6g, to
+read the other phases without the ranks' runs.  Phases, in order; any failure exits non-zero and no phase catches its own:
 
 1. build    — compile every CUDA kernel of the port (one nvcc per source,
               all started together), print the build seconds and each
@@ -120,8 +120,8 @@ other phases without the four ranks' runs.  Phases, in order; any failure exits 
               cross-attention's split softmax).  Each in bf16 fed the plain
               run's greedy tokens (logits within 1e-1) and cut to its first
               layer in fp32 (recurrentgemma-9b: its first group;
-              seamless-m4t-medium: 1 + 1; mamba2-370m: all 48) greedy, 2
-              decode steps (logits
+              seamless-m4t-medium: 1 + 1; mamba2-370m: all 48) greedy, 1
+              decode step (logits
               within 1e-4, the tokens equal), the greedy argmax over the
               whole padded vocab; the
               MoE arch's logits where the step's token went to the same
@@ -157,6 +157,24 @@ other phases without the four ranks' runs.  Phases, in order; any failure exits 
               released before it, what stays resident beside the
               arguments taken off); the predicted wire bytes are printed
               beside gloo's bytes.
+3d. mesh serve undivided — prefill and decode on each rank's blocks of a
+              model axis that does not divide every split dim:
+              MESH3_RANKS = 3 ranks share the card as the (1, 3) ("data",
+              "model") gloo mesh and serve recurrentgemma-9b at full width,
+              one (rglru, rglru, local) group, batch 4 × 512, as phase 3c
+              (bf16 fed the plain tokens, 4 decode steps, logits within
+              1e-1; the fp32 group greedy, 1 decode step, logits within
+              1e-4 and the tokens equal) against phase 3c's plain
+              references.  The rule table's guard splits d_ff 12288 over
+              the model axis and leaves the RG-LRU width 4096, the 16 q
+              heads on their one kv head and the 256000-row vocab whole, so
+              every rank computes those whole: each prefill launches flash
+              (wgmma) at q [4,512,16,256], k/v [4,512,1,256] and the RG-LRU
+              scan (vec4) at [4,512,4096], the whole batch (the data axis
+              is 1) and the whole width; the whole fp32 embedding is 4.2 GB
+              a rank.  Every rank's cache bytes the rule table's share,
+              and its bf16 prefill and first decode step held against the
+              dry run of the same cells on a traced rank of mesh 1x3.
 4. serve    — launch/serve at full width (random weights from a seed, fp32
               master weights on the card), batch 4, prompt 512, 32 generated
               tokens, for yi-9b, mamba2-370m, recurrentgemma-9b,
@@ -345,6 +363,20 @@ other phases without the four ranks' runs.  Phases, in order; any failure exits 
               holds and times flash at each arch's rank shape: the flash
               row gets those entries under at_other_shapes with these
               launches.
+6g. mesh train undivided — the sharded train step on the MESH3_RANKS
+              ranks, spawned again as the (1, 3) mesh: mamba2-370m at full
+              width, 8 of 48 layers (phase 6d's config), remat "dots", bf16
+              compute, batch 2 × 2048 (the whole batch on every rank), whose
+              padded vocab 50304 the model axis of 3 splits and whose 32 SSM
+              heads and inner width 2048 it leaves whole: the parent's 3
+              plain steps and fp32 one-layer step, then each rank's 3 steps
+              and fp32 step held as phase 6d's (loss 3e-2, grad norm 5e-2
+              relative; fp32 1e-4, every rank's block of every updated
+              parameter and first moment at 1e-4), every step's SSD scan
+              forward calls at the rank's shape x [2,2048,32,64] (the mma
+              variant; the backward's mma variant as often as the plain
+              step's), and each rank's first step held against the dry
+              run of the same cell on a traced rank of mesh 1x3.
 7. grads    — the flash Function (kernel forward, FA2 backward) against
               autograd through the dense plain version on the card: fp32
               on the fma variant, bf16 on wgmma at hd 128.
@@ -364,14 +396,16 @@ families on the ranks (phase 3c) was paid for by cuts: phase 3c's second
 yi-9b case (``shard_kv_seq``; seamless-m4t-medium runs the slot layout
 now), phase 3b (a)'s decode steps (8 → 4), and the timed pass of phases
 6c, 6d, 6e and 6f (a further step run only to time its collectives: the
-last held step is timed instead).
+last held step is timed instead).  Phases 3d and 6g were paid for by
+phase 3c's fp32 decode steps (2 → 1).
 
 Phase 2 also holds the flash kernels' log-sum-exp (the backward's input)
 against the plain version on both variants and times the forward with it
 at the training shape and at a rank's shape in phase 6c, and holds and
 times every kernel at a rank's shape in phase 6d, flash at a rank's shape
-in phases 6e and 6f, and each forward kernel at the rank's shapes of phase
-3c.
+in phases 6e and 6f, each forward kernel at the rank's shapes of phase 3c,
+flash and the RG-LRU scan at phase 3d's and the SSD scan and its backward
+at phase 6g's.
 
 The line before the last is one JSON object with a row per kernel
 (flash_attention, ssd_scan, rglru_scan, ssd_scan_bwd, rglru_scan_bwd); the last
@@ -381,6 +415,7 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import json
@@ -520,8 +555,9 @@ MESH_SERVE_CASES = (("yi-9b", {}), ("phi-3-vision-4.2b", {}), ("deepseek-moe-16b
                     ("mamba2-370m", {}), ("recurrentgemma-9b", {}),
                     ("seamless-m4t-medium", {"shard_kv_seq": True}))
 #: decode steps after the prefill: bf16, and the one-layer fp32 runs (cut
-#: first: every step gathers the FSDP blocks through gloo)
-MESH_SERVE_DECODE, MESH_SERVE_FP32_DECODE = 4, 2
+#: first: every step gathers the FSDP blocks through gloo; 2 → 1 to pay for
+#: phases 3d and 6g)
+MESH_SERVE_DECODE, MESH_SERVE_FP32_DECODE = 4, 1
 MESH_SERVE_BF16_TOL, MESH_SERVE_FP32_TOL = 1e-1, 1e-4
 #: in bf16 the ranks' row-parallel sums round otherwise than the plain
 #: products, and a router's near-tie then sends a token to other experts
@@ -586,6 +622,7 @@ MESH_DRYRUN = {
                   "chip_mesh_decode", SERVE_PROMPT + MESH_SERVE_DECODE, SERVE_BATCH, "decode"))},
     "train": {"train": (YI_TRAIN, ShapeSpec("chip_mesh_train", TRAIN_SEQ, TRAIN_BATCH, "train"))}}
 MESH_DRYRUN_TIMEOUT = 300
+
 
 # H100 SXM5 80GB HBM3 published peaks (launch/hlo_analysis.py): bytes/s and FLOP/s
 HBM_BYTES_S = ha.HBM_BW
@@ -702,6 +739,42 @@ MESH_MM_FP32_REF = os.path.join(ROOT, "build", "mesh_mm_fp32_ref_{}.pt")
 MESH_MM_FLASH = {arch: (TRAIN_BATCH // MESH_SHAPE[0], TRAIN_SEQ, cfg.n_heads // MESH_SHAPE[1],
                         cfg.n_kv_heads // MESH_SHAPE[1], cfg.hd)
                  for arch, cfg in MESH_MM.items()}
+# phases 3d and 6g: MESH3_RANKS processes share the card as a (1, 3)
+# ("data", "model") mesh, a model axis of 3 that divides few split dims of
+# the full configs: the rule table's guard leaves every leaf whose dim it
+# does not divide whole, and each rank computes those products whole.
+# 3d serves recurrentgemma-9b (MESH_SERVE's: full width, one (rglru, rglru,
+# local) group) against phase 3c's plain references: d_ff 12288 split, the
+# RG-LRU width 4096, the 16 q heads on one kv head and the 256000-row vocab
+# whole.  6g trains mamba2-370m (MESH_REC's: full width, 8 of 48 layers)
+# against plain steps on the same state and batches: the padded vocab 50304
+# split, its 32 SSM heads and inner width 2048 whole
+MESH3_RANKS, MESH3_SHAPE = 3, (1, 3)
+#: the (data, model) shape of the mesh of a world of ranks
+MESH_SHAPES = {MESH_RANKS: MESH_SHAPE, MESH3_RANKS: MESH3_SHAPE}
+MESH3_SERVE_CASES = (("recurrentgemma-9b", {}),)
+#: a rank's kernel calls in phase 3d's bf16 prefills: the whole batch (the
+#: data axis is 1), every head of the local layer, the whole RG-LRU width
+MESH3_SERVE_RG_FLASH = (SERVE_BATCH, SERVE_PROMPT, RG.n_heads, RG.n_kv_heads, RG.hd)
+MESH3_SERVE_RGLRU = (SERVE_BATCH, SERVE_PROMPT, rglru.width(RG))
+#: ... and in phase 6g's steps: the whole batch and every SSM head
+MESH3_TRAIN_SSD = (TRAIN_BATCH, TRAIN_SEQ, ssm.dims(MAMBA)[1])
+#: the mamba2-370m batches of phase 6g and the plain fp32 step's leaves,
+#: which the parent writes for the ranks
+MESH3_TRAIN_INPUTS = os.path.join(ROOT, "build", "mesh3_train_inputs.pt")
+MESH3_TRAIN_FP32_REF = os.path.join(ROOT, "build", "mesh3_train_fp32_ref_{}.pt")
+# phase 3d's recurrentgemma-9b prefill and first decode step and phase 6g's
+# first mamba2-370m step, held against a traced rank of the (1, 3) mesh
+MESH_DRYRUN["serve3"] = {
+    "prefill": (MESH_SERVE["recurrentgemma-9b"][0], ShapeSpec(
+        "chip_mesh3_prefill", SERVE_PROMPT, SERVE_BATCH, "prefill")),
+    "decode": (MESH_SERVE["recurrentgemma-9b"][0], ShapeSpec(
+        "chip_mesh3_decode", SERVE_PROMPT + MESH_SERVE_DECODE, SERVE_BATCH, "decode"))}
+MESH_DRYRUN["train3"] = {"train": (MESH_REC["mamba2-370m"], ShapeSpec(
+    "chip_mesh3_train", TRAIN_SEQ, TRAIN_BATCH, "train"))}
+#: the traced rank's mesh of each set of cells of MESH_DRYRUN
+MESH_DRYRUN_MESH = {"serve": "2x2", "train": "2x2", "serve3": "1x3", "train3": "1x3"}
+
 #: the variant each kernel runs in bf16 compute and in fp32
 BF16_VARIANTS = {"flash_attention": "wgmma", "ssd_scan": "mma", "ssd_scan_bwd": "mma",
                  "rglru_scan": "vec4", "rglru_scan_bwd": "vec4"}
@@ -1544,6 +1617,26 @@ def phase_rank_shapes() -> dict:
             out.setdefault(phase, {})[name] = {
                 "at": f"a rank's shape in the sharded {arch} prefills of phase 3c, (2, 2) mesh",
                 **{k: row.get(k) for k in SHAPE_KEYS}}
+    # the (1, 3) mesh of phases 3d and 6g: the whole batch, and the heads and
+    # widths the model axis of 3 does not divide, whole
+    bt, l, nh = MESH3_TRAIN_SSD
+    undivided = {
+        "3d": ("recurrentgemma-9b's sharded prefills of phase 3d, (1, 3) mesh",
+               {"flash_attention": _flash_at(MESH3_SERVE_RG_FLASH, torch.bfloat16, seed=16,
+                                             window=RG.window),
+                "rglru_scan": _rglru_at(*MESH3_SERVE_RGLRU)}),
+        "6g": ("mamba2-370m's sharded steps of phase 6g, (1, 3) mesh",
+               {"ssd_scan": _ssd_at(MAMBA.cdtype, bt, l, nh),
+                "ssd_scan_bwd": _ssd_bwd_at(MAMBA.cdtype, bt, l, nh)})}
+    for phase, (where, entries) in undivided.items():
+        for name, row in entries.items():
+            if row["variant"] != BF16_VARIANTS[name]:
+                _fail(f"{name} at a rank's shape {row['shape']} of phase {phase} runs "
+                      f"{row['variant']}, not {BF16_VARIANTS[name]}")
+            out.setdefault(phase, {})[name] = {
+                "at": f"a rank's shape in {where}", **{k: row.get(k) for k in SHAPE_KEYS}}
+            if "heads_per_block" in row:
+                out[phase][name]["heads_per_block"] = row["heads_per_block"]
     _free()
     return out
 
@@ -1778,19 +1871,18 @@ def _mesh_rank(rank: int, world: int, directory: str) -> None:
     dist.destroy_process_group()
 
 
-def _spawn_ranks(target, timeout: float) -> tuple:
-    """Start MESH_RANKS ``spawn`` processes of ``target(rank, world,
+def _spawn_ranks(target, timeout: float, world: int = MESH_RANKS) -> tuple:
+    """Start ``world`` ``spawn`` processes of ``target(rank, world,
     directory)`` on the card and wait for all: a rank that fails or
     outlasts ``timeout`` fails the run, and the others are killed.  Returns
     (each rank's ``<directory>/rank<r>.json``, seconds)."""
     _free()
     _log(f"[mesh] parent: {torch.cuda.memory_allocated()} B allocated before spawning "
-         f"{MESH_RANKS} ranks")
+         f"{world} ranks")
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     directory = tempfile.mkdtemp(prefix="mesh-", dir=os.path.join(ROOT, "build"))
     spawn = multiprocessing.get_context("spawn")
-    procs = [spawn.Process(target=target, args=(r, MESH_RANKS, directory))
-             for r in range(MESH_RANKS)]
+    procs = [spawn.Process(target=target, args=(r, world, directory)) for r in range(world)]
     t0 = time.perf_counter()
     for p in procs:
         p.start()
@@ -1803,25 +1895,26 @@ def _spawn_ranks(target, timeout: float) -> tuple:
         if p.is_alive():
             p.kill()
         p.join()
-    if codes != [0] * MESH_RANKS:
+    if codes != [0] * world:
         _fail(f"mesh ranks exited {codes} (None: still running after {timeout} s)")
     ranks = []
-    for i in range(MESH_RANKS):
+    for i in range(world):
         with open(os.path.join(directory, f"rank{i}.json")) as f:
             ranks.append(json.load(f))
     return ranks, time.perf_counter() - t0
 
 
 def _rank_mesh(rank: int, world: int, directory: str):
-    """This rank's (2, 2) gloo mesh on the card, after checking that the
-    parent built every kernel (a rank never builds one)."""
+    """This rank's gloo mesh on the card (MESH_SHAPES' of the world: (2,
+    2), or (1, 3) on 3 ranks), after checking that the parent built every
+    kernel (a rank never builds one)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     missing = [n for n in build.SOURCES if not build._target(n).exists()]
     if missing:
         _fail(f"rank {rank}: kernels {missing} not built by the parent")
     launch_mesh.init_ranks(rank, world, f"file://{directory}/rendezvous")
-    mesh = launch_mesh.make_mesh(MESH_SHAPE, MESH_AXES)
+    mesh = launch_mesh.make_mesh(MESH_SHAPES[world], MESH_AXES)
     r = {"rank": rank, "coord": {a: mesh.get_local_rank(a) for a in MESH_AXES},
          "backend": {a: dist.get_backend(mesh.get_group(a)) for a in MESH_AXES},
          "device": str(torch.device("cuda", torch.cuda.current_device()))}
@@ -1891,11 +1984,12 @@ def phase_mesh() -> tuple:
 
 
 def mesh_dryrun_cells(which: str, out: str) -> None:
-    """Dry-run the cells of ``MESH_DRYRUN[which]`` on one traced rank of the
-    (2, 2) mesh and write their records to ``out`` (JSON).  Runs in a
-    process of its own (:func:`_start_mesh_dryrun`): the traced mesh owns
-    that process's default process group while it traces."""
-    mesh = "x".join(map(str, MESH_SHAPE))
+    """Dry-run the cells of ``MESH_DRYRUN[which]`` on one traced rank of
+    their mesh (``MESH_DRYRUN_MESH``: (2, 2) or (1, 3)) and write their
+    records to ``out`` (JSON).  Runs in a process of its own
+    (:func:`_start_mesh_dryrun`): the traced mesh owns that process's
+    default process group while it traces."""
+    mesh = MESH_DRYRUN_MESH[which]
     recs = {name: dryrun.run_cell(cfg, spec, mesh=mesh, verbose=False)
             for name, (cfg, spec) in MESH_DRYRUN[which].items()}
     if dist.is_initialized():
@@ -1961,12 +2055,25 @@ def _step_memory_end(mem: dict) -> dict:
     return mem
 
 
+def _fp32_state_bytes(cache) -> int:
+    """The bytes of a decode cache's fp32 leaves on this rank (the recurrent
+    states ``h``, fp32 as the prefill computes them) beyond the 2 a value
+    that the dry run's bf16 serving template gives them (ROADMAP Queue 3
+    m): the difference between the rank's argument blocks of a decode step
+    and the traced rank's argument bytes."""
+    return sum(t.numel() * 2 for t in op_cost.tensors({k: v for k, v in cache.items()
+                                                      if k != "pos"})
+               if t.dtype == torch.float32)
+
+
 def _hold_against_dryrun(who: str, rec: dict, gloo: dict, launches: dict, mem: dict) -> dict:
     """A rank's held step against the traced rank's record ``rec``: gloo's
     all-reduce calls and bytes equal, each kernel's launches equal to its
     operator calls in the trace, the rank's argument blocks equal to the
-    predicted argument bytes, and its peak within DRYRUN_RTOL of the
-    predicted one.  Logs the predicted wire bytes beside gloo's bytes."""
+    predicted argument bytes (a decode step's fp32 recurrent states taken
+    off beyond the bf16 template's: ``fp32_states``), and its peak within
+    DRYRUN_RTOL of the predicted one.  Logs the predicted wire bytes beside
+    gloo's bytes."""
     c, m = rec["cost"], rec["memory"]
     calls = {k: rec["kernels"].get(op, {}).get("calls", 0) for k, op in DRYRUN_OPS.items()}
     launches = {k: launches.get(k, 0) for k in DRYRUN_OPS}
@@ -1982,7 +2089,8 @@ def _hold_against_dryrun(who: str, rec: dict, gloo: dict, launches: dict, mem: d
          f"(traced rank: {c['gloo_calls']}, {c['gloo_bytes']} B; as collectives "
          f"{c['collective_ops']}, {c['wire_bytes']:.0f} wire bytes by the ring model); "
          f"launches {launches} (operator calls {calls}); argument blocks {mem['blocks']} B "
-         f"(predicted {m['argument_bytes']} B); peak {mem['peak']} B measured, "
+         f"(predicted {m['argument_bytes']} B; {mem.get('fp32_states', 0)} B of fp32 recurrent "
+         f"states beyond the template's bf16); peak {mem['peak']} B measured, "
          f"{m['peak_bytes']} B predicted (rel {rel:+.5f}, limit {DRYRUN_RTOL}; {mem['other']} B "
          f"resident beside the arguments taken off); trace {rec['trace_s']:.2f}s")
     if (gloo["calls"], gloo["bytes"]) != (c["gloo_calls"], c["gloo_bytes"]):
@@ -1990,8 +2098,9 @@ def _hold_against_dryrun(who: str, rec: dict, gloo: dict, launches: dict, mem: d
               f"{c['gloo_bytes']} B")
     if launches != calls:
         _fail(f"{who}: launches {launches}, the traced rank's operator calls {calls}")
-    if mem["blocks"] != m["argument_bytes"]:
-        _fail(f"{who}: argument blocks {mem['blocks']} B, predicted {m['argument_bytes']} B")
+    if mem["blocks"] - mem.get("fp32_states", 0) != m["argument_bytes"]:
+        _fail(f"{who}: argument blocks {mem['blocks']} B ({mem.get('fp32_states', 0)} B of "
+              f"fp32 recurrent states beyond bf16), predicted {m['argument_bytes']} B")
     if not abs(rel) <= DRYRUN_RTOL:
         _fail(f"{who}: peak {mem['peak']} B, predicted {m['peak_bytes']} B")
     return out
@@ -2067,10 +2176,12 @@ def _serve_run(params, cfg, inputs: dict, feed=None) -> dict:
     steps = MESH_SERVE_DECODE if cfg.cdtype == torch.bfloat16 else MESH_SERVE_FP32_DECODE
     logits, toks, ms, coll, mem, launched = [], [], [], [], [], []
 
-    def step(fn, args, tree, step_inputs):
+    def step(fn, args, tree, step_inputs, cache=None):
         mesh_ctx.reset_collective_stats(timed=True)
         on_rank = mesh_ctx.current_ctx() is not None
         m = _step_memory_start(args, _rank_blocks(tree, step_inputs) if on_rank else None)
+        if on_rank and cache is not None:
+            m["fp32_states"] = _fp32_state_bytes(cache)
         n0 = dict(ops.launches)
         t0 = time.perf_counter()
         out = fn(*args)
@@ -2096,7 +2207,8 @@ def _serve_run(params, cfg, inputs: dict, feed=None) -> dict:
             if i == steps:
                 break
             nxt = (tok if feed is None else feed[:, i:i + 1].to(tok.device)).to(torch.int32)
-            lg, cache = step(decode, (params, nxt, cache), (params, cache), {"token": nxt})
+            lg, cache = step(decode, (params, nxt, cache), (params, cache), {"token": nxt},
+                             cache)
     mesh_ctx.reset_collective_stats()
     return {"logits": torch.stack(logits), "tokens": torch.cat(toks, dim=1),
             "prefill_ms": ms[0], "decode_ms": ms[1:], "kernel_calls": calls,
@@ -2133,28 +2245,37 @@ def _mesh_serve_refs() -> None:
     torch.save(refs, MESH_SERVE_REFS)
 
 
-def _rank_kernel_calls(cfg) -> dict:
-    """Each kernel's calls in a sharded prefill of phase 3c on a rank, as
-    :func:`_serve_run` records them: flash [q shape, k shape] a causal
-    self-attention layer (its batch block, the prompt (a VLM's patches
-    first) padded to a multiple of attention.FLASH_BLOCK, its q heads and
-    the kv heads they read: its block of them where the model axis divides
-    them, else the one a GQA group of its q heads reads), the SSD scan's x
-    [B_loc, L, H/model, P] an SSM layer, the RG-LRU scan's log_a [B_loc, L,
-    W/model] an RG-LRU layer."""
-    b, m = SERVE_BATCH // MESH_SHAPE[0], MESH_SHAPE[1]
+def _rank_block(n: int, m: int) -> int:
+    """A rank's share of a dim the rule table splits over a model axis of
+    ``m``: its block where ``m`` divides the dim, else the whole dim (the
+    table's guard leaves it whole)."""
+    return n // m if n % m == 0 else n
+
+
+def _rank_kernel_calls(cfg, shape=MESH_SHAPE) -> dict:
+    """Each kernel's calls in a sharded prefill of phase 3c or 3d on a rank
+    of a (data, model) mesh of ``shape``, as :func:`_serve_run` records
+    them: flash [q shape, k shape] a causal self-attention layer (its batch
+    block, the prompt (a VLM's patches first) padded to a multiple of
+    attention.FLASH_BLOCK, its q heads (:func:`_rank_block`) and the kv
+    heads they read: its block of them where the model axis divides them,
+    else the one a GQA group of its q heads reads, or all of them), the SSD
+    scan's x [B_loc, L, H/model or H, P] an SSM layer, the RG-LRU scan's
+    log_a [B_loc, L, W/model or W] an RG-LRU layer."""
+    b, m = SERVE_BATCH // shape[0], shape[1]
     lp = -(-(SERVE_PROMPT + cfg.n_patches) // attention.FLASH_BLOCK) * attention.FLASH_BLOCK
     kinds = [cfg.pattern_of(i) for i in range(cfg.n_layers)]
-    hl = cfg.n_heads // m
+    hl = _rank_block(cfg.n_heads, m)
     kv = (cfg.n_kv_heads // m if cfg.n_kv_heads % m == 0
           else max(1, hl // (cfg.n_heads // cfg.n_kv_heads)))
     out = {"flash_attention": [[[b, lp, hl, cfg.hd], [b, lp, kv, cfg.hd]]] * sum(
         k in ("attn", "local") for k in kinds), "ssd_scan": [], "rglru_scan": []}
     if cfg.ssm is not None:
         _, nh, p, _ = ssm.dims(cfg)
-        out["ssd_scan"] = [[b, SERVE_PROMPT, nh // m, p]] * kinds.count("ssm")
+        out["ssd_scan"] = [[b, SERVE_PROMPT, _rank_block(nh, m), p]] * kinds.count("ssm")
     if cfg.rglru is not None:
-        out["rglru_scan"] = [[b, SERVE_PROMPT, rglru.width(cfg) // m]] * kinds.count("rglru")
+        out["rglru_scan"] = [[b, SERVE_PROMPT, _rank_block(rglru.width(cfg), m)]] * \
+            kinds.count("rglru")
     return out
 
 
@@ -2171,6 +2292,17 @@ def _cache_share(cache, ctx) -> tuple:
             n *= mesh_ctx.axes_size(ctx, e)
         share += t.numel() * t.element_size() // n
     return local, share
+
+
+def _rule_share(state, ctx) -> int:
+    """The rule table's share of a sharded state's DTensors on a rank: each
+    leaf's global bytes over the sizes of the axes ``param_shardings``
+    shards it on, a leaf its guard leaves whole over the model axis
+    counted whole."""
+    return sum(t.numel() * t.element_size() // math.prod(mesh_ctx.axes_size(ctx, e)
+                                                         for e in spec)
+               for t, spec in zip(tree_leaves(state), tree_leaves(param_shardings(state, ctx)))
+               if mesh_ctx.is_distributed(t))
 
 
 def _route_agreement(mine: list, plain: list, n_layers: int, rows: slice) -> tuple:
@@ -2265,47 +2397,31 @@ def _mesh_serve_case(mesh, arch: str, knobs: dict, refs: dict) -> dict:
 
 
 def _mesh_serve_rank(rank: int, world: int, directory: str) -> None:
-    """One rank of phase 3c: every case of MESH_SERVE_CASES.  Writes
+    """One rank of phase 3c (every case of MESH_SERVE_CASES) or, on
+    MESH3_RANKS ranks, of phase 3d (MESH3_SERVE_CASES).  Writes
     ``<directory>/rank<r>.json``."""
     mesh, r = _rank_mesh(rank, world, directory)
     refs = torch.load(MESH_SERVE_REFS)
-    r["cases"] = [_mesh_serve_case(mesh, arch, knobs, refs) for arch, knobs in MESH_SERVE_CASES]
+    cases = MESH_SERVE_CASES if world == MESH_RANKS else MESH3_SERVE_CASES
+    r["cases"] = [_mesh_serve_case(mesh, arch, knobs, refs) for arch, knobs in cases]
     with open(os.path.join(directory, f"rank{rank}.json"), "w") as f:
         json.dump(r, f)
     dist.destroy_process_group()
 
 
-def phase_mesh_serve() -> tuple:
-    """Phase 3c: the parent's plain references (:func:`_mesh_serve_refs`),
-    then the MESH_RANKS ranks; fails unless every case's bf16 logits are
-    within MESH_SERVE_BF16_TOL and its fp32 logits within MESH_SERVE_FP32_TOL
-    of the plain run's with equal greedy tokens, every rank's cache bytes
-    are the rule table's share, and every prefill launched each kernel once
-    a layer of its kind (flash a causal self-attention layer, the SSD scan
-    an SSM layer, the RG-LRU scan an RG-LRU layer) on the variant of its
-    dtype at the rank's shape (:func:`_rank_kernel_calls`), and yi-9b's
-    bf16 prefill and first decode step on every rank match the dry run of
-    one traced rank of the mesh (:func:`_hold_against_dryrun`).  Returns
-    (the ranks' launches as a path's, by variant, the launches of each bf16
-    arch at its rank shapes, keyed as phase_rank_shapes keys them, the
-    ranks' records, each held step against the dry run)."""
-    t0 = time.perf_counter()
-    dry = _start_mesh_dryrun("serve")
-    _mesh_serve_refs()
-    ranks, seconds = _spawn_ranks(_mesh_serve_rank, MESH_TIMEOUT)
-    os.remove(MESH_SERVE_REFS)
-    traced = _mesh_dryrun_records(*dry)
-    held = {}
-    _log(f"[mesh-serve] {MESH_RANKS} ranks in {seconds:.1f}s: mesh "
-         f"{dict(zip(MESH_AXES, MESH_SHAPE))}, batch {SERVE_BATCH} x {SERVE_PROMPT}, "
-         f"{MESH_SERVE_DECODE} decode steps ({MESH_SERVE_FP32_DECODE} in fp32); gloo moves "
-         f"every gather and sum through host memory, so these times describe this harness, "
-         f"not a cluster")
+def _check_serve_ranks(phase: str, ranks: list, cases: tuple, shape: tuple, traced: dict,
+                       dry_arch: str) -> tuple:
+    """The ranks' records of phase 3c or 3d (``cases`` on a mesh of
+    ``shape``), each case printed and checked as :func:`phase_mesh_serve`
+    says, ``dry_arch``'s bf16 prefill and first decode step on every rank
+    held against the traced rank's records ``traced``.  Returns (the
+    launches by variant, each bf16 arch's launches at its rank shapes keyed
+    as phase_rank_shapes keys them, each held step)."""
     kernels = ("flash_attention", "ssd_scan", "rglru_scan")
     by_variant = {k: dict.fromkeys(v, 0) for k, v in _variant_launches().items()}
-    at_rank = {}
+    at_rank, held = {}, {}
     for r in ranks:
-        for (arch, knobs), case in zip(MESH_SERVE_CASES, r["cases"], strict=True):
+        for (arch, knobs), case in zip(cases, r["cases"], strict=True):
             cfg = MESH_SERVE[arch][0]
             who = f"rank {r['rank']} {r['coord']} {arch}" + (f" {knobs}" if knobs else "")
             for dtype, a in case.items():
@@ -2322,7 +2438,7 @@ def phase_mesh_serve() -> tuple:
                      f"{_ms_list([d['seconds'] * 1e3 for d in dec])} ms in them); cache "
                      f"{a['cache_bytes']} B (the rule table's share {a['cache_share']} B); "
                      f"peak {a['peak_mem_gb']:.2f} GB; kernels {a['by_variant']} at {calls}")
-                if (arch, knobs, dtype) == ("yi-9b", {}, "bfloat16"):
+                if (arch, knobs, dtype) == (dry_arch, {}, "bfloat16"):
                     for i, (name, gloo) in enumerate((("prefill", a["prefill_collectives"]),
                                                       ("decode", a["decode_collectives"][0]))):
                         held[f"rank {r['rank']} {name}"] = _hold_against_dryrun(
@@ -2352,20 +2468,75 @@ def phase_mesh_serve() -> tuple:
                 launches = _expected_launches(c)
                 want = {k: {**dict.fromkeys(by_variant[k], 0), named[k]: launches[k]}
                         for k in kernels}
-                if a["by_variant"] != want or a["kernel_calls"] != _rank_kernel_calls(c):
+                want_calls = _rank_kernel_calls(c, shape)
+                if a["by_variant"] != want or a["kernel_calls"] != want_calls:
                     _fail(f"{who} {dtype}: the prefill launched {a['by_variant']} at "
-                          f"{a['kernel_calls']}, not {want} at {_rank_kernel_calls(c)}")
+                          f"{a['kernel_calls']}, not {want} at {want_calls}")
                 for k, counts in a["by_variant"].items():
                     for v, n in counts.items():
                         by_variant[k][v] += n
                 if dtype == "bfloat16":
-                    key = "3c" if arch == "yi-9b" else f"3c {arch}"
+                    key = phase if arch == dry_arch else f"{phase} {arch}"
                     for k in kernels:
                         at_rank.setdefault(key, dict.fromkeys(ops.launches, 0))[k] += \
                             launches[k]
-    if len(held) != 2 * MESH_RANKS:
+    if len(held) != 2 * len(ranks):
         _fail(f"held {sorted(held)} against the dry run, not every rank's prefill and decode")
+    return by_variant, at_rank, held
+
+
+def phase_mesh_serve() -> tuple:
+    """Phase 3c: the parent's plain references (:func:`_mesh_serve_refs`,
+    left on disk for phase 3d), then the MESH_RANKS ranks; fails unless
+    every case's bf16 logits are within MESH_SERVE_BF16_TOL and its fp32
+    logits within MESH_SERVE_FP32_TOL of the plain run's with equal greedy
+    tokens, every rank's cache bytes are the rule table's share, and every
+    prefill launched each kernel once a layer of its kind (flash a causal
+    self-attention layer, the SSD scan an SSM layer, the RG-LRU scan an
+    RG-LRU layer) on the variant of its dtype at the rank's shape
+    (:func:`_rank_kernel_calls`), and yi-9b's bf16 prefill and first decode
+    step on every rank match the dry run of one traced rank of the mesh
+    (:func:`_hold_against_dryrun`).  Returns (the ranks' launches as a
+    path's, by variant, the launches of each bf16 arch at its rank shapes,
+    keyed as phase_rank_shapes keys them, the ranks' records, each held
+    step against the dry run)."""
+    t0 = time.perf_counter()
+    dry = _start_mesh_dryrun("serve")
+    _mesh_serve_refs()
+    ranks, seconds = _spawn_ranks(_mesh_serve_rank, MESH_TIMEOUT)
+    traced = _mesh_dryrun_records(*dry)
+    _log(f"[mesh-serve] {MESH_RANKS} ranks in {seconds:.1f}s: mesh "
+         f"{dict(zip(MESH_AXES, MESH_SHAPE))}, batch {SERVE_BATCH} x {SERVE_PROMPT}, "
+         f"{MESH_SERVE_DECODE} decode steps ({MESH_SERVE_FP32_DECODE} in fp32); gloo moves "
+         f"every gather and sum through host memory, so these times describe this harness, "
+         f"not a cluster")
+    by_variant, at_rank, held = _check_serve_ranks("3c", ranks, MESH_SERVE_CASES, MESH_SHAPE,
+                                                   traced, "yi-9b")
     _log(f"[mesh-serve] phase took {time.perf_counter() - t0:.1f}s")
+    launches = {k: sum(v.values()) for k, v in by_variant.items()}
+    return launches, by_variant, at_rank, ranks, held
+
+
+def phase_mesh_serve_undivided() -> tuple:
+    """Phase 3d: the MESH3_RANKS ranks as the (1, 3) mesh serve
+    MESH3_SERVE_CASES against phase 3c's plain references (which it then
+    removes), checked as phase 3c's (:func:`_check_serve_ranks`): the rank
+    shapes are the whole ones where the model axis does not divide the
+    dim, and recurrentgemma-9b's bf16 prefill and first decode step are
+    held against a traced rank of the (1, 3) mesh.  Returns as
+    :func:`phase_mesh_serve`."""
+    t0 = time.perf_counter()
+    dry = _start_mesh_dryrun("serve3")
+    ranks, seconds = _spawn_ranks(_mesh_serve_rank, MESH_TIMEOUT, MESH3_RANKS)
+    os.remove(MESH_SERVE_REFS)
+    traced = _mesh_dryrun_records(*dry)
+    _log(f"[mesh-serve3] {MESH3_RANKS} ranks in {seconds:.1f}s: mesh "
+         f"{dict(zip(MESH_AXES, MESH3_SHAPE))}, batch {SERVE_BATCH} x {SERVE_PROMPT}, "
+         f"{MESH_SERVE_DECODE} decode steps ({MESH_SERVE_FP32_DECODE} in fp32); the rule "
+         f"table's guard leaves whole what a model axis of 3 does not divide")
+    by_variant, at_rank, held = _check_serve_ranks(
+        "3d", ranks, MESH3_SERVE_CASES, MESH3_SHAPE, traced, MESH3_SERVE_CASES[0][0])
+    _log(f"[mesh-serve3] phase took {time.perf_counter() - t0:.1f}s")
     launches = {k: sum(v.values()) for k, v in by_variant.items()}
     return launches, by_variant, at_rank, ranks, held
 
@@ -3055,8 +3226,10 @@ def _multimodal_leaf(path: str) -> bool:
 #: the phases that train several archs on the ranks: the log's tag, the
 #: bf16 configs and the fp32 ones by arch, the file of the batches and the
 #: pattern of the fp32 leaves' files the parent writes for the ranks, whether
-#: the ranks also run a step with seq_shard_activations, and the leaves
-#: (a label, a predicate on their paths) whose fp32 errors are printed apart
+#: the ranks also run a step with seq_shard_activations, the leaves (a
+#: label, a predicate on their paths) whose fp32 errors are printed apart,
+#: and optionally the ranks (MESH_RANKS by default) and the MESH_DRYRUN
+#: cells their first step is held against
 MESH_ARCH_PHASES = {
     "6d": {"tag": "mesh-rec", "cfgs": MESH_REC, "fp32": MESH_REC_FP32,
            "inputs": MESH_REC_INPUTS, "ref": MESH_REC_FP32_REF, "seq_step": False,
@@ -3065,7 +3238,45 @@ MESH_ARCH_PHASES = {
     "6f": {"tag": "mesh-mm", "cfgs": MESH_MM, "fp32": MESH_MM_FP32,
            "inputs": MESH_MM_INPUTS, "ref": MESH_MM_FP32_REF, "seq_step": True,
            "focus": ("the multimodal leaves", _multimodal_leaf)},
+    "6g": {"tag": "mesh-undivided", "cfgs": {"mamba2-370m": MESH_REC["mamba2-370m"]},
+           "fp32": {"mamba2-370m": MESH_REC_FP32["mamba2-370m"]},
+           "inputs": MESH3_TRAIN_INPUTS, "ref": MESH3_TRAIN_FP32_REF, "seq_step": False,
+           "focus": ("the per-head vectors",
+                     lambda n: n.rsplit("/", 1)[-1] in ("A_log", "D", "dt_bias")),
+           "world": MESH3_RANKS, "dryrun": "train3"},
 }
+
+
+def _scan_calls_recorded(calls: dict):
+    """The scans' forward calls recorded into ``calls`` (the SSD scan's x
+    shape, the RG-LRU scan's log_a shape), each call passed on: context
+    managers patching ``ops``."""
+    def recorded(name, shape_of):
+        kernel = getattr(ops, name)
+
+        def call(*a, **kw):
+            calls.setdefault(name, []).append(shape_of(*a))
+            return kernel(*a, **kw)
+        return mock.patch.object(ops, name, call)
+
+    return (recorded("ssd_scan", lambda x, *_: list(x.shape)),
+            recorded("rglru_scan", lambda a, *_: list(a.shape)))
+
+
+def _rank_scan_calls(cfg, world: int) -> dict:
+    """The scans' forward calls of one sharded step of ``cfg`` on a rank of
+    the mesh of ``world`` ranks under remat "dots" (each scan layer's
+    forward twice): the SSD scan on [B_loc, L, its heads, P], the RG-LRU
+    scan on [B_loc, L, its width] (:func:`_rank_block`)."""
+    data, m = MESH_SHAPES[world]
+    b, kinds, out = TRAIN_BATCH // data, [cfg.pattern_of(i) for i in range(cfg.n_layers)], {}
+    if cfg.ssm is not None:
+        _, nh, p, _ = ssm.dims(cfg)
+        out["ssd_scan"] = [[b, TRAIN_SEQ, _rank_block(nh, m), p]] * 2 * kinds.count("ssm")
+    if cfg.rglru is not None:
+        out["rglru_scan"] = [[b, TRAIN_SEQ, _rank_block(rglru.width(cfg), m)]] * 2 * \
+            kinds.count("rglru")
+    return out
 
 
 def _plain_references(phase: str) -> dict:
@@ -3146,8 +3357,10 @@ def _mesh_arch(phase: str, arch: str, mesh, batches: list) -> dict:
     cfg, f32 = p["cfgs"][arch], p["fp32"][arch]
     ctx = launch_mesh.make_ctx(mesh)
     state = _sharded_state(cfg, _gen(0), ctx)
-    r = {"state_gb": sum(t.to_local().numel() * t.to_local().element_size()
-                         for t in tree_leaves(state) if mesh_ctx.is_distributed(t)) / 1e9}
+    local = sum(t.to_local().numel() * t.to_local().element_size()
+                for t in tree_leaves(state) if mesh_ctx.is_distributed(t))
+    r = {"state_gb": local / 1e9, "state_bytes": local,
+         "state_share": _rule_share(state, ctx)}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step_fn = make_train_step(cfg, lr=3e-4)
@@ -3156,7 +3369,16 @@ def _mesh_arch(phase: str, arch: str, mesh, batches: list) -> dict:
     with mesh_context(ctx):
         for i, b in enumerate(batches):
             mesh_ctx.reset_collective_stats(timed=i == len(batches) - 1)
-            state, rec = _sharded_step(step_fn, state, b)
+            mem = _step_memory_start((state, b), _rank_blocks(state, b)) \
+                if i == 0 and p.get("dryrun") else None   # held against the dry run
+            calls = {}
+            with contextlib.ExitStack() as stack:
+                for patch in _scan_calls_recorded(calls):
+                    stack.enter_context(patch)
+                state, rec = _sharded_step(step_fn, state, b)
+            rec["scan_calls"] = calls
+            if mem is not None:
+                rec["memory"] = _step_memory_end(mem)
             r["steps"].append(rec)
         r["timed"] = _timing(r["steps"])
     del state
@@ -3287,16 +3509,27 @@ def phase_mesh_train_archs(phase: str) -> tuple:
     per arch the launches at a rank's shape of the bf16 steps and the
     seq_shard_activations steps on all ranks; the ranks' records)."""
     p = MESH_ARCH_PHASES[phase]
-    tag, cfgs = p["tag"], p["cfgs"]
+    tag, cfgs, world = p["tag"], p["cfgs"], p.get("world", MESH_RANKS)
     t0 = time.perf_counter()
+    dry = _start_mesh_dryrun(p["dryrun"]) if p.get("dryrun") else None
     plain = _plain_references(phase)
     ranks, seconds = _spawn_ranks(functools.partial(_mesh_archs_rank, phase),
-                                  MESH_TRAIN_TIMEOUT)
+                                  MESH_TRAIN_TIMEOUT, world)
     os.remove(p["inputs"])
     for arch in cfgs:
         os.remove(p["ref"].format(arch))
-    _log(f"[{tag}] {MESH_RANKS} ranks in {seconds:.1f}s: mesh "
-         f"{dict(zip(MESH_AXES, MESH_SHAPE))}, batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+    held = {}
+    if dry is not None:
+        (arch,) = cfgs
+        traced = _mesh_dryrun_records(*dry)["train"]
+        for r in ranks:
+            step = r[arch]["steps"][0]
+            held[f"rank {r['rank']} train"] = _hold_against_dryrun(
+                f"rank {r['rank']} {r['coord']} {arch} train step 1", traced,
+                {"calls": step["collectives"], "bytes": step["collective_bytes"]},
+                step["launches"], step["memory"])
+    _log(f"[{tag}] {world} ranks in {seconds:.1f}s: mesh "
+         f"{dict(zip(MESH_AXES, MESH_SHAPES[world]))}, batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
          + ", ".join(f"{arch} {cfg.n_layers}" + (f" + {cfg.n_enc_layers}" if cfg.enc_dec else "")
                      + f" layers (a rank's state {ranks[0][arch]['state_gb']:.3f} GB)"
                      for arch, cfg in cfgs.items()))
@@ -3314,6 +3547,11 @@ def phase_mesh_train_archs(phase: str) -> tuple:
             a = r[arch]
             _check_sharded(tag, f"rank {r['rank']} {r['coord']} {arch}", a, cfgs[arch],
                            p["fp32"][arch], plain[arch], p["focus"])
+            want_calls = _rank_scan_calls(cfgs[arch], world)
+            for i, s_ in enumerate(a["steps"]):
+                if s_["scan_calls"] != want_calls:
+                    _fail(f"rank {r['rank']} {arch} step {i + 1}: the scans ran at "
+                          f"{s_['scan_calls']}, not the rank's shapes {want_calls}")
             bf16 = a["steps"] + [a[k] for k in ("seq_step",) if k in a]
             _add_launches(launches, variants, bf16 + [a["fp32_step"]])
             _add_launches(at_rank_shape[arch], zeros()[1], bf16)
@@ -3327,14 +3565,22 @@ def phase_mesh_train_archs(phase: str) -> tuple:
                  f"{a['timed']['step_ms']:.1f} ms (timed); peak memory "
                  f"{a['peak_mem_gb']:.2f} GB (the "
                  f"plain single process: {plain[arch]['peak_mem_gb']:.2f} GB), state "
-                 f"{a['state_gb']:.3f} GB")
+                 f"{a['state_gb']:.3f} GB ({a['state_bytes']} B; the rule table's share "
+                 f"{a['state_share']} B)")
+            if a["state_bytes"] != a["state_share"]:
+                _fail(f"rank {r['rank']} {arch}: state {a['state_bytes']} B, not the rule "
+                      f"table's share {a['state_share']} B")
     for arch, cfg in cfgs.items():
         missing = [k for k, n in _train_launches(cfg).items() if n and not at_rank_shape[arch][k]]
         if missing:
             _fail(f"phase {phase} launched no {missing} in {arch}'s sharded steps")
     _log(f"[{tag}] phase took {time.perf_counter() - t0:.1f}s; launches on all ranks "
-         f"{launches}")
-    return plain, plain_launches, plain_variants, launches, variants, at_rank_shape, ranks
+         f"{launches}; the scans' forward calls a step at the rank's shapes "
+         + "; ".join(f"{arch} " + ", ".join(f"{k} {len(v)} x {v[0]}" for k, v in
+                                            _rank_scan_calls(cfg, world).items())
+                     for arch, cfg in cfgs.items()))
+    return plain, plain_launches, plain_variants, launches, variants, at_rank_shape, \
+        {"ranks": ranks, "held": held}
 
 
 # ==========================================================================
@@ -3770,7 +4016,7 @@ def main(argv=None) -> int:
     by_path, by_variant = {}, {}
     mesh_path = (f"mesh: {MESH_RANKS} ranks, yi-9b {MESH_YI.n_layers}L and deepseek-moe-16b "
                  f"{MESH_DS.n_layers}L prefills")
-    mesh, mesh_serve, serve_at_rank, mesh_dry = None, None, {}, {}
+    mesh, mesh_serve, mesh_serve3, serve_at_rank, mesh_dry = None, None, None, {}, {}
     if argv != ["--skip-mesh"]:
         by_path[mesh_path], by_variant[mesh_path], mesh = phase_mesh()
         _lap("3b mesh")
@@ -3779,6 +4025,12 @@ def main(argv=None) -> int:
         by_path[serve_path], by_variant[serve_path], serve_at_rank, mesh_serve, \
             mesh_dry["serve"] = phase_mesh_serve()
         _lap("3c mesh serve")
+        serve3_path = f"mesh serve: {MESH3_RANKS} ranks {MESH3_SHAPE}, " + ", ".join(
+            f"{arch} {MESH_SERVE[arch][0].n_layers}L" for arch, _ in MESH3_SERVE_CASES)
+        by_path[serve3_path], by_variant[serve3_path], serve3_at_rank, mesh_serve3, \
+            mesh_dry["serve3"] = phase_mesh_serve_undivided()
+        serve_at_rank.update(serve3_at_rank)
+        _lap("3d mesh serve undivided")
     by_path["yi-9b"], by_variant["yi-9b"] = phase_serve("yi-9b")
     phase_workflow("yi-9b")
     by_path["mamba2-370m"], by_variant["mamba2-370m"] = phase_serve("mamba2-370m")
@@ -3822,23 +4074,25 @@ def main(argv=None) -> int:
         for k, row in rows.items():
             for v, n in r["variants"][k].items():
                 row["launches_by_variant"][v] += n
-    mesh_rec, mesh_moe, mesh_mm, extra_variants = None, None, None, []
+    mesh_rec, mesh_moe, mesh_mm, mesh_undiv, extra_variants = None, None, None, None, []
     at_rank_shape = {p: dict.fromkeys(ops.launches, 0) for p in rank_rows}
     at_rank_shape.update(serve_at_rank)
     if argv != ["--skip-mesh"]:
         def train_paths(phase: str, what: str) -> tuple:
             """A phase of MESH_ARCH_PHASES: its plain and sharded steps as
             two paths, and their launches by variant."""
-            plain, plain_path, plain_variants, path, variants, at_rank, ranks = \
+            plain, plain_path, plain_variants, path, variants, at_rank, out = \
                 phase_mesh_train_archs(phase)
-            cfgs = MESH_ARCH_PHASES[phase]["cfgs"]
+            p = MESH_ARCH_PHASES[phase]
+            cfgs, world = p["cfgs"], p.get("world", MESH_RANKS)
             by_path[", ".join(f"{arch} train ({cfg.n_layers}"
                               + (f" + {cfg.n_enc_layers}" if cfg.enc_dec else "")
                               + f" layers, {TRAIN_STEPS} steps)"
-                              for arch, cfg in cfgs.items())] = plain_path
-            by_path[f"mesh train {what}: {MESH_RANKS} ranks, " + ", ".join(
+                              for arch, cfg in cfgs.items())
+                    + (f" before phase {phase}" if world != MESH_RANKS else "")] = plain_path
+            by_path[f"mesh train {what}: {world} ranks {MESH_SHAPES[world]}, " + ", ".join(
                 f"{arch} {cfg.n_layers}L" for arch, cfg in cfgs.items())] = path
-            return at_rank, {"plain": plain, "ranks": ranks}, [plain_variants, variants]
+            return at_rank, {"plain": plain, **out}, [plain_variants, variants]
 
         rec_at_rank, mesh_rec, rec_variants = train_paths("6d", "recurrent")
         _lap("6d mesh train recurrent")
@@ -3855,7 +4109,12 @@ def main(argv=None) -> int:
         _lap("6f mesh train multimodal")
         for arch, n in mm_at_rank.items():
             at_rank_shape[f"6f {arch}"] = n
-        extra_variants = rec_variants + [plain_variants, moe_variants] + mm_variants
+        undiv_at_rank, mesh_undiv, undiv_variants = train_paths("6g", "undivided")
+        _lap("6g mesh train undivided")
+        at_rank_shape["6g"] = undiv_at_rank["mamba2-370m"]
+        mesh_dry["train3"] = mesh_undiv["held"]
+        extra_variants = rec_variants + [plain_variants, moe_variants] + mm_variants + \
+            undiv_variants
     rows.update(bwd_rows)
     for name, row in rows.items():      # the dry run's count beside the row's own
         row["dryrun"] = dry_kernels[name]
@@ -3899,9 +4158,10 @@ def main(argv=None) -> int:
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_kernels.json"), "w") as f:
         json.dump({"card": smi, **kernels, "train": train, "train_recurrent": recurrent,
                    "train_grads_max_err": grads, "commit": commit, "vlm_prefix": prefix,
-                   "mesh": mesh, "mesh_serve": mesh_serve, "mesh_train": mesh_train,
+                   "mesh": mesh, "mesh_serve": mesh_serve, "mesh_serve_undivided": mesh_serve3,
+                   "mesh_train": mesh_train,
                    "mesh_train_recurrent": mesh_rec, "mesh_train_moe": mesh_moe,
-                   "mesh_train_multimodal": mesh_mm,
+                   "mesh_train_multimodal": mesh_mm, "mesh_train_undivided": mesh_undiv,
                    "dryrun": dry_cells, "mesh_dryrun": mesh_dry},
                   f, indent=1)
     print(json.dumps(kernels))

@@ -40,8 +40,10 @@ model, the ``collective`` roofline term at ``NVLINK_BW``, the gloo
 all-reduces that emulate the collectives on the port's ranks, and
 ``model_flops / devices``.  ``--fsdp-over-pod``, ``--seq-shard`` and
 ``--shard-kv-seq`` set the mesh context's knobs, as the reference's do.
-A cell that :func:`repro_torch.models.lm.check_sharded` refuses is a record
-with ``ok`` False and the ``error``.
+A cell that :func:`repro_torch.models.lm.check_sharded` refuses (under
+``--seq-shard``, a sequence the model axis does not cut) is a record with
+``ok`` False and the ``error``; a model axis that does not divide a split
+dim traces, its leaves whole as the rule table's guard leaves them.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch yi-9b --shape prefill_32k --mesh 1
@@ -268,7 +270,7 @@ def run_cell(arch_or_cfg: Union[str, ModelConfig], shape_or_spec: Union[str, Sha
                            shard_kv_seq=bool(overrides.get("shard_kv_seq")))
             try:
                 _check_sharded(cfg, shape, ctx)
-            except (NotImplementedError, ValueError) as e:
+            except ValueError as e:
                 rec.update(devices=dmesh.size(), ok=False, error=f"{type(e).__name__}: {e}")
                 return rec
             rec.update(trace(cfg, shape, overrides=overrides, ctx=ctx))

@@ -147,6 +147,7 @@ class OpCounter(TorchDispatchMode):
         self.calls: Counter = Counter()
         self.op_bytes: Counter = Counter()
         self._live: Dict[int, int] = {}
+        self._zeros = None          # the storage of the last ``new_zeros``
 
     def track(self, ts: Iterable[torch.Tensor], known: Iterable[int] = ()) -> None:
         """Count each storage of ``ts`` that is new (not an argument, not in
@@ -168,6 +169,15 @@ class OpCounter(TorchDispatchMode):
     def _free(self, key: int) -> None:
         self.live -= self._live.pop(key, 0)
 
+    def _in_place(self, src: torch.Tensor, out: torch.Tensor) -> None:
+        """Count ``out`` as the storage of ``src`` (which dies with the op
+        that wrote it): an in-place write where eager code makes one."""
+        n = self._live.pop(storage_key(src), 0)
+        if n:
+            key = storage_key(out)
+            self._live[key] = n
+            weakref.finalize(out.untyped_storage(), self._free, key)
+
     def __enter__(self):
         library.allocation_hooks.append(self.track)
         return super().__enter__()
@@ -179,6 +189,12 @@ class OpCounter(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
         ins, outs = tensors((args, kwargs)), tensors(out)
+        if func is _aten.scatter_add.default and storage_key(args[0]) == self._zeros:
+            # gather's backward: eager runs new_zeros(...).scatter_add_(...) in
+            # place; on a tensor subclass (a fake tensor) it takes the
+            # out-of-place scatter_add, whose input dies at once
+            self._in_place(args[0], out)
+        self._zeros = storage_key(out) if func is _aten.new_zeros.default else None
         self.track(outs, known={storage_key(t) for t in ins})
         if func.is_view or func in _NO_LAUNCH or not outs:    # no tensor out: a query
             return out

@@ -26,7 +26,10 @@ The port of :mod:`repro.models.attention`:
     decode step attends the rank's block of the KV ring in whichever
     layout ``cache_shardings`` gave it (:func:`_decode_ring_blocks`), and
     the rank's block of the projected memory likewise
-    (:func:`decode_cross`).  Off local blocks the parameter reads and the
+    (:func:`decode_cross`).  Where the model axis does not divide
+    ``n_heads·head_dim``, the rule table's guard leaves q, k, v and ``wo``
+    whole over it and every model rank computes the whole attention
+    (:func:`_split`).  Off local blocks the parameter reads and the
     tensor-parallel entry and exit are identities.
 """
 
@@ -46,7 +49,7 @@ from repro_torch.models.common import (ModelConfig, apply_rope, dense_init,
 from repro_torch.parallel.mesh_ctx import (all_reduce, blocks_ctx, constrain,
                                            current_ctx, gather_block, gather_dim0,
                                            is_distributed, spec_axes, tp_input, tp_output)
-from repro_torch.parallel.sharding import local_slices, param_spec, spec_of, use_param
+from repro_torch.parallel.sharding import local_slices, model_split, spec_of, use_param
 
 NEG_INF = -2.3819763e38   # keep finite (matches the flash kernel's masking)
 FLASH_BLOCK = 64          # prefill pads L up to a multiple of this
@@ -150,18 +153,31 @@ def _flash_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out[:, :l] if pad else out
 
 
+def _split(cfg: ModelConfig) -> bool:
+    """Whether the attention is a tensor-parallel region split over the
+    model axis on local blocks: the rule table splits ``wq`` and ``wo`` on
+    ``n_heads·head_dim`` (:func:`~repro_torch.parallel.sharding.model_split`).
+    Whole, every model rank computes every head, and ``wk``/``wv`` are whole
+    too (``n_kv_heads·head_dim`` divides ``n_heads·head_dim``)."""
+    return model_split("wq", (cfg.d_model, cfg.n_heads * cfg.hd))
+
+
 def _project(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor, name: str,
              heads: int, *, bias: bool = True) -> torch.Tensor:
     """x @ w{name} (+ b{name} when ``bias``) → [B, L, heads, hd].  On local
     blocks the product is column-parallel (``w{name}`` and ``b{name}`` are
     (fsdp, model) and (model,) by the rule table) and the heads hint
-    follows: the heads returned are this rank's (:func:`_heads_constraint`)."""
+    follows: the heads returned are this rank's (:func:`_heads_constraint`).
+    A leaf the guard leaves whole is read whole; in a split attention its
+    gradient is the rank's partial all the same (it meets only the rank's q
+    heads: k and v where the model axis splits q heads and not kv heads)."""
     b, l, _ = x.shape
     ct, n = cfg.cdtype, heads * cfg.hd
+    split = _split(cfg)
     y = x @ use_param(params["w" + name], "w" + name, (cfg.d_model, n),
-                      model_partial=True).to(ct)
+                      model_partial=split).to(ct)
     if bias and "b" + name in params:
-        y = y + use_param(params["b" + name], "b" + name, (n,), model_partial=True).to(ct)
+        y = y + use_param(params["b" + name], "b" + name, (n,), model_partial=split).to(ct)
     if blocks_ctx() is not None:
         return _heads_constraint(y, name, heads, cfg)
     return y.reshape(b, l, heads, cfg.hd)
@@ -217,7 +233,8 @@ def _tp_attend(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
 
     On local blocks ``x`` is this rank's block at the block boundary and
     ``positions`` [B/batch, L] the whole sequence's: the input enters the
-    column-parallel projections through ``tp_input``, then the heads hint
+    column-parallel projections through ``tp_input`` (whole, where the
+    attention is not split: :func:`_split`), then the heads hint
     (:func:`_project`; :func:`project_kv` gives ``kv`` in the same layout).
     Where the hint leaves the kv heads unsharded (the model axis splits a
     kv head, or does not divide ``n_kv_heads·hd`` at all), k/v are whole on
@@ -228,7 +245,7 @@ def _tp_attend(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
     layout: this rank's kv heads where the hint splits them, else all of
     them (a prefill cuts its cache block from them)."""
     hd, ct = cfg.hd, cfg.cdtype
-    x = tp_input(x)
+    x = tp_input(x, _split(cfg))
     b, l, _ = x.shape
     if kv is None:
         q, k, v = _project_qkv(params, cfg, x)
@@ -251,13 +268,14 @@ def _out_proj(params: Dict[str, Any], cfg: ModelConfig, out: torch.Tensor) -> to
     local blocks ``wo`` is (model, fsdp), row-parallel: a rank that holds
     every head (its q heads were gathered) keeps its block of the columns,
     the rows of its ``wo`` block, and the partial sum leaves through
-    ``tp_output``."""
-    ctx, n = blocks_ctx(), cfg.n_heads * cfg.hd
-    if ctx is not None and out.shape[-1] == n and ctx.model_size > 1:    # every head
-        c = n // ctx.model_size
+    ``tp_output``.  Where the guard leaves ``wo`` whole, the product is
+    whole and nothing is summed."""
+    ctx, n, split = blocks_ctx(), cfg.n_heads * cfg.hd, _split(cfg)
+    if ctx is not None and split and out.shape[-1] == n and ctx.model_size > 1:
+        c = n // ctx.model_size                 # every head: the rank's columns
         out = out.narrow(-1, ctx.coord(ctx.model_axis) * c, c)
-    wo = use_param(params["wo"], "wo", (n, cfg.d_model), model_partial=True)
-    return tp_output(out @ wo.to(cfg.cdtype))
+    wo = use_param(params["wo"], "wo", (n, cfg.d_model), model_partial=split)
+    return tp_output(out @ wo.to(cfg.cdtype), split)
 
 
 def _heads_constraint(y: torch.Tensor, name: str, n: int, cfg: ModelConfig
@@ -272,7 +290,7 @@ def _heads_constraint(y: torch.Tensor, name: str, n: int, cfg: ModelConfig
     rank's heads."""
     ctx = blocks_ctx()
     m, bx = ctx.model_axis, tuple(ctx.batch_axes)
-    split = m in spec_axes(param_spec("w" + name, (cfg.d_model, n * cfg.hd), ctx)[-1])
+    split = model_split("w" + name, (cfg.d_model, n * cfg.hd))
     heads = n % ctx.model_size == 0
     y = constrain(y, bx, None, m if heads else None, src=(bx, None, m if split else None))
     return y.reshape(y.shape[0], y.shape[1], -1, cfg.hd)
@@ -301,7 +319,7 @@ def project_kv(params: Dict[str, Any], cfg: ModelConfig, mem: torch.Tensor
     gathered over the model axis under ``seq_shard_activations``): the
     products are column-parallel and the kv heads returned follow the heads
     hint, as :func:`_project`'s."""
-    mem = tp_input(mem)
+    mem = tp_input(mem, _split(cfg))
     return (_project(params, cfg, mem, "k", cfg.n_kv_heads, bias=False),
             _project(params, cfg, mem, "v", cfg.n_kv_heads, bias=False))
 
@@ -337,7 +355,7 @@ def decode_step(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
     """
     b, l, _ = x.shape
     hd, ct = cfg.hd, cfg.cdtype
-    q, k, v = _project_qkv(params, cfg, tp_input(x))
+    q, k, v = _project_qkv(params, cfg, tp_input(x, _split(cfg)))
     cos, sin = rope_angles(torch.full((1,), pos, device=x.device), hd, cfg.rope_theta)
     q = apply_rope(q, cos[None], sin[None])
     k = apply_rope(k, cos[None], sin[None])
@@ -555,7 +573,7 @@ def decode_cross(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
     if where not in (1, 3):
         return apply(params, cfg, x, None, kv_override=(mk, mv), causal=False)
     b, l, _ = x.shape
-    q = _project(params, cfg, tp_input(x), "q", cfg.n_heads)
+    q = _project(params, cfg, tp_input(x, _split(cfg)), "q", cfg.n_heads)
     if q.shape[2] != cfg.n_heads:
         q = gather_block(q, 2, ctx, ctx.model_axis)
     if where == 1:

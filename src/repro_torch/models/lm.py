@@ -55,7 +55,12 @@ split on the vocab over the model axis, and :func:`loss_fn` reduces the
 max, the sum of exps and the label's logit over it without gathering the
 logits.  In serving, every leaf of the decode cache is the rank's block as
 ``cache_shardings`` places it (:func:`cache_specs`), and each decode step
-reads and writes the blocks where they lie.
+reads and writes the blocks where they lie.  Where the model axis does not
+divide a dim that these paths split (the padded vocab, ``d_ff``, the
+heads, the SSM's heads or inner width, the RG-LRU width), the rule table's
+guard leaves its leaves whole, and every model rank computes that product
+whole: the lookup plain, the logits over the whole vocab, an MLP, an
+attention or a recurrent layer on every head or channel.
 """
 
 from __future__ import annotations
@@ -76,7 +81,7 @@ from repro_torch.models.common import (ModelConfig, dense_init, embed_init,
 from repro_torch.parallel.mesh_ctx import (all_reduce, blocks_ctx, constrain_batch,
                                            current_ctx, mesh_context, reduce, relayout,
                                            tp_input)
-from repro_torch.parallel.sharding import cache_shardings, spec_of, use_param
+from repro_torch.parallel.sharding import cache_shardings, model_split, spec_of, use_param
 
 
 # ==========================================================================
@@ -343,12 +348,21 @@ def _run_blocks(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
 # ==========================================================================
 
 
+def _vocab_split(cfg: ModelConfig) -> bool:
+    """Whether the rule table splits the padded vocab over the model axis on
+    local blocks (``embed`` (model, fsdp), ``lm_head`` (fsdp, model), both
+    by its guard)."""
+    return model_split("embed", (cfg.padded_vocab, cfg.d_model), 0)
+
+
 def _embed(params, cfg: ModelConfig, tokens: torch.Tensor,
            patches: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token embeddings [B, Lt, D]; in a VLM config with ``patches`` [B, P,
     1024] the projected patches come first, [B, P + Lt, D].  On local blocks
     the lookup is vocab-parallel: this rank's rows of ``embed``, the tokens
-    outside them masked to zero, summed over the model axis; ``w_patch`` is
+    outside them masked to zero, summed over the model axis (where the model
+    axis does not divide the vocab, ``embed`` is whole and the lookup
+    plain); ``w_patch`` is
     replicated and meets the rank's whole batch block (its gradient is
     summed over the batch axes only: the sequence is cut after the
     concatenation, and the cut's backward joins the blocks' gradients).
@@ -358,6 +372,9 @@ def _embed(params, cfg: ModelConfig, tokens: torch.Tensor,
     ctx = blocks_ctx()
     if ctx is None:
         x = params["embed"][tokens.long()].to(ct)
+    elif not _vocab_split(cfg):
+        x = use_param(params["embed"], "embed", (cfg.padded_vocab, cfg.d_model)
+                      )[tokens.long()].to(ct)
     else:
         e = use_param(params["embed"], "embed", (cfg.padded_vocab, cfg.d_model))
         rows = e.shape[0]
@@ -377,15 +394,18 @@ def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """fp32 logits of the final norm; on local blocks the head is a
     column-parallel product, so the logits are in the layout of the
     reference's hint with no move: the batch over the batch axes (the
-    rank's batch block), the vocab over the model axis (its head's columns;
-    :func:`check_sharded` makes the model axis divide the padded vocab)."""
+    rank's batch block), the vocab over the model axis (its head's
+    columns), or the whole vocab where the model axis does not divide it
+    (the head whole, every model rank the same logits); the whole sequence
+    under ``seq_shard_activations``."""
     ct = cfg.cdtype
-    x = tp_input(rms_norm(x, _scale(params, "final_norm", cfg), cfg.rms_eps))
+    split = _vocab_split(cfg)
+    x = tp_input(rms_norm(x, _scale(params, "final_norm", cfg), cfg.rms_eps), split)
     vd = (cfg.padded_vocab, cfg.d_model)
     if cfg.tie_embeddings:
-        head = use_param(params["embed"], "embed", vd, model_partial=True).T
+        head = use_param(params["embed"], "embed", vd, model_partial=split).T
     else:
-        head = use_param(params["lm_head"], "lm_head", vd[::-1], model_partial=True)
+        head = use_param(params["lm_head"], "lm_head", vd[::-1], model_partial=split)
     return softcap((x @ head.to(ct)).float(), cfg.logit_softcap)
 
 
@@ -394,43 +414,25 @@ def check_sharded(cfg: ModelConfig, ctx, *, seq_len: Optional[int] = None,
                   frames: Optional[torch.Tensor] = None) -> None:
     """Raise unless the sharded train step and the sharded prefill and
     decode run ``cfg`` on ``ctx``'s mesh.  They run every family on a
-    rank's blocks: the dense attention families ("attn" and
-    "local" layers, a dense MLP, q/k/v biases, tied embeddings, both
-    softcaps), the VLM with its patch prefix, the enc-dec encoder and
-    cross-attention, the recurrent families ("ssm" and "rglru" layers, and
-    in serving their decode states on the rank's heads, channels and
-    width), and the MoE family (expert parallel,
+    rank's blocks on any mesh the reference runs: the dense attention
+    families ("attn" and "local" layers, a dense MLP, q/k/v biases, tied
+    embeddings, both softcaps), the VLM with its patch prefix, the enc-dec
+    encoder and cross-attention, the recurrent families ("ssm" and "rglru"
+    layers, and in serving their decode states on the rank's heads,
+    channels and width), and the MoE family (expert parallel,
     :func:`repro_torch.models.moe.apply_blocks`, or where the model axis
     does not divide the experts the reference's global dispatch on the
-    gathered tokens, :func:`repro_torch.models.moe.apply_gathered`).  The
-    model axis must divide what they split: the fused q heads, ``d_ff`` of
-    a dense MLP, the shared experts' width, the SSM's heads and inner
-    width, the RG-LRU width and the padded vocab (``NotImplementedError``),
-    and under ``seq_shard_activations`` the sequences cut at a block
-    boundary (``ValueError``): the decoder's whole ``seq_len`` tokens plus
-    the ``patches``' prefix, and the ``frames``' length.  Where the model
-    axis does not divide a split dim, the rule table's guard would drop the
-    model axis from a leaf and its rank would compute more than its
-    block."""
-    kinds = set(cfg.layer_pattern)
+    gathered tokens, :func:`repro_torch.models.moe.apply_gathered`).  Where
+    the model axis does not divide a dim the rule table splits over it (the
+    padded vocab, ``d_ff``, the shared experts' width, ``n_heads·head_dim``,
+    the SSM's heads or inner width, the RG-LRU width), the table's guard
+    leaves the leaves on it whole, and every model rank computes that
+    product whole on the same input, as GSPMD runs the reference there.
+    Refused (``ValueError``): under ``seq_shard_activations`` a sequence
+    cut at a block boundary that the model axis does not divide, the
+    decoder's whole ``seq_len`` tokens plus the ``patches``' prefix, or the
+    ``frames``' length."""
     nm = ctx.model_size
-    split = [("the padded vocab", cfg.padded_vocab)]
-    if cfg.moe is None:
-        split.append(("d_ff", cfg.d_ff))
-    elif cfg.moe.num_shared:
-        split.append(("the shared experts' width", moe.shared_width(cfg)))
-    if kinds & {"attn", "local"}:
-        split.append(("n_heads * head_dim", cfg.n_heads * cfg.hd))
-    if "ssm" in kinds:
-        di, nh, _, _ = ssm.dims(cfg)
-        split += [("the SSM heads", nh), ("the SSM inner width", di)]
-    if "rglru" in kinds:
-        split.append(("the RG-LRU width", rglru.width(cfg)))
-    for name, n in split:
-        if n % nm:
-            raise NotImplementedError(
-                f"the model axis ({nm}) does not divide {name} ({n}) of {cfg.name}: the "
-                f"sharded paths split it over the model axis")
     if not ctx.seq_shard_activations:
         return
     seqs = []
@@ -515,7 +517,7 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
                           frames=batch.get("frames"))
     if cfg.n_patches:
         logits = logits[:, cfg.n_patches:, :]
-    lse, label_logit = _lse_and_label(logits, batch["labels"].long())
+    lse, label_logit = _lse_and_label(logits, batch["labels"].long(), _vocab_split(cfg))
     ll = label_logit - lse
     mask = batch.get("mask")
     if mask is None:
@@ -530,13 +532,14 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
     return loss, {"ce": ce, "aux": aux, "tokens": denom.float()}
 
 
-def _lse_and_label(logits: torch.Tensor, labels: torch.Tensor):
+def _lse_and_label(logits: torch.Tensor, labels: torch.Tensor, split: bool):
     """(logsumexp over the vocab, the label's logit), each [B, L].  On local
-    blocks the logits are this rank's vocab block: the max, the sum of exps
-    and the label's logit (zero on the ranks that do not hold it) are each
-    reduced over the model axis, and the logits stay where they are."""
+    blocks with the vocab ``split`` the logits are this rank's vocab block:
+    the max, the sum of exps and the label's logit (zero on the ranks that
+    do not hold it) are each reduced over the model axis, and the logits
+    stay where they are; whole, they are the plain ones."""
     ctx = blocks_ctx()
-    if ctx is None:
+    if ctx is None or not split:
         m = logits.amax(dim=-1, keepdim=True)
         lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(dim=-1))
         return lse, torch.gather(logits, -1, labels[..., None])[..., 0]

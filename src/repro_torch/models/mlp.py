@@ -4,7 +4,9 @@ Under local blocks (the sharded train step) it is Megatron's tensor-parallel
 MLP: ``w_gate``/``w_up`` column-parallel and ``w_down`` row-parallel over
 the model axis, as the rule table splits them, the input entering through
 :func:`~repro_torch.parallel.mesh_ctx.tp_input` and the rank's partial sum
-leaving through :func:`~repro_torch.parallel.mesh_ctx.tp_output`.
+leaving through :func:`~repro_torch.parallel.mesh_ctx.tp_output`.  Where
+the model axis does not divide ``d_ff``, the rule table's guard leaves the
+three weights whole over it and every model rank computes the whole MLP.
 Otherwise these are identities and the MLP is the plain one.
 """
 
@@ -16,7 +18,7 @@ import torch
 
 from repro_torch.models.common import ModelConfig, dense_init
 from repro_torch.parallel.mesh_ctx import tp_input, tp_output
-from repro_torch.parallel.sharding import use_param
+from repro_torch.parallel.sharding import model_split, use_param
 
 
 def init(gen: torch.Generator, cfg: ModelConfig, d_ff: int = 0, *, device,
@@ -43,11 +45,12 @@ def apply(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
     experts' is wider, as :func:`init` was given it)."""
     ct = cfg.cdtype
     d, f = cfg.d_model, d_ff or cfg.d_ff
+    split = model_split("w_gate", (d, f))
 
     def w(name, shape):
-        return use_param(params[name], name, shape, model_partial=True).to(ct)
+        return use_param(params[name], name, shape, model_partial=split).to(ct)
 
-    x = tp_input(x)
+    x = tp_input(x, split)
     g = silu(x @ w("w_gate", (d, f)))
     u = x @ w("w_up", (d, f))
-    return tp_output((g * u) @ w("w_down", (f, d)))
+    return tp_output((g * u) @ w("w_down", (f, d)), split)

@@ -337,8 +337,9 @@ def apply_blocks(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
     axis whose backward is the identity.  The router is read with its
     gradient summed over the model axis: each model rank's routing weights
     meet only its own experts' outputs.  The shared experts are the
-    tensor-parallel MLP on the same block.  The model axis must divide the
-    experts (``lm.check_sharded``)."""
+    tensor-parallel MLP on the same block (whole on every model rank where
+    the model axis does not divide their width).  The model axis must divide
+    the experts (:func:`apply` takes :func:`apply_gathered` otherwise)."""
     m, d = cfg.moe, cfg.d_model
     w = _read_experts(params, cfg, lambda n: n == "router")
     xin = tp_input(x)

@@ -24,7 +24,10 @@ reduce-scatter) before their fp32 products; gathering ξ in the compute
 dtype and then casting is the same as casting first.  ``w_out`` is
 row-parallel and its partial sum leaves through ``tp_output``.  The decode
 state, ``h`` [B, W] and the conv tail [B, K-1, W], is the rank's W block,
-as ``cache_shardings`` places it.  Off local blocks these are identities.
+as ``cache_shardings`` places it.  Where the model axis does not divide W,
+the rule table's guard leaves every leaf of the block whole and every
+model rank computes the whole block (ξ needs no gather), its state whole
+too.  Off local blocks these are identities.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops, ref
 from repro_torch.models.common import ModelConfig, dense_init, softplus
 from repro_torch.parallel.mesh_ctx import blocks_ctx, gather, tp_input, tp_output
-from repro_torch.parallel.sharding import use_param
+from repro_torch.parallel.sharding import model_split, use_param
 
 C_FACTOR = 8.0
 SCAN_BLOCK = 256          # prefill pads L > SCAN_BLOCK up to a multiple of it
@@ -86,10 +89,17 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return x * cdf
 
 
-def _param(params, name: str, shape) -> torch.Tensor:
+def _split(cfg: ModelConfig) -> bool:
+    """Whether the rule table splits the lru width over the model axis on
+    local blocks (``w_x`` and the rest of the block alike)."""
+    return model_split(("rec", "w_x"), (cfg.d_model, width(cfg)))
+
+
+def _param(params, name: str, shape, split: bool) -> torch.Tensor:
     """The value of ``params[name]`` this rank's computation uses (the
-    rule table's spec of ``rec/<name>``): whole off local blocks."""
-    return use_param(params[name], ("rec", name), shape, model_partial=True)
+    rule table's spec of ``rec/<name>``) in a block that is ``split`` over
+    the model axis or whole (:func:`_split`): whole off local blocks."""
+    return use_param(params[name], ("rec", name), shape, model_partial=split)
 
 
 def _gates(params, cfg: ModelConfig, xi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -101,12 +111,12 @@ def _gates(params, cfg: ModelConfig, xi: torch.Tensor) -> Tuple[torch.Tensor, to
     columns.
     """
     f32 = torch.float32
-    w = width(cfg)
+    w, split = width(cfg), _split(cfg)
     ctx = blocks_ctx()
-    xw = xi if ctx is None else gather(xi, -1, ctx.model_axis, ctx)
-    r = torch.sigmoid(xw.to(f32) @ _param(params, "w_r", (w, w)).to(f32))
-    i = torch.sigmoid(xw.to(f32) @ _param(params, "w_i", (w, w)).to(f32))
-    log_a = -C_FACTOR * softplus(_param(params, "lam", (w,)).to(f32)) * r
+    xw = xi if ctx is None or not split else gather(xi, -1, ctx.model_axis, ctx)
+    r = torch.sigmoid(xw.to(f32) @ _param(params, "w_r", (w, w), split).to(f32))
+    i = torch.sigmoid(xw.to(f32) @ _param(params, "w_i", (w, w), split).to(f32))
+    log_a = -C_FACTOR * softplus(_param(params, "lam", (w,), split).to(f32)) * r
     beta = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
     return log_a, beta * i * xi.to(f32)
 
@@ -155,14 +165,15 @@ def _apply_impl(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
                 collect_state: bool):
     ct = cfg.cdtype
     d, w, k = cfg.d_model, width(cfg), cfg.rglru.conv_kernel
-    x = tp_input(x)
-    xi_raw = x @ _param(params, "w_x", (d, w)).to(ct)
-    xi = _causal_conv(xi_raw, _param(params, "conv_w", (k, w)).to(ct),
-                      _param(params, "conv_b", (w,)).to(ct))
+    split = _split(cfg)
+    x = tp_input(x, split)
+    xi_raw = x @ _param(params, "w_x", (d, w), split).to(ct)
+    xi = _causal_conv(xi_raw, _param(params, "conv_w", (k, w), split).to(ct),
+                      _param(params, "conv_b", (w,), split).to(ct))
     log_a, b = _gates(params, cfg, xi)
     h = _scan(log_a, b)
-    gate = gelu(x @ _param(params, "w_gate", (d, w)).to(ct))
-    out = tp_output((h.to(ct) * gate) @ _param(params, "w_out", (w, d)).to(ct))
+    gate = gelu(x @ _param(params, "w_gate", (d, w), split).to(ct))
+    out = tp_output((h.to(ct) * gate) @ _param(params, "w_out", (w, d), split).to(ct), split)
     if not collect_state:
         return out, None
     km1 = cfg.rglru.conv_kernel - 1
@@ -196,13 +207,15 @@ def decode_step(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
     this rank's W block (the module's docstring)."""
     ct = cfg.cdtype
     d, w, k = cfg.d_model, width(cfg), cfg.rglru.conv_kernel
-    x0 = tp_input(x)[:, 0, :]
-    xi = x0 @ _param(params, "w_x", (d, w)).to(ct)                 # [B,W]
+    split = _split(cfg)
+    x0 = tp_input(x, split)[:, 0, :]
+    xi = x0 @ _param(params, "w_x", (d, w), split).to(ct)          # [B,W]
     hist = torch.cat([state["conv"], xi[:, None, :]], dim=1)
-    xi = torch.einsum("bkc,kc->bc", hist, _param(params, "conv_w", (k, w)).to(ct)) \
-        + _param(params, "conv_b", (w,)).to(ct)
+    xi = torch.einsum("bkc,kc->bc", hist, _param(params, "conv_w", (k, w), split).to(ct)) \
+        + _param(params, "conv_b", (w,), split).to(ct)
     log_a, b = _gates(params, cfg, xi)
     h = torch.exp(log_a) * state["h"] + b
-    gate = gelu(x0 @ _param(params, "w_gate", (d, w)).to(ct))
-    out = tp_output(((h.to(ct) * gate) @ _param(params, "w_out", (w, d)).to(ct))[:, None, :])
+    gate = gelu(x0 @ _param(params, "w_gate", (d, w), split).to(ct))
+    out = tp_output(((h.to(ct) * gate) @ _param(params, "w_out", (w, d), split).to(ct)
+                     )[:, None, :], split)
     return out, {"h": h, "conv": hist[:, 1:, :]}

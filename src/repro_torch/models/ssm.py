@@ -22,7 +22,14 @@ whole over the model axis, and B and C feed only the rank's heads, so
 their gradients are partial sums, summed over the model axis by
 ``use_param(..., model_partial=True)``.  The scan runs on ``[B/batch, L,
 H/model, P]``; ``w_out`` is row-parallel and its partial sum leaves
-through ``tp_output``.  The reference's layout hints (``_constrain``,
+through ``tp_output``.  Where the model axis divides the inner width but
+not the heads, the rank's channels are gathered over it after the conv,
+the scan runs on every head (``A_log``, ``D``, ``dt_bias`` and ``wdt``
+read whole, their gradients the rank's partials, summed over the model
+axis), and its output is cut back to the rank's channels before the gate
+and ``w_out``.  Where it divides neither, the rule table's guard leaves
+the block's leaves whole and every model rank computes the whole block.
+The reference's layout hints (``_constrain``,
 ``_batch_model``) move nothing there: the column-parallel outputs are
 already (batch, ·, model), and ``tp_input`` has gathered the sequence
 under ``seq_shard_activations``; they are not called.  The decode state
@@ -47,7 +54,7 @@ from repro_torch.kernels import ops
 from repro_torch.models.common import ModelConfig, dense_init, softplus
 from repro_torch.models.mlp import silu
 from repro_torch.parallel.mesh_ctx import blocks_ctx, gather, tp_input, tp_output
-from repro_torch.parallel.sharding import use_param, use_param_block
+from repro_torch.parallel.sharding import model_split, use_param, use_param_block
 
 
 def dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
@@ -119,19 +126,54 @@ def apply_with_state(params: Dict[str, Any], cfg: ModelConfig, xin: torch.Tensor
     return _apply_impl(params, cfg, xin, collect_state=True)
 
 
+def _splits(cfg: ModelConfig) -> Tuple[bool, bool]:
+    """(inner, heads): whether the rule table splits the inner width
+    (``wx``) and the heads (``wdt``) over the model axis on local blocks.
+    The heads split only where the inner width does."""
+    d, (di, nh, _, _) = cfg.d_model, dims(cfg)
+    return model_split("wx", (d, di)), model_split("wdt", (d, nh))
+
+
 def _readers(params: Dict[str, Any], cfg: ModelConfig):
     """(w, heads): a parameter as this rank's computation uses it, in the
-    compute dtype, and a per-head vector cut to the rank's heads; whole off
-    local blocks."""
+    compute dtype, and a per-head vector cut to the rank's heads (every
+    head where the heads are whole); whole off local blocks.  A leaf the
+    rule table leaves whole has the rank's partial gradient in a block the
+    model axis splits (it meets only the rank's channels), its whole
+    gradient in a whole block."""
     nh = dims(cfg)[1]
+    inner, split_heads = _splits(cfg)
 
     def w(name, shape):
-        return use_param(params[name], name, shape, model_partial=True).to(cfg.cdtype)
+        return use_param(params[name], name, shape, model_partial=inner).to(cfg.cdtype)
 
     def heads(name):
-        return use_param_block(params[name], name, (nh,), 0)
+        if split_heads:
+            return use_param_block(params[name], name, (nh,), 0)
+        return use_param(params[name], name, (nh,), model_partial=inner)
 
     return w, heads
+
+
+def _all_heads(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x [..., di/model] → [..., di]: the rank's channels joined over the
+    model axis where it splits the inner width and not the heads (the scan
+    needs whole heads); else ``x``."""
+    inner, split_heads = _splits(cfg)
+    ctx = blocks_ctx()
+    if ctx is None or not inner or split_heads:
+        return x
+    return gather(x, -1, ctx.model_axis, ctx)
+
+
+def _my_channels(y: torch.Tensor, x_loc: torch.Tensor) -> torch.Tensor:
+    """The rank's channels of y [..., di] where ``x_loc`` [..., di/model]
+    holds fewer than all (:func:`_all_heads` joined them); else ``y``."""
+    c = x_loc.shape[-1]
+    if y.shape[-1] == c:
+        return y
+    ctx = blocks_ctx()
+    return y.narrow(-1, ctx.coord(ctx.model_axis) * c, c)
 
 
 def _channels(n: int) -> slice:
@@ -152,7 +194,8 @@ def _apply_impl(params: Dict[str, Any], cfg: ModelConfig, xin: torch.Tensor,
     ct = cfg.cdtype
     d, k = cfg.d_model, s.d_conv
     w, heads = _readers(params, cfg)
-    xin = tp_input(xin)
+    inner = _splits(cfg)[0]
+    xin = tp_input(xin, inner)
     bt, l, _ = xin.shape
     z = xin @ w("wz", (d, di))                                     # [B,L,di]
     x_raw = xin @ w("wx", (d, di))                                 # [B,L,di]
@@ -160,7 +203,8 @@ def _apply_impl(params: Dict[str, Any], cfg: ModelConfig, xin: torch.Tensor,
     c_raw = xin @ w("wc", (d, n))
     dt_raw = xin @ w("wdt", (d, nh))                               # [B,L,H]
 
-    x = silu(_causal_conv(x_raw, w("conv_x_w", (k, di)), w("conv_x_b", (di,))))
+    x_loc = silu(_causal_conv(x_raw, w("conv_x_w", (k, di)), w("conv_x_b", (di,))))
+    x = _all_heads(x_loc, cfg)
     b = silu(_causal_conv(b_raw, w("conv_b_w", (k, n)), w("conv_b_b", (n,))))
     c = silu(_causal_conv(c_raw, w("conv_c_w", (k, n)), w("conv_c_b", (n,))))
     dt = softplus(dt_raw.float() + heads("dt_bias").float())       # [B,L,H]
@@ -180,8 +224,8 @@ def _apply_impl(params: Dict[str, Any], cfg: ModelConfig, xin: torch.Tensor,
     else:
         y, h_last = ops.ssd_scan(xh.to(ct), dt, A, b, c, chunk=q, return_state=True)
     y = y + xh * heads("D").to(ct)[None, None, :, None]
-    y = y.reshape(bt, l, hl * p) * silu(z)
-    out = tp_output(y @ w("w_out", (di, d)))
+    y = _my_channels(y.reshape(bt, l, hl * p), x_loc) * silu(z)
+    out = tp_output(y @ w("w_out", (di, d)), inner)
     if not collect_state:
         return out, None
 
@@ -238,7 +282,8 @@ def decode_step(params: Dict[str, Any], cfg: ModelConfig, xin: torch.Tensor,
     f32 = torch.float32
     d, k = cfg.d_model, s.d_conv
     w, heads = _readers(params, cfg)
-    x0 = tp_input(xin)[:, 0, :]
+    inner = _splits(cfg)[0]
+    x0 = tp_input(xin, inner)[:, 0, :]
     bt = x0.shape[0]
     z = x0 @ w("wz", (d, di))
     x_raw = x0 @ w("wx", (d, di))
@@ -255,7 +300,8 @@ def decode_step(params: Dict[str, Any], cfg: ModelConfig, xin: torch.Tensor,
     if ch.stop - ch.start < n:                 # the rank's channels: join all N
         ctx = blocks_ctx()
         b, c = gather(torch.stack([b, c]), -1, ctx.model_axis, ctx)
-    x, b, c = silu(x), silu(b), silu(c)
+    x_loc, b, c = silu(x), silu(b), silu(c)
+    x = _all_heads(x_loc, cfg)
 
     dt = softplus(dt_raw.float() + heads("dt_bias").float())      # [B,H]
     A = -torch.exp(heads("A_log").float())
@@ -266,6 +312,6 @@ def decode_step(params: Dict[str, Any], cfg: ModelConfig, xin: torch.Tensor,
         + torch.einsum("bh,bn,bhp->bhpn", dt, b.to(f32), xh)
     y = torch.einsum("bn,bhpn->bhp", c.to(f32), h)
     y = y + xh * heads("D").to(f32)[None, :, None]
-    y = y.reshape(bt, hl * p).to(ct) * silu(z)
-    out = tp_output((y @ w("w_out", (di, d)))[:, None, :])
+    y = _my_channels(y.reshape(bt, hl * p).to(ct), x_loc) * silu(z)
+    out = tp_output((y @ w("w_out", (di, d)))[:, None, :], inner)
     return out, {"h": h, "conv_x": cx, "conv_b": cb, "conv_c": cc}

@@ -35,8 +35,8 @@ Two modes:
   encoder's frame projection (sequence-split under
   ``seq_shard_activations``) and the heads hint before attention.  The
   residual stream stays in the block boundary's layout by construction
-  (:func:`tp_output`), and the logits leave the vocab-split head in the
-  reference's hinted layout.
+  (:func:`tp_output`), and the logits leave the head in the reference's
+  hinted layout (split on the vocab, or whole where the guard leaves it).
 
 Gradients under local blocks follow Megatron's convention: a value the
 model axis holds whole (the residual stream, the logits' reductions) has
@@ -44,6 +44,12 @@ its whole gradient on each rank; inside a tensor-parallel product the
 input's gradient is the rank's partial, summed by the backward of the
 collective that entered the product (:func:`replicate` over the model
 axis, or the sequence :func:`gather` under ``seq_shard_activations``).
+Where the rule table's guard leaves a region whole over the model axis (the
+axis does not divide its split dim), every model rank computes the whole
+product on the same input and holds the same gradients, as GSPMD runs the
+reference there: nothing is summed over the model axis, and under
+``seq_shard_activations`` the sequence enters through :func:`gather_alike`
+and leaves through :func:`scatter`.
 
 ``MeshCtx.mesh`` is a :class:`~torch.distributed.device_mesh.DeviceMesh`
 or, for the rule table alone, a mapping from axis name to size: a rule
@@ -173,6 +179,12 @@ def spec_axes(entry) -> Tuple[str, ...]:
     return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
 
 
+def live_axes(ctx: MeshCtx, entry) -> Tuple[str, ...]:
+    """The axes of the spec entry ``entry`` that have more than one rank:
+    a collective over an axis of size 1 moves nothing, and is not run."""
+    return tuple(a for a in spec_axes(entry) if ctx.axis_size(a) > 1)
+
+
 def is_distributed(x: Any) -> bool:
     """Whether ``x`` is a ``DTensor`` (a tensor placed on a mesh)."""
     return isinstance(x, DTensor)
@@ -252,8 +264,8 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum", *,
 def all_reduce_axes(x: torch.Tensor, axes, ctx: MeshCtx) -> torch.Tensor:
     """In-place sum of ``x`` over the ranks of ``axes`` (an axis name or a
     tuple of them): one all-reduce over each axis's group in turn, tallied
-    as one all-reduce over them all."""
-    axes = spec_axes(axes)
+    as one all-reduce over them all (axes of one rank skipped)."""
+    axes = live_axes(ctx, axes)
     if axes:
         tally_collective("all-reduce", axes_size(ctx, axes), x.numel() * x.element_size())
     for a in axes:
@@ -274,9 +286,9 @@ def gather_block(local: torch.Tensor, dim: int, ctx: MeshCtx, entry) -> torch.Te
     """The tensor whose ``dim`` blocks over the axes of the spec entry
     ``entry`` are each rank's ``local``, on every rank: a zero-filled buffer
     with the rank's block written in, summed over each axis's group in turn
-    (``all_reduce`` only; adding zeros is exact).  ``entry`` None: the dim is
-    not sharded and ``local`` is returned."""
-    axes = spec_axes(entry)
+    (``all_reduce`` only; adding zeros is exact).  ``entry`` None (or axes
+    of one rank): the dim is not sharded and ``local`` is returned."""
+    axes = live_axes(ctx, entry)
     if not axes:
         return local
     dim = dim % local.ndim
@@ -336,6 +348,17 @@ class _Gather(torch.autograd.Function):
         return _my_block(g, fctx.dim, fctx.ctx, fctx.axes), None, None, None
 
 
+class _GatherAlike(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, dim, axes, ctx):
+        fctx.dim, fctx.axes, fctx.ctx = dim, axes, ctx
+        return gather_block(x, dim, ctx, axes)
+
+    @staticmethod
+    def backward(fctx, g):
+        return _my_block(g, fctx.dim, fctx.ctx, fctx.axes), None, None, None
+
+
 class _Scatter(torch.autograd.Function):
     @staticmethod
     def forward(fctx, x, dim, axes, ctx):
@@ -372,28 +395,31 @@ def gather(x: torch.Tensor, dim: int, axes, ctx: Optional[MeshCtx] = None) -> to
     """The blocks of ``x`` along ``dim`` over ``axes`` (an axis name or a
     tuple, major first) joined on every rank; backward: the gradient summed
     over ``axes`` and cut to this rank's block (a reduce-scatter)."""
-    axes = spec_axes(axes)
+    ctx = ctx or current_ctx()
+    axes = live_axes(ctx, axes)
     if not axes:
         return x
-    return _Gather.apply(x, dim % x.ndim, axes, ctx or current_ctx())
+    return _Gather.apply(x, dim % x.ndim, axes, ctx)
 
 
 def scatter(x: torch.Tensor, dim: int, axes, ctx: Optional[MeshCtx] = None) -> torch.Tensor:
     """This rank's block of ``x`` (held whole on every rank) along ``dim``
     over ``axes``; backward: the blocks' gradients joined (a gather)."""
-    axes = spec_axes(axes)
+    ctx = ctx or current_ctx()
+    axes = live_axes(ctx, axes)
     if not axes:
         return x
-    return _Scatter.apply(x, dim % x.ndim, axes, ctx or current_ctx())
+    return _Scatter.apply(x, dim % x.ndim, axes, ctx)
 
 
 def reduce(x: torch.Tensor, axes, ctx: Optional[MeshCtx] = None) -> torch.Tensor:
     """The sum of ``x`` over the ranks of ``axes`` (forward ``all_reduce``);
     backward: the identity."""
-    axes = spec_axes(axes)
+    ctx = ctx or current_ctx()
+    axes = live_axes(ctx, axes)
     if not axes:
         return x
-    return _Reduce.apply(x, axes, ctx or current_ctx())
+    return _Reduce.apply(x, axes, ctx)
 
 
 def replicate(x: torch.Tensor, axes, ctx: Optional[MeshCtx] = None) -> torch.Tensor:
@@ -401,10 +427,11 @@ def replicate(x: torch.Tensor, axes, ctx: Optional[MeshCtx] = None) -> torch.Ten
     ``axes`` (``all_reduce``): the ranks' partial gradients of a value they
     hold alike, such as a parameter replicated along the axes that split
     the batch or the sequence."""
-    axes = spec_axes(axes)
+    ctx = ctx or current_ctx()
+    axes = live_axes(ctx, axes)
     if not axes:
         return x
-    return _Replicate.apply(x, axes, ctx or current_ctx())
+    return _Replicate.apply(x, axes, ctx)
 
 
 # ==========================================================================
@@ -477,28 +504,51 @@ def constrain_batch(x: torch.Tensor, src=None) -> torch.Tensor:
     return constrain(x, *spec, src=src)
 
 
-def tp_input(x: torch.Tensor) -> torch.Tensor:
-    """A block-boundary activation [B, L, D] as the input of column-parallel
-    products: with ``seq_shard_activations`` the sequence gathered over the
-    model axis, else :func:`replicate` over it (whose backward sums the
-    products' partial gradients).  Identity unless on local blocks."""
+def gather_alike(x: torch.Tensor, dim: int, axes, ctx: Optional[MeshCtx] = None
+                 ) -> torch.Tensor:
+    """The blocks of ``x`` along ``dim`` over ``axes`` joined on every rank,
+    as :func:`gather`, for a value that every rank of ``axes`` then uses
+    alike (a product the rule table leaves whole over them): the gradient
+    that comes back is the same on each of those ranks, so the backward cuts
+    this rank's block of it without a sum."""
+    ctx = ctx or current_ctx()
+    axes = live_axes(ctx, axes)
+    if not axes:
+        return x
+    return _GatherAlike.apply(x, dim % x.ndim, axes, ctx)
+
+
+def tp_input(x: torch.Tensor, split: bool = True) -> torch.Tensor:
+    """A block-boundary activation [B, L, D] as the input of the products
+    of a tensor-parallel region: with ``seq_shard_activations`` the
+    sequence gathered over the model axis, else the block itself.  With
+    ``split`` (the rule table splits the region over the model axis: its
+    column-parallel products take the rank's columns) each rank's input
+    gradient is its partial: the gather's backward is a reduce-scatter, and
+    without the gather :func:`replicate` sums it.  Without (the rule
+    table's guard leaves the region whole) every model rank computes the
+    same whole product and holds the same gradient: :func:`gather_alike`,
+    or nothing.  Identity unless on local blocks."""
     ctx = blocks_ctx()
     if ctx is None:
         return x
     if ctx.seq_shard_activations:
-        return gather(x, 1, ctx.model_axis, ctx)
-    return replicate(x, ctx.model_axis, ctx)
+        return (gather if split else gather_alike)(x, 1, ctx.model_axis, ctx)
+    return replicate(x, ctx.model_axis, ctx) if split else x
 
 
-def tp_output(z: torch.Tensor) -> torch.Tensor:
-    """A row-parallel product's partial sum [B, L, D] back to the block
-    boundary's layout: summed over the model axis, and with
-    ``seq_shard_activations`` cut to this rank's sequence block (a
-    reduce-scatter).  Identity unless on local blocks."""
+def tp_output(z: torch.Tensor, split: bool = True) -> torch.Tensor:
+    """A tensor-parallel region's output [B, L, D] back to the block
+    boundary's layout: where the region is ``split`` the row-parallel
+    product's partial sum is summed over the model axis (whole, it is the
+    output already), and with ``seq_shard_activations`` it is cut to this
+    rank's sequence block (after the sum, a reduce-scatter).  Identity
+    unless on local blocks."""
     ctx = blocks_ctx()
     if ctx is None:
         return z
-    z = reduce(z, ctx.model_axis, ctx)
+    if split:
+        z = reduce(z, ctx.model_axis, ctx)
     if ctx.seq_shard_activations:
         return scatter(z, 1, ctx.model_axis, ctx)
     return z

@@ -23,7 +23,9 @@ Under local blocks (``MeshCtx.local_blocks``, the sharded train step) the
 model code reads each parameter through :func:`use_param`, which looks its
 spec up in the same table: the FSDP dims are gathered for the use, the
 model axis's split stays, and the gradient comes back as the rank's block.
-A parameter the table replicates over the model axis that feeds only the
+:func:`model_split` says whether the table splits a leaf over the model
+axis: where its guard leaves the leaf whole, the rank computes the whole
+product.  A parameter the table replicates over the model axis that feeds only the
 rank's block of a split dim (the SSM's per-head vectors) is read through
 :func:`use_param_block`.
 """
@@ -367,6 +369,20 @@ def param_spec(name, shape: Sequence[int], ctx: MeshCtx) -> Spec:
     rule depends on the subtree (``("rec", "conv_w")``)."""
     path = tuple(name) if isinstance(name, tuple) else (name,)
     return spec_for(path, _Leaf(tuple(shape)), ctx)
+
+
+def model_split(name, shape: Sequence[int], dim: int = -1) -> bool:
+    """Whether the rule table splits dim ``dim`` of parameter ``name`` (global
+    ``shape``; ``name`` as :func:`param_spec` takes it) over the model axis
+    on the ambient local blocks: a tensor-parallel region whose leaf it is
+    runs on the rank's block of that dim; where the guard drops the axis (it
+    does not divide the dim) every model rank computes the region whole.
+    True off local blocks, where the entry and exit of a region are
+    identities."""
+    ctx = blocks_ctx()
+    if ctx is None:
+        return True
+    return ctx.model_axis in spec_axes(param_spec(name, shape, ctx)[dim])
 
 
 def use_param(w: torch.Tensor, name, shape: Sequence[int], *,

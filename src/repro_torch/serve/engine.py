@@ -14,8 +14,11 @@ DTensors, the rings in ``cache_shardings``' layout (their slots under
 axis), the recurrent states over the SSM's heads and channels and the
 RG-LRU's width, the enc-dec memory's ``mk``/``mv`` as the rings (its rows
 under ``shard_kv_seq``), the logits over (the batch axes, the model
-axis).  Every family, where the model axis divides what the blocks split
-(:func:`repro_torch.models.lm.check_sharded`).
+axis; the whole vocab where the model axis does not divide it).  Every
+family on any mesh (:func:`repro_torch.models.lm.check_sharded`): where the
+model axis does not divide a dim the blocks split, the rule table's guard
+leaves that leaf whole, and each rank computes its product whole, the
+cache leaves on it whole too.
 """
 
 from __future__ import annotations
@@ -42,11 +45,12 @@ def _sharded_ctx(params):
     return None
 
 
-def _place_logits(logits: torch.Tensor, ctx) -> torch.Tensor:
-    """This rank's block [B_loc, Vp/model] of the logits as the DTensor over
+def _place_logits(logits: torch.Tensor, cfg: ModelConfig, ctx) -> torch.Tensor:
+    """This rank's block [B_loc, ·] of the logits [B, Vp] as the DTensor over
     (the batch axes, the model axis), the reference's out_shardings with its
-    divisibility guard."""
-    shape = (logits.shape[0] * ctx.batch_size, logits.shape[1] * ctx.model_size)
+    divisibility guard: the rank's vocab block, or the whole vocab where the
+    model axis does not divide it."""
+    shape = (logits.shape[0] * ctx.batch_size, cfg.padded_vocab)
     return from_block(logits, safe_spec(shape, [tuple(ctx.batch_axes), ctx.model_axis],
                                         ctx.mesh), ctx)
 
@@ -76,7 +80,7 @@ def make_prefill_step(cfg: ModelConfig, *, max_len: int):
             if grp in cache:
                 cache[grp] = tree_map(lambda t, spec: from_block(t, spec, ctx), cache[grp],
                                       {k: specs[grp][k] for k in cache[grp]})
-        return cache, _place_logits(logits, ctx)
+        return cache, _place_logits(logits, cfg, ctx)
     return prefill_step
 
 
@@ -96,7 +100,7 @@ def make_decode_step(cfg: ModelConfig):
         tok = local_batch({"token": token}, blocks)["token"]
         with mesh_context(blocks):
             logits, cache = lm.decode_step(tree_map(local_block, params), cfg, tok, cache)
-        return _place_logits(logits, ctx), cache
+        return _place_logits(logits, cfg, ctx), cache
     return decode_step
 
 

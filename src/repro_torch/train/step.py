@@ -20,8 +20,12 @@ patch prefix, the enc-dec encoder and cross-attention, the MoE family
 (expert parallel, or, where the model axis does not divide the experts,
 the reference's global dispatch on the gathered tokens:
 :func:`repro_torch.models.moe.apply_gathered`) and the recurrent ones
-(Mamba2's "ssm", RecurrentGemma's "rglru" with its local attention), as
-:func:`repro_torch.models.lm.check_sharded` admits them.
+(Mamba2's "ssm", RecurrentGemma's "rglru" with its local attention), on
+any mesh (:func:`repro_torch.models.lm.check_sharded`).  Where the model
+axis does not divide a dim the blocks split, the rule table's guard leaves
+that leaf whole: each rank computes its product whole, its gradient and
+moments are whole on every model rank, and the global norm counts it once
+(its spec names no model axis).
 """
 
 from __future__ import annotations

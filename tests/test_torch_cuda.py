@@ -871,41 +871,74 @@ def test_dry_run_predicts_a_smoke_prefill_peak(card, arch):
 # ==========================================================================
 
 
-@pytest.fixture(scope="module")
-def mesh_train_card(tmp_path_factory):
-    """``tests/torch_mesh_train_worker.py``'s ``card`` task: the fp32
+def _train_worker(tmp_path_factory, world: int) -> list:
+    """``tests/torch_mesh_train_worker.py``'s ``card`` task on ``world``
+    ranks on the card (4: the (2, 2) mesh; 3: the (1, 3) mesh): the fp32
     sharded steps of the mamba2-370m, recurrentgemma-9b, deepseek-moe-16b
-    (at ``no_drop``'s capacity, expert parallel), phi-3-vision-4.2b (with
-    its patches) and seamless-m4t-medium (with its frames) smoke configs on
-    4 ranks on the card, through the scan kernels and their backwards and
-    flash."""
+    (at ``no_drop``'s capacity), phi-3-vision-4.2b (with its patches) and
+    seamless-m4t-medium (with its frames) smoke configs, through the scan
+    kernels and their backwards and flash; each rank's record."""
     import os
     import subprocess
     import sys
 
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the ranks place their tensors on it")
-    d = tmp_path_factory.mktemp("mesh_train_card")
+    d = tmp_path_factory.mktemp(f"mesh_train_card{world}")
     here = os.path.dirname(os.path.abspath(__file__))
     r = subprocess.run([sys.executable, os.path.join(here, "torch_mesh_train_worker.py"),
-                        str(d), "4", "card"],
+                        str(d), str(world), "card"],
                        env=dict(os.environ, PYTHONPATH=os.path.join(here, "..", "src")),
                        capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-4000:]
-    return [dict(np.load(d / f"card-rank{i}.npz")) for i in range(4)]
+    return [dict(np.load(d / f"card-rank{i}.npz")) for i in range(world)]
+
+
+@pytest.fixture(scope="module")
+def mesh_train_card(tmp_path_factory):
+    """The train worker's ``card`` task on 4 ranks as the (2, 2) mesh."""
+    return _train_worker(tmp_path_factory, 4)
+
+
+@pytest.fixture(scope="module")
+def mesh_train_card3(tmp_path_factory):
+    """The train worker's ``card`` task on 3 ranks as the (1, 3) mesh."""
+    return _train_worker(tmp_path_factory, 3)
+
+
+CARD_TRAIN_ARCHS = ["mamba2-370m", "recurrentgemma-9b", "deepseek-moe-16b",
+                    "phi-3-vision-4.2b", "seamless-m4t-medium"]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b", "deepseek-moe-16b",
-                                  "phi-3-vision-4.2b", "seamless-m4t-medium"])
+@pytest.mark.parametrize("arch", CARD_TRAIN_ARCHS)
 def test_mesh_train_step_on_card_ranks_matches_plain(mesh_train_card, card, arch):
     """Each rank's fp32 sharded steps (the scans at the rank's heads or
     width block; the MoE layers expert parallel, 4 of the 8 experts a rank,
     where nothing drops; the VLM with its patch prefix; the enc-dec encoder
     and cross-attention, tensor parallel) against the plain steps on the card in this process from
-    the same state and batches: losses and grad norms at 1e-4 relative, the
-    gathered parameters at 1e-4 and the moments within 1e-4 of their leaf's
-    largest, every rank launching each kernel as often as the plain step."""
+    the same state and batches: :func:`_hold_train_ranks`."""
+    _hold_train_ranks(mesh_train_card, card, arch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", CARD_TRAIN_ARCHS)
+def test_mesh_train_step_on_3_card_ranks_matches_plain(mesh_train_card3, card, arch):
+    """The same on 3 ranks as the (1, 3) mesh, whose model axis of 3 divides
+    few of the smoke configs' split dims (the vocab 512, the heads, the
+    SSM's heads and inner width, the RG-LRU width 64): each rank computes
+    those products whole, the scans and flash on every head and channel of
+    the whole batch, the MoE layers through the global dispatch (8
+    experts); :func:`_hold_train_ranks`."""
+    _hold_train_ranks(mesh_train_card3, card, arch)
+
+
+def _hold_train_ranks(ranks, card, arch):
+    """Each rank's fp32 sharded steps of ``arch`` against the plain steps on
+    the card in this process from the same state and batches: losses and
+    grad norms at 1e-4 relative, the gathered parameters at 1e-4 and the
+    moments within 1e-4 of their leaf's largest, every rank launching each
+    kernel as often as the plain step."""
     import os
     import sys
 
@@ -926,13 +959,13 @@ def test_mesh_train_step_on_card_ranks_matches_plain(mesh_train_card, card, arch
         assert ops.launches["ssd_scan_bwd"] + ops.launches["rglru_scan_bwd"] > 0
     else:
         assert ops.launches["flash_attention"] > 0
-    for i, out in enumerate(mesh_train_card):
+    for i, out in enumerate(ranks):
         np.testing.assert_allclose(out[f"{arch}/loss"], losses, rtol=1e-4, err_msg=f"rank {i}")
         np.testing.assert_allclose(out[f"{arch}/grad_norm"], norms, rtol=1e-4,
                                    err_msg=f"rank {i}")
         assert list(out["launch_names"]) == sorted(ops.launches)
         assert list(out[f"{arch}/launches"]) == launches, i
-    got = mesh_train_card[0]
+    got = ranks[0]
     for key, want in worker.flatten({"params": state["params"], "opt": state["opt"]}).items():
         a, b = got[f"{arch}/state/{key}"], worker._np(want.cpu())
         if key.startswith("opt/"):
@@ -973,15 +1006,35 @@ def mesh_serve_card(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
+def mesh_serve_card3(tmp_path_factory):
+    """The serve worker's ``card`` task: 3 ranks as the (1, 3) mesh."""
+    return _serve_worker(tmp_path_factory, 3, "card")
+
+
+@pytest.fixture(scope="module")
 def mesh_serve_card8(tmp_path_factory):
     """The serve worker's ``card8`` task: 8 ranks as the (1, 8) mesh."""
     return _serve_worker(tmp_path_factory, 8, "card8")
 
 
+CARD_SERVE_ARCHS = ["yi-9b", "gemma2-27b", "phi-3-vision-4.2b", "deepseek-moe-16b",
+                    "mamba2-370m", "recurrentgemma-9b", "seamless-m4t-medium"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["yi-9b", "gemma2-27b", "phi-3-vision-4.2b",
-                                  "deepseek-moe-16b", "mamba2-370m", "recurrentgemma-9b",
-                                  "seamless-m4t-medium"])
+@pytest.mark.parametrize("arch", CARD_SERVE_ARCHS)
+def test_mesh_serve_on_3_card_ranks_matches_plain(mesh_serve_card3, arch):
+    """:func:`test_mesh_serve_on_card_ranks_matches_plain` on 3 ranks as the
+    (1, 3) mesh: the rule table's guard leaves whole what a model axis of 3
+    does not divide (the vocab, the heads and every ring of these smoke
+    configs, their SSM heads and RG-LRU width), each rank's prefill
+    launching each kernel once a layer of its kind on every head or
+    channel of the whole batch."""
+    _hold_serve_ranks(mesh_serve_card3, arch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", CARD_SERVE_ARCHS)
 def test_mesh_serve_on_card_ranks_matches_plain(mesh_serve_card, arch):
     """Each rank's fp32 sharded prefill and 3 greedy decode steps of the
     smoke config (make_prefill_step / make_decode_step on DTensor
@@ -992,12 +1045,19 @@ def test_mesh_serve_on_card_ranks_matches_plain(mesh_serve_card, arch):
     projected memory over its kv heads) against its plain ones on the card:
     logits within 1e-4, the tokens equal, in the prefill flash launched
     once a causal self-attention layer, the SSD scan once an SSM layer and
-    the RG-LRU scan once an RG-LRU layer."""
+    the RG-LRU scan once an RG-LRU layer (:func:`_hold_serve_ranks`)."""
+    _hold_serve_ranks(mesh_serve_card, arch)
+
+
+def _hold_serve_ranks(ranks, arch):
+    """Each rank's logits of ``arch`` within 1e-4 of the plain run's, the
+    tokens equal, and each kernel launched once a layer of its kind in the
+    sharded prefill."""
     cfg = configs.get_smoke(arch)
     kinds = [cfg.pattern_of(i) for i in range(cfg.n_layers)]
     want = {"flash_attention": sum(k in ("attn", "local") for k in kinds),
             "ssd_scan": kinds.count("ssm"), "rglru_scan": kinds.count("rglru")}
-    for i, out in enumerate(mesh_serve_card):
+    for i, out in enumerate(ranks):
         assert float(out[f"{arch}/max_abs_err"]) <= 1e-4, (i, float(out[f"{arch}/max_abs_err"]))
         assert bool(out[f"{arch}/tokens_equal"]), i
         for kernel, n in want.items():

@@ -49,6 +49,10 @@ SRC = os.path.join(ROOT, "src")
 MESH, B, L = "2x2x2", 8, 32
 KINDS = ("train", "prefill", "decode")
 REF_ARCHS = ("gemma2-27b", "mamba2-370m", "deepseek-moe-16b")
+#: the archs compiled on (2, 3) too: a model axis of 3 divides none of
+#: yi-9b smoke's split dims, and only the shared experts' width of
+#: deepseek-moe-16b smoke (its 8 experts: the global dispatch)
+UNDIVIDED_ARCHS = ("yi-9b", "deepseek-moe-16b")
 
 #: the reference's sharded steps compiled as its dry run compiles them, on
 #: (2, 2, 2) ("pod", "data", "model"): per device the argument, output and
@@ -70,9 +74,15 @@ REFERENCE = textwrap.dedent("""
         return jax.tree.map(lambda s: jax.ShapeDtypeStruct(
             s.shape, jnp.bfloat16 if jnp.issubdtype(s.dtype, jnp.floating) else s.dtype), tree)
 
-    mesh = make_mesh((2, 2, 2), ("pod", "data", "model"))
-    ctx = make_ctx(mesh)
-    for arch in ARCHS:
+    import numpy as np
+    from jax.sharding import Mesh
+
+    cells = [(make_mesh((2, 2, 2), ("pod", "data", "model")), arch) for arch in ARCHS]
+    # the (2, 3) mesh on 6 of the 8 devices: a model axis of 3
+    cells += [(Mesh(np.array(jax.devices()[:6]).reshape(2, 3), ("data", "model")), arch)
+              for arch in UNDIVIDED_ARCHS]
+    for mesh, arch in cells:
+        ctx = make_ctx(mesh)
         cfg = configs.get_smoke(arch)
         for kind in ("train", "prefill", "decode"):
             shape = ShapeSpec("smoke", L, B, kind)
@@ -109,8 +119,9 @@ REFERENCE = textwrap.dedent("""
                                     out_shardings=(l_sh, c_sh), donate_argnums=2
                                     ).lower(params, inputs["token"], cache).compile()
             m = c.memory_analysis()
-            print("MEM", arch, kind, m.argument_size_in_bytes, m.output_size_in_bytes,
-                  m.alias_size_in_bytes, len(jax.tree.leaves(outs)), flush=True)
+            print("MEM", "x".join(map(str, mesh.devices.shape)), arch, kind,
+                  m.argument_size_in_bytes, m.output_size_in_bytes, m.alias_size_in_bytes,
+                  len(jax.tree.leaves(outs)), flush=True)
 """)
 
 
@@ -119,7 +130,8 @@ def reference():
     """The reference's compiles, started when the module's first test starts
     so that they run beside the port's traces; read by the test that needs
     them (near the file's end)."""
-    code = f"ARCHS, B, L = {REF_ARCHS!r}, {B}, {L}\n" + REFERENCE
+    code = (f"ARCHS, UNDIVIDED_ARCHS, B, L = {REF_ARCHS!r}, {UNDIVIDED_ARCHS!r}, {B}, {L}\n"
+            + REFERENCE)
     proc = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True,
                             env=dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
@@ -262,14 +274,32 @@ def test_every_mesh_knob_changes_the_record(knob, kind, mesh):
 
 
 def test_refused_cell_is_a_failed_record():
-    """A mesh whose model axis divides no split dim of the config: the
-    record carries ``check_sharded``'s error, as the reference records a
-    cell that fails to compile; the process group is gone."""
+    """``seq_shard`` on a sequence the model axis does not cut (L 32 over
+    3): the record carries ``check_sharded``'s error, as the reference
+    records a cell that fails to compile; the process group is gone."""
     rec = dryrun.run_cell(configs.get_smoke("yi-9b"), _spec("prefill"), mesh="2x3",
-                          verbose=False)
+                          overrides={"seq_shard": True}, verbose=False)
     assert rec["ok"] is False and rec["devices"] == 6
-    assert rec["error"].startswith("NotImplementedError") and "model axis (3)" in rec["error"]
+    assert rec["error"].startswith("ValueError") and "model axis (3)" in rec["error"]
     assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_undivided_mesh_traces_a_rank(kind):
+    """yi-9b smoke on 2x3, whose model axis of 3 divides none of its split
+    dims: the cell traces (the rule table's guard leaves the vocab, d_ff and
+    the heads whole) with the rule table's argument bytes, every kernel
+    operator called as on one card, and a rank's FLOPs × 6 three times the
+    one-card trace's for every product over the model axis: a rank
+    computes them whole, as each of its 3 model ranks does."""
+    cfg = configs.get_smoke("yi-9b")
+    spec = _spec(kind)
+    one = dryrun.run_cell(cfg, spec, verbose=False)
+    rec = dryrun.run_cell(cfg, spec, mesh="2x3", verbose=False)
+    assert rec["ok"] and rec["devices"] == 6 and not dist.is_initialized()
+    assert rec["memory"]["argument_bytes"] == _local_bytes(cfg, spec, "2x3") > 0
+    assert _calls(rec) == _calls(one)
+    assert rec["cost"]["flops"] * 6 == pytest.approx(3 * one["cost"]["flops"], rel=1e-6)
 
 
 def test_cache_specs_allocate_nothing_in_a_trace():
@@ -347,26 +377,54 @@ def test_rank_memory_matches_the_reference(reference):
       a new buffer beside the bf16 one the dry run's serving dtype gives it
       (twice its bytes, not aliased), where the port writes ``h`` into the
       bf16 cache in place."""
-    out, err = reference.communicate(timeout=900)
-    rows = [line.split()[1:] for line in out.splitlines() if line.startswith("MEM ")]
+    out, err = _reference_rows(reference)
+    rows = [r for r in out if r[0] == "2x2x2"]
     assert len(rows) == 3 * len(REF_ARCHS), err[-3000:]
-    for arch, kind, arg, output, alias, leaves in rows:
+    _hold_against_the_reference(rows)
+
+
+def _reference_rows(reference):
+    """The reference's MEM rows (mesh, arch, kind, argument, output, alias
+    bytes, output leaves), read once, and its errors."""
+    if not hasattr(reference, "rows"):
+        out, err = reference.communicate(timeout=900)
+        reference.rows = ([line.split()[1:] for line in out.splitlines()
+                           if line.startswith("MEM ")], err)
+    return reference.rows
+
+
+def _hold_against_the_reference(rows):
+    """Each row's cell traced on its mesh, its argument, output and alias
+    bytes against the reference's with the differences named in
+    :func:`test_rank_memory_matches_the_reference`."""
+    for mesh, arch, kind, arg, output, alias, leaves in rows:
         cfg = configs.get_smoke(arch)
         spec = _spec(kind)
-        rec = dryrun.run_cell(cfg, spec, mesh=MESH, verbose=False)
+        rec = dryrun.run_cell(cfg, spec, mesh=mesh, verbose=False)
         m = rec["memory"]
         pos = 4 if kind == "decode" else 0
         state = m["argument_bytes"] - dryrun.local_bytes(
-            *_arguments(cfg, spec, MESH)[1], dryrun.mesh_sizes(MESH)) if kind == "train" else 0
+            *_arguments(cfg, spec, mesh)[1], dryrun.mesh_sizes(mesh)) if kind == "train" else 0
         h = 0
         if arch == "mamba2-370m" and kind == "decode":
-            cache, specs = _arguments(cfg, spec, MESH)[2]
+            cache, specs = _arguments(cfg, spec, mesh)[2]
             h = dryrun.local_bytes(cache["blocks"]["s0"]["h"], specs["blocks"]["s0"]["h"],
-                                   dryrun.mesh_sizes(MESH))
+                                   dryrun.mesh_sizes(mesh))
         assert (int(arg), int(output), int(alias)) == (
             m["argument_bytes"] + pos,
             m["output_bytes"] + 8 * int(leaves) + (4 if kind != "train" else 0) + h,
-            m["alias_bytes"] + state + pos - h), (arch, kind)
+            m["alias_bytes"] + state + pos - h), (mesh, arch, kind)
+
+
+def test_undivided_rank_memory_matches_the_reference(reference):
+    """:func:`test_rank_memory_matches_the_reference` on 2x3 (6 of the
+    reference's 8 host devices), yi-9b and deepseek-moe-16b smoke: the
+    leaves the rule table's guard leaves whole count whole on each rank, on
+    both sides."""
+    out, err = _reference_rows(reference)
+    rows = [r for r in out if r[0] == "2x3"]
+    assert len(rows) == 3 * len(UNDIVIDED_ARCHS), err[-3000:]
+    _hold_against_the_reference(rows)
 
 
 def test_report_tables_the_records(tmp_path):

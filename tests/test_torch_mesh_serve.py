@@ -34,7 +34,6 @@ together.
 import ast
 import dataclasses
 import os
-import re
 import subprocess
 import sys
 import textwrap
@@ -57,6 +56,7 @@ from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import rglru as trglru  # noqa: E402
 from repro_torch.models import ssm as tssm  # noqa: E402
+from repro_torch.parallel.sharding import param_shardings  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
@@ -92,7 +92,7 @@ def flat(tree):
 
 for name in names:
     arch, (shape, axes), over, knobs = w.ALL_CASES[name]
-    cfg = configs.get_smoke(arch).replace(**{**w.FP32_OVERRIDES, **over})
+    cfg = w.configure(configs.get_smoke(arch), {**w.FP32_OVERRIDES, **over})
     params = jax.tree.map(jnp.asarray, w.unflatten(inp, "params/" + name))
     inputs = {k: jnp.asarray(v) for k, v in w.inputs_np(inp, name).items()}
     mesh = make_mesh(shape, axes)
@@ -139,7 +139,7 @@ def _inputs(d, cases, seed):
     inputs = {}
     for i, name in enumerate(cases):
         arch, _, over, _ = worker.ALL_CASES[name]
-        jcfg = jconfigs.get_smoke(arch).replace(**{**worker.FP32_OVERRIDES, **over})
+        jcfg = worker.configure(jconfigs.get_smoke(arch), {**worker.FP32_OVERRIDES, **over})
         params = jax.tree.map(np.asarray, jlm.init(jax.random.PRNGKey(seed + i), jcfg))
         inputs.update({f"params/{name}/{k}": v for k, v in worker.flatten(params).items()})
         rng = np.random.default_rng(seed + i)
@@ -173,16 +173,16 @@ def single_process(inputs, name, tokens):
     return np.stack([x.float().numpy() for x in out])
 
 
-def serve_run(d, cases, seed):
+def serve_run(d, cases, seed, world=8):
     """The ranks' ``serve`` task on ``cases`` beside the reference's jitted
-    sharded steps on their fp32 cases (two processes of 8 host devices),
-    all started together, in directory ``d``: the inputs, the reference's
-    record and each rank's."""
+    sharded steps on their fp32 cases (two processes of ``world`` host
+    devices), all started together, in directory ``d``: the inputs, the
+    reference's record and each of the ``world`` ranks'."""
     inputs = _inputs(d, cases, seed)
     fp32 = [c for c in cases if c not in worker.BF16_CASES]
     parts = [fp32[i::2] for i in range(2)]
     env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
-    jax_env = dict(env, XLA_FLAGS="--xla_force_host_platform_device_count=8",
+    jax_env = dict(env, XLA_FLAGS=f"--xla_force_host_platform_device_count={world}",
                    JAX_PLATFORMS="cpu")
 
     def start(args, env):
@@ -191,7 +191,7 @@ def serve_run(d, cases, seed):
 
     procs = [start(["-c", textwrap.dedent(_JAX_SERVE), str(d), HERE, ",".join(part)], jax_env)
              for part in parts]
-    procs.append(start([os.path.join(HERE, "torch_mesh_serve_worker.py"), str(d), "8",
+    procs.append(start([os.path.join(HERE, "torch_mesh_serve_worker.py"), str(d), str(world),
                         "serve", ",".join(cases)], env))
     logs = []
     for proc in procs:
@@ -207,7 +207,7 @@ def serve_run(d, cases, seed):
     jax_out = {}
     for part in parts:
         jax_out.update(np.load(d / f"jax_serve-{part[0]}.npz"))
-    ranks = [dict(np.load(d / f"serve-rank{r}.npz")) for r in range(8)]
+    ranks = [dict(np.load(d / f"serve-rank{r}.npz")) for r in range(world)]
     return {"inputs": inputs, "jax": jax_out, "ranks": ranks}
 
 
@@ -369,25 +369,31 @@ def test_check_sharded_admits_every_family_to_serve(arch):
     tlm.check_sharded(tconfigs.get_smoke(arch), launch_mesh.make_ctx({"data": 2, "model": 2}))
 
 
-@pytest.mark.parametrize("arch,lru_width,model,what", [
-    ("mamba2-370m", None, 16, "the SSM heads (8)"),
-    ("recurrentgemma-9b", 68, 8, "the RG-LRU width (68)"),
-    ("seamless-m4t-medium", None, 3, "the padded vocab (512)"),
+@pytest.mark.parametrize("arch,lru_width,model,leaf", [
+    ("mamba2-370m", None, 16, ("blocks", "s0", "ssm", "wdt")),
+    ("recurrentgemma-9b", 68, 8, ("blocks", "s0", "rec", "w_x")),
+    ("seamless-m4t-medium", None, 3, ("embed",)),
 ], ids=["ssm-heads", "rglru-width", "vocab"])
-def test_check_sharded_refuses_what_the_model_axis_does_not_divide(arch, lru_width, model,
-                                                                    what):
+def test_check_sharded_admits_what_the_model_axis_does_not_divide(arch, lru_width, model,
+                                                                   leaf):
     """A model axis that does not divide a split dim of the recurrent or
-    enc-dec families (the SSM's heads, the RG-LRU width, the padded vocab)
-    is refused with ``NotImplementedError`` naming it: the rule table's
-    guard would leave the dim whole and a rank would compute more than its
-    block.  (recurrentgemma-9b smoke with an RG-LRU width of 68, where the
-    model axis of 8 divides every other split dim.)"""
+    enc-dec families (the SSM's 8 heads, an RG-LRU width of 68, the padded
+    vocab 512) is admitted, as the reference's guard admits it: the rule
+    table leaves that dim of the named leaf whole, and a rank computes its
+    product whole (``test_torch_mesh_undivided.py`` holds such ranks
+    against the reference).  (recurrentgemma-9b smoke with an RG-LRU width
+    of 68, where the model axis of 8 divides every other split dim.)"""
     cfg = tconfigs.get_smoke(arch)
     if lru_width:
         cfg = cfg.replace(rglru=dataclasses.replace(cfg.rglru, lru_width=lru_width))
     ctx = launch_mesh.make_ctx({"data": 2, "model": model})
-    with pytest.raises(NotImplementedError, match=re.escape(what)):
-        tlm.check_sharded(cfg, ctx)
+    tlm.check_sharded(cfg, ctx)
+    node = param_shardings(tlm.init_shapes(cfg), ctx)
+    for k in leaf:
+        node = node[k]
+    assert "model" not in str(node), node
+    if arch == "recurrentgemma-9b":              # the rest of the model still splits
+        assert param_shardings(tlm.init_shapes(cfg), ctx)["embed"][0] == "model"
 
 
 #: the full configs that serve sharded: every family
@@ -396,28 +402,38 @@ SERVED = ("yi-9b", "mistral-large-123b", "qwen1.5-110b", "gemma2-27b", "phi-3-vi
           "seamless-m4t-medium")
 
 
-@pytest.mark.parametrize("model", [2, 4, 8])
-@pytest.mark.parametrize("arch", SERVED)
-def test_full_configs_serve_sharded_into_the_flash_domain(arch, model):
-    """The sharded prefill admits each full config on the (2, model) meshes,
-    and where it has causal self-attention a rank's flash call lies in the
-    kernel's domain: its q heads (the model axis's block where it divides
-    ``n_heads``), the kv heads they read (the rank's block of them where
-    the model axis divides ``n_kv_heads``, else those ``_local_kv`` picks),
-    so many q heads to a kv head, at an instantiated head dim on the wgmma
-    variant in bf16.  The smoke configs' hd 8 and 16 cannot show a gap
-    here."""
-    cfg = tconfigs.get(arch)
-    ctx = launch_mesh.make_ctx({"data": 2, "model": model})
-    tlm.check_sharded(cfg, ctx, seq_len=2048)
-    if not set(cfg.layer_pattern) & {"attn", "local"}:
-        return
+def _rank_heads(cfg, model):
+    """(q heads, kv heads) of a rank's flash call in the sharded prefill on
+    a model axis of ``model``: the model axis's block of the q heads where
+    it divides ``n_heads``, else all of them (gathered where it divides
+    ``n_heads·hd``, whole where it does not); the kv heads they read (the
+    rank's block where the model axis divides ``n_kv_heads``, else those
+    ``_local_kv`` picks, or all of them)."""
     g = cfg.n_heads // cfg.n_kv_heads
     hl = cfg.n_heads // model if cfg.n_heads % model == 0 else cfg.n_heads
     if cfg.n_kv_heads % model == 0:
         kv = cfg.n_kv_heads // model
     else:
         kv = hl // g if hl % g == 0 else (1 if g % hl == 0 else hl)
+    return hl, kv
+
+
+@pytest.mark.parametrize("model", [2, 3, 4, 6, 8])
+@pytest.mark.parametrize("arch", SERVED)
+def test_full_configs_serve_sharded_into_the_flash_domain(arch, model):
+    """The sharded prefill admits each full config on the (2, model) meshes,
+    and where it has causal self-attention a rank's flash call lies in the
+    kernel's domain: its q heads and the kv heads they read
+    (:func:`_rank_heads`; every head where the guard leaves the attention
+    whole, at a model axis of 3 or 6), so many q heads to a kv head, at an
+    instantiated head dim on the wgmma variant in bf16.  The smoke configs'
+    hd 8 and 16 cannot show a gap here."""
+    cfg = tconfigs.get(arch)
+    ctx = launch_mesh.make_ctx({"data": 2, "model": model})
+    tlm.check_sharded(cfg, ctx, seq_len=2048)
+    if not set(cfg.layer_pattern) & {"attn", "local"}:
+        return
+    hl, kv = _rank_heads(cfg, model)
     assert hl * model == cfg.n_heads or hl == cfg.n_heads
     assert hl % kv == 0
     assert cfg.hd in fa.HEAD_DIMS and fa.variant(cfg.hd, torch.bfloat16) == "wgmma"
@@ -425,25 +441,40 @@ def test_full_configs_serve_sharded_into_the_flash_domain(arch, model):
         assert cfg.moe.num_experts % model == 0 or tmoe.capacity(2048, cfg) % 128 == 0
 
 
-@pytest.mark.parametrize("model", [2, 4, 8])
+def _rank_scan_widths(cfg, model):
+    """A rank's scan shapes on a model axis of ``model``: (the SSM heads,
+    the SSM inner width) or (the RG-LRU width,), each the model axis's
+    block where it divides the dim, else whole (the rule table's guard)."""
+    def block(n):
+        return n // model if n % model == 0 else n
+    if cfg.ssm is not None:
+        di, nh, _, _ = tssm.dims(cfg)
+        return block(nh), block(di)
+    return (block(trglru.width(cfg)),)
+
+
+@pytest.mark.parametrize("model", [2, 3, 4, 6, 8])
 @pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b"])
 def test_full_recurrent_configs_serve_sharded_into_the_scan_domains(arch, model):
     """A rank's scans in the sharded prefill of each full recurrent config
-    on the (2, model) meshes lie in the card's fast variants: the SSD scan
-    on the rank's heads takes the mma variant at P, N and the chunk in bf16
-    and tiles the serving lengths; the RG-LRU scan's width block is the
-    vec4 variant's and tiles them too."""
+    on the (2, model) meshes lie in the card's fast variants, at the rank's
+    block or, where the model axis does not divide the dim (3, 6), the
+    whole: the SSD scan on the rank's heads takes the mma variant at P, N
+    and the chunk in bf16 and tiles the serving lengths; the RG-LRU scan's
+    width is the vec4 variant's and tiles them too."""
     cfg = tconfigs.get(arch)
     tlm.check_sharded(cfg, launch_mesh.make_ctx({"data": 2, "model": model}), seq_len=512)
     if cfg.ssm is not None:
         di, nh, p, n = tssm.dims(cfg)
-        hl, q = nh // model, cfg.ssm.chunk
-        assert hl * model == nh and (di // model) == hl * p
+        hl, dl = _rank_scan_widths(cfg, model)
+        q = cfg.ssm.chunk
+        assert dl == hl * p and (hl * model == nh or hl == nh)
         assert ssd.variant(p, n, q, torch.bfloat16) == "mma"
         for l in (512, 2048):
             assert ssd.check_chunk(l, q) == q
     if cfg.rglru is not None:
-        wl = trglru.width(cfg) // model
-        assert wl * model == trglru.width(cfg) and rg.variant(wl) == "vec4"
+        (wl,) = _rank_scan_widths(cfg, model)
+        assert (wl * model == trglru.width(cfg) or wl == trglru.width(cfg))
+        assert rg.variant(wl) == "vec4"
         for l in (512, 2048):
             rg.check_tiles(l, wl, trglru.SCAN_BLOCK, trglru.SCAN_BLOCK)

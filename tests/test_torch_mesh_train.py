@@ -112,8 +112,8 @@ d, names = sys.argv[1], sys.argv[3].split(",")
 inp = dict(np.load(d + "/inputs.npz"))
 out = {}
 for name in names:
-    arch, (shape, axes), b, l, over, knobs = w.CASES[name]
-    cfg = configs.get_smoke(arch).replace(**{**w.FP32_OVERRIDES, **over})
+    arch, (shape, axes), b, l, over, knobs = w.ALL_CASES[name]
+    cfg = w.configure(configs.get_smoke(arch), {**w.FP32_OVERRIDES, **over})
     params = jax.tree.map(jnp.asarray, w.unflatten(inp, "params/" + name))
     state = {"params": params, "opt": optim.adamw_init(params),
              "step": jnp.zeros((), jnp.int32)}
@@ -141,15 +141,15 @@ print("JAX_STEPS_OK")
 """
 
 
-def _inputs(d):
+def _inputs(d, cases=tuple(worker.CASES), seed=0):
     """Each case's initial parameters from the reference's ``lm.init`` and
     its batches (tokens, next-token labels, a random mask, and a VLM's
-    patches [B, n_patches, 1024] or an enc-dec's frames [B, FRAMES, 1024]),
-    from a seed."""
+    patches [B, n_patches, 1024] or an enc-dec's frames [B, L / 8, 1024]),
+    from a seed, the i-th case's ``seed + i``."""
     inputs = {}
-    for i, name in enumerate(worker.CASES):
-        arch, _, b, l, over, _ = worker.CASES[name]
-        jcfg = jconfigs.get_smoke(arch).replace(**{**worker.FP32_OVERRIDES, **over})
+    for i, name in enumerate(cases, seed):
+        arch, _, b, l, over, _ = worker.ALL_CASES[name]
+        jcfg = worker.configure(jconfigs.get_smoke(arch), {**worker.FP32_OVERRIDES, **over})
         params = jax.tree.map(np.asarray, jlm.init(jax.random.PRNGKey(i), jcfg))
         inputs.update({f"params/{name}/{k}": v for k, v in worker.flatten(params).items()})
         rng = np.random.default_rng(i)
@@ -163,7 +163,7 @@ def _inputs(d):
                     (b, jcfg.n_patches, 1024)).astype(np.float32)
             if jcfg.enc_dec:
                 inputs[f"batch/{name}/{s}/frames"] = rng.standard_normal(
-                    (b, worker.FRAMES, 1024)).astype(np.float32)
+                    (b, worker.frames(name), 1024)).astype(np.float32)
     np.savez(d / "inputs.npz", **inputs)
     return inputs
 
@@ -480,77 +480,111 @@ def test_seq_shard_refuses_a_sequence_the_model_axis_does_not_divide(run, case, 
         assert msg.startswith("ValueError") and what in msg, msg
 
 
-@pytest.mark.parametrize("model", [2, 4])
+def _block(n, model):
+    """A rank's share of a dim the rule table splits over a model axis of
+    ``model``: the block where the axis divides it, else the whole (its
+    guard)."""
+    return n // model if n % model == 0 else n
+
+
+def _rank_heads(cfg, model):
+    """(q heads, kv heads) of a rank's flash call on a model axis of
+    ``model``: the q heads' block where the axis divides ``n_heads``, else
+    all of them; the kv heads' block where it divides ``n_kv_heads``, else
+    those the rank's q heads read (``_local_kv``: a whole GQA group of
+    them), or all of them."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    hl = _block(cfg.n_heads, model)
+    if cfg.n_kv_heads % model == 0:
+        return hl, cfg.n_kv_heads // model
+    return hl, (hl // g if hl % g == 0 else 1)
+
+
+@pytest.mark.parametrize("model", [2, 3, 4, 6, 8])
 @pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "seamless-m4t-medium"])
 def test_full_multimodal_configs_shard_into_the_kernels_domains(arch, model):
     """The sharded step admits each full multimodal config on the (2, model)
-    meshes with ``seq_shard_activations``, at the training length 2048
-    (phi-3-vision-4.2b: 576 patches and 1472 tokens; seamless-m4t-medium:
-    2048 tokens and 256 frames): the model axis divides the padded vocab,
-    ``d_ff`` and the heads, and a rank's flash call (its q heads and their
-    kv heads, MHA, bf16) takes the wgmma variant at the config's hd (96,
+    meshes at the training length 2048 (phi-3-vision-4.2b: 576 patches and
+    1472 tokens; seamless-m4t-medium: 2048 tokens and 256 frames), with
+    ``seq_shard_activations`` where the model axis cuts those sequences (2,
+    4, 8) and without it where it does not (3, 6: refused with it, a
+    ``ValueError``); a rank's flash call (its q heads and their kv heads,
+    MHA, bf16: the model axis's block, or every head where the guard leaves
+    the attention whole) takes the wgmma variant at the config's hd (96,
     64).  The smoke configs' hd 16 cannot show a gap here."""
     cfg = tconfigs.get(arch)
-    ctx = launch_mesh.make_ctx({"data": 2, "model": model}, seq_shard_activations=True)
     meta = lambda *shape: torch.empty(shape, device="meta")  # noqa: E731
-    tlm.check_sharded(cfg, ctx, seq_len=2048 - cfg.n_patches,
-                      patches=meta(1, cfg.n_patches, 1024) if cfg.n_patches else None,
-                      frames=meta(1, 2048 // 8, 1024) if cfg.enc_dec else None)
+    seqs = dict(seq_len=2048 - cfg.n_patches,
+                patches=meta(1, cfg.n_patches, 1024) if cfg.n_patches else None,
+                frames=meta(1, 2048 // 8, 1024) if cfg.enc_dec else None)
+    cut = 2048 % model == 0 and (2048 // 8) % model == 0
+    ctx = launch_mesh.make_ctx({"data": 2, "model": model}, seq_shard_activations=cut)
+    tlm.check_sharded(cfg, ctx, **seqs)
+    if not cut:
+        with pytest.raises(ValueError, match="seq_shard_activations"):
+            tlm.check_sharded(cfg, dataclasses.replace(ctx, seq_shard_activations=True), **seqs)
     want = {"phi-3-vision-4.2b": (32128, 96), "seamless-m4t-medium": (256256, 64)}[arch]
     assert (cfg.padded_vocab, cfg.hd) == want
-    for n in (cfg.padded_vocab, cfg.d_ff, cfg.n_heads * cfg.hd, cfg.n_heads, cfg.n_kv_heads):
-        assert n % model == 0
+    hl, kv = _rank_heads(cfg, model)
+    assert hl == kv and hl in (cfg.n_heads, cfg.n_heads // model)
     assert cfg.n_heads == cfg.n_kv_heads and fa.variant(cfg.hd, torch.bfloat16) == "wgmma"
 
 
-@pytest.mark.parametrize("model", [2, 4])
+@pytest.mark.parametrize("model", [2, 3, 4, 6, 8])
 @pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b"])
 def test_full_recurrent_configs_shard_into_the_scan_kernels_domains(arch, model):
     """The sharded step admits each full recurrent config on the (2, model)
-    meshes, and a rank's scans lie in the card's domains: the SSM's heads
-    and inner width split evenly, the mma forward and backward take P, N
-    and the chunk in bf16, the backward's pair passes group 8 of the rank's
-    heads; the RG-LRU's width block is the vec4 variant's and tiles at the
-    training and serving lengths.  The smoke configs cannot show a gap
-    here: they are narrower than every domain's edge."""
+    meshes, and a rank's scans lie in the card's domains, at the rank's
+    block or, where the model axis does not divide the dim (3, 6), the
+    whole: the SSM's heads and inner width alike, the mma forward and
+    backward take P, N and the chunk in bf16, the backward's pair passes
+    group 8 of the rank's heads (its 4 at a model axis of 8); the RG-LRU's width is the vec4 variant's
+    and tiles at the training and serving lengths.  The smoke configs
+    cannot show a gap here: they are narrower than every domain's edge."""
     cfg = tconfigs.get(arch)
     ctx = launch_mesh.make_ctx({"data": 2, "model": model})
     tlm.check_sharded(cfg, ctx, seq_len=2048)
     if cfg.ssm is not None:
         di, nh, p, n = tssm.dims(cfg)
-        hl, q = nh // model, cfg.ssm.chunk
-        assert hl * model == nh and (di // model) == hl * p
+        hl, q = _block(nh, model), cfg.ssm.chunk
+        assert _block(di, model) == hl * p
         assert ssd.variant(p, n, q, torch.bfloat16) == "mma"
         assert ssd.bwd_variant(p, n, q, torch.bfloat16) == "mma"
-        assert ssd.bwd_heads_per_block(hl) == ssd.BWD_HEADS_PER_BLOCK
+        assert ssd.bwd_heads_per_block(hl) == min(hl, ssd.BWD_HEADS_PER_BLOCK)
         assert ssd.check_chunk(2048, q) == q
     if cfg.rglru is not None:
-        wl = trglru.width(cfg) // model
-        assert wl * model == trglru.width(cfg) and rg.variant(wl) == "vec4"
+        wl = _block(trglru.width(cfg), model)
+        assert rg.variant(wl) == "vec4"
         for l in (2048, 4096):
             rg.check_tiles(l, wl, trglru.SCAN_BLOCK, trglru.SCAN_BLOCK)
 
 
-@pytest.mark.parametrize("model", [2, 4])
+@pytest.mark.parametrize("model", [2, 3, 4, 6, 8])
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "dbrx-132b"])
 def test_full_moe_configs_shard_into_the_kernels_domains(arch, model):
     """The sharded step admits each full MoE config on the (2, model)
-    meshes: the model axis divides the experts, the shared experts' width
-    and the heads; a rank's capacity on its 1 × 2048 tokens at the configs'
-    capacity factor is ⌈2048·k·1.25/E⌉ (deepseek-moe-16b 240, dbrx-132b
-    640); its flash call (its q heads, hd 128, bf16) takes the wgmma
-    variant with a whole GQA group of kv heads."""
+    meshes.  Where the model axis divides the experts (2, 4, 8) they are
+    expert parallel, and a rank's capacity on its 1 × 2048 tokens at the
+    configs' capacity factor is ⌈2048·k·1.25/E⌉ (deepseek-moe-16b 240,
+    dbrx-132b 640); where it does not (3, 6) every rank runs the global
+    dispatch on all 2 × 2048 tokens, at a capacity of a multiple of 128.
+    The shared experts' width is the model axis's block or whole.  A rank's
+    flash call (its q heads, hd 128, bf16) takes the wgmma variant with a
+    whole GQA group of kv heads."""
     cfg = tconfigs.get(arch)
     m = cfg.moe
     ctx = launch_mesh.make_ctx({"data": 2, "model": model})
     tlm.check_sharded(cfg, ctx, seq_len=2048)
-    e_loc = m.num_experts // model
-    assert e_loc * model == m.num_experts
-    assert tmoe.shared_width(cfg) % model == 0 and (cfg.n_heads * cfg.hd) % model == 0
-    assert tmoe.ep_capacity(1 * 2048, cfg) == {"deepseek-moe-16b": 240, "dbrx-132b": 640}[arch]
-    hl = cfg.n_heads // model
-    kv = cfg.n_kv_heads // model if cfg.n_kv_heads % model == 0 else cfg.n_kv_heads
-    assert hl * model == cfg.n_heads and (hl % kv == 0 or kv == cfg.n_kv_heads)
+    if m.num_experts % model == 0:
+        assert tmoe.ep_capacity(1 * 2048, cfg) == {"deepseek-moe-16b": 240,
+                                                  "dbrx-132b": 640}[arch]
+    else:
+        assert tmoe.capacity(2 * 2048, cfg) % 128 == 0
+    if m.num_shared:
+        assert _block(tmoe.shared_width(cfg), model) in (tmoe.shared_width(cfg),
+                                                          tmoe.shared_width(cfg) // model)
+    hl, kv = _rank_heads(cfg, model)
+    assert hl in (cfg.n_heads, cfg.n_heads // model) and hl % kv == 0
     assert cfg.hd == 128 and fa.variant(cfg.hd, torch.bfloat16) == "wgmma"
 
 

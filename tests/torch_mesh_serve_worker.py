@@ -8,7 +8,8 @@ starts ``world`` ranks (``spawn``), which meet through a file under
 ``<dir>`` and run the comma-separated ``tasks``:
 
 * ``serve`` (world 8): every case of :data:`CASES` (or the comma-separated
-  ``cases``, of :data:`CASES` or :data:`RECURRENT_CASES`): the parameters
+  ``cases``, of :data:`CASES` or :data:`RECURRENT_CASES`, or on world 6 of
+  :data:`UNDIVIDED_CASES`): the parameters
   of ``<dir>/inputs.npz`` placed by the rule table on the case's mesh,
   ``make_prefill_step`` on the case's prompt (and frames), then
   :data:`DECODE` greedy ``make_decode_step`` steps under the mesh context;
@@ -18,8 +19,10 @@ starts ``world`` ranks (``spawn``), which meet through a file under
   global array, the logits' spec, and the collectives of each decode step
   and of each call in it of :data:`COUNTED` (the attention on the ring's
   blocks, the SSM's decode step, the cross-attention's);
-* ``card`` (world 4, a (2, 2) mesh on the NVIDIA card, ranks sharing it):
-  :data:`CARD_ARCHS`' smoke configs in fp32 from the seed, sharded against
+* ``card`` (world 4, a (2, 2) mesh on the NVIDIA card, ranks sharing it;
+  world 3, the (1, 3) mesh, whose model axis divides few of the smoke
+  configs' split dims): :data:`CARD_ARCHS`' smoke configs in fp32 from the
+  seed, sharded against
   the same rank's plain prefill and decode on the global parameters, and
   each kernel's launches in the sharded prefill;
 * ``card8`` (world 8, the (1, 8) mesh on the card): dbrx-132b smoke, whose
@@ -41,11 +44,16 @@ import torch.multiprocessing as mp
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from torch_mesh_train_worker import configure  # noqa: E402
 
 MESH_24 = ((2, 4), ("data", "model"))
 MESH_222 = ((2, 2, 2), ("pod", "data", "model"))
 MESH_18 = ((1, 8), ("data", "model"))
 MESH_22 = ((2, 2), ("data", "model"))
+MESH_23 = ((2, 3), ("data", "model"))
+MESH_13 = ((1, 3), ("data", "model"))
 
 #: case → (arch, mesh, config overrides, context knobs).  yi-9b smoke on (2,
 #: 4): its 2 kv heads do not split over the model axis, its hd 8 does, so
@@ -95,7 +103,28 @@ RECURRENT_CASES = {
     "m4t-seq": ("seamless-m4t-medium", MESH_24, {}, {"seq_shard_activations": True}),
     "mamba2-bf16": ("mamba2-370m", MESH_24, {"compute_dtype": "bfloat16"}, {}),
 }
-ALL_CASES = {**CASES, **RECURRENT_CASES}
+#: the cases on the (2, 3) mesh (``test_torch_mesh_undivided.py``, world
+#: 6), as :data:`CASES` (their configs as ``torch_mesh_train_worker``'s cases
+#: of the same names): a model axis of 3, whose guard leaves whole every leaf
+#: whose dim it does not divide.  yi-9b smoke: every split dim whole, its
+#: ring whole.  deepseek-moe-16b smoke: the shared experts' 96 split, the 8
+#: experts through the global dispatch.  mamba2-370m smoke at d_model 96 with
+#: SSM heads of 48: its inner width 192 split (the conv tail of x the rank's
+#: channels), its 4 heads and their state whole.  recurrentgemma-9b smoke
+#: with an RG-LRU width of 96: the width and its state split, the local
+#: attention and its ring whole.  phi-3-vision-4.2b smoke with d_ff 96 and
+#: its 8 patches: the MLP split, the attention whole.  seamless-m4t-medium
+#: smoke with d_ff 96: the MLPs split, the attentions and the projected
+#: memory whole.
+UNDIVIDED_CASES = {
+    "yi3": ("yi-9b", MESH_23, {}, {}),
+    "ds3": ("deepseek-moe-16b", MESH_23, {}, {}),
+    "mamba3": ("mamba2-370m", MESH_23, {"d_model": 96, "ssm.head_dim": 48}, {}),
+    "rg3": ("recurrentgemma-9b", MESH_23, {"rglru.lru_width": 96}, {}),
+    "phi3": ("phi-3-vision-4.2b", MESH_23, {"d_ff": 96}, {}),
+    "m4t3": ("seamless-m4t-medium", MESH_23, {"d_ff": 96}, {}),
+}
+ALL_CASES = {**CASES, **RECURRENT_CASES, **UNDIVIDED_CASES}
 #: the cases in bf16 compute: held against the port's own single-process
 #: steps, not the reference's
 BF16_CASES = ("yi-bf16", "mamba2-bf16")
@@ -124,7 +153,7 @@ def case_config(name):
     from repro_torch import configs
 
     arch, _, over, _ = ALL_CASES[name]
-    return configs.get_smoke(arch).replace(**{**FP32_OVERRIDES, **over})
+    return configure(configs.get_smoke(arch), {**FP32_OVERRIDES, **over})
 
 
 def flatten(tree, prefix=""):
@@ -257,7 +286,8 @@ def _serve(inputs, meshes, out, rank, names):
 
 def _card(meshes, out, rank):
     """The ``card`` task: each arch's smoke config in fp32 from the seed on
-    the (2, 2) mesh of ranks on the card, sharded prefill and decode against
+    the mesh of ranks on the card ((2, 2), or (1, 3) on 3 ranks), sharded
+    prefill and decode against
     the same rank's plain ones on the global parameters, and each forward
     kernel's launches in the sharded prefill."""
     from repro_torch import configs
@@ -270,7 +300,7 @@ def _card(meshes, out, rank):
     from repro_torch.parallel.sharding import distribute_tree, gather_rows, param_shardings
     from repro_torch.serve.engine import greedy_token, make_decode_step, make_prefill_step
 
-    ctx = make_ctx(meshes[MESH_22])
+    ctx = make_ctx(next(iter(meshes.values())))
     for arch in CARD_ARCHS:
         cfg = configs.get_smoke(arch).replace(compute_dtype="float32")
         if cfg.moe is not None:
@@ -368,7 +398,7 @@ def _rank(rank, world, directory, tasks, names):
 
     device = "cuda" if any(t.startswith("card") for t in tasks) else "cpu"
     init_ranks(rank, world, f"file://{directory}/rendezvous-{world}", device_type=device)
-    shapes = [MESH_24, MESH_222, MESH_18] if world == 8 else [MESH_22]
+    shapes = {8: [MESH_24, MESH_222, MESH_18], 6: [MESH_23], 3: [MESH_13]}.get(world, [MESH_22])
     meshes = {s: make_mesh(*s, device_type=device) for s in shapes}
     inputs = dict(np.load(os.path.join(directory, "inputs.npz"))) if "serve" in tasks else {}
     for task in tasks:

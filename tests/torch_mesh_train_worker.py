@@ -7,7 +7,8 @@ starts ``world`` ranks (``spawn``), which meet through a file under
 ``<dir>`` and run the comma-separated ``tasks``:
 
 * ``train``: every case of :data:`CASES` (world 8; or the comma-separated
-  ``cases``): the initial parameters
+  ``cases``, of :data:`CASES` or, on world 6, of :data:`UNDIVIDED_CASES`):
+  the initial parameters
   and the batches of ``<dir>/inputs.npz`` placed by the rule table on the
   case's mesh, :data:`STEPS` steps of ``make_train_step`` under the mesh
   context; each step's loss, MoE aux loss and grad norm, this rank's state
@@ -28,10 +29,12 @@ starts ``world`` ranks (``spawn``), which meet through a file under
   mesh on 8 ranks;
 * ``adjoint`` (world 4, a (2, 2) mesh): each differentiable collective's
   backward against its adjoint, in fp64;
-* ``card`` (world 4, a (2, 2) mesh on the NVIDIA card, ranks sharing it):
-  :data:`STEPS` fp32 sharded steps of each of :data:`CARD_ARCHS` from
-  :func:`card_inputs`, through the scan kernels and flash; the losses,
-  grad norms, launches and (rank 0) the gathered final state.
+* ``card`` (world 4, a (2, 2) mesh on the NVIDIA card, ranks sharing it;
+  world 3, the (1, 3) mesh, whose model axis divides few of the smoke
+  configs' split dims): :data:`STEPS` fp32 sharded steps of each of
+  :data:`CARD_ARCHS` from :func:`card_inputs`, through the scan kernels
+  and flash; the losses, grad norms, launches and (rank 0) the gathered
+  final state.
 
 Each rank writes ``<dir>/<task>-rank<r>.npz``.  Imports no JAX.
 """
@@ -53,6 +56,8 @@ STEPS = 2
 MESH_24 = ((2, 4), ("data", "model"))
 MESH_222 = ((2, 2, 2), ("pod", "data", "model"))
 MESH_18 = ((1, 8), ("data", "model"))
+MESH_23 = ((2, 3), ("data", "model"))
+MESH_13 = ((1, 3), ("data", "model"))
 
 #: case → (arch, mesh, batch, seq, config overrides, context knobs).  The
 #: yi-9b smoke config on (2, 4) splits each of its 2 kv heads over the model
@@ -101,6 +106,33 @@ CASES = {
     "m4t-bf16": ("seamless-m4t-medium", MESH_222, 8, 64, {"compute_dtype": "bfloat16"},
                  {"fsdp_over_pod": True}),
 }
+#: the cases on the (2, 3) mesh (``test_torch_mesh_undivided.py``, world
+#: 6), as :data:`CASES`: a model axis of 3, which the rule table's guard drops
+#: from every leaf whose dim it does not divide, so a rank computes those
+#: products whole.  yi-9b smoke: every split dim whole (the vocab 512, d_ff
+#: 128, the 8 heads of 8), with and without ``seq_shard_activations`` (L 48).
+#: deepseek-moe-16b smoke: the shared experts' 96 split, the 8 experts
+#: through the global dispatch, the heads and the vocab whole.
+#: mamba2-370m smoke at d_model 96 with SSM heads of 48: its inner width 192
+#: split, its 4 heads whole (the rank's channels joined for the scan).
+#: recurrentgemma-9b smoke with an RG-LRU width of 96: the width split,
+#: d_ff 128, the heads and the vocab whole.  phi-3-vision-4.2b smoke with
+#: d_ff 96 and its 8 patches: the MLP split, the attention whole.
+#: seamless-m4t-medium smoke with d_ff 96 and 6 frames, under
+#: ``seq_shard_activations``: the MLPs split, the encoder's, the decoder's
+#: and the cross-attention whole, the frames and the tokens cut.  A dotted
+#: override sets a field of a nested config (:func:`configure`).
+UNDIVIDED_CASES = {
+    "yi3": ("yi-9b", MESH_23, 4, 48, {}, {}),
+    "yi3-seq": ("yi-9b", MESH_23, 4, 48, {}, {"seq_shard_activations": True}),
+    "ds3": ("deepseek-moe-16b", MESH_23, 4, 48, {}, {}),
+    "mamba3": ("mamba2-370m", MESH_23, 4, 48, {"d_model": 96, "ssm.head_dim": 48}, {}),
+    "rg3": ("recurrentgemma-9b", MESH_23, 4, 48, {"rglru.lru_width": 96}, {}),
+    "phi3": ("phi-3-vision-4.2b", MESH_23, 4, 48, {"d_ff": 96}, {}),
+    "m4t3-seq": ("seamless-m4t-medium", MESH_23, 4, 48, {"d_ff": 96},
+                 {"seq_shard_activations": True}),
+}
+ALL_CASES = {**CASES, **UNDIVIDED_CASES}
 #: the frames of an enc-dec case: data/synthetic.make_batch's S = L / 8 at L 64
 FRAMES = 8
 #: a batch's keys: the text, and the modality stubs of a VLM or enc-dec case
@@ -134,11 +166,32 @@ CARD_ARCHS = ("mamba2-370m", "recurrentgemma-9b", "deepseek-moe-16b", "phi-3-vis
 CARD_BATCH, CARD_SEQ = 4, 64
 
 
+def configure(cfg, over):
+    """``cfg`` (either package's ``ModelConfig``) with the overrides
+    ``over``; a dotted key ``"ssm.head_dim"`` replaces a field of the
+    nested config."""
+    import dataclasses
+
+    nested = {}
+    for key, v in over.items():
+        if "." in key:
+            outer, inner = key.split(".")
+            nested.setdefault(outer, {})[inner] = v
+    cfg = cfg.replace(**{k: v for k, v in over.items() if "." not in k})
+    return cfg.replace(**{k: dataclasses.replace(getattr(cfg, k), **v)
+                          for k, v in nested.items()})
+
+
+def frames(name):
+    """The frames of case ``name``'s batch: L / 8 (:data:`FRAMES` at L 64)."""
+    return ALL_CASES[name][3] // 8
+
+
 def case_config(name):
     from repro_torch import configs
 
-    arch, _, _, _, over, _ = CASES[name]
-    return configs.get_smoke(arch).replace(**{**FP32_OVERRIDES, **over})
+    arch, _, _, _, over, _ = ALL_CASES[name]
+    return configure(configs.get_smoke(arch), {**FP32_OVERRIDES, **over})
 
 
 def flatten(tree, prefix=""):
@@ -221,7 +274,7 @@ def _train(inputs, meshes, out, rank, names):
     from repro_torch.train.step import make_train_step
 
     for name in names:
-        _, mesh, _, _, _, knobs = CASES[name]
+        _, mesh, _, _, _, knobs = ALL_CASES[name]
         ctx = make_ctx(meshes[mesh], **knobs)
         cfg = case_config(name)
         state = _state(unflatten(inputs, f"params/{name}"), ctx)
@@ -426,7 +479,8 @@ def _refuse(inputs, meshes, out, rank):
 
 def _card(meshes, out, rank):
     """The ``card`` task: each arch's state placed by the rule table on the
-    (2, 2) mesh of ranks on the card, STEPS sharded steps."""
+    mesh of ranks on the card ((2, 2), or (1, 3) on 3 ranks), STEPS sharded
+    steps."""
     from repro_torch.convert import tree_to
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_ctx
@@ -435,7 +489,7 @@ def _card(meshes, out, rank):
     from repro_torch.train.commit import batch_to
     from repro_torch.train.step import make_train_step
 
-    ctx = make_ctx(meshes[MESH_22])
+    ctx = make_ctx(next(iter(meshes.values())))
     for arch in CARD_ARCHS:
         cfg, state, batches = card_inputs(arch)
         state = tree_to(state, "cuda")
@@ -543,9 +597,10 @@ def _rank(rank, world, directory, tasks, names):
 
     device = "cuda" if "card" in tasks else "cpu"
     init_ranks(rank, world, f"file://{directory}/rendezvous-{world}", device_type=device)
-    shapes = [MESH_24, MESH_222, MESH_18] if world == 8 else [MESH_22]
+    shapes = {8: [MESH_24, MESH_222, MESH_18], 6: [MESH_23], 3: [MESH_13]}.get(world, [MESH_22])
     meshes = {s: make_mesh(*s, device_type=device) for s in shapes}
-    inputs = dict(np.load(os.path.join(directory, "inputs.npz"))) if world == 8 else {}
+    path = os.path.join(directory, "inputs.npz")
+    inputs = dict(np.load(path)) if os.path.exists(path) else {}
     for task in tasks:
         out = {}
         if task == "train":
