@@ -73,7 +73,7 @@ read the other phases without the ranks' runs.  Phases, in order; any failure ex
               4.9 GB of fp32 a rank): prefill of [4, 512] under the mesh
               context (4 flash launches a rank, wgmma in bf16), the cache
               placed by cache_shardings with shard_kv_seq (a ring of 544
-              slots, 272 a model rank), then 4 decode steps through
+              slots, 272 a model rank), then 2 decode steps through
               attention._decode_seqshard against the same rank's plain
               decode on the unsharded cache: bf16 with the same tokens fed
               to both, logits within 1e-1; fp32 greedy, logits within 1e-4
@@ -81,7 +81,7 @@ read the other phases without the ranks' runs.  Phases, in order; any failure ex
               all-reduce timed.  (b) deepseek-moe-16b at full width, depth
               cut to 2 of 28 layers (1.60 B parameters, 6.4 GB a rank):
               prefill of [4, 512] (1024 tokens a rank, expert capacity 120)
-              and 4 decode steps under the context, so moe.apply runs
+              and 2 decode steps under the context, so moe.apply runs
               apply_ep; each layer's output held against
               parallel.ref.apply_ep_emulated on the same input in the rank's
               process, and the logits against a run with every MoE layer
@@ -102,7 +102,7 @@ read the other phases without the ranks' runs.  Phases, in order; any failure ex
               by the rule table (FSDP over data, TP over model) and serves them
               through serve/engine.make_prefill_step and make_decode_step
               (DTensor parameters under the mesh context): batch 4 × 512,
-              4 decode steps, the cache placed by cache_shardings.  yi-9b at
+              2 decode steps, the cache placed by cache_shardings.  yi-9b at
               full width, 4 of 48 layers (its 4 kv heads over the model
               axis), phi-3-vision-4.2b at full width, 4 of 32 layers, with
               its 576-patch prefix (L 1088), deepseek-moe-16b at full
@@ -162,7 +162,7 @@ read the other phases without the ranks' runs.  Phases, in order; any failure ex
               MESH3_RANKS = 3 ranks share the card as the (1, 3) ("data",
               "model") gloo mesh and serve recurrentgemma-9b at full width,
               one (rglru, rglru, local) group, batch 4 × 512, as phase 3c
-              (bf16 fed the plain tokens, 4 decode steps, logits within
+              (bf16 fed the plain tokens, 2 decode steps, logits within
               1e-1; the fp32 group greedy, 1 decode step, logits within
               1e-4 and the tokens equal) against phase 3c's plain
               references.  The rule table's guard splits d_ff 12288 over
@@ -202,6 +202,41 @@ read the other phases without the ranks' runs.  Phases, in order; any failure ex
               LocalRunner, for yi-9b and mamba2-370m: exactly one detok
               completion, launches per decode replica, and the committed
               tokens equal a direct greedy_generate call.
+5c. remote workflow — the same serve workflow on the port's RemoteRunner
+              (backends/remote.py): worker processes forked by a
+              coordinator process that this script starts after phase 4b
+              (``python -c "import chip_smoke; chip_smoke.remote_workflow(...)"``,
+              in a session of its own) and that never touches the card (it
+              asserts that CUDA is not initialised before and after each
+              pool runs); two workers serve aws and one aliyun, the lease
+              REMOTE_LEASE_MS.  Each worker builds its own bf16 serving
+              weights from the seed on the card at its first decode, one
+              worker at a time; the kernels are loaded, never built, there.
+              This script first runs the direct greedy_generate calls on the
+              same seed's weights (and frees them).  (a) yi-9b at full width
+              and depth, batch 2 x 64 prompt tokens, 16 steps: the aws/lambda
+              decode replica's worker is SIGKILLed at its output checkpoint's
+              commit; exactly one detok completion, the decode records the
+              killed attempt, its claim again by the other aws worker after
+              the lease and the aliyun backup (both finished), the tokens
+              equal to the direct call, the time from the kill to the new
+              claim; (b) mamba2-370m at full width and depth, no kill;
+              (c) yi-9b, 8 Poisson arrivals (core.traffic.PoissonProcess,
+              1 wf/s, seed 0; request i's prompt from seed 100 + i)
+              submitted through LoadRunner into one run(): the LoadPoint
+              (p50, p99, completions, drops, throughput), no drops, every
+              request once and its tokens equal to the direct call for its
+              seed, no attempt claimed again.  Every model run in a worker
+              launched one prefill's kernels on the bf16 variants: the
+              crash policy writes the run's counts (from 0) to a file at the
+              decode's output commit, which follows the run at once (a
+              worker's counters die with it); every worker that ran no
+              model has no CUDA context; each worker's weight build and
+              peak max_memory_allocated are printed, and the most memory
+              nvidia-smi showed over each part (this script samples it every
+              REMOTE_SMI_S while the coordinator runs, outside the
+              workers).  Phase 2 holds and times flash and the SSD scan at
+              these prefill shapes.
 5b. dryrun  — launch/dryrun.run_cell on fake CUDA tensors (nothing launched,
               nothing counted) for the cells this script runs, each held
               against the same call on the card: yi-9b at full width (48
@@ -223,19 +258,19 @@ read the other phases without the ranks' runs.  Phases, in order; any failure ex
               implementation called directly (op_call_us, launch_call_us).
 6. train    — yi-9b at full width, depth cut to 4 layers (bf16 compute, fp32
               master weights, remat "dots"), batch 2 × 2048 tokens of
-              synthetic data: 3 steps of make_train_step from a seeded
+              synthetic data: 2 steps of make_train_step from a seeded
               state; each step's loss, grad norm, ms (host clock, ended by
               a synchronise), tokens/s, peak memory and flash launches, all
               of them wgmma and as many as the remat policy implies; every
               attention weight of every layer must get a nonzero gradient;
               one more step traced by torch.profiler (device time by class);
-              then the same 3 steps with attention differentiated through
+              then the same 2 steps with attention differentiated through
               the dense plain version, the step-1 loss and grad norm held
               to the flash path's.
 6b. recurrent train — mamba2-370m at full width and depth (48 layers,
               batch 2 × 2048) and recurrentgemma-9b at full width with one
               (rglru, rglru, local) group of 3 layers (batch 1 × 4096),
-              remat "dots", 3 steps each: loss, grad norm, ms, tokens/s,
+              remat "dots", 2 steps each: loss, grad norm, ms, tokens/s,
               peak memory, launches per step exactly the forwards twice and
               each backward kernel once a scan layer (every SSD backward
               by the mma variant), nonzero first
@@ -252,12 +287,12 @@ read the other phases without the ranks' runs.  Phases, in order; any failure ex
               keeps its blocks (FSDP over data, TP over model), and runs
               phase 6's batches (2 × 2048; a rank's block 1 × 2048, its
               flash calls q [1,2048,16,128], k/v [1,2048,2,128] with lse):
-              3 steps with gather_dtype "" and one with "bfloat16", each
+              2 steps with gather_dtype "" and one with "bfloat16", each
               step's loss within 3e-2 and grad norm within 5e-2 relative of
               phase 6's plain step on the same state and batch (the
               bf16-gathered one against a plain bf16-gathered step from
               phase 6's state), parameters bf16 after the bf16-gathered
-              step, 8 wgmma flash launches a step on every rank, step 3
+              step, 8 wgmma flash launches a step on every rank, step 2
               with every collective timed on the host clock after a
               synchronise; then one fp32 step of the same width cut
               to one layer (flash fma, 2 launches) within 1e-4 relative of
@@ -284,12 +319,12 @@ read the other phases without the ranks' runs.  Phases, in order; any failure ex
               parent first runs the plain steps on the same state (from
               the seed) and batches (each step's ms and launches, exact on
               the bf16 variants), and frees them; each rank rebuilds the
-              state from the seed and keeps its blocks.  Per arch: 3 steps,
+              state from the seed and keeps its blocks.  Per arch: 2 steps,
               each step's loss within 3e-2 and grad norm within 5e-2
               relative of the plain step's, its launches exactly the scan
               forwards twice and each scan backward once a scan layer and
               flash twice a local layer, all on the bf16 variants (mma,
-              vec4, wgmma), the third with every collective timed; then one
+              vec4, wgmma), the second with every collective timed; then one
               fp32 step (mamba2-370m cut
               to one layer, on the fma scans; recurrentgemma-9b's group, on
               flash's fma) within 1e-4 relative of the plain step's loss
@@ -307,22 +342,22 @@ read the other phases without the ranks' runs.  Phases, in order; any failure ex
               "model") gloo mesh on the card, after the parent has run and
               freed its plain steps: deepseek-moe-16b at full width (64
               routed experts of 1408, top-6, 2 shared; 32 experts a model
-              rank, expert parallel), depth cut to 2 of 28 layers, remat
+              rank, expert parallel), depth cut to 1 of 28 layers, remat
               "dots", bf16 compute, batch 2 × 2048 (a rank's block 1 ×
               2048, its flash calls q/k/v [1,2048,8,128] with lse), at
               parallel.ref.no_drop's capacity factor (E/k: nothing drops,
               so the ranks' expert-parallel layer and the plain one compute
-              the same function).  The parent's 3 plain steps are the first
+              the same function).  The parent's 2 plain steps are the first
               MoE training steps on the card (ms, tokens/s, peak memory,
               flash launches exact on wgmma); each rank rebuilds the state
-              from the seed and keeps its blocks: 3 steps, each step's loss
+              from the seed and keeps its blocks: 2 steps, each step's loss
               within 3e-2 and grad norm within 5e-2 relative of the plain
-              step's, the third with every collective timed, one step at
+              step's, the second with every collective timed, one step at
               the config's own capacity factor 1.25 (the assignments each
               rank's experts drop, and the loss, finite and the same on
               every rank; not held against the plain step, which drops
               other assignments), flash exactly twice a layer on wgmma in
-              each; then one fp32 step cut to one layer on flash's fma,
+              each; then one fp32 step (the same one layer) on flash's fma,
               within 1e-4 relative of the plain fp32 step's loss and grad
               norm, every rank's block of every updated parameter (router,
               experts, shared experts included) within 1e-4 of the plain
@@ -343,12 +378,12 @@ read the other phases without the ranks' runs.  Phases, in order; any failure ex
               12 layers, 256 frames and 2048 tokens (the encoder's
               non-causal attention and the cross-attention tensor-parallel
               on the dense plain attention; a rank's flash calls
-              [1,2048,8,64]).  The parent's 3 plain steps of each are the
+              [1,2048,8,64]).  The parent's 2 plain steps of each are the
               first training steps of either family on the card (ms,
               positions/s, peak memory, flash launches exact on wgmma);
               each rank rebuilds the state from the seed and keeps its
-              blocks: 3 steps, each step's loss within 3e-2 and grad norm
-              within 5e-2 relative of the plain step's, the third with
+              blocks: 2 steps, each step's loss within 3e-2 and grad norm
+              within 5e-2 relative of the plain step's, the second with
               every collective timed, one step from the initial state with
               seq_shard_activations against the plain step 1 likewise, flash
               exactly twice a decoder layer on wgmma in each (8 a step);
@@ -368,8 +403,8 @@ read the other phases without the ranks' runs.  Phases, in order; any failure ex
               width, 8 of 48 layers (phase 6d's config), remat "dots", bf16
               compute, batch 2 × 2048 (the whole batch on every rank), whose
               padded vocab 50304 the model axis of 3 splits and whose 32 SSM
-              heads and inner width 2048 it leaves whole: the parent's 3
-              plain steps and fp32 one-layer step, then each rank's 3 steps
+              heads and inner width 2048 it leaves whole: the parent's 2
+              plain steps and fp32 one-layer step, then each rank's 2 steps
               and fp32 step held as phase 6d's (loss 3e-2, grad norm 5e-2
               relative; fp32 1e-4, every rank's block of every updated
               parameter and first moment at 1e-4), every step's SSD scan
@@ -397,15 +432,27 @@ yi-9b case (``shard_kv_seq``; seamless-m4t-medium runs the slot layout
 now), phase 3b (a)'s decode steps (8 → 4), and the timed pass of phases
 6c, 6d, 6e and 6f (a further step run only to time its collectives: the
 last held step is timed instead).  Phases 3d and 6g were paid for by
-phase 3c's fp32 decode steps (2 → 1).
+phase 3c's fp32 decode steps (2 → 1).  With phase 5c the whole script
+took 975.2–1026.0 s on an H100 80GB HBM3 at 700 W, and more than 1200 s
+on another card's host (the ranks' gloo collectives move through host
+memory, and a slower host stretches every mesh phase), so these cuts
+followed: the training steps held on every path, TRAIN_STEPS 3 → 2
+(phases 6, 6b, 6c, 6d, 6e, 6f, 6g); the bf16 decode steps of the ranks'
+serving, 4 → 2 (phases 3b (a) and (b), 3c and 3d); phase 6e's depth, 2
+→ 1 of deepseek-moe-16b's 28 layers (its fp32 step was one layer
+already).  Besides, BATCH_WORKERS processes make the training phases'
+batches ahead from the start: make_batch rebuilds its Zipf CDF for every
+draw, which took 34 s of phase 6b's recurrentgemma-9b batches in that
+975.2 s run.
 
 Phase 2 also holds the flash kernels' log-sum-exp (the backward's input)
 against the plain version on both variants and times the forward with it
 at the training shape and at a rank's shape in phase 6c, and holds and
 times every kernel at a rank's shape in phase 6d, flash at a rank's shape
 in phases 6e and 6f, each forward kernel at the rank's shapes of phase 3c,
-flash and the RG-LRU scan at phase 3d's and the SSD scan and its backward
-at phase 6g's.
+flash and the RG-LRU scan at phase 3d's, the SSD scan and its backward
+at phase 6g's, and flash and the SSD scan (chunk 64) at the prefill shapes
+of phase 5c's decode replicas.
 
 The line before the last is one JSON object with a row per kernel
 (flash_attention, ssd_scan, rglru_scan, ssd_scan_bwd, rglru_scan_bwd); the last
@@ -415,7 +462,10 @@ prints no result.
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures
 import contextlib
+import fcntl
 import functools
 import gc
 import json
@@ -439,8 +489,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch import configs  # noqa: E402
+from repro_torch.backends import shim  # noqa: E402
+from repro_torch.backends.remote import RemoteRunner  # noqa: E402
 from repro_torch.configs.shapes import ShapeSpec  # noqa: E402
 from repro_torch.convert import tree_to  # noqa: E402
+from repro_torch.core.traffic import ArrivalSchedule, LoadRunner, PoissonProcess  # noqa: E402
+from repro_torch.core.workflow import deploy  # noqa: E402
 from repro_torch.data.synthetic import make_batch  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -470,7 +524,21 @@ from repro_torch.train.step import make_train_step, train_state_init  # noqa: E4
 # the serving point of every arch below (bf16 compute)
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 512, 32
 YI = configs.get("yi-9b")
+#: phase 5c: the remote pool (worker processes a cloud), its lease (longer
+#: than a decode attempt, a worker's first weight build included), the
+#: request of parts (a) and (b), the open-loop arrivals of part (c)
+#: (request i's prompt from seed REMOTE_TRAFFIC_SEED + i) and the
+#: coordinator's time limit
+REMOTE_WORKERS = {"aws": 2, "aliyun": 1}
+REMOTE_LEASE_MS = 15000.0
+REMOTE_BATCH, REMOTE_PROMPT, REMOTE_STEPS, REMOTE_SEED = 2, 64, 16, 11
+REMOTE_ARRIVALS, REMOTE_RATE_WF_S, REMOTE_TRAFFIC_SEED = 8, 1.0, 100
+REMOTE_TIMEOUT = 600
+#: seconds between this script's nvidia-smi samples of the card's memory
+#: while phase 5c's coordinator runs
+REMOTE_SMI_S = 0.5
 YI_SHAPE = (SERVE_BATCH, SERVE_PROMPT, YI.n_heads, YI.n_kv_heads, YI.hd)
+REMOTE_FLASH = (REMOTE_BATCH, REMOTE_PROMPT, YI.n_heads, YI.n_kv_heads, YI.hd)
 MAMBA = configs.get("mamba2-370m")
 RG = configs.get("recurrentgemma-9b")
 RG_SHAPE = (SERVE_BATCH, SERVE_PROMPT, RG.n_heads, RG.n_kv_heads, RG.hd)
@@ -488,7 +556,7 @@ PHI_PREFIX_SHAPE = (SERVE_BATCH, PHI.n_patches + SERVE_PROMPT, PHI.n_heads, PHI.
                     PHI.hd)
 # the training point: yi-9b's width at 4 layers (the full 48 would need ~140
 # GB of parameters, gradients and moments), batch 2 × 2048 tokens
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 3
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 2
 YI_TRAIN = YI.replace(n_layers=4, remat="dots")
 TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, YI.n_heads, YI.n_kv_heads, YI.hd)
 
@@ -501,9 +569,9 @@ TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, YI.n_heads, YI.n_kv_heads, YI.hd)
 # decode steps
 MESH_RANKS, MESH_SHAPE, MESH_AXES = 4, (2, 2), ("data", "model")
 MESH_YI = YI.replace(n_layers=4)
-MESH_MAX_LEN, MESH_DECODE = 544, 4
+MESH_MAX_LEN, MESH_DECODE = 544, 2
 MESH_DS = DS.replace(n_layers=2)
-MESH_DS_DECODE = 4
+MESH_DS_DECODE = 2
 MESH_TIMEOUT = 600
 
 # sharded serving (phase 3c): the MESH_RANKS ranks again as the (2, 2)
@@ -557,7 +625,7 @@ MESH_SERVE_CASES = (("yi-9b", {}), ("phi-3-vision-4.2b", {}), ("deepseek-moe-16b
 #: decode steps after the prefill: bf16, and the one-layer fp32 runs (cut
 #: first: every step gathers the FSDP blocks through gloo; 2 → 1 to pay for
 #: phases 3d and 6g)
-MESH_SERVE_DECODE, MESH_SERVE_FP32_DECODE = 4, 1
+MESH_SERVE_DECODE, MESH_SERVE_FP32_DECODE = 2, 1
 MESH_SERVE_BF16_TOL, MESH_SERVE_FP32_TOL = 1e-1, 1e-4
 #: in bf16 the ranks' row-parallel sums round otherwise than the plain
 #: products, and a router's near-tie then sends a token to other experts
@@ -684,19 +752,19 @@ MESH_REC_FLASH = (MESH_REC_BT, TRAIN_SEQ, RG.n_heads // MESH_SHAPE[1], RG.n_kv_h
 # the sharded training of the MoE family (phase 6e): the MESH_RANKS ranks
 # again as the (2, 2) ("data", "model") mesh, deepseek-moe-16b at full width
 # (16 heads of 128, 64 routed experts of 1408, top-6, and 2 shared; 32
-# experts a model rank), depth cut from 28 layers to 2 (1.595 B parameters,
-# 25.5 GB of parameters, gradients and moments; all 28 would need ~270 GB),
+# experts a model rank), depth cut from 28 layers to 1 (1.007 B parameters,
+# 16.1 GB of parameters, gradients and moments; all 28 would need ~270 GB),
 # bf16 compute, batch TRAIN_BATCH × TRAIN_SEQ (a rank's block 1 × 2048), at
 # parallel.ref.no_drop's capacity factor E/k, where nothing drops and the
 # rank's expert-parallel layer computes the plain one's function: TRAIN_STEPS
 # steps held against the plain steps (MESH_TRAIN_LOSS_TOL,
 # MESH_TRAIN_GNORM_RTOL), the last with every collective timed, one fp32
-# step cut to one layer (MESH_TRAIN_FP32_RTOL, MESH_TRAIN_PARAM_ATOL), then
+# step (MESH_TRAIN_FP32_RTOL, MESH_TRAIN_PARAM_ATOL), then
 # one bf16 step at the config's own capacity factor 1.25 (MESH_MOE_CF): the
 # share each rank drops, and the loss, finite and the same on every rank (the
 # plain step drops other assignments: its capacity is rounded to 128 on all
 # the tokens, a rank's to 8 on its own)
-MESH_MOE_CF = DS.replace(n_layers=2, remat="dots")
+MESH_MOE_CF = DS.replace(n_layers=1, remat="dots")
 MESH_MOE = mesh_ref.no_drop(MESH_MOE_CF)
 MESH_MOE_FP32 = MESH_MOE.replace(n_layers=1, compute_dtype="float32")
 #: the batches of phase 6e and the plain fp32 step's leaves, which the parent
@@ -818,6 +886,56 @@ def _log(msg: str) -> None:
 
 def _fail(msg: str) -> None:
     raise SystemExit(f"[chip_smoke] FAIL: {msg}")
+
+
+#: make_batch's batches of this script's training phases, keyed by what a
+#: batch depends on: made ahead by BATCH_WORKERS processes while the phases
+#: before them run (make_batch draws a Zipf token over the vocab for every
+#: position: seconds a batch at recurrentgemma-9b's 256000 words)
+BATCH_WORKERS = 3
+_BATCHES: dict = {}
+_BATCH_POOL: list = []
+
+
+def _batch_key(cfg, seq: int, batch: int, step: int) -> tuple:
+    return cfg.vocab, cfg.n_patches, cfg.frame_input, seq, batch, step
+
+
+def _prefetch_batches() -> None:
+    """Start making every batch that the parent's training phases take (in
+    the order the phases take them) in worker processes (``spawn``: this
+    process holds a CUDA context) at the lowest priority, behind the
+    kernels' build."""
+    pool = concurrent.futures.ProcessPoolExecutor(
+        BATCH_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+        initializer=os.nice, initargs=(19,))
+    _BATCH_POOL.append(pool)
+    wanted = [(YI_TRAIN, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS + 1),
+              (MAMBA_TRAIN, TRAIN_SEQ, MAMBA_TRAIN_BATCH, TRAIN_STEPS + 1),
+              (RG_TRAIN, RG_TRAIN_SEQ, RG_TRAIN_BATCH, TRAIN_STEPS + 1)]
+    wanted += [(cfg, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS)
+               for p in MESH_ARCH_PHASES.values() for cfg in p["cfgs"].values()]
+    wanted.append((MESH_MOE, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS))
+    for cfg, seq, batch, steps in wanted:
+        for s in range(steps):
+            key = _batch_key(cfg, seq, batch, s)
+            if key not in _BATCHES:
+                _BATCHES[key] = pool.submit(make_batch, cfg, seq, batch, s)
+
+
+def _batch(cfg, seq: int, batch: int, step: int = 0) -> dict:
+    """``make_batch(cfg, seq, batch, step=step)``: a copy of the batch made
+    ahead where there is one (a worker's failure raises here)."""
+    made = _BATCHES.get(_batch_key(cfg, seq, batch, step))
+    if made is None:
+        return make_batch(cfg, seq, batch, step=step)
+    return {k: v.copy() for k, v in made.result().items()}
+
+
+def _stop_batches() -> None:
+    """Stop the batch workers (what they have not started is dropped)."""
+    while _BATCH_POOL:
+        _BATCH_POOL.pop().shutdown(wait=True, cancel_futures=True)
 
 
 def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -1228,11 +1346,12 @@ def _ssd_at(dtype: torch.dtype, bt: int = SERVE_BATCH, l: int = SERVE_PROMPT,
             nh: int = 0) -> dict:
     """ssd_scan at a mamba2-370m shape (the prefill's by default: 2 chunks of
     256, so the carry is used; ``nh`` heads, all 32 by default; A =
-    −linspace(1, 16), dt = softplus(N(0,1) + dt_bias) as the model's init),
-    timed against its plain version."""
+    −linspace(1, 16), dt = softplus(N(0,1) + dt_bias) as the model's init;
+    the chunk min(256, L), as models/ssm takes it), timed against its plain
+    version."""
     _, heads, p, n = ssm.dims(MAMBA)
     nh = nh or heads
-    q = MAMBA.ssm.chunk
+    q = min(MAMBA.ssm.chunk, l)
     want = ssd.variant(p, n, q, dtype)
     args = _ssd_inputs(bt, l, nh, p, n, dtype, seed=4, dt0=0.01)
     n0 = dict(ops.ssd_variant_launches)
@@ -1571,10 +1690,13 @@ def phase_rank_shapes() -> dict:
     (MESH_MOE_FLASH), in phase 6f's for each arch (MESH_MM_FLASH), and each
     kernel at a rank's shape in phase 3c's sharded bf16 prefills (yi-9b's,
     recurrentgemma-9b's and seamless-m4t-medium's flash, mamba2-370m's SSD
-    scan, recurrentgemma-9b's RG-LRU scan), held against its plain version
-    and timed as at its own shape; returns phase (``6f <arch>`` for phase
-    6f, ``3c <arch>`` for phase 3c but yi-9b's ``3c``) → kernel name → its
-    entry at that shape (the launches are the phase's, filled in after
+    scan, recurrentgemma-9b's RG-LRU scan), flash and the RG-LRU scan at
+    phase 3d's, the SSD scan and its backward at phase 6g's, and flash and
+    the SSD scan at the prefill of phase 5c's decode replicas
+    (REMOTE_FLASH; the SSD scan at chunk 64), held against its plain
+    version and timed as at its own shape; returns phase (``6f <arch>`` for
+    phase 6f, ``3c <arch>`` for phase 3c but yi-9b's ``3c``) → kernel name →
+    its entry at that shape (the launches are the phase's, filled in after
     it)."""
     bt, l, hl = MESH_REC_SSD
     rows = {"flash_attention": _flash_train_shape(MESH_REC_FLASH, seed=9, window=RG.window),
@@ -1637,6 +1759,17 @@ def phase_rank_shapes() -> dict:
                 "at": f"a rank's shape in {where}", **{k: row.get(k) for k in SHAPE_KEYS}}
             if "heads_per_block" in row:
                 out[phase][name]["heads_per_block"] = row["heads_per_block"]
+    # the prefill of phase 5c's decode replicas on the RemoteRunner workers:
+    # yi-9b's flash (parts a and c) and mamba2-370m's SSD scan at chunk 64 (b)
+    remote = {"flash_attention": _flash_at(REMOTE_FLASH, torch.bfloat16, seed=17),
+              "ssd_scan": _ssd_at(MAMBA.cdtype, REMOTE_BATCH, REMOTE_PROMPT)}
+    for name, row in remote.items():
+        if row["variant"] != BF16_VARIANTS[name]:
+            _fail(f"{name} at phase 5c's shape {row['shape']} runs {row['variant']}, not "
+                  f"{BF16_VARIANTS[name]}")
+        out.setdefault("5c", {})[name] = {
+            "at": "the prefill of phase 5c's decode replicas, in RemoteRunner workers",
+            **{k: row.get(k) for k in SHAPE_KEYS}}
     _free()
     return out
 
@@ -2664,11 +2797,11 @@ def phase_workflow(arch: str) -> None:
     out = workflow.run(params, cfg, batch=2, prompt_len=16, steps=12)
     launches = dict(ops.launches)
     _log(f"[workflow] {arch}: {out['completions']} detok completion(s) in "
-         f"{out['wall_s']:.2f}s; decode ran {out['decode_calls']}x across replicas; "
-         f"launches {launches}")
+         f"{out['wall_s']:.2f}s; {out['decode_calls']} decode executions in the records, "
+         f"{out['decode_runs']} ran the model; launches {launches}")
     if out["completions"] != 1:
         _fail(f"{arch} serve workflow did not complete exactly once")
-    want = {k: n * out["decode_calls"] for k, n in per_prefill.items()}
+    want = {k: n * out["decode_runs"] for k, n in per_prefill.items()}
     if launches != want:
         _fail(f"{arch} workflow launches {launches} != {per_prefill} per decode replica")
     prompt = torch.tensor(workflow.prompt_ids(cfg, 2, 16, 7), device="cuda")
@@ -2678,6 +2811,344 @@ def phase_workflow(arch: str) -> None:
     _log(f"[workflow] {arch} committed tokens equal a direct greedy_generate call")
     del params
     _free()
+
+
+# ==========================================================================
+# 5c. remote workflow: the serve workflow on forked RemoteRunner workers
+# ==========================================================================
+
+
+def _append_line(path: str, entry: dict) -> None:
+    with open(path, "a") as f:
+        f.write(json.dumps(entry) + "\n")
+
+
+def _lines(path: str) -> list:
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def remote_policy(log: str, kill: bool):
+    """Phase 5c's crash policy, which the remote tests' coordinator
+    (tests/torch_remote_worker.py) uses too; it runs in the workers.  Logs
+    each attempt's first effect ("claim") and its output commit ("commit"):
+    the pid, function, faas, attempt and whether CUDA is initialised in that
+    process.  A decode's commit follows its model run at once
+    (core/orchestrator.handle), so its line also holds that run's kernel
+    launches by variant (counted from 0: a worker is forked from a
+    coordinator that launched nothing, and the counters are reset after each
+    line), the process's peak ``max_memory_allocated`` and the milliseconds
+    the policy took to build the line (its write to the file left out).
+    The model run ends in a copy to the host, so nothing here waits for the
+    card.  With ``kill``, the first aws/lambda decode attempt to reach its
+    commit is SIGKILLed there after its line ("kill": a real kill -9 of the
+    worker process, armed once through chaos_once)."""
+    def policy(ex, effect):
+        t0 = time.perf_counter()
+        rec = ex.record
+        commit = type(effect) is shim.DsCreate and effect.key.endswith("-output")
+        if not (commit or ex.effect_index == 0):
+            return False
+        fire = (kill and commit and rec.function == "decode" and rec.faas == workflow.PRIMARY
+                and ex.runner.chaos_once("kill-primary-decode"))
+        cuda = torch.cuda.is_initialized()
+        entry = {"event": "kill" if fire else "commit" if commit else "claim",
+                 "pid": os.getpid(), "function": rec.function, "faas": rec.faas,
+                 "exec_id": rec.exec_id, "attempt": rec.attempt, "t_ms": time.time() * 1e3,
+                 "cuda": cuda}
+        if commit and rec.function == "decode":
+            entry.update(launches=dict(ops.launches),
+                         variants={"flash_attention": dict(ops.flash_variant_launches),
+                                   "ssd_scan": dict(ops.ssd_variant_launches),
+                                   "rglru_scan": dict(ops.rglru_variant_launches)},
+                         peak_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0)
+            ops.reset_launches()
+        entry["record_ms"] = (time.perf_counter() - t0) * 1e3
+        _append_line(log, entry)
+        return "kill" if fire else False
+    return policy
+
+
+def decode_lines(log: list) -> list:
+    """The lines of :func:`remote_policy`'s log written after a decode's
+    model run: one for each run."""
+    return [e for e in log if e["function"] == "decode" and e["event"] != "claim"]
+
+
+def _remote_params(cfg, log: str) -> dict:
+    """A worker's serving weights (:func:`_serve_params`), built in the
+    worker at its first decode, one worker at a time (a file lock beside
+    ``log``): a build holds each leaf in fp32 before its cast, so three
+    yi-9b builds at once do not fit the card beside the weights.  The
+    blocks the build freed go back to the device.  Logs the seconds waited
+    and spent, and the bytes."""
+    t0 = time.perf_counter()
+    with open(os.path.join(os.path.dirname(log), "params.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        t1 = time.perf_counter()
+        params = _serve_params(cfg)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    _append_line(log, {"pid": os.getpid(), "wait_s": t1 - t0, "s": time.perf_counter() - t1,
+                       "gb": torch.cuda.memory_allocated() / 1e9})
+    return params
+
+
+def _remote_pool(directory: str, kill: bool) -> RemoteRunner:
+    os.makedirs(directory)
+    runner = RemoteRunner(workers=REMOTE_WORKERS, lease_ms=REMOTE_LEASE_MS,
+                          store_dir=os.path.join(directory, "store"))
+    runner.crash_policy = remote_policy(os.path.join(directory, "policy.log"), kill)
+    if torch.cuda.is_initialized():
+        _fail("the remote coordinator initialised CUDA before forking its workers")
+    return runner
+
+
+def _close_pool(directory: str, runner: RemoteRunner) -> dict:
+    """Close a pool of :func:`_remote_pool`; returns its workers and logs."""
+    with open(os.path.join(runner.store_dir, "workers.json")) as f:
+        workers = json.load(f)
+    runner.close()
+    return {"workers": workers, "log": _lines(os.path.join(directory, "policy.log")),
+            "params_log": _lines(os.path.join(directory, "params.log"))}
+
+
+def remote_workflow(directory: str) -> None:
+    """Phase 5c's coordinator, a process of its own (:func:`phase_remote_workflow`
+    starts it after this script has initialised CUDA): it drives three
+    RemoteRunner pools, whose workers it forks, and never touches the card;
+    each worker builds its own weights from the seed at its first decode.
+    (a) yi-9b, one request, the aws/lambda decode replica's worker
+    SIGKILLed at its output commit; (b) mamba2-370m, one request; (c)
+    yi-9b, REMOTE_ARRIVALS open-loop Poisson arrivals through LoadRunner
+    into one run().  Writes ``<directory>/result.json``, with each part's
+    span on the wall clock (``t0_ms``, ``t1_ms``)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    missing = [n for n in build.SOURCES if not build._target(n).exists()]
+    if missing:
+        _fail(f"remote coordinator: kernels {missing} not built by chip_smoke's phase 1")
+    out = {}
+    for part, arch, kill in (("a", "yi-9b", True), ("b", "mamba2-370m", False)):
+        cfg, d = configs.get(arch), os.path.join(directory, part)
+        runner = _remote_pool(d, kill)
+        t0, t0_ms = time.perf_counter(), time.time() * 1e3
+        r = workflow.run(functools.partial(_remote_params, cfg, os.path.join(d, "params.log")),
+                         cfg, runner=runner, batch=REMOTE_BATCH, prompt_len=REMOTE_PROMPT,
+                         steps=REMOTE_STEPS, seed=REMOTE_SEED, workflow_id=f"serve-{part}",
+                         timeout_s=REMOTE_TIMEOUT / 2)
+        out[part] = {**r, "part_s": time.perf_counter() - t0, "t0_ms": t0_ms,
+                     "t1_ms": time.time() * 1e3, **_close_pool(d, runner)}
+        _log(f"[remote] ({part}) {arch}: {r['completions']} detok completion(s), "
+             f"{r['decode_calls']} decode executions, {out[part]['part_s']:.1f}s")
+    d = os.path.join(directory, "c")
+    runner = _remote_pool(d, kill=False)
+    dep = deploy(runner, workflow.serve_spec(
+        YI, functools.partial(_remote_params, YI, os.path.join(d, "params.log")),
+        prompt_len=REMOTE_PROMPT, steps=REMOTE_STEPS))
+    load = LoadRunner([dep])
+    schedule = PoissonProcess(rate_wf_s=REMOTE_RATE_WF_S, seed=0).schedule(REMOTE_ARRIVALS)
+    t0, t0_ms = time.perf_counter(), time.time() * 1e3
+    for i, arrival in enumerate(schedule):    # request i's own prompt seed
+        load.input_value = {"batch": REMOTE_BATCH, "seed": REMOTE_TRAFFIC_SEED + i}
+        load.submit(ArrivalSchedule([arrival], meta=schedule.meta))
+    load.drain(timeout_s=REMOTE_TIMEOUT / 2)
+    part_s, t1_ms = time.perf_counter() - t0, time.time() * 1e3
+    point = load.collect()
+    requests = [{"workflow_id": wid, **workflow.outcome(dep_, wid)} for dep_, wid in load.started]
+    out["c"] = {"point": {**point.as_dict(), "throughput_wf_s": point.throughput_wf_s,
+                          "makespans_ms": point.makespans_ms},
+                "arrivals_ms": [a.t_ms for a in schedule], "requests": requests,
+                "part_s": part_s, "t0_ms": t0_ms, "t1_ms": t1_ms, **_close_pool(d, runner)}
+    _log(f"[remote] (c) yi-9b: {point.completed} of {point.submitted} requests completed, "
+         f"{part_s:.1f}s")
+    if torch.cuda.is_initialized():
+        _fail("the remote coordinator initialised CUDA")
+    with open(os.path.join(directory, "result.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _smi_memory_mib() -> int:
+    """The card's memory in use, MiB, as nvidia-smi shows it."""
+    return int(subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                               "--format=csv,noheader,nounits"], capture_output=True,
+                              text=True, check=True, timeout=60).stdout.split()[0])
+
+
+def _remote_workers(part: str, r: dict, cfg, smi: list) -> tuple:
+    """Hold every model run of a part's workers to one prefill's launches on
+    the bf16 variants and every process that ran none to no CUDA context;
+    print each worker, and the most memory nvidia-smi showed in the part's
+    span of ``smi`` (this script's samples, (t_ms, MiB)).  Returns (the
+    part's launches, by variant)."""
+    want = _expected_launches(cfg)
+    want_variants = {"flash_attention": {**dict.fromkeys(fa.VARIANTS, 0),
+                                         "wgmma": want["flash_attention"]},
+                     "ssd_scan": {**dict.fromkeys(ssd.VARIANTS, 0), "mma": want["ssd_scan"]},
+                     "rglru_scan": {**dict.fromkeys(rg.VARIANTS, 0),
+                                    "vec4": want["rglru_scan"]}}
+    launches = dict.fromkeys(ops.launches, 0)
+    variants = {k: dict.fromkeys(v, 0) for k, v in want_variants.items()}
+    runs_all = decode_lines(r["log"])
+    for d in runs_all:
+        if d["launches"] != want or d["variants"] != want_variants:
+            _fail(f"5c ({part}): a decode in pid {d['pid']} launched {d['launches']} "
+                  f"({d['variants']}), not {want} on the bf16 variants")
+        for k, n in d["launches"].items():
+            launches[k] += n
+        for k, by in d["variants"].items():
+            for v, n in by.items():
+                variants[k][v] += n
+    decoders = {d["pid"] for d in runs_all}
+    for name, pid in sorted(r["workers"].items()):
+        mine = [e for e in r["log"] if e["pid"] == pid]
+        if pid not in decoders and any(e["cuda"] for e in mine):
+            _fail(f"5c ({part}): worker {name} ran no decode but initialised CUDA")
+        runs = [d for d in runs_all if d["pid"] == pid]
+        built = [p for p in r["params_log"] if p["pid"] == pid]
+        claims = ", ".join(f"{k} x{n}" for k, n in collections.Counter(
+            f"{e['function']}@{e['faas']}#{e['attempt']}" for e in mine
+            if e["event"] == "claim").items())
+        _log(f"[remote] ({part}) worker {name} (pid {pid}): claimed {claims or 'nothing'}; "
+             + (f"{len(runs)} decode(s), weights built in {built[0]['s']:.2f}s after "
+                f"{built[0]['wait_s']:.2f}s waiting for the build lock "
+                f"({built[0]['gb']:.2f} GB), peak max_memory_allocated "
+                f"{max(d['peak_gb'] for d in runs):.2f} GB" if runs
+                else "never touched the card (no CUDA context)"))
+    seen = [mib for t, mib in smi if r["t0_ms"] <= t <= r["t1_ms"]]
+    _log(f"[remote] ({part}) nvidia-smi memory.used over the part: most "
+         f"{max(seen) if seen else 'not sampled'} MiB in {len(seen)} samples (this script's "
+         f"{torch.cuda.memory_reserved() / 2**20:.0f} MiB reserved and its context "
+         f"included); the crash policy's line took at most "
+         f"{max(e['record_ms'] for e in r['log']):.3f} ms")
+    return launches, variants
+
+
+def phase_remote_workflow() -> tuple:
+    """Phase 5c: this script runs the direct greedy_generate calls on the
+    card (bf16 serving weights from the seed, freed after), then starts
+    :func:`remote_workflow` in a process of its own, samples the card's
+    memory with nvidia-smi while it runs, and holds what it reports.
+    Returns (each part's launches by path, by variant by path)."""
+    seeds = {"yi-9b": [REMOTE_SEED] + [REMOTE_TRAFFIC_SEED + i for i in range(REMOTE_ARRIVALS)],
+             "mamba2-370m": [REMOTE_SEED]}
+    direct = {}
+    for arch, arch_seeds in seeds.items():
+        cfg = configs.get(arch)
+        params = _serve_params(cfg)
+        direct[arch] = {s: greedy_generate(params, cfg, torch.tensor(
+            workflow.prompt_ids(cfg, REMOTE_BATCH, REMOTE_PROMPT, s), dtype=torch.long,
+            device="cuda"), steps=REMOTE_STEPS).cpu().tolist() for s in arch_seeds}
+        del params
+        _free()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    directory = tempfile.mkdtemp(prefix="remote-", dir=os.path.join(ROOT, "build"))
+    _log(f"[remote] this script: {torch.cuda.memory_allocated()} B allocated before the "
+         f"coordinator starts")
+    code = f"import chip_smoke; chip_smoke.remote_workflow({directory!r})"
+    # a session of its own: on a timeout its whole process group (the
+    # coordinator and the workers it forked) is killed
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, start_new_session=True,
+                            env=dict(os.environ, PYTORCH_NVML_BASED_CUDA_CHECK="1"))
+    smi, deadline = [], time.monotonic() + REMOTE_TIMEOUT
+    while proc.poll() is None:
+        if time.monotonic() > deadline:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+            _fail(f"the remote coordinator outlasted {REMOTE_TIMEOUT} s")
+        smi.append((time.time() * 1e3, _smi_memory_mib()))
+        time.sleep(REMOTE_SMI_S)
+    if proc.returncode:
+        _fail(f"the remote coordinator exited {proc.returncode}")
+    with open(os.path.join(directory, "result.json")) as f:
+        out = json.load(f)
+    by_path, by_variant = _hold_remote(out, direct, smi)
+    return by_path, by_variant, out
+
+
+def _hold_remote(out: dict, direct: dict, smi: list) -> tuple:
+    """Hold and print what :func:`remote_workflow` reported against the
+    ``direct`` tokens of this script (arch -> seed -> ids).  Returns (each part's
+    launches by path, by variant by path)."""
+    by_path, by_variant = {}, {}
+    a = out["a"]
+    aws = {pid for name, pid in a["workers"].items() if name.startswith("aws-")}
+    kills = [e for e in a["log"] if e["event"] == "kill"]
+    if len(kills) != 1 or kills[0]["function"] != "decode" or \
+            kills[0]["faas"] != workflow.PRIMARY or kills[0]["pid"] not in aws:
+        _fail(f"5c (a): kills {kills}, not one of the aws/lambda decode replica's worker")
+    killed = kills[0]["pid"]
+    decodes = sorted((d["faas"], d["attempt"], d["status"]) for d in a["decodes"])
+    if decodes != [(workflow.BACKUP, 0, "done"), (workflow.PRIMARY, 0, "running"),
+                   (workflow.PRIMARY, 1, "done")]:
+        _fail(f"5c (a): decode records {decodes}: not the killed attempt, its claim again "
+              "and the backup")
+    again = [e for e in a["log"] if e["event"] == "claim" and e["function"] == "decode"
+             and e["faas"] == workflow.PRIMARY and e["attempt"] == 1]
+    if len(again) != 1 or again[0]["pid"] not in aws - {killed}:
+        _fail(f"5c (a): the killed attempt was claimed again by {again}, not the other "
+              "aws worker")
+    claimed = next(d for d in a["decodes"] if d["faas"] == workflow.PRIMARY
+                   and d["attempt"] == 1)
+    kill_to_claim = (claimed["t_start"] - kills[0]["t_ms"]) / 1e3
+    for part, arch in (("a", "yi-9b"), ("b", "mamba2-370m")):
+        r = out[part]
+        if r["completions"] != 1:
+            _fail(f"5c ({part}) {arch}: {r['completions']} detok completions, not 1")
+        if part == "b" and (sorted((d["faas"], d["attempt"], d["status"]) for d in r["decodes"])
+                            != [(workflow.BACKUP, 0, "done"), (workflow.PRIMARY, 0, "done")]
+                            or any(e["event"] == "kill" for e in r["log"])):
+            _fail(f"5c (b): decode records {r['decodes']}: not the two replicas, each once")
+        if r["ids"] != direct[arch][REMOTE_SEED]:
+            _fail(f"5c ({part}) {arch}: the committed tokens differ from the direct "
+                  "greedy_generate call")
+        runs = len(decode_lines(r["log"]))     # the killed attempt's run is in no record
+        if runs != r["decode_runs"] + (part == "a"):
+            _fail(f"5c ({part}): {runs} model runs recorded, {r['decode_runs']} in the "
+                  "records")
+        path = f"remote workflow ({part}): {arch}, {runs} decode runs"
+        by_path[path], by_variant[path] = _remote_workers(part, r, configs.get(arch), smi)
+        spans = ", ".join(
+            f"{d['faas']}#{d['attempt']} {d['status']} "
+            + (f"{(d['t_end'] - d['t_start']) / 1e3:.2f}s" if d["status"] == "done" else
+               f"killed after {(kills[0]['t_ms'] - d['t_start']) / 1e3:.2f}s")
+            for d in r["decodes"])
+        _log(f"[remote] ({part}) {arch} full width ({configs.get(arch).n_layers}L), "
+             f"{REMOTE_BATCH} x {REMOTE_PROMPT} prompt, {REMOTE_STEPS} steps: "
+             f"{r['completions']} detok completion, {r['decode_calls']} decode executions "
+             f"({spans}), {runs} ran the model; tokens equal the direct call; part "
+             f"{r['part_s']:.1f}s (wall, the coordinator's clock)"
+             + (f"; kill -9 of aws pid {killed} to its claim again by pid "
+                f"{again[0]['pid']}: {kill_to_claim:.2f}s (lease {REMOTE_LEASE_MS:.0f} ms)"
+                if part == "a" else ""))
+
+    c = out["c"]
+    p = c["point"]
+    if p["submitted"] != REMOTE_ARRIVALS or p["completed"] != REMOTE_ARRIVALS or p["dropped"]:
+        _fail(f"5c (c): load point {p}")
+    for i, req in enumerate(c["requests"]):
+        if req["completions"] != 1 or req["ids"] != direct["yi-9b"][REMOTE_TRAFFIC_SEED + i]:
+            _fail(f"5c (c): request {req['workflow_id']}: {req['completions']} detok "
+                  "completions, or tokens that differ from the direct call for its seed")
+    attempts = [d for req in c["requests"] for d in req["decodes"]]
+    if any(d["attempt"] or d["status"] != "done" for d in attempts):
+        _fail(f"5c (c): a decode attempt was claimed again or did not finish: {attempts}")
+    runs = len(decode_lines(c["log"]))
+    if runs != sum(req["decode_runs"] for req in c["requests"]):
+        _fail(f"5c (c): {runs} model runs recorded, not as many as the records show")
+    path = f"remote workflow (c): yi-9b, {REMOTE_ARRIVALS} Poisson arrivals, {runs} decode runs"
+    by_path[path], by_variant[path] = _remote_workers("c", c, YI, smi)
+    _log(f"[remote] (c) yi-9b, {REMOTE_ARRIVALS} Poisson arrivals at {REMOTE_RATE_WF_S} wf/s "
+         f"(seed 0; at {_ms_list(c['arrivals_ms'])} ms): LoadPoint submitted {p['submitted']}, "
+         f"completed {p['completed']}, dropped {p['dropped']}, p50 {p['p50_ms']} ms, p99 "
+         f"{p['p99_ms']} ms, mean {p['mean_ms']} ms, throughput {p['throughput_wf_s']:.3f} "
+         f"wf/s over {p['duration_ms']} ms; {runs} decode runs for "
+         f"{2 * REMOTE_ARRIVALS} replicas, each attempt within the lease (longest "
+         f"{max(d['t_end'] - d['t_start'] for d in attempts) / 1e3:.2f}s); every request's "
+         f"tokens equal the direct call for its seed; part {c['part_s']:.1f}s")
+    return by_path, by_variant
 
 
 # ==========================================================================
@@ -2842,7 +3313,7 @@ def phase_dryrun() -> tuple:
             del params, tokens
             _free()
     state = train_state_init(_gen(0), YI_TRAIN, device="cuda")
-    batch = batch_to(make_batch(YI_TRAIN, TRAIN_SEQ, TRAIN_BATCH), "cuda")
+    batch = batch_to(_batch(YI_TRAIN, TRAIN_SEQ, TRAIN_BATCH), "cuda")
     ops.reset_launches()
     name = f"yi-9b train ({YI_TRAIN.n_layers} layers, {TRAIN_BATCH} x {TRAIN_SEQ})"
     cells[name] = _dryrun_cell(name, YI_TRAIN, ShapeSpec("chip_train", TRAIN_SEQ, TRAIN_BATCH,
@@ -2888,7 +3359,7 @@ def phase_train() -> dict:
     t0 = time.perf_counter()
     state = train_state_init(_gen(0), cfg, device="cuda")
     step_fn = make_train_step(cfg, lr=3e-4)
-    batches = [batch_to(make_batch(cfg, TRAIN_SEQ, TRAIN_BATCH, step=s), "cuda")
+    batches = [batch_to(_batch(cfg, TRAIN_SEQ, TRAIN_BATCH, step=s), "cuda")
                for s in range(TRAIN_STEPS + 1)]
     torch.cuda.synchronize()
     _log(f"[train] yi-9b width, {cfg.n_layers} layers: {cfg.param_count() / 1e9:.3f} B params, "
@@ -3293,7 +3764,7 @@ def _plain_references(phase: str) -> dict:
     for arch, cfg in p["cfgs"].items():
         _free()
         t0 = time.perf_counter()
-        batches = [batch_to(make_batch(cfg, TRAIN_SEQ, TRAIN_BATCH, step=s), "cpu")
+        batches = [batch_to(_batch(cfg, TRAIN_SEQ, TRAIN_BATCH, step=s), "cpu")
                    for s in range(TRAIN_STEPS)]
         inputs[arch] = batches
         t_data = time.perf_counter() - t0
@@ -3601,7 +4072,7 @@ def _mesh_moe_references() -> dict:
     _free()
     t0 = time.perf_counter()
     cfg = MESH_MOE
-    batches = [batch_to(make_batch(cfg, TRAIN_SEQ, TRAIN_BATCH, step=s), "cpu")
+    batches = [batch_to(_batch(cfg, TRAIN_SEQ, TRAIN_BATCH, step=s), "cpu")
                for s in range(TRAIN_STEPS)]
     t_data = time.perf_counter() - t0
     state = train_state_init(_gen(0), cfg, device="cuda")
@@ -3845,7 +4316,7 @@ def phase_train_recurrent(name: str, cfg, batch: int, seq: int, per_step: dict) 
     t0 = time.perf_counter()
     state = train_state_init(_gen(0), cfg, device="cuda")
     step_fn = make_train_step(cfg, lr=3e-4)
-    batches = [batch_to(make_batch(cfg, seq, batch, step=s), "cuda")
+    batches = [batch_to(_batch(cfg, seq, batch, step=s), "cuda")
                for s in range(TRAIN_STEPS + 1)]
     torch.cuda.synchronize()
     _log(f"[train] {name}: {cfg.n_layers} layers d{cfg.d_model}, "
@@ -4002,6 +4473,7 @@ def main(argv=None) -> int:
     _log(f"[chip_smoke] torch {torch.__version__} cuda {torch.version.cuda} "
          f"device {torch.cuda.get_device_name(0)}")
     _LAP[0] = t_start
+    _prefetch_batches()
     built = phase_build()
     _lap("1 build")
     rows = {"flash_attention": phase_flash(), "ssd_scan": phase_ssd(),
@@ -4011,6 +4483,7 @@ def main(argv=None) -> int:
     _lap("2 scan backwards")
     rank_rows = phase_rank_shapes()
     _lap("2 rank shapes")
+    at_rank_shape = {p: dict.fromkeys(ops.launches, 0) for p in rank_rows}
     phase_model()
     _lap("3 model")
     by_path, by_variant = {}, {}
@@ -4045,6 +4518,11 @@ def main(argv=None) -> int:
     _lap("4 serve, 5 workflow")
     by_path[prefix_path], by_variant[prefix_path], prefix = phase_vlm_prefix()
     _lap("4b prefix")
+    remote_paths, remote_variants, remote = phase_remote_workflow()
+    by_path.update(remote_paths)
+    at_rank_shape["5c"] = {k: sum(n[k] for n in remote_paths.values()) for k in ops.launches}
+    by_variant.update(remote_variants)
+    _lap("5c remote workflow")
     for name in rows:
         rows[name]["launches_by_variant"] = {
             v: sum(n[name][v] for n in by_variant.values())
@@ -4075,7 +4553,6 @@ def main(argv=None) -> int:
             for v, n in r["variants"][k].items():
                 row["launches_by_variant"][v] += n
     mesh_rec, mesh_moe, mesh_mm, mesh_undiv, extra_variants = None, None, None, None, []
-    at_rank_shape = {p: dict.fromkeys(ops.launches, 0) for p in rank_rows}
     at_rank_shape.update(serve_at_rank)
     if argv != ["--skip-mesh"]:
         def train_paths(phase: str, what: str) -> tuple:
@@ -4162,7 +4639,7 @@ def main(argv=None) -> int:
                    "mesh_train": mesh_train,
                    "mesh_train_recurrent": mesh_rec, "mesh_train_moe": mesh_moe,
                    "mesh_train_multimodal": mesh_mm, "mesh_train_undivided": mesh_undiv,
-                   "dryrun": dry_cells, "mesh_dryrun": mesh_dry},
+                   "dryrun": dry_cells, "mesh_dryrun": mesh_dry, "remote_workflow": remote},
                   f, indent=1)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
@@ -4172,4 +4649,7 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        _stop_batches()

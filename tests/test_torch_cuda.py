@@ -1076,3 +1076,56 @@ def test_mesh_global_dispatch_on_8_card_ranks_matches_plain(mesh_serve_card8):
         assert bool(out["serve/tokens_equal"]), i
         np.testing.assert_allclose(out["train/sharded"], out["train/plain"], rtol=1e-4,
                                    err_msg=f"rank {i}")
+
+
+@pytest.mark.cuda
+def test_remote_serve_workflow_survives_a_killed_card_worker(card, tmp_path):
+    """The serve workflow on the port's RemoteRunner, its workers forked
+    from a coordinator subprocess (``tests/torch_remote_worker.py``) that
+    never touches the card: yi-9b smoke, each decoding worker building the
+    weights from the seed on the card at its first decode.  The aws/lambda
+    decode replica's worker is SIGKILLed at its output commit and the other
+    aws worker claims the invocation again; one detok completion, the
+    committed tokens equal to a direct greedy_generate on the same seed's
+    weights, and every model run one flash launch a layer (the crash
+    policy, phase 5c's, logs each run's launches at its output commit)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from repro_torch.kernels import build
+    from repro_torch.serve import engine, workflow
+
+    build.build_all()               # the workers load the kernels, never build one
+    cfg = configs.get_smoke("yi-9b")
+    params = lm.init(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    prompt = torch.tensor(workflow.prompt_ids(cfg, 2, 16, 7), dtype=torch.long, device="cuda")
+    direct = engine.greedy_generate(params, cfg, prompt, steps=12).cpu().tolist()
+    del params
+    torch.cuda.empty_cache()
+    with open(tmp_path / "job.json", "w") as f:
+        json.dump({"arch": "yi-9b", "compute_dtype": cfg.compute_dtype, "device": "cuda",
+                   "params": 0, "batch": 2, "prompt_len": 16, "steps": 12, "seed": 7,
+                   "lease_ms": 20000.0}, f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    r = subprocess.run([sys.executable, os.path.join(here, "torch_remote_worker.py"),
+                        str(tmp_path)], capture_output=True, text=True, timeout=600,
+                       env=dict(os.environ, PYTORCH_NVML_BASED_CUDA_CHECK="1"))
+    assert r.returncode == 0, r.stderr[-4000:]
+    with open(tmp_path / "result.json") as f:
+        out = json.load(f)
+    assert out["ids"] == direct
+    assert out["completions"] == 1
+    aws = {pid for name, pid in out["workers"].items() if name.startswith("aws-")}
+    kills = [e for e in out["log"] if e["event"] == "kill"]
+    assert len(kills) == 1 and kills[0]["pid"] in aws
+    again = [e for e in out["log"] if e["event"] == "claim" and e["function"] == "decode"
+             and e["faas"] == workflow.PRIMARY and e["attempt"] == 1]
+    assert len(again) == 1 and again[0]["pid"] in aws - {kills[0]["pid"]}
+    runs = [e for e in out["log"] if e["function"] == "decode" and e["event"] != "claim"]
+    assert kills[0] in runs
+    for d in runs:
+        assert d["cuda"] and d["launches"]["flash_attention"] == cfg.n_layers, d
+    decoders = {d["pid"] for d in runs}
+    assert not any(e["cuda"] for e in out["log"] if e["pid"] not in decoders)

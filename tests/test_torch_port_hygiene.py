@@ -21,10 +21,12 @@ PORT = ROOT / "src" / "repro_torch"
 #: modules kept as verbatim copies of the JAX package's framework-free code
 COPIES = (
     [f"backends/{m}.py" for m in
-     ("__init__", "calibration", "shim", "datastore", "billing", "simcloud", "localjax")]
+     ("__init__", "calibration", "shim", "datastore", "billing", "simcloud", "localjax",
+      "remote")]
     + [f"core/{m}.py" for m in
        ("__init__", "naming", "jlobject", "subgraph", "placement", "prefetch",
-        "costmodel", "orchestrator", "durable", "workflow")]
+        "costmodel", "orchestrator", "durable", "workflow", "traffic", "shard")]
+    + [f"baselines/{m}.py" for m in ("__init__", "statemachine", "xafcl", "xfaas", "lithops")]
     + [f"configs/{m}.py" for m in
        ("shapes", "yi_9b", "gemma2_27b", "mamba2_370m", "deepseek_moe_16b", "dbrx_132b",
         "mistral_large_123b", "qwen15_110b", "recurrentgemma_9b", "phi3_vision_42b",
