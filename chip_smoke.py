@@ -9,10 +9,12 @@ read the other phases without the ranks' runs.  Phases, in order; any failure ex
               all started together), print the build seconds and each
               kernel instantiation's registers and spills from ptxas (the
               full report goes to chiprun_out/build_ptxas.log), and fail if
-              a tensor-core instantiation (flash's wgmma, the SSD scan's
-              mma), an RG-LRU scan instantiation (forward or backward) or
-              an SSD backward instantiation (either variant) spills, or if
-              flash has no wgmma instantiation at head dim 96.
+              a tensor-core instantiation (flash's wgmma, the flash
+              backward's mma, the SSD scan's mma), an RG-LRU scan
+              instantiation (forward or backward) or an SSD backward
+              instantiation (either variant) spills, if flash has no wgmma
+              instantiation at head dim 96, or if the flash backward's mma
+              instantiations are not at every wgmma head dim.
 2. kernels  — each kernel on the card against its plain PyTorch version on
               the same inputs, at the stated tolerances:
               flash attention: the 7 reference cases, block-shape
@@ -51,6 +53,24 @@ read the other phases without the ranks' runs.  Phases, in order; any failure ex
               bf16 case must run the SSD backward's mma variant, every fp32
               one its fma variant; each timed at its training shape, the
               SSD backward also in fp32 (fma).
+              The flash backward kernel (flash_attention_bwd) against the
+              plain backward (models/flash.flash_bwd_plain, the reference's
+              FA2) on the same inputs and lse: the mma variant at head dims
+              16, 64, 96, 128 and 256, GQA groups 1, 2, 8 and 16, L 100 and
+              192, causal, causal with a window, a window without causal,
+              softcap and non-causal, at 3e-2 (the tolerance its CPU
+              emulation settled against the JAX reference's gradients); the
+              fma variant in fp32 at head dims 8–256 at 1e-4 and in bf16 at
+              head dim 8; the flash Function at L 100 padded to 128 against
+              fp32 autograd of the dense plain attention; each with exactly
+              one launch of the variant bwd_variant picks.  Timed at yi-9b's
+              training shape q [2,2048,32,128], k/v [2,2048,4,128] beside
+              the plain backward and the library (the backward alone of
+              scaled_dot_product_attention with enable_gqa under autograd,
+              its device kernels named), and at recurrentgemma-9b's q
+              [1,4096,16,256], k/v [1,4096,1,256] (window 2048: no library
+              call computes it) and the rank shapes of phases 6c (bf16 and
+              fp32), 6d, 6e and 6f, under at_other_shapes.
               Each serving shape is timed: kernel / plain / library / bound,
               as device time from a torch.profiler trace, split by device
               kernel in ms_by_kernel (the host-clock time of a wrapper call
@@ -261,7 +281,8 @@ read the other phases without the ranks' runs.  Phases, in order; any failure ex
               synthetic data: 2 steps of make_train_step from a seeded
               state; each step's loss, grad norm, ms (host clock, ended by
               a synchronise), tokens/s, peak memory and flash launches, all
-              of them wgmma and as many as the remat policy implies; every
+              of them wgmma and as many as the remat policy implies, and one
+              flash backward launch (mma) a layer; every
               attention weight of every layer must get a nonzero gradient;
               one more step traced by torch.profiler (device time by class);
               then the same 2 steps with attention differentiated through
@@ -412,9 +433,10 @@ read the other phases without the ranks' runs.  Phases, in order; any failure ex
               variant; the backward's mma variant as often as the plain
               step's), and each rank's first step held against the dry
               run of the same cell on a traced rank of mesh 1x3.
-7. grads    — the flash Function (kernel forward, FA2 backward) against
+7. grads    — the flash Function (kernel forward, kernel backward) against
               autograd through the dense plain version on the card: fp32
-              on the fma variant, bf16 on wgmma at hd 128.
+              on the fma variants, bf16 on wgmma and mma at hd 128, one
+              backward launch each.
 8. commit   — the committed trainer at examples/train_pipeline.py's "20m"
               preset, 12 steps in chunks of 4, uninterrupted and with the
               primary controller killed after chunk 2: the same final step,
@@ -443,7 +465,13 @@ serving, 4 → 2 (phases 3b (a) and (b), 3c and 3d); phase 6e's depth, 2
 already).  Besides, BATCH_WORKERS processes make the training phases'
 batches ahead from the start: make_batch rebuilds its Zipf CDF for every
 draw, which took 34 s of phase 6b's recurrentgemma-9b batches in that
-975.2 s run.
+975.2 s run.  Phase 2's flash backward (its checks and eight timed
+shapes, about 14 s) is paid for by what the backward kernel takes out of
+the training phases: in the first whole run with it, phase 5b took 42.4 s
+and phase 6 6.0 s, against 54.2 and 7.7 s with the plain backward.  Its
+yardstick, the plain backward, is timed with CUDA events over 3 calls:
+its profiler traces overflowed and spoiled the traces after them (phase 2
+took 176.6 s that way).
 
 Phase 2 also holds the flash kernels' log-sum-exp (the backward's input)
 against the plain version on both variants and times the forward with it
@@ -454,8 +482,13 @@ flash and the RG-LRU scan at phase 3d's, the SSD scan and its backward
 at phase 6g's, and flash and the SSD scan (chunk 64) at the prefill shapes
 of phase 5c's decode replicas.
 
+Every training phase (6, 6b–6g) checks one flash backward launch a causal
+self-attention layer a step, on the variant of its dtype (mma in bf16, fma
+in fp32), as it checks the scans' backward kernels.
+
 The line before the last is one JSON object with a row per kernel
-(flash_attention, ssd_scan, rglru_scan, ssd_scan_bwd, rglru_scan_bwd); the last
+(flash_attention, ssd_scan, rglru_scan, ssd_scan_bwd, rglru_scan_bwd,
+flash_attention_bwd; the backward rows with ptxas registers and spills); the last
 line is ``{"ok": true, "device": {...}}``.  Without a card it exits 1 and
 prints no result.
 """
@@ -845,9 +878,9 @@ MESH_DRYRUN_MESH = {"serve": "2x2", "train": "2x2", "serve3": "1x3", "train3": "
 
 #: the variant each kernel runs in bf16 compute and in fp32
 BF16_VARIANTS = {"flash_attention": "wgmma", "ssd_scan": "mma", "ssd_scan_bwd": "mma",
-                 "rglru_scan": "vec4", "rglru_scan_bwd": "vec4"}
+                 "rglru_scan": "vec4", "rglru_scan_bwd": "vec4", "flash_attention_bwd": "mma"}
 FP32_VARIANTS = {**BF16_VARIANTS, "flash_attention": "fma", "ssd_scan": "fma",
-                 "ssd_scan_bwd": "fma"}
+                 "ssd_scan_bwd": "fma", "flash_attention_bwd": "fma"}
 
 #: the keys of a kernel's line that an entry at another shape repeats
 SHAPE_KEYS = ("shape", "variant", "source", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -866,6 +899,9 @@ KERNELS = {
     "rglru_scan_bwd": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
                        "no TPU kernel: counterpart of JAX autodiff of "
                        "src/repro/models/rglru.py:62"),
+    "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                            "no TPU kernel: counterpart of src/repro/models/flash.py:121 "
+                            "_flash_bwd_impl"),
 }
 
 
@@ -1053,7 +1089,8 @@ def _nbytes(*ts: torch.Tensor) -> int:
 
 
 def _row(name: str, err: float, kernel, plain, nbytes: int, flops: int,
-         dtype: torch.dtype, library, shape: str, op=None, launch=None) -> dict:
+         dtype: torch.dtype, library, shape: str, op=None, launch=None,
+         plain_calls: int = 0) -> dict:
     """One kernel's line.  ``kernel``, ``plain`` and ``library`` are
     zero-argument calls (``library`` may be None); ms, plain_ms and library_ms
     are their device times, call_ms the kernel wrapper's host-clock time per
@@ -1062,18 +1099,28 @@ def _row(name: str, err: float, kernel, plain, nbytes: int, flops: int,
     give the dispatcher's cost of a call.  The least time for the same work
     is the larger of its bytes (each input read once, each output written
     once) at the memory rate and its operations at the inputs' type peak
-    (``flops``: the kernel module's formula, the one the dry run counts)."""
+    (``flops``: the kernel module's formula, the one the dry run counts).
+    With ``plain_calls`` the plain version is timed with CUDA events over
+    that many calls instead (a plain version that launches thousands of
+    kernels a call overflows the profiler's buffers, and the traces after
+    it come back incomplete)."""
     bytes_ms = nbytes / HBM_BYTES_S * 1e3
     ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
     source, replaces = KERNELS[name]
-    (kernel_ms, by_kernel), plain_ms = _device_profile(kernel), _device_ms(plain)
-    library_ms = _device_ms(library) if library is not None else None
+    kernel_ms, by_kernel = _device_profile(kernel)
+    plain_ms = _time_ms(plain, plain_calls, 1) if plain_calls else _device_ms(plain)
+    library_ms, library_by_kernel = (_device_profile(library) if library is not None
+                                     else (None, None))
     row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
            "launches": None, "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
            "library_ms": library_ms, "shape": shape, "call_ms": _time_ms(kernel),
            "ms_by_kernel": by_kernel, "bytes": nbytes, "flops": flops}
+    if plain_calls:
+        row["plain_timed_by"] = f"CUDA events over {plain_calls} calls"
+    if library is not None:     # the device kernels the library call ran
+        row["library_ms_by_kernel"] = library_by_kernel
     if op is not None:
         row["op_call_us"], row["launch_call_us"] = _host_us(op), _host_us(launch)
         _log(f"[kernels] {name} host time of a call (host clock, before the device waits): "
@@ -1123,11 +1170,18 @@ def phase_build() -> dict:
             _log(f"[build]   {fn}: {regs} registers, {stores} bytes spill stores, "
                  f"{loads} bytes spill loads")
             if ("wgmma" in fn or "ssd_sm90" in fn or "rglru_scan" in fn
-                    or name.startswith("ssd_scan_bwd")) and (stores or loads):
+                    or name.startswith("ssd_scan_bwd") or "flash_bwd_mma" in fn) \
+                    and (stores or loads):
                 _fail(f"instantiation {fn} spills ({stores}/{loads} bytes)")
     if not any("flash_fwd_kernel_wgmmaILi96E" in fn
                for fn, *_ in _ptxas_report(info["flash_attention"]["log"])):
         _fail("flash has no wgmma instantiation at head dim 96")
+    mma_bwd = {int(fn.split("flash_bwd_mma_kernelILi")[1].split("E")[0])
+               for fn, *_ in _ptxas_report(info["flash_attention_bwd"]["log"])
+               if "flash_bwd_mma_kernelILi" in fn}
+    if mma_bwd != set(fa.WGMMA_HEAD_DIMS):
+        _fail(f"the flash backward's mma instantiations are at head dims {sorted(mma_bwd)}, "
+              f"not {fa.WGMMA_HEAD_DIMS}")
     return info
 
 
@@ -1312,6 +1366,152 @@ def phase_flash() -> dict:
             "shape", "max_abs_err", "lse_max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "call_ms", "ms_by_kernel")}
     return row
+
+
+#: the flash backward's bf16 tolerance (atol = rtol): the mma variant rounds
+#: p and ds to bf16 once, and its CPU emulation holds the JAX reference's
+#: gradients at it (tests/test_torch_flash_attention.py); fp32 (fma) 1e-4
+FLASH_BWD_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
+#: (b, l, h, hkv, hd, dtype, causal, window, softcap) of the backward's
+#: checks: the mma variant at every head dim it takes but 32, GQA groups 1,
+#: 2, 8 and 16, L 100 (a ragged last tile) and 192; the fma variant in fp32
+#: at head dims 8–256, groups 1 and 8, and in bf16 at head dim 8
+_BWD_MASKS = ((True, 0, 0.0), (True, 48, 0.0), (False, 48, 0.0), (True, 0, 30.0),
+              (False, 0, 0.0))
+FLASH_BWD_CASES = (
+    [(1, 100 if hkv == 4 else 192, h, hkv, hd, "bfloat16", *mask)
+     for hd in (16, 64, 96, 128, 256) for h, hkv in ((4, 4), (8, 4), (16, 2), (16, 1))
+     for mask in _BWD_MASKS]
+    + [(2, 100, h, hkv, hd, "float32", *mask) for hd in (8, 16, 64, 96, 128, 256)
+       for h, hkv in ((4, 4), (16, 2)) for mask in _BWD_MASKS[1:]]
+    + [(2, 100, 4, 2, 8, "bfloat16", *mask) for mask in _BWD_MASKS[::2]])
+
+
+def _flash_bwd_inputs(b, l, h, hkv, hd, dtype, seed, causal=True, window=0, cap=0.0):
+    """q, k, v, the forward kernel's out and lse, and a cotangent do."""
+    q, k, v = _qkv(b, l, h, hkv, hd, dtype, seed=seed)
+    do = torch.randn((b, l, h, hd), generator=_gen(seed + 1), device="cuda").to(dtype)
+    out, lse = ops.flash_attention(q, k, v, causal=causal, window=window, softcap=cap,
+                                   block_q=l, block_k=l, return_lse=True)
+    return q, k, v, out, lse, do
+
+
+def _flash_bwd_case(b, l, h, hkv, hd, dtype_name, causal, window, cap) -> float:
+    """The backward kernel against the plain backward
+    (``models/flash.flash_bwd_plain``, the reference's FA2 in plain PyTorch)
+    on the same inputs and lse, dq, dk and dv at FLASH_BWD_TOL; one launch
+    of the variant ``bwd_variant`` picks."""
+    dtype = getattr(torch, dtype_name)
+    args = _flash_bwd_inputs(b, l, h, hkv, hd, dtype, l + h + hd, causal, window, cap)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    want = fa.bwd_variant(hd, dtype)
+    v0 = dict(ops.flash_bwd_variant_launches)
+    got = ops.flash_attention_bwd(*args, block_q=l, block_k=l, **kw)
+    if ops.flash_bwd_variant_launches != {**v0, want: v0[want] + 1}:
+        _fail(f"flash backward {dtype_name} hd {hd} did not launch the {want} variant once")
+    plain = flash.flash_bwd_plain(*args, bq=l, bk=l, **kw)
+    tol = FLASH_BWD_TOL[dtype]
+    return max(_check(f"flash_attention_bwd ({want}) b={b} l={l} h={h} hkv={hkv} hd={hd} "
+                      f"causal={causal} window={window} cap={cap} {dtype_name} d{n}", g, w,
+                      tol, tol) for n, g, w in zip("qkv", got, plain))
+
+
+def _flash_bwd_padded(dtype: torch.dtype) -> float:
+    """The flash Function through attention._flash_causal at L 100, padded
+    to 128 (a multiple of 64): one backward launch, and the real rows'
+    gradients against fp32 autograd through the dense plain attention on
+    the same inputs (FLASH_BWD_TOL)."""
+    q, k, v = (t.requires_grad_() for t in _qkv(2, 100, 8, 2, 128, dtype, seed=31))
+    do = torch.randn((2, 100, 8, 128), generator=_gen(32), device="cuda").to(dtype)
+    want = fa.bwd_variant(128, dtype)
+    v0 = dict(ops.flash_bwd_variant_launches)
+    attention._flash_causal(q, k, v, window=40, cap=0.0).backward(do)
+    if ops.flash_bwd_variant_launches != {**v0, want: v0[want] + 1}:
+        _fail(f"the padded flash call in {dtype} did not launch the {want} backward once")
+    q2, k2, v2 = (t.detach().float().requires_grad_() for t in (q, k, v))
+    ref.flash_attention_ref(q2, k2, v2, causal=True, window=40).backward(do.float())
+    tol = FLASH_BWD_TOL[dtype]
+    return max(_check(f"flash_attention_bwd ({want}) L 100 padded to 128 {str(dtype)[6:]} "
+                      f"d{n}", a.grad, b_.grad, tol, tol)
+               for n, a, b_ in (("q", q, q2), ("k", k, k2), ("v", v, v2)))
+
+
+def _flash_bwd_at(shape, dtype=torch.bfloat16, window: int = 0, seed: int = 33) -> dict:
+    """The backward kernel at a training shape (causal, ``window`` as a
+    local layer passes it), held against the plain backward and timed
+    beside it and beside the library: the backward alone of
+    scaled_dot_product_attention(enable_gqa=True) under autograd on the
+    same inputs (its device kernels named in library_ms_by_kernel), under
+    the boolean causal-and-window mask where the window binds; returns its
+    row."""
+    b, l, h, hkv, hd = shape
+    args = _flash_bwd_inputs(b, l, h, hkv, hd, dtype, seed, window=window)
+    q, k, v, out, lse, do = args
+    kind = fa.bwd_variant(hd, dtype)
+    v0 = dict(ops.flash_bwd_variant_launches)
+    got = ops.flash_attention_bwd(*args, window=window)
+    if ops.flash_bwd_variant_launches != {**v0, kind: v0[kind] + 1}:
+        _fail(f"flash backward at {shape} {dtype} did not run {kind}")
+    blk = min(512, l)
+    plain = lambda: flash.flash_bwd_plain(*args, causal=True, window=window,  # noqa: E731
+                                          softcap=0.0, bq=blk, bk=blk)
+    tol = FLASH_BWD_TOL[dtype]
+    err = max(_check(f"flash_attention_bwd ({kind}) at {list(q.shape)}/{list(k.shape)} "
+                     f"window {window} {str(dtype)[6:]} d{n}", g, w, tol, tol)
+              for n, g, w in zip("qkv", got, plain()))
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    if not window or window >= l:
+        o = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                             enable_gqa=True)
+    else:       # the window binds: the same function under its boolean mask
+        mask = attention.make_causal_mask(l, l, window=window, device=q.device)
+        o = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                             enable_gqa=True)
+    dot = do.transpose(1, 2)
+    library = lambda: torch.autograd.grad(o, (qt, kt, vt), dot,  # noqa: E731
+                                          retain_graph=True)
+    row = _row("flash_attention_bwd", err, lambda: ops.flash_attention_bwd(*args, window=window),
+               plain, _nbytes(*args, *got), fa.bwd_flops(b, l, l, h, hd, window=window), dtype,
+               library, f"q/out/do {list(q.shape)}, k/v {list(k.shape)} {str(dtype)[6:]}, "
+               f"lse [{b},{h},{l}] fp32" + (f", window {window}" if window else ""),
+               op=lambda: fa.BWD_OP(q, k, v, out, lse, do, True, window, 0.0),
+               launch=lambda: fa._launch_bwd(q, k, v, out, lse, do, True, window, 0.0),
+               plain_calls=3)
+    row["variant"] = kind
+    return row
+
+
+def phase_flash_bwd() -> tuple:
+    """The flash backward kernel: FLASH_BWD_CASES and the padded call on both
+    variants, then timed at yi-9b's training shape (the row), at
+    recurrentgemma-9b's (phase 6b: window 2048 at L 4096), at a rank's shape
+    of phase 6c in bf16 and in fp32 (its fp32 step) and at the rank's shapes
+    of phases 6d, 6e and 6f.  Returns (the row, phase → its entry at a rank's
+    shape of that phase, for phase_rank_shapes' table)."""
+    errs = [_flash_bwd_case(*case) for case in FLASH_BWD_CASES]
+    errs += [_flash_bwd_padded(dtype) for dtype in (torch.float32, torch.bfloat16)]
+    row = _flash_bwd_at(TRAIN_SHAPE)
+    if row["variant"] != "mma":
+        _fail("the flash backward at the training shape does not run the mma variant")
+    row["max_abs_err"] = max(errs + [row["max_abs_err"]])
+    others = {"6b recurrentgemma-9b": _flash_bwd_at(
+                  (RG_TRAIN_BATCH, RG_TRAIN_SEQ, RG.n_heads, RG.n_kv_heads, RG.hd),
+                  window=RG.window, seed=34),
+              "6c": _flash_bwd_at(MESH_TRAIN_SHAPE, seed=35),
+              "6c fp32": _flash_bwd_at(MESH_TRAIN_SHAPE, torch.float32, seed=36),
+              "6d": _flash_bwd_at(MESH_REC_FLASH, window=RG.window, seed=37),
+              "6e": _flash_bwd_at(MESH_MOE_FLASH, seed=38)}
+    for i, (arch, shape) in enumerate(MESH_MM_FLASH.items()):
+        others[f"6f {arch}"] = _flash_bwd_at(shape, seed=39 + i)
+    keys = SHAPE_KEYS + ("library_ms_by_kernel", "library_null_because", "plain_timed_by")
+    entries = {}
+    for phase, r in others.items():
+        want = "fma" if phase.endswith("fp32") else "mma"
+        if r["variant"] != want:
+            _fail(f"the flash backward at {r['shape']} runs {r['variant']}, not {want}")
+        entries[phase] = {"at": f"a shape of phase {phase}", **{k: r[k] for k in keys if k in r}}
+    _free()
+    return row, entries
 
 
 def _ssd_inputs(bt, l, h, p, n, dtype, seed, dt0=None):
@@ -1823,17 +2023,18 @@ def _expected_launches(cfg) -> dict:
     kinds = [cfg.pattern_of(i) for i in range(cfg.n_layers)]
     return {"flash_attention": sum(k in ("attn", "local") for k in kinds),
             "ssd_scan": kinds.count("ssm"), "rglru_scan": kinds.count("rglru"),
-            "ssd_scan_bwd": 0, "rglru_scan_bwd": 0}
+            "ssd_scan_bwd": 0, "rglru_scan_bwd": 0, "flash_attention_bwd": 0}
 
 
 def _train_launches(cfg) -> dict:
     """Launches of one training step under remat "dots": every forward
-    twice (the recompute runs it again), each scan's backward kernel once
-    a layer (attention's backward is plain torch)."""
+    twice (the recompute runs it again), each backward kernel once a layer
+    (the scans' and flash attention's)."""
     once = _expected_launches(cfg)
     return {"flash_attention": 2 * once["flash_attention"], "ssd_scan": 2 * once["ssd_scan"],
             "rglru_scan": 2 * once["rglru_scan"], "ssd_scan_bwd": once["ssd_scan"],
-            "rglru_scan_bwd": once["rglru_scan"]}
+            "rglru_scan_bwd": once["rglru_scan"],
+            "flash_attention_bwd": once["flash_attention"]}
 
 
 def phase_model() -> None:
@@ -3160,7 +3361,8 @@ def _hold_remote(out: dict, direct: dict, smi: list) -> tuple:
 DRYRUN_OPS = {"flash_attention": "repro_torch.flash_attention_fwd",
               "ssd_scan": "repro_torch.ssd_scan_fwd", "rglru_scan": "repro_torch.rglru_scan_fwd",
               "ssd_scan_bwd": "repro_torch.ssd_scan_bwd",
-              "rglru_scan_bwd": "repro_torch.rglru_scan_bwd"}
+              "rglru_scan_bwd": "repro_torch.rglru_scan_bwd",
+              "flash_attention_bwd": "repro_torch.flash_attention_bwd"}
 #: the measured peak a cell's predicted peak must lie within, relative
 DRYRUN_RTOL = 0.05
 
@@ -3369,6 +3571,7 @@ def phase_train() -> dict:
     steps = []
     for s in range(TRAIN_STEPS):
         n0, v0 = ops.launches["flash_attention"], dict(ops.flash_variant_launches)
+        b0, bv0 = ops.launches["flash_attention_bwd"], dict(ops.flash_bwd_variant_launches)
         t0 = time.perf_counter()
         state, m = step_fn(state, batches[s])
         torch.cuda.synchronize()
@@ -3376,17 +3579,22 @@ def phase_train() -> dict:
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
         launched = ops.launches["flash_attention"] - n0
         wgmma = ops.flash_variant_launches["wgmma"] - v0["wgmma"]
+        bwd = ops.launches["flash_attention_bwd"] - b0
+        mma = ops.flash_bwd_variant_launches["mma"] - bv0["mma"]
         steps.append({"loss": loss, "grad_norm": gnorm, "step_ms": ms,
                       "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
-                      "flash_launches": launched})
+                      "flash_launches": launched, "flash_bwd_launches": bwd})
         _log(f"[train] step {s + 1}: loss {loss:.6f}, grad norm {gnorm:.6f}, {ms:.3f} ms, "
              f"{steps[-1]['tokens_per_s']:.1f} tokens/s, flash launches {launched} "
-             f"({wgmma} wgmma)")
+             f"({wgmma} wgmma), flash backward launches {bwd} ({mma} mma)")
         if not (math.isfinite(loss) and math.isfinite(gnorm)):
             _fail(f"train step {s + 1}: loss {loss}, grad norm {gnorm}")
         if launched != per_step or wgmma != per_step:
             _fail(f"train step {s + 1}: {launched} flash launches ({wgmma} wgmma), "
                   f"not {per_step} wgmma under remat dots")
+        if bwd != cfg.n_layers or mma != cfg.n_layers:
+            _fail(f"train step {s + 1}: {bwd} flash backward launches ({mma} mma), not "
+                  f"{cfg.n_layers} mma (one a layer)")
         if s == 0 and not _attn_moments_nonzero(state, cfg):
             _fail("an attention weight got a zero gradient")
     launches = dict(ops.launches)
@@ -3486,7 +3694,8 @@ def _variant_launches() -> dict:
             "ssd_scan": dict(ops.ssd_variant_launches),
             "ssd_scan_bwd": dict(ops.ssd_bwd_variant_launches),
             "rglru_scan": dict(ops.rglru_variant_launches),
-            "rglru_scan_bwd": dict(ops.rglru_bwd_variant_launches)}
+            "rglru_scan_bwd": dict(ops.rglru_bwd_variant_launches),
+            "flash_attention_bwd": dict(ops.flash_bwd_variant_launches)}
 
 
 def _on_variants(launches: dict, variants: dict) -> dict:
@@ -3610,10 +3819,11 @@ def phase_mesh_train(plain: dict, fp32_ref: dict) -> tuple:
     of every updated parameter within MESH_TRAIN_PARAM_ATOL and of every
     first moment within MESH_TRAIN_FP32_RTOL of its largest, and each
     rank launched flash (wgmma, 2 a layer a step under remat dots; fma in
-    fp32), and every rank's first step matches the dry run of one traced
+    fp32) and its backward (mma, one a layer; fma in fp32), and every rank's
+    first step matches the dry run of one traced
     rank of the mesh (:func:`_hold_against_dryrun`).  Returns (the phase's
-    flash launches as a path's launches, by variant, the ranks, each held
-    step against the dry run)."""
+    flash launches, forward and backward, as a path's launches, each by
+    variant, the ranks, each held step against the dry run)."""
     os.makedirs(os.path.dirname(MESH_TRAIN_FP32_REF), exist_ok=True)
     torch.save(fp32_ref, MESH_TRAIN_FP32_REF)
     dry = _start_mesh_dryrun("train")
@@ -3629,7 +3839,8 @@ def phase_mesh_train(plain: dict, fp32_ref: dict) -> tuple:
          f"{TRAIN_BATCH} x {TRAIN_SEQ}; a rank's wq block {ranks[0]['local_wq']}, its state "
          f"{ranks[0]['state_gb']:.3f} GB")
     per_step = 2 * YI_TRAIN.n_layers
-    flash = dict.fromkeys(fa.VARIANTS, 0)
+    flash = {"flash_attention": dict.fromkeys(fa.VARIANTS, 0),
+             "flash_attention_bwd": dict.fromkeys(fa.BWD_VARIANTS, 0)}
     wants = plain["steps"][:TRAIN_STEPS] + [plain["gather_bf16_step"]]
     for r in ranks:
         recs = r["steps"] + [r["gather_step"]]
@@ -3647,6 +3858,10 @@ def phase_mesh_train(plain: dict, fp32_ref: dict) -> tuple:
             if got["flash_by_variant"]["wgmma"] != per_step or got["flash_launches"] != per_step:
                 _fail(f"rank {r['rank']} sharded step {i + 1}: flash {got['flash_by_variant']}, "
                       f"not {per_step} wgmma")
+            if (got["launches"]["flash_attention_bwd"] != YI_TRAIN.n_layers
+                    or got["variants"]["flash_attention_bwd"]["mma"] != YI_TRAIN.n_layers):
+                _fail(f"rank {r['rank']} sharded step {i + 1}: flash backward "
+                      f"{got['variants']['flash_attention_bwd']}, not {YI_TRAIN.n_layers} mma")
         if r["gather_dtypes"] != ["bfloat16"]:
             _fail(f"rank {r['rank']}: parameters after the bf16-gathered step are "
                   f"{r['gather_dtypes']}")
@@ -3670,14 +3885,18 @@ def phase_mesh_train(plain: dict, fp32_ref: dict) -> tuple:
         if not (max(errs) <= MESH_TRAIN_PARAM_ATOL and max(merrs) <= MESH_TRAIN_FP32_RTOL):
             _fail(f"rank {r['rank']} fp32 sharded step: updated parameters differ from the "
                   f"plain step's by {errs}, first moments by {merrs} of their largest")
-        if f32["flash_by_variant"]["fma"] != 2 * MESH_TRAIN_FP32.n_layers:
-            _fail(f"rank {r['rank']} fp32 sharded step: flash {f32['flash_by_variant']}")
+        if f32["flash_by_variant"]["fma"] != 2 * MESH_TRAIN_FP32.n_layers \
+                or f32["variants"]["flash_attention_bwd"]["fma"] != MESH_TRAIN_FP32.n_layers:
+            _fail(f"rank {r['rank']} fp32 sharded step: flash {f32['flash_by_variant']}, "
+                  f"backward {f32['variants']['flash_attention_bwd']}")
         _log(f"[mesh-train] rank {r['rank']}: peak memory {r['peak_mem_gb']:.2f} GB over the "
              f"bf16 steps (phase 6's single process: {plain['peak_mem_gb']:.2f} GB)")
         for rec in r["steps"] + [r["gather_step"], r["fp32_step"]]:
-            for v, n in rec["flash_by_variant"].items():
-                flash[v] += n
-    launches = {**dict.fromkeys(ops.launches, 0), "flash_attention": sum(flash.values())}
+            for k, by in flash.items():
+                for v, n in rec["variants"][k].items():
+                    by[v] += n
+    launches = {**dict.fromkeys(ops.launches, 0),
+                **{k: sum(by.values()) for k, by in flash.items()}}
     return launches, flash, ranks, held
 
 
@@ -4083,21 +4302,23 @@ def _mesh_moe_references() -> dict:
     want = _train_launches(cfg)
     steps = []
     for i, b in enumerate(batches):
-        n0, v0 = dict(ops.launches), _variant_launches()["flash_attention"]
+        n0, v0 = dict(ops.launches), _variant_launches()
         t1 = time.perf_counter()
         state, m = step_fn(state, batch_to(b, "cuda"))
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t1) * 1e3
         launched = {k: ops.launches[k] - n0[k] for k in n0}
-        wgmma = ops.flash_variant_launches["wgmma"] - v0["wgmma"]
+        wgmma = ops.flash_variant_launches["wgmma"] - v0["flash_attention"]["wgmma"]
+        mma = ops.flash_bwd_variant_launches["mma"] - v0["flash_attention_bwd"]["mma"]
         steps.append({"loss": float(m["loss"]), "aux": float(m["aux"]),
                       "grad_norm": float(m["grad_norm"]), "step_ms": ms,
                       "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / ms * 1e3, "launches": launched})
         if not (math.isfinite(steps[-1]["loss"]) and math.isfinite(steps[-1]["grad_norm"])):
             _fail(f"deepseek-moe-16b plain step {i + 1}: {steps[-1]}")
-        if launched != want or wgmma != want["flash_attention"]:
-            _fail(f"deepseek-moe-16b plain step {i + 1}: launches {launched} ({wgmma} wgmma), "
-                  f"not {want} on wgmma")
+        if launched != want or wgmma != want["flash_attention"] \
+                or mma != want["flash_attention_bwd"]:
+            _fail(f"deepseek-moe-16b plain step {i + 1}: launches {launched} ({wgmma} wgmma, "
+                  f"{mma} mma backward), not {want} on wgmma and mma")
     launches = dict(ops.launches)
     peak = torch.cuda.max_memory_allocated() / 1e9
     del state, m
@@ -4121,11 +4342,12 @@ def _mesh_moe_references() -> dict:
              f"{d['grad_norm']:.6f}, {d['step_ms']:.1f} ms, {d['tokens_per_s']:.1f} tokens/s"
              for i, d in enumerate(steps))
          + f"; peak memory {peak:.2f} GB; flash launches {launches['flash_attention']} (all "
-         f"wgmma); fp32 {MESH_MOE_FP32.n_layers}-layer step {fp32_step}; "
+         f"wgmma), backward {launches['flash_attention_bwd']} (all mma); fp32 {MESH_MOE_FP32.n_layers}-layer step {fp32_step}; "
          f"{time.perf_counter() - t0:.1f}s ({t_data:.1f}s of batches, "
          f"{time.perf_counter() - t1:.1f}s writing the fp32 leaves)")
     variants = {k: dict.fromkeys(v, 0) for k, v in _variant_launches().items()}
     variants["flash_attention"]["wgmma"] = launches["flash_attention"]
+    variants["flash_attention_bwd"]["mma"] = launches["flash_attention_bwd"]
     return {"steps": steps, "fp32_step": fp32_step, "peak_mem_gb": peak,
             "params_b": cfg.param_count() / 1e9}, launches, variants
 
@@ -4264,20 +4486,24 @@ def phase_mesh_train_moe() -> tuple:
 
 
 def phase_train_grads() -> dict:
-    """The flash Function's gradients against autograd through the dense
-    plain version on the same card, yi-family heads (GQA 8/2, hd 128), L
-    256: fp32 (fma) at 1e-4, bf16 (wgmma) at 3e-2, the reference's bf16
-    model tolerance, against fp32 autograd on the same bf16 inputs."""
+    """The flash Function's gradients (the forward kernel, the backward
+    kernel) against autograd through the dense plain version on the same
+    card, yi-family heads (GQA 8/2, hd 128), L 256: fp32 (fma, fma) at
+    1e-4, bf16 (wgmma, mma) at 3e-2, the reference's bf16 model tolerance,
+    against fp32 autograd on the same bf16 inputs."""
     errs = {}
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
-        want = fa.variant(128, dtype)
+        want, want_bwd = fa.variant(128, dtype), fa.bwd_variant(128, dtype)
         base = list(_qkv(2, 256, 8, 2, 128, dtype, seed=11)) + [
             torch.randn((2, 256, 8, 128), generator=_gen(12), device="cuda").to(dtype)]
         q, k, v = (t.clone().requires_grad_() for t in base[:3])
-        n0 = dict(ops.flash_variant_launches)
+        n0, b0 = dict(ops.flash_variant_launches), dict(ops.flash_bwd_variant_launches)
         flash.flash_attention(q, k, v, window=100, softcap=30.0).backward(base[3])
         if ops.flash_variant_launches != {**n0, want: n0[want] + 1}:
             _fail(f"the flash Function in {dtype} did not run the {want} variant")
+        if ops.flash_bwd_variant_launches != {**b0, want_bwd: b0[want_bwd] + 1}:
+            _fail(f"the flash Function's backward in {dtype} did not launch the "
+                  f"{want_bwd} backward kernel once")
         q2, k2, v2 = (t.float().requires_grad_() for t in base[:3])
         ref.flash_attention_plain(q2, k2, v2, window=100, softcap=30.0).backward(
             base[3].float())
@@ -4481,7 +4707,11 @@ def main(argv=None) -> int:
     _lap("2 kernels")
     bwd_rows = phase_scan_bwd()
     _lap("2 scan backwards")
+    bwd_rows["flash_attention_bwd"], flash_bwd_at = phase_flash_bwd()
+    _lap("2 flash backward")
     rank_rows = phase_rank_shapes()
+    for phase, entry in flash_bwd_at.items():
+        rank_rows.setdefault(phase, {})["flash_attention_bwd"] = entry
     _lap("2 rank shapes")
     at_rank_shape = {p: dict.fromkeys(ops.launches, 0) for p in rank_rows}
     phase_model()
@@ -4536,11 +4766,17 @@ def main(argv=None) -> int:
     _lap("6 train")
     fp32_ref = train.pop("fp32_ref")
     by_path[f"yi-9b train ({YI_TRAIN.n_layers} layers, {TRAIN_STEPS} steps)"] = train["launches"]
-    mesh_train, mesh_train_flash = None, dict.fromkeys(fa.VARIANTS, 0)
+    mesh_train = None
+    mesh_train_flash = {"flash_attention": dict.fromkeys(fa.VARIANTS, 0),
+                        "flash_attention_bwd": dict.fromkeys(fa.BWD_VARIANTS, 0)}
     if argv != ["--skip-mesh"]:
         by_path[f"mesh train: {MESH_RANKS} ranks, yi-9b {YI_TRAIN.n_layers}L"], \
             mesh_train_flash, mesh_train, mesh_dry["train"] = phase_mesh_train(train, fp32_ref)
         _lap("6c mesh train")
+    # the flash backward's launches at phase 6c's rank shape, bf16 and fp32
+    at_rank_shape["6c"]["flash_attention_bwd"] = mesh_train_flash["flash_attention_bwd"]["mma"]
+    at_rank_shape["6c fp32"]["flash_attention_bwd"] = \
+        mesh_train_flash["flash_attention_bwd"]["fma"]
     del fp32_ref
     recurrent = {}
     for name, cfg, batch, seq in (("mamba2-370m", MAMBA_TRAIN, MAMBA_TRAIN_BATCH, TRAIN_SEQ),
@@ -4549,6 +4785,8 @@ def main(argv=None) -> int:
         _lap(f"6b {name} train")
         recurrent[name] = r
         by_path[f"{name} train ({cfg.n_layers} layers, {TRAIN_STEPS} steps)"] = r["launches"]
+        at_rank_shape.setdefault(f"6b {name}", dict.fromkeys(ops.launches, 0))[
+            "flash_attention_bwd"] = r["launches"]["flash_attention_bwd"]
         for k, row in rows.items():
             for v, n in r["variants"][k].items():
                 row["launches_by_variant"][v] += n
@@ -4596,12 +4834,14 @@ def main(argv=None) -> int:
     for name, row in rows.items():      # the dry run's count beside the row's own
         row["dryrun"] = dry_kernels[name]
     for name, libs, key in (("rglru_scan_bwd", ("rglru_scan",), "rglru_scan_bwd"),
-                            ("ssd_scan_bwd", ("ssd_scan_bwd_mma", "ssd_scan_bwd"), "ssd_bwd_")):
+                            ("ssd_scan_bwd", ("ssd_scan_bwd_mma", "ssd_scan_bwd"), "ssd_bwd_"),
+                            ("flash_attention_bwd", ("flash_attention_bwd",), "flash_bwd_")):
         rows[name]["ptxas"] = {fn: {"registers": regs, "spill_stores": st, "spill_loads": ld}
                                for lib in libs
                                for fn, regs, st, ld in _ptxas_report(built[lib]["log"])
                                if key in fn}
-    for name, variants in (("rglru_scan_bwd", rg.VARIANTS), ("ssd_scan_bwd", ssd.VARIANTS)):
+    for name, variants in (("rglru_scan_bwd", rg.VARIANTS), ("ssd_scan_bwd", ssd.VARIANTS),
+                           ("flash_attention_bwd", fa.BWD_VARIANTS)):
         rows[name]["launches_by_variant"] = {
             v: sum(r["variants"][name][v] for r in recurrent.values()) for v in variants}
     for name, row in rows.items():
@@ -4613,14 +4853,18 @@ def main(argv=None) -> int:
             rows[name].setdefault("at_other_shapes", []).append(
                 {**entry, "launches": at_rank_shape[phase][name]})
     for name, row in rows.items():
-        row["launches_by_path"] = {arch: n[name] for arch, n in by_path.items() if n[name]}
+        row["launches_by_path"] = {arch: n[name] for arch, n in by_path.items()
+                                   if n.get(name, 0)}
         row["launches"] = sum(row["launches_by_path"].values())
         if row["launches"] <= 0:
             _fail(f"{name} was not launched on any main path")
     rows["flash_attention"]["launches_by_variant"]["wgmma"] += train["launches"][
         "flash_attention"]
-    for v, n in mesh_train_flash.items():
-        rows["flash_attention"]["launches_by_variant"][v] += n
+    rows["flash_attention_bwd"]["launches_by_variant"]["mma"] += train["launches"][
+        "flash_attention_bwd"]
+    for name, by in mesh_train_flash.items():
+        for v, n in by.items():
+            rows[name]["launches_by_variant"][v] += n
     grads = phase_train_grads()
     commit = phase_commit()
     phase_refuse()

@@ -33,6 +33,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 #: kernel name → source file under csrc/
 SOURCES = {
     "flash_attention": "flash_attention.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
     "ssd_scan": "ssd_scan.cu",
     "rglru_scan": "rglru_scan.cu",
     "ssd_scan_bwd": "ssd_scan_bwd.cu",

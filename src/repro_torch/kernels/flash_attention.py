@@ -1,4 +1,5 @@
-"""Launch of the hand-written Hopper flash-attention forward kernels.
+"""Launch of the hand-written Hopper flash-attention kernels: the forward
+and its FA2 backward.
 
 The kernels replace the Pallas TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention_fwd``, in two variants
@@ -25,6 +26,18 @@ stream, as the operator ``repro_torch::flash_attention_fwd``
 (:mod:`repro_torch.kernels.library`: a fake implementation for tracing and
 the FLOP formula :func:`flops`); :func:`repro_torch.kernels.ops.flash_attention`
 is the public wrapper.
+
+The backward (``csrc/flash_attention_bwd.cu``, the operator
+``repro_torch::flash_attention_bwd``) replaces no TPU kernel: it is the
+counterpart of the reference's jnp backward
+``repro/models/flash.py::_flash_bwd_impl``, in two variants that
+:func:`bwd_variant` picks as :func:`variant` picks the forward's: ``"mma"``
+(bf16 at :data:`WGMMA_HEAD_DIMS`, ``mma.sync`` on the tensor cores) and
+``"fma"`` (fp32 at every head dim, bf16 at 8).  It allocates dq, dk, dv,
+each row's fp32 ``delta = rowsum(do · out)`` [B,H,L] and, where the mma
+dk/dv sweep shares a kv tile's heads among blocks (:func:`bwd_kv_splits`),
+their fp32 partial sums; :func:`bwd_flops` counts its five products over
+the visible pairs.
 """
 
 from __future__ import annotations
@@ -39,13 +52,26 @@ from repro_torch.kernels import build, library
 HEAD_DIMS = (8, 16, 32, 64, 96, 128, 256)
 WGMMA_HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 VARIANTS = ("wgmma", "fma")
+BWD_VARIANTS = ("mma", "fma")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANT_CODE = {"fma": 0, "wgmma": 1}
+_BWD_VARIANT_CODE = {"fma": 0, "mma": 1}
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int
 _ARGTYPES = [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i,
              ctypes.c_float, ctypes.c_float, _p]
+_BWD_ARGTYPES = [_p] * 10 + [_i] * 10 + [ctypes.c_float, ctypes.c_float, _i, _p, _p]
+#: the streaming multiprocessors of the card the port targets, the H100 SXM
+#: (fixed, not read from a device: the fake implementation sizes the dk/dv
+#: partial sums in a trace that has no card)
+H100_SXM_SMS = 132
+#: the blocks the backward's dk/dv sweep aims at: four for each SM
+#: (:func:`bwd_kv_splits`; two are resident at a time, and smaller shares
+#: even out the causal tiles' work)
+KV_SWEEP_BLOCKS = 4 * H100_SXM_SMS
+#: the kv rows of one block of the mma dk/dv sweep
+KV_SWEEP_ROWS = 64
 
 
 def variant(hd: int, dtype: torch.dtype) -> str:
@@ -57,11 +83,31 @@ def variant(hd: int, dtype: torch.dtype) -> str:
     return "wgmma" if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS else "fma"
 
 
-def _lib():
-    lib = build.load("flash_attention")
-    fn = lib.flash_attention_fwd
+def bwd_variant(hd: int, dtype: torch.dtype) -> str:
+    """The backward kernel a call of head dim ``hd`` in ``dtype`` runs:
+    ``"mma"`` for bf16 at :data:`WGMMA_HEAD_DIMS`, ``"fma"`` for everything
+    else :data:`HEAD_DIMS` allows (every head dim the forward takes has a
+    backward)."""
+    return "mma" if variant(hd, dtype) == "wgmma" else "fma"
+
+
+def bwd_kv_splits(b: int, s_len: int, h: int, hkv: int, kind: str) -> int:
+    """The blocks among which the mma backward's dk/dv sweep shares a
+    (batch, kv head, kv tile)'s G query heads: 1 where B·Hkv·⌈S/64⌉ blocks
+    reach :data:`KV_SWEEP_BLOCKS`, else as many as reach it, at most G
+    (each share sums its heads into fp32 partials that a second pass adds
+    in a fixed order); the fma variant takes 1."""
+    if kind != "mma":
+        return 1
+    base = b * hkv * -(-s_len // KV_SWEEP_ROWS)
+    return max(1, min(h // hkv, -(-KV_SWEEP_BLOCKS // base)))
+
+
+def _lib(name: str = "flash_attention", entry: str = "flash_attention_fwd",
+         argtypes=_ARGTYPES):
+    fn = getattr(build.load(name), entry)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
@@ -90,6 +136,14 @@ def flops(b: int, l: int, s_len: int, h: int, hd: int, *, causal: bool = True,
     """Products of one forward: q·kᵀ and p·v, 2·hd each per kept pair and
     head (the kernel table's bound, and the dry run's count)."""
     return 4 * b * h * hd * pairs(l, s_len, causal=causal, window=window)
+
+
+def bwd_flops(b: int, l: int, s_len: int, h: int, hd: int, *, causal: bool = True,
+              window: int = 0) -> int:
+    """Products of one backward, counted as the reference's FA2 has them:
+    q·kᵀ, do·vᵀ, pᵀ·do, dsᵀ·q and ds·k, 2·hd each per kept pair and head
+    (the kernel's two sweeps recompute q·kᵀ and do·vᵀ: 7 products done)."""
+    return 10 * b * h * hd * pairs(l, s_len, causal=causal, window=window)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
@@ -156,11 +210,82 @@ def _flops(q, k, v, causal: bool, window: int, softcap: float, return_lse: bool,
     return flops(b, l, k[1], h, hd, causal=causal, window=window)
 
 
+def _check_bwd(q, k, v, out, lse, do) -> str:
+    """The forward's checks, and the forward's output, its lse and the
+    cotangent's; returns the backward's variant."""
+    _check(q, k, v)
+    b, l, h, hd = q.shape
+    for name, t in (("out", out), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {q.dtype} {tuple(q.shape)} on "
+                             f"{q.device}")
+    if tuple(lse.shape) != (b, h, l) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous float32 {(b, h, l)} on {q.device}")
+    return bwd_variant(hd, q.dtype)
+
+
+def _bwd_buffers(q, k, v, kind: str):
+    """What a backward launch allocates, on the card and in a trace: dq, dk,
+    dv, the fp32 delta [B,H,L] the two sweeps read and, where the dk/dv
+    sweep splits the heads (:func:`bwd_kv_splits`), its fp32 partial sums
+    of dk and dv [2, splits, B,S,Hkv,hd] (else None)."""
+    b, l, h, _ = q.shape
+    delta = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
+    splits = bwd_kv_splits(b, k.shape[1], h, k.shape[2], kind)
+    part = (torch.empty((2, splits, *k.shape), dtype=torch.float32, device=q.device)
+            if splits > 1 else None)
+    return (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)), delta, part
+
+
+def _launch_bwd(q, k, v, out, lse, do, causal: bool, window: int, softcap: float):
+    """The backward operator's CUDA implementation: one counted launch (the
+    delta pass and the two sweeps, on the current stream)."""
+    kind = bwd_variant(q.shape[3], q.dtype)
+    if kind == "mma":
+        for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must start on a 16-byte boundary for cp.async")
+    b, l, h, hd = q.shape
+    s_len, hkv = k.shape[1], k.shape[2]
+    (dq, dk, dv), delta, part = _bwd_buffers(q, k, v, kind)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _lib("flash_attention_bwd", "flash_attention_bwd", _BWD_ARGTYPES)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, l, s_len, h, hkv, hd, _DTYPE_CODE[q.dtype], _BWD_VARIANT_CODE[kind],
+            int(causal), int(window), float(softcap), 1.0 / (hd ** 0.5),
+            1 if part is None else part.shape[1], None if part is None else part.data_ptr(),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd ({kind}) launch failed: cudaError {err}")
+    library.counted("flash_attention_bwd", kind)
+    return dq, dk, dv
+
+
+def _fake_bwd(q, k, v, out, lse, do, causal: bool, window: int, softcap: float):
+    grads, delta, part = _bwd_buffers(q, k, v, _check_bwd(q, k, v, out, lse, do))
+    library.fake_allocated(*grads, delta, part)
+    return grads
+
+
+def _flops_bwd(q, k, v, out, lse, do, causal: bool, window: int, softcap: float, **_):
+    b, l, h, hd = q
+    return bwd_flops(b, l, k[1], h, hd, causal=causal, window=window)
+
+
 library.counter("flash_attention", VARIANTS)
+library.counter("flash_attention_bwd", BWD_VARIANTS)
 #: ``repro_torch::flash_attention_fwd``
 OP = library.register("flash_attention_fwd(Tensor q, Tensor k, Tensor v, bool causal, "
                       "int window, float softcap, bool return_lse) -> (Tensor, Tensor?)",
                       _launch, _fake, _flops)
+#: ``repro_torch::flash_attention_bwd``
+BWD_OP = library.register("flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor out, "
+                          "Tensor lse, Tensor do, bool causal, int window, float softcap) -> "
+                          "(Tensor, Tensor, Tensor)", _launch_bwd, _fake_bwd, _flops_bwd)
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -177,3 +302,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(q, k, v)
     out, lse = OP(q, k, v, bool(causal), int(window), float(softcap), bool(return_lse))
     return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                        lse: torch.Tensor, do: torch.Tensor, *, causal: bool = True,
+                        window: int = 0, softcap: float = 0.0
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward of :func:`flash_attention_fwd` on the card: q, out, do
+    [B,L,H,hd], k, v [B,S,Hkv,hd], the forward's fp32 lse [B,H,L] → (dq, dk,
+    dv) in q's, k's and v's dtypes, on the variant :func:`bwd_variant` picks.
+    Checks the inputs, then calls :data:`BWD_OP`."""
+    _check_bwd(q, k, v, out, lse, do)
+    return BWD_OP(q, k, v, out, lse, do, bool(causal), int(window), float(softcap))

@@ -11,7 +11,9 @@ variant; a fake tensor reaches the operator's fake implementation, which
 allocates what the launch would and counts nothing.  On the card the two
 scans are ``torch.autograd.Function``s (:data:`RGLRUScan`, :data:`SSDScan`)
 whose backward is a kernel too (``rglru_scan_bwd``, ``ssd_scan_bwd``); on the
-CPU autograd differentiates their plain versions.
+CPU autograd differentiates their plain versions.  Flash attention's
+backward is a kernel too (:func:`flash_attention_bwd`, ``flash_attention_bwd``),
+which :mod:`repro_torch.models.flash`'s Function calls.
 """
 
 from __future__ import annotations
@@ -30,6 +32,9 @@ launches = library.launches
 #: flash-attention variant (:func:`flash_attention.variant`) → its share of
 #: ``launches["flash_attention"]``
 flash_variant_launches = library.variant_launches["flash_attention"]
+#: flash-attention backward variant (:func:`flash_attention.bwd_variant`) →
+#: its share of ``launches["flash_attention_bwd"]``
+flash_bwd_variant_launches = library.variant_launches["flash_attention_bwd"]
 #: SSD-scan variant (:func:`ssd_scan.variant`) → its share of
 #: ``launches["ssd_scan"]``
 ssd_variant_launches = library.variant_launches["ssd_scan"]
@@ -65,7 +70,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     The kernel's output carries no autograd history, so on the card an
     input that needs a gradient is refused (:func:`refuse_grad`): training
     goes through :func:`repro_torch.models.flash.flash_attention`, whose
-    backward is the reference's FA2.
+    backward is :func:`flash_attention_bwd`.
     """
     _fa.check_tiles(q.shape[1], k.shape[1], block_q, block_k)
     if q.device.type == "cpu":
@@ -76,6 +81,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 instead="differentiate through repro_torch.models.flash.flash_attention")
     return _fa.flash_attention_fwd(q, k, v, causal=causal, window=window, softcap=softcap,
                                    return_lse=return_lse)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                        lse: torch.Tensor, do: torch.Tensor, *, causal: bool = True,
+                        window: int = 0, softcap: float = 0.0, block_q: int = 512,
+                        block_k: int = 512) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flash-attention backward (FA2). q, out, do: [B,L,H,hd]; k, v:
+    [B,S,Hkv,hd]; lse: the forward's fp32 [B,H,L] → (dq, dk, dv) in q's,
+    k's and v's dtypes.
+
+    The reference's contract (L and S must tile by ``block_q``/``block_k``,
+    else ``ValueError``).  On the CPU the plain version,
+    :func:`repro_torch.models.flash.flash_bwd_plain` on ``(min(block_q, L),
+    min(block_k, S))`` tiles; on the card the backward kernel, which picks
+    its own tiles.
+    """
+    _fa.check_tiles(q.shape[1], k.shape[1], block_q, block_k)
+    if q.device.type == "cpu":
+        from repro_torch.models import flash   # the Function's module imports this one
+        return flash.flash_bwd_plain(q, k, v, out, lse, do, causal=causal, window=window,
+                                     softcap=softcap, bq=min(block_q, q.shape[1]),
+                                     bk=min(block_k, k.shape[1]))
+    _check_device("flash_attention_bwd", q)
+    return _fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, window=window,
+                                   softcap=softcap)
 
 
 def refuse_grad(name: str, *inputs: torch.Tensor, instead: str) -> None:

@@ -208,6 +208,50 @@ def flash_attention_plain_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, (m + torch.log(torch.clamp(lsum, min=1e-37))).reshape(b, h, l)
 
 
+def flash_bwd_mma_emulated(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                           causal: bool = True, window: int = 0, softcap: float = 0.0
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The flash backward as the ``"mma"`` variant of the backward kernel
+    (``csrc/flash_attention_bwd.cu``) rounds it, for bf16 q, k, v, out, do
+    and the forward's fp32 lse [B,H,L]: delta = rowsum(do·out), s = q·kᵀ and
+    dp = do·vᵀ from bf16 operands into fp32 (exact products), p = exp(s_cap −
+    lse) and ds = p·(dp − delta)·(1 − tanh²) in fp32, zero where masked; then
+    p and ds rounded to bf16 as the A operands of pᵀ·do, dsᵀ·q and ds·k, fp32
+    sums, each result rounded to bf16 once.  The tests hold that one
+    rounding within the bf16 gradient tolerance, so p and ds need no bf16
+    hi + lo split (the SSD mma backward's remedy).  The plain backward
+    (``models/flash._flash_bwd_impl``) keeps p and ds fp32.  For the tests
+    only."""
+    b, l, h, hd = q.shape
+    s_len, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    scale = 1.0 / math.sqrt(hd)
+    qf = q.float().reshape(b, l, hkv, g, hd)
+    kf, vf = k.float(), v.float()
+    dof = do.float().reshape(b, l, hkv, g, hd)
+    delta = (do.float() * out.float()).sum(-1).reshape(b, l, hkv, g)
+    s = torch.einsum("blkgd,bskd->bkgls", qf, kf) * scale
+    if softcap:
+        t = torch.tanh(s / softcap)
+        s, deriv = softcap * t, 1.0 - t * t
+    mask = _plain_mask(l, s_len, causal, window, q.device)
+    lse_g = lse.reshape(b, hkv, g, l)[..., None]
+    p = torch.exp(s - lse_g)
+    dp = torch.einsum("blkgd,bskd->bkgls", dof, vf)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    if softcap:
+        ds = ds * deriv
+    if mask is not None:
+        p = torch.where(mask[:, None, None], p, torch.zeros((), device=q.device))
+        ds = torch.where(mask[:, None, None], ds, torch.zeros((), device=q.device))
+    p, ds = p.bfloat16().float(), ds.bfloat16().float()
+    dv = torch.einsum("bkgls,blkgd->bskd", p, dof)
+    dk = torch.einsum("bkgls,blkgd->bskd", ds, qf) * scale
+    dq = torch.einsum("bkgls,bskd->blkgd", ds, kf) * scale
+    return dq.reshape(b, l, h, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
                 C: torch.Tensor, chunk: int, h0: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -41,6 +41,7 @@ from repro_torch.models import lm, moe
 CLASSES = [
     ("ssd_scan_bwd", ("ssd_bwd_",)),                       # the SSD backward's 7 kernels
     ("rglru_scan_bwd", ("rglru_scan_bwd_kernel",)),
+    ("flash_attention_bwd", ("flash_bwd_",)),              # delta, dk/dv and dq kernels
     ("flash_attention", ("flash_fwd_kernel",)),
     ("ssd_scan", ("ssd_scan_kernel", "ssd_sm90::")),      # fma; mma's three kernels
     ("rglru_scan", ("rglru_scan_kernel",)),
@@ -51,7 +52,8 @@ CLASSES = [
                         "topk", "searchsorted")),
 ]
 #: the port's own kernels, classed by name wherever they launch
-OWN = {"ssd_scan_bwd", "rglru_scan_bwd", "flash_attention", "ssd_scan", "rglru_scan"}
+OWN = {"ssd_scan_bwd", "rglru_scan_bwd", "flash_attention_bwd", "flash_attention", "ssd_scan",
+       "rglru_scan"}
 
 
 def kernel_class(name: str, scope: Optional[str] = None) -> str:

@@ -15,9 +15,12 @@ it times, on the host clock with each call ended by a device synchronise:
     remat recompute included), so the backward is the difference;
   * ``step_ms``: the whole step, so clip + AdamW (+ the master casts) is
     ``step_ms − forward_backward_ms``;
-  * ``flash_bwd_ms``: the FA2 backward (``models/flash._flash_bwd_impl``)
-    alone at one attention layer's shape (its window included), which the
-    step runs once an attention layer (archs with attention);
+  * ``flash_bwd_ms``: the flash-attention backward alone at one attention
+    layer's shape (its window included), which the step runs once an
+    attention layer (archs with attention): ``ops.flash_attention_bwd``,
+    the kernel through its operator on the card and the plain FA2 backward
+    on the CPU; ``flash_bwd_plain_ms``: the plain backward
+    (``models/flash._flash_bwd_impl``) at the same shape on either device;
   * ``ssd_scan_bwd_ms`` / ``rglru_scan_bwd_ms``: each scan's backward alone
     at one layer's shape (archs with that layer), which the step runs once
     a layer: the kernel on the card, its explicit plain formulas
@@ -104,15 +107,17 @@ def run(arch: str, *, smoke: bool = False, layers: int = 4, batch: int = 2,
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     if kinds & {"attn", "local"}:
-        hkv, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
-        q, do = rnd(batch, hkv, g, seq_len, cfg.hd), rnd(batch, hkv, g, seq_len, cfg.hd)
-        k, v = rnd(batch, hkv, seq_len, cfg.hd), rnd(batch, hkv, seq_len, cfg.hd)
-        lse = torch.zeros((batch, hkv, g, seq_len), dtype=torch.float32, device=dev)
+        h, hkv = cfg.n_heads, cfg.n_kv_heads
+        q, do = rnd(batch, seq_len, h, cfg.hd), rnd(batch, seq_len, h, cfg.hd)
+        k, v = rnd(batch, seq_len, hkv, cfg.hd), rnd(batch, seq_len, hkv, cfg.hd)
+        lse = torch.zeros((batch, h, seq_len), dtype=torch.float32, device=dev)
         blk = min(512, seq_len) if seq_len % min(512, seq_len) == 0 else seq_len
         window = cfg.window if "local" in kinds else 0
-        kw = dict(causal=True, window=window, softcap=cfg.attn_softcap, bq=blk, bk=blk)
-        out["flash_bwd_ms"] = _host_ms(dev, lambda: flash._flash_bwd_impl(q, k, v, q, lse, do,
-                                                                          **kw))
+        kw = dict(causal=True, window=window, softcap=cfg.attn_softcap)
+        out["flash_bwd_ms"] = _host_ms(dev, lambda: ops.flash_attention_bwd(
+            q, k, v, q, lse, do, block_q=blk, block_k=blk, **kw))
+        out["flash_bwd_plain_ms"] = _host_ms(dev, lambda: flash.flash_bwd_plain(
+            q, k, v, q, lse, do, bq=blk, bk=blk, **kw))
     if "ssm" in kinds:
         _, nh, p, n = ssm.dims(cfg)
         qc = min(cfg.ssm.chunk, seq_len)

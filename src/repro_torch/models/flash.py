@@ -7,11 +7,13 @@ The port of :mod:`repro.models.flash`.  :func:`flash_attention` is a
   * forward: :func:`repro_torch.kernels.ops.flash_attention` with
     ``return_lse`` — the hand-written CUDA kernel on the card, its plain
     version on the CPU — saving q, k, v, out and the fp32 log-sum-exp;
-  * backward: :func:`_flash_bwd_impl`, the reference's blockwise FA2
-    backward in plain PyTorch on both devices.  The JAX package has no
-    Pallas backward; its gradient is this jnp code, so this is its
-    counterpart.  It recomputes each ``[bq, bk]`` tile in two sweeps (dq
-    per q block, then dk/dv per kv block), visits every tile as the
+  * backward: :func:`repro_torch.kernels.ops.flash_attention_bwd` — the
+    hand-written CUDA backward on the card (``flash_attention_bwd``), and on
+    the CPU :func:`_flash_bwd_impl`, the reference's blockwise FA2 backward
+    in plain PyTorch.  The JAX package has no Pallas backward; its gradient
+    is that jnp code, so the plain version is its counterpart and the
+    kernel's yardstick.  It recomputes each ``[bq, bk]`` tile in two sweeps
+    (dq per q block, then dk/dv per kv block), visits every tile as the
     reference does (no causal skipping), masks with the finite ``NEG_INF``
     and takes the softcap's derivative.  Every product is fp32: q, k, v and
     do are upcast first, as the reference's ``preferred_element_type`` and
@@ -162,6 +164,21 @@ def _flash_bwd_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torc
 # ==========================================================================
 
 
+def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                    lse: torch.Tensor, do: torch.Tensor, *, causal: bool, window: int,
+                    softcap: float, bq: int, bk: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`_flash_bwd_impl` in the model's layout: q, out, do [B,L,H,hd],
+    k, v [B,S,Hkv,hd], lse [B,H,L] → (dq, dk, dv) in the same layouts."""
+    b, l, h, hd = q.shape
+    hkv = k.shape[2]
+    dq, dk, dv = _flash_bwd_impl(
+        _grouped_q(q, hkv), k.transpose(1, 2), v.transpose(1, 2), _grouped_q(out, hkv),
+        lse.reshape(b, hkv, h // hkv, l), _grouped_q(do, hkv), causal=causal, window=window,
+        softcap=softcap, bq=bq, bk=bk)
+    return _ungrouped_q(dq), dk.transpose(1, 2), dv.transpose(1, 2)
+
+
 def _grouped_q(x: torch.Tensor, hkv: int) -> torch.Tensor:
     """[B,L,H,hd] → [B,Hkv,G,L,hd]."""
     b, l, h, hd = x.shape
@@ -188,13 +205,11 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        b, l, h, hd = q.shape
-        hkv = k.shape[2]
-        dq, dk, dv = _flash_bwd_impl(
-            _grouped_q(q, hkv), k.transpose(1, 2), v.transpose(1, 2), _grouped_q(out, hkv),
-            lse.reshape(b, hkv, h // hkv, l), _grouped_q(do, hkv), **ctx.kw)
-        return (_ungrouped_q(dq), dk.transpose(1, 2), dv.transpose(1, 2),
-                None, None, None, None, None)
+        kw = ctx.kw
+        dq, dk, dv = ops.flash_attention_bwd(
+            q, k, v, out, lse, do.to(q.dtype).contiguous(), causal=kw["causal"],
+            window=kw["window"], softcap=kw["softcap"], block_q=kw["bq"], block_k=kw["bk"])
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -367,7 +367,7 @@ def test_flash_lse_vs_plain(card, b, l, h, hkv, hd, window, cap, dtype, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 3e-2)])
 def test_flash_function_grads_vs_plain_autograd(card, dtype, tol):
-    """The Function (kernel forward, FA2 backward) against autograd through
+    """The Function (kernel forward, kernel backward) against autograd through
     the dense plain version in fp32 on the same bf16-exact inputs: fp32 on
     the fma variant at 1e-4; bf16 on wgmma (hd 128) at 3e-2, the
     reference's bf16 model tolerance, as the gradients are rounded to
@@ -385,6 +385,81 @@ def test_flash_function_grads_vs_plain_autograd(card, dtype, tol):
     for a, b in ((q, q2), (k, k2), (v, v2)):
         np.testing.assert_allclose(a.grad.float().cpu().numpy(), b.grad.cpu().numpy(),
                                    atol=tol, rtol=tol)
+
+
+#: (b, l, h, hkv, hd, dtype, causal, window, softcap) of the backward
+#: kernel's card cases: the mma variant at head dims 16, 96, 128 and 256,
+#: groups 1, 2, 8 and 16, a ragged L; the fma variant in fp32 and at hd 8
+_FLASH_BWD_CARD_CASES = [
+    (1, 100, 4, 4, 16, "bfloat16", True, 0, 0.0), (1, 192, 16, 2, 128, "bfloat16", True, 48, 0.0),
+    (1, 192, 16, 1, 256, "bfloat16", False, 48, 0.0), (1, 100, 8, 4, 96, "bfloat16", True, 0, 30.0),
+    (1, 192, 16, 2, 64, "bfloat16", False, 0, 0.0), (2, 100, 16, 2, 128, "float32", True, 48, 30.0),
+    (2, 100, 4, 4, 256, "float32", False, 48, 0.0), (2, 100, 4, 2, 8, "bfloat16", True, 0, 0.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,h,hkv,hd,dtype,causal,window,cap", _FLASH_BWD_CARD_CASES)
+def test_flash_bwd_kernel_vs_plain(card, b, l, h, hkv, hd, dtype, causal, window, cap):
+    """The backward kernel against the plain backward (the reference's FA2 in
+    plain PyTorch) on the same inputs and the forward kernel's lse: fp32 at
+    1e-4, bf16 at 3e-2 (the mma variant rounds p and ds to bf16 once); one
+    launch of the variant ``bwd_variant`` picks."""
+    rng = np.random.default_rng(l + h + hd)
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((b, l, n, hd), np.float32)).to(dt)
+                   .to(card) for n in (h, hkv, hkv, h))
+    kw = dict(causal=causal, window=window, softcap=cap)
+    out, lse = ops.flash_attention(q, k, v, block_q=l, block_k=l, return_lse=True, **kw)
+    want = fa.bwd_variant(hd, dt)
+    n0 = dict(ops.flash_bwd_variant_launches)
+    got = ops.flash_attention_bwd(q, k, v, out, lse, do, block_q=l, block_k=l, **kw)
+    torch.cuda.synchronize()
+    assert ops.flash_bwd_variant_launches == {**n0, want: n0[want] + 1}
+    plain = flash.flash_bwd_plain(q, k, v, out, lse, do, bq=l, bk=l, **kw)
+    tol = 1e-4 if dt == torch.float32 else 3e-2
+    for g, w, t in zip(got, plain, (q, k, v)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        np.testing.assert_allclose(g.float().cpu().numpy(), w.float().cpu().numpy(),
+                                   atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 3e-2)])
+def test_flash_function_backward_runs_the_kernel(card, dtype, tol):
+    """The flash Function's gradients on the card come from the backward
+    kernel (one launch, the dtype's variant; the plain backward never runs)
+    and match autograd through the dense plain attention in fp32 on the
+    same inputs, through attention's padding of L 100 to 128."""
+    from unittest import mock
+
+    from repro_torch.models import attention
+    rng = np.random.default_rng(12)
+    base = [torch.from_numpy(rng.standard_normal((2, 100, n, 64), np.float32))
+            .to(getattr(torch, dtype)).to(card) for n in (8, 2, 2, 8)]
+    q, k, v = (t.clone().requires_grad_() for t in base[:3])
+    n0 = dict(ops.flash_bwd_variant_launches)
+    with mock.patch.object(flash, "_flash_bwd_impl", side_effect=AssertionError("plain ran")):
+        attention._flash_causal(q, k, v, window=30, cap=0.0).backward(base[3])
+    torch.cuda.synchronize()
+    want = fa.bwd_variant(64, q.dtype)
+    assert ops.flash_bwd_variant_launches == {**n0, want: n0[want] + 1}
+    q2, k2, v2 = (t.float().requires_grad_() for t in base[:3])
+    ref.flash_attention_ref(q2, k2, v2, causal=True, window=30).backward(base[3].float())
+    for a, b in ((q, q2), (k, k2), (v, v2)):
+        np.testing.assert_allclose(a.grad.float().cpu().numpy(), b.grad.cpu().numpy(),
+                                   atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernel_refuses_what_it_does_not_take(card):
+    """A dtype or head dim the backward lacks raises; nothing falls back."""
+    q = torch.zeros((1, 64, 4, 64), device=card, dtype=torch.float16)
+    lse = torch.zeros((1, 4, 64), device=card)
+    with pytest.raises(TypeError):
+        ops.flash_attention_bwd(q, q, q, q, lse, q)
+    q48 = torch.zeros((1, 64, 4, 48), device=card)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention_bwd(q48, q48, q48, q48, lse, q48)
 
 
 @pytest.mark.cuda

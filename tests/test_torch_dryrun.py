@@ -193,6 +193,31 @@ def test_flash_fake_matches_plain(case):
     assert shapes == _meta([out])
 
 
+@pytest.mark.parametrize("case", _flash_cases(), ids=str)
+def test_flash_bwd_fake_matches_plain(case):
+    """The backward operator's fake implementation: the plain backward's
+    shapes and dtypes, and what the launch allocates, dq, dk, dv, the fp32
+    delta [B,H,L] and the mma dk/dv sweep's fp32 partial sums where it
+    splits the heads; nothing counted."""
+    b, l, h, hkv, hd, causal, window, cap, dt = case
+    dtype = getattr(torch, dt)
+    q = torch.zeros((b, l, h, hd), dtype=dtype)
+    kv = torch.zeros((b, l, hkv, hd), dtype=dtype)
+    out, lse = ref.flash_attention_plain_lse(q, kv, kv, causal=causal, window=window,
+                                             softcap=cap)
+    grads = ops.flash_attention_bwd(q, kv, kv, out, lse, q, causal=causal, window=window,
+                                    softcap=cap, block_q=l, block_k=l)
+    shapes, allocated, launches = _fake_call(
+        lambda q, k, v, o, s, d: fa.flash_attention_bwd(q, k, v, o, s, d, causal=causal,
+                                                        window=window, softcap=cap),
+        q, kv, kv, out, lse, q)
+    assert shapes == _meta(grads)
+    splits = fa.bwd_kv_splits(b, l, h, hkv, fa.bwd_variant(hd, dtype))
+    part = 2 * splits * kv.numel() * 4 if splits > 1 else 0
+    assert allocated == sum(g.numel() * g.element_size() for g in grads) + b * h * l * 4 + part
+    assert not any(launches.values())
+
+
 def _ssd_cases():
     return ([(bt, l, h, p, n, min(chunk, l), dt) for (bt, l, h, p, n, chunk, dt, _) in
              ref.SSD_CASES]
@@ -240,7 +265,7 @@ def test_rglru_fake_matches_plain(case):
 
 
 #: (operator call on fake tensors, its FLOPs as the kernel table's bounds
-#: count them: PERF.md §6 rounds them to 8.61, 68.7, 3.29 and 26.0 GFLOP,
+#: count them: PERF.md §6 rounds them to 8.61, 68.7, 171.9, 3.29 and 26.0 GFLOP,
 #: 25 and 84 MFLOP)
 _BF16, _F32 = torch.bfloat16, torch.float32
 FLOP_CASES = {
@@ -252,6 +277,10 @@ FLOP_CASES = {
                                          e((2, 2048, 4, 128), _BF16),
                                          e((2, 2048, 4, 128), _BF16), return_lse=True),
         68_753_031_168),
+    "flash_attention_bwd yi-9b training [2,2048,32,128]": (
+        lambda e: fa.flash_attention_bwd(*(e(s, _BF16) for s in (
+            (2, 2048, 32, 128), (2, 2048, 4, 128), (2, 2048, 4, 128), (2, 2048, 32, 128))),
+            e((2, 32, 2048), _F32), e((2, 2048, 32, 128), _BF16)), 171_882_577_920),
     "ssd_scan mamba2-370m [4,512,32,64]": (
         lambda e: ssd.ssd_scan_fwd(e((4, 512, 32, 64), _BF16), e((4, 512, 32), _F32),
                                    e((32,), _F32), e((4, 512, 128), _BF16),
@@ -293,6 +322,23 @@ def test_flash_pairs_count_the_mask():
         else:
             m = torch.ones((l, s), dtype=torch.bool)
         assert fa.pairs(l, s, causal=causal, window=window) == int(m.sum())
+
+
+def test_flash_bwd_flops_count_the_visible_pairs():
+    """The backward's five products, 2·hd each per pair its mask keeps and
+    head: 2.5 times the forward's two, on the same masks as the forward's
+    pairs."""
+    for l, s, causal, window in ((64, 64, True, 0), (100, 100, True, 17), (64, 64, False, 9),
+                                 (32, 48, False, 0), (40, 40, True, 64)):
+        if causal:
+            m = attention.make_causal_mask(l, s, window=window)
+        elif window:
+            m = attention.make_window_mask(l, s, window=window)
+        else:
+            m = torch.ones((l, s), dtype=torch.bool)
+        got = fa.bwd_flops(2, l, s, 4, 16, causal=causal, window=window)
+        assert got == 10 * 2 * 4 * 16 * int(m.sum())
+        assert 2 * got == 5 * fa.flops(2, l, s, 4, 16, causal=causal, window=window)
 
 
 # ==========================================================================
@@ -378,7 +424,8 @@ def test_every_smoke_arch_dry_runs(arch, kind):
                  "repro_torch.ssd_scan_fwd": again.count("ssm"),
                  "repro_torch.rglru_scan_fwd": again.count("rglru")}
         want = {k: n + twice[k] for k, n in per.items() if n}
-        for fwd, bwd in (("ssd_scan_fwd", "ssd_scan_bwd"), ("rglru_scan_fwd", "rglru_scan_bwd")):
+        for fwd, bwd in (("ssd_scan_fwd", "ssd_scan_bwd"), ("rglru_scan_fwd", "rglru_scan_bwd"),
+                         ("flash_attention_fwd", "flash_attention_bwd")):
             if per[f"repro_torch.{fwd}"]:
                 want[f"repro_torch.{bwd}"] = per[f"repro_torch.{fwd}"]
         assert calls == want

@@ -1,8 +1,11 @@
 """Port flash attention: the plain PyTorch version against the JAX package's
 Pallas kernel (interpret mode) and its dense oracle, on the reference's
 kernel cases; the wrapper's contract and variant choice; the wgmma
-variant's numerics emulated on the CPU.  The CUDA kernels themselves are
-held against the plain version on a card in ``test_torch_cuda.py``."""
+variant's numerics emulated on the CPU; the FA2 backward (the Function's
+gradients against ``jax.vjp`` of the reference), the backward kernel's mma
+roundings emulated on the CPU, its tile skipping and its wrapper's
+contract.  The CUDA kernels themselves are held against the plain version
+on a card in ``test_torch_cuda.py``."""
 
 import math
 
@@ -343,3 +346,218 @@ def test_launcher_argtypes_match_the_entry_point():
              else ctypes.c_int for prm in params.split(",")]
     assert kinds == fa._ARGTYPES
     assert "float* lse" in params
+
+
+# ---- the backward kernel: its numerics, its tiles, its wrapper ------------
+
+
+@pytest.mark.parametrize("l,causal,window,cap,hd", _GRAD_CASES)
+def test_mma_bwd_roundings_vs_jax_grads(l, causal, window, cap, hd):
+    """The backward's mma variant rounds p and ds to bf16 once, as the A
+    operands of pᵀ·do, dsᵀ·q and ds·k (``ref.flash_bwd_mma_emulated``); on
+    bf16 inputs its gradients hold against ``jax.vjp`` of the reference's
+    ``flash_attention`` at the bf16 gradient tolerance, atol = rtol = 3e-2,
+    so p and ds need no hi + lo split."""
+    qn, kn, vn, don = _grad_inputs(l, seed=l + window + int(cap) + hd, hd=hd)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    jq, jk, jv, jdo = (jnp.asarray(x).astype(jnp.bfloat16) for x in (qn, kn, vn, don))
+    _, vjp = jax.vjp(lambda q, k, v: jflash.flash_attention(q, k, v, **kw), jq, jk, jv)
+    grads_j = vjp(jdo)
+    q, k, v, do = (_t(x, "bfloat16") for x in (qn, kn, vn, don))
+    out, lse = ref.flash_attention_plain_lse(q, k, v, **kw)
+    got = ref.flash_bwd_mma_emulated(q, k, v, out, lse, do, **kw)
+    for name, g, gj, t in zip("qkv", got, grads_j, (q, k, v)):
+        assert g.dtype == torch.bfloat16 and g.shape == t.shape
+        np.testing.assert_allclose(_f32(g), _f32(gj.astype(jnp.float32)), atol=3e-2,
+                                   rtol=3e-2, err_msg=f"d{name}")
+
+
+def _rows_seeing(k_lo, k_hi, l, causal, window):
+    """The query rows a key of [k_lo, k_hi] is seen by, as the backward
+    kernel's ``Mask::rows_seeing`` bounds its q tiles."""
+    return (k_lo if causal else 0), (min(l - 1, k_hi + window - 1) if window else l - 1)
+
+
+def _keys_seen(q_lo, q_hi, s_len, causal, window):
+    """... and ``Mask::keys_seen`` its kv tiles."""
+    return (max(0, q_lo - window + 1) if window else 0), (min(s_len - 1, q_hi) if causal
+                                                          else s_len - 1)
+
+
+def _skipping_bwd(q, k, v, out, lse, do, *, causal, window, softcap, br, bc):
+    """The plain backward's tile math (grouped layout) on the kernel's tiles
+    only: a block of ``br`` rows visits the ``bc``-wide column tiles that
+    hold a pair its mask keeps; every other tile is skipped."""
+    b, hkv, g, l, hd = q.shape
+    s_len = k.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+    f = torch.float32
+    delta = (do.float() * out.float()).sum(-1)
+
+    def tile(i0, i1, j0, j1):
+        s = torch.einsum("bkgqd,bksd->bkgqs", q[..., i0:i1, :].float(),
+                         k[:, :, j0:j1].float()) * scale
+        s_pre = s
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        mask = torch.ones((i1 - i0, j1 - j0), dtype=torch.bool)
+        qpos, kpos = torch.arange(i0, i1)[:, None], torch.arange(j0, j1)[None, :]
+        if causal:
+            mask &= kpos <= qpos
+        if window:
+            mask &= kpos > qpos - window
+        p = torch.where(mask, torch.exp(s - lse[..., i0:i1, None]), torch.zeros((), dtype=f))
+        dp = torch.einsum("bkgqd,bksd->bkgqs", do[..., i0:i1, :].float(), v[:, :, j0:j1].float())
+        ds = p * (dp - delta[..., i0:i1, None])
+        if softcap:
+            ds = ds * (1.0 - torch.tanh(s_pre / softcap) ** 2)
+        return p, torch.where(mask, ds, torch.zeros((), dtype=f))
+
+    dq = torch.zeros(q.shape, dtype=f)
+    for i0 in range(0, l, br):
+        i1 = min(i0 + br, l)
+        lo, hi = _keys_seen(i0, i1 - 1, s_len, causal, window)
+        for j0 in range(lo // bc * bc, hi + 1 if lo <= hi else 0, bc):
+            j1 = min(j0 + bc, s_len)
+            _, ds = tile(i0, i1, j0, j1)
+            dq[..., i0:i1, :] += torch.einsum("bkgqs,bksd->bkgqd", ds,
+                                              k[:, :, j0:j1].float()) * scale
+    dk, dv = torch.zeros(k.shape, dtype=f), torch.zeros(v.shape, dtype=f)
+    for j0 in range(0, s_len, br):
+        j1 = min(j0 + br, s_len)
+        lo, hi = _rows_seeing(j0, j1 - 1, l, causal, window)
+        for i0 in range(lo // bc * bc, hi + 1 if lo <= hi else 0, bc):
+            i1 = min(i0 + bc, l)
+            p, ds = tile(i0, i1, j0, j1)
+            dv[:, :, j0:j1] += torch.einsum("bkgqs,bkgqd->bksd", p, do[..., i0:i1, :].float())
+            dk[:, :, j0:j1] += torch.einsum("bkgqs,bkgqd->bksd", ds,
+                                            q[..., i0:i1, :].float()) * scale
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("l,causal,window,cap", [
+    (256, True, 0, 0.0), (256, True, 96, 0.0), (256, False, 96, 0.0), (256, True, 0, 30.0),
+    (256, False, 0, 0.0), (192, True, 70, 0.0), (192, False, 40, 50.0)])
+@pytest.mark.parametrize("br,bc", [(64, 32), (64, 64), (32, 32)])
+def test_bwd_tile_skipping_is_exact(l, causal, window, cap, br, bc):
+    """Skipping the tiles that the causal mask or the window empties, as the
+    backward kernel does (both variants' row and column tiles), changes
+    nothing: the skipping plain backward equals ``_flash_bwd_impl`` (every
+    tile visited) on the same tiles at 1e-6 wherever every row sees a key
+    (L = S): its dq on (bq, bk) = (br, bc), its dk and dv on (bc, br)."""
+    qn, kn, vn, don = _grad_inputs(l, seed=l + window + br + bc, hd=16)
+    q, k, v, do = (torch.from_numpy(x) for x in (qn, kn, vn, don))
+    kw = dict(causal=causal, window=window, softcap=cap)
+    out, lse = ref.flash_attention_plain_lse(q, k, v, **kw)
+    hkv = k.shape[2]
+    args = (flash._grouped_q(q, hkv), k.transpose(1, 2), v.transpose(1, 2),
+            flash._grouped_q(out, hkv), lse.reshape(1, hkv, -1, l), flash._grouped_q(do, hkv))
+    want = (flash._flash_bwd_impl(*args, bq=br, bk=bc, **kw)[0],
+            *flash._flash_bwd_impl(*args, bq=bc, bk=br, **kw)[1:])
+    got = _skipping_bwd(*args, br=br, bc=bc, **kw)
+    for name, a, w in zip("qkv", got, want):
+        np.testing.assert_allclose(a.numpy(), w.numpy(), atol=1e-6, rtol=1e-6,
+                                   err_msg=f"d{name}")
+
+
+def test_cuda_bwd_never_falls_back(monkeypatch):
+    """A tensor that stands for the card's (a fake tensor on ``meta``) goes
+    to the backward operator and never to the plain backward; the launcher
+    refuses CPU tensors and head dims it lacks before any build; the
+    wrapper refuses other devices."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    def plain(*a, **k):
+        raise AssertionError("the plain backward ran for a card tensor")
+
+    monkeypatch.setattr(flash, "flash_bwd_plain", plain)
+    monkeypatch.setattr(flash, "_flash_bwd_impl", plain)
+    ops.reset_launches()
+    with FakeTensorMode():
+        mk = lambda *s: torch.empty(s, dtype=torch.bfloat16, device="meta")  # noqa: E731
+        q, k, lse = mk(1, 64, 4, 64), mk(1, 64, 2, 64), torch.empty((1, 4, 64), device="meta")
+        dq, dk, dv = ops.flash_attention_bwd(q, k, k, q, lse, q)
+        assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, k.shape)
+    assert not any(ops.launches.values())
+    c = torch.zeros((1, 64, 4, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_bwd(c, c[:, :, :2], c[:, :, :2], c, torch.zeros((1, 4, 64)), c)
+    c48 = torch.zeros((1, 64, 4, 48))
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_bwd(c48, c48, c48, c48, torch.zeros((1, 4, 64)), c48)
+    m = torch.zeros((1, 64, 4, 64), device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        ops.flash_attention_bwd(m, m, m, m, torch.zeros((1, 4, 64), device="meta"), m)
+
+
+def test_bwd_launcher_argtypes_match_the_entry_point():
+    """As for the forward: one c_void_p per pointer of the backward's C
+    entry point (lse and the delta scratch among them), c_float per float,
+    c_int per int; and the source is built with the others."""
+    import ctypes
+    import pathlib
+    import re
+    src = (pathlib.Path(fa.__file__).parent / "csrc" / "flash_attention_bwd.cu").read_text()
+    params = re.search(r'extern "C" int flash_attention_bwd\((.*?)\)', src, re.S).group(1)
+    kinds = [ctypes.c_void_p if "*" in prm else ctypes.c_float if "float" in prm
+             else ctypes.c_int for prm in params.split(",")]
+    assert kinds == fa._BWD_ARGTYPES
+    assert "const float* lse" in params and "float* delta" in params
+    assert build.SOURCES["flash_attention_bwd"] == "flash_attention_bwd.cu"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+def test_bwd_variant_by_head_dim_and_dtype(hd, dtype):
+    """Every (head dim, dtype) the forward takes has a backward: mma where
+    the forward runs wgmma, fma where it runs fma."""
+    want = "mma" if fa.variant(hd, dtype) == "wgmma" else "fma"
+    assert fa.bwd_variant(hd, dtype) == want
+    assert want in fa.BWD_VARIANTS and want in ops.flash_bwd_variant_launches
+    with pytest.raises(ValueError, match="head dim"):
+        fa.bwd_variant(48, dtype)
+
+
+@pytest.mark.parametrize("arch", [a for a in configs.ARCHS if {"attn", "local"} & set(
+    configs.get(a).layer_pattern)])
+def test_every_config_head_dim_has_a_backward(arch):
+    """Every attention config's head dim, full and smoke, has a backward
+    variant in both dtypes; the full configs' bf16 training runs mma."""
+    full, smoke = configs.get(arch), configs.get_smoke(arch)
+    for cfg in (full, smoke):
+        for dtype in (torch.float32, torch.bfloat16):
+            assert fa.bwd_variant(cfg.hd, dtype) in fa.BWD_VARIANTS
+    assert fa.bwd_variant(full.hd, full.cdtype) == "mma"
+
+
+def test_bwd_wrapper_cpu_is_the_plain_backward():
+    """On the CPU ``ops.flash_attention_bwd`` is ``_flash_bwd_impl`` in the
+    model's layout, bit for bit, and keeps the reference's tile contract."""
+    qn, kn, vn, don = _grad_inputs(256, seed=3)
+    q, k, v, do = (torch.from_numpy(x) for x in (qn, kn, vn, don))
+    out, lse = ref.flash_attention_plain_lse(q, k, v, window=64)
+    got = ops.flash_attention_bwd(q, k, v, out, lse, do, window=64, block_q=128, block_k=64)
+    hkv = k.shape[2]
+    want = flash._flash_bwd_impl(
+        flash._grouped_q(q, hkv), k.transpose(1, 2), v.transpose(1, 2),
+        flash._grouped_q(out, hkv), lse.reshape(1, hkv, -1, 256), flash._grouped_q(do, hkv),
+        causal=True, window=64, softcap=0.0, bq=128, bk=64)
+    for a, w in zip(got, (flash._ungrouped_q(want[0]), want[1].transpose(1, 2),
+                          want[2].transpose(1, 2))):
+        assert torch.equal(a, w)
+    with pytest.raises(ValueError):
+        ops.flash_attention_bwd(q[:, :200], k[:, :200], v[:, :200], out[:, :200],
+                                lse[..., :200], do[:, :200], block_q=128, block_k=128)
+
+
+def test_bwd_kv_splits_fill_the_card_and_keep_each_share():
+    """The mma dk/dv sweep shares a kv tile's G heads among blocks only where
+    B·Hkv·⌈S/64⌉ blocks are fewer than four a streaming multiprocessor, and
+    never more shares than heads; fma never shares."""
+    assert fa.bwd_kv_splits(2, 2048, 32, 4, "mma") == 3          # yi-9b training: 256 blocks
+    assert fa.bwd_kv_splits(1, 2048, 16, 2, "mma") == 8          # a 6c rank: 64 blocks
+    assert fa.bwd_kv_splits(1, 4096, 16, 1, "mma") == 9          # recurrentgemma-9b: 64
+    assert fa.bwd_kv_splits(1, 2048, 8, 8, "mma") == 1           # MHA: one head a tile
+    assert fa.bwd_kv_splits(1, 100, 16, 1, "mma") == 16          # few blocks: at most G
+    assert fa.bwd_kv_splits(4, 4096, 32, 4, "mma") == 1          # 1024 blocks
+    assert fa.bwd_kv_splits(1, 100, 16, 1, "fma") == 1

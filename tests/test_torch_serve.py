@@ -135,7 +135,7 @@ def test_launch_serve_on_cpu(capsys, arch):
     # CPU tensors take the plain versions: no kernel launches are counted
     r = launch_serve.run(arch, smoke=True, batch=2, prompt_len=8, gen=2, device="cpu")
     assert r["launches"] == {"flash_attention": 0, "ssd_scan": 0, "rglru_scan": 0,
-                             "ssd_scan_bwd": 0, "rglru_scan_bwd": 0}
+                             "ssd_scan_bwd": 0, "rglru_scan_bwd": 0, "flash_attention_bwd": 0}
 
 
 @pytest.mark.parametrize("name", [

@@ -410,7 +410,8 @@ def test_profile_train_on_cpu_reports_the_split_and_host_ops():
     from repro_torch.launch import profile_train
     r = profile_train.run("yi-9b", smoke=True, layers=2, batch=2, seq_len=64, device="cpu")
     assert r["device"] == "cpu" and r["layers"] == 2
-    for key in ("forward_ms", "forward_backward_ms", "step_ms", "flash_bwd_ms", "optimizer_ms"):
+    for key in ("forward_ms", "forward_backward_ms", "step_ms", "flash_bwd_ms",
+                "flash_bwd_plain_ms", "optimizer_ms"):
         assert r[key] > 0, key
     assert r["traced_step"]["kernel_launches"] == 0 and r["traced_step"]["top_host_ops_ms"]
 
