@@ -10,11 +10,12 @@ read the other phases without the ranks' runs.  Phases, in order; any failure ex
               kernel instantiation's registers and spills from ptxas (the
               full report goes to chiprun_out/build_ptxas.log), and fail if
               a tensor-core instantiation (flash's wgmma, the flash
-              backward's mma, the SSD scan's mma), an RG-LRU scan
+              backward's wgmma sweeps, the SSD scan's mma), an RG-LRU scan
               instantiation (forward or backward) or an SSD backward
               instantiation (either variant) spills, if flash has no wgmma
-              instantiation at head dim 96, or if the flash backward's mma
-              instantiations are not at every wgmma head dim.
+              instantiation at head dim 96, or if the flash backward's two
+              wgmma sweeps (dk/dv and dq) are not instantiated at every
+              head dim bwd_variant sends to wgmma.
 2. kernels  — each kernel on the card against its plain PyTorch version on
               the same inputs, at the stated tolerances:
               flash attention: the 7 reference cases, block-shape
@@ -55,10 +56,10 @@ read the other phases without the ranks' runs.  Phases, in order; any failure ex
               SSD backward also in fp32 (fma).
               The flash backward kernel (flash_attention_bwd) against the
               plain backward (models/flash.flash_bwd_plain, the reference's
-              FA2) on the same inputs and lse: the mma variant at head dims
-              16, 64, 96, 128 and 256, GQA groups 1, 2, 8 and 16, L 100 and
-              192, causal, causal with a window, a window without causal,
-              softcap and non-causal, at 3e-2 (the tolerance its CPU
+              FA2) on the same inputs and lse: the wgmma variant at head
+              dims 16, 32, 64, 96, 128 and 256, GQA groups 1, 2, 8 and 16, L
+              100 and 192, causal, causal with a window, a window without
+              causal, softcap and non-causal, at 3e-2 (the tolerance its CPU
               emulation settled against the JAX reference's gradients); the
               fma variant in fp32 at head dims 8–256 at 1e-4 and in bf16 at
               head dim 8; the flash Function at L 100 padded to 128 against
@@ -282,7 +283,7 @@ read the other phases without the ranks' runs.  Phases, in order; any failure ex
               state; each step's loss, grad norm, ms (host clock, ended by
               a synchronise), tokens/s, peak memory and flash launches, all
               of them wgmma and as many as the remat policy implies, and one
-              flash backward launch (mma) a layer; every
+              flash backward launch (wgmma) a layer; every
               attention weight of every layer must get a nonzero gradient;
               one more step traced by torch.profiler (device time by class);
               then the same 2 steps with attention differentiated through
@@ -338,14 +339,14 @@ read the other phases without the ranks' runs.  Phases, in order; any failure ex
               group: a rank's RG-LRU scans run W 2048 and its local
               attention 8 q heads of hd 256 against the one kv head.  The
               parent first runs the plain steps on the same state (from
-              the seed) and batches (each step's ms and launches, exact on
+              the seed) and batch (the step's ms and launches, exact on
               the bf16 variants), and frees them; each rank rebuilds the
-              state from the seed and keeps its blocks.  Per arch: 2 steps,
-              each step's loss within 3e-2 and grad norm within 5e-2
-              relative of the plain step's, its launches exactly the scan
-              forwards twice and each scan backward once a scan layer and
-              flash twice a local layer, all on the bf16 variants (mma,
-              vec4, wgmma), the second with every collective timed; then one
+              state from the seed and keeps its blocks.  Per arch: 1 step
+              with every collective timed, its loss within 3e-2 and grad
+              norm within 5e-2 relative of the plain step's, its launches
+              exactly the scan forwards twice and each scan backward once a
+              scan layer and flash twice a local layer, all on the bf16
+              variants (mma, vec4, wgmma); then one
               fp32 step (mamba2-370m cut
               to one layer, on the fma scans; recurrentgemma-9b's group, on
               flash's fma) within 1e-4 relative of the plain step's loss
@@ -399,14 +400,14 @@ read the other phases without the ranks' runs.  Phases, in order; any failure ex
               12 layers, 256 frames and 2048 tokens (the encoder's
               non-causal attention and the cross-attention tensor-parallel
               on the dense plain attention; a rank's flash calls
-              [1,2048,8,64]).  The parent's 2 plain steps of each are the
-              first training steps of either family on the card (ms,
+              [1,2048,8,64]).  The parent's plain step of each is the
+              first training step of either family on the card (ms,
               positions/s, peak memory, flash launches exact on wgmma);
               each rank rebuilds the state from the seed and keeps its
-              blocks: 2 steps, each step's loss within 3e-2 and grad norm
-              within 5e-2 relative of the plain step's, the second with
-              every collective timed, one step from the initial state with
-              seq_shard_activations against the plain step 1 likewise, flash
+              blocks: 1 step with every collective timed, its loss within
+              3e-2 and grad norm within 5e-2 relative of the plain step's,
+              one step from the initial state with seq_shard_activations
+              against the plain step 1 likewise, flash
               exactly twice a decoder layer on wgmma in each (8 a step);
               then one fp32 step (phi-3-vision-4.2b cut to one layer,
               seamless-m4t-medium to 1 + 1) within 1e-4 relative of the
@@ -435,8 +436,8 @@ read the other phases without the ranks' runs.  Phases, in order; any failure ex
               run of the same cell on a traced rank of mesh 1x3.
 7. grads    — the flash Function (kernel forward, kernel backward) against
               autograd through the dense plain version on the card: fp32
-              on the fma variants, bf16 on wgmma and mma at hd 128, one
-              backward launch each.
+              on the fma variants, bf16 (forward wgmma, backward wgmma) at
+              hd 128, one backward launch each.
 8. commit   — the committed trainer at examples/train_pipeline.py's "20m"
               preset, 12 steps in chunks of 4, uninterrupted and with the
               primary controller killed after chunk 2: the same final step,
@@ -471,7 +472,13 @@ the training phases: in the first whole run with it, phase 5b took 42.4 s
 and phase 6 6.0 s, against 54.2 and 7.7 s with the plain backward.  Its
 yardstick, the plain backward, is timed with CUDA events over 3 calls:
 its profiler traces overflowed and spoiled the traces after them (phase 2
-took 176.6 s that way).
+took 176.6 s that way).  With the wgmma backward the whole script took
+972.2–1007.9 s on an H100 80GB HBM3 at 700 W, so these cuts followed:
+the wgmma backward's checks at head dim 32, which no config trains at,
+one a mask (20 → 5); phases 6d and 6f hold one bf16 step an arch on the
+ranks (2 → 1: phase 6d's second recurrentgemma-9b step alone took 26 s
+of the ranks' time); phases 6c, 6e and 6g keep a second step, and every
+fp32 step holds each rank's block of every updated parameter.
 
 Phase 2 also holds the flash kernels' log-sum-exp (the backward's input)
 against the plain version on both variants and times the forward with it
@@ -483,7 +490,7 @@ at phase 6g's, and flash and the SSD scan (chunk 64) at the prefill shapes
 of phase 5c's decode replicas.
 
 Every training phase (6, 6b–6g) checks one flash backward launch a causal
-self-attention layer a step, on the variant of its dtype (mma in bf16, fma
+self-attention layer a step, on the variant of its dtype (wgmma in bf16, fma
 in fp32), as it checks the scans' backward kernels.
 
 The line before the last is one JSON object with a row per kernel
@@ -878,7 +885,7 @@ MESH_DRYRUN_MESH = {"serve": "2x2", "train": "2x2", "serve3": "1x3", "train3": "
 
 #: the variant each kernel runs in bf16 compute and in fp32
 BF16_VARIANTS = {"flash_attention": "wgmma", "ssd_scan": "mma", "ssd_scan_bwd": "mma",
-                 "rglru_scan": "vec4", "rglru_scan_bwd": "vec4", "flash_attention_bwd": "mma"}
+                 "rglru_scan": "vec4", "rglru_scan_bwd": "vec4", "flash_attention_bwd": "wgmma"}
 FP32_VARIANTS = {**BF16_VARIANTS, "flash_attention": "fma", "ssd_scan": "fma",
                  "ssd_scan_bwd": "fma", "flash_attention_bwd": "fma"}
 
@@ -899,10 +906,14 @@ KERNELS = {
     "rglru_scan_bwd": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
                        "no TPU kernel: counterpart of JAX autodiff of "
                        "src/repro/models/rglru.py:62"),
-    "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cuh",
                             "no TPU kernel: counterpart of src/repro/models/flash.py:121 "
                             "_flash_bwd_impl"),
 }
+#: the flash backward's source by variant (the wgmma sweeps' header; the
+#: delta pass, the head shares' reduction and the fma kernel in the .cu)
+FLASH_BWD_SOURCES = {"wgmma": KERNELS["flash_attention_bwd"][0],
+                     "fma": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"}
 
 
 #: the clock of the last :func:`_lap`
@@ -949,7 +960,7 @@ def _prefetch_batches() -> None:
     wanted = [(YI_TRAIN, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS + 1),
               (MAMBA_TRAIN, TRAIN_SEQ, MAMBA_TRAIN_BATCH, TRAIN_STEPS + 1),
               (RG_TRAIN, RG_TRAIN_SEQ, RG_TRAIN_BATCH, TRAIN_STEPS + 1)]
-    wanted += [(cfg, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS)
+    wanted += [(cfg, TRAIN_SEQ, TRAIN_BATCH, p["steps"])
                for p in MESH_ARCH_PHASES.values() for cfg in p["cfgs"].values()]
     wanted.append((MESH_MOE, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS))
     for cfg, seq, batch, steps in wanted:
@@ -1170,18 +1181,20 @@ def phase_build() -> dict:
             _log(f"[build]   {fn}: {regs} registers, {stores} bytes spill stores, "
                  f"{loads} bytes spill loads")
             if ("wgmma" in fn or "ssd_sm90" in fn or "rglru_scan" in fn
-                    or name.startswith("ssd_scan_bwd") or "flash_bwd_mma" in fn) \
+                    or name.startswith("ssd_scan_bwd")) \
                     and (stores or loads):
                 _fail(f"instantiation {fn} spills ({stores}/{loads} bytes)")
     if not any("flash_fwd_kernel_wgmmaILi96E" in fn
                for fn, *_ in _ptxas_report(info["flash_attention"]["log"])):
         _fail("flash has no wgmma instantiation at head dim 96")
-    mma_bwd = {int(fn.split("flash_bwd_mma_kernelILi")[1].split("E")[0])
+    want = {hd for hd in fa.HEAD_DIMS if fa.bwd_variant(hd, torch.bfloat16) == "wgmma"}
+    for sweep in ("flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma"):
+        got = {int(fn.split(f"{sweep}ILi")[1].split("E")[0])
                for fn, *_ in _ptxas_report(info["flash_attention_bwd"]["log"])
-               if "flash_bwd_mma_kernelILi" in fn}
-    if mma_bwd != set(fa.WGMMA_HEAD_DIMS):
-        _fail(f"the flash backward's mma instantiations are at head dims {sorted(mma_bwd)}, "
-              f"not {fa.WGMMA_HEAD_DIMS}")
+               if f"{sweep}ILi" in fn}
+        if got != want:
+            _fail(f"the flash backward's {sweep} instantiations are at head dims "
+                  f"{sorted(got)}, not {sorted(want)}")
     return info
 
 
@@ -1368,20 +1381,24 @@ def phase_flash() -> dict:
     return row
 
 
-#: the flash backward's bf16 tolerance (atol = rtol): the mma variant rounds
-#: p and ds to bf16 once, and its CPU emulation holds the JAX reference's
-#: gradients at it (tests/test_torch_flash_attention.py); fp32 (fma) 1e-4
+#: the flash backward's bf16 tolerance (atol = rtol): the wgmma variant
+#: rounds p and ds to bf16 once, and its CPU emulation holds the JAX
+#: reference's gradients at it (tests/test_torch_flash_attention.py); fp32
+#: (fma) 1e-4
 FLASH_BWD_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
 #: (b, l, h, hkv, hd, dtype, causal, window, softcap) of the backward's
-#: checks: the mma variant at every head dim it takes but 32, GQA groups 1,
-#: 2, 8 and 16, L 100 (a ragged last tile) and 192; the fma variant in fp32
-#: at head dims 8–256, groups 1 and 8, and in bf16 at head dim 8
+#: checks: the wgmma variant at every head dim it takes, GQA groups 1, 2, 8
+#: and 16, L 100 (a ragged last tile) and 192 (head dim 32, which no config
+#: trains at, once a mask, its group cycling); the fma variant in fp32 at
+#: head dims 8–256, groups 1 and 8, and in bf16 at head dim 8
 _BWD_MASKS = ((True, 0, 0.0), (True, 48, 0.0), (False, 48, 0.0), (True, 0, 30.0),
               (False, 0, 0.0))
+_BWD_GROUPS = ((4, 4), (8, 4), (16, 2), (16, 1))
 FLASH_BWD_CASES = (
     [(1, 100 if hkv == 4 else 192, h, hkv, hd, "bfloat16", *mask)
-     for hd in (16, 64, 96, 128, 256) for h, hkv in ((4, 4), (8, 4), (16, 2), (16, 1))
-     for mask in _BWD_MASKS]
+     for hd in (16, 64, 96, 128, 256) for h, hkv in _BWD_GROUPS for mask in _BWD_MASKS]
+    + [(1, 100 if hkv == 4 else 192, h, hkv, 32, "bfloat16", *mask)
+       for (h, hkv), mask in zip(_BWD_GROUPS * 2, _BWD_MASKS)]
     + [(2, 100, h, hkv, hd, "float32", *mask) for hd in (8, 16, 64, 96, 128, 256)
        for h, hkv in ((4, 4), (16, 2)) for mask in _BWD_MASKS[1:]]
     + [(2, 100, 4, 2, 8, "bfloat16", *mask) for mask in _BWD_MASKS[::2]])
@@ -1477,7 +1494,7 @@ def _flash_bwd_at(shape, dtype=torch.bfloat16, window: int = 0, seed: int = 33) 
                op=lambda: fa.BWD_OP(q, k, v, out, lse, do, True, window, 0.0),
                launch=lambda: fa._launch_bwd(q, k, v, out, lse, do, True, window, 0.0),
                plain_calls=3)
-    row["variant"] = kind
+    row["variant"], row["source"] = kind, FLASH_BWD_SOURCES[kind]
     return row
 
 
@@ -1491,8 +1508,8 @@ def phase_flash_bwd() -> tuple:
     errs = [_flash_bwd_case(*case) for case in FLASH_BWD_CASES]
     errs += [_flash_bwd_padded(dtype) for dtype in (torch.float32, torch.bfloat16)]
     row = _flash_bwd_at(TRAIN_SHAPE)
-    if row["variant"] != "mma":
-        _fail("the flash backward at the training shape does not run the mma variant")
+    if row["variant"] != "wgmma":
+        _fail("the flash backward at the training shape does not run the wgmma variant")
     row["max_abs_err"] = max(errs + [row["max_abs_err"]])
     others = {"6b recurrentgemma-9b": _flash_bwd_at(
                   (RG_TRAIN_BATCH, RG_TRAIN_SEQ, RG.n_heads, RG.n_kv_heads, RG.hd),
@@ -1506,7 +1523,7 @@ def phase_flash_bwd() -> tuple:
     keys = SHAPE_KEYS + ("library_ms_by_kernel", "library_null_because", "plain_timed_by")
     entries = {}
     for phase, r in others.items():
-        want = "fma" if phase.endswith("fp32") else "mma"
+        want = "fma" if phase.endswith("fp32") else "wgmma"
         if r["variant"] != want:
             _fail(f"the flash backward at {r['shape']} runs {r['variant']}, not {want}")
         entries[phase] = {"at": f"a shape of phase {phase}", **{k: r[k] for k in keys if k in r}}
@@ -3580,21 +3597,21 @@ def phase_train() -> dict:
         launched = ops.launches["flash_attention"] - n0
         wgmma = ops.flash_variant_launches["wgmma"] - v0["wgmma"]
         bwd = ops.launches["flash_attention_bwd"] - b0
-        mma = ops.flash_bwd_variant_launches["mma"] - bv0["mma"]
+        bwd_wgmma = ops.flash_bwd_variant_launches["wgmma"] - bv0["wgmma"]
         steps.append({"loss": loss, "grad_norm": gnorm, "step_ms": ms,
                       "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
                       "flash_launches": launched, "flash_bwd_launches": bwd})
         _log(f"[train] step {s + 1}: loss {loss:.6f}, grad norm {gnorm:.6f}, {ms:.3f} ms, "
              f"{steps[-1]['tokens_per_s']:.1f} tokens/s, flash launches {launched} "
-             f"({wgmma} wgmma), flash backward launches {bwd} ({mma} mma)")
+             f"({wgmma} wgmma), flash backward launches {bwd} ({bwd_wgmma} wgmma)")
         if not (math.isfinite(loss) and math.isfinite(gnorm)):
             _fail(f"train step {s + 1}: loss {loss}, grad norm {gnorm}")
         if launched != per_step or wgmma != per_step:
             _fail(f"train step {s + 1}: {launched} flash launches ({wgmma} wgmma), "
                   f"not {per_step} wgmma under remat dots")
-        if bwd != cfg.n_layers or mma != cfg.n_layers:
-            _fail(f"train step {s + 1}: {bwd} flash backward launches ({mma} mma), not "
-                  f"{cfg.n_layers} mma (one a layer)")
+        if bwd != cfg.n_layers or bwd_wgmma != cfg.n_layers:
+            _fail(f"train step {s + 1}: {bwd} flash backward launches ({bwd_wgmma} wgmma), "
+                  f"not {cfg.n_layers} wgmma (one a layer)")
         if s == 0 and not _attn_moments_nonzero(state, cfg):
             _fail("an attention weight got a zero gradient")
     launches = dict(ops.launches)
@@ -3819,7 +3836,7 @@ def phase_mesh_train(plain: dict, fp32_ref: dict) -> tuple:
     of every updated parameter within MESH_TRAIN_PARAM_ATOL and of every
     first moment within MESH_TRAIN_FP32_RTOL of its largest, and each
     rank launched flash (wgmma, 2 a layer a step under remat dots; fma in
-    fp32) and its backward (mma, one a layer; fma in fp32), and every rank's
+    fp32) and its backward (wgmma, one a layer; fma in fp32), and every rank's
     first step matches the dry run of one traced
     rank of the mesh (:func:`_hold_against_dryrun`).  Returns (the phase's
     flash launches, forward and backward, as a path's launches, each by
@@ -3859,9 +3876,9 @@ def phase_mesh_train(plain: dict, fp32_ref: dict) -> tuple:
                 _fail(f"rank {r['rank']} sharded step {i + 1}: flash {got['flash_by_variant']}, "
                       f"not {per_step} wgmma")
             if (got["launches"]["flash_attention_bwd"] != YI_TRAIN.n_layers
-                    or got["variants"]["flash_attention_bwd"]["mma"] != YI_TRAIN.n_layers):
+                    or got["variants"]["flash_attention_bwd"]["wgmma"] != YI_TRAIN.n_layers):
                 _fail(f"rank {r['rank']} sharded step {i + 1}: flash backward "
-                      f"{got['variants']['flash_attention_bwd']}, not {YI_TRAIN.n_layers} mma")
+                      f"{got['variants']['flash_attention_bwd']}, not {YI_TRAIN.n_layers} wgmma")
         if r["gather_dtypes"] != ["bfloat16"]:
             _fail(f"rank {r['rank']}: parameters after the bf16-gathered step are "
                   f"{r['gather_dtypes']}")
@@ -3915,22 +3932,25 @@ def _multimodal_leaf(path: str) -> bool:
 
 #: the phases that train several archs on the ranks: the log's tag, the
 #: bf16 configs and the fp32 ones by arch, the file of the batches and the
-#: pattern of the fp32 leaves' files the parent writes for the ranks, whether
-#: the ranks also run a step with seq_shard_activations, the leaves (a
-#: label, a predicate on their paths) whose fp32 errors are printed apart,
-#: and optionally the ranks (MESH_RANKS by default) and the MESH_DRYRUN
-#: cells their first step is held against
+#: pattern of the fp32 leaves' files the parent writes for the ranks, the
+#: bf16 steps (6d and 6f run one, for the script's time: the fp32 step
+#: holds every rank's updated blocks, and 6c, 6e and 6g a second step),
+#: whether the ranks also run a step with seq_shard_activations, the leaves
+#: (a label, a predicate on their paths) whose fp32 errors are printed
+#: apart, and optionally the ranks (MESH_RANKS by default) and the
+#: MESH_DRYRUN cells their first step is held against
 MESH_ARCH_PHASES = {
     "6d": {"tag": "mesh-rec", "cfgs": MESH_REC, "fp32": MESH_REC_FP32,
-           "inputs": MESH_REC_INPUTS, "ref": MESH_REC_FP32_REF, "seq_step": False,
+           "inputs": MESH_REC_INPUTS, "ref": MESH_REC_FP32_REF, "steps": 1, "seq_step": False,
            "focus": ("the per-head vectors",
                      lambda n: n.rsplit("/", 1)[-1] in ("A_log", "D", "dt_bias"))},
     "6f": {"tag": "mesh-mm", "cfgs": MESH_MM, "fp32": MESH_MM_FP32,
-           "inputs": MESH_MM_INPUTS, "ref": MESH_MM_FP32_REF, "seq_step": True,
+           "inputs": MESH_MM_INPUTS, "ref": MESH_MM_FP32_REF, "steps": 1, "seq_step": True,
            "focus": ("the multimodal leaves", _multimodal_leaf)},
     "6g": {"tag": "mesh-undivided", "cfgs": {"mamba2-370m": MESH_REC["mamba2-370m"]},
            "fp32": {"mamba2-370m": MESH_REC_FP32["mamba2-370m"]},
-           "inputs": MESH3_TRAIN_INPUTS, "ref": MESH3_TRAIN_FP32_REF, "seq_step": False,
+           "inputs": MESH3_TRAIN_INPUTS, "ref": MESH3_TRAIN_FP32_REF, "steps": TRAIN_STEPS,
+           "seq_step": False,
            "focus": ("the per-head vectors",
                      lambda n: n.rsplit("/", 1)[-1] in ("A_log", "D", "dt_bias")),
            "world": MESH3_RANKS, "dryrun": "train3"},
@@ -3971,7 +3991,7 @@ def _rank_scan_calls(cfg, world: int) -> dict:
 
 def _plain_references(phase: str) -> dict:
     """The plain steps a phase of MESH_ARCH_PHASES is held against, on the
-    card before the ranks start: per arch, TRAIN_STEPS bf16 steps from
+    card before the ranks start: per arch, the phase's bf16 steps from
     _gen(0) on make_batch's batches (each step's ms, positions/s and
     launches, exact on the bf16 variants; the peak memory), and the fp32
     step on the first batch.  Writes the batches and the fp32 steps'
@@ -3984,7 +4004,7 @@ def _plain_references(phase: str) -> dict:
         _free()
         t0 = time.perf_counter()
         batches = [batch_to(_batch(cfg, TRAIN_SEQ, TRAIN_BATCH, step=s), "cpu")
-                   for s in range(TRAIN_STEPS)]
+                   for s in range(p["steps"])]
         inputs[arch] = batches
         t_data = time.perf_counter() - t0
         state = train_state_init(_gen(0), cfg, device="cuda")
@@ -4038,7 +4058,7 @@ def _plain_references(phase: str) -> dict:
 
 def _mesh_arch(phase: str, arch: str, mesh, batches: list) -> dict:
     """One arch of a phase of MESH_ARCH_PHASES on this rank: its state
-    rebuilt from _gen(0) with this rank's blocks kept, TRAIN_STEPS sharded
+    rebuilt from _gen(0) with this rank's blocks kept, the phase's sharded
     steps (the last with every collective timed on the host clock after a
     synchronise), where the phase asks for it one step from the initial
     state on the first batch with seq_shard_activations, then the fp32 step
@@ -4309,16 +4329,17 @@ def _mesh_moe_references() -> dict:
         ms = (time.perf_counter() - t1) * 1e3
         launched = {k: ops.launches[k] - n0[k] for k in n0}
         wgmma = ops.flash_variant_launches["wgmma"] - v0["flash_attention"]["wgmma"]
-        mma = ops.flash_bwd_variant_launches["mma"] - v0["flash_attention_bwd"]["mma"]
+        bwd_wgmma = (ops.flash_bwd_variant_launches["wgmma"]
+                     - v0["flash_attention_bwd"]["wgmma"])
         steps.append({"loss": float(m["loss"]), "aux": float(m["aux"]),
                       "grad_norm": float(m["grad_norm"]), "step_ms": ms,
                       "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / ms * 1e3, "launches": launched})
         if not (math.isfinite(steps[-1]["loss"]) and math.isfinite(steps[-1]["grad_norm"])):
             _fail(f"deepseek-moe-16b plain step {i + 1}: {steps[-1]}")
         if launched != want or wgmma != want["flash_attention"] \
-                or mma != want["flash_attention_bwd"]:
+                or bwd_wgmma != want["flash_attention_bwd"]:
             _fail(f"deepseek-moe-16b plain step {i + 1}: launches {launched} ({wgmma} wgmma, "
-                  f"{mma} mma backward), not {want} on wgmma and mma")
+                  f"{bwd_wgmma} wgmma backward), not {want} on wgmma")
     launches = dict(ops.launches)
     peak = torch.cuda.max_memory_allocated() / 1e9
     del state, m
@@ -4342,12 +4363,12 @@ def _mesh_moe_references() -> dict:
              f"{d['grad_norm']:.6f}, {d['step_ms']:.1f} ms, {d['tokens_per_s']:.1f} tokens/s"
              for i, d in enumerate(steps))
          + f"; peak memory {peak:.2f} GB; flash launches {launches['flash_attention']} (all "
-         f"wgmma), backward {launches['flash_attention_bwd']} (all mma); fp32 {MESH_MOE_FP32.n_layers}-layer step {fp32_step}; "
+         f"wgmma), backward {launches['flash_attention_bwd']} (all wgmma); fp32 {MESH_MOE_FP32.n_layers}-layer step {fp32_step}; "
          f"{time.perf_counter() - t0:.1f}s ({t_data:.1f}s of batches, "
          f"{time.perf_counter() - t1:.1f}s writing the fp32 leaves)")
     variants = {k: dict.fromkeys(v, 0) for k, v in _variant_launches().items()}
     variants["flash_attention"]["wgmma"] = launches["flash_attention"]
-    variants["flash_attention_bwd"]["mma"] = launches["flash_attention_bwd"]
+    variants["flash_attention_bwd"]["wgmma"] = launches["flash_attention_bwd"]
     return {"steps": steps, "fp32_step": fp32_step, "peak_mem_gb": peak,
             "params_b": cfg.param_count() / 1e9}, launches, variants
 
@@ -4489,7 +4510,7 @@ def phase_train_grads() -> dict:
     """The flash Function's gradients (the forward kernel, the backward
     kernel) against autograd through the dense plain version on the same
     card, yi-family heads (GQA 8/2, hd 128), L 256: fp32 (fma, fma) at
-    1e-4, bf16 (wgmma, mma) at 3e-2, the reference's bf16 model tolerance,
+    1e-4, bf16 (wgmma, wgmma) at 3e-2, the reference's bf16 model tolerance,
     against fp32 autograd on the same bf16 inputs."""
     errs = {}
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
@@ -4774,7 +4795,8 @@ def main(argv=None) -> int:
             mesh_train_flash, mesh_train, mesh_dry["train"] = phase_mesh_train(train, fp32_ref)
         _lap("6c mesh train")
     # the flash backward's launches at phase 6c's rank shape, bf16 and fp32
-    at_rank_shape["6c"]["flash_attention_bwd"] = mesh_train_flash["flash_attention_bwd"]["mma"]
+    at_rank_shape["6c"]["flash_attention_bwd"] = \
+        mesh_train_flash["flash_attention_bwd"]["wgmma"]
     at_rank_shape["6c fp32"]["flash_attention_bwd"] = \
         mesh_train_flash["flash_attention_bwd"]["fma"]
     del fp32_ref
@@ -4802,7 +4824,7 @@ def main(argv=None) -> int:
             cfgs, world = p["cfgs"], p.get("world", MESH_RANKS)
             by_path[", ".join(f"{arch} train ({cfg.n_layers}"
                               + (f" + {cfg.n_enc_layers}" if cfg.enc_dec else "")
-                              + f" layers, {TRAIN_STEPS} steps)"
+                              + f" layers, {p['steps']} steps)"
                               for arch, cfg in cfgs.items())
                     + (f" before phase {phase}" if world != MESH_RANKS else "")] = plain_path
             by_path[f"mesh train {what}: {world} ranks {MESH_SHAPES[world]}, " + ", ".join(
@@ -4860,7 +4882,7 @@ def main(argv=None) -> int:
             _fail(f"{name} was not launched on any main path")
     rows["flash_attention"]["launches_by_variant"]["wgmma"] += train["launches"][
         "flash_attention"]
-    rows["flash_attention_bwd"]["launches_by_variant"]["mma"] += train["launches"][
+    rows["flash_attention_bwd"]["launches_by_variant"]["wgmma"] += train["launches"][
         "flash_attention_bwd"]
     for name, by in mesh_train_flash.items():
         for v, n in by.items():

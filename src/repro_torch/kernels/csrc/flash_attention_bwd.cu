@@ -19,13 +19,13 @@
 //   * dk/dv: one block per (batch, kv head, kv tile), looping over the G
 //     query heads of its kv head and the q tiles that can see the tile, so
 //     dk and dv of a kv head sum over its G heads inside the block.  Where
-//     B·Hkv·S/64 blocks are too few to fill the card (GQA at batch 1: 64 at
-//     a sharded rank's shape), the mma variant shares the G heads among
-//     `kv_splits` blocks, each summing its share into fp32 partials, and a
-//     reduction adds them in a fixed order;
+//     those blocks are too few to fill the card (GQA at batch 1: 32 of 128
+//     keys at a sharded rank's shape), the wgmma variant shares the G heads
+//     among `kv_splits` blocks, each summing its share into fp32 partials,
+//     and a reduction adds them in a fixed order;
 //   * dq: one block per (batch, head, q tile), looping over the kv tiles
 //     it can see.
-// Tiles sit in the slowest grid dimension, the heaviest causal ones first.
+// Blocks run the heaviest causal tiles first.
 // Tiles that the causal mask or the window empties are skipped.  That is
 // exact wherever a row sees at least one key (every row does when L <= S):
 // a skipped tile's p is exp(NEG_INF − lse) = 0 in the reference and its ds
@@ -33,21 +33,14 @@
 // against FA2's 5, in exchange for no atomics and no fp32 dq scratch.
 //
 // Two variants, as the forward has:
-//   * "mma": bf16 at head dims 16, 32, 64, 96, 128 and 256.  mma.sync
-//     m16n8k16 with fp32 accumulators (ssd_mma.cuh), fed from shared memory
-//     by ldmatrix; the column tiles copied in by cp.async into two buffers,
-//     the next tile's copy under the current tile's products.  A warp owns
-//     16 rows of the block's 64; s and dp of a [16, BC] tile stay in
-//     registers, p and ds become the A operands of pᵀ·do / dsᵀ·q / ds·k
-//     straight from the accumulators (rounded to bf16 there: the reference
-//     keeps them fp32; the CPU emulation kernels/ref.flash_bwd_mma_emulated
-//     holds that rounding against the JAX reference's gradients).  BC is 64
-//     columns, 32 in the dk/dv sweep at head dims from 96 on, whose two
-//     accumulators leave no room for more (64 spills there).  At head dim
-//     256 the dk/dv accumulators of 16 rows × 256 columns do not fit a
-//     thread's registers, so the block has 8 warps: each pair of warps
-//     shares 16 rows, computes the same s and dp, and accumulates one half
-//     of the head dim.
+//   * "wgmma": bf16 at head dims 16, 32, 64, 96, 128 and 256
+//     (flash_attention_bwd_sm90.cuh): both sweeps on wgmma, the streamed
+//     tiles loaded by TMA into an mbarrier ring by a producer warp, two
+//     consumer warpgroups a block; p and ds go from the accumulator fragments
+//     into wgmma's A registers (rounded to bf16 there: the reference keeps
+//     them fp32; the CPU emulation kernels/ref.flash_bwd_mma_emulated holds
+//     that rounding against the JAX reference's gradients).  Its note says
+//     how the registers are shared out.
 //   * "fma": fp32 at every head dim (8 … 256) and bf16 at head dim 8.
 //     fp32 FMAs on the CUDA cores (no TF32: the fp32 tolerance is 1e-4),
 //     32 × 32 tiles held in shared memory as fp32.
@@ -55,10 +48,13 @@
 // What bounds it on the card: at yi-9b's training shape (q [2,2048,32,128],
 // k/v [2,2048,4,128], causal) the five products over the visible pairs are
 // 171.8 GFLOP, 0.174 ms at the bf16 tensor-core peak, and the bytes it must
-// move (~151 MB) 0.045 ms at 3.35 TB/s: operations bound it.  This version
-// is right and simple rather than fast: mma.sync rather than wgmma, every
-// warp reloading the tile's B fragments from shared memory, and the two
-// recomputed products; PERF.md has its times against the bound.
+// move (~151 MB) 0.045 ms at 3.35 TB/s: operations bound it.  The wgmma
+// variant keeps the tensor cores fed from TMA-loaded shared memory (no
+// thread spends registers or instructions on a copy, and the B operands are
+// read by the hardware, not reloaded by every warp), overlaps one
+// warpgroup's softmax-side arithmetic with the other's products, and pays
+// for determinism with the two recomputed products (7 against FA2's 5);
+// PERF.md has its times against the bound and against cuDNN's backward.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (src/repro_torch/kernels/build.py does this).
@@ -69,11 +65,11 @@
 #include <stddef.h>
 #include <stdint.h>
 
-#include "ssd_mma.cuh"
+#include "flash_attention_bwd_sm90.cuh"
 
 namespace {
 
-using ssd_sm90::bf16;
+using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
@@ -84,29 +80,9 @@ template <> __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
     return __float2bfloat16(x);   // round to nearest even, as astype(bf16)
 }
 
-// ---- the mask and the visible tiles ---------------------------------------
+// ---- the mask: sm90::Mask, shared with the wgmma sweeps ---------------------
 
-struct Mask {
-    int L, S, causal, window;
-
-    // query row qi sees key kj
-    __device__ __forceinline__ bool ok(int qi, int kj) const {
-        bool o = qi < L && kj < S;
-        if (causal) o = o && kj <= qi;
-        if (window) o = o && kj > qi - window;
-        return o;
-    }
-    // the query rows [lo, hi] that can see a key of [k_lo, k_hi]
-    __device__ __forceinline__ void rows_seeing(int k_lo, int k_hi, int& lo, int& hi) const {
-        lo = causal ? k_lo : 0;
-        hi = window ? min(L - 1, k_hi + window - 1) : L - 1;
-    }
-    // the keys [lo, hi] that a row of [q_lo, q_hi] can see
-    __device__ __forceinline__ void keys_seen(int q_lo, int q_hi, int& lo, int& hi) const {
-        lo = window ? max(0, q_lo - window + 1) : 0;
-        hi = causal ? min(S - 1, q_hi) : S - 1;
-    }
-};
+using sm90::Mask;
 
 // p and ds of one (query, key) pair from its raw products s = q·k and dp =
 // do·v and its query's lse and delta; zero where masked
@@ -357,264 +333,7 @@ int launch_fma(const void* q, const void* k, const void* v, const void* dout,
                                           Hkv, softcap, scale, stream);
 }
 
-// ---- the mma variant -------------------------------------------------------
-
-template <int HD, bool KV>
-struct MmaTile {
-    static constexpr int NSPLIT = HD == 256 ? 2 : 1;    // warps sharing 16 rows
-    static constexpr int WARPS = 4 * NSPLIT;
-    static constexpr int NT = 32 * WARPS;
-    static constexpr int BR = 64;                       // rows per block
-    // columns per tile: 64, but 32 in the dk/dv sweep at head dims from 96 on,
-    // where its two accumulators leave no registers for 64 columns of s and dp
-    static constexpr int BC = KV && HD >= 96 ? 32 : 64;
-    static constexpr int DW = HD / NSPLIT;              // a warp's accumulator columns
-    static constexpr int ST = HD + 8;                   // smem row stride (bf16): ldmatrix
-                                                        // rows fall in distinct banks
-    static_assert(HD % 16 == 0 && DW % 16 == 0 && BC % 16 == 0, "m16n8k16 tiles");
-    // the row tiles, two buffers of the column tiles, their queries' lse
-    // and delta (KV) or the rows' (dq)
-    static constexpr size_t smem_bytes() {
-        return sizeof(bf16) * (2 * size_t(BR) * ST + 2 * 2 * size_t(BC) * ST) +
-               sizeof(float) * 2 * 2 * size_t(BR > BC ? BR : BC);
-    }
-};
-
-__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool valid) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(ssd_sm90::smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-
-// rows [0, rows) of a bf16 tile of HD columns from global rows `gstride`
-// elements apart (row r valid while r0 + r < n) into shared rows ST apart;
-// rows past n are zeros
-template <int HD, int ST>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, size_t gstride, int rows,
-                                          int r0, int n, int tid, int nthreads) {
-    constexpr int SEGS = HD / 8;
-    for (int idx = tid; idx < rows * SEGS; idx += nthreads) {
-        const int r = idx / SEGS, s = idx % SEGS;
-        const bool in = r0 + r < n;
-        cp_async16_zfill(dst + r * ST + s * 8, src + (in ? size_t(r0 + r) * gstride : 0) + s * 8,
-                         in);
-    }
-}
-
-template <int HD, bool KV>
-__global__ void __launch_bounds__(MmaTile<HD, KV>::NT, 1)
-flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
-                     float* __restrict__ part, int splits, Mask m, int H, int Hkv,
-                     float softcap, float scale) {
-    using Tl = MmaTile<HD, KV>;
-    constexpr int BR = Tl::BR, BC = Tl::BC, ST = Tl::ST, DW = Tl::DW, NT = Tl::NT;
-    constexpr int NS = BC / 8;           // n8 tiles of s and dp
-    constexpr int NA = DW / 8;           // n8 tiles of an accumulator
-    constexpr int NL = BR > BC ? BR : BC;
-
-    extern __shared__ __align__(16) unsigned char msm[];
-    bf16* r1 = reinterpret_cast<bf16*>(msm);     // [BR][ST]
-    bf16* r2 = r1 + BR * ST;
-    bf16* cbuf = r2 + BR * ST;                   // 2 × (C1, C2) [BC][ST]
-    float* lbuf = reinterpret_cast<float*>(cbuf + 2 * 2 * BC * ST);  // 2 × (lse, delta) [NL]
-
-    const int tid = threadIdx.x;
-    const int lane = tid & 31, warp = tid >> 5;
-    const int g8 = lane >> 2, t4 = lane & 3;     // the mma fragments' (g, t)
-    const int wr0 = (warp % 4) * 16;             // the warp's 16 rows
-    const int dw0 = (warp / 4) * DW;             // its accumulator columns
-    const int G = H / Hkv;
-    // tiles in the slowest grid dimension, the heaviest causal ones first:
-    // a kv tile near 0 is seen by the most queries, a q tile near L sees
-    // the most keys
-    const int tile = KV ? blockIdx.y : gridDim.y - 1 - blockIdx.y;
-    const int heads = KV ? Hkv : H;
-    const int bh = KV ? blockIdx.x / splits : blockIdx.x;
-    const int sp = KV ? blockIdx.x % splits : 0;     // this block's share of the G heads
-    const int b = bh / heads;
-    const int hr = bh % heads;
-    const int hk = KV ? hr : hr / G;
-    const int g0 = KV ? sp * G / splits : 0;
-    const int g1 = KV ? (sp + 1) * G / splits : 1;
-    const int n_rows = KV ? m.S : m.L;
-    const int row_lo = tile * BR;
-    const int row_hi = min(row_lo + BR, n_rows) - 1;
-    const size_t q_row = size_t(H) * HD, kv_row = size_t(Hkv) * HD;
-    const bf16* kb = k + size_t(b) * m.S * kv_row + size_t(hk) * HD;
-    const bf16* vb = v + size_t(b) * m.S * kv_row + size_t(hk) * HD;
-
-    {
-        const size_t qoff = size_t(b) * m.L * q_row + size_t(hr) * HD;
-        const size_t st = KV ? kv_row : q_row;
-        load_rows<HD, ST>(r1, KV ? kb : q + qoff, st, BR, row_lo, n_rows, tid, NT);
-        load_rows<HD, ST>(r2, KV ? vb : dout + qoff, st, BR, row_lo, n_rows, tid, NT);
-        ssd_sm90::cp_async_commit();
-        if (!KV && tid < BR) {                   // the rows' lse and delta, in buffer 0
-            const int gr = row_lo + tid;
-            const size_t li = (size_t(b) * H + hr) * m.L + gr;
-            lbuf[tid] = gr < m.L ? lse[li] : 0.f;
-            lbuf[NL + tid] = gr < m.L ? delta[li] : 0.f;
-        }
-    }
-
-    float acc_a[NA][4], acc_b[NA][4];            // KV: dv, dk; else dq in acc_b
-#pragma unroll
-    for (int n = 0; n < NA; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc_a[n][e] = acc_b[n][e] = 0.f;
-
-    // the column tiles: (head g, tile ct) for g in [g0, g1), ct over the
-    // visible range, flattened so that tile it + 1 is copied in while tile
-    // it is computed
-    int lo, hi;
-    if (KV) m.rows_seeing(row_lo, row_hi, lo, hi);
-    else m.keys_seen(row_lo, row_hi, lo, hi);
-    const int n_cols = KV ? m.L : m.S;
-    const int ct0 = lo / BC;
-    const int nct = lo <= hi ? hi / BC - ct0 + 1 : 0;
-    const int n_it = (g1 - g0) * nct;
-
-    auto issue = [&](int it) {
-        const int g = g0 + it / nct, col_lo = (ct0 + it % nct) * BC;
-        const int hq = KV ? hk * G + g : hr;
-        const size_t qoff = size_t(b) * m.L * q_row + size_t(hq) * HD;
-        const size_t cst = KV ? q_row : kv_row;
-        bf16* c1 = cbuf + (it & 1) * 2 * BC * ST;
-        load_rows<HD, ST>(c1, KV ? q + qoff : kb, cst, BC, col_lo, n_cols, tid, NT);
-        load_rows<HD, ST>(c1 + BC * ST, KV ? dout + qoff : vb, cst, BC, col_lo, n_cols, tid,
-                          NT);
-        ssd_sm90::cp_async_commit();
-        if (KV && tid < BC) {                    // the columns' lse and delta
-            float* l = lbuf + (it & 1) * 2 * NL;
-            const int gc = col_lo + tid;
-            const size_t li = (size_t(b) * H + hq) * m.L + gc;
-            l[tid] = gc < m.L ? lse[li] : 0.f;
-            l[NL + tid] = gc < m.L ? delta[li] : 0.f;
-        }
-    };
-
-    if (n_it > 0) issue(0);
-    for (int it = 0; it < n_it; ++it) {
-        if (it + 1 < n_it) {
-            issue(it + 1);                       // its buffer's reads ended last iteration
-            ssd_sm90::cp_async_wait<1>();
-        } else {
-            ssd_sm90::cp_async_wait<0>();
-        }
-        __syncthreads();                         // tile it (and the row tiles) landed
-        const int col_lo = (ct0 + it % nct) * BC;
-        const bf16* c1 = cbuf + (it & 1) * 2 * BC * ST;
-        const bf16* c2 = c1 + BC * ST;
-        const float* lse_s = lbuf + (KV ? (it & 1) * 2 * NL : 0);
-        const float* del_s = lse_s + NL;
-
-        // s = R1·C1ᵀ and dp = R2·C2ᵀ over the warp's 16 rows, BC columns
-        float s[NS][4], dp[NS][4];
-#pragma unroll
-        for (int n = 0; n < NS; ++n)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) {
-            uint32_t a1[4], a2[4];
-            const int ao = (wr0 + (lane & 15)) * ST + kk * 16 + (lane >> 4) * 8;
-            ssd_sm90::ldsm_x4(a1, r1 + ao);
-            ssd_sm90::ldsm_x4(a2, r2 + ao);
-#pragma unroll
-            for (int np = 0; np < NS / 2; ++np) {
-                uint32_t b1[4], b2[4];
-                const int bo = (np * 16 + (lane & 7) + (lane >> 4) * 8) * ST + kk * 16 +
-                               ((lane >> 3) & 1) * 8;
-                ssd_sm90::ldsm_x4(b1, c1 + bo);
-                ssd_sm90::ldsm_x4(b2, c2 + bo);
-                ssd_sm90::mma(s[2 * np], a1, b1[0], b1[1]);
-                ssd_sm90::mma(s[2 * np + 1], a1, b1[2], b1[3]);
-                ssd_sm90::mma(dp[2 * np], a2, b2[0], b2[1]);
-                ssd_sm90::mma(dp[2 * np + 1], a2, b2[2], b2[3]);
-            }
-        }
-
-        // p into s, ds into dp
-#pragma unroll
-        for (int n = 0; n < NS; ++n)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int rl = wr0 + g8 + (e >> 1) * 8;
-                const int cl = n * 8 + 2 * t4 + (e & 1);
-                const int gr = row_lo + rl, gc = col_lo + cl;
-                const int ql = KV ? cl : rl;
-                float p, ds;
-                p_ds(s[n][e], dp[n][e], lse_s[ql], del_s[ql], scale, softcap,
-                     KV ? m.ok(gc, gr) : m.ok(gr, gc), p, ds);
-                s[n][e] = p;
-                dp[n][e] = ds;
-            }
-
-        // acc_a += p·C2, acc_b += ds·C1 over the warp's accumulator columns:
-        // p and ds are the A operands (k = the tile's columns)
-#pragma unroll
-        for (int kk = 0; kk < BC / 16; ++kk) {
-            uint32_t ap[4], ad[4];
-            ap[0] = ssd_sm90::pack(s[2 * kk][0], s[2 * kk][1]);
-            ap[1] = ssd_sm90::pack(s[2 * kk][2], s[2 * kk][3]);
-            ap[2] = ssd_sm90::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-            ap[3] = ssd_sm90::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-            ad[0] = ssd_sm90::pack(dp[2 * kk][0], dp[2 * kk][1]);
-            ad[1] = ssd_sm90::pack(dp[2 * kk][2], dp[2 * kk][3]);
-            ad[2] = ssd_sm90::pack(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
-            ad[3] = ssd_sm90::pack(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
-#pragma unroll
-            for (int np = 0; np < NA / 2; ++np) {
-                const int bo = (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ST + dw0 +
-                               np * 16 + (lane >> 4) * 8;
-                uint32_t b1[4];
-                ssd_sm90::ldsm_x4_t(b1, c1 + bo);
-                ssd_sm90::mma(acc_b[2 * np], ad, b1[0], b1[1]);
-                ssd_sm90::mma(acc_b[2 * np + 1], ad, b1[2], b1[3]);
-                if (KV) {
-                    uint32_t b2[4];
-                    ssd_sm90::ldsm_x4_t(b2, c2 + bo);
-                    ssd_sm90::mma(acc_a[2 * np], ap, b2[0], b2[1]);
-                    ssd_sm90::mma(acc_a[2 * np + 1], ap, b2[2], b2[3]);
-                }
-            }
-        }
-        __syncthreads();                         // tile it's buffer is free for it + 2
-    }
-
-    // store: rows wr0 + g8 (+ 8), columns dw0 + n·8 + 2·t4 (+ 1), as pairs
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-        const int gr = row_lo + wr0 + g8 + half * 8;
-        if (gr >= n_rows) continue;
-#pragma unroll
-        for (int n = 0; n < NA; ++n) {
-            const int d = dw0 + n * 8 + 2 * t4;
-            if (KV) {
-                const size_t o = size_t(b) * m.S * kv_row + size_t(gr) * kv_row +
-                                 size_t(hk) * HD + d;
-                const float k0 = acc_b[n][2 * half] * scale, k1 = acc_b[n][2 * half + 1] * scale;
-                const float v0 = acc_a[n][2 * half], v1 = acc_a[n][2 * half + 1];
-                if (splits == 1) {
-                    *reinterpret_cast<__nv_bfloat162*>(dk + o) = __floats2bfloat162_rn(k0, k1);
-                    *reinterpret_cast<__nv_bfloat162*>(dv + o) = __floats2bfloat162_rn(v0, v1);
-                } else {                         // this share's fp32 partial sums
-                    const size_t n_kv = size_t(gridDim.x / splits / Hkv) * m.S * kv_row;
-                    *reinterpret_cast<float2*>(part + sp * n_kv + o) = make_float2(k0, k1);
-                    *reinterpret_cast<float2*>(part + (splits + sp) * n_kv + o) =
-                        make_float2(v0, v1);
-                }
-            } else {
-                const size_t o = size_t(b) * m.L * q_row + size_t(gr) * q_row +
-                                 size_t(hr) * HD + d;
-                *reinterpret_cast<__nv_bfloat162*>(dq + o) = __floats2bfloat162_rn(
-                    acc_b[n][2 * half] * scale, acc_b[n][2 * half + 1] * scale);
-            }
-        }
-    }
-}
+// ---- the wgmma variant's reduction -------------------------------------------
 
 // dk and dv from the dk/dv sweep's `splits` fp32 partial sums (dk's then
 // dv's, each [splits][n]), added in a fixed order: 4 elements a thread
@@ -638,32 +357,14 @@ flash_bwd_kv_reduce_kernel(const float* __restrict__ part, bf16* __restrict__ dk
     v2[1] = __floats2bfloat162_rn(c.z, c.w);
 }
 
-template <int HD, bool KV>
-int launch_mma_sweep(const void* q, const void* k, const void* v, const void* dout,
-                     const float* lse, const float* delta, void* dq, void* dk, void* dv,
-                     float* part, int splits, int B, const Mask& m, int H, int Hkv,
-                     float softcap, float scale, cudaStream_t stream) {
-    using Tl = MmaTile<HD, KV>;
-    const size_t smem = Tl::smem_bytes();
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_mma_kernel<HD, KV>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           int(smem));
-    if (err != cudaSuccess) return int(err);
-    const dim3 grid(B * (KV ? Hkv * splits : H), ((KV ? m.S : m.L) + Tl::BR - 1) / Tl::BR);
-    flash_bwd_mma_kernel<HD, KV><<<grid, Tl::NT, smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq),
-        static_cast<bf16*>(dk), static_cast<bf16*>(dv), part, splits, m, H, Hkv, softcap, scale);
-    return int(cudaGetLastError());
-}
-
 template <int HD>
-int launch_mma(const void* q, const void* k, const void* v, const void* dout,
-               const float* lse, const float* delta, void* dq, void* dk, void* dv,
-               float* part, int splits, int B, const Mask& m, int H, int Hkv, float softcap,
-               float scale, cudaStream_t stream) {
-    int err = launch_mma_sweep<HD, true>(q, k, v, dout, lse, delta, dq, dk, dv, part, splits,
-                                         B, m, H, Hkv, softcap, scale, stream);
+int launch_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                 const float* lse, const float* delta, void* dq, void* dk, void* dv,
+                 float* part, int splits, int B, const Mask& m, int H, int Hkv, float softcap,
+                 float scale, cudaStream_t stream) {
+    int err = sm90::launch_bwd_dkdv<HD>(q, k, v, dout, lse, delta, dk, dv, part, splits, B,
+                                        m.L, m.S, H, Hkv, m.causal, m.window, softcap, scale,
+                                        stream);
     if (err) return err;
     if (splits > 1) {
         const size_t n = size_t(B) * m.S * Hkv * HD;
@@ -672,25 +373,25 @@ int launch_mma(const void* q, const void* k, const void* v, const void* dout,
         err = int(cudaGetLastError());
         if (err) return err;
     }
-    return launch_mma_sweep<HD, false>(q, k, v, dout, lse, delta, dq, dk, dv, part, splits, B,
-                                       m, H, Hkv, softcap, scale, stream);
+    return sm90::launch_bwd_dq<HD>(q, k, v, dout, lse, delta, dq, B, m.L, m.S, H, Hkv,
+                                   m.causal, m.window, softcap, scale, stream);
 }
 
 #define FLASH_BWD_ARGS q, k, v, dout, lse, delta, dq, dk, dv, B, m, H, Hkv, softcap, scale, st
-#define FLASH_BWD_MMA_ARGS \
+#define FLASH_BWD_WGMMA_ARGS \
     q, k, v, dout, lse, delta, dq, dk, dv, part, splits, B, m, H, Hkv, softcap, scale, st
 
-int dispatch_mma(int hd, const void* q, const void* k, const void* v, const void* dout,
-                 const float* lse, const float* delta, void* dq, void* dk, void* dv,
-                 float* part, int splits, int B, const Mask& m, int H, int Hkv, float softcap,
-                 float scale, cudaStream_t st) {
+int dispatch_wgmma(int hd, const void* q, const void* k, const void* v, const void* dout,
+                   const float* lse, const float* delta, void* dq, void* dk, void* dv,
+                   float* part, int splits, int B, const Mask& m, int H, int Hkv,
+                   float softcap, float scale, cudaStream_t st) {
     switch (hd) {
-        case 16: return launch_mma<16>(FLASH_BWD_MMA_ARGS);
-        case 32: return launch_mma<32>(FLASH_BWD_MMA_ARGS);
-        case 64: return launch_mma<64>(FLASH_BWD_MMA_ARGS);
-        case 96: return launch_mma<96>(FLASH_BWD_MMA_ARGS);
-        case 128: return launch_mma<128>(FLASH_BWD_MMA_ARGS);
-        case 256: return launch_mma<256>(FLASH_BWD_MMA_ARGS);
+        case 16: return launch_wgmma<16>(FLASH_BWD_WGMMA_ARGS);
+        case 32: return launch_wgmma<32>(FLASH_BWD_WGMMA_ARGS);
+        case 64: return launch_wgmma<64>(FLASH_BWD_WGMMA_ARGS);
+        case 96: return launch_wgmma<96>(FLASH_BWD_WGMMA_ARGS);
+        case 128: return launch_wgmma<128>(FLASH_BWD_WGMMA_ARGS);
+        case 256: return launch_wgmma<256>(FLASH_BWD_WGMMA_ARGS);
         default: return int(cudaErrorInvalidValue);
     }
 }
@@ -711,7 +412,7 @@ int dispatch_fma_f32(int hd, const void* q, const void* k, const void* v, const 
     }
 }
 
-bool mma_takes(int hd) {
+bool wgmma_takes(int hd) {
     return hd == 16 || hd == 32 || hd == 64 || hd == 96 || hd == 128 || hd == 256;
 }
 
@@ -719,18 +420,18 @@ bool mma_takes(int hd) {
 
 // q, out, dout, dq: [B, L, H, hd]; k, v, dk, dv: [B, S, Hkv, hd]; lse and
 // delta: fp32 [B, H, L] (lse the forward's; delta is written here and read
-// by the two sweeps).  All contiguous; the mma variant also needs q, k, v,
-// dout 16-byte aligned.  kv_splits (the mma variant; 1 for fma): the dk/dv
-// sweep's blocks a (batch, kv head, kv tile) share its G query heads
-// among, each summing its share into fp32 partials in `part` (2 ·
+// by the two sweeps).  All contiguous; the wgmma variant also needs q, k,
+// v, dout 16-byte aligned (TMA).  kv_splits (the wgmma variant; 1 for fma):
+// the dk/dv sweep's blocks a (batch, kv head, kv tile) share its G query
+// heads among, each summing its share into fp32 partials in `part` (2 ·
 // kv_splits · B·S·Hkv·hd floats; null when kv_splits is 1) that a
-// reduction adds in a fixed order: more blocks than B·Hkv·S/64 where
-// that is too few to fill the card, and still no atomics.  dtype: 0 = fp32, 1 = bf16; variant: 0 = fma (fp32
-// at every head dim, bf16 at 8), 1 = mma (bf16 at 16, 32, 64, 96, 128 and
-// 256).  The caller validates shapes; a variant that does not take the
-// dtype or head dim returns cudaErrorInvalidValue without launching, and no
-// variant stands in for another.  Returns the cudaError_t of the launches
-// (0 on success).
+// reduction adds in a fixed order: more blocks where one a kv tile is too
+// few to fill the card, and still no atomics.  dtype: 0 = fp32, 1 = bf16;
+// variant: 0 = fma (fp32 at every head dim, bf16 at 8), 1 = wgmma (bf16 at
+// 16, 32, 64, 96, 128 and 256).  The caller validates shapes; a variant
+// that does not take the dtype or head dim returns cudaErrorInvalidValue
+// without launching, and no variant stands in for another.  Returns the
+// cudaError_t of the launches (0 on success).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* out, const void* dout, const float* lse,
                                    float* delta, void* dq, void* dk, void* dv, int B, int L,
@@ -738,8 +439,8 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    int causal, int window, float softcap, float scale,
                                    int kv_splits, float* part, void* stream) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const bool takes = variant == 1 ? dtype == 1 && mma_takes(hd)
-                     : variant == 0 ? (dtype == 0 && (hd == 8 || mma_takes(hd))) ||
+    const bool takes = variant == 1 ? dtype == 1 && wgmma_takes(hd)
+                     : variant == 0 ? (dtype == 0 && (hd == 8 || wgmma_takes(hd))) ||
                                       (dtype == 1 && hd == 8)
                                     : false;
     if (!takes || kv_splits < 1 || kv_splits > H / Hkv || (variant == 0 && kv_splits != 1) ||
@@ -750,7 +451,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
     int err = dtype == 1 ? launch_delta<bf16>(out, dout, delta, B, L, H, hd, st)
                          : launch_delta<float>(out, dout, delta, B, L, H, hd, st);
     if (err) return err;
-    if (variant == 1) return dispatch_mma(hd, FLASH_BWD_MMA_ARGS);
+    if (variant == 1) return dispatch_wgmma(hd, FLASH_BWD_WGMMA_ARGS);
     if (dtype == 0) return dispatch_fma_f32(hd, FLASH_BWD_ARGS);
     return launch_fma<bf16, 8>(FLASH_BWD_ARGS);
 }

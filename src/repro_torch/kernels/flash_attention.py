@@ -31,11 +31,12 @@ The backward (``csrc/flash_attention_bwd.cu``, the operator
 ``repro_torch::flash_attention_bwd``) replaces no TPU kernel: it is the
 counterpart of the reference's jnp backward
 ``repro/models/flash.py::_flash_bwd_impl``, in two variants that
-:func:`bwd_variant` picks as :func:`variant` picks the forward's: ``"mma"``
-(bf16 at :data:`WGMMA_HEAD_DIMS`, ``mma.sync`` on the tensor cores) and
-``"fma"`` (fp32 at every head dim, bf16 at 8).  It allocates dq, dk, dv,
-each row's fp32 ``delta = rowsum(do · out)`` [B,H,L] and, where the mma
-dk/dv sweep shares a kv tile's heads among blocks (:func:`bwd_kv_splits`),
+:func:`bwd_variant` picks as :func:`variant` picks the forward's: ``"wgmma"``
+(``csrc/flash_attention_bwd_sm90.cuh``: bf16 at :data:`WGMMA_HEAD_DIMS`,
+every product on wgmma, tiles loaded by TMA) and ``"fma"`` (fp32 at every
+head dim, bf16 at 8).  It allocates dq, dk, dv, each row's fp32 ``delta =
+rowsum(do · out)`` [B,H,L] and, where the wgmma dk/dv sweep shares a kv
+tile's heads among blocks (:func:`bwd_kv_splits`),
 their fp32 partial sums; :func:`bwd_flops` counts its five products over
 the visible pairs.
 """
@@ -52,10 +53,10 @@ from repro_torch.kernels import build, library
 HEAD_DIMS = (8, 16, 32, 64, 96, 128, 256)
 WGMMA_HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 VARIANTS = ("wgmma", "fma")
-BWD_VARIANTS = ("mma", "fma")
+BWD_VARIANTS = ("wgmma", "fma")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANT_CODE = {"fma": 0, "wgmma": 1}
-_BWD_VARIANT_CODE = {"fma": 0, "mma": 1}
+_BWD_VARIANT_CODE = {"fma": 0, "wgmma": 1}
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int
@@ -67,11 +68,18 @@ _BWD_ARGTYPES = [_p] * 10 + [_i] * 10 + [ctypes.c_float, ctypes.c_float, _i, _p,
 #: partial sums in a trace that has no card)
 H100_SXM_SMS = 132
 #: the blocks the backward's dk/dv sweep aims at: four for each SM
-#: (:func:`bwd_kv_splits`; two are resident at a time, and smaller shares
-#: even out the causal tiles' work)
+#: (:func:`bwd_kv_splits`; one is resident at a time, and smaller shares
+#: even out the causal tiles' work: on the card, four beat two and three at
+#: recurrentgemma-9b's windowed shape and tied them at yi-9b's)
 KV_SWEEP_BLOCKS = 4 * H100_SXM_SMS
-#: the kv rows of one block of the mma dk/dv sweep
-KV_SWEEP_ROWS = 64
+
+
+def kv_sweep_rows(hd: int) -> int:
+    """The kv rows of one block of the wgmma dk/dv sweep: 64 for each of
+    its two consumer warpgroups, but 64 in all at head dim 256, where the
+    two share the keys and each takes half the head dim
+    (``BwdCfg::KV_ROWS`` in ``csrc/flash_attention_bwd_sm90.cuh``)."""
+    return 64 if hd == 256 else 128
 
 
 def variant(hd: int, dtype: torch.dtype) -> str:
@@ -85,21 +93,22 @@ def variant(hd: int, dtype: torch.dtype) -> str:
 
 def bwd_variant(hd: int, dtype: torch.dtype) -> str:
     """The backward kernel a call of head dim ``hd`` in ``dtype`` runs:
-    ``"mma"`` for bf16 at :data:`WGMMA_HEAD_DIMS`, ``"fma"`` for everything
-    else :data:`HEAD_DIMS` allows (every head dim the forward takes has a
-    backward)."""
-    return "mma" if variant(hd, dtype) == "wgmma" else "fma"
+    ``"wgmma"`` for bf16 at :data:`WGMMA_HEAD_DIMS`, ``"fma"`` for
+    everything else :data:`HEAD_DIMS` allows (every head dim the forward
+    takes has a backward, on the forward's variant)."""
+    return variant(hd, dtype)
 
 
-def bwd_kv_splits(b: int, s_len: int, h: int, hkv: int, kind: str) -> int:
-    """The blocks among which the mma backward's dk/dv sweep shares a
-    (batch, kv head, kv tile)'s G query heads: 1 where B·Hkv·⌈S/64⌉ blocks
-    reach :data:`KV_SWEEP_BLOCKS`, else as many as reach it, at most G
-    (each share sums its heads into fp32 partials that a second pass adds
-    in a fixed order); the fma variant takes 1."""
-    if kind != "mma":
+def bwd_kv_splits(b: int, s_len: int, h: int, hkv: int, hd: int, kind: str) -> int:
+    """The blocks among which the wgmma backward's dk/dv sweep shares a
+    (batch, kv head, kv tile)'s G query heads: 1 where B·Hkv·⌈S/rows⌉
+    blocks (rows: :func:`kv_sweep_rows`) reach :data:`KV_SWEEP_BLOCKS`,
+    else as many as reach it, at most G (each share sums its heads into
+    fp32 partials that a second pass adds in a fixed order); the fma
+    variant takes 1."""
+    if kind != "wgmma":
         return 1
-    base = b * hkv * -(-s_len // KV_SWEEP_ROWS)
+    base = b * hkv * -(-s_len // kv_sweep_rows(hd))
     return max(1, min(h // hkv, -(-KV_SWEEP_BLOCKS // base)))
 
 
@@ -231,9 +240,9 @@ def _bwd_buffers(q, k, v, kind: str):
     dv, the fp32 delta [B,H,L] the two sweeps read and, where the dk/dv
     sweep splits the heads (:func:`bwd_kv_splits`), its fp32 partial sums
     of dk and dv [2, splits, B,S,Hkv,hd] (else None)."""
-    b, l, h, _ = q.shape
+    b, l, h, hd = q.shape
     delta = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
-    splits = bwd_kv_splits(b, k.shape[1], h, k.shape[2], kind)
+    splits = bwd_kv_splits(b, k.shape[1], h, k.shape[2], hd, kind)
     part = (torch.empty((2, splits, *k.shape), dtype=torch.float32, device=q.device)
             if splits > 1 else None)
     return (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)), delta, part
@@ -243,10 +252,10 @@ def _launch_bwd(q, k, v, out, lse, do, causal: bool, window: int, softcap: float
     """The backward operator's CUDA implementation: one counted launch (the
     delta pass and the two sweeps, on the current stream)."""
     kind = bwd_variant(q.shape[3], q.dtype)
-    if kind == "mma":
+    if kind == "wgmma":
         for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
             if t.data_ptr() % 16:
-                raise ValueError(f"{name} must start on a 16-byte boundary for cp.async")
+                raise ValueError(f"{name} must start on a 16-byte boundary for TMA")
     b, l, h, hd = q.shape
     s_len, hkv = k.shape[1], k.shape[2]
     (dq, dk, dv), delta, part = _bwd_buffers(q, k, v, kind)

@@ -212,8 +212,9 @@ def flash_bwd_mma_emulated(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
                            causal: bool = True, window: int = 0, softcap: float = 0.0
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The flash backward as the ``"mma"`` variant of the backward kernel
-    (``csrc/flash_attention_bwd.cu``) rounds it, for bf16 q, k, v, out, do
+    """The flash backward as the ``"wgmma"`` variant of the backward kernel
+    (``csrc/flash_attention_bwd_sm90.cuh``; the ``mma.sync`` kernel it
+    replaced rounded the same way) rounds it, for bf16 q, k, v, out, do
     and the forward's fp32 lse [B,H,L]: delta = rowsum(do·out), s = q·kᵀ and
     dp = do·vᵀ from bf16 operands into fp32 (exact products), p = exp(s_cap −
     lse) and ds = p·(dp − delta)·(1 − tanh²) in fp32, zero where masked; then

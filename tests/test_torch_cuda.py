@@ -388,12 +388,24 @@ def test_flash_function_grads_vs_plain_autograd(card, dtype, tol):
 
 
 #: (b, l, h, hkv, hd, dtype, causal, window, softcap) of the backward
-#: kernel's card cases: the mma variant at head dims 16, 96, 128 and 256,
-#: groups 1, 2, 8 and 16, a ragged L; the fma variant in fp32 and at hd 8
+#: kernel's card cases: the wgmma variant at every head dim it takes (16,
+#: 32, 64, 96, 128, 256), each with causal, a window with and without
+#: causal and the softcap among its cases, groups 1, 2, 4, 8 and 16, ragged
+#: L; the fma variant in fp32 and at hd 8
 _FLASH_BWD_CARD_CASES = [
-    (1, 100, 4, 4, 16, "bfloat16", True, 0, 0.0), (1, 192, 16, 2, 128, "bfloat16", True, 48, 0.0),
-    (1, 192, 16, 1, 256, "bfloat16", False, 48, 0.0), (1, 100, 8, 4, 96, "bfloat16", True, 0, 30.0),
-    (1, 192, 16, 2, 64, "bfloat16", False, 0, 0.0), (2, 100, 16, 2, 128, "float32", True, 48, 30.0),
+    (1, 100, 4, 4, 16, "bfloat16", True, 0, 0.0), (1, 256, 8, 4, 16, "bfloat16", False, 40, 20.0),
+    (1, 130, 8, 1, 16, "bfloat16", True, 50, 0.0),
+    (2, 300, 8, 2, 32, "bfloat16", True, 0, 0.0), (2, 200, 8, 8, 32, "bfloat16", True, 30, 50.0),
+    (1, 192, 8, 8, 32, "bfloat16", False, 70, 0.0),
+    (1, 192, 16, 2, 64, "bfloat16", False, 0, 0.0), (1, 320, 4, 1, 64, "bfloat16", True, 100, 30.0),
+    (1, 200, 4, 2, 64, "bfloat16", False, 64, 0.0),
+    (1, 100, 8, 4, 96, "bfloat16", True, 0, 30.0), (1, 200, 8, 2, 96, "bfloat16", False, 64, 0.0),
+    (1, 512, 8, 2, 96, "bfloat16", True, 200, 0.0),
+    (1, 192, 16, 2, 128, "bfloat16", True, 48, 0.0), (1, 256, 8, 2, 128, "bfloat16", False, 0, 40.0),
+    (1, 384, 8, 1, 128, "bfloat16", True, 0, 0.0), (2, 130, 8, 2, 128, "bfloat16", False, 100, 0.0),
+    (1, 192, 16, 1, 256, "bfloat16", False, 48, 0.0), (1, 260, 8, 2, 256, "bfloat16", True, 0, 30.0),
+    (2, 192, 4, 4, 256, "bfloat16", True, 96, 0.0),
+    (2, 100, 16, 2, 128, "float32", True, 48, 30.0),
     (2, 100, 4, 4, 256, "float32", False, 48, 0.0), (2, 100, 4, 2, 8, "bfloat16", True, 0, 0.0)]
 
 
@@ -402,8 +414,10 @@ _FLASH_BWD_CARD_CASES = [
 def test_flash_bwd_kernel_vs_plain(card, b, l, h, hkv, hd, dtype, causal, window, cap):
     """The backward kernel against the plain backward (the reference's FA2 in
     plain PyTorch) on the same inputs and the forward kernel's lse: fp32 at
-    1e-4, bf16 at 3e-2 (the mma variant rounds p and ds to bf16 once); one
-    launch of the variant ``bwd_variant`` picks."""
+    1e-4, bf16 at 3e-2 (the wgmma variant rounds p and ds to bf16 once); one
+    launch of the variant ``bwd_variant`` picks, wgmma for every bf16 head
+    dim but 8; a second call on the same inputs gives the same bits (no
+    atomics)."""
     rng = np.random.default_rng(l + h + hd)
     dt = getattr(torch, dtype)
     q, k, v, do = (torch.from_numpy(rng.standard_normal((b, l, n, hd), np.float32)).to(dt)
@@ -415,6 +429,9 @@ def test_flash_bwd_kernel_vs_plain(card, b, l, h, hkv, hd, dtype, causal, window
     got = ops.flash_attention_bwd(q, k, v, out, lse, do, block_q=l, block_k=l, **kw)
     torch.cuda.synchronize()
     assert ops.flash_bwd_variant_launches == {**n0, want: n0[want] + 1}
+    assert want == ("wgmma" if dt == torch.bfloat16 and hd != 8 else "fma")
+    again = ops.flash_attention_bwd(q, k, v, out, lse, do, block_q=l, block_k=l, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     plain = flash.flash_bwd_plain(q, k, v, out, lse, do, bq=l, bk=l, **kw)
     tol = 1e-4 if dt == torch.float32 else 3e-2
     for g, w, t in zip(got, plain, (q, k, v)):
@@ -442,6 +459,7 @@ def test_flash_function_backward_runs_the_kernel(card, dtype, tol):
         attention._flash_causal(q, k, v, window=30, cap=0.0).backward(base[3])
     torch.cuda.synchronize()
     want = fa.bwd_variant(64, q.dtype)
+    assert want == ("wgmma" if dtype == "bfloat16" else "fma")
     assert ops.flash_bwd_variant_launches == {**n0, want: n0[want] + 1}
     q2, k2, v2 = (t.float().requires_grad_() for t in base[:3])
     ref.flash_attention_ref(q2, k2, v2, causal=True, window=30).backward(base[3].float())
@@ -452,7 +470,10 @@ def test_flash_function_backward_runs_the_kernel(card, dtype, tol):
 
 @pytest.mark.cuda
 def test_flash_bwd_kernel_refuses_what_it_does_not_take(card):
-    """A dtype or head dim the backward lacks raises; nothing falls back."""
+    """A dtype or head dim the backward lacks raises, as does a wgmma call
+    whose tensor does not start on a 16-byte boundary (TMA); the entry
+    point refuses a variant that does not take the dtype or head dim, or
+    more head shares than heads, without launching; nothing falls back."""
     q = torch.zeros((1, 64, 4, 64), device=card, dtype=torch.float16)
     lse = torch.zeros((1, 4, 64), device=card)
     with pytest.raises(TypeError):
@@ -460,6 +481,27 @@ def test_flash_bwd_kernel_refuses_what_it_does_not_take(card):
     q48 = torch.zeros((1, 64, 4, 48), device=card)
     with pytest.raises(ValueError, match="head dim"):
         ops.flash_attention_bwd(q48, q48, q48, q48, lse, q48)
+    n0 = dict(ops.flash_bwd_variant_launches)
+    qb = torch.zeros((1, 64, 4, 64), device=card, dtype=torch.bfloat16)
+    odd = torch.zeros(qb.numel() + 1, device=card, dtype=torch.bfloat16)[1:].view(qb.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.flash_attention_bwd(odd, qb, qb, qb, lse, qb)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.flash_attention_bwd(qb, qb, qb, qb, lse, odd)
+    assert ops.flash_bwd_variant_launches == n0
+    lib = fa._lib("flash_attention_bwd", "flash_attention_bwd", fa._BWD_ARGTYPES)
+    stream = torch.cuda.current_stream().cuda_stream
+    delta, grads = torch.empty_like(lse), [torch.empty_like(qb) for _ in range(3)]
+
+    def entry(t, hd, dtype, variant, splits=1):
+        return lib(*(x.data_ptr() for x in (t, t, t, t, t, lse, delta, *grads)), 1, 64, 64,
+                   4, 4, hd, dtype, variant, 1, 0, 0.0, 0.125, splits, None, stream)
+    code = fa._BWD_VARIANT_CODE["wgmma"]
+    assert entry(qb, 64, 0, code) != 0               # wgmma takes no fp32
+    assert entry(qb, 8, 1, code) != 0                # nor head dim 8
+    assert entry(qb, 64, 1, code, splits=2) != 0     # 2 shares of G = 1 head
+    assert entry(qb, 64, 1, code) == 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

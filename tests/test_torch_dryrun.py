@@ -212,7 +212,7 @@ def test_flash_bwd_fake_matches_plain(case):
                                                         window=window, softcap=cap),
         q, kv, kv, out, lse, q)
     assert shapes == _meta(grads)
-    splits = fa.bwd_kv_splits(b, l, h, hkv, fa.bwd_variant(hd, dtype))
+    splits = fa.bwd_kv_splits(b, l, h, hkv, hd, fa.bwd_variant(hd, dtype))
     part = 2 * splits * kv.numel() * 4 if splits > 1 else 0
     assert allocated == sum(g.numel() * g.element_size() for g in grads) + b * h * l * 4 + part
     assert not any(launches.values())

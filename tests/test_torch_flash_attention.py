@@ -353,8 +353,9 @@ def test_launcher_argtypes_match_the_entry_point():
 
 @pytest.mark.parametrize("l,causal,window,cap,hd", _GRAD_CASES)
 def test_mma_bwd_roundings_vs_jax_grads(l, causal, window, cap, hd):
-    """The backward's mma variant rounds p and ds to bf16 once, as the A
-    operands of pᵀ·do, dsᵀ·q and ds·k (``ref.flash_bwd_mma_emulated``); on
+    """The backward's wgmma variant (as the mma.sync kernel before it) rounds
+    p and ds to bf16 once, as the A operands of pᵀ·do, dsᵀ·q and ds·k
+    (``ref.flash_bwd_mma_emulated``); on
     bf16 inputs its gradients hold against ``jax.vjp`` of the reference's
     ``flash_attention`` at the bf16 gradient tolerance, atol = rtol = 3e-2,
     so p and ds need no hi + lo split."""
@@ -384,10 +385,20 @@ def _keys_seen(q_lo, q_hi, s_len, causal, window):
                                                           else s_len - 1)
 
 
-def _skipping_bwd(q, k, v, out, lse, do, *, causal, window, softcap, br, bc):
+def _keeps_any(q_lo, q_hi, k_lo, k_hi, l, s_len, causal, window):
+    """Whether the mask keeps a pair of the rows [q_lo, q_hi] and keys
+    [k_lo, k_hi], as ``Mask::keeps_any`` decides whether a wgmma
+    warpgroup's 64 rows and a streamed tile need their products."""
+    return (q_lo < l and k_lo < s_len and not (causal and k_lo > min(q_hi, l - 1))
+            and not (window and min(k_hi, s_len - 1) <= q_lo - window))
+
+
+def _skipping_bwd(q, k, v, out, lse, do, *, causal, window, softcap, br, bc, wr):
     """The plain backward's tile math (grouped layout) on the kernel's tiles
     only: a block of ``br`` rows visits the ``bc``-wide column tiles that
-    hold a pair its mask keeps; every other tile is skipped."""
+    hold a pair its mask keeps, and inside it each ``wr`` rows (a wgmma
+    warpgroup's; ``wr = br`` where a block does not split) skip the tiles
+    their own mask hides; every other tile is skipped."""
     b, hkv, g, l, hd = q.shape
     s_len = k.shape[2]
     scale = 1.0 / math.sqrt(hd)
@@ -414,37 +425,54 @@ def _skipping_bwd(q, k, v, out, lse, do, *, causal, window, softcap, br, bc):
         return p, torch.where(mask, ds, torch.zeros((), dtype=f))
 
     dq = torch.zeros(q.shape, dtype=f)
-    for i0 in range(0, l, br):
-        i1 = min(i0 + br, l)
-        lo, hi = _keys_seen(i0, i1 - 1, s_len, causal, window)
+    for b0 in range(0, l, br):
+        lo, hi = _keys_seen(b0, min(b0 + br, l) - 1, s_len, causal, window)
         for j0 in range(lo // bc * bc, hi + 1 if lo <= hi else 0, bc):
             j1 = min(j0 + bc, s_len)
-            _, ds = tile(i0, i1, j0, j1)
-            dq[..., i0:i1, :] += torch.einsum("bkgqs,bksd->bkgqd", ds,
-                                              k[:, :, j0:j1].float()) * scale
+            for i0 in range(b0, min(b0 + br, l), wr):
+                i1 = min(i0 + wr, l)
+                if not _keeps_any(i0, i0 + wr - 1, j0, j0 + bc - 1, l, s_len, causal, window):
+                    continue
+                _, ds = tile(i0, i1, j0, j1)
+                dq[..., i0:i1, :] += torch.einsum("bkgqs,bksd->bkgqd", ds,
+                                                  k[:, :, j0:j1].float()) * scale
     dk, dv = torch.zeros(k.shape, dtype=f), torch.zeros(v.shape, dtype=f)
-    for j0 in range(0, s_len, br):
-        j1 = min(j0 + br, s_len)
-        lo, hi = _rows_seeing(j0, j1 - 1, l, causal, window)
+    for b0 in range(0, s_len, br):
+        lo, hi = _rows_seeing(b0, min(b0 + br, s_len) - 1, l, causal, window)
         for i0 in range(lo // bc * bc, hi + 1 if lo <= hi else 0, bc):
             i1 = min(i0 + bc, l)
-            p, ds = tile(i0, i1, j0, j1)
-            dv[:, :, j0:j1] += torch.einsum("bkgqs,bkgqd->bksd", p, do[..., i0:i1, :].float())
-            dk[:, :, j0:j1] += torch.einsum("bkgqs,bkgqd->bksd", ds,
-                                            q[..., i0:i1, :].float()) * scale
+            for j0 in range(b0, min(b0 + br, s_len), wr):
+                j1 = min(j0 + wr, s_len)
+                if not _keeps_any(i0, i0 + bc - 1, j0, j0 + wr - 1, l, s_len, causal, window):
+                    continue
+                p, ds = tile(i0, i1, j0, j1)
+                dv[:, :, j0:j1] += torch.einsum("bkgqs,bkgqd->bksd", p,
+                                                do[..., i0:i1, :].float())
+                dk[:, :, j0:j1] += torch.einsum("bkgqs,bkgqd->bksd", ds,
+                                                q[..., i0:i1, :].float()) * scale
     return dq, dk, dv
 
 
-@pytest.mark.parametrize("l,causal,window,cap", [
-    (256, True, 0, 0.0), (256, True, 96, 0.0), (256, False, 96, 0.0), (256, True, 0, 30.0),
-    (256, False, 0, 0.0), (192, True, 70, 0.0), (192, False, 40, 50.0)])
-@pytest.mark.parametrize("br,bc", [(64, 32), (64, 64), (32, 32)])
-def test_bwd_tile_skipping_is_exact(l, causal, window, cap, br, bc):
+_SKIP_MASKS = [(256, True, 0, 0.0), (256, True, 96, 0.0), (256, False, 96, 0.0),
+               (256, True, 0, 30.0), (256, False, 0, 0.0), (192, True, 70, 0.0),
+               (192, False, 40, 50.0)]
+#: (block rows, column tile, warpgroup rows): the fma variant's 32 × 32 tiles;
+#: the wgmma variant's dk/dv sweep (128 keys against 64 queries, 64 keys at
+#: hd 256) and dq sweep (128 rows against 64 keys, 128 at hd 16 and 32, 32
+#: at hd 256), each block split between two warpgroups of 64 rows
+_SKIP_TILES = [(32, 32, 32), (64, 64, 64), (128, 64, 64), (128, 128, 64), (128, 32, 64)]
+
+
+@pytest.mark.parametrize("l,causal,window,cap,br,bc,wr", [
+    (l if l % br == 0 and l % bc == 0 else 2 * l, causal, window, cap, br, bc, wr)
+    for (l, causal, window, cap) in _SKIP_MASKS for (br, bc, wr) in _SKIP_TILES])
+def test_bwd_tile_skipping_is_exact(l, causal, window, cap, br, bc, wr):
     """Skipping the tiles that the causal mask or the window empties, as the
-    backward kernel does (both variants' row and column tiles), changes
-    nothing: the skipping plain backward equals ``_flash_bwd_impl`` (every
-    tile visited) on the same tiles at 1e-6 wherever every row sees a key
-    (L = S): its dq on (bq, bk) = (br, bc), its dk and dv on (bc, br)."""
+    backward kernel does (both variants' row and column tiles, and the
+    wgmma variant's warpgroups on their own rows), changes nothing: the
+    skipping plain backward equals ``_flash_bwd_impl`` (every tile visited)
+    on the same tiles at 1e-6 wherever every row sees a key (L = S): its dq
+    on (bq, bk) = (br, bc), its dk and dv on (bc, br)."""
     qn, kn, vn, don = _grad_inputs(l, seed=l + window + br + bc, hd=16)
     q, k, v, do = (torch.from_numpy(x) for x in (qn, kn, vn, don))
     kw = dict(causal=causal, window=window, softcap=cap)
@@ -454,7 +482,7 @@ def test_bwd_tile_skipping_is_exact(l, causal, window, cap, br, bc):
             flash._grouped_q(out, hkv), lse.reshape(1, hkv, -1, l), flash._grouped_q(do, hkv))
     want = (flash._flash_bwd_impl(*args, bq=br, bk=bc, **kw)[0],
             *flash._flash_bwd_impl(*args, bq=bc, bk=br, **kw)[1:])
-    got = _skipping_bwd(*args, br=br, bc=bc, **kw)
+    got = _skipping_bwd(*args, br=br, bc=bc, wr=wr, **kw)
     for name, a, w in zip("qkv", got, want):
         np.testing.assert_allclose(a.numpy(), w.numpy(), atol=1e-6, rtol=1e-6,
                                    err_msg=f"d{name}")
@@ -462,9 +490,11 @@ def test_bwd_tile_skipping_is_exact(l, causal, window, cap, br, bc):
 
 def test_cuda_bwd_never_falls_back(monkeypatch):
     """A tensor that stands for the card's (a fake tensor on ``meta``) goes
-    to the backward operator and never to the plain backward; the launcher
-    refuses CPU tensors and head dims it lacks before any build; the
-    wrapper refuses other devices."""
+    to the backward operator and never to the plain backward, which sizes
+    the wgmma dk/dv sweep's fp32 head-share partials by its grid (128 keys
+    a block: one block for these 64 keys, so each of the 2 kv heads' G = 2
+    query heads gets a share); the launcher refuses CPU tensors and head
+    dims it lacks before any build; the wrapper refuses other devices."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     def plain(*a, **k):
@@ -478,6 +508,9 @@ def test_cuda_bwd_never_falls_back(monkeypatch):
         q, k, lse = mk(1, 64, 4, 64), mk(1, 64, 2, 64), torch.empty((1, 4, 64), device="meta")
         dq, dk, dv = ops.flash_attention_bwd(q, k, k, q, lse, q)
         assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, k.shape)
+        _, delta, part = fa._bwd_buffers(q, k, k, fa.bwd_variant(64, q.dtype))
+        assert fa.bwd_variant(64, q.dtype) == "wgmma" and delta.shape == (1, 4, 64)
+        assert part.shape == (2, 2, *k.shape) and part.dtype == torch.float32
     assert not any(ops.launches.values())
     c = torch.zeros((1, 64, 4, 64))
     with pytest.raises(ValueError, match="CUDA"):
@@ -509,9 +542,11 @@ def test_bwd_launcher_argtypes_match_the_entry_point():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", fa.HEAD_DIMS)
 def test_bwd_variant_by_head_dim_and_dtype(hd, dtype):
-    """Every (head dim, dtype) the forward takes has a backward: mma where
-    the forward runs wgmma, fma where it runs fma."""
-    want = "mma" if fa.variant(hd, dtype) == "wgmma" else "fma"
+    """Every (head dim, dtype) the forward takes has a backward on the
+    forward's variant: wgmma (bf16 at every head dim but 8), fma (fp32, and
+    bf16 at 8)."""
+    want = "wgmma" if dtype == torch.bfloat16 and hd != 8 else "fma"
+    assert fa.variant(hd, dtype) == want
     assert fa.bwd_variant(hd, dtype) == want
     assert want in fa.BWD_VARIANTS and want in ops.flash_bwd_variant_launches
     with pytest.raises(ValueError, match="head dim"):
@@ -522,12 +557,12 @@ def test_bwd_variant_by_head_dim_and_dtype(hd, dtype):
     configs.get(a).layer_pattern)])
 def test_every_config_head_dim_has_a_backward(arch):
     """Every attention config's head dim, full and smoke, has a backward
-    variant in both dtypes; the full configs' bf16 training runs mma."""
+    variant in both dtypes; the full configs' bf16 training runs wgmma."""
     full, smoke = configs.get(arch), configs.get_smoke(arch)
     for cfg in (full, smoke):
         for dtype in (torch.float32, torch.bfloat16):
             assert fa.bwd_variant(cfg.hd, dtype) in fa.BWD_VARIANTS
-    assert fa.bwd_variant(full.hd, full.cdtype) == "mma"
+    assert fa.bwd_variant(full.hd, full.cdtype) == "wgmma"
 
 
 def test_bwd_wrapper_cpu_is_the_plain_backward():
@@ -551,13 +586,17 @@ def test_bwd_wrapper_cpu_is_the_plain_backward():
 
 
 def test_bwd_kv_splits_fill_the_card_and_keep_each_share():
-    """The mma dk/dv sweep shares a kv tile's G heads among blocks only where
-    B·Hkv·⌈S/64⌉ blocks are fewer than four a streaming multiprocessor, and
-    never more shares than heads; fma never shares."""
-    assert fa.bwd_kv_splits(2, 2048, 32, 4, "mma") == 3          # yi-9b training: 256 blocks
-    assert fa.bwd_kv_splits(1, 2048, 16, 2, "mma") == 8          # a 6c rank: 64 blocks
-    assert fa.bwd_kv_splits(1, 4096, 16, 1, "mma") == 9          # recurrentgemma-9b: 64
-    assert fa.bwd_kv_splits(1, 2048, 8, 8, "mma") == 1           # MHA: one head a tile
-    assert fa.bwd_kv_splits(1, 100, 16, 1, "mma") == 16          # few blocks: at most G
-    assert fa.bwd_kv_splits(4, 4096, 32, 4, "mma") == 1          # 1024 blocks
-    assert fa.bwd_kv_splits(1, 100, 16, 1, "fma") == 1
+    """The wgmma dk/dv sweep shares a kv tile's G heads among blocks only
+    where B·Hkv·⌈S/rows⌉ blocks (128 keys a block, 64 at hd 256) are fewer
+    than four a streaming multiprocessor, and never more shares than heads;
+    fma never shares."""
+    assert [fa.kv_sweep_rows(hd) for hd in fa.WGMMA_HEAD_DIMS] == [128] * 5 + [64]
+    assert fa.bwd_kv_splits(2, 2048, 32, 4, 128, "wgmma") == 5     # yi-9b training: 128 blocks
+    assert fa.bwd_kv_splits(1, 2048, 16, 2, 128, "wgmma") == 8     # a 6c rank: 32 blocks
+    assert fa.bwd_kv_splits(1, 4096, 16, 1, 256, "wgmma") == 9     # recurrentgemma-9b: 64
+    assert fa.bwd_kv_splits(1, 2048, 8, 1, 256, "wgmma") == 8      # a 6d rank: 32, at most G
+    assert fa.bwd_kv_splits(1, 2048, 8, 8, 128, "wgmma") == 1      # MHA: one head a tile
+    assert fa.bwd_kv_splits(1, 100, 16, 1, 64, "wgmma") == 16      # few blocks: at most G
+    assert fa.bwd_kv_splits(4, 4096, 32, 4, 128, "wgmma") == 2     # 512 blocks
+    assert fa.bwd_kv_splits(8, 4096, 32, 4, 128, "wgmma") == 1     # 1024 blocks
+    assert fa.bwd_kv_splits(1, 100, 16, 1, 128, "fma") == 1
