@@ -1,0 +1,5 @@
+"""``mfu.train`` in the host-paced cells, where it moves ``train_tokens_per_s.host_paced``."""
+
+from perfbench.harness.bench import file_module
+
+read = file_module("metrics", "mfu.train").read
